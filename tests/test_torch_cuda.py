@@ -1,0 +1,144 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is false.
+This file imports neither JAX nor vectorwave_tpu, so on a machine without
+JAX it runs with the repository's conftest left out:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerances: float32 kernel against float32 plain version 2e-5 max abs (the
+same fp32 arithmetic in another summation order, values of order 1);
+bfloat16 one bfloat16 ulp of the largest output (both round the same fp32
+values to bfloat16).
+"""
+
+import pytest
+import torch
+
+import vectorwave_tpu_torch as vt
+from chip_smoke import gap_thresholds
+from vectorwave_tpu_torch.errors import InvalidArgumentError
+from vectorwave_tpu_torch.kernels import modwt_composite as mc
+from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+pytestmark = pytest.mark.cuda
+
+LEVELS = 6
+TOL_F32 = 2e-5
+SHAPES = [(4, 8192, True), (3, 5000, False), (2, 300, True)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def filters():
+    w = vt.wavelet("db4")
+    return _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+
+
+def _tol(dtype, want):
+    if dtype == torch.float32:
+        return TOL_F32
+    return 2.0**-7 * max(float(p.float().abs().max()) for p in want)
+
+
+def _err(got, want):
+    return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+
+
+def _input(cuda, b, n, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(b, n, device=cuda, generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,periodic", SHAPES)
+def test_analysis_and_synthesis_kernels_match_plain(cuda, filters, b, n, periodic, dtype):
+    fd, fr = filters
+    x = _input(cuda, b, n, dtype)
+    want = mc.analysis_plain(x, LEVELS, fd, periodic)
+    got = mc.analysis(x, LEVELS, fd, periodic)
+    torch.cuda.synchronize()
+    assert all(g.dtype == dtype and g.shape == x.shape for g in got)
+    assert _err(got, want) <= _tol(dtype, want)
+    y_want = mc.synthesis_plain(want, LEVELS, fr, periodic)
+    y_got = mc.synthesis(want, LEVELS, fr, periodic)
+    torch.cuda.synchronize()
+    assert _err((y_got,), (y_want,)) <= _tol(dtype, (y_want,))
+
+
+@pytest.mark.parametrize("mode", ["none", "soft", "hard"])
+@pytest.mark.parametrize("b,n,periodic", SHAPES)
+def test_denoise_kernel_matches_plain(cuda, filters, b, n, periodic, mode):
+    fd, fr = filters
+    x = _input(cuda, b, n, torch.float32, seed=1)
+    th = gap_thresholds(mc._analysis_cascade(x, LEVELS, fd, periodic), LEVELS)
+    got = mc.denoise(x, th, LEVELS, fd, fr, periodic, mode)
+    want = mc.denoise_plain(x, th, LEVELS, fd, fr, periodic, mode)
+    torch.cuda.synchronize()
+    assert _err((got,), (want,)) <= TOL_F32
+
+
+def test_public_entry_points_launch_the_kernels(cuda):
+    x = _input(cuda, 4, 8192, torch.float32, seed=2)
+    mc.reset_launches()
+    res = vt.modwt_multilevel(x, "db4", levels=LEVELS)
+    y = vt.imodwt_multilevel(res, "db4")
+    z = vt.modwt_roundtrip_fused(x, "db4", levels=LEVELS)
+    d = vt.denoise_multilevel(x, "db4", levels=LEVELS)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES == {"modwt_analysis": 1, "modwt_synthesis": 1,
+                           "modwt_denoise": 2}
+    assert float((y - x).abs().max()) < 3e-6
+    assert float((z - x).abs().max()) < 3e-6
+    assert d.shape == x.shape and bool(torch.isfinite(d).all())
+
+
+def test_short_signals_and_float64_stay_on_the_plain_path(cuda):
+    mc.reset_launches()
+    vt.modwt_multilevel(_input(cuda, 2, 2048, torch.float32), "db4", levels=6)
+    vt.modwt_multilevel(_input(cuda, 2, 8192, torch.float64), "db4", levels=6)
+    assert mc.LAUNCHES["modwt_analysis"] == 0
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda, filters):
+    fd, _ = filters
+    with pytest.raises(InvalidArgumentError, match="float32 or bfloat16"):
+        mc.analysis(_input(cuda, 2, 512, torch.float64), 3, fd, True)
+    with pytest.raises(InvalidArgumentError, match="contiguous"):
+        mc.analysis(_input(cuda, 512, 2, torch.float32).t(), 3, fd, True)
+    with pytest.raises(InvalidArgumentError, match="levels"):
+        mc.analysis(_input(cuda, 2, 512, torch.float32), 11, fd, True)
+    with pytest.raises(InvalidArgumentError):
+        mc.analysis(_input(cuda, 2, 1 << 20, torch.float32), 10,
+                    _kernel_filters(vt.wavelet("db38"), False), True)
+
+
+def test_fused_denoise_gradient_is_not_yet_ported(cuda):
+    x = _input(cuda, 2, 8192, torch.float32).requires_grad_(True)
+    with pytest.raises(InvalidArgumentError, match="no gradient"):
+        vt.fused_denoise_multilevel(x, "db4", levels=4, thresholds=torch.zeros(
+            2, 4, device=cuda))
+    with torch.no_grad():
+        vt.fused_denoise_multilevel(x, "db4", levels=4,
+                                    thresholds=torch.zeros(2, 4, device=cuda))
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_kernel_gradients_match_plain_autograd(cuda, periodic):
+    boundary = "periodic" if periodic else "zero"
+    x = _input(cuda, 3, 8192, torch.float32, seed=3)
+    wts = [_input(cuda, 3, 8192, torch.float32, seed=10 + j) for j in range(LEVELS + 1)]
+    grads = []
+    for backend in ("kernel", "torch"):
+        xg = x.clone().requires_grad_(True)
+        res = vt.modwt_multilevel(xg, "db4", levels=LEVELS, boundary=boundary,
+                                  backend=backend)
+        loss = sum((p * w).sum() for p, w in zip((*res.details, res.approx), wts))
+        grads.append(torch.autograd.grad(loss, xg)[0])
+    assert _err((grads[0],), (grads[1],)) <= TOL_F32

@@ -1,0 +1,223 @@
+"""Port parity: thresholds, noise estimation and multi-level denoising.
+
+Same seeded numpy input to both packages.  In float64 the port must agree
+with vectorwave_tpu to 1e-10: the median and the decimated sigma reproduce
+the JAX package's float32 semantics (including its summation order), so
+they agree bit for bit.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vectorwave_tpu as vw
+import vectorwave_tpu_torch as vt
+from vectorwave_tpu.denoise.denoiser import _fused_sigma as jax_fused_sigma
+from vectorwave_tpu.ops import thresholds as jth
+from vectorwave_tpu_torch.denoise.denoiser import _fused_sigma, threshold_coeffs
+from vectorwave_tpu_torch.errors import InvalidArgumentError
+
+torch.set_num_threads(1)
+
+TOL = 1e-10
+
+
+def _x(shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape)
+
+
+def _noisy(b, n, seed=0, noise=0.4):
+    t = np.arange(n)
+    clean = np.sin(2 * np.pi * t / 256.0) + 0.5 * np.sin(2 * np.pi * t / 1024.0 + 0.3)
+    return clean + np.random.default_rng(seed).normal(0.0, noise, (b, n))
+
+
+def _close(got, want, tol=TOL):
+    want = np.asarray(want)
+    got = got.detach().numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n", [1000, 1001, 2, 1])
+def test_mad_sigma_matches_jax_even_and_odd(n, dtype):
+    d = (_x((3, n), seed=n) * 2.5).astype(dtype)
+    got = vt.mad_sigma(torch.from_numpy(d))
+    want = jth.mad_sigma(d)
+    assert got.dtype == torch.from_numpy(d).dtype and got.shape == (3, 1)
+    _close(got, want)
+
+
+def test_median_magnitude_averages_the_middle_pair_in_float32():
+    v = torch.tensor([[1.0, 2.0, 4.0, 8.0]], dtype=torch.float64)
+    assert float(vt.median_magnitude(v)) == 3.0  # torch.median would give 2.0
+    assert float(vt.median_magnitude(v[:, :3])) == 2.0
+
+
+@pytest.mark.parametrize("method", ["universal", "minimax", "sure", "bayes", "fdr"])
+def test_threshold_rules_match_jax(method):
+    d = _x((2, 777), seed=11) * 0.7
+    sigma = jth.mad_sigma(d)
+    got = vt.select_threshold(torch.from_numpy(d), torch.tensor(np.asarray(sigma)),
+                              method)
+    want = jth.select_threshold(d, sigma, method)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("n", [16, 48, 100])
+def test_minimax_branches_match_jax(n):
+    sigma = np.array([[0.3], [1.7]])
+    _close(vt.minimax_threshold(n, torch.from_numpy(sigma)),
+           jth.minimax_threshold(n, sigma))
+    _close(vt.universal_threshold(n, torch.from_numpy(sigma)),
+           jth.universal_threshold(n, sigma))
+
+
+@pytest.mark.parametrize("mode", ["soft", "hard"])
+def test_apply_threshold_matches_jax(mode):
+    c = _x((2, 300), seed=12)
+    t = np.array([[0.5], [1.1]])
+    _close(vt.apply_threshold(torch.from_numpy(c), torch.from_numpy(t), mode),
+           jth.apply_threshold(c, t, mode))
+
+
+def test_unknown_threshold_names_raise():
+    c = torch.zeros(1, 8)
+    with pytest.raises(InvalidArgumentError):
+        vt.apply_threshold(c, 0.1, "garrote")
+    with pytest.raises(InvalidArgumentError):
+        vt.select_threshold(c, torch.ones(1, 1), "oracle")
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "zero"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_fused_sigma_matches_jax_decimated(dtype, boundary):
+    x = (_noisy(2, 32768, seed=13) * 3.0).astype(dtype)
+    got = _fused_sigma(torch.from_numpy(x), vt.wavelet("db4"), boundary)
+    want = jax_fused_sigma(x, vw.wavelet("db4"), boundary)
+    assert got.shape == (2, 1)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("estimator", ["exact", "decimated"])
+def test_fused_sigma_estimator_knob_matches_jax(estimator):
+    from vectorwave_tpu import config as jconfig
+
+    x = _x((2, 8192), seed=14)
+    try:
+        vt.set_sigma_estimator(estimator)
+        jconfig.set_sigma_estimator(estimator)
+        got = _fused_sigma(torch.from_numpy(x), vt.wavelet("sym8"), "periodic")
+        want = jax_fused_sigma(x, vw.wavelet("sym8"), "periodic")
+    finally:
+        vt.set_sigma_estimator("auto")
+        jconfig.set_sigma_estimator("auto")
+    _close(got, want)
+
+
+@pytest.mark.parametrize("method", ["universal", "sure"])
+def test_threshold_coeffs_matches_jax(method):
+    x = _noisy(2, 2048, seed=15)
+    got_res = vt.modwt_multilevel(torch.from_numpy(x), "db4", levels=4)
+    want_res = vw.modwt_multilevel(x, "db4", levels=4, backend="jnp")
+    sigma = np.asarray(jth.mad_sigma(want_res.details[0]))
+    got = threshold_coeffs(got_res, torch.from_numpy(sigma), method=method)
+    want = vw.threshold_coeffs(want_res, sigma, method=method)
+    for g, w in zip(got.details, want.details):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "zero", "symmetric"])
+@pytest.mark.parametrize("method,mode", [("universal", "soft"), ("minimax", "hard"),
+                                         ("sure", "soft"), ("bayes", "hard")])
+def test_denoise_multilevel_matches_jax(method, mode, boundary):
+    x = _noisy(2, 4096, seed=16)
+    got = vt.denoise_multilevel(torch.from_numpy(x), "db4", levels=5, method=method,
+                                mode=mode, boundary=boundary)
+    want = vw.denoise_multilevel(x, "db4", levels=5, method=method, mode=mode,
+                                 boundary=boundary)
+    _close(got, want)
+
+
+def test_slice_end_to_end_float32_matches_jax():
+    """The main path's shape, cut to 2 signals: analysis, synthesis, round
+    trip and denoise, float32 on both sides."""
+    x = _noisy(2, 65536, seed=17).astype(np.float32)
+    xt = torch.from_numpy(x)
+    got = vt.modwt_multilevel(xt, "db4", levels=6)
+    want = vw.modwt_multilevel(x, "db4", levels=6, backend="jnp")
+    for g, w in zip((*got.details, got.approx), (*want.details, want.approx)):
+        _close(g, w, tol=1e-5)
+    y = vt.imodwt_multilevel(got, "db4")
+    _close(y, vw.imodwt_multilevel(want, "db4", backend="jnp"), tol=1e-5)
+    assert float((y - xt).abs().max()) < 3e-6
+    _close(vt.denoise_multilevel(xt, "db4", levels=6),
+           vw.denoise_multilevel(x, "db4", levels=6), tol=1e-5)
+
+
+def test_fused_denoise_route_matches_jax_semantics():
+    """With the kernel tier forced, denoise_multilevel takes the fused route
+    (decimated sigma, one analysis-threshold-synthesis pass); on the CPU the
+    kernel wrapper runs its plain version.  It equals the JAX package's jnp
+    pipeline fed the same thresholds, in float32 (the route's dtypes)."""
+    x = _noisy(2, 32768, seed=18).astype(np.float32)
+    w = vw.wavelet("db4")
+    sigma = jax_fused_sigma(x, w, "periodic")
+    ths = [np.asarray(jth.universal_threshold(32768, sigma / jnp.sqrt(2.0**j)),
+                      np.float32) for j in range(1, 7)]
+    res = vw.modwt_multilevel(x, w, levels=6, backend="jnp")
+    shrunk = vw.MultiLevelMODWTResult(
+        tuple(jth.apply_threshold(d, t, "soft") for d, t in zip(res.details, ths)),
+        res.approx)
+    want = vw.imodwt_multilevel(shrunk, w, backend="jnp")
+    try:
+        vt.set_backend("kernel")
+        got = vt.denoise_multilevel(torch.from_numpy(x), "db4", levels=6)
+    finally:
+        vt.set_backend("auto")
+    full_mad = vt.denoise_multilevel(torch.from_numpy(x), "db4", levels=6)
+    assert float((got - full_mad).abs().max()) > 1e-4  # the route was taken
+    _close(got, want, tol=1e-5)
+
+
+def test_denoise_exact_precision_raises_and_tolerance_clamps():
+    x = torch.from_numpy(_noisy(1, 2048, seed=19))
+    with pytest.raises(InvalidArgumentError):
+        vt.denoise_multilevel(x, "db4", levels=4, precision="exact")
+    got = vt.denoise_multilevel(x, "db4", levels=4, tolerance=1e-12)
+    _close(got, vw.denoise_multilevel(x.numpy(), "db4", levels=4))
+
+
+def test_fused_denoise_gradients_match_jax_grad():
+    """On the CPU the fused denoise differentiates through its plain version,
+    in x and in the thresholds (soft: -sign(d) where |d| > t)."""
+    x = _noisy(2, 1024, seed=20)
+    th = np.array([[0.3, 0.2, 0.1, 0.05], [0.25, 0.15, 0.12, 0.02]])
+    wts = _x((2, 1024), seed=21)
+
+    def jloss(xx, tt):
+        res = vw.modwt_multilevel(xx, "db4", levels=4, backend="jnp")
+        dets = tuple(jth.apply_threshold(d, tt[:, j : j + 1], "soft")
+                     for j, d in enumerate(res.details))
+        y = vw.imodwt_multilevel(vw.MultiLevelMODWTResult(dets, res.approx), "db4",
+                                 backend="jnp")
+        return jnp.sum(y * wts)
+
+    want_x, want_t = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(th))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    tt = torch.from_numpy(th).requires_grad_(True)
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+    wv = vt.wavelet("db4")
+    y = mc.denoise(xt, tt, 4, _kernel_filters(wv, False), _kernel_filters(wv, True),
+                   True, "soft")
+    gx, gt = torch.autograd.grad((y * torch.from_numpy(wts)).sum(), (xt, tt))
+    _close(gx, want_x)
+    _close(gt, want_t)
+    assert math.isfinite(float(gt.abs().sum()))

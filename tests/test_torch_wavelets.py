@@ -1,0 +1,150 @@
+"""Port parity: wavelets, registry, configuration and packaging.
+
+Every ported wavelet's filters, generated by vectorwave_tpu_torch on its own
+(in its own cache directory), must equal vectorwave_tpu's to 1e-14: both
+run the same 80-digit spectral factorization, so only the final float64
+rounding may differ.
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import vectorwave_tpu as vw
+import vectorwave_tpu_torch as vt
+from vectorwave_tpu_torch import convert
+from vectorwave_tpu_torch.config import cache_root
+from vectorwave_tpu_torch.errors import InvalidArgumentError, InvalidConfigurationError
+
+torch.set_num_threads(1)
+
+PORTED = ["haar", "db1"] + [f"db{p}" for p in range(2, 39)] + [
+    f"sym{p}" for p in range(2, 21)
+]
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_filters_match_jax(name):
+    ours, ref = vt.wavelet(name), vw.wavelet(name)
+    for field in ("dec_lo", "dec_hi", "rec_lo", "rec_hi"):
+        np.testing.assert_allclose(
+            getattr(ours, field), getattr(ref, field), rtol=0, atol=1e-14
+        )
+    assert ours.filter_length == ref.filter_length
+    assert ours.vanishing_moments == ref.vanishing_moments
+    assert ours.validate_perfect_reconstruction()
+
+
+def test_available_wavelets_are_the_ported_families():
+    assert vt.available_wavelets() == sorted(PORTED)
+    assert set(vt.available_wavelets()) <= set(vw.available_wavelets())
+
+
+@pytest.mark.parametrize("name", ["coif3", "bior2.2", "rbio3.5", "dmey", "blem2",
+                                  "morl", "cmor", "mexh", "paul4", "dog"])
+def test_unported_families_raise(name):
+    vw.wavelet(name)  # registered in the JAX package
+    with pytest.raises(InvalidArgumentError, match="not yet ported"):
+        vt.wavelet(name)
+
+
+def test_unknown_wavelet_raises_with_suggestions():
+    with pytest.raises(InvalidArgumentError, match="Unknown wavelet") as info:
+        vt.wavelet("db99")
+    assert "db" in str(info.value)
+
+
+def test_filter_cache_is_the_ports_own():
+    assert "vectorwave_tpu_torch" in cache_root()
+    from vectorwave_tpu.wavelets._cache import _cache_dir as jax_cache_dir
+    from vectorwave_tpu_torch.wavelets._cache import _cache_dir
+
+    assert os.path.realpath(_cache_dir()) != os.path.realpath(jax_cache_dir())
+
+
+def test_wavelet_from_arrays_carries_jax_filters():
+    ref = vw.wavelet("sym8")
+    w = convert.wavelet_from_arrays(
+        "sym8", ref.dec_lo, ref.dec_hi, ref.rec_lo, ref.rec_hi,
+        family="Symlet", vanishing_moments=8,
+    )
+    assert w.validate_perfect_reconstruction()
+    x = np.random.default_rng(0).standard_normal((2, 512))
+    got = vt.modwt_multilevel(torch.from_numpy(x), w, levels=3)
+    want = vw.modwt_multilevel(x, ref, levels=3, backend="jnp")
+    np.testing.assert_array_equal(got.approx.numpy(), np.asarray(want.approx))
+
+
+def test_wavelet_from_arrays_rejects_ragged_filters_and_infers_the_type():
+    with pytest.raises(InvalidArgumentError):
+        convert.wavelet_from_arrays("x", [1.0, 1.0], [1.0], [1.0, 1.0], [1.0, 1.0])
+    bior = vw.wavelet("bior2.2")
+    w = convert.wavelet_from_arrays("bior2.2", bior.dec_lo, bior.dec_hi,
+                                    bior.rec_lo, bior.rec_hi)
+    assert not w.is_orthogonal and w.validate_perfect_reconstruction()
+
+
+def test_thresholds_from_numpy():
+    th = convert.thresholds_from_numpy(np.arange(12, dtype=np.float64).reshape(2, 6))
+    assert th.dtype == torch.float32 and th.shape == (2, 6) and th.is_contiguous()
+    with pytest.raises(InvalidArgumentError):
+        convert.thresholds_from_numpy(np.float64(1.0))
+
+
+@pytest.mark.parametrize("alias,name", [("jnp", "torch"), ("pallas", "kernel"),
+                                        ("auto", "auto"), ("torch", "torch")])
+def test_backend_names_and_aliases(alias, name):
+    try:
+        vt.set_backend(alias)
+        assert vt.get_backend() == name
+    finally:
+        vt.set_backend("auto")
+
+
+def test_config_rejects_unknown_names():
+    with pytest.raises(InvalidConfigurationError):
+        vt.set_backend("cuda")
+    with pytest.raises(InvalidConfigurationError):
+        vt.set_fused_precision("exact")
+    with pytest.raises(InvalidConfigurationError):
+        vt.set_sigma_estimator("median")
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "import vectorwave_tpu_torch as vt, torch\n"
+        "assert not any(m == 'vectorwave_tpu' or m.startswith('vectorwave_tpu.')"
+        " for m in sys.modules)\n"
+        "x = torch.randn(2, 4096)\n"
+        "r = vt.modwt_multilevel(x, 'db4', levels=6)\n"
+        "y = vt.imodwt_multilevel(r, 'db4')\n"
+        "assert float((y - x).abs().max()) < 1e-5\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_port_sources_never_import_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|vectorwave_tpu)(\s|\.|$)",
+                         re.MULTILINE)
+    files = sorted((REPO / "vectorwave_tpu_torch").rglob("*.py"))
+    assert files
+    for path in files:
+        assert not pattern.search(path.read_text()), path
+    assert not pattern.search((REPO / "chip_smoke.py").read_text())
+
+
+def test_public_names_exist():
+    for name in vt.__all__:
+        assert hasattr(vt, name), name

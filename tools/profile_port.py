@@ -1,0 +1,79 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch/CUDA port's public entry points on one GPU.
+
+Run from the root of a checkout, with a CUDA card visible:
+
+    python3 tools/profile_port.py
+
+For the main-path shape (128 x 65536 float32, db4, 6 levels) it times each
+entry point on the host clock (synchronised), traces 10 calls with
+``torch.profiler``, and prints per call: wall ms, device (kernel) ms, the
+device's busy share of the wall time, the number of kernel launches, and the
+device kernels that take the most time.  Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+REPS = 10
+
+
+def main() -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_port: needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import vectorwave_tpu_torch as vt
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(128, 65536, device=dev, generator=gen)
+    calls = {
+        "modwt_multilevel + imodwt_multilevel": lambda: vt.imodwt_multilevel(
+            vt.modwt_multilevel(x, "db4", levels=6), "db4"),
+        "modwt_roundtrip_fused": lambda: vt.modwt_roundtrip_fused(x, "db4", levels=6),
+        "denoise_multilevel universal soft": lambda: vt.denoise_multilevel(
+            x, "db4", levels=6, method="universal", mode="soft"),
+    }
+    for label, fn in calls.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / REPS
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        # device-side events only: the CPU op that launched a kernel reports
+        # the same time as its own device time
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / REPS
+        launches = sum(e.count for e in kernels) / REPS
+        print(f"{label}: wall {wall_ms:.4f} ms, device {device_ms:.4f} ms, "
+              f"busy {100 * device_ms / wall_ms:.1f}%, {launches:.0f} kernel launches per call")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"    {e.self_device_time_total / 1e3 / REPS:8.4f} ms "
+                  f"x{e.count // REPS:<3d} {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,112 @@
+"""vectorwave_tpu_torch — the PyTorch/CUDA port of vectorwave_tpu.
+
+The first slice of the port: discrete orthogonal wavelets (haar, db, sym),
+single- and multi-level MODWT, multi-level denoising, and the kernel tier
+behind them: three hand-written CUDA kernels for Hopper (multi-level
+analysis, synthesis and fused denoise) with their plain PyTorch versions.
+
+The package imports ``torch``, ``numpy`` and ``mpmath`` and never JAX or
+``vectorwave_tpu``.  Inputs and outputs are ``[..., N]`` tensors; the device
+is the input's.  Only what is ported is exported.
+"""
+
+from . import config, convert, errors, kernels
+from .config import (
+    get_backend,
+    get_fused_precision,
+    get_sigma_estimator,
+    set_backend,
+    set_fused_precision,
+    set_sigma_estimator,
+)
+from .denoise.denoiser import denoise_multilevel, threshold_coeffs
+from .errors import (
+    ErrorCode,
+    InvalidArgumentError,
+    InvalidConfigurationError,
+    InvalidSignalError,
+    InvalidStateError,
+    VectorWaveError,
+)
+from .kernels import (
+    fused_analysis,
+    fused_denoise_multilevel,
+    fused_synthesis,
+    kernel_available,
+    modwt_roundtrip_fused,
+)
+from .ops.thresholds import (
+    apply_threshold,
+    bayes_threshold,
+    fdr_threshold,
+    hard_threshold,
+    mad_sigma,
+    median_magnitude,
+    minimax_threshold,
+    select_threshold,
+    soft_threshold,
+    sure_threshold,
+    universal_threshold,
+)
+from .transforms.modwt import MODWTResult, imodwt, modwt
+from .transforms.multilevel import (
+    MultiLevelMODWTResult,
+    imodwt_multilevel,
+    max_levels,
+    modwt_multilevel,
+    resolve_tolerance,
+)
+from .wavelets.base import DiscreteWavelet, WaveletType
+from .wavelets.registry import as_wavelet, available_wavelets, wavelet
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DiscreteWavelet",
+    "ErrorCode",
+    "InvalidArgumentError",
+    "InvalidConfigurationError",
+    "InvalidSignalError",
+    "InvalidStateError",
+    "MODWTResult",
+    "MultiLevelMODWTResult",
+    "VectorWaveError",
+    "WaveletType",
+    "apply_threshold",
+    "as_wavelet",
+    "available_wavelets",
+    "bayes_threshold",
+    "config",
+    "convert",
+    "denoise_multilevel",
+    "errors",
+    "fdr_threshold",
+    "fused_analysis",
+    "fused_denoise_multilevel",
+    "fused_synthesis",
+    "get_backend",
+    "get_fused_precision",
+    "get_sigma_estimator",
+    "hard_threshold",
+    "imodwt",
+    "imodwt_multilevel",
+    "kernel_available",
+    "kernels",
+    "mad_sigma",
+    "max_levels",
+    "median_magnitude",
+    "minimax_threshold",
+    "modwt",
+    "modwt_multilevel",
+    "modwt_roundtrip_fused",
+    "resolve_tolerance",
+    "select_threshold",
+    "set_backend",
+    "set_fused_precision",
+    "set_sigma_estimator",
+    "soft_threshold",
+    "sure_threshold",
+    "threshold_coeffs",
+    "universal_threshold",
+    "wavelet",
+]

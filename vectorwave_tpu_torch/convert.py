@@ -1,0 +1,65 @@
+"""Carry parameters across from the JAX package.
+
+The two packages share no code, so these helpers take plain numpy arrays:
+a filter bank exported from a ``vectorwave_tpu`` wavelet, or a threshold
+array, becomes the port's object.  The parity tests use them so that both
+packages filter with identical taps.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .errors import ErrorCode, InvalidArgumentError
+from .wavelets.base import DiscreteWavelet, WaveletType
+
+
+def wavelet_from_arrays(
+    name: str,
+    dec_lo,
+    dec_hi,
+    rec_lo,
+    rec_hi,
+    *,
+    family: str = "",
+    vanishing_moments: int = 0,
+) -> DiscreteWavelet:
+    """A :class:`DiscreteWavelet` from four filter arrays (for example the
+    ``dec_lo``/``dec_hi``/``rec_lo``/``rec_hi`` of a ``vectorwave_tpu``
+    wavelet).  It is orthogonal when the reconstruction filters equal the
+    decomposition filters, biorthogonal otherwise."""
+    filters = [np.array(f, dtype=np.float64).reshape(-1) for f in
+               (dec_lo, dec_hi, rec_lo, rec_hi)]
+    if len({f.shape for f in filters}) != 1 or filters[0].size == 0:
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            "the four filters must be non-empty and of equal length",
+            context={"lengths": [f.size for f in filters]},
+        )
+    orthogonal = np.array_equal(filters[0], filters[2]) and np.array_equal(
+        filters[1], filters[3]
+    )
+    return DiscreteWavelet(
+        name=name,
+        family=family,
+        dec_lo=filters[0],
+        dec_hi=filters[1],
+        rec_lo=filters[2],
+        rec_hi=filters[3],
+        vanishing_moments=vanishing_moments,
+        wavelet_type=WaveletType.ORTHOGONAL if orthogonal else WaveletType.BIORTHOGONAL,
+    )
+
+
+def thresholds_from_numpy(thresholds, device=None) -> torch.Tensor:
+    """A ``[..., J]`` threshold array as the float32 tensor the fused denoise
+    takes, on ``device`` (default: the CPU)."""
+    arr = np.asarray(thresholds, dtype=np.float32)
+    if arr.ndim < 1:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "thresholds need a trailing level axis",
+            context={"shape": arr.shape},
+        )
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device or "cpu")

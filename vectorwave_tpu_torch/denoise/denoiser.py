@@ -1,0 +1,197 @@
+"""MODWT-based multi-level wavelet denoising.
+
+Counterpart of the multi-level part of ``vectorwave_tpu/denoise/denoiser.py``:
+sigma from the MAD of the finest detail, a level-dependent threshold rule,
+shrinkage of the detail planes, reconstruction.  For the sigma-only rules
+(universal, minimax) on an eligible CUDA tensor the whole pipeline is one
+launch of the fused denoise kernel, and the coefficient planes never reach
+device memory.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..config import get_sigma_estimator
+from ..errors import ErrorCode, InvalidArgumentError
+from ..kernels.modwt_fused import _INV_SQRT2, fused_denoise_multilevel
+from ..ops.thresholds import (
+    apply_threshold,
+    mad_sigma,
+    minimax_threshold,
+    select_threshold,
+    universal_threshold,
+)
+from ..transforms.modwt import _resolve_discrete, modwt
+from ..transforms.multilevel import (
+    MultiLevelMODWTResult,
+    _kernel_eligible,
+    _resolve_backend,
+    _resolve_tier,
+    imodwt_multilevel,
+    max_levels,
+    modwt_multilevel,
+)
+
+
+def threshold_coeffs(
+    result: MultiLevelMODWTResult,
+    sigma,
+    *,
+    method: str = "universal",
+    mode: str = "soft",
+) -> MultiLevelMODWTResult:
+    """Level-dependent thresholding of a multi-level decomposition: at level
+    j the noise std scales as ``sigma / sqrt(2^j)`` under the per-stage MODWT
+    filter scaling, each level's threshold is selected with that sigma, and
+    only the details are shrunk."""
+    new_details = []
+    for level, detail in enumerate(result.details, start=1):
+        level_sigma = sigma / math.sqrt(2.0**level)
+        threshold = select_threshold(detail, level_sigma, method)
+        new_details.append(apply_threshold(detail, threshold, mode))
+    return MultiLevelMODWTResult(tuple(new_details), result.approx)
+
+
+def denoise_multilevel(
+    x: torch.Tensor,
+    wavelet,
+    *,
+    levels: int | None = None,
+    method: str = "universal",
+    mode: str = "soft",
+    boundary: str = "periodic",
+    tolerance: float | None = None,
+    precision: str | None = None,
+) -> torch.Tensor:
+    """Multi-level denoise with level-dependent thresholds.
+
+    For the sigma-only rules (universal/minimax) on periodic/zero boundaries
+    and an eligible CUDA tensor, the whole pipeline is one fused kernel;
+    sigma then comes from the decimated MAD of :func:`_fused_sigma`.  Other
+    rules (SURE/Bayes/FDR), other boundaries and CPU tensors take the
+    materializing path.
+
+    ``tolerance=``/``precision=`` route the precision tier like
+    :func:`~..transforms.multilevel.modwt_multilevel`.  A tolerance below the
+    float32 tier clamps to it (the output is a float32 signal); an explicit
+    ``precision='exact'`` raises.
+    """
+    tier = _resolve_tier(tolerance, precision)
+    if tier == "exact":
+        if precision is not None:
+            raise InvalidArgumentError(
+                ErrorCode.CFG_INVALID_CONFIG,
+                "denoise_multilevel cannot serve precision='exact': the "
+                "denoised output is f32, so the float32 tier is the floor "
+                "on this surface",
+                suggestions=("Pass tolerance= instead (clamps to float32)",),
+            )
+        tier = "float32"
+    fused = _try_fused_denoise(x, wavelet, levels, method, mode, boundary,
+                               precision=tier)
+    if fused is not None:
+        return fused
+    res = modwt_multilevel(x, wavelet, levels=levels, boundary=boundary,
+                           precision=tier)
+    sigma = mad_sigma(res.details[0])  # finest scale estimates the noise floor
+    denoised = threshold_coeffs(res, sigma, method=method, mode=mode)
+    return imodwt_multilevel(denoised, wavelet, boundary=boundary, precision=tier)
+
+
+def _try_fused_denoise(x, wavelet, levels, method, mode, boundary, precision=None):
+    """Route sigma-only denoise rules through the one-pass fused kernel;
+    None = take the 3-call path."""
+    if method not in ("universal", "minimax") or mode not in ("soft", "hard"):
+        return None
+    w = _resolve_discrete(wavelet)
+    n = x.shape[-1]
+    if levels is None:
+        levels = max_levels(n, w)
+    if levels < 2:
+        return None
+    if not _resolve_backend(None, lambda: _kernel_eligible(x, w, levels, boundary)):
+        return None
+    sigma = _fused_sigma(x, w, boundary)  # [..., 1]
+    rule = universal_threshold if method == "universal" else minimax_threshold
+    ths = torch.cat(
+        [
+            rule(n, sigma / math.sqrt(2.0**level)).to(torch.float32)
+            for level in range(1, levels + 1)
+        ],
+        dim=-1,
+    )  # [..., levels]
+    return fused_denoise_multilevel(
+        x, w, levels=levels, thresholds=ths, boundary=boundary, mode=mode,
+        precision=precision,
+    )
+
+
+#: Decimated sigma: signals shorter than this keep the full-sample median;
+#: longer ones subsample ~1/64 of their 128-sample rows (>= _SIGMA_MIN_ROWS).
+_SIGMA_DECIMATE_MIN_N = 32768
+_SIGMA_MIN_ROWS = 8
+#: Row width of the subsample.  It decides which samples enter the median,
+#: so it is part of the estimator, not a memory layout.
+_SIGMA_ROW = 128
+
+
+def _fused_sigma(x, w, boundary):
+    """MAD sigma of the level-1 detail for the fused denoise router.
+
+    For large signals (``config.set_sigma_estimator`` = auto/decimated) the
+    MAD is taken over the level-1 detail of a strided subsample of
+    128-sample rows, rows ``i * stride`` for ``i < n_sub``, with ``n_sub =
+    max(8, rows // 64)`` (>= 1024 samples).  Each selected row's detail
+    needs the row before it: row ``i * stride - 1``, which for ``i = 0`` is
+    the last row (periodic) or zeros (zero boundary).  The detail is
+    computed in full float32 from float32 taps, as the JAX package does;
+    the median is exact over the subsample.
+    """
+    est = get_sigma_estimator()
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    r = n // _SIGMA_ROW if n % _SIGMA_ROW == 0 else 0
+    want_decimated = est == "decimated" or (
+        est == "auto" and n >= _SIGMA_DECIMATE_MIN_N
+    )
+    if not want_decimated or r < 4 * _SIGMA_MIN_ROWS:
+        return mad_sigma(modwt(x, w, boundary=boundary).detail)
+    n_sub = max(_SIGMA_MIN_ROWS, r // 64)
+    stride = r // n_sub
+    high = (np.asarray(w.dec_hi, np.float64) * _INV_SQRT2).astype(np.float32)
+    if len(high) > _SIGMA_ROW:
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            "decimated sigma needs a filter no longer than one row",
+            context={"taps": len(high)},
+        )
+    x3 = x.reshape(-1, r, _SIGMA_ROW).to(torch.float32)
+    rows = x3[:, ::stride, :][:, :n_sub, :]
+    before = x3[:, stride - 1 :: stride, :][:, : n_sub - 1, :]
+    if boundary.lower().startswith("per"):
+        first = x3[:, r - 1 : r, :]
+    else:
+        first = torch.zeros_like(x3[:, :1, :])
+    window = torch.cat([torch.cat([first, before], dim=1), rows], dim=-1)
+    # Fused multiply-adds in float32 (the exact product and the sum rounded
+    # once, through float64), taps from last to first, with the previous
+    # row's and the row's own contributions summed apart and then added:
+    # the summation order of the JAX package's banded row product, so the
+    # two packages pick the same order statistics bit for bit.
+    from_before = torch.arange(_SIGMA_ROW, device=x.device) < torch.arange(
+        len(high), device=x.device
+    )[:, None]  # [taps, row]: tap k reads the previous row for lanes < k
+    part_before = torch.zeros_like(rows)
+    part_own = torch.zeros_like(rows)
+    for k in range(len(high) - 1, -1, -1):
+        view = window[..., _SIGMA_ROW - k : 2 * _SIGMA_ROW - k].to(torch.float64)
+        tap = float(high[k])
+        mask = from_before[k]
+        part_before = (part_before + torch.where(mask, view, 0.0) * tap).to(torch.float32)
+        part_own = (part_own + torch.where(mask, 0.0, view) * tap).to(torch.float32)
+    d1 = part_before + part_own
+    return mad_sigma(d1.reshape(-1, n_sub * _SIGMA_ROW)).reshape(lead + (1,))

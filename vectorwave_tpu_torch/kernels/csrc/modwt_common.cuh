@@ -1,0 +1,91 @@
+// Shared pieces of the MODWT filter-bank kernels (sm_90a).
+//
+// Conventions shared by modwt_analysis.cu, modwt_synthesis.cu and
+// modwt_denoise.cu:
+//   * data are [batch, n] rows, float32 or bfloat16; every kernel computes
+//     in fp32 FMA and stores in the input type;
+//   * taps arrive as one small fp32 device tensor, already scaled by 1/sqrt(2)
+//     per stage: [lo[0..L), hi[0..L)] (the denoise kernel takes the analysis
+//     pair followed by the synthesis pair);
+//   * the signal is extended past [0, n) either periodically (index taken
+//     modulo n, so n may be shorter than the cascade span) or with zeros;
+//   * one block serves one (signal, tile of `tile` outputs); the grid is
+//     flattened to blockIdx.x = signal * tiles_per_row + tile_index, so the
+//     batch is not bounded by gridDim.y;
+//   * each C entry point returns cudaGetLastError() after its launch, so a
+//     refused launch (too much shared memory, bad configuration) reaches the
+//     Python wrapper, which raises.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace vw {
+
+constexpr int kMaxLevels = 10;
+constexpr int kMaxPlanes = kMaxLevels + 1;
+constexpr int kMaxTaps = 128;
+constexpr int kThreads = 256;
+// Dynamic shared memory one block may use on Hopper (227 KB).
+constexpr int kMaxSharedBytes = 232448;
+
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+// Plane pointers travel by value in the kernel's parameter block, so the
+// planes need not be stacked into one tensor.
+struct PlanePtrs {
+  void* p[kMaxPlanes];
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Sample g of the extended row: periodic wraps ((g % n) + n) % n, zero
+// reads 0 outside [0, n).
+template <typename T>
+__device__ __forceinline__ float load_ext(const T* __restrict__ row,
+                                          long long g, long long n,
+                                          bool periodic) {
+  if (periodic) {
+    long long m = g % n;
+    if (m < 0) m += n;
+    return to_f32(row[m]);
+  }
+  return (g >= 0 && g < n) ? to_f32(row[g]) : 0.0f;
+}
+
+// Cascade span (L - 1)(2^J - 1): how far the J-level composite filter reaches.
+__host__ __device__ __forceinline__ int cascade_span(int taps, int levels) {
+  return (taps - 1) * ((1 << levels) - 1);
+}
+
+inline bool valid_config(long long batch, long long n, int levels, int taps,
+                         int tile) {
+  return batch >= 1 && n >= 1 && levels >= 1 && levels <= kMaxLevels &&
+         taps >= 1 && taps <= kMaxTaps && tile >= 1;
+}
+
+// Opt in to more than 48 KB of dynamic shared memory where a launch needs it;
+// returns the error of the attribute call, or of the size check.
+template <typename Kernel>
+inline cudaError_t reserve_shared(Kernel kernel, size_t bytes) {
+  if (bytes > static_cast<size_t>(kMaxSharedBytes)) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace vw

@@ -1,0 +1,367 @@
+"""The multi-level MODWT filter-bank kernels: wrappers, plain versions and
+launch counters.
+
+Counterpart of the composite part of ``vectorwave_tpu/kernels/modwt_mxu.py``
+(``run_analysis_composite``, ``run_synthesis_composite``,
+``run_denoise_composite`` and the three Pallas kernels they launch).  Each of
+the three kernels is a hand-written CUDA kernel for Hopper in ``csrc/``:
+
+============================  =======================  ==========================
+wrapper                       CUDA source              TPU kernel it replaces
+============================  =======================  ==========================
+:func:`analysis`              ``modwt_analysis.cu``    ``_composite_analysis_call``
+:func:`synthesis`             ``modwt_synthesis.cu``   ``_composite_synthesis_call``
+:func:`denoise`               ``modwt_denoise.cu``     ``_composite_denoise_call``
+============================  =======================  ==========================
+
+A wrapper given a CPU tensor runs its plain version (``*_plain``), a cascade
+of rolled sums in plain PyTorch; given a CUDA tensor it launches its kernel
+or raises.  Each launch adds one to its entry of :data:`LAUNCHES`, so a run
+can show that it went through the kernels.
+
+``filters`` arguments are ``(lo, hi)`` tuples of Python floats, already
+scaled by 1/sqrt(2) per stage (``modwt_fused._kernel_filters``).  The
+kernels compute in fp32 and store in the input type (float32 or bfloat16);
+the plain versions compute in float64 for float64 input and in float32
+otherwise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..errors import ErrorCode, InvalidArgumentError
+from ..ops.convolve import atrous_analysis_pair, atrous_convolve
+from ._build import library
+
+#: Kernel launches since the last :func:`reset_launches`, by kernel.
+LAUNCHES = {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0}
+
+#: Outputs per block, per kernel (the denoise kernel holds J planes of its
+#: tile in shared memory, so its tile is smaller).
+ANALYSIS_TILE = 2048
+SYNTHESIS_TILE = 2048
+DENOISE_TILE = 1024
+#: Dynamic shared memory one block may use on Hopper (227 KB).
+SHARED_LIMIT = 232448
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MODES = {"none": 0, "soft": 1, "hard": 2}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def composite_halo_samples(filter_length: int, levels: int) -> int:
+    """Cumulative cascade support: (L0-1)(2^J - 1) samples."""
+    return (filter_length - 1) * ((1 << levels) - 1)
+
+
+def _upsample_filter(f: np.ndarray, s: int) -> np.ndarray:
+    if s == 1:
+        return np.asarray(f, dtype=np.float64)
+    out = np.zeros((len(f) - 1) * s + 1, dtype=np.float64)
+    out[::s] = f
+    return out
+
+
+def composite_plane_filters(
+    low: np.ndarray, high: np.ndarray, levels: int
+) -> list[np.ndarray]:
+    """Causal composite filters [d1, ..., dJ, aJ]: d_j = g_j * h_{j-1} * ...
+    * h_1 (à trous upsampled).  The kernels run the cascade instead of these
+    filters; the composition documents what each plane is and lets tests
+    check that the two agree."""
+    comps = []
+    acc = np.array([1.0])
+    for j in range(1, levels + 1):
+        s = 1 << (j - 1)
+        comps.append(np.convolve(acc, _upsample_filter(high, s)))
+        acc = np.convolve(acc, _upsample_filter(low, s))
+    comps.append(acc)
+    return comps
+
+
+# --- shared-memory budget ---------------------------------------------------
+
+
+def analysis_shared_bytes(taps: int, levels: int, tile: int = ANALYSIS_TILE) -> int:
+    """Shared memory of one analysis block: taps + two rows of tile + span."""
+    return 4 * (2 * taps + 2 * (tile + composite_halo_samples(taps, levels)))
+
+
+def synthesis_shared_bytes(taps: int, levels: int, tile: int = SYNTHESIS_TILE) -> int:
+    """Shared memory of one synthesis block: taps + three rows of tile + span."""
+    return 4 * (2 * taps + 3 * (tile + composite_halo_samples(taps, levels)))
+
+
+def denoise_shared_bytes(taps: int, levels: int, tile: int = DENOISE_TILE) -> int:
+    """Shared memory of one denoise block: both tap pairs, two rows of
+    tile + 2 span and J plane rows of tile + span."""
+    span = composite_halo_samples(taps, levels)
+    return 4 * (4 * taps + 2 * (tile + 2 * span) + levels * (tile + span))
+
+
+def kernels_fit(taps: int, levels: int) -> bool:
+    """Whether all three kernels fit one block's shared memory at their tile
+    (the H100 counterpart of the JAX router's halo/VMEM check)."""
+    return max(
+        analysis_shared_bytes(taps, levels),
+        synthesis_shared_bytes(taps, levels),
+        denoise_shared_bytes(taps, levels),
+    ) <= SHARED_LIMIT
+
+
+# --- plain versions -----------------------------------------------------------
+
+
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _boundary(periodic: bool) -> str:
+    return "periodic" if periodic else "zero"
+
+
+def _analysis_cascade(x, levels, filters, periodic) -> list[torch.Tensor]:
+    """[d_1, ..., d_J, a_J] in the compute dtype, unrounded."""
+    lo, hi = filters
+    cur = x.to(_compute_dtype(x))
+    planes = []
+    for level in range(1, levels + 1):
+        cur, detail = atrous_analysis_pair(
+            cur, lo, hi, spacing=1 << (level - 1), boundary=_boundary(periodic)
+        )
+        planes.append(detail)
+    planes.append(cur)
+    return planes
+
+
+def _synthesis_cascade(planes, levels, filters, periodic) -> torch.Tensor:
+    lo, hi = filters
+    cd = _compute_dtype(planes[-1])
+    cur = planes[levels].to(cd)
+    for level in range(levels, 0, -1):
+        spacing = 1 << (level - 1)
+        cur = atrous_convolve(
+            cur, lo, spacing=spacing, boundary=_boundary(periodic), sign=+1
+        ) + atrous_convolve(
+            planes[level - 1].to(cd), hi, spacing=spacing,
+            boundary=_boundary(periodic), sign=+1,
+        )
+    return cur
+
+
+def analysis_plain(x, levels, filters, periodic) -> tuple[torch.Tensor, ...]:
+    """Plain version of :func:`analysis`: the per-level cascade as rolled sums."""
+    return tuple(p.to(x.dtype) for p in _analysis_cascade(x, levels, filters, periodic))
+
+
+def synthesis_plain(planes, levels, filters, periodic) -> torch.Tensor:
+    """Plain version of :func:`synthesis`."""
+    return _synthesis_cascade(planes, levels, filters, periodic).to(planes[0].dtype)
+
+
+def _shrink(d: torch.Tensor, t: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode == "soft":  # d - clamp(d, -t, t) == sign(d) max(|d| - t, 0)
+        return d - torch.minimum(torch.maximum(d, -t), t)
+    if mode == "hard":
+        return torch.where(d.abs() > t, d, torch.zeros_like(d))
+    return d
+
+
+def denoise_plain(x, thresholds, levels, filters_dec, filters_rec, periodic, mode):
+    """Plain version of :func:`denoise`: analysis, per-(signal, level)
+    threshold of the unrounded detail planes, synthesis."""
+    planes = _analysis_cascade(x, levels, filters_dec, periodic)
+    th = thresholds.to(planes[0].dtype)
+    shrunk = [
+        _shrink(planes[j], th[:, j : j + 1], mode) for j in range(levels)
+    ] + [planes[levels]]
+    return _synthesis_cascade(shrunk, levels, filters_rec, periodic).to(x.dtype)
+
+
+# --- kernel launches ---------------------------------------------------------------
+
+
+def _tile(bytes_fn, taps: int, levels: int, preferred: int) -> int:
+    """The preferred tile, halved until the block fits shared memory."""
+    tile = preferred
+    while tile >= 128:
+        if bytes_fn(taps, levels, tile) <= SHARED_LIMIT:
+            return tile
+        tile //= 2
+    raise InvalidArgumentError(
+        ErrorCode.VAL_TOO_LARGE,
+        "The cascade halo does not fit the kernel's shared memory",
+        context={"taps": taps, "levels": levels},
+        suggestions=("Use fewer levels or backend='torch'",),
+    )
+
+
+def _check_operand(t: torch.Tensor, what: str, device=None) -> None:
+    if t.device.type != "cuda":
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            f"{what} must be a CUDA tensor for the kernel, got {t.device}",
+        )
+    if device is not None and t.device != device:
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            f"{what} is on {t.device}, expected {device}",
+        )
+    if t.dim() != 2 or not t.is_contiguous():
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            f"{what} must be a contiguous [batch, n] tensor",
+            context={"shape": tuple(t.shape), "contiguous": t.is_contiguous()},
+        )
+
+
+def _check_dtype(t: torch.Tensor, what: str) -> int:
+    code = _DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            f"{what} must be float32 or bfloat16 for the kernel, got {t.dtype}",
+        )
+    return code
+
+
+def _check_levels(levels: int) -> None:
+    if not 1 <= levels <= 10:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_LEVEL, f"levels must be in [1, 10], got {levels}"
+        )
+
+
+@functools.lru_cache(maxsize=64)
+def _device_taps(taps: tuple[float, ...], device_index: int) -> torch.Tensor:
+    return torch.tensor(taps, dtype=torch.float32, device=f"cuda:{device_index}")
+
+
+def _raise_on_error(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {err}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def analysis(x, levels, filters, periodic) -> tuple[torch.Tensor, ...]:
+    """[B, N] -> (d_1, ..., d_J, a_J); periodic or zero boundary, any N."""
+    if x.device.type == "cpu":
+        return analysis_plain(x, levels, filters, periodic)
+    _check_operand(x, "x")
+    code = _check_dtype(x, "x")
+    _check_levels(levels)
+    taps = len(filters[0])
+    tile = _tile(analysis_shared_bytes, taps, levels, ANALYSIS_TILE)
+    lib = library()
+    outs = [torch.empty_like(x) for _ in range(levels + 1)]
+    out_ptrs = (ctypes.c_void_p * (levels + 1))(*[o.data_ptr() for o in outs])
+    tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), x.device.index)
+    b, n = x.shape
+    with torch.cuda.device(x.device):
+        err = lib.vw_modwt_analysis(
+            x.data_ptr(), out_ptrs, tap_t.data_ptr(), b, n, levels, taps, tile,
+            int(periodic), code, _stream(x.device),
+        )
+    _raise_on_error(err, "modwt_analysis")
+    LAUNCHES["modwt_analysis"] += 1
+    return tuple(outs)
+
+
+def synthesis(planes, levels, filters, periodic) -> torch.Tensor:
+    """(d_1, ..., d_J, a_J), each [B, N] -> [B, N]; periodic or zero."""
+    if planes[0].device.type == "cpu":
+        return synthesis_plain(planes, levels, filters, periodic)
+    if len(planes) != levels + 1:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            f"expected {levels + 1} planes, got {len(planes)}",
+        )
+    first = planes[0]
+    _check_operand(first, "plane 0")
+    code = _check_dtype(first, "plane 0")
+    for i, p in enumerate(planes):
+        _check_operand(p, f"plane {i}", first.device)
+        if p.dtype != first.dtype or p.shape != first.shape:
+            raise InvalidArgumentError(
+                ErrorCode.VAL_INVALID_SHAPE,
+                "all planes must share shape and dtype",
+                context={"plane": i, "shape": tuple(p.shape), "dtype": p.dtype},
+            )
+    _check_levels(levels)
+    taps = len(filters[0])
+    tile = _tile(synthesis_shared_bytes, taps, levels, SYNTHESIS_TILE)
+    lib = library()
+    out = torch.empty_like(first)
+    in_ptrs = (ctypes.c_void_p * (levels + 1))(*[p.data_ptr() for p in planes])
+    tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), first.device.index)
+    b, n = first.shape
+    with torch.cuda.device(first.device):
+        err = lib.vw_modwt_synthesis(
+            in_ptrs, out.data_ptr(), tap_t.data_ptr(), b, n, levels, taps, tile,
+            int(periodic), code, _stream(first.device),
+        )
+    _raise_on_error(err, "modwt_synthesis")
+    LAUNCHES["modwt_synthesis"] += 1
+    return out
+
+
+def denoise(x, thresholds, levels, filters_dec, filters_rec, periodic, mode):
+    """[B, N] x and [B, J] float32 thresholds -> [B, N]: analysis, soft/hard
+    threshold per (signal, level) (``mode='none'``: the round trip),
+    synthesis; periodic or zero."""
+    if mode not in _MODES:
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            f"Unknown threshold mode {mode!r}",
+            suggestions=("Use 'none', 'soft' or 'hard'",),
+        )
+    if x.device.type == "cpu":
+        return denoise_plain(
+            x, thresholds, levels, filters_dec, filters_rec, periodic, mode
+        )
+    _check_operand(x, "x")
+    code = _check_dtype(x, "x")
+    _check_operand(thresholds, "thresholds", x.device)
+    if thresholds.dtype != torch.float32 or thresholds.shape != (x.shape[0], levels):
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "thresholds must be float32 of shape [batch, levels]",
+            context={"shape": tuple(thresholds.shape), "dtype": thresholds.dtype},
+        )
+    _check_levels(levels)
+    taps = len(filters_dec[0])
+    if len(filters_rec[0]) != taps:
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            "analysis and synthesis filters must have the same length",
+        )
+    tile = _tile(denoise_shared_bytes, taps, levels, DENOISE_TILE)
+    lib = library()
+    out = torch.empty_like(x)
+    tap_t = _device_taps(
+        tuple(filters_dec[0]) + tuple(filters_dec[1])
+        + tuple(filters_rec[0]) + tuple(filters_rec[1]),
+        x.device.index,
+    )
+    b, n = x.shape
+    with torch.cuda.device(x.device):
+        err = lib.vw_modwt_denoise(
+            x.data_ptr(), out.data_ptr(), thresholds.data_ptr(), tap_t.data_ptr(),
+            b, n, levels, taps, tile, int(periodic), _MODES[mode], code,
+            _stream(x.device),
+        )
+    _raise_on_error(err, "modwt_denoise")
+    LAUNCHES["modwt_denoise"] += 1
+    return out

@@ -1,0 +1,228 @@
+"""Kernel tier of the multi-level MODWT: public entry points.
+
+Counterpart of ``vectorwave_tpu/kernels/modwt_pallas.py``.  The compute
+lives in :mod:`.modwt_composite` (three hand-written CUDA kernels and their
+plain versions); this module keeps the public surface: halo math, the
+differentiable :func:`fused_analysis` / :func:`fused_synthesis`, the fused
+denoise and the one-pass round trip.
+
+The analysis map A and synthesis map S are linear, and for periodic and
+zero boundaries the synthesis structure with the analysis filters is exactly
+A^T (each level's (t+l) correlation is the transpose of the (t-l)
+convolution).  So each gradient runs the opposite kernel with the forward
+map's own filters: one kernel pass per gradient, and no extra kernel.
+
+Precision: ``precision=`` names one of the JAX package's tiers (float32,
+bf16_3x, bf16).  Every tier runs the same fp32 kernel, whose error is within
+the contract of each; the argument is validated and otherwise has no
+effect until tensor-core tiers exist.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..config import _VALID_PRECISIONS, get_fused_precision
+from ..errors import ErrorCode, InvalidArgumentError
+from . import modwt_composite
+
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+
+
+def kernel_available() -> bool:
+    """Whether the CUDA kernel tier can run here: a CUDA device of compute
+    capability 9.0 (Hopper), for which the kernels are built (``sm_90a``)."""
+    return torch.cuda.is_available() and torch.cuda.get_device_capability() == (9, 0)
+
+
+def total_halo(filter_length: int, levels: int) -> int:
+    """Cumulative cascade halo: sum_j (L0-1) 2^(j-1) = (L0-1)(2^J - 1)."""
+    return (filter_length - 1) * ((1 << levels) - 1)
+
+
+def _kernel_filters(w, synthesis: bool) -> tuple[tuple[float, ...], tuple[float, ...]]:
+    if synthesis:
+        return (
+            tuple((w.rec_lo * _INV_SQRT2).tolist()),
+            tuple((w.rec_hi * _INV_SQRT2).tolist()),
+        )
+    return (
+        tuple((w.dec_lo * _INV_SQRT2).tolist()),
+        tuple((w.dec_hi * _INV_SQRT2).tolist()),
+    )
+
+
+def _check_precision(precision: str | None) -> None:
+    prec = precision or get_fused_precision()
+    if prec not in _VALID_PRECISIONS:
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            f"Precision {prec!r} is not served by the kernel tier",
+            suggestions=(f"Use one of {_VALID_PRECISIONS}",),
+        )
+
+
+def _kernel_boundary(boundary: str, entry: str) -> bool:
+    """True for periodic, False for zero; symmetric and unknown names raise."""
+    b = boundary.lower()
+    if b.startswith("per"):
+        return True
+    if b.startswith("zero"):
+        return False
+    if b.startswith("sym"):
+        raise InvalidArgumentError(
+            ErrorCode.CFG_UNSUPPORTED_BOUNDARY,
+            f"{entry}: the symmetric kernel tier is not yet ported",
+            suggestions=("Use backend='torch' (or 'auto') for symmetric boundaries",),
+        )
+    raise InvalidArgumentError(
+        ErrorCode.CFG_UNSUPPORTED_BOUNDARY,
+        f"Unknown boundary for {entry}: {boundary!r}",
+        suggestions=("Use 'periodic' or 'zero'",),
+    )
+
+
+class _Analysis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, levels, filters, periodic):
+        ctx.levels, ctx.filters, ctx.periodic = levels, filters, periodic
+        return modwt_composite.analysis(x, levels, filters, periodic)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = tuple(t.contiguous() for t in grads)
+        gx = modwt_composite.synthesis(g, ctx.levels, ctx.filters, ctx.periodic)
+        return gx, None, None, None
+
+
+class _Synthesis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, levels, filters, periodic, *planes):
+        ctx.levels, ctx.filters, ctx.periodic = levels, filters, periodic
+        return modwt_composite.synthesis(planes, levels, filters, periodic)
+
+    @staticmethod
+    def backward(ctx, grad):
+        planes = modwt_composite.analysis(
+            grad.contiguous(), ctx.levels, ctx.filters, ctx.periodic
+        )
+        return (None, None, None, *planes)
+
+
+def fused_analysis(
+    x: torch.Tensor,
+    wavelet,
+    *,
+    levels: int,
+    boundary: str = "periodic",
+    precision: str | None = None,
+):
+    """Fused J-level MODWT analysis of ``[..., N]`` signals: returns
+    ``(details tuple, approx)``.
+
+    Periodic or zero boundary.  On a CUDA tensor it is one launch of the
+    analysis kernel; on a CPU tensor the kernel's plain version.
+    Differentiable: the gradient is one synthesis pass.
+    """
+    from ..transforms.modwt import _resolve_discrete
+
+    w = _resolve_discrete(wavelet)
+    periodic = _kernel_boundary(boundary, "fused_analysis")
+    _check_precision(precision)
+    lead, n = x.shape[:-1], x.shape[-1]
+    planes = _Analysis.apply(
+        x.reshape(-1, n).contiguous(), levels, _kernel_filters(w, synthesis=False),
+        periodic,
+    )
+    planes = tuple(p.reshape(lead + (n,)) for p in planes)
+    return planes[:levels], planes[levels]
+
+
+def fused_synthesis(
+    details,
+    approx: torch.Tensor,
+    wavelet,
+    *,
+    boundary: str = "periodic",
+    precision: str | None = None,
+) -> torch.Tensor:
+    """Fused J-level inverse MODWT from ``(details, approx)``: the adjoint of
+    :func:`fused_analysis` for periodic and zero boundaries."""
+    from ..transforms.modwt import _resolve_discrete
+
+    w = _resolve_discrete(wavelet)
+    periodic = _kernel_boundary(boundary, "fused_synthesis")
+    _check_precision(precision)
+    levels = len(details)
+    lead, n = approx.shape[:-1], approx.shape[-1]
+    planes = [p.reshape(-1, n).contiguous() for p in (*details, approx)]
+    out = _Synthesis.apply(
+        levels, _kernel_filters(w, synthesis=True), periodic, *planes
+    )
+    return out.reshape(lead + (n,))
+
+
+def fused_denoise_multilevel(
+    x: torch.Tensor,
+    wavelet,
+    *,
+    levels: int,
+    thresholds: torch.Tensor,  # [..., levels] per (signal, level)
+    boundary: str = "periodic",
+    mode: str = "soft",
+    precision: str | None = None,
+) -> torch.Tensor | None:
+    """One-kernel denoise: analysis -> per-level threshold -> synthesis,
+    with the coefficient planes kept in shared memory.
+
+    Returns None for a symmetric boundary (the caller takes the 3-call
+    path), as the JAX package does.  Any N is served.  On a CUDA tensor the
+    gradient is not yet ported, so an input that requires grad raises; on a
+    CPU tensor the plain version differentiates natively.
+    """
+    from ..transforms.modwt import _resolve_discrete
+
+    if boundary.lower().startswith("sym"):
+        return None
+    periodic = _kernel_boundary(boundary, "fused_denoise_multilevel")
+    _check_precision(precision)
+    w = _resolve_discrete(wavelet)
+    if x.device.type == "cuda" and torch.is_grad_enabled() and (
+        x.requires_grad or thresholds.requires_grad
+    ):
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            "The fused denoise kernel has no gradient yet",
+            suggestions=("Differentiate through modwt_multilevel + "
+                         "imodwt_multilevel, or run the denoise under "
+                         "torch.no_grad()",),
+        )
+    lead, n = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, n).contiguous()
+    th2 = thresholds.reshape(-1, thresholds.shape[-1]).to(torch.float32).contiguous()
+    out = modwt_composite.denoise(
+        x2, th2, levels, _kernel_filters(w, synthesis=False),
+        _kernel_filters(w, synthesis=True), periodic, mode,
+    )
+    return out.reshape(lead + (n,))
+
+
+def modwt_roundtrip_fused(
+    x: torch.Tensor,
+    wavelet,
+    *,
+    levels: int,
+    boundary: str = "periodic",
+    precision: str | None = None,
+) -> torch.Tensor:
+    """Fused analysis -> synthesis round trip in one kernel pass (the
+    ``mode='none'`` case of the fused denoise): device memory sees only x in
+    and x out.  Periodic or zero boundary."""
+    _kernel_boundary(boundary, "modwt_roundtrip_fused")
+    dummy = torch.zeros(x.shape[:-1] + (levels,), dtype=torch.float32, device=x.device)
+    return fused_denoise_multilevel(
+        x, wavelet, levels=levels, thresholds=dummy, boundary=boundary,
+        mode="none", precision=precision,
+    )
