@@ -9,7 +9,9 @@ JAX it runs with the repository's conftest left out:
 Tolerances: float32 kernel against float32 plain version 2e-5 max abs (the
 same fp32 arithmetic in another summation order, values of order 1);
 bfloat16 one bfloat16 ulp of the largest output (both round the same fp32
-values to bfloat16).
+values to bfloat16); the exact fp64 kernels against their fp64 plain
+versions 1e-13 on hi + lo (the same fp64 arithmetic, which differs only in
+fused multiply-adds).
 """
 
 import pytest
@@ -93,7 +95,8 @@ def test_public_entry_points_launch_the_kernels(cuda):
     d = vt.denoise_multilevel(x, "db4", levels=LEVELS)
     torch.cuda.synchronize()
     assert mc.LAUNCHES == {"modwt_analysis": 1, "modwt_synthesis": 1,
-                           "modwt_denoise": 2}
+                           "modwt_denoise": 2, "modwt_exact_analysis": 0,
+                           "modwt_exact_synthesis": 0}
     assert float((y - x).abs().max()) < 3e-6
     assert float((z - x).abs().max()) < 3e-6
     assert d.shape == x.shape and bool(torch.isfinite(d).all())
@@ -142,3 +145,83 @@ def test_kernel_gradients_match_plain_autograd(cuda, periodic):
         loss = sum((p * w).sum() for p, w in zip((*res.details, res.approx), wts))
         grads.append(torch.autograd.grad(loss, xg)[0])
     assert _err((grads[0],), (grads[1],)) <= TOL_F32
+
+
+TOL_EXACT = 1e-13
+# (batch, n, periodic, first level, levels, with a lo word)
+EXACT_CASES = [
+    (4, 8192, True, 1, LEVELS, False),
+    (3, 5000, False, 1, LEVELS, False),
+    (2, 300, True, 1, LEVELS, False),
+    (2, 4096, True, 1, LEVELS, True),
+    (2, 4096, False, 3, 2, True),
+]
+
+
+def _pair_err(got, want):
+    return max(float((g[0].double() + g[1].double() - w[0].double() - w[1].double())
+                     .abs().max()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("b,n,periodic,first,levels,with_lo", EXACT_CASES)
+def test_exact_kernels_match_plain(cuda, filters, b, n, periodic, first, levels, with_lo):
+    fd, fr = filters
+    x = _input(cuda, b, n, torch.float32, seed=4)
+    x_lo = x * 2.0**-26 * _input(cuda, b, n, torch.float32, seed=5) if with_lo else None
+    mc.reset_launches()
+    want = mc.exact_analysis_plain(x, x_lo, levels, fd, periodic, first)
+    got = mc.exact_analysis(x, x_lo, levels, fd, periodic, first)
+    y_want = mc.exact_synthesis_plain(want, levels, fr, periodic, first)
+    y_got = mc.exact_synthesis(want, levels, fr, periodic, first)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["modwt_exact_analysis"] == mc.LAUNCHES["modwt_exact_synthesis"] == 1
+    assert all(h.dtype == l.dtype == torch.float32 and h.shape == x.shape for h, l in got)
+    assert _pair_err(got, want) <= TOL_EXACT
+    assert _pair_err((y_got,), (y_want,)) <= TOL_EXACT
+    assert all(torch.equal(h, (h.double() + l.double()).float()) for h, l in got)
+
+
+@pytest.mark.parametrize("name,levels,n,periodic,launches", [
+    ("sym8", 10, 16384, True, (2, 2)),  # the halo of 10 levels does not fit one block
+    ("db38", 9, 32768, False, (3, 4)),  # levels 8-9 run direct, from device memory
+])
+def test_exact_kernels_split_a_deep_halo_over_launches(cuda, name, levels, n, periodic,
+                                                       launches):
+    w = vt.wavelet(name)
+    fd, fr = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+    x = _input(cuda, 2, n, torch.float32, seed=6)
+    mc.reset_launches()
+    got = mc.exact_analysis(x, None, levels, fd, periodic)
+    y = mc.exact_synthesis(got, levels, fr, periodic)
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES["modwt_exact_analysis"], mc.LAUNCHES["modwt_exact_synthesis"]) \
+        == launches
+    assert _pair_err(got, mc.exact_analysis_plain(x, None, levels, fd, periodic)) <= TOL_EXACT
+    assert _pair_err((y,), (mc.exact_synthesis_plain(got, levels, fr, periodic),)) \
+        <= TOL_EXACT
+    if periodic:
+        assert torch.equal(y[0], x)
+
+
+def test_exact_public_entry_points_launch_the_exact_kernels(cuda):
+    x = _input(cuda, 4, 8192, torch.float32, seed=7)
+    mc.reset_launches()
+    res = vt.modwt_multilevel(x, "db4", levels=LEVELS, precision="exact")
+    y = vt.imodwt_multilevel(res, "db4", precision="exact")
+    hi, lo = vt.imodwt_multilevel_exact(
+        tuple(zip(res.details, res.details_lo)), (res.approx, res.approx_lo), "db4")
+    torch.cuda.synchronize()
+    assert isinstance(res, vt.ExactMODWTResult) and res.approx.device == x.device
+    assert mc.LAUNCHES == {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
+                           "modwt_exact_analysis": 1, "modwt_exact_synthesis": 2}
+    assert torch.equal(y, x)
+    assert float((hi.double() + lo.double() - x.double()).pow(2).mean().sqrt()) <= 1e-12
+    sym = vt.modwt_multilevel_exact(x, "sym8", levels=4, boundary="symmetric")
+    ref = vt.modwt_multilevel(x.cpu().double(), "sym8", levels=4, boundary="symmetric",
+                              backend="torch")
+    err = max(float((h.double().cpu() + l.double().cpu() - r).abs().max())
+              for (h, l), r in zip((*sym[0], sym[1]), (*ref.details, ref.approx)))
+    assert err <= 1e-12
+    with pytest.raises(InvalidArgumentError, match="no gradient"):
+        vt.modwt_multilevel(x.clone().requires_grad_(True), "db4", levels=3,
+                            precision="exact")

@@ -160,6 +160,10 @@ def test_wrappers_raise_on_a_device_they_cannot_serve():
         mc.denoise(x, torch.zeros(2, 2, device="meta"), 2, filters, filters, True, "soft")
     with pytest.raises(InvalidArgumentError, match="threshold mode"):
         mc.denoise(x, x, 2, filters, filters, True, "garrote")
+    with pytest.raises(InvalidArgumentError, match="CUDA tensor"):
+        mc.exact_analysis(x, None, 2, filters, True)
+    with pytest.raises(InvalidArgumentError, match="CUDA tensor"):
+        mc.exact_synthesis(((x, x),) * 3, 2, filters, True)
 
 
 def test_shared_memory_budget_and_tiles():
@@ -177,13 +181,19 @@ def test_build_uses_only_repo_sources_and_hopper_flags(monkeypatch, tmp_path):
     import torch.utils.cpp_extension as cpp
 
     monkeypatch.setattr(cpp, "CUDA_HOME", str(tmp_path))
-    cmd = _build.compile_command(tmp_path / "lib.so")
-    assert cmd[0] == str(tmp_path / "bin" / "nvcc")
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
-    units = [c for c in cmd if c.endswith(".cu")]
-    assert sorted(p.split("/")[-1] for p in units) == [
-        "modwt_analysis.cu", "modwt_denoise.cu", "modwt_synthesis.cu"]
-    assert all(str(_build.CSRC) in u for u in units)
+    units = _build.compile_commands(tmp_path)
+    for obj, cmd in units:  # one nvcc per unit, each to its own object
+        assert cmd[0] == str(tmp_path / "bin" / "nvcc")
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd and "-c" in cmd
+        assert obj.parent == tmp_path and str(obj) in cmd
+        assert len([c for c in cmd if c.endswith(".cu")]) == 1
+    sources = [c for _, cmd in units for c in cmd if c.endswith(".cu")]
+    assert sorted(p.split("/")[-1] for p in sources) == [
+        "modwt_analysis.cu", "modwt_denoise.cu", "modwt_exact_analysis.cu",
+        "modwt_exact_synthesis.cu", "modwt_synthesis.cu"]
+    assert all(str(_build.CSRC) in u for u in sources)
+    link = _build.link_command([obj for obj, _ in units], tmp_path / "lib.so")
+    assert "-shared" in link and link[-len(units):] == [str(obj) for obj, _ in units]
     assert _build._lib is None  # nothing is built when the package is imported
 
 

@@ -109,13 +109,16 @@ def test_tolerance_ladder_matches_jax(tol):
 
 
 def test_exact_tier_raises_for_float32():
+    """float32 input on the exact tier returns double-float planes; only an
+    exact inverse of a plain float32 result raises, as in JAX."""
     x = torch.randn(2, 4096)
-    with pytest.raises(InvalidArgumentError, match="exact tier"):
-        vt.modwt_multilevel(x, "db4", levels=3, precision="exact")
-    with pytest.raises(InvalidArgumentError, match="exact tier"):
-        vt.modwt_multilevel(x, "db4", levels=3, tolerance=1e-7)
+    for how in ({"precision": "exact"}, {"tolerance": 1e-7}):
+        res = vt.modwt_multilevel(x, "db4", levels=3, **how)
+        assert isinstance(res, vt.ExactMODWTResult) and res.levels == 3
+        assert torch.equal(vt.imodwt_multilevel(res, "db4", **how), x)
     res = vt.modwt_multilevel(x, "db4", levels=3, tolerance=1e-5)
-    with pytest.raises(InvalidArgumentError, match="exact tier"):
+    assert isinstance(res, vt.MultiLevelMODWTResult)
+    with pytest.raises(InvalidArgumentError, match=r"(?s)exact tier.*ExactMODWTResult"):
         vt.imodwt_multilevel(res, "db4", precision="exact")
 
 

@@ -1,9 +1,11 @@
 """vectorwave_tpu_torch — the PyTorch/CUDA port of vectorwave_tpu.
 
-The first slice of the port: discrete orthogonal wavelets (haar, db, sym),
-single- and multi-level MODWT, multi-level denoising, and the kernel tier
-behind them: three hand-written CUDA kernels for Hopper (multi-level
-analysis, synthesis and fused denoise) with their plain PyTorch versions.
+What is ported: discrete orthogonal wavelets (haar, db, sym), single- and
+multi-level MODWT, multi-level denoising, the exact precision tier
+(double-float planes, round trips within 1e-10), and the kernel tier behind
+them: five hand-written CUDA kernels for Hopper (multi-level analysis,
+synthesis and fused denoise in fp32; exact analysis and synthesis in fp64)
+with their plain PyTorch versions.
 
 The package imports ``torch``, ``numpy`` and ``mpmath`` and never JAX or
 ``vectorwave_tpu``.  Inputs and outputs are ``[..., N]`` tensors; the device
@@ -35,6 +37,11 @@ from .kernels import (
     kernel_available,
     modwt_roundtrip_fused,
 )
+from .kernels.modwt_exact import (
+    imodwt_multilevel_exact,
+    modwt_multilevel_exact,
+    modwt_roundtrip_exact,
+)
 from .ops.thresholds import (
     apply_threshold,
     bayes_threshold,
@@ -50,6 +57,7 @@ from .ops.thresholds import (
 )
 from .transforms.modwt import MODWTResult, imodwt, modwt
 from .transforms.multilevel import (
+    ExactMODWTResult,
     MultiLevelMODWTResult,
     imodwt_multilevel,
     max_levels,
@@ -64,6 +72,7 @@ __version__ = "0.1.0"
 __all__ = [
     "DiscreteWavelet",
     "ErrorCode",
+    "ExactMODWTResult",
     "InvalidArgumentError",
     "InvalidConfigurationError",
     "InvalidSignalError",
@@ -90,6 +99,7 @@ __all__ = [
     "hard_threshold",
     "imodwt",
     "imodwt_multilevel",
+    "imodwt_multilevel_exact",
     "kernel_available",
     "kernels",
     "mad_sigma",
@@ -98,6 +108,8 @@ __all__ = [
     "minimax_threshold",
     "modwt",
     "modwt_multilevel",
+    "modwt_multilevel_exact",
+    "modwt_roundtrip_exact",
     "modwt_roundtrip_fused",
     "resolve_tolerance",
     "select_threshold",

@@ -1,9 +1,10 @@
 """Carry parameters across from the JAX package.
 
 The two packages share no code, so these helpers take plain numpy arrays:
-a filter bank exported from a ``vectorwave_tpu`` wavelet, or a threshold
-array, becomes the port's object.  The parity tests use them so that both
-packages filter with identical taps.
+a filter bank exported from a ``vectorwave_tpu`` wavelet, a threshold
+array, or the planes of an exact-tier result becomes the port's object.
+The parity tests use them so that both packages filter with identical taps
+and each package's inverse can read the other's planes.
 """
 
 from __future__ import annotations
@@ -63,3 +64,29 @@ def thresholds_from_numpy(thresholds, device=None) -> torch.Tensor:
             context={"shape": arr.shape},
         )
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device or "cpu")
+
+
+def exact_result_from_arrays(details_hi, approx_hi, details_lo, approx_lo,
+                             device=None):
+    """An :class:`~vectorwave_tpu_torch.ExactMODWTResult` from the float32
+    (hi, lo) planes of an exact-tier result (for example the fields of a
+    ``vectorwave_tpu`` ``ExactMODWTResult``), on ``device`` (default: the
+    CPU)."""
+    from .transforms.multilevel import ExactMODWTResult
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device or "cpu")
+
+    details_hi, details_lo = tuple(details_hi), tuple(details_lo)
+    shapes = {np.shape(a) for a in (*details_hi, *details_lo, approx_hi, approx_lo)}
+    if len(details_hi) != len(details_lo) or len(shapes) != 1:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "every hi and lo plane must have the same shape, one lo per hi",
+            context={"details_hi": len(details_hi), "details_lo": len(details_lo),
+                     "shapes": sorted(shapes)},
+        )
+    return ExactMODWTResult(
+        tuple(tensor(a) for a in details_hi), tensor(approx_hi),
+        tuple(tensor(a) for a in details_lo), tensor(approx_lo),
+    )

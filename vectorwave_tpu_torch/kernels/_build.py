@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``csrc/`` have a plain C interface.  At first use they are
-compiled by ``nvcc`` into one shared library for Hopper (``sm_90a``), keyed
-by a hash of the sources and flags, under ``kernels/_build/`` inside the
-package, and loaded with ``ctypes``.  A build takes seconds; nothing here
-includes PyTorch's headers.
+The sources in ``csrc/`` have a plain C interface.  At first use each
+``.cu`` unit is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all at
+once, and the objects are linked into one shared library, keyed by a hash
+of the sources and flags, under ``kernels/_build/`` inside the package, and
+loaded with ``ctypes``.  A build takes seconds; nothing here includes
+PyTorch's headers.
 
 There is no fallback: a missing toolkit or a failed compile raises.
 """
@@ -15,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import shutil
 import subprocess
 import threading
 
@@ -22,7 +24,7 @@ CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).with_name("_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -55,25 +57,49 @@ def nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def compile_command(output: str | os.PathLike) -> list[str]:
-    """The nvcc command that builds the library into ``output``."""
-    units = [str(p) for p in sources() if p.suffix == ".cu"]
-    return [nvcc(), *NVCC_FLAGS, "-o", str(output), *units]
+def compile_commands(out_dir: str | os.PathLike) -> list[tuple[pathlib.Path, list[str]]]:
+    """One nvcc command per ``.cu`` unit, each compiling it to an object in
+    ``out_dir``: ``[(object path, command), ...]``."""
+    out_dir = pathlib.Path(out_dir)
+    return [
+        (out_dir / f"{unit.stem}.o",
+         [nvcc(), *NVCC_FLAGS, "-c", "-o", str(out_dir / f"{unit.stem}.o"), str(unit)])
+        for unit in sources() if unit.suffix == ".cu"
+    ]
+
+
+def link_command(objects, output: str | os.PathLike) -> list[str]:
+    """The nvcc command that links the objects into the shared library."""
+    return [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(output), *map(str, objects)]
+
+
+def _run_all(commands: list[list[str]]) -> None:
+    """Start every command at once and wait for all; raise on any failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in commands]
+    failures = []
+    for cmd, proc in zip(commands, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)}\nexit code {proc.returncode}:\n{out}")
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
 
 
 def build() -> pathlib.Path:
-    """Compile the library unless a build of the same sources exists."""
+    """Compile the library unless a build of the same sources exists: every
+    unit by its own nvcc, all started together, then one link."""
     target = BUILD_DIR / f"libvw_modwt_{_digest()}.so"
     if target.exists():
         return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(compile_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
-        )
+    work = BUILD_DIR / f"{target.stem}.{os.getpid()}.tmp"
+    work.mkdir(parents=True, exist_ok=True)
+    units = compile_commands(work)
+    _run_all([cmd for _, cmd in units])
+    tmp = work / target.name
+    _run_all([link_command([obj for obj, _ in units], tmp)])
     os.replace(tmp, target)
+    shutil.rmtree(work, ignore_errors=True)
     return target
 
 
@@ -90,7 +116,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     #  mode, dtype, stream)
     lib.vw_modwt_denoise.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32,
                                      i32, i32, i32, ptr]
-    for fn in (lib.vw_modwt_analysis, lib.vw_modwt_synthesis, lib.vw_modwt_denoise):
+    # (x_hi, x_lo, outs, taps, batch, n, first, levels, taps_len, tile,
+    #  periodic, direct, stream)
+    lib.vw_modwt_exact_analysis.argtypes = [ptr, ptr, ptrs, ptr, i64, i64, i32, i32,
+                                            i32, i32, i32, i32, ptr]
+    # (ins, out_hi, out_lo, taps, batch, n, first, levels, taps_len, tile,
+    #  periodic, direct, stream)
+    lib.vw_modwt_exact_synthesis.argtypes = [ptrs, ptr, ptr, ptr, i64, i64, i32, i32,
+                                             i32, i32, i32, i32, ptr]
+    for fn in (lib.vw_modwt_analysis, lib.vw_modwt_synthesis, lib.vw_modwt_denoise,
+               lib.vw_modwt_exact_analysis, lib.vw_modwt_exact_synthesis):
         fn.restype = i32
 
 

@@ -1,9 +1,11 @@
 // Shared pieces of the MODWT filter-bank kernels (sm_90a).
 //
-// Conventions shared by modwt_analysis.cu, modwt_synthesis.cu and
-// modwt_denoise.cu:
-//   * data are [batch, n] rows, float32 or bfloat16; every kernel computes
-//     in fp32 FMA and stores in the input type;
+// Conventions shared by modwt_analysis.cu, modwt_synthesis.cu,
+// modwt_denoise.cu and the exact tier's modwt_exact_{analysis,synthesis}.cu:
+//   * data are [batch, n] rows, float32 or bfloat16; the first three kernels
+//     compute in fp32 FMA and store in the input type; the exact kernels
+//     read and write float32 (hi, lo) pairs and compute in fp64 FMA with
+//     fp64 taps;
 //   * taps arrive as one small fp32 device tensor, already scaled by 1/sqrt(2)
 //     per stage: [lo[0..L), hi[0..L)] (the denoise kernel takes the analysis
 //     pair followed by the synthesis pair);
@@ -72,10 +74,53 @@ __host__ __device__ __forceinline__ int cascade_span(int taps, int levels) {
   return (taps - 1) * ((1 << levels) - 1);
 }
 
+// Span of the levels first .. first + levels - 1 of the cascade:
+// (L - 1) 2^(first-1) (2^levels - 1).
+__host__ __device__ __forceinline__ int cascade_span_from(int taps, int first,
+                                                          int levels) {
+  return cascade_span(taps, levels) << (first - 1);
+}
+
 inline bool valid_config(long long batch, long long n, int levels, int taps,
                          int tile) {
   return batch >= 1 && n >= 1 && levels >= 1 && levels <= kMaxLevels &&
          taps >= 1 && taps <= kMaxTaps && tile >= 1;
+}
+
+// --- double-float (hi, lo) float32 pairs, the exact tier's planes ---------
+//
+// A pair is read as the double hi + lo and written back as hi = the float32
+// round of v and lo = the float32 round of v - hi: about 48 significant bits,
+// with hi the correctly rounded float32 value.
+
+// Plane pointers of the exact kernels: (hi, lo) of each plane, in order.
+struct PairPtrs {
+  void* p[2 * kMaxPlanes];
+};
+
+// Sample g of the extended pair row as a double (lo may be null: then the
+// row is the float32 hi alone).
+__device__ __forceinline__ double load_ext_pair(const float* __restrict__ hi,
+                                                const float* __restrict__ lo,
+                                                long long g, long long n,
+                                                bool periodic) {
+  long long m = g;
+  if (periodic) {
+    m = g % n;
+    if (m < 0) m += n;
+  } else if (g < 0 || g >= n) {
+    return 0.0;
+  }
+  const double v = static_cast<double>(hi[m]);
+  return lo == nullptr ? v : v + static_cast<double>(lo[m]);
+}
+
+__device__ __forceinline__ void store_pair(float* __restrict__ hi,
+                                           float* __restrict__ lo, long long i,
+                                           double v) {
+  const float h = __double2float_rn(v);
+  hi[i] = h;
+  lo[i] = __double2float_rn(v - static_cast<double>(h));
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where a launch needs it;

@@ -3,16 +3,19 @@ launch counters.
 
 Counterpart of the composite part of ``vectorwave_tpu/kernels/modwt_mxu.py``
 (``run_analysis_composite``, ``run_synthesis_composite``,
-``run_denoise_composite`` and the three Pallas kernels they launch).  Each of
-the three kernels is a hand-written CUDA kernel for Hopper in ``csrc/``:
+``run_denoise_composite`` and the three Pallas kernels they launch) and of
+the two Pallas kernels of ``vectorwave_tpu/kernels/modwt_exact.py``.  Each
+kernel is a hand-written CUDA kernel for Hopper in ``csrc/``:
 
-============================  =======================  ==========================
-wrapper                       CUDA source              TPU kernel it replaces
-============================  =======================  ==========================
-:func:`analysis`              ``modwt_analysis.cu``    ``_composite_analysis_call``
-:func:`synthesis`             ``modwt_synthesis.cu``   ``_composite_synthesis_call``
-:func:`denoise`               ``modwt_denoise.cu``     ``_composite_denoise_call``
-============================  =======================  ==========================
+=========================  =============================  ==========================
+wrapper                    CUDA source                    TPU kernel it replaces
+=========================  =============================  ==========================
+:func:`analysis`           ``modwt_analysis.cu``          ``_composite_analysis_call``
+:func:`synthesis`          ``modwt_synthesis.cu``         ``_composite_synthesis_call``
+:func:`denoise`            ``modwt_denoise.cu``           ``_composite_denoise_call``
+:func:`exact_analysis`     ``modwt_exact_analysis.cu``    ``_exact_analysis_call``
+:func:`exact_synthesis`    ``modwt_exact_synthesis.cu``   ``_exact_synthesis_call``
+=========================  =============================  ==========================
 
 A wrapper given a CPU tensor runs its plain version (``*_plain``), a cascade
 of rolled sums in plain PyTorch; given a CUDA tensor it launches its kernel
@@ -21,9 +24,10 @@ can show that it went through the kernels.
 
 ``filters`` arguments are ``(lo, hi)`` tuples of Python floats, already
 scaled by 1/sqrt(2) per stage (``modwt_fused._kernel_filters``).  The
-kernels compute in fp32 and store in the input type (float32 or bfloat16);
-the plain versions compute in float64 for float64 input and in float32
-otherwise.
+first three kernels compute in fp32 and store in the input type (float32 or
+bfloat16); their plain versions compute in float64 for float64 input and in
+float32 otherwise.  The exact pair reads and writes float32 (hi, lo) pairs
+and computes in float64, as do its plain versions.
 """
 
 from __future__ import annotations
@@ -39,13 +43,15 @@ from ..ops.convolve import atrous_analysis_pair, atrous_convolve
 from ._build import library
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
-LAUNCHES = {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0}
+LAUNCHES = {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
+            "modwt_exact_analysis": 0, "modwt_exact_synthesis": 0}
 
 #: Outputs per block, per kernel (the denoise kernel holds J planes of its
 #: tile in shared memory, so its tile is smaller).
 ANALYSIS_TILE = 2048
 SYNTHESIS_TILE = 2048
 DENOISE_TILE = 1024
+EXACT_TILE = 2048
 #: Dynamic shared memory one block may use on Hopper (227 KB).
 SHARED_LIMIT = 232448
 
@@ -108,6 +114,22 @@ def denoise_shared_bytes(taps: int, levels: int, tile: int = DENOISE_TILE) -> in
     return 4 * (4 * taps + 2 * (tile + 2 * span) + levels * (tile + span))
 
 
+def exact_analysis_shared_bytes(taps: int, levels: int, tile: int = EXACT_TILE,
+                                first_level: int = 1) -> int:
+    """Shared memory of one exact analysis block: fp64 taps + two rows of
+    tile + span, for the levels first_level .. first_level + levels - 1."""
+    span = composite_halo_samples(taps, levels) << (first_level - 1)
+    return 8 * (2 * taps + 2 * (tile + span))
+
+
+def exact_synthesis_shared_bytes(taps: int, levels: int, tile: int = EXACT_TILE,
+                                 first_level: int = 1) -> int:
+    """Shared memory of one exact synthesis block: fp64 taps + three rows of
+    tile + span."""
+    span = composite_halo_samples(taps, levels) << (first_level - 1)
+    return 8 * (2 * taps + 3 * (tile + span))
+
+
 def kernels_fit(taps: int, levels: int) -> bool:
     """Whether all three kernels fit one block's shared memory at their tile
     (the H100 counterpart of the JAX router's halo/VMEM check)."""
@@ -129,12 +151,13 @@ def _boundary(periodic: bool) -> str:
     return "periodic" if periodic else "zero"
 
 
-def _analysis_cascade(x, levels, filters, periodic) -> list[torch.Tensor]:
-    """[d_1, ..., d_J, a_J] in the compute dtype, unrounded."""
+def _analysis_cascade(x, levels, filters, periodic, first_level=1) -> list[torch.Tensor]:
+    """[d_1, ..., d_J, a_J] in the compute dtype, unrounded (the cascade may
+    start at ``first_level``, stride 2^(first_level-1))."""
     lo, hi = filters
     cur = x.to(_compute_dtype(x))
     planes = []
-    for level in range(1, levels + 1):
+    for level in range(first_level, first_level + levels):
         cur, detail = atrous_analysis_pair(
             cur, lo, hi, spacing=1 << (level - 1), boundary=_boundary(periodic)
         )
@@ -143,16 +166,16 @@ def _analysis_cascade(x, levels, filters, periodic) -> list[torch.Tensor]:
     return planes
 
 
-def _synthesis_cascade(planes, levels, filters, periodic) -> torch.Tensor:
+def _synthesis_cascade(planes, levels, filters, periodic, first_level=1) -> torch.Tensor:
     lo, hi = filters
     cd = _compute_dtype(planes[-1])
     cur = planes[levels].to(cd)
-    for level in range(levels, 0, -1):
-        spacing = 1 << (level - 1)
+    for i in range(levels - 1, -1, -1):
+        spacing = 1 << (first_level - 1 + i)
         cur = atrous_convolve(
             cur, lo, spacing=spacing, boundary=_boundary(periodic), sign=+1
         ) + atrous_convolve(
-            planes[level - 1].to(cd), hi, spacing=spacing,
+            planes[i].to(cd), hi, spacing=spacing,
             boundary=_boundary(periodic), sign=+1,
         )
     return cur
@@ -166,6 +189,30 @@ def analysis_plain(x, levels, filters, periodic) -> tuple[torch.Tensor, ...]:
 def synthesis_plain(planes, levels, filters, periodic) -> torch.Tensor:
     """Plain version of :func:`synthesis`."""
     return _synthesis_cascade(planes, levels, filters, periodic).to(planes[0].dtype)
+
+
+def _combine(hi: torch.Tensor, lo: torch.Tensor | None) -> torch.Tensor:
+    v = hi.to(torch.float64)
+    return v if lo is None else v + lo.to(torch.float64)
+
+
+def _split_pair(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float64 -> float32 (hi, lo): hi the rounded value, lo the rounded rest."""
+    hi = v.to(torch.float32)
+    return hi, (v - hi.to(torch.float64)).to(torch.float32)
+
+
+def exact_analysis_plain(x, x_lo, levels, filters, periodic, first_level=1):
+    """Plain version of :func:`exact_analysis`: the float64 cascade of
+    hi + lo, each plane split into a float32 pair."""
+    planes = _analysis_cascade(_combine(x, x_lo), levels, filters, periodic, first_level)
+    return tuple(_split_pair(p) for p in planes)
+
+
+def exact_synthesis_plain(pairs, levels, filters, periodic, first_level=1):
+    """Plain version of :func:`exact_synthesis`."""
+    planes = [_combine(hi, lo) for hi, lo in pairs]
+    return _split_pair(_synthesis_cascade(planes, levels, filters, periodic, first_level))
 
 
 def _shrink(d: torch.Tensor, t: torch.Tensor, mode: str) -> torch.Tensor:
@@ -190,13 +237,22 @@ def denoise_plain(x, thresholds, levels, filters_dec, filters_rec, periodic, mod
 # --- kernel launches ---------------------------------------------------------------
 
 
-def _tile(bytes_fn, taps: int, levels: int, preferred: int) -> int:
-    """The preferred tile, halved until the block fits shared memory."""
+def _fitting_tile(bytes_of_tile, preferred: int) -> int | None:
+    """The preferred tile, halved until the block fits shared memory (None
+    below 128)."""
     tile = preferred
     while tile >= 128:
-        if bytes_fn(taps, levels, tile) <= SHARED_LIMIT:
+        if bytes_of_tile(tile) <= SHARED_LIMIT:
             return tile
         tile //= 2
+    return None
+
+
+def _tile(bytes_fn, taps: int, levels: int, preferred: int) -> int:
+    """The preferred tile, halved until the block fits shared memory."""
+    tile = _fitting_tile(lambda t: bytes_fn(taps, levels, t), preferred)
+    if tile is not None:
+        return tile
     raise InvalidArgumentError(
         ErrorCode.VAL_TOO_LARGE,
         "The cascade halo does not fit the kernel's shared memory",
@@ -242,8 +298,9 @@ def _check_levels(levels: int) -> None:
 
 
 @functools.lru_cache(maxsize=64)
-def _device_taps(taps: tuple[float, ...], device_index: int) -> torch.Tensor:
-    return torch.tensor(taps, dtype=torch.float32, device=f"cuda:{device_index}")
+def _device_taps(taps: tuple[float, ...], device_index: int,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return torch.tensor(taps, dtype=dtype, device=f"cuda:{device_index}")
 
 
 def _raise_on_error(err: int, kernel: str) -> None:
@@ -365,3 +422,139 @@ def denoise(x, thresholds, levels, filters_dec, filters_rec, periodic, mode):
     _raise_on_error(err, "modwt_denoise")
     LAUNCHES["modwt_denoise"] += 1
     return out
+
+
+# --- the exact tier -------------------------------------------------------------
+
+
+def _refuse_grad(*tensors) -> None:
+    """The exact tier has no gradient (the JAX package defines none): an
+    input that requires grad under grad mode raises on every device."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            "The exact tier has no gradient: its (hi, lo) planes are not "
+            "differentiable",
+            suggestions=("Run it under torch.no_grad() on a detached input, or "
+                         "differentiate through the float32 tier",),
+        )
+
+
+def exact_launches(bytes_fn, taps: int, levels: int, first_level: int = 1):
+    """Split the levels first_level .. first_level + levels - 1 into kernel
+    launches ``[(first, count, tile, direct), ...]``, fine to coarse.  Each
+    launch takes as many levels as fit one block's shared memory at a tile
+    of at least 128; the next continues from its approximation pair, which
+    adds at most 2^-48 relative.  A level whose halo alone does not fit runs
+    ``direct``: one level, its inputs read from device memory."""
+    plan = []
+    j, end = first_level, first_level + levels
+    while j < end:
+        for count in range(end - j, 0, -1):
+            tile = _fitting_tile(lambda t: bytes_fn(taps, count, t, j), EXACT_TILE)
+            if tile is not None:
+                plan.append((j, count, tile, False))
+                break
+        else:
+            count = 1
+            plan.append((j, count, EXACT_TILE, True))
+        j += count
+    return plan
+
+
+def _check_exact_levels(levels: int, first_level: int) -> None:
+    if levels < 1 or first_level < 1 or first_level + levels - 1 > 10:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_LEVEL,
+            "the exact kernels serve levels 1 to 10",
+            context={"first_level": first_level, "levels": levels},
+        )
+
+
+def _check_pair(hi: torch.Tensor, lo: torch.Tensor | None, what: str, like=None) -> None:
+    like = hi if like is None else like
+    for t, word in ((hi, "hi"), (lo, "lo")):
+        if t is None:
+            continue
+        _check_operand(t, f"{what} {word}", like.device)
+        if t.dtype != torch.float32 or t.shape != like.shape:
+            raise InvalidArgumentError(
+                ErrorCode.VAL_INVALID_SHAPE,
+                f"{what} {word} must be float32 of shape {tuple(like.shape)}",
+                context={"shape": tuple(t.shape), "dtype": t.dtype},
+            )
+
+
+def exact_analysis(x, x_lo, levels, filters, periodic, first_level=1):
+    """[B, N] float32 x (with an optional lo word ``x_lo``) -> ``levels + 1``
+    float32 (hi, lo) pairs (d_first .. d_last, a_last), computed in fp64;
+    periodic or zero boundary, any N.  The cascade starts at ``first_level``
+    (stride 2^(first_level-1))."""
+    _refuse_grad(x, x_lo)
+    if x.device.type == "cpu":
+        return exact_analysis_plain(x, x_lo, levels, filters, periodic, first_level)
+    _check_pair(x, x_lo, "x")
+    _check_exact_levels(levels, first_level)
+    taps = len(filters[0])
+    plan = exact_launches(exact_analysis_shared_bytes, taps, levels, first_level)
+    lib = library()
+    tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), x.device.index,
+                         torch.float64)
+    b, n = x.shape
+    pairs = []
+    cur_hi, cur_lo = x, x_lo
+    for first, count, tile, direct in plan:
+        outs = [torch.empty_like(x) for _ in range(2 * (count + 1))]
+        out_ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+        with torch.cuda.device(x.device):
+            err = lib.vw_modwt_exact_analysis(
+                cur_hi.data_ptr(), None if cur_lo is None else cur_lo.data_ptr(),
+                out_ptrs, tap_t.data_ptr(), b, n, first, count, taps, tile,
+                int(periodic), int(direct), _stream(x.device),
+            )
+        _raise_on_error(err, "modwt_exact_analysis")
+        LAUNCHES["modwt_exact_analysis"] += 1
+        pairs += [(outs[2 * i], outs[2 * i + 1]) for i in range(count)]
+        cur_hi, cur_lo = outs[2 * count], outs[2 * count + 1]
+    return tuple(pairs) + ((cur_hi, cur_lo),)
+
+
+def exact_synthesis(pairs, levels, filters, periodic, first_level=1):
+    """``levels + 1`` float32 (hi, lo) pairs, each [B, N] -> the (hi, lo)
+    reconstruction, computed in fp64; periodic or zero."""
+    _refuse_grad(*(t for pair in pairs for t in pair))
+    if pairs[0][0].device.type == "cpu":
+        return exact_synthesis_plain(pairs, levels, filters, periodic, first_level)
+    if len(pairs) != levels + 1:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            f"expected {levels + 1} plane pairs, got {len(pairs)}",
+        )
+    first_hi = pairs[0][0]
+    for i, (hi, lo) in enumerate(pairs):
+        _check_pair(hi, lo, f"pair {i}", first_hi)
+    _check_exact_levels(levels, first_level)
+    taps = len(filters[0])
+    plan = exact_launches(exact_synthesis_shared_bytes, taps, levels, first_level)
+    lib = library()
+    tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), first_hi.device.index,
+                         torch.float64)
+    b, n = first_hi.shape
+    cur = pairs[levels]
+    for first, count, tile, direct in reversed(plan):
+        start = first - first_level
+        ins = [t for pair in (*pairs[start : start + count], cur) for t in pair]
+        in_ptrs = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
+        out_hi, out_lo = torch.empty_like(first_hi), torch.empty_like(first_hi)
+        with torch.cuda.device(first_hi.device):
+            err = lib.vw_modwt_exact_synthesis(
+                in_ptrs, out_hi.data_ptr(), out_lo.data_ptr(), tap_t.data_ptr(), b, n,
+                first, count, taps, tile, int(periodic), int(direct),
+                _stream(first_hi.device),
+            )
+        _raise_on_error(err, "modwt_exact_synthesis")
+        LAUNCHES["modwt_exact_synthesis"] += 1
+        cur = (out_hi, out_lo)
+    return cur

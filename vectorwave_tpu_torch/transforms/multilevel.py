@@ -12,10 +12,15 @@ runs the plain PyTorch cascade below.  ``backend='torch'`` forces the plain
 path, ``backend='kernel'`` the kernel tier (whose wrappers run their plain
 versions on CPU tensors).
 
-Not yet ported, each with an explicit error: the exact tier (the
-``ExactMODWTResult`` double-float planes), and the symmetric kernel tier (a
-symmetric boundary on a CUDA tensor takes the plain cascade under
-``auto``; ``backend='kernel'`` raises).
+The exact tier (``precision='exact'``, or a tolerance below 3e-6, on float32
+or bfloat16 input) returns an :class:`ExactMODWTResult` of double-float
+(hi, lo) planes from the fp64 exact kernels (:mod:`..kernels.modwt_exact`),
+whatever ``backend`` says; float64 input takes the plain float64 cascade,
+which is exact-grade already.
+
+Not yet ported, with an explicit error: the symmetric kernel tier (a
+symmetric boundary on a CUDA tensor takes the plain cascade under ``auto``;
+``backend='kernel'`` raises).
 """
 
 from __future__ import annotations
@@ -81,6 +86,30 @@ class MultiLevelMODWTResult(NamedTuple):
         return stacked / stacked.sum(dim=-1, keepdim=True)
 
 
+class ExactMODWTResult(NamedTuple):
+    """Exact-tier multi-level result: every plane is a double-float pair.
+
+    ``details``/``approx`` are the float32 leading words, usable wherever a
+    :class:`MultiLevelMODWTResult` is; ``details_lo``/``approx_lo`` carry the
+    trailing words (about 48 effective bits combined).  Combine ``hi + lo``
+    in float64 for a full-precision reading; feed the whole result back to
+    :func:`imodwt_multilevel` for the <=1e-10 round trip.
+    """
+
+    details: tuple[torch.Tensor, ...]
+    approx: torch.Tensor
+    details_lo: tuple[torch.Tensor, ...]
+    approx_lo: torch.Tensor
+
+    @property
+    def levels(self) -> int:
+        return len(self.details)
+
+    @property
+    def signal_length(self) -> int:
+        return self.approx.shape[-1]
+
+
 #: Requested max |error| -> cheapest precision tier that meets it (the JAX
 #: package's ladder; thresholds are ladder boundaries, not error claims).
 _TOLERANCE_LADDER = ((3e-2, "bf16"), (1e-4, "bf16_3x"), (3e-6, "float32"))
@@ -117,14 +146,10 @@ def _resolve_tier(tolerance, precision) -> str | None:
     return None
 
 
-def _exact_tier_not_ported() -> InvalidArgumentError:
-    return InvalidArgumentError(
-        ErrorCode.CFG_INVALID_CONFIG,
-        "The exact tier (precision='exact', or a tolerance below 3e-6) is not "
-        "yet ported to vectorwave_tpu_torch",
-        suggestions=("Pass float64 input (the plain float64 cascade is "
-                     "exact-grade), or a tolerance >= 3e-6",),
-    )
+def _exact_profile(tolerance) -> str:
+    """Tolerances under 5e-11 select the JAX package's ``full`` profile,
+    anything else ``balanced`` (a no-op choice on the fp64 kernels)."""
+    return "full" if tolerance is not None and tolerance < 5e-11 else "balanced"
 
 
 def max_levels(signal_length: int, wavelet) -> int:
@@ -220,9 +245,11 @@ def modwt_multilevel(
 
     ``tolerance=`` requests a max-error budget and routes the precision tier
     (:func:`resolve_tolerance`); ``precision=`` picks one explicitly
-    (``bf16 | bf16_3x | float32``).  The exact tier is not yet ported: it
-    raises for float32/bfloat16 input, and float64 input takes the plain
-    float64 cascade, which is exact-grade already.
+    (``bf16 | bf16_3x | float32 | exact``).  The ``exact`` tier returns an
+    :class:`ExactMODWTResult` (double-float planes from the fp64 exact
+    kernels) whose round trip through :func:`imodwt_multilevel` stays
+    within 1e-10; float64 input takes the plain float64 cascade instead,
+    which is exact-grade already.
     """
     w = _resolve_discrete(wavelet)
     _validate_signal(x)
@@ -238,10 +265,25 @@ def modwt_multilevel(
     _check_level_fits(w, levels, n)
 
     tier = _resolve_tier(tolerance, precision)
-    if tier == "exact":
-        if x.dtype != torch.float64:
-            raise _exact_tier_not_ported()
+    if tier == "exact" and x.dtype == torch.float64:
         tier = None  # the float64 plain path is already exact-grade
+    if tier == "exact":
+        from ..kernels.modwt_exact import modwt_multilevel_exact
+
+        lead = x.shape[:-1]
+        flat = x.reshape(-1, n) if x.dim() > 2 else x
+        dpairs, apair = modwt_multilevel_exact(
+            flat.to(torch.float32), w, levels=levels, boundary=boundary,
+            profile=_exact_profile(tolerance),
+        )
+        if x.dim() > 2:
+            dpairs = tuple((hi.reshape(lead + (n,)), lo.reshape(lead + (n,)))
+                           for hi, lo in dpairs)
+            apair = tuple(p.reshape(lead + (n,)) for p in apair)
+        return ExactMODWTResult(
+            tuple(hi for hi, _ in dpairs), apair[0],
+            tuple(lo for _, lo in dpairs), apair[1],
+        )
 
     use_kernel = _resolve_backend(
         backend, lambda: _kernel_eligible(x, w, levels, boundary)
@@ -362,13 +404,27 @@ def imodwt_multilevel(
     precision: str | None = None,
 ) -> torch.Tensor:
     """Multi-level MODWT reconstruction, coarsest to finest.  Routes through
-    the CUDA synthesis kernel like :func:`modwt_multilevel`."""
+    the CUDA synthesis kernel like :func:`modwt_multilevel`.
+
+    An :class:`ExactMODWTResult` goes through the exact synthesis kernel,
+    whatever ``backend`` says, and comes back as the float32 hi word: the
+    correctly rounded reconstruction, within 1e-10 of the float32 input of
+    the analysis (in practice equal to it).
+    """
     w = _resolve_discrete(wavelet)
     tier = _resolve_tier(tolerance, precision)
+    if isinstance(result, ExactMODWTResult):
+        return _imodwt_exact(result, w, boundary, tolerance)
     if tier == "exact":
         if result.approx.dtype != torch.float64:
-            raise _exact_tier_not_ported()
-        tier = None
+            raise InvalidArgumentError(
+                ErrorCode.CFG_INVALID_CONFIG,
+                "tolerance/precision requests the exact tier, but this result "
+                "carries plain float32 planes (the analysis already rounded them)",
+                suggestions=("Run modwt_multilevel with the same tolerance=/"
+                             "precision= so it returns an ExactMODWTResult",),
+            )
+        tier = None  # the float64 plain path below is exact-grade
     use_kernel = _resolve_backend(
         backend,
         lambda: _kernel_eligible(result.approx, w, result.levels, boundary),
@@ -410,3 +466,31 @@ def imodwt_multilevel(
             )
         current = rec_a + rec_d
     return current
+
+
+def _imodwt_exact(result: ExactMODWTResult, w: DiscreteWavelet, boundary: str,
+                  tolerance) -> torch.Tensor:
+    from ..kernels.modwt_exact import imodwt_multilevel_exact
+
+    if boundary.lower().startswith("sym"):
+        raise InvalidArgumentError(
+            ErrorCode.CFG_UNSUPPORTED_BOUNDARY,
+            "The exact tier has no symmetric inverse: the alignment-shifted "
+            "symmetric inverse is a boundary approximation by design",
+            suggestions=("Use periodic/zero boundaries for the exact round trip, "
+                         "or the default tiers for a symmetric inverse",),
+        )
+    n = result.approx.shape[-1]
+    lead = result.approx.shape[:-1]
+    flatten = result.approx.dim() > 2
+
+    def flat(p):
+        return p.reshape(-1, n) if flatten else p
+
+    dpairs = tuple((flat(hi), flat(lo)) for hi, lo in zip(result.details, result.details_lo))
+    hi, _lo = imodwt_multilevel_exact(
+        dpairs, (flat(result.approx), flat(result.approx_lo)), w, boundary=boundary,
+        profile=_exact_profile(tolerance),
+    )
+    # hi == fl(hi + lo): the correctly rounded float32 reconstruction
+    return hi.reshape(lead + (n,)) if flatten else hi
