@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 0. device: print ``nvidia-smi``'s name and power limit; stop if
    ``torch.cuda.is_available()`` is false;
-1. build: compile the five CUDA kernels from ``vectorwave_tpu_torch/kernels/csrc``
+1. build: compile the CUDA kernels from ``vectorwave_tpu_torch/kernels/csrc``
    (one nvcc per source, all started together);
 2. kernels against their plain PyTorch versions on the card (db4, 6 levels):
    analysis, synthesis and denoise (none/soft/hard) at 128x65536 periodic,
@@ -17,7 +17,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    exact fp64 analysis and synthesis at the same three shapes, with a lo
    word, from a first level above 1, with the levels split over two
    launches (sym8, 10 levels), and with levels too deep for shared memory
-   read straight from device memory (db38, 9 levels);
+   read straight from device memory (db38, 9 levels); the symmetric
+   synthesis kernel (forward and adjoint) and the analysis kernel with a
+   head splice, at db4 J=6 and sym8 J=4 128x65536, db4 J=6 3x5000, haar J=4,
+   a long filter that needs a smaller tile (db36 J=8), and once in bfloat16;
 3. the main path through the public entry points at 128x65536 float32:
    ``modwt_multilevel`` -> ``imodwt_multilevel`` at every precision tier,
    ``modwt_roundtrip_fused`` and ``denoise_multilevel``, with the launch
@@ -27,9 +30,20 @@ Phases, in order; any failure raises and the exit code is not 0:
    reset and reading of the counters: ``precision='exact'`` and
    ``tolerance=1e-10`` round trips (RMSE of hi + lo against x <= 1e-10), the
    exact symmetric analysis against the float64 plain cascade on the CPU,
-   and an input that requires grad, which must raise;
+   and an input that requires grad, which must raise; then the symmetric
+   path, with its own reset and reading of the counters: the db4 J=6
+   symmetric round trip at 128x65536 (exactly one analysis and one
+   symmetric synthesis launch) against the plain cascade on the card,
+   ``swt_denoise`` sym8 J=4 soft universal at 128x65536 and 1x16384 against
+   the plain path, the symmetric gradients of both directions against plain
+   autograd (their backward launches the synthesis kernel and the adjoint),
+   and a short input against the float64 plain cascade on the CPU;
 4. timing with CUDA events (3 warm-ups, median of 20 runs) of each kernel
-   beside its plain version and of the public entry points.
+   beside its plain version and one PyTorch library call that computes the
+   same function (``F.conv1d`` with the composite filters; not for the
+   denoise), with the least time the card could take (bytes over 3.35 TB/s
+   or operations over the peak rate, the larger), and of the public entry
+   points.
 
 The last two lines are a JSON object with one entry per kernel and the
 device line ``{"ok": true, "device": {...}}``.
@@ -45,6 +59,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 BATCH, N, LEVELS, WAVELET = 128, 65536, 6, "db4"
@@ -62,6 +77,12 @@ TOL_EXACT = 1e-13
 #: the exact tier's round trip (BASELINE.json's parity bar), and its
 #: symmetric analysis against the float64 plain cascade.
 EXACT_RMSE, EXACT_SYM = 1e-10, 1e-12
+#: swt_denoise, kernel path against plain path: soft shrinkage is continuous,
+#: so thresholds a few ulps apart move the output by a few ulps of its scale.
+TOL_SWT = 1e-4
+#: the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s and
+#: fp32 / fp64 FLOP/s outside the tensor cores, an FMA counted as 2 FLOP.
+HBM_BPS, FP32_FLOPS, FP64_FLOPS = 3.35e12, 67e12, 34e12
 
 KERNELS = {
     "modwt_analysis": (
@@ -84,9 +105,19 @@ KERNELS = {
         "vectorwave_tpu_torch/kernels/csrc/modwt_exact_synthesis.cu",
         "vectorwave_tpu/kernels/modwt_exact.py:386",
     ),
+    "modwt_symmetric_synthesis": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt_symmetric_synthesis.cu",
+        "vectorwave_tpu/kernels/modwt_symmetric.py:261",
+    ),
+    "modwt_symmetric_adjoint": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt_symmetric_synthesis.cu",
+        "vectorwave_tpu/kernels/modwt_symmetric.py:186",
+    ),
 }
 MAIN_PATH = ("modwt_analysis", "modwt_synthesis", "modwt_denoise")
 EXACT_PATH = ("modwt_exact_analysis", "modwt_exact_synthesis")
+SYMMETRIC_PATH = ("modwt_analysis", "modwt_symmetric_synthesis", "modwt_symmetric_adjoint")
+BF16_ROWS = MAIN_PATH + ("modwt_symmetric_synthesis", "modwt_symmetric_adjoint")
 
 
 class SmokeFailure(RuntimeError):
@@ -139,13 +170,40 @@ def gap_thresholds(planes, levels):
 
 
 def max_err(a, b) -> float:
-    return (a.float() - b.float()).abs().max().item()
+    return (a.double() - b.double()).abs().max().item()
 
 
 def pair_err(got, want) -> float:
     """Max |hi + lo - (hi' + lo')| over plane pairs, combined in float64."""
     return max((g[0].double() + g[1].double() - w[0].double() - w[1].double())
                .abs().max().item() for g, w in zip(got, want))
+
+
+def composite_bank(filters, levels, device, dtype):
+    """The [J+1, span+1] causal composite filters, reversed for conv1d (a
+    correlation), as one tensor."""
+    import numpy as np
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+
+    comps = mc.composite_plane_filters(np.array(filters[0]), np.array(filters[1]), levels)
+    k = max(len(c) for c in comps)
+    bank = np.zeros((len(comps), k))
+    for i, c in enumerate(comps):
+        bank[i, k - len(c):] = c[::-1]
+    return torch.tensor(bank, dtype=dtype, device=device)
+
+
+def symmetric_bank(filters, ops, device):
+    """The rebased composed symmetric filters [J+1, K] (zero-padded to one
+    length) and G: out[t] = sum_p sum_tau f'_p[tau] plane_p[t + tau - G]."""
+    from vectorwave_tpu_torch.kernels.modwt_symmetric import _rebase, plane_filters
+
+    dense, g, d_max = _rebase(plane_filters(filters, ops))
+    k = max(len(f) for f in dense)
+    bank = torch.zeros(len(dense), k, device=device)
+    for i, f in enumerate(dense):
+        bank[i, : len(f)] = torch.tensor(f, device=device)
+    return bank, g, d_max
 
 
 def main() -> int:
@@ -158,6 +216,7 @@ def main() -> int:
     from vectorwave_tpu_torch.denoise.denoiser import _fused_sigma
     from vectorwave_tpu_torch.kernels import _build
     from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels import modwt_symmetric as ms
     from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
     from vectorwave_tpu_torch.ops.thresholds import universal_threshold
 
@@ -252,6 +311,56 @@ def main() -> int:
             check(err <= TOL_EXACT and launched[kname] >= 1,
                   f"{kname} {label}: max |kernel - plain| {err:.3e} <= {TOL_EXACT:.0e} "
                   f"({launched[kname]} launches)")
+
+    # the symmetric kernel pair and the analysis head splice:
+    # (wavelet, levels, batch, n, dtype); planes from an analysis of x, so the
+    # outputs are of the order of x
+    sym_cases = [
+        (WAVELET, LEVELS, BATCH, N, torch.float32),
+        ("sym8", 4, BATCH, N, torch.float32),
+        (WAVELET, LEVELS, 3, 5000, torch.float32),
+        ("haar", 4, 2, 4096, torch.float32),
+        ("db36", 8, 2, N, torch.float32),  # windows too wide for a 2048 tile
+        (WAVELET, LEVELS, BATCH, N, torch.bfloat16),
+    ]
+    for name, levels, b, n, dtype in sym_cases:
+        ws = vt.wavelet(name)
+        sd, sr = _kernel_filters(ws, synthesis=False), _kernel_filters(ws, synthesis=True)
+        ops = ms.symmetric_level_ops(ws, levels)
+        x = torch.randn(b, n, device=dev, generator=gen).to(dtype)
+        cut = min(mc.composite_halo_samples(ws.filter_length, levels), n)
+        head = torch.stack(ms._symmetric_cascade(x[:, :cut].float(), sd, levels)).contiguous()
+        planes = mc.analysis_plain(x, levels, sd, False, head)
+        span_l, span_r, _, _ = ms.synthesis_windows(ws.filter_length, ops)
+        hd = torch.randn(b, span_l, device=dev, generator=gen)
+        tl = torch.randn(b, span_r, device=dev, generator=gen)
+        c = torch.randn(b, n, device=dev, generator=gen).to(dtype)
+        label = (f"{name} J={levels} {b}x{n} {str(dtype)[6:]} (tiles "
+                 f"{mc.symmetric_tile(ws.filter_length, ops, False)}/"
+                 f"{mc.symmetric_tile(ws.filter_length, ops, True)})")
+        results = [
+            ("modwt_analysis", " with head splice",
+             mc.analysis(x, levels, sd, False, head), planes),
+            ("modwt_symmetric_synthesis", "",
+             mc.symmetric_synthesis(planes, hd, tl, levels, sr, ops),
+             mc.symmetric_synthesis_plain(planes, hd, tl, levels, sr, ops)),
+            ("modwt_symmetric_adjoint", "",
+             mc.symmetric_adjoint(c, levels, sr, ops),
+             mc.symmetric_adjoint_plain(c, levels, sr, ops)),
+        ]
+        torch.cuda.synchronize()
+        for kname, tag, got, want in results:
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(max_err(g, p) for g, p in zip(got, want))
+            if dtype == torch.float32:
+                tol = TOL_F32
+                worst[kname] = max(worst[kname], err)
+            else:
+                tol = BF16_ULP * max(p.float().abs().max().item() for p in want)
+                worst_bf16[kname] = max(worst_bf16[kname], err)
+            check(err <= tol, f"{kname}{tag} {label}: max |kernel - plain| "
+                              f"{err:.3e} <= {tol:.3e}")
 
     print(f"phase 3: main path through the public entry points, "
           f"{BATCH}x{N} float32", flush=True)
@@ -351,53 +460,180 @@ def main() -> int:
         refused = True
     check(refused, "an exact request on an input that requires grad raises")
 
+    print(f"  the symmetric path, {BATCH}x{N} float32", flush=True)
+    mc.reset_launches()
+    res = vt.modwt_multilevel(x, WAVELET, levels=LEVELS, boundary="symmetric")
+    y = vt.imodwt_multilevel(res, WAVELET, boundary="symmetric")
+    torch.cuda.synchronize()
+    rt_launches = {k: v for k, v in mc.LAUNCHES.items() if v}
+    check(rt_launches == {"modwt_analysis": 1, "modwt_symmetric_synthesis": 1},
+          f"symmetric round trip launches {rt_launches}")
+    ref = vt.modwt_multilevel(x, WAVELET, levels=LEVELS, boundary="symmetric",
+                              backend="torch")
+    y_ref = vt.imodwt_multilevel(ref, WAVELET, boundary="symmetric", backend="torch")
+    err = max(max_err(a, b) for a, b in zip((*res.details, res.approx),
+                                            (*ref.details, ref.approx)))
+    check(err <= TOL_F32, f"symmetric analysis vs plain cascade: {err:.3e}")
+    check(max_err(y, y_ref) <= TOL_F32,
+          f"symmetric synthesis vs plain cascade: {max_err(y, y_ref):.3e}")
+    for b, n in ((BATCH, N), (1, 16384)):
+        xs = noisy[:b, :n].contiguous()
+        got = vt.swt_denoise(xs, "sym8", levels=4, boundary="symmetric")
+        vt.set_backend("torch")
+        try:
+            want = vt.swt_denoise(xs, "sym8", levels=4, boundary="symmetric")
+        finally:
+            vt.set_backend("auto")
+        check(got.shape == xs.shape and bool(torch.isfinite(got).all())
+              and max_err(got, want) <= TOL_SWT,
+              f"swt_denoise sym8 J=4 symmetric {b}x{n} vs plain path: "
+              f"{max_err(got, want):.3e} <= {TOL_SWT:.0e}")
+    xg = x.clone().requires_grad_(True)
+    grads = []
+    for backend in ("kernel", "torch"):
+        r = vt.modwt_multilevel(xg, WAVELET, levels=LEVELS, boundary="symmetric",
+                                backend=backend)
+        loss = sum((p * wt).sum() for p, wt in zip((*r.details, r.approx), weights))
+        grads.append(torch.autograd.grad(loss, xg)[0])
+    check(max_err(*grads) <= TOL_F32,
+          f"symmetric analysis gradient, kernel vs plain autograd: {max_err(*grads):.3e}")
+    planes = [p.detach().clone().requires_grad_(True) for p in (*ref.details, ref.approx)]
+    grads = []
+    for backend in ("kernel", "torch"):
+        yy = vt.imodwt_multilevel(
+            vt.MultiLevelMODWTResult(tuple(planes[:LEVELS]), planes[LEVELS]),
+            WAVELET, boundary="symmetric", backend=backend)
+        grads.append(torch.autograd.grad((yy * weights[0]).sum(), planes))
+    err = max(max_err(a, b) for a, b in zip(*grads))
+    check(err <= TOL_F32, f"symmetric synthesis gradient, kernel vs plain autograd: "
+                          f"{err:.3e}")
+    got = vt.modwt_multilevel(small, WAVELET, levels=LEVELS, boundary="symmetric",
+                              backend="kernel")
+    ref = vt.modwt_multilevel(small.cpu().double(), WAVELET, levels=LEVELS,
+                              boundary="symmetric", backend="torch")
+    err = max(max_err(g.cpu().double(), r) for g, r in
+              zip((*got.details, got.approx), (*ref.details, ref.approx)))
+    y_got = vt.imodwt_multilevel(got, WAVELET, boundary="symmetric", backend="kernel")
+    y_ref = vt.imodwt_multilevel(
+        vt.MultiLevelMODWTResult(tuple(g.cpu().double() for g in got.details),
+                                 got.approx.cpu().double()),
+        WAVELET, boundary="symmetric", backend="torch")
+    err_y = max_err(y_got.cpu().double(), y_ref)
+    check(err <= TOL_F32 and err_y <= TOL_F32,
+          f"4x8192 symmetric kernels vs float64 CPU cascade: analysis {err:.3e}, "
+          f"synthesis {err_y:.3e}")
+    torch.cuda.synchronize()
+    sym_launches = dict(mc.LAUNCHES)
+    print(f"  launches during the symmetric path: {sym_launches}", flush=True)
+    for name in SYMMETRIC_PATH + ("modwt_synthesis",):
+        check(sym_launches[name] > 0, f"{name} launched {sym_launches[name]} times "
+                                      "in the symmetric path")
+    for name in KERNELS:
+        launches[name] = launches.get(name, 0) + (
+            sym_launches[name] if name in SYMMETRIC_PATH else 0)
+
     print("phase 4: timing (CUDA events, 3 warm-ups, median of 20)", flush=True)
     print(smi, flush=True)
     samples = BATCH * N
     planes = mc.analysis(x, LEVELS, fd, True)
     th = torch.full((BATCH, LEVELS), 0.1, device=dev)
+    pairs = mc.exact_analysis(x, None, LEVELS, fd, True)
+    ops = ms.symmetric_level_ops(w, LEVELS)
+    span_l, span_r, _, _ = ms.synthesis_windows(w.filter_length, ops)
+    sym_res = vt.modwt_multilevel(x, WAVELET, levels=LEVELS, boundary="symmetric")
+    sym_planes = (*sym_res.details, sym_res.approx)
+    noisy_16k = noisy[:1, :16384].contiguous()
+    hd, tl = torch.zeros(BATCH, span_l, device=dev), torch.zeros(BATCH, span_r, device=dev)
+    c = torch.randn(BATCH, N, device=dev, generator=gen)
+    span = mc.composite_halo_samples(w.filter_length, LEVELS)
+    bank_d = composite_bank(fd, LEVELS, dev, torch.float32)
+    bank_r = composite_bank(fr, LEVELS, dev, torch.float32).flip(-1)
+    sbank, g_sym, d_sym = symmetric_bank(fr, ops, dev)
+    stacked = torch.stack(planes, dim=1)
+    sym_stacked = torch.stack(sym_planes, dim=1)
+    x64, stacked64 = x.double()[:, None], stacked.double()
     timed = {
-        "modwt_analysis": (lambda: mc.analysis(x, LEVELS, fd, True),
-                           lambda: mc.analysis_plain(x, LEVELS, fd, True)),
-        "modwt_synthesis": (lambda: mc.synthesis(planes, LEVELS, fr, True),
-                            lambda: mc.synthesis_plain(planes, LEVELS, fr, True)),
-        "modwt_denoise": (lambda: mc.denoise(x, th, LEVELS, fd, fr, True, "soft"),
-                          lambda: mc.denoise_plain(x, th, LEVELS, fd, fr, True, "soft")),
+        "modwt_analysis": (
+            lambda: mc.analysis(x, LEVELS, fd, True),
+            lambda: mc.analysis_plain(x, LEVELS, fd, True),
+            lambda: F.conv1d(F.pad(x[:, None], (span, 0), mode="circular"), bank_d[:, None])),
+        "modwt_synthesis": (
+            lambda: mc.synthesis(planes, LEVELS, fr, True),
+            lambda: mc.synthesis_plain(planes, LEVELS, fr, True),
+            lambda: F.conv1d(F.pad(stacked, (0, span), mode="circular"), bank_r[None])),
+        "modwt_denoise": (
+            lambda: mc.denoise(x, th, LEVELS, fd, fr, True, "soft"),
+            lambda: mc.denoise_plain(x, th, LEVELS, fd, fr, True, "soft"),
+            None),
         "modwt_exact_analysis": (
             lambda: mc.exact_analysis(x, None, LEVELS, fd, True),
-            lambda: mc.exact_analysis_plain(x, None, LEVELS, fd, True)),
+            lambda: mc.exact_analysis_plain(x, None, LEVELS, fd, True),
+            lambda: F.conv1d(F.pad(x64, (span, 0), mode="circular"), bank_d.double()[:, None])),
         "modwt_exact_synthesis": (
             lambda: mc.exact_synthesis(pairs, LEVELS, fr, True),
-            lambda: mc.exact_synthesis_plain(pairs, LEVELS, fr, True)),
+            lambda: mc.exact_synthesis_plain(pairs, LEVELS, fr, True),
+            lambda: F.conv1d(F.pad(stacked64, (0, span), mode="circular"),
+                             bank_r.double()[None])),
+        "modwt_symmetric_synthesis": (
+            lambda: mc.symmetric_synthesis(sym_planes, hd, tl, LEVELS, fr, ops),
+            lambda: mc.symmetric_synthesis_plain(sym_planes, hd, tl, LEVELS, fr, ops),
+            lambda: F.conv1d(F.pad(sym_stacked, (g_sym, max(d_sym, 0))), sbank[None])),
+        "modwt_symmetric_adjoint": (
+            lambda: mc.symmetric_adjoint(c, LEVELS, fr, ops),
+            lambda: mc.symmetric_adjoint_plain(c, LEVELS, fr, ops),
+            lambda: F.conv1d(F.pad(c[:, None], (sbank.shape[1] - 1 - g_sym, g_sym)),
+                             sbank.flip(-1)[:, None])),
     }
-    pairs = mc.exact_analysis(x, None, LEVELS, fd, True)
-    #: bytes each kernel must move per sample (inputs read once, outputs written once)
-    bytes_per_sample = {"modwt_analysis": 4 * (LEVELS + 2), "modwt_synthesis": 4 * (LEVELS + 2),
-                        "modwt_denoise": 8, "modwt_exact_analysis": 4 + 8 * (LEVELS + 1),
-                        "modwt_exact_synthesis": 8 * (LEVELS + 2)}
-    ms = {}
-    for name, (kernel, plain) in timed.items():
-        ms[name] = (median_ms(kernel), median_ms(plain))
-        print(f"  {name}: kernel {ms[name][0]:.4f} ms "
-              f"({samples / ms[name][0] / 1e3:.1f} Msamples/s, "
-              f"{samples * bytes_per_sample[name] / ms[name][0] / 1e6:.1f} GB/s), plain "
-              f"{ms[name][1]:.4f} ms ({samples / ms[name][1] / 1e3:.1f} Msamples/s)",
-              flush=True)
+    #: bytes each kernel must move (each input read once, each output written
+    #: once) and the FMAs its cascade does, per sample of one 128 x 65536 call
+    plane_bytes = 4 * (LEVELS + 1)
+    taps = w.filter_length
+    per_sample = {  # (bytes, FMAs, FLOP/s of their type)
+        "modwt_analysis": (4 + plane_bytes, 2 * taps * LEVELS, FP32_FLOPS),
+        "modwt_synthesis": (plane_bytes + 4, 2 * taps * LEVELS, FP32_FLOPS),
+        "modwt_denoise": (8, 4 * taps * LEVELS, FP32_FLOPS),
+        "modwt_exact_analysis": (4 + 2 * plane_bytes, 2 * taps * LEVELS, FP64_FLOPS),
+        "modwt_exact_synthesis": (2 * plane_bytes + 8, 2 * taps * LEVELS, FP64_FLOPS),
+        "modwt_symmetric_synthesis": (plane_bytes + 4, 2 * taps * LEVELS, FP32_FLOPS),
+        "modwt_symmetric_adjoint": (4 + plane_bytes, 2 * taps * LEVELS, FP32_FLOPS),
+    }
+    extra_bytes = {"modwt_symmetric_synthesis": 4 * BATCH * (span_l + span_r)}
+    ms_of, bound = {}, {}
+    for name, (kernel, plain, library_call) in timed.items():
+        ms_of[name] = (median_ms(kernel), median_ms(plain),
+                       None if library_call is None else median_ms(library_call))
+        nbytes, fmas, rate = per_sample[name]
+        t_bytes = (samples * nbytes + extra_bytes.get(name, 0)) / HBM_BPS * 1e3
+        t_ops = samples * fmas * 2 / rate * 1e3
+        bound[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        k_ms, p_ms, l_ms = ms_of[name]
+        print(f"  {name}: kernel {k_ms:.4f} ms "
+              f"({samples / k_ms / 1e3:.1f} Msamples/s, "
+              f"{samples * nbytes / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms, library "
+              f"{'-' if l_ms is None else f'{l_ms:.4f} ms'}, bound {bound[name][0]:.4f} ms "
+              f"({bound[name][1]}; {100 * bound[name][0] / k_ms:.1f}% of it)", flush=True)
 
     def public_round_trip(**how):
         return vt.imodwt_multilevel(
             vt.modwt_multilevel(x, WAVELET, levels=LEVELS, **how), WAVELET, **how)
 
-    for label, fn in (
-        ("modwt_multilevel + imodwt_multilevel", public_round_trip),
+    for label, fn, count in (
+        ("modwt_multilevel + imodwt_multilevel", public_round_trip, samples),
         ("modwt_multilevel + imodwt_multilevel, precision='exact'",
-         lambda: public_round_trip(precision="exact")),
-        ("modwt_roundtrip_fused", lambda: vt.modwt_roundtrip_fused(x, WAVELET, levels=LEVELS)),
+         lambda: public_round_trip(precision="exact"), samples),
+        ("modwt_multilevel + imodwt_multilevel, boundary='symmetric'",
+         lambda: public_round_trip(boundary="symmetric"), samples),
+        ("modwt_roundtrip_fused", lambda: vt.modwt_roundtrip_fused(x, WAVELET, levels=LEVELS),
+         samples),
         ("denoise_multilevel universal soft", lambda: vt.denoise_multilevel(
-            noisy, WAVELET, levels=LEVELS, method="universal", mode="soft")),
+            noisy, WAVELET, levels=LEVELS, method="universal", mode="soft"), samples),
+        (f"swt_denoise sym8 J=4 symmetric {BATCH}x{N}", lambda: vt.swt_denoise(
+            noisy, "sym8", levels=4, boundary="symmetric"), samples),
+        ("swt_denoise sym8 J=4 symmetric 1x16384", lambda: vt.swt_denoise(
+            noisy_16k, "sym8", levels=4, boundary="symmetric"), 16384),
     ):
         t_ms = median_ms(fn)
-        print(f"  {label}: {t_ms:.4f} ms ({samples / t_ms / 1e3:.1f} Msamples/s)",
+        print(f"  {label}: {t_ms:.4f} ms ({count / t_ms / 1e3:.1f} Msamples/s)",
               flush=True)
 
     report = {"kernels": [
@@ -408,9 +644,12 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": worst[name],
-            **({"max_abs_err_bf16": worst_bf16[name]} if name in MAIN_PATH else {}),
-            "ms": ms[name][0],
-            "plain_ms": ms[name][1],
+            **({"max_abs_err_bf16": worst_bf16[name]} if name in BF16_ROWS else {}),
+            "ms": ms_of[name][0],
+            "plain_ms": ms_of[name][1],
+            "bound_ms": bound[name][0],
+            "bound_by": bound[name][1],
+            "library_ms": ms_of[name][2],
         }
         for name, (source, replaces) in KERNELS.items()
     ]}

@@ -11,7 +11,8 @@ same fp32 arithmetic in another summation order, values of order 1);
 bfloat16 one bfloat16 ulp of the largest output (both round the same fp32
 values to bfloat16); the exact fp64 kernels against their fp64 plain
 versions 1e-13 on hi + lo (the same fp64 arithmetic, which differs only in
-fused multiply-adds).
+fused multiply-adds); the symmetric pair against its plain versions, which
+sum in float64, 2e-5 in float32 and one bfloat16 ulp in bfloat16.
 """
 
 import pytest
@@ -21,6 +22,7 @@ import vectorwave_tpu_torch as vt
 from chip_smoke import gap_thresholds
 from vectorwave_tpu_torch.errors import InvalidArgumentError
 from vectorwave_tpu_torch.kernels import modwt_composite as mc
+from vectorwave_tpu_torch.kernels import modwt_symmetric as ms
 from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
 
 pytestmark = pytest.mark.cuda
@@ -96,7 +98,8 @@ def test_public_entry_points_launch_the_kernels(cuda):
     torch.cuda.synchronize()
     assert mc.LAUNCHES == {"modwt_analysis": 1, "modwt_synthesis": 1,
                            "modwt_denoise": 2, "modwt_exact_analysis": 0,
-                           "modwt_exact_synthesis": 0}
+                           "modwt_exact_synthesis": 0, "modwt_symmetric_synthesis": 0,
+                           "modwt_symmetric_adjoint": 0}
     assert float((y - x).abs().max()) < 3e-6
     assert float((z - x).abs().max()) < 3e-6
     assert d.shape == x.shape and bool(torch.isfinite(d).all())
@@ -213,7 +216,8 @@ def test_exact_public_entry_points_launch_the_exact_kernels(cuda):
     torch.cuda.synchronize()
     assert isinstance(res, vt.ExactMODWTResult) and res.approx.device == x.device
     assert mc.LAUNCHES == {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
-                           "modwt_exact_analysis": 1, "modwt_exact_synthesis": 2}
+                           "modwt_exact_analysis": 1, "modwt_exact_synthesis": 2,
+                           "modwt_symmetric_synthesis": 0, "modwt_symmetric_adjoint": 0}
     assert torch.equal(y, x)
     assert float((hi.double() + lo.double() - x.double()).pow(2).mean().sqrt()) <= 1e-12
     sym = vt.modwt_multilevel_exact(x, "sym8", levels=4, boundary="symmetric")
@@ -225,3 +229,79 @@ def test_exact_public_entry_points_launch_the_exact_kernels(cuda):
     with pytest.raises(InvalidArgumentError, match="no gradient"):
         vt.modwt_multilevel(x.clone().requires_grad_(True), "db4", levels=3,
                             precision="exact")
+
+
+# (wavelet, levels, batch, n)
+SYMMETRIC_CASES = [("db4", LEVELS, 4, 8192), ("sym8", 4, 3, 5000), ("haar", 4, 2, 4096),
+                   ("db36", 8, 1, 65536)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,levels,b,n", SYMMETRIC_CASES)
+def test_symmetric_kernels_match_plain(cuda, name, levels, b, n, dtype):
+    w = vt.wavelet(name)
+    fd, fr = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+    ops = ms.symmetric_level_ops(w, levels)
+    x = _input(cuda, b, n, dtype, seed=8)
+    cut = min(mc.composite_halo_samples(w.filter_length, levels), n)
+    head = torch.stack(ms._symmetric_cascade(x[:, :cut].float(), fd, levels)).contiguous()
+    mc.reset_launches()
+    planes = mc.analysis(x, levels, fd, False, head)
+    want = mc.analysis_plain(x, levels, fd, False, head)
+    torch.cuda.synchronize()
+    assert _err(planes, want) <= _tol(dtype, want)
+    span_l, span_r = mc.symmetric_spans(w.filter_length, ops)
+    hd = _input(cuda, b, span_l, torch.float32, seed=9)
+    tl = _input(cuda, b, span_r, torch.float32, seed=10)
+    y = mc.symmetric_synthesis(want, hd, tl, levels, fr, ops)
+    y_want = mc.symmetric_synthesis_plain(want, hd, tl, levels, fr, ops)
+    c = _input(cuda, b, n, dtype, seed=11)
+    g = mc.symmetric_adjoint(c, levels, fr, ops)
+    g_want = mc.symmetric_adjoint_plain(c, levels, fr, ops)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and all(p.dtype == dtype for p in g)
+    assert _err((y,), (y_want,)) <= _tol(dtype, (y_want,))
+    assert _err(g, g_want) <= _tol(dtype, g_want)
+    assert (mc.LAUNCHES["modwt_analysis"], mc.LAUNCHES["modwt_symmetric_synthesis"],
+            mc.LAUNCHES["modwt_symmetric_adjoint"]) == (1, 1, 1)
+
+
+def test_symmetric_public_path_launches_the_kernels(cuda):
+    x = _input(cuda, 4, 8192, torch.float32, seed=12)
+    mc.reset_launches()
+    res = vt.modwt_multilevel(x, "db4", levels=LEVELS, boundary="symmetric")
+    y = vt.imodwt_multilevel(res, "db4", boundary="symmetric")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
+        "modwt_analysis": 1, "modwt_symmetric_synthesis": 1}
+    ref = vt.modwt_multilevel(x.cpu().double(), "db4", levels=LEVELS, boundary="symmetric")
+    y_ref = vt.imodwt_multilevel(ref, "db4", boundary="symmetric")
+    assert _err((*res.details, res.approx), tuple(p.to(cuda) for p in (*ref.details,
+                                                                      ref.approx))) <= TOL_F32
+    assert _err((y,), (y_ref.to(cuda),)) <= TOL_F32
+    den = vt.swt_denoise(x, "sym8", levels=4, boundary="symmetric")
+    assert den.shape == x.shape and bool(torch.isfinite(den).all())
+    assert mc.LAUNCHES["modwt_symmetric_synthesis"] == 2
+
+
+def test_symmetric_gradients_match_plain_autograd(cuda):
+    x = _input(cuda, 2, 8192, torch.float32, seed=13)
+    wts = [_input(cuda, 2, 8192, torch.float32, seed=20 + j) for j in range(LEVELS + 1)]
+    grads = []
+    for backend in ("kernel", "torch"):
+        xg = x.clone().requires_grad_(True)
+        res = vt.modwt_multilevel(xg, "db4", levels=LEVELS, boundary="symmetric",
+                                  backend=backend)
+        loss = sum((p * w).sum() for p, w in zip((*res.details, res.approx), wts))
+        grads.append(torch.autograd.grad(loss, xg)[0])
+    assert _err((grads[0],), (grads[1],)) <= TOL_F32
+    planes = [w.clone() for w in wts]
+    grads = []
+    mc.reset_launches()
+    for backend in ("kernel", "torch"):
+        ps = [p.clone().requires_grad_(True) for p in planes]
+        y = vt.imodwt_multilevel(vt.MultiLevelMODWTResult(tuple(ps[:-1]), ps[-1]), "db4",
+                                 boundary="symmetric", backend=backend)
+        grads.append(torch.autograd.grad((y * x).sum(), ps))
+    assert mc.LAUNCHES["modwt_symmetric_adjoint"] == 1
+    assert _err(grads[0], grads[1]) <= TOL_F32

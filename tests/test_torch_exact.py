@@ -134,6 +134,7 @@ def test_jax_planes_through_the_port_inverse(jax_db4):
     res = vt.convert.exact_result_from_arrays(
         [np.asarray(d) for d in want.details], np.asarray(want.approx),
         [np.asarray(d) for d in want.details_lo], np.asarray(want.approx_lo),
+        device="cpu",
     )
     y = vt.imodwt_multilevel(res, "db4")
     assert y.dtype == torch.float32
@@ -276,9 +277,10 @@ def test_exact_tier_refuses_inputs_that_require_grad():
 
 def test_exact_result_from_arrays_checks_shapes():
     a = np.zeros((2, 64), np.float32)
-    res = vt.convert.exact_result_from_arrays([a, a], a, [a, a], a)
+    res = vt.convert.exact_result_from_arrays([a, a], a, [a, a], a, device="cpu")
     assert res.levels == 2 and res.approx_lo.dtype == torch.float32
     with pytest.raises(InvalidArgumentError):
-        vt.convert.exact_result_from_arrays([a, a], a, [a], a)
+        vt.convert.exact_result_from_arrays([a, a], a, [a], a, device="cpu")
     with pytest.raises(InvalidArgumentError):
-        vt.convert.exact_result_from_arrays([a], a, [a], np.zeros((2, 32), np.float32))
+        vt.convert.exact_result_from_arrays([a], a, [a], np.zeros((2, 32), np.float32),
+                                            device="cpu")

@@ -92,14 +92,19 @@ def test_roundtrip_fused_on_cpu_reconstructs():
 
 
 def test_fused_denoise_symmetric_returns_none_and_roundtrip_raises():
+    """No fused symmetric denoise (as in the JAX package): the round trip takes
+    the two-call symmetric path; an unknown boundary raises."""
     x = torch.from_numpy(_x32((2, 4096), seed=5))
     th = torch.zeros(2, 3)
     assert vt.fused_denoise_multilevel(x, "db4", levels=3, thresholds=th,
                                        boundary="symmetric") is None
-    with pytest.raises(InvalidArgumentError, match="symmetric kernel tier"):
-        vt.modwt_roundtrip_fused(x, "db4", levels=3, boundary="symmetric")
-    with pytest.raises(InvalidArgumentError, match="symmetric kernel tier"):
-        vt.fused_analysis(x, "db4", levels=3, boundary="symmetric")
+    y = vt.modwt_roundtrip_fused(x, "db4", levels=3, boundary="symmetric")
+    d, a = vt.fused_analysis(x, "db4", levels=3, boundary="symmetric")
+    assert torch.equal(y, vt.fused_synthesis(d, a, "db4", boundary="symmetric"))
+    with pytest.raises(InvalidArgumentError, match="Unknown boundary"):
+        vt.modwt_roundtrip_fused(x, "db4", levels=3, boundary="mirror")
+    with pytest.raises(InvalidArgumentError, match="Unknown boundary"):
+        vt.fused_analysis(x, "db4", levels=3, boundary="mirror")
 
 
 def test_kernel_tier_rejects_the_exact_precision():
@@ -190,7 +195,7 @@ def test_build_uses_only_repo_sources_and_hopper_flags(monkeypatch, tmp_path):
     sources = [c for _, cmd in units for c in cmd if c.endswith(".cu")]
     assert sorted(p.split("/")[-1] for p in sources) == [
         "modwt_analysis.cu", "modwt_denoise.cu", "modwt_exact_analysis.cu",
-        "modwt_exact_synthesis.cu", "modwt_synthesis.cu"]
+        "modwt_exact_synthesis.cu", "modwt_symmetric_synthesis.cu", "modwt_synthesis.cu"]
     assert all(str(_build.CSRC) in u for u in sources)
     link = _build.link_command([obj for obj, _ in units], tmp_path / "lib.so")
     assert "-shared" in link and link[-len(units):] == [str(obj) for obj, _ in units]

@@ -148,9 +148,20 @@ def test_invalid_arguments_raise():
 
 
 def test_kernel_backend_with_symmetric_boundary_raises():
-    x = torch.randn(2, 4096)
+    """Forced onto the kernel tier, a symmetric call the kernels cannot serve
+    raises: windows too wide for shared memory (db38, 9 levels), or head and
+    tail splice windows that overlap (a short signal)."""
+    from vectorwave_tpu_torch.kernels.modwt_symmetric import (
+        symmetric_level_ops,
+        synthesis_windows,
+    )
+
+    x = torch.randn(2, 20000)
     with pytest.raises(InvalidArgumentError, match="symmetric kernel tier"):
-        vt.modwt_multilevel(x, "db4", levels=3, boundary="symmetric", backend="kernel")
-    res = vt.modwt_multilevel(x, "db4", levels=3, boundary="symmetric")
+        vt.modwt_multilevel(x, "db38", levels=9, boundary="symmetric", backend="kernel")
+    w = vt.wavelet("db4")
+    _, _, w_head, w_tail = synthesis_windows(w.filter_length, symmetric_level_ops(w, 3))
+    res = vt.modwt_multilevel(torch.randn(2, w_head + w_tail - 1), "db4", levels=3,
+                              boundary="symmetric")
     with pytest.raises(InvalidArgumentError, match="symmetric kernel tier"):
         vt.imodwt_multilevel(res, "db4", boundary="symmetric", backend="pallas")

@@ -92,10 +92,11 @@ def test_wavelet_from_arrays_rejects_ragged_filters_and_infers_the_type():
 
 
 def test_thresholds_from_numpy():
-    th = convert.thresholds_from_numpy(np.arange(12, dtype=np.float64).reshape(2, 6))
+    th = convert.thresholds_from_numpy(np.arange(12, dtype=np.float64).reshape(2, 6),
+                                       device="cpu")
     assert th.dtype == torch.float32 and th.shape == (2, 6) and th.is_contiguous()
     with pytest.raises(InvalidArgumentError):
-        convert.thresholds_from_numpy(np.float64(1.0))
+        convert.thresholds_from_numpy(np.float64(1.0), device="cpu")
 
 
 @pytest.mark.parametrize("alias,name", [("jnp", "torch"), ("pallas", "kernel"),

@@ -9,7 +9,10 @@ For the main-path shape (128 x 65536 float32, db4, 6 levels) it times each
 entry point on the host clock (synchronised), traces 10 calls with
 ``torch.profiler``, and prints per call: wall ms, device (kernel) ms, the
 device's busy share of the wall time, the number of kernel launches, and the
-device kernels that take the most time.  Exits non-zero without a CUDA device.
+device kernels that take the most time.  The calls are the periodic round
+trip, the fused round trip, the denoise, the symmetric round trip, and
+``swt_denoise`` (sym8, 4 levels, symmetric, universal soft) at 128 x 65536
+and 1 x 16384.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,12 +44,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(128, 65536, device=dev, generator=gen)
+    x16k = x[:1, :16384].contiguous()
     calls = {
         "modwt_multilevel + imodwt_multilevel": lambda: vt.imodwt_multilevel(
             vt.modwt_multilevel(x, "db4", levels=6), "db4"),
         "modwt_roundtrip_fused": lambda: vt.modwt_roundtrip_fused(x, "db4", levels=6),
         "denoise_multilevel universal soft": lambda: vt.denoise_multilevel(
             x, "db4", levels=6, method="universal", mode="soft"),
+        "modwt_multilevel + imodwt_multilevel, symmetric": lambda: vt.imodwt_multilevel(
+            vt.modwt_multilevel(x, "db4", levels=6, boundary="symmetric"), "db4",
+            boundary="symmetric"),
+        "swt_denoise sym8 J=4 symmetric 128x65536": lambda: vt.swt_denoise(
+            x, "sym8", levels=4, boundary="symmetric"),
+        "swt_denoise sym8 J=4 symmetric 1x16384": lambda: vt.swt_denoise(
+            x16k, "sym8", levels=4, boundary="symmetric"),
     }
     for label, fn in calls.items():
         for _ in range(3):

@@ -1,11 +1,14 @@
 """vectorwave_tpu_torch — the PyTorch/CUDA port of vectorwave_tpu.
 
 What is ported: discrete orthogonal wavelets (haar, db, sym), single- and
-multi-level MODWT, multi-level denoising, the exact precision tier
-(double-float planes, round trips within 1e-10), and the kernel tier behind
-them: five hand-written CUDA kernels for Hopper (multi-level analysis,
-synthesis and fused denoise in fp32; exact analysis and synthesis in fp64)
-with their plain PyTorch versions.
+multi-level MODWT with periodic, zero and symmetric boundaries, the SWT
+facade, the decimated DWT, padding strategies, single- and multi-level
+denoising, the exact precision tier (double-float planes, round trips
+within 1e-10), and the kernel tier behind them: six hand-written CUDA
+kernels for Hopper (multi-level analysis with an optional head splice,
+synthesis, fused denoise and the symmetric synthesis with its adjoint, in
+fp32; exact analysis and synthesis in fp64) with their plain PyTorch
+versions.
 
 The package imports ``torch``, ``numpy`` and ``mpmath`` and never JAX or
 ``vectorwave_tpu``.  Inputs and outputs are ``[..., N]`` tensors; the device
@@ -21,7 +24,7 @@ from .config import (
     set_fused_precision,
     set_sigma_estimator,
 )
-from .denoise.denoiser import denoise_multilevel, threshold_coeffs
+from .denoise.denoiser import denoise, denoise_fixed, denoise_multilevel, threshold_coeffs
 from .errors import (
     ErrorCode,
     InvalidArgumentError,
@@ -42,6 +45,15 @@ from .kernels.modwt_exact import (
     modwt_multilevel_exact,
     modwt_roundtrip_exact,
 )
+from .ops.dwt import (
+    DWTResult,
+    WavedecResult,
+    dwt,
+    idwt,
+    max_dwt_levels,
+    wavedec,
+    waverec,
+)
 from .ops.thresholds import (
     apply_threshold,
     bayes_threshold,
@@ -55,6 +67,8 @@ from .ops.thresholds import (
     sure_threshold,
     universal_threshold,
 )
+from .padding import STRATEGIES as PADDING_STRATEGIES
+from .padding import adaptive_strategy, pad_signal
 from .transforms.modwt import MODWTResult, imodwt, modwt
 from .transforms.multilevel import (
     ExactMODWTResult,
@@ -64,12 +78,23 @@ from .transforms.multilevel import (
     modwt_multilevel,
     resolve_tolerance,
 )
+from .transforms.swt import (
+    SWTResult,
+    apply_universal_threshold,
+    extract_level,
+    iswt,
+    mra,
+    swt,
+    swt_denoise,
+    threshold_level,
+)
 from .wavelets.base import DiscreteWavelet, WaveletType
 from .wavelets.registry import as_wavelet, available_wavelets, wavelet
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "DWTResult",
     "DiscreteWavelet",
     "ErrorCode",
     "ExactMODWTResult",
@@ -79,16 +104,25 @@ __all__ = [
     "InvalidStateError",
     "MODWTResult",
     "MultiLevelMODWTResult",
+    "PADDING_STRATEGIES",
+    "SWTResult",
     "VectorWaveError",
+    "WavedecResult",
     "WaveletType",
+    "adaptive_strategy",
     "apply_threshold",
+    "apply_universal_threshold",
     "as_wavelet",
     "available_wavelets",
     "bayes_threshold",
     "config",
     "convert",
+    "denoise",
+    "denoise_fixed",
     "denoise_multilevel",
+    "dwt",
     "errors",
+    "extract_level",
     "fdr_threshold",
     "fused_analysis",
     "fused_denoise_multilevel",
@@ -97,12 +131,15 @@ __all__ = [
     "get_fused_precision",
     "get_sigma_estimator",
     "hard_threshold",
+    "idwt",
     "imodwt",
     "imodwt_multilevel",
     "imodwt_multilevel_exact",
+    "iswt",
     "kernel_available",
     "kernels",
     "mad_sigma",
+    "max_dwt_levels",
     "max_levels",
     "median_magnitude",
     "minimax_threshold",
@@ -111,6 +148,8 @@ __all__ = [
     "modwt_multilevel_exact",
     "modwt_roundtrip_exact",
     "modwt_roundtrip_fused",
+    "mra",
+    "pad_signal",
     "resolve_tolerance",
     "select_threshold",
     "set_backend",
@@ -118,7 +157,12 @@ __all__ = [
     "set_sigma_estimator",
     "soft_threshold",
     "sure_threshold",
+    "swt",
+    "swt_denoise",
     "threshold_coeffs",
+    "threshold_level",
     "universal_threshold",
+    "wavedec",
     "wavelet",
+    "waverec",
 ]

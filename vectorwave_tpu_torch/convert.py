@@ -53,9 +53,23 @@ def wavelet_from_arrays(
     )
 
 
-def thresholds_from_numpy(thresholds, device=None) -> torch.Tensor:
+def _device(device) -> torch.device:
+    """``device`` as a torch device; a CUDA device without a card raises
+    rather than falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            f"device {device!r} was asked for, but there is no CUDA device",
+            suggestions=("Pass device='cpu' to build the tensors on the CPU",),
+        )
+    return dev
+
+
+def thresholds_from_numpy(thresholds, device="cuda") -> torch.Tensor:
     """A ``[..., J]`` threshold array as the float32 tensor the fused denoise
-    takes, on ``device`` (default: the CPU)."""
+    takes, on ``device`` (default: the card; pass ``device="cpu"`` for the
+    CPU).  Without a card the default raises."""
     arr = np.asarray(thresholds, dtype=np.float32)
     if arr.ndim < 1:
         raise InvalidArgumentError(
@@ -63,19 +77,22 @@ def thresholds_from_numpy(thresholds, device=None) -> torch.Tensor:
             "thresholds need a trailing level axis",
             context={"shape": arr.shape},
         )
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device or "cpu")
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(_device(device))
 
 
 def exact_result_from_arrays(details_hi, approx_hi, details_lo, approx_lo,
-                             device=None):
+                             device="cuda"):
     """An :class:`~vectorwave_tpu_torch.ExactMODWTResult` from the float32
     (hi, lo) planes of an exact-tier result (for example the fields of a
     ``vectorwave_tpu`` ``ExactMODWTResult``), on ``device`` (default: the
-    CPU)."""
+    card; pass ``device="cpu"`` for the CPU).  Without a card the default
+    raises."""
     from .transforms.multilevel import ExactMODWTResult
 
+    dev = _device(device)
+
     def tensor(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device or "cpu")
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
     details_hi, details_lo = tuple(details_hi), tuple(details_lo)
     shapes = {np.shape(a) for a in (*details_hi, *details_lo, approx_hi, approx_lo)}

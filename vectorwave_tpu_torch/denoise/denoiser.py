@@ -1,8 +1,10 @@
-"""MODWT-based multi-level wavelet denoising.
+"""MODWT-based wavelet denoising.
 
-Counterpart of the multi-level part of ``vectorwave_tpu/denoise/denoiser.py``:
-sigma from the MAD of the finest detail, a level-dependent threshold rule,
-shrinkage of the detail planes, reconstruction.  For the sigma-only rules
+Counterpart of ``vectorwave_tpu/denoise/denoiser.py`` (without the block
+shrinkage): single-level :func:`denoise` and :func:`denoise_fixed`, and the
+multi-level :func:`denoise_multilevel`: sigma from the MAD of the finest
+detail, a level-dependent threshold rule, shrinkage of the detail planes,
+reconstruction.  For the sigma-only rules
 (universal, minimax) on an eligible CUDA tensor the whole pipeline is one
 launch of the fused denoise kernel, and the coefficient planes never reach
 device memory.
@@ -25,7 +27,7 @@ from ..ops.thresholds import (
     select_threshold,
     universal_threshold,
 )
-from ..transforms.modwt import _resolve_discrete, modwt
+from ..transforms.modwt import MODWTResult, _resolve_discrete, imodwt, modwt
 from ..transforms.multilevel import (
     MultiLevelMODWTResult,
     _kernel_eligible,
@@ -35,6 +37,37 @@ from ..transforms.multilevel import (
     max_levels,
     modwt_multilevel,
 )
+
+
+def denoise(
+    x: torch.Tensor,
+    wavelet,
+    *,
+    method: str = "universal",
+    mode: str = "soft",
+    boundary: str = "periodic",
+) -> torch.Tensor:
+    """Single-level denoise: sigma from the MAD of the detail, the threshold
+    selected by ``method``, applied to the detail only, then the inverse."""
+    res = modwt(x, wavelet, boundary=boundary)
+    sigma = mad_sigma(res.detail)
+    threshold = select_threshold(res.detail, sigma, method)
+    denoised = MODWTResult(res.approx, apply_threshold(res.detail, threshold, mode))
+    return imodwt(denoised, wavelet, boundary=boundary)
+
+
+def denoise_fixed(
+    x: torch.Tensor,
+    wavelet,
+    threshold,
+    *,
+    mode: str = "soft",
+    boundary: str = "periodic",
+) -> torch.Tensor:
+    """Single-level denoise with an explicit threshold."""
+    res = modwt(x, wavelet, boundary=boundary)
+    denoised = MODWTResult(res.approx, apply_threshold(res.detail, threshold, mode))
+    return imodwt(denoised, wavelet, boundary=boundary)
 
 
 def threshold_coeffs(
@@ -72,8 +105,10 @@ def denoise_multilevel(
     For the sigma-only rules (universal/minimax) on periodic/zero boundaries
     and an eligible CUDA tensor, the whole pipeline is one fused kernel;
     sigma then comes from the decimated MAD of :func:`_fused_sigma`.  Other
-    rules (SURE/Bayes/FDR), other boundaries and CPU tensors take the
-    materializing path.
+    rules (SURE/Bayes/FDR), symmetric boundaries and CPU tensors take the
+    materializing path: ``modwt_multilevel``, the thresholds,
+    ``imodwt_multilevel``, which on an eligible CUDA tensor is one analysis
+    and one (symmetric) synthesis kernel launch.
 
     ``tolerance=``/``precision=`` route the precision tier like
     :func:`~..transforms.multilevel.modwt_multilevel`.  A tolerance below the
@@ -107,6 +142,8 @@ def _try_fused_denoise(x, wavelet, levels, method, mode, boundary, precision=Non
     None = take the 3-call path."""
     if method not in ("universal", "minimax") or mode not in ("soft", "hard"):
         return None
+    if boundary.lower().startswith("sym"):
+        return None  # no fused symmetric denoise: the 3-call path runs the kernels
     w = _resolve_discrete(wavelet)
     n = x.shape[-1]
     if levels is None:

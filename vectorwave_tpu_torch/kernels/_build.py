@@ -106,9 +106,10 @@ def build() -> pathlib.Path:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, ptrs = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
     i64, i32 = ctypes.c_longlong, ctypes.c_int
-    # (x, outs, taps, batch, n, levels, taps_len, tile, periodic, dtype, stream)
-    lib.vw_modwt_analysis.argtypes = [ptr, ptrs, ptr, i64, i64, i32, i32, i32, i32,
-                                      i32, ptr]
+    # (x, outs, taps, head, head_samples, batch, n, levels, taps_len, tile,
+    #  periodic, dtype, stream)
+    lib.vw_modwt_analysis.argtypes = [ptr, ptrs, ptr, ptr, i32, i64, i64, i32, i32,
+                                      i32, i32, i32, ptr]
     # (ins, out, taps, batch, n, levels, taps_len, tile, periodic, dtype, stream)
     lib.vw_modwt_synthesis.argtypes = [ptrs, ptr, ptr, i64, i64, i32, i32, i32,
                                        i32, i32, ptr]
@@ -124,8 +125,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     #  periodic, direct, stream)
     lib.vw_modwt_exact_synthesis.argtypes = [ptrs, ptr, ptr, ptr, i64, i64, i32, i32,
                                              i32, i32, i32, i32, ptr]
+    # (planes, signal, head, tail, taps, plan, batch, n, levels, taps_len, tile,
+    #  width, span_l, span_r, adjoint, dtype, stream)
+    lib.vw_modwt_symmetric_synthesis.argtypes = [ptrs, ptr, ptr, ptr, ptr, ptr, i64,
+                                                 i64, i32, i32, i32, i32, i32, i32,
+                                                 i32, i32, ptr]
     for fn in (lib.vw_modwt_analysis, lib.vw_modwt_synthesis, lib.vw_modwt_denoise,
-               lib.vw_modwt_exact_analysis, lib.vw_modwt_exact_synthesis):
+               lib.vw_modwt_exact_analysis, lib.vw_modwt_exact_synthesis,
+               lib.vw_modwt_symmetric_synthesis):
         fn.restype = i32
 
 

@@ -21,6 +21,14 @@
 // detail planes straight from registers with coalesced stores.  Every
 // precision tier (float32, bf16_3x, bf16) runs this same fp32 kernel, which
 // meets each tier's error contract; tensor-core tiers are later work.
+//
+// Head splice (the symmetric boundary, `head_samples` of the TPU kernel):
+// with a `head` of [J+1, batch, head_samples] fp32 values, every plane's
+// outputs at positions < head_samples are stored from it instead of from
+// the cascade.  The symmetric analysis is causal, so only its first S
+// outputs see the mirror: it is this kernel in zero mode with the head
+// computed by the plain symmetric cascade on the first S samples of each
+// row, one launch and no copy of a full plane.
 #include "modwt_common.cuh"
 
 namespace vw {
@@ -28,9 +36,10 @@ namespace vw {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 modwt_analysis_kernel(const T* __restrict__ x, PlanePtrs out,
-                      const float* __restrict__ taps, long long n,
-                      int levels, int L, int tile, int tiles_per_row,
-                      int periodic) {
+                      const float* __restrict__ taps,
+                      const float* __restrict__ head, int head_samples,
+                      long long n, int levels, int L, int tile,
+                      int tiles_per_row, int periodic) {
   extern __shared__ float smem[];
   const int span = cascade_span(L, levels);
   const int width = tile + span;
@@ -44,6 +53,13 @@ modwt_analysis_kernel(const T* __restrict__ x, PlanePtrs out,
   const long long row_off = b * n;
   const T* row = x + row_off;
   const int n_out = static_cast<int>(min(static_cast<long long>(tile), n - t0));
+  // head values of this row, plane p at head_row + p * head_plane
+  const long long head_plane = static_cast<long long>(gridDim.x / tiles_per_row) *
+                               head_samples;
+  const float* head_row = head == nullptr ? nullptr : head + b * head_samples;
+  const int head_end =
+      static_cast<int>(min(static_cast<long long>(n_out),
+                           max(static_cast<long long>(head_samples) - t0, 0LL)));
 
   for (int k = threadIdx.x; k < L; k += blockDim.x) {
     s_lo[k] = taps[k];
@@ -71,7 +87,9 @@ modwt_analysis_kernel(const T* __restrict__ x, PlanePtrs out,
       }
       nxt[q] = a;
       const int o = q - span;
-      if (o >= 0 && o < n_out) dj[o] = from_f32<T>(d);
+      if (o >= 0 && o < n_out) {
+        dj[o] = from_f32<T>(o < head_end ? head_row[(j - 1) * head_plane + t0 + o] : d);
+      }
     }
     __syncthreads();
     float* tmp = cur;
@@ -81,7 +99,8 @@ modwt_analysis_kernel(const T* __restrict__ x, PlanePtrs out,
   }
   T* aj = static_cast<T*>(out.p[levels]) + row_off + t0;
   for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
-    aj[o] = from_f32<T>(cur[span + o]);
+    aj[o] = from_f32<T>(o < head_end ? head_row[levels * head_plane + t0 + o]
+                                     : cur[span + o]);
   }
 }
 
@@ -92,6 +111,7 @@ inline size_t analysis_shared_bytes(int L, int levels, int tile) {
 
 template <typename T>
 cudaError_t launch_analysis(const void* x, void* const* outs, const float* taps,
+                            const float* head, int head_samples,
                             long long batch, long long n, int levels, int L,
                             int tile, int periodic, cudaStream_t stream) {
   PlanePtrs planes{};
@@ -103,29 +123,33 @@ cudaError_t launch_analysis(const void* x, void* const* outs, const float* taps,
   cudaError_t err = reserve_shared(modwt_analysis_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
   modwt_analysis_kernel<T><<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), planes, taps, n, levels, L, tile,
-      static_cast<int>(tiles), periodic);
+      static_cast<const T*>(x), planes, taps, head, head_samples, n, levels, L,
+      tile, static_cast<int>(tiles), periodic);
   return cudaGetLastError();
 }
 
 }  // namespace vw
 
+// head: null (no splice) or [levels + 1, batch, head_samples] fp32 values.
 extern "C" int vw_modwt_analysis(const void* x, void* const* outs,
-                                 const void* taps, long long batch, long long n,
+                                 const void* taps, const void* head,
+                                 int head_samples, long long batch, long long n,
                                  int levels, int taps_len, int tile, int periodic,
                                  int dtype, void* stream) {
-  if (!vw::valid_config(batch, n, levels, taps_len, tile)) {
+  if (!vw::valid_config(batch, n, levels, taps_len, tile) || head_samples < 0 ||
+      (head == nullptr) != (head_samples == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* t = static_cast<const float*>(taps);
+  const float* h = static_cast<const float*>(head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == vw::kFloat32) {
-    err = vw::launch_analysis<float>(x, outs, t, batch, n, levels, taps_len, tile,
-                                     periodic, s);
+    err = vw::launch_analysis<float>(x, outs, t, h, head_samples, batch, n, levels,
+                                     taps_len, tile, periodic, s);
   } else if (dtype == vw::kBFloat16) {
-    err = vw::launch_analysis<__nv_bfloat16>(x, outs, t, batch, n, levels,
-                                             taps_len, tile, periodic, s);
+    err = vw::launch_analysis<__nv_bfloat16>(x, outs, t, h, head_samples, batch, n,
+                                             levels, taps_len, tile, periodic, s);
   } else {
     err = cudaErrorInvalidValue;
   }

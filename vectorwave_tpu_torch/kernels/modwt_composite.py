@@ -7,15 +7,17 @@ Counterpart of the composite part of ``vectorwave_tpu/kernels/modwt_mxu.py``
 the two Pallas kernels of ``vectorwave_tpu/kernels/modwt_exact.py``.  Each
 kernel is a hand-written CUDA kernel for Hopper in ``csrc/``:
 
-=========================  =============================  ==========================
-wrapper                    CUDA source                    TPU kernel it replaces
-=========================  =============================  ==========================
-:func:`analysis`           ``modwt_analysis.cu``          ``_composite_analysis_call``
-:func:`synthesis`          ``modwt_synthesis.cu``         ``_composite_synthesis_call``
-:func:`denoise`            ``modwt_denoise.cu``           ``_composite_denoise_call``
-:func:`exact_analysis`     ``modwt_exact_analysis.cu``    ``_exact_analysis_call``
-:func:`exact_synthesis`    ``modwt_exact_synthesis.cu``   ``_exact_synthesis_call``
-=========================  =============================  ==========================
+============================  =================================  =============================
+wrapper                       CUDA source                        TPU kernel it replaces
+============================  =================================  =============================
+:func:`analysis`              ``modwt_analysis.cu``              ``_composite_analysis_call``
+:func:`synthesis`             ``modwt_synthesis.cu``             ``_composite_synthesis_call``
+:func:`denoise`               ``modwt_denoise.cu``               ``_composite_denoise_call``
+:func:`exact_analysis`        ``modwt_exact_analysis.cu``        ``_exact_analysis_call``
+:func:`exact_synthesis`       ``modwt_exact_synthesis.cu``       ``_exact_synthesis_call``
+:func:`symmetric_synthesis`   ``modwt_symmetric_synthesis.cu``   ``_symsyn2_call``
+:func:`symmetric_adjoint`     ``modwt_symmetric_synthesis.cu``   ``_symsyn_adjoint_kernel``
+============================  =================================  =============================
 
 A wrapper given a CPU tensor runs its plain version (``*_plain``), a cascade
 of rolled sums in plain PyTorch; given a CUDA tensor it launches its kernel
@@ -24,10 +26,18 @@ can show that it went through the kernels.
 
 ``filters`` arguments are ``(lo, hi)`` tuples of Python floats, already
 scaled by 1/sqrt(2) per stage (``modwt_fused._kernel_filters``).  The
-first three kernels compute in fp32 and store in the input type (float32 or
-bfloat16); their plain versions compute in float64 for float64 input and in
-float32 otherwise.  The exact pair reads and writes float32 (hi, lo) pairs
+first three kernels and the symmetric pair compute in fp32 and store in the
+input type (float32 or bfloat16); the plain versions of the first three
+compute in float64 for float64 input and in float32 otherwise, those of the
+symmetric pair always in float64 (their composed filters have hundreds to
+~10^5 taps, whose float32 sum would stray further than the kernel's
+cascade).  The exact pair reads and writes float32 (hi, lo) pairs
 and computes in float64, as do its plain versions.
+
+The symmetric pair takes ``ops``, one ``(a_sign, a_offset, d_sign,
+d_offset)`` per level (``modwt_symmetric.symmetric_level_ops``): level j's
+synthesis ops read ``c_j[t + a_sign 2^(j-1) l + a_offset]`` and
+``d_j[t + d_sign 2^(j-1) l + d_offset]``.
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ from ._build import library
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
 LAUNCHES = {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
-            "modwt_exact_analysis": 0, "modwt_exact_synthesis": 0}
+            "modwt_exact_analysis": 0, "modwt_exact_synthesis": 0,
+            "modwt_symmetric_synthesis": 0, "modwt_symmetric_adjoint": 0}
 
 #: Outputs per block, per kernel (the denoise kernel holds J planes of its
 #: tile in shared memory, so its tile is smaller).
@@ -52,6 +63,9 @@ ANALYSIS_TILE = 2048
 SYNTHESIS_TILE = 2048
 DENOISE_TILE = 1024
 EXACT_TILE = 2048
+SYMMETRIC_TILE = 2048
+#: Ints per level of a symmetric plan (``kPlanStride`` in the CUDA source).
+PLAN_STRIDE = 8
 #: Dynamic shared memory one block may use on Hopper (227 KB).
 SHARED_LIMIT = 232448
 
@@ -130,6 +144,81 @@ def exact_synthesis_shared_bytes(taps: int, levels: int, tile: int = EXACT_TILE,
     return 8 * (2 * taps + 3 * (tile + span))
 
 
+def _reach(sign: int, offset: int, spacing: int, taps: int) -> tuple[int, int]:
+    """Least and greatest read offset of ``in[t + sign*spacing*l + offset]``."""
+    far = offset + sign * spacing * (taps - 1)
+    return min(offset, far), max(offset, far)
+
+
+@functools.lru_cache(maxsize=256)
+def symmetric_spans(taps: int, ops: tuple) -> tuple[int, int]:
+    """(span_l, span_r) of the symmetric synthesis: how far the composed
+    plane filters read before and after an output (G and d_max of
+    ``modwt_symmetric._rebase``, which the first and last outputs splice)."""
+    lo = hi = 0
+    starts, ends = [], []
+    for j, (sa, oa, sd, od) in enumerate(ops, start=1):
+        s = 1 << (j - 1)
+        dlo, dhi = _reach(sd, od, s, taps)
+        starts.append(lo + dlo)
+        ends.append(hi + dhi)
+        alo, ahi = _reach(sa, oa, s, taps)
+        lo, hi = lo + alo, hi + ahi
+    starts.append(lo)
+    ends.append(hi)
+    return max(0, -min(starts)), max(0, max(ends))
+
+
+@functools.lru_cache(maxsize=256)
+def symmetric_plan(taps: int, ops: tuple, tile: int, adjoint: bool):
+    """The windows of the symmetric kernel, ``(plan, width)``: PLAN_STRIDE
+    ints per level (see ``csrc/modwt_symmetric_synthesis.cu``) and the
+    longest window.  Windows are relative to a block's first output and hold
+    every value the level needs, unclipped to [0, n)."""
+    levels = len(ops)
+    plan = [0] * (PLAN_STRIDE * levels)
+    width = tile
+    if not adjoint:  # coarse <- fine: c_j and d_j windows from c_{j-1}'s
+        e, length = 0, tile
+        for j, (sa, oa, sd, od) in enumerate(ops, start=1):
+            s = 1 << (j - 1)
+            alo, ahi = _reach(sa, oa, s, taps)
+            dlo, dhi = _reach(sd, od, s, taps)
+            ej, ed = e + alo, e + dlo
+            plan[PLAN_STRIDE * (j - 1): PLAN_STRIDE * j] = [
+                ej, length + ahi - alo, ed, e + oa - ej, sa * s, e + od - ed, sd * s, 0]
+            width = max(width, length + ahi - alo, length + dhi - dlo)
+            e, length = ej, length + ahi - alo
+        return tuple(plan), width
+    e, length = 0, tile  # v_J; v_{j-1} holds what v_j and grad d_j read
+    for j in range(levels, 0, -1):
+        sa, oa, sd, od = ops[j - 1]
+        s = 1 << (j - 1)
+        alo, ahi = _reach(sa, oa, s, taps)
+        dlo, dhi = _reach(sd, od, s, taps)
+        first = min(e - ahi, -dhi)
+        last = max(e + length - 1 - alo, tile - 1 - dlo)
+        plan[PLAN_STRIDE * (j - 1): PLAN_STRIDE * j] = [
+            first, last - first + 1, e - oa - first, -sa * s, -od - first, -sd * s, 0, 0]
+        width = max(width, last - first + 1)
+        e, length = first, last - first + 1
+    return tuple(plan), width
+
+
+def symmetric_shared_bytes(taps: int, ops: tuple, tile: int, adjoint: bool) -> int:
+    """Shared memory of one symmetric block: taps + three rows of the widest
+    window (two in adjoint mode)."""
+    width = symmetric_plan(taps, ops, tile, adjoint)[1]
+    return 4 * (2 * taps + (2 if adjoint else 3) * width)
+
+
+def symmetric_tile(taps: int, ops: tuple, adjoint: bool) -> int | None:
+    """The symmetric kernel's tile, halved from SYMMETRIC_TILE until a block
+    fits shared memory (None below 128)."""
+    return _fitting_tile(lambda t: symmetric_shared_bytes(taps, ops, t, adjoint),
+                         SYMMETRIC_TILE)
+
+
 def kernels_fit(taps: int, levels: int) -> bool:
     """Whether all three kernels fit one block's shared memory at their tile
     (the H100 counterpart of the JAX router's halo/VMEM check)."""
@@ -181,9 +270,15 @@ def _synthesis_cascade(planes, levels, filters, periodic, first_level=1) -> torc
     return cur
 
 
-def analysis_plain(x, levels, filters, periodic) -> tuple[torch.Tensor, ...]:
-    """Plain version of :func:`analysis`: the per-level cascade as rolled sums."""
-    return tuple(p.to(x.dtype) for p in _analysis_cascade(x, levels, filters, periodic))
+def analysis_plain(x, levels, filters, periodic, head=None) -> tuple[torch.Tensor, ...]:
+    """Plain version of :func:`analysis`: the per-level cascade as rolled sums,
+    with each plane's first ``head.shape[-1]`` outputs taken from ``head``."""
+    planes = _analysis_cascade(x, levels, filters, periodic)
+    if head is not None:
+        cut = head.shape[-1]
+        planes = [torch.cat([h.to(p.dtype), p[..., cut:]], dim=-1)
+                  for h, p in zip(head, planes)]
+    return tuple(p.to(x.dtype) for p in planes)
 
 
 def synthesis_plain(planes, levels, filters, periodic) -> torch.Tensor:
@@ -213,6 +308,55 @@ def exact_synthesis_plain(pairs, levels, filters, periodic, first_level=1):
     """Plain version of :func:`exact_synthesis`."""
     planes = [_combine(hi, lo) for hi, lo in pairs]
     return _split_pair(_synthesis_cascade(planes, levels, filters, periodic, first_level))
+
+
+def _dense_plane_filters(filters, ops):
+    from .modwt_symmetric import _rebase, plane_filters
+
+    return _rebase(plane_filters(filters, ops))
+
+
+def symmetric_synthesis_plain(planes, head, tail, levels, filters, ops) -> torch.Tensor:
+    """Plain version of :func:`symmetric_synthesis`, its definition: every
+    plane, zero outside [0, n), filtered by its rebased composed filter,
+    ``out[t] = sum_p sum_tau f'_p[tau] plane_p[t + tau - G]``, summed in
+    float64; then the first span_l outputs come from ``head`` and the last
+    span_r from ``tail``."""
+    dense, g, d_max = _dense_plane_filters(filters, ops)
+    cd = torch.float64
+    n = planes[0].shape[-1]
+    right = max(d_max, 0)
+    out = None
+    for f, plane in zip(dense, planes):
+        padded = torch.nn.functional.pad(plane.to(cd), (g, right))
+        for tau, v in enumerate(f):
+            if v != 0.0:
+                term = padded[..., tau : tau + n] * v
+                out = term if out is None else out + term
+    span_l, span_r = g, right
+    out = torch.cat([head.to(cd), out[..., span_l : n - span_r], tail.to(cd)], dim=-1)
+    return out.to(planes[0].dtype)
+
+
+def symmetric_adjoint_plain(c, levels, filters, ops) -> tuple[torch.Tensor, ...]:
+    """Plain version of :func:`symmetric_adjoint`, the transpose of the body
+    of :func:`symmetric_synthesis_plain`:
+    ``grad_p[q] = sum_tau f'_p[tau] c[q - tau + G]``, c zero outside [0, n),
+    summed in float64."""
+    dense, g, _ = _dense_plane_filters(filters, ops)
+    cd = torch.float64
+    n = c.shape[-1]
+    pad = max(len(f) for f in dense) + g
+    padded = torch.nn.functional.pad(c.to(cd), (pad, pad))
+    grads = []
+    for f in dense:
+        acc = torch.zeros_like(padded[..., :n])
+        for tau, v in enumerate(f):
+            if v != 0.0:
+                start = pad - tau + g
+                acc = acc + padded[..., start : start + n] * v
+        grads.append(acc.to(c.dtype))
+    return tuple(grads)
 
 
 def _shrink(d: torch.Tensor, t: torch.Tensor, mode: str) -> torch.Tensor:
@@ -298,7 +442,7 @@ def _check_levels(levels: int) -> None:
 
 
 @functools.lru_cache(maxsize=64)
-def _device_taps(taps: tuple[float, ...], device_index: int,
+def _device_taps(taps: tuple, device_index: int,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return torch.tensor(taps, dtype=dtype, device=f"cuda:{device_index}")
 
@@ -312,13 +456,29 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def analysis(x, levels, filters, periodic) -> tuple[torch.Tensor, ...]:
-    """[B, N] -> (d_1, ..., d_J, a_J); periodic or zero boundary, any N."""
+def analysis(x, levels, filters, periodic, head=None) -> tuple[torch.Tensor, ...]:
+    """[B, N] -> (d_1, ..., d_J, a_J); periodic or zero boundary, any N.
+
+    ``head``, a float32 ``[J+1, B, H]`` tensor with H <= N, splices each
+    plane's first H outputs in the kernel (the symmetric analysis)."""
     if x.device.type == "cpu":
-        return analysis_plain(x, levels, filters, periodic)
+        return analysis_plain(x, levels, filters, periodic, head)
     _check_operand(x, "x")
     code = _check_dtype(x, "x")
     _check_levels(levels)
+    head_samples = 0
+    if head is not None:
+        if (head.device != x.device or head.dtype != torch.float32
+                or not head.is_contiguous() or head.dim() != 3
+                or head.shape[:2] != (levels + 1, x.shape[0])
+                or not 0 < head.shape[2] <= x.shape[1]):
+            raise InvalidArgumentError(
+                ErrorCode.VAL_INVALID_SHAPE,
+                "head must be a contiguous float32 [levels + 1, batch, H] tensor "
+                "on x's device, 0 < H <= n",
+                context={"shape": tuple(head.shape), "dtype": head.dtype},
+            )
+        head_samples = head.shape[2]
     taps = len(filters[0])
     tile = _tile(analysis_shared_bytes, taps, levels, ANALYSIS_TILE)
     lib = library()
@@ -328,12 +488,30 @@ def analysis(x, levels, filters, periodic) -> tuple[torch.Tensor, ...]:
     b, n = x.shape
     with torch.cuda.device(x.device):
         err = lib.vw_modwt_analysis(
-            x.data_ptr(), out_ptrs, tap_t.data_ptr(), b, n, levels, taps, tile,
-            int(periodic), code, _stream(x.device),
+            x.data_ptr(), out_ptrs, tap_t.data_ptr(),
+            None if head is None else head.data_ptr(), head_samples, b, n, levels,
+            taps, tile, int(periodic), code, _stream(x.device),
         )
     _raise_on_error(err, "modwt_analysis")
     LAUNCHES["modwt_analysis"] += 1
     return tuple(outs)
+
+
+def _check_planes(planes) -> int:
+    """Check that the planes are CUDA [B, N] tensors of one shape and dtype;
+    returns the dtype code."""
+    first = planes[0]
+    _check_operand(first, "plane 0")
+    code = _check_dtype(first, "plane 0")
+    for i, p in enumerate(planes):
+        _check_operand(p, f"plane {i}", first.device)
+        if p.dtype != first.dtype or p.shape != first.shape:
+            raise InvalidArgumentError(
+                ErrorCode.VAL_INVALID_SHAPE,
+                "all planes must share shape and dtype",
+                context={"plane": i, "shape": tuple(p.shape), "dtype": p.dtype},
+            )
+    return code
 
 
 def synthesis(planes, levels, filters, periodic) -> torch.Tensor:
@@ -346,16 +524,7 @@ def synthesis(planes, levels, filters, periodic) -> torch.Tensor:
             f"expected {levels + 1} planes, got {len(planes)}",
         )
     first = planes[0]
-    _check_operand(first, "plane 0")
-    code = _check_dtype(first, "plane 0")
-    for i, p in enumerate(planes):
-        _check_operand(p, f"plane {i}", first.device)
-        if p.dtype != first.dtype or p.shape != first.shape:
-            raise InvalidArgumentError(
-                ErrorCode.VAL_INVALID_SHAPE,
-                "all planes must share shape and dtype",
-                context={"plane": i, "shape": tuple(p.shape), "dtype": p.dtype},
-            )
+    code = _check_planes(planes)
     _check_levels(levels)
     taps = len(filters[0])
     tile = _tile(synthesis_shared_bytes, taps, levels, SYNTHESIS_TILE)
@@ -422,6 +591,108 @@ def denoise(x, thresholds, levels, filters_dec, filters_rec, periodic, mode):
     _raise_on_error(err, "modwt_denoise")
     LAUNCHES["modwt_denoise"] += 1
     return out
+
+
+# --- the symmetric tier ------------------------------------------------------------
+
+
+def _symmetric_launch_tile(taps: int, ops: tuple, adjoint: bool) -> int:
+    tile = symmetric_tile(taps, ops, adjoint)
+    if tile is None:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_TOO_LARGE,
+            "The symmetric windows do not fit the kernel's shared memory",
+            context={"taps": taps, "levels": len(ops)},
+            suggestions=("Use fewer levels or backend='torch'",),
+        )
+    return tile
+
+
+def _check_symmetric(levels: int, filters, ops) -> int:
+    _check_levels(levels)
+    if len(ops) != levels or len(filters[0]) != len(filters[1]):
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            "ops must have one entry per level and the filters one length",
+            context={"levels": levels, "ops": len(ops)},
+        )
+    return len(filters[0])
+
+
+def symmetric_synthesis(planes, head, tail, levels, filters, ops) -> torch.Tensor:
+    """(d_1, ..., d_J, a_J), each [B, N] -> [B, N]: the alignment-shifted
+    symmetric inverse body on zero-extended planes, with the first span_l
+    outputs from ``head`` ([B, span_l]) and the last span_r from ``tail``
+    ([B, span_r]), both float32 (:func:`symmetric_spans`)."""
+    if planes[0].device.type == "cpu":
+        return symmetric_synthesis_plain(planes, head, tail, levels, filters, ops)
+    if len(planes) != levels + 1:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            f"expected {levels + 1} planes, got {len(planes)}",
+        )
+    first = planes[0]
+    code = _check_planes(planes)
+    taps = _check_symmetric(levels, filters, ops)
+    span_l, span_r = symmetric_spans(taps, tuple(ops))
+    b, n = first.shape
+    for t, span, what in ((head, span_l, "head"), (tail, span_r, "tail")):
+        if (t.device != first.device or t.dtype != torch.float32
+                or not t.is_contiguous() or t.shape != (b, span)):
+            raise InvalidArgumentError(
+                ErrorCode.VAL_INVALID_SHAPE,
+                f"{what} must be a contiguous float32 [{b}, {span}] tensor on the "
+                "planes' device",
+                context={"shape": tuple(t.shape), "dtype": t.dtype},
+            )
+    if span_l + span_r > n:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_TOO_SHORT,
+            "the head and tail splices overlap",
+            context={"span_l": span_l, "span_r": span_r, "n": n},
+        )
+    tile = _symmetric_launch_tile(taps, tuple(ops), False)
+    plan, width = symmetric_plan(taps, tuple(ops), tile, False)
+    lib = library()
+    out = torch.empty_like(first)
+    in_ptrs = (ctypes.c_void_p * (levels + 1))(*[p.data_ptr() for p in planes])
+    tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), first.device.index)
+    plan_t = _device_taps(plan, first.device.index, torch.int32)
+    with torch.cuda.device(first.device):
+        err = lib.vw_modwt_symmetric_synthesis(
+            in_ptrs, out.data_ptr(), head.data_ptr(), tail.data_ptr(), tap_t.data_ptr(),
+            plan_t.data_ptr(), b, n, levels, taps, tile, width, span_l, span_r, 0,
+            code, _stream(first.device),
+        )
+    _raise_on_error(err, "modwt_symmetric_synthesis")
+    LAUNCHES["modwt_symmetric_synthesis"] += 1
+    return out
+
+
+def symmetric_adjoint(c, levels, filters, ops) -> tuple[torch.Tensor, ...]:
+    """[B, N] -> J+1 planes: the transpose of :func:`symmetric_synthesis`'s
+    body (no splice), the gradient of the body with respect to the planes."""
+    if c.device.type == "cpu":
+        return symmetric_adjoint_plain(c, levels, filters, ops)
+    _check_operand(c, "c")
+    code = _check_dtype(c, "c")
+    taps = _check_symmetric(levels, filters, ops)
+    tile = _symmetric_launch_tile(taps, tuple(ops), True)
+    plan, width = symmetric_plan(taps, tuple(ops), tile, True)
+    lib = library()
+    outs = [torch.empty_like(c) for _ in range(levels + 1)]
+    out_ptrs = (ctypes.c_void_p * (levels + 1))(*[o.data_ptr() for o in outs])
+    tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), c.device.index)
+    plan_t = _device_taps(plan, c.device.index, torch.int32)
+    b, n = c.shape
+    with torch.cuda.device(c.device):
+        err = lib.vw_modwt_symmetric_synthesis(
+            out_ptrs, c.data_ptr(), None, None, tap_t.data_ptr(), plan_t.data_ptr(),
+            b, n, levels, taps, tile, width, 0, 0, 1, code, _stream(c.device),
+        )
+    _raise_on_error(err, "modwt_symmetric_adjoint")
+    LAUNCHES["modwt_symmetric_adjoint"] += 1
+    return tuple(outs)
 
 
 # --- the exact tier -------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Kernel tier of the multi-level MODWT: public entry points.
 
 Counterpart of ``vectorwave_tpu/kernels/modwt_pallas.py``.  The compute
-lives in :mod:`.modwt_composite` (three hand-written CUDA kernels and their
-plain versions); this module keeps the public surface: halo math, the
+lives in :mod:`.modwt_composite` (hand-written CUDA kernels and their plain
+versions); this module keeps the public surface: halo math, the
 differentiable :func:`fused_analysis` / :func:`fused_synthesis`, the fused
-denoise and the one-pass round trip.
+denoise and the one-pass round trip.  Symmetric boundaries go to
+:mod:`.modwt_symmetric` (zero-boundary body plus edge splice).
 
 The analysis map A and synthesis map S are linear, and for periodic and
 zero boundaries the synthesis structure with the analysis filters is exactly
@@ -64,23 +65,16 @@ def _check_precision(precision: str | None) -> None:
         )
 
 
-def _kernel_boundary(boundary: str, entry: str) -> bool:
-    """True for periodic, False for zero; symmetric and unknown names raise."""
+def _kernel_boundary(boundary: str, entry: str) -> str:
+    """``'periodic'``, ``'zero'`` or ``'symmetric'``; unknown names raise."""
     b = boundary.lower()
-    if b.startswith("per"):
-        return True
-    if b.startswith("zero"):
-        return False
-    if b.startswith("sym"):
-        raise InvalidArgumentError(
-            ErrorCode.CFG_UNSUPPORTED_BOUNDARY,
-            f"{entry}: the symmetric kernel tier is not yet ported",
-            suggestions=("Use backend='torch' (or 'auto') for symmetric boundaries",),
-        )
+    for name in ("periodic", "zero", "symmetric"):
+        if b.startswith(name[:3]):
+            return name
     raise InvalidArgumentError(
         ErrorCode.CFG_UNSUPPORTED_BOUNDARY,
         f"Unknown boundary for {entry}: {boundary!r}",
-        suggestions=("Use 'periodic' or 'zero'",),
+        suggestions=("Use 'periodic', 'zero' or 'symmetric'",),
     )
 
 
@@ -122,20 +116,26 @@ def fused_analysis(
     """Fused J-level MODWT analysis of ``[..., N]`` signals: returns
     ``(details tuple, approx)``.
 
-    Periodic or zero boundary.  On a CUDA tensor it is one launch of the
-    analysis kernel; on a CPU tensor the kernel's plain version.
-    Differentiable: the gradient is one synthesis pass.
+    Periodic, zero or symmetric boundary.  On a CUDA tensor it is one launch
+    of the analysis kernel (for symmetric, in zero mode with the first
+    outputs spliced from the plain symmetric cascade of the head); on a CPU
+    tensor the kernel's plain version.  Differentiable: the gradient is one
+    synthesis pass (plus autograd through the symmetric head).
     """
     from ..transforms.modwt import _resolve_discrete
+    from .modwt_symmetric import fused_symmetric_analysis
 
     w = _resolve_discrete(wavelet)
-    periodic = _kernel_boundary(boundary, "fused_analysis")
+    edge = _kernel_boundary(boundary, "fused_analysis")
     _check_precision(precision)
     lead, n = x.shape[:-1], x.shape[-1]
-    planes = _Analysis.apply(
-        x.reshape(-1, n).contiguous(), levels, _kernel_filters(w, synthesis=False),
-        periodic,
-    )
+    x2 = x.reshape(-1, n).contiguous()
+    if edge == "symmetric":
+        planes = fused_symmetric_analysis(x2, w, levels=levels)
+    else:
+        planes = _Analysis.apply(
+            x2, levels, _kernel_filters(w, synthesis=False), edge == "periodic"
+        )
     planes = tuple(p.reshape(lead + (n,)) for p in planes)
     return planes[:levels], planes[levels]
 
@@ -149,18 +149,25 @@ def fused_synthesis(
     precision: str | None = None,
 ) -> torch.Tensor:
     """Fused J-level inverse MODWT from ``(details, approx)``: the adjoint of
-    :func:`fused_analysis` for periodic and zero boundaries."""
+    :func:`fused_analysis` for periodic and zero boundaries, the
+    alignment-shifted symmetric inverse for symmetric (one launch of the
+    symmetric synthesis kernel, its edges spliced from the plain inverse of
+    short head and tail windows)."""
     from ..transforms.modwt import _resolve_discrete
+    from .modwt_symmetric import fused_symmetric_synthesis
 
     w = _resolve_discrete(wavelet)
-    periodic = _kernel_boundary(boundary, "fused_synthesis")
+    edge = _kernel_boundary(boundary, "fused_synthesis")
     _check_precision(precision)
     levels = len(details)
     lead, n = approx.shape[:-1], approx.shape[-1]
     planes = [p.reshape(-1, n).contiguous() for p in (*details, approx)]
-    out = _Synthesis.apply(
-        levels, _kernel_filters(w, synthesis=True), periodic, *planes
-    )
+    if edge == "symmetric":
+        out = fused_symmetric_synthesis(planes, w)
+    else:
+        out = _Synthesis.apply(
+            levels, _kernel_filters(w, synthesis=True), edge == "periodic", *planes
+        )
     return out.reshape(lead + (n,))
 
 
@@ -184,9 +191,9 @@ def fused_denoise_multilevel(
     """
     from ..transforms.modwt import _resolve_discrete
 
-    if boundary.lower().startswith("sym"):
+    edge = _kernel_boundary(boundary, "fused_denoise_multilevel")
+    if edge == "symmetric":
         return None
-    periodic = _kernel_boundary(boundary, "fused_denoise_multilevel")
     _check_precision(precision)
     w = _resolve_discrete(wavelet)
     if x.device.type == "cuda" and torch.is_grad_enabled() and (
@@ -204,7 +211,7 @@ def fused_denoise_multilevel(
     th2 = thresholds.reshape(-1, thresholds.shape[-1]).to(torch.float32).contiguous()
     out = modwt_composite.denoise(
         x2, th2, levels, _kernel_filters(w, synthesis=False),
-        _kernel_filters(w, synthesis=True), periodic, mode,
+        _kernel_filters(w, synthesis=True), edge == "periodic", mode,
     )
     return out.reshape(lead + (n,))
 
@@ -219,10 +226,17 @@ def modwt_roundtrip_fused(
 ) -> torch.Tensor:
     """Fused analysis -> synthesis round trip in one kernel pass (the
     ``mode='none'`` case of the fused denoise): device memory sees only x in
-    and x out.  Periodic or zero boundary."""
-    _kernel_boundary(boundary, "modwt_roundtrip_fused")
+    and x out.  Periodic or zero boundary; a symmetric boundary takes the
+    two-call path (:func:`fused_analysis` then :func:`fused_synthesis`), as
+    in the JAX package."""
     dummy = torch.zeros(x.shape[:-1] + (levels,), dtype=torch.float32, device=x.device)
-    return fused_denoise_multilevel(
+    out = fused_denoise_multilevel(
         x, wavelet, levels=levels, thresholds=dummy, boundary=boundary,
         mode="none", precision=precision,
     )
+    if out is None:
+        details, approx = fused_analysis(x, wavelet, levels=levels, boundary=boundary,
+                                         precision=precision)
+        out = fused_synthesis(details, approx, wavelet, boundary=boundary,
+                              precision=precision)
+    return out

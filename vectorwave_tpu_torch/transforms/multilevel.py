@@ -5,22 +5,22 @@ and synthesis use the level-j à trous filter (the base filter at stride
 ``2^(j-1)``, scaled by ``1/sqrt(2)`` per stage); the upsampled filter is
 never materialized.
 
-Routing: on an eligible CUDA tensor (float32 or bfloat16, periodic or zero,
-at least 2 levels and 4096 samples, a halo that fits) the whole cascade is
-one launch of a hand-written CUDA kernel (:mod:`..kernels`); everything else
-runs the plain PyTorch cascade below.  ``backend='torch'`` forces the plain
-path, ``backend='kernel'`` the kernel tier (whose wrappers run their plain
-versions on CPU tensors).
+Routing: on an eligible CUDA tensor (float32 or bfloat16, at least 2
+levels and 4096 samples, windows that fit) the whole cascade is one launch
+of a hand-written CUDA kernel (:mod:`..kernels`); everything else runs the
+plain PyTorch cascade below.  Periodic and zero boundaries need a halo that
+fits; a symmetric boundary runs the zero-boundary analysis kernel with its
+head spliced in, and the symmetric synthesis kernel with its head and tail
+spliced in, so it needs the analysis span within the signal and splice
+windows that do not overlap (:mod:`..kernels.modwt_symmetric`).
+``backend='torch'`` forces the plain path, ``backend='kernel'`` the kernel
+tier (whose wrappers run their plain versions on CPU tensors).
 
 The exact tier (``precision='exact'``, or a tolerance below 3e-6, on float32
 or bfloat16 input) returns an :class:`ExactMODWTResult` of double-float
 (hi, lo) planes from the fp64 exact kernels (:mod:`..kernels.modwt_exact`),
 whatever ``backend`` says; float64 input takes the plain float64 cascade,
 which is exact-grade already.
-
-Not yet ported, with an explicit error: the symmetric kernel tier (a
-symmetric boundary on a CUDA tensor takes the plain cascade under ``auto``;
-``backend='kernel'`` raises).
 """
 
 from __future__ import annotations
@@ -199,12 +199,14 @@ def _resolve_backend(backend: str | None, eligible) -> bool:
 
 
 def _kernel_eligible(x: torch.Tensor, w: DiscreteWavelet, levels: int,
-                     boundary: str) -> bool:
+                     boundary: str, synthesis: bool = False) -> bool:
     """Whether the CUDA kernel tier serves this call: a CUDA tensor on a
-    Hopper card, float32/bfloat16, periodic or zero boundary, >= 2 levels,
-    N >= 4096 and a halo that fits (the JAX router's rule, plus the kernels'
-    shared-memory budget).  The 4096-sample floor was tuned on a TPU and is
-    kept until a GPU measurement re-derives it."""
+    Hopper card, float32/bfloat16, >= 2 levels, N >= 4096 and windows that
+    fit (the JAX router's rule, plus the kernels' shared-memory budget).
+    Periodic and zero boundaries need a halo of at most N; symmetric ones
+    the gate of its direction (``synthesis``), ``modwt_symmetric.route_fits``.
+    The 4096-sample floor was tuned on a TPU and is kept until a GPU
+    measurement re-derives it."""
     from ..kernels.modwt_composite import kernels_fit
     from ..kernels.modwt_fused import kernel_available, total_halo
 
@@ -216,13 +218,17 @@ def _kernel_eligible(x: torch.Tensor, w: DiscreteWavelet, levels: int,
     if x.dtype not in (torch.float32, torch.bfloat16):
         return False
     b = boundary.lower()
-    if not (b.startswith("per") or b.startswith("zero")):
+    if not (b.startswith("per") or b.startswith("zero") or b.startswith("sym")):
         return False
     if levels < 2:
         return False
     n = x.shape[-1]
     if n < 4096:
         return False
+    if b.startswith("sym"):
+        from ..kernels.modwt_symmetric import route_fits
+
+        return route_fits(w, levels, n, synthesis)
     halo_pad = -(-max(total_halo(w.filter_length, levels), 1) // 128) * 128
     return halo_pad <= n and kernels_fit(w.filter_length, levels)
 
@@ -427,7 +433,8 @@ def imodwt_multilevel(
         tier = None  # the float64 plain path below is exact-grade
     use_kernel = _resolve_backend(
         backend,
-        lambda: _kernel_eligible(result.approx, w, result.levels, boundary),
+        lambda: _kernel_eligible(result.approx, w, result.levels, boundary,
+                                 synthesis=True),
     )
     if use_kernel:
         from ..kernels.modwt_fused import fused_synthesis
