@@ -21,6 +21,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    synthesis kernel (forward and adjoint) and the analysis kernel with a
    head splice, at db4 J=6 and sym8 J=4 128x65536, db4 J=6 3x5000, haar J=4,
    a long filter that needs a smaller tile (db36 J=8), and once in bfloat16;
+   the 2-D analysis and synthesis level kernels, every band, in each edge
+   mode (periodic, zero, symmetric with the inverse's per-filter offsets),
+   at levels 1 and 4 of db4 and 1 and 6 of sym8 at 8x2048x2048, at db4 level
+   3 on 3x200x328, haar level 5 on 1x24x40 and db20 level 4 on 2x1024x1024;
 3. the main path through the public entry points at 128x65536 float32:
    ``modwt_multilevel`` -> ``imodwt_multilevel`` at every precision tier,
    ``modwt_roundtrip_fused`` and ``denoise_multilevel``, with the launch
@@ -37,13 +41,27 @@ Phases, in order; any failure raises and the exit code is not 0:
    ``swt_denoise`` sym8 J=4 soft universal at 128x65536 and 1x16384 against
    the plain path, the symmetric gradients of both directions against plain
    autograd (their backward launches the synthesis kernel and the adjoint),
-   and a short input against the float64 plain cascade on the CPU;
+   and a short input against the float64 plain cascade on the CPU; then the
+   gradient of the fused denoise (db4 J=6 soft at 128x65536, in x and in
+   the thresholds) against plain autograd, with its own reset and reading of
+   the counters (two analysis launches and one synthesis launch), and
+   ``denoise_multilevel`` on an input that requires grad; then the 2-D path
+   at 8x2048x2048, each public call with its own reset and reading of the
+   counters (one 2-D kernel launch per level and direction):
+   ``modwt2_multilevel`` -> ``imodwt2_multilevel`` db4 J=4 and J=6 periodic
+   (every band against the plain path, the round trip against x within
+   5e-5), db4 J=4 zero and sym8 J=4 symmetric round trips and ``denoise2``
+   db4 J=4 universal soft against the plain path, a small input in each edge
+   mode against the float64 plain cascade on the CPU, and a 2-D input that
+   requires grad, which must raise;
 4. timing with CUDA events (3 warm-ups, median of 20 runs) of each kernel
    beside its plain version and one PyTorch library call that computes the
    same function (``F.conv1d`` with the composite filters; not for the
-   denoise), with the least time the card could take (bytes over 3.35 TB/s
-   or operations over the peak rate, the larger), and of the public entry
-   points.
+   denoise; ``F.conv2d`` with the outer products of a level's taps for the
+   2-D kernels, which are timed at level 1 and at level 6), with the least
+   time the card could take (bytes over 3.35 TB/s or operations over the
+   peak rate, the larger), and of the public entry points (the 2-D ones and
+   the fused denoise's backward included).
 
 The last two lines are a JSON object with one entry per kernel and the
 device line ``{"ok": true, "device": {...}}``.
@@ -80,6 +98,9 @@ EXACT_RMSE, EXACT_SYM = 1e-10, 1e-12
 #: swt_denoise, kernel path against plain path: soft shrinkage is continuous,
 #: so thresholds a few ulps apart move the output by a few ulps of its scale.
 TOL_SWT = 1e-4
+#: the fused denoise's threshold gradient, a sum over 65536 samples per
+#: signal and level: relative to its largest value.
+TOL_DTH = 1e-3
 #: the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s and
 #: fp32 / fp64 FLOP/s outside the tensor cores, an FMA counted as 2 FLOP.
 HBM_BPS, FP32_FLOPS, FP64_FLOPS = 3.35e12, 67e12, 34e12
@@ -113,11 +134,24 @@ KERNELS = {
         "vectorwave_tpu_torch/kernels/csrc/modwt_symmetric_synthesis.cu",
         "vectorwave_tpu/kernels/modwt_symmetric.py:186",
     ),
+    "modwt2_analysis": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt2_analysis.cu",
+        "vectorwave_tpu/kernels/modwt2_pallas.py:161",
+    ),
+    "modwt2_synthesis": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt2_synthesis.cu",
+        "vectorwave_tpu/kernels/modwt2_pallas.py:423",
+    ),
 }
 MAIN_PATH = ("modwt_analysis", "modwt_synthesis", "modwt_denoise")
 EXACT_PATH = ("modwt_exact_analysis", "modwt_exact_synthesis")
 SYMMETRIC_PATH = ("modwt_analysis", "modwt_symmetric_synthesis", "modwt_symmetric_adjoint")
 BF16_ROWS = MAIN_PATH + ("modwt_symmetric_synthesis", "modwt_symmetric_adjoint")
+TWOD_PATH = ("modwt2_analysis", "modwt2_synthesis")
+#: the 2-D path's images (the TPU bench's 2-D shape) and its round-trip bound
+#: (the JAX package's 2-D kernel test bound, tests/test_modwt2_pallas.py).
+IMG = (8, 2048, 2048)
+RT2_MAX = 5e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -215,6 +249,7 @@ def main() -> int:
     import vectorwave_tpu_torch as vt
     from vectorwave_tpu_torch.denoise.denoiser import _fused_sigma
     from vectorwave_tpu_torch.kernels import _build
+    from vectorwave_tpu_torch.kernels import modwt2 as k2
     from vectorwave_tpu_torch.kernels import modwt_composite as mc
     from vectorwave_tpu_torch.kernels import modwt_symmetric as ms
     from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
@@ -361,6 +396,39 @@ def main() -> int:
                 worst_bf16[kname] = max(worst_bf16[kname], err)
             check(err <= tol, f"{kname}{tag} {label}: max |kernel - plain| "
                               f"{err:.3e} <= {tol:.3e}")
+
+    # the 2-D level kernels: (wavelet, level, shape), each in the three edge
+    # modes; the synthesis planes are independent unit-variance images
+    img_cases = [
+        (WAVELET, 1, IMG), (WAVELET, 4, IMG), ("sym8", 1, IMG), ("sym8", 6, IMG),
+        (WAVELET, 3, (3, 200, 328)), ("haar", 5, (1, 24, 40)), ("db20", 4, (2, 1024, 1024)),
+    ]
+    for name, level, shape in img_cases:
+        wi = vt.wavelet(name)
+        s = 1 << (level - 1)
+        fa, fs = _kernel_filters(wi, synthesis=False), _kernel_filters(wi, synthesis=True)
+        xi = torch.randn(*shape, device=dev, generator=gen)
+        planes = [torch.randn(*shape, device=dev, generator=gen) for _ in range(4)]
+        for edge in ("periodic", "zero", "symmetric"):
+            ops = k2.synthesis_ops(wi, level, edge)[level - 1]
+            label = f"{name} level {level} {'x'.join(map(str, shape))} {edge}"
+            got = k2.analysis2_level(xi, fa, s, edge)
+            want = k2.analysis2_level_plain(xi, fa, s, edge)
+            torch.cuda.synchronize()
+            err = max(max_err(g, p) for g, p in zip(got, want))
+            worst["modwt2_analysis"] = max(worst["modwt2_analysis"], err)
+            check(err <= TOL_F32, f"modwt2_analysis {label}, every band: max |kernel - "
+                                  f"plain| {err:.3e} <= {TOL_F32:.0e}")
+            del got, want
+            got = k2.synthesis2_level(*planes, fs, s, ops, edge)
+            want = k2.synthesis2_level_plain(*planes, fs, s, ops, edge)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            worst["modwt2_synthesis"] = max(worst["modwt2_synthesis"], err)
+            check(err <= TOL_F32, f"modwt2_synthesis {label}, ops {ops}: max |kernel - "
+                                  f"plain| {err:.3e} <= {TOL_F32:.0e}")
+            del got, want
+        del xi, planes
 
     print(f"phase 3: main path through the public entry points, "
           f"{BATCH}x{N} float32", flush=True)
@@ -532,6 +600,122 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + (
             sym_launches[name] if name in SYMMETRIC_PATH else 0)
 
+    print(f"  the fused denoise's gradient, {BATCH}x{N} float32", flush=True)
+    th = gap_thresholds(mc._analysis_cascade(noisy, LEVELS, fd, True), LEVELS)
+    grads = []
+    for fused in (True, False):
+        xg, tg = noisy.clone().requires_grad_(True), th.clone().requires_grad_(True)
+        if fused:
+            y = vt.fused_denoise_multilevel(xg, WAVELET, levels=LEVELS, thresholds=tg,
+                                            mode="soft")
+            mc.reset_launches()
+        else:
+            y = mc.denoise_plain(xg, tg, LEVELS, fd, fr, True, "soft")
+        grads.append(torch.autograd.grad((y * weights[0]).sum(), (xg, tg)))
+        if fused:
+            torch.cuda.synchronize()
+            grad_launches = {k: v for k, v in mc.LAUNCHES.items() if v}
+    check(grad_launches == {"modwt_analysis": 2, "modwt_synthesis": 1},
+          f"fused denoise backward launches {grad_launches}")
+    for name, count in grad_launches.items():
+        launches[name] += count
+    (gx, gt), (px, pt) = grads
+    err_t = max_err(gt, pt) / pt.abs().max().item()
+    check(max_err(gx, px) <= TOL_F32 and err_t <= TOL_DTH,
+          f"fused denoise gradient vs plain autograd: d/dx {max_err(gx, px):.3e} <= "
+          f"{TOL_F32:.0e}, d/dthreshold {err_t:.3e} <= {TOL_DTH:.0e} of its largest")
+    xg = noisy.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(vt.denoise_multilevel(xg, WAVELET, levels=LEVELS).pow(2).sum(),
+                               xg)
+    check(bool(torch.isfinite(g).all()) and g.abs().max().item() > 0,
+          "denoise_multilevel differentiates on the card")
+
+    print(f"  the 2-D path, {'x'.join(map(str, IMG))} float32", flush=True)
+    twod_launches = dict.fromkeys(TWOD_PATH, 0)
+
+    def counted(label, expect, fn):
+        """Run fn with the counters set to 0 just before and read just after."""
+        mc.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in mc.LAUNCHES.items() if v}
+        check(got == expect, f"{label}: launches {got}")
+        for k in TWOD_PATH:
+            twod_launches[k] += got.get(k, 0)
+        return out
+
+    img = torch.randn(*IMG, device=dev, generator=gen)
+
+    def bands(res):
+        return [p for trip in res.details for p in trip] + [res.approx]
+
+    for name, levels, boundary in ((WAVELET, 4, "periodic"), (WAVELET, 6, "periodic"),
+                                   (WAVELET, 4, "zero"), ("sym8", 4, "symmetric")):
+        label = f"{name} J={levels} {boundary}"
+        each = {"modwt2_analysis": levels}
+        res = counted(f"modwt2_multilevel {label}", each, lambda: vt.modwt2_multilevel(
+            img, name, levels=levels, boundary=boundary))
+        y = counted(f"imodwt2_multilevel {label}", {"modwt2_synthesis": levels},
+                    lambda: vt.imodwt2_multilevel(res, name, boundary=boundary))
+        ref = vt.modwt2_multilevel(img, name, levels=levels, boundary=boundary,
+                                   backend="torch")
+        err = max(max_err(g, r) for g, r in zip(bands(res), bands(ref)))
+        y_ref = vt.imodwt2_multilevel(ref, name, boundary=boundary, backend="torch")
+        check(err <= TOL_F32 and max_err(y, y_ref) <= TOL_F32,
+              f"2-D {label} vs plain path: every band {err:.3e}, inverse "
+              f"{max_err(y, y_ref):.3e} <= {TOL_F32:.0e}")
+        if boundary == "periodic":
+            rmse = (y - img).pow(2).mean().sqrt().item()
+            check(max_err(y, img) <= RT2_MAX,
+                  f"2-D round trip {label}: rmse {rmse:.3e}, max {max_err(y, img):.3e} "
+                  f"<= {RT2_MAX:.0e}")
+        del res, y, ref, y_ref
+    rows = torch.arange(IMG[1], device=dev, dtype=torch.float32)[:, None]
+    cols = torch.arange(IMG[2], device=dev, dtype=torch.float32)[None, :]
+    noisy_img = (torch.sin(2 * math.pi * rows / 64.0) * torch.cos(2 * math.pi * cols / 48.0)
+                 + 0.5 * torch.randn(*IMG, device=dev, generator=gen)).contiguous()
+    den2 = counted("denoise2 db4 J=4 universal soft",
+                   {"modwt2_analysis": 4, "modwt2_synthesis": 4},
+                   lambda: vt.denoise2(noisy_img, WAVELET, levels=4))
+    vt.set_backend("torch")
+    try:
+        want = vt.denoise2(noisy_img, WAVELET, levels=4)
+    finally:
+        vt.set_backend("auto")
+    check(den2.shape == noisy_img.shape and bool(torch.isfinite(den2).all())
+          and max_err(den2, want) <= TOL_SWT,
+          f"denoise2 db4 J=4 vs plain path: {max_err(den2, want):.3e} <= {TOL_SWT:.0e}")
+    del den2, want
+    small2 = torch.randn(2, 96, 80, device=dev, generator=gen)
+    for boundary in ("periodic", "zero", "symmetric"):
+        got = counted(f"modwt2_multilevel sym8 J=2 {boundary} 2x96x80",
+                      {"modwt2_analysis": 2}, lambda: vt.modwt2_multilevel(
+                          small2, "sym8", levels=2, boundary=boundary))
+        ref = vt.modwt2_multilevel(small2.cpu().double(), "sym8", levels=2,
+                                   boundary=boundary, backend="torch")
+        err = max(max_err(g.cpu(), r) for g, r in zip(bands(got), bands(ref)))
+        y = counted(f"imodwt2_multilevel sym8 J=2 {boundary} 2x96x80",
+                    {"modwt2_synthesis": 2},
+                    lambda: vt.imodwt2_multilevel(got, "sym8", boundary=boundary))
+        y_ref = vt.imodwt2_multilevel(
+            vt.MultiLevelMODWT2Result(tuple(tuple(p.cpu().double() for p in t)
+                                            for t in got.details),
+                                      got.approx.cpu().double()),
+            "sym8", boundary=boundary, backend="torch")
+        check(err <= TOL_F32 and max_err(y.cpu(), y_ref) <= TOL_F32,
+              f"2x96x80 sym8 J=2 {boundary} 2-D kernels vs float64 CPU cascade: "
+              f"analysis {err:.3e}, synthesis {max_err(y.cpu(), y_ref):.3e}")
+    try:
+        vt.modwt2_multilevel(small2.clone().requires_grad_(True), "db4", levels=2)
+        refused = False
+    except vt.InvalidArgumentError:
+        refused = True
+    check(refused, "a 2-D input that requires grad raises on the card")
+    print(f"  launches during the 2-D path: {twod_launches}", flush=True)
+    for name in TWOD_PATH:
+        check(twod_launches[name] > 0, f"{name} launched {twod_launches[name]} times")
+        launches[name] = twod_launches[name]
+
     print("phase 4: timing (CUDA events, 3 warm-ups, median of 20)", flush=True)
     print(smi, flush=True)
     samples = BATCH * N
@@ -613,9 +797,77 @@ def main() -> int:
               f"{'-' if l_ms is None else f'{l_ms:.4f} ms'}, bound {bound[name][0]:.4f} ms "
               f"({bound[name][1]}; {100 * bound[name][0] / k_ms:.1f}% of it)", flush=True)
 
+    # the 2-D level kernels at level 1 and at level 6 of db4 on the 2-D path's
+    # images, periodic; library call: F.conv2d of the circularly padded input
+    # with the [4, 1, L, L] outer products of the level's taps (synthesis:
+    # [1, 4, L, L] on the four padded planes) at dilation 2^(j-1)
+    import numpy as np
+
+    fa2, fs2 = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+    planes4 = [torch.randn(*IMG, device=dev, generator=gen) for _ in range(4)]
+    stacked4 = torch.stack(planes4, dim=1)
+    lo_a, hi_a = np.array(fa2[0]), np.array(fa2[1])
+    lo_s, hi_s = np.array(fs2[0]), np.array(fs2[1])
+    # (H filter, W filter) of ll, lh, hl, hh
+    bank_a = torch.tensor(np.stack([np.outer(fh[::-1], fw[::-1]) for fh, fw in (
+        (lo_a, lo_a), (lo_a, hi_a), (hi_a, lo_a), (hi_a, hi_a))]),
+        dtype=torch.float32, device=dev)[:, None]
+    bank_s = torch.tensor(np.stack([np.outer(fh, fw) for fh, fw in (
+        (lo_s, lo_s), (lo_s, hi_s), (hi_s, lo_s), (hi_s, hi_s))]),
+        dtype=torch.float32, device=dev)[None]
+    pixels = math.prod(IMG)
+    # each input read once and each output written once: one plane in and
+    # four out (analysis) or four in and one out (synthesis); 6 L FMAs a pixel
+    t_bytes2 = 20 * pixels / HBM_BPS * 1e3
+    t_ops2 = 12 * taps * pixels / FP32_FLOPS * 1e3
+    bound2 = (max(t_bytes2, t_ops2), "bytes" if t_bytes2 >= t_ops2 else "operations")
+    deep = {}
+    for level in (1, LEVELS):
+        sp = 1 << (level - 1)
+        pad = sp * (taps - 1)
+        twod = {
+            "modwt2_analysis": (
+                lambda: k2.analysis2_level(img, fa2, sp, "periodic"),
+                lambda: k2.analysis2_level_plain(img, fa2, sp, "periodic"),
+                lambda: F.conv2d(F.pad(img[:, None], (pad, 0, pad, 0), mode="circular"),
+                                 bank_a, dilation=sp)),
+            "modwt2_synthesis": (
+                lambda: k2.synthesis2_level(*planes4, fs2, sp, k2.FORWARD_OPS, "periodic"),
+                lambda: k2.synthesis2_level_plain(*planes4, fs2, sp, k2.FORWARD_OPS,
+                                                  "periodic"),
+                lambda: F.conv2d(F.pad(stacked4, (0, pad, 0, pad), mode="circular"),
+                                 bank_s, dilation=sp)),
+        }
+        lib_err = max(max_err(twod["modwt2_analysis"][2]()[:, 0],
+                              twod["modwt2_analysis"][0]()[0]),
+                      max_err(twod["modwt2_synthesis"][2]()[:, 0],
+                              twod["modwt2_synthesis"][0]()))
+        check(lib_err <= 1e-4, f"level {level}: F.conv2d computes the 2-D kernels' "
+                               f"function ({lib_err:.3e})")
+        for name, (kernel, plain, library_call) in twod.items():
+            times = (median_ms(kernel), median_ms(plain), median_ms(library_call))
+            if level == 1:
+                ms_of[name], bound[name] = times, bound2
+            else:
+                deep[name] = {"level": level, "ms": times[0], "plain_ms": times[1],
+                              "library_ms": times[2], "bound_ms": bound2[0]}
+            print(f"  {name} level {level}: kernel {times[0]:.4f} ms "
+                  f"({20 * pixels / times[0] / 1e6:.1f} GB/s), plain {times[1]:.4f} ms, "
+                  f"library {times[2]:.4f} ms, bound {bound2[0]:.4f} ms ({bound2[1]}; "
+                  f"{100 * bound2[0] / times[0]:.1f}% of it)", flush=True)
+    del planes4, stacked4
+
     def public_round_trip(**how):
         return vt.imodwt_multilevel(
             vt.modwt_multilevel(x, WAVELET, levels=LEVELS, **how), WAVELET, **how)
+
+    def round_trip_2d(levels):
+        return vt.imodwt2_multilevel(vt.modwt2_multilevel(img, WAVELET, levels=levels),
+                                     WAVELET)
+
+    xg = noisy.clone().requires_grad_(True)
+    y_fused = vt.fused_denoise_multilevel(xg, WAVELET, levels=LEVELS, thresholds=th,
+                                          mode="soft")
 
     for label, fn, count in (
         ("modwt_multilevel + imodwt_multilevel", public_round_trip, samples),
@@ -631,6 +883,14 @@ def main() -> int:
             noisy, "sym8", levels=4, boundary="symmetric"), samples),
         ("swt_denoise sym8 J=4 symmetric 1x16384", lambda: vt.swt_denoise(
             noisy_16k, "sym8", levels=4, boundary="symmetric"), 16384),
+        ("fused_denoise_multilevel soft, backward alone", lambda: torch.autograd.grad(
+            y_fused, xg, weights[0], retain_graph=True), samples),
+        ("modwt2_multilevel + imodwt2_multilevel db4 J=4 8x2048x2048",
+         lambda: round_trip_2d(4), pixels),
+        ("modwt2_multilevel + imodwt2_multilevel db4 J=6 8x2048x2048",
+         lambda: round_trip_2d(LEVELS), pixels),
+        ("denoise2 db4 J=4 universal soft 8x2048x2048",
+         lambda: vt.denoise2(noisy_img, WAVELET, levels=4), pixels),
     ):
         t_ms = median_ms(fn)
         print(f"  {label}: {t_ms:.4f} ms ({count / t_ms / 1e3:.1f} Msamples/s)",
@@ -650,6 +910,7 @@ def main() -> int:
             "bound_ms": bound[name][0],
             "bound_by": bound[name][1],
             "library_ms": ms_of[name][2],
+            **({"deepest": deep[name]} if name in deep else {}),
         }
         for name, (source, replaces) in KERNELS.items()
     ]}

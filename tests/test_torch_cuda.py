@@ -12,7 +12,9 @@ bfloat16 one bfloat16 ulp of the largest output (both round the same fp32
 values to bfloat16); the exact fp64 kernels against their fp64 plain
 versions 1e-13 on hi + lo (the same fp64 arithmetic, which differs only in
 fused multiply-adds); the symmetric pair against its plain versions, which
-sum in float64, 2e-5 in float32 and one bfloat16 ulp in bfloat16.
+sum in float64, 2e-5 in float32 and one bfloat16 ulp in bfloat16; the 2-D
+kernels against their plain versions 2e-5; the fused denoise's threshold
+gradient, a sum over 8192 samples, 1e-3 of its largest value.
 """
 
 import pytest
@@ -21,6 +23,7 @@ import torch
 import vectorwave_tpu_torch as vt
 from chip_smoke import gap_thresholds
 from vectorwave_tpu_torch.errors import InvalidArgumentError
+from vectorwave_tpu_torch.kernels import modwt2 as k2
 from vectorwave_tpu_torch.kernels import modwt_composite as mc
 from vectorwave_tpu_torch.kernels import modwt_symmetric as ms
 from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
@@ -99,7 +102,8 @@ def test_public_entry_points_launch_the_kernels(cuda):
     assert mc.LAUNCHES == {"modwt_analysis": 1, "modwt_synthesis": 1,
                            "modwt_denoise": 2, "modwt_exact_analysis": 0,
                            "modwt_exact_synthesis": 0, "modwt_symmetric_synthesis": 0,
-                           "modwt_symmetric_adjoint": 0}
+                           "modwt_symmetric_adjoint": 0, "modwt2_analysis": 0,
+                           "modwt2_synthesis": 0}
     assert float((y - x).abs().max()) < 3e-6
     assert float((z - x).abs().max()) < 3e-6
     assert d.shape == x.shape and bool(torch.isfinite(d).all())
@@ -125,14 +129,35 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda, filters):
                     _kernel_filters(vt.wavelet("db38"), False), True)
 
 
-def test_fused_denoise_gradient_is_not_yet_ported(cuda):
-    x = _input(cuda, 2, 8192, torch.float32).requires_grad_(True)
-    with pytest.raises(InvalidArgumentError, match="no gradient"):
-        vt.fused_denoise_multilevel(x, "db4", levels=4, thresholds=torch.zeros(
-            2, 4, device=cuda))
-    with torch.no_grad():
-        vt.fused_denoise_multilevel(x, "db4", levels=4,
-                                    thresholds=torch.zeros(2, 4, device=cuda))
+@pytest.mark.parametrize("mode", ["soft", "hard", "none"])
+def test_fused_denoise_gradient_matches_plain_autograd(cuda, filters, mode):
+    """The fused denoise's backward on the card (two analysis launches and
+    one synthesis launch, one each for the round trip) against native
+    autograd of its plain version, in x and in the thresholds."""
+    fd, fr = filters
+    x = _input(cuda, 3, 8192, torch.float32, seed=4)
+    th = gap_thresholds(mc._analysis_cascade(x, LEVELS, fd, True), LEVELS)
+    wts = _input(cuda, 3, 8192, torch.float32, seed=5)
+    grads = []
+    for fused in (True, False):
+        xg, tg = x.clone().requires_grad_(True), th.clone().requires_grad_(True)
+        if fused:
+            y = vt.fused_denoise_multilevel(xg, "db4", levels=LEVELS, thresholds=tg,
+                                            mode=mode)
+            mc.reset_launches()
+        else:
+            y = mc.denoise_plain(xg, tg, LEVELS, fd, fr, True, mode)
+        grads.append(torch.autograd.grad((y * wts).sum(), (xg, tg), allow_unused=True))
+        if fused:
+            torch.cuda.synchronize()
+            assert mc.LAUNCHES["modwt_analysis"] == (1 if mode == "none" else 2)
+            assert mc.LAUNCHES["modwt_synthesis"] == 1
+    (gx, gt), (px, pt) = grads
+    assert _err((gx,), (px,)) <= TOL_F32
+    if mode == "soft":
+        assert _err((gt,), (pt,)) <= 1e-3 * float(pt.abs().max())
+    else:
+        assert float(gt.abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("periodic", [True, False])
@@ -217,7 +242,8 @@ def test_exact_public_entry_points_launch_the_exact_kernels(cuda):
     assert isinstance(res, vt.ExactMODWTResult) and res.approx.device == x.device
     assert mc.LAUNCHES == {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
                            "modwt_exact_analysis": 1, "modwt_exact_synthesis": 2,
-                           "modwt_symmetric_synthesis": 0, "modwt_symmetric_adjoint": 0}
+                           "modwt_symmetric_synthesis": 0, "modwt_symmetric_adjoint": 0,
+                           "modwt2_analysis": 0, "modwt2_synthesis": 0}
     assert torch.equal(y, x)
     assert float((hi.double() + lo.double() - x.double()).pow(2).mean().sqrt()) <= 1e-12
     sym = vt.modwt_multilevel_exact(x, "sym8", levels=4, boundary="symmetric")
@@ -305,3 +331,77 @@ def test_symmetric_gradients_match_plain_autograd(cuda):
         grads.append(torch.autograd.grad((y * x).sum(), ps))
     assert mc.LAUNCHES["modwt_symmetric_adjoint"] == 1
     assert _err(grads[0], grads[1]) <= TOL_F32
+
+
+# --- the 2-D kernels ---------------------------------------------------------------
+
+
+def _image(cuda, shape, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(*shape, device=cuda, generator=g)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "zero", "symmetric"])
+@pytest.mark.parametrize("name,level,shape", [
+    ("db4", 1, (2, 256, 256)),
+    ("db4", 4, (2, 256, 256)),
+    ("sym8", 6, (1, 512, 640)),
+    ("db4", 3, (3, 200, 328)),
+    ("haar", 5, (1, 24, 40)),
+    ("db20", 4, (1, 384, 320)),
+])
+def test_2d_kernels_match_plain(cuda, name, level, shape, edge):
+    """Every band of one analysis level, and one synthesis level with the
+    edge's per-filter ops, against the plain versions (2e-5, as above)."""
+    w = vt.wavelet(name)
+    s = 1 << (level - 1)
+    x = _image(cuda, shape, seed=level)
+    fa = _kernel_filters(w, synthesis=False)
+    want = k2.analysis2_level_plain(x, fa, s, edge)
+    got = k2.analysis2_level(x, fa, s, edge)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= TOL_F32
+    fs = _kernel_filters(w, synthesis=True)
+    ops = k2.synthesis_ops(w, level, edge)[level - 1]
+    planes = [_image(cuda, shape, seed=10 + i) for i in range(4)]
+    y_want = k2.synthesis2_level_plain(*planes, fs, s, ops, edge)
+    y_got = k2.synthesis2_level(*planes, fs, s, ops, edge)
+    torch.cuda.synchronize()
+    assert _err((y_got,), (y_want,)) <= TOL_F32
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "zero", "symmetric"])
+def test_2d_public_path_launches_one_kernel_per_level(cuda, boundary):
+    x = _image(cuda, (2, 512, 384), seed=3)
+    mc.reset_launches()
+    res = vt.modwt2_multilevel(x, "db4", levels=4, boundary=boundary)
+    y = vt.imodwt2_multilevel(res, "db4", boundary=boundary)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
+        "modwt2_analysis": 4, "modwt2_synthesis": 4}
+    ref = vt.modwt2_multilevel(x, "db4", levels=4, boundary=boundary, backend="torch")
+    for g3, r3 in zip(res.details, ref.details):
+        assert _err(g3, r3) <= TOL_F32
+    y_ref = vt.imodwt2_multilevel(ref, "db4", boundary=boundary, backend="torch")
+    assert _err((y,), (y_ref,)) <= TOL_F32
+    if boundary == "periodic":
+        assert float((y - x).abs().max()) <= 5e-5
+
+
+def test_2d_routing_on_the_card(cuda):
+    """float64 stays on the plain path under auto and raises under kernel;
+    an input that requires grad raises and names backend='torch'."""
+    x = _image(cuda, (1, 128, 128))
+    mc.reset_launches()
+    vt.modwt2_multilevel(x.double(), "db4", levels=2)
+    assert mc.LAUNCHES["modwt2_analysis"] == 0
+    with pytest.raises(InvalidArgumentError, match="float32"):
+        vt.modwt2_multilevel(x.double(), "db4", levels=2, backend="kernel")
+    with pytest.raises(InvalidArgumentError, match="backend='torch'"):
+        vt.modwt2_multilevel(x.clone().requires_grad_(True), "db4", levels=2)
+    xg = x.clone().requires_grad_(True)
+    res = vt.modwt2_multilevel(xg, "db4", levels=2, backend="torch")
+    assert res.approx.requires_grad
+    with torch.no_grad():
+        vt.modwt2_multilevel(xg, "db4", levels=2)
+    assert mc.LAUNCHES["modwt2_analysis"] == 2

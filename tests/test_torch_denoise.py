@@ -221,3 +221,174 @@ def test_fused_denoise_gradients_match_jax_grad():
     _close(gx, want_x)
     _close(gt, want_t)
     assert math.isfinite(float(gt.abs().sum()))
+
+
+# --- the fused denoise's gradient (torch.autograd.Function) -------------------------
+#
+# Tolerances are the JAX tests' (tests/test_fused_denoise.py,
+# tests/test_fused_roundtrip.py): 3e-6 and 5e-6 of the largest gradient for
+# float32 gradients that pass through a data-dependent shrink mask and a
+# median, 2e-2 for the round trip against its identity approximation; the
+# float64 comparisons with plain autograd are the same arithmetic in another
+# order (1e-10).
+
+
+def _port_thresholds(res, n, levels):
+    sigma = vt.mad_sigma(res.details[0])
+    return torch.cat([vt.universal_threshold(n, sigma / math.sqrt(2.0**j))
+                      for j in range(1, levels + 1)], dim=-1)
+
+
+def _jax_thresholds(res, n, levels):
+    sigma = jth.mad_sigma(res.details[0])
+    return jnp.concatenate([jth.universal_threshold(n, sigma / jnp.sqrt(2.0**j))
+                            for j in range(1, levels + 1)], axis=-1)
+
+
+def test_fused_denoise_function_gradient_matches_jax_fused_kernel():
+    """Mirror of test_fused_denoise.py::test_fused_denoise_gradients_match_jnp_path:
+    the port's Function (plain versions on the CPU) against jax.grad of the
+    JAX fused kernel in interpret mode, and against plain autograd of the
+    three-call path, in x and through the thresholds' own dependence on x."""
+    from vectorwave_tpu.kernels.modwt_pallas import fused_denoise_multilevel as jfused
+
+    n, levels = 2048, 3
+    x = np.random.default_rng(5).standard_normal((2, n)).astype(np.float32)
+    wts = np.arange(n, dtype=np.float32)
+
+    def jloss(y):
+        res = vw.modwt_multilevel(y, "db4", levels=levels, backend="jnp")
+        out = jfused(y, "db4", levels=levels, thresholds=_jax_thresholds(res, n, levels),
+                     mode="soft", interpret=True, precision="float32")
+        return jnp.sum(out**2 * wts)
+
+    def tloss(y, fused):
+        res = vt.modwt_multilevel(y, "db4", levels=levels, backend="torch")
+        ths = _port_thresholds(res, n, levels)
+        if fused:
+            out = vt.fused_denoise_multilevel(y, "db4", levels=levels, thresholds=ths,
+                                              mode="soft")
+        else:
+            dets = tuple(vt.apply_threshold(d, ths[..., j : j + 1], "soft")
+                         for j, d in enumerate(res.details))
+            out = vt.imodwt_multilevel(vt.MultiLevelMODWTResult(dets, res.approx), "db4",
+                                       backend="torch")
+        return (out**2 * torch.from_numpy(wts)).sum()
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+    got, plain = (torch.autograd.grad(tloss(xt, fused), xt)[0]
+                  for fused in (True, False)
+                  for xt in (torch.from_numpy(x).requires_grad_(True),))
+    scale = float(np.abs(want).max())
+    _close(got, want, tol=3e-6 * scale)
+    _close(got, plain.numpy(), tol=3e-6 * scale)
+
+
+def test_public_denoise_multilevel_gradient_through_the_fused_route():
+    """Mirror of test_fused_denoise.py::test_public_denoise_grad_end_to_end: the
+    kernel backend routes denoise_multilevel to the fused denoise (N >= 4096
+    in the port's router), whose gradient matches the JAX package's fused
+    route and the port's three-call plain path."""
+    x = np.random.default_rng(6).standard_normal(4096).astype(np.float32)
+
+    def tloss(y):
+        return (vt.denoise_multilevel(y, "db4", levels=3, method="universal",
+                                      mode="soft") ** 2).sum()
+
+    def jloss(y):
+        return jnp.sum(vw.denoise_multilevel(y, "db4", levels=3, method="universal",
+                                             mode="soft") ** 2)
+
+    grads = {}
+    for backend in ("kernel", "torch"):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        vt.set_backend(backend)
+        try:
+            grads[backend] = torch.autograd.grad(tloss(xt), xt)[0]
+        finally:
+            vt.set_backend("auto")
+    vw.set_backend("pallas")
+    vw.set_fused_precision("float32")
+    try:
+        want = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+    finally:
+        vw.set_backend("auto")
+        vw.set_fused_precision("bf16_3x")
+    scale = float(np.abs(want).max())
+    _close(grads["kernel"], want, tol=5e-6 * scale)
+    _close(grads["kernel"], grads["torch"].numpy(), tol=5e-6 * scale)
+
+
+def test_roundtrip_fused_gradient_matches_jax():
+    """Mirror of test_fused_roundtrip.py::test_roundtrip_fused_1d_and_grad: a
+    1-D input, the gradient of the fused round trip (no shrink mask) against
+    jax.grad of the JAX fused round trip and its identity approximation."""
+    x = np.random.default_rng(2).standard_normal(2048).astype(np.float32)
+    wts = np.arange(2048, dtype=np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = vt.modwt_roundtrip_fused(xt, "db4", levels=3)
+    got = torch.autograd.grad((out**2 * torch.from_numpy(wts)).sum(), xt)[0]
+    want = jax.grad(lambda y: jnp.sum(vw.modwt_roundtrip_fused(
+        y, "db4", levels=3, interpret=True, precision="float32") ** 2 * wts))(
+        jnp.asarray(x))
+    scale = float(np.abs(np.asarray(want)).max())
+    _close(got, want, tol=3e-6 * scale)
+    _close(got, 2 * wts * x, tol=2e-2)
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "zero"])
+@pytest.mark.parametrize("mode", ["soft", "hard", "none"])
+def test_fused_denoise_function_matches_plain_autograd_in_float64(mode, boundary):
+    """d/dx and d/dthreshold of the Function against native autograd of the
+    plain version in float64: the soft threshold's gradient is
+    -sum sign(d) (S^T g) over |d| > t, the hard one's and the round trip's 0."""
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+    x = _noisy(3, 1024, seed=22)
+    th = np.abs(_x((3, 4), seed=23)) * 0.2
+    wts = torch.from_numpy(_x((3, 1024), seed=24))
+    wv = vt.wavelet("db4")
+    fd, fr = _kernel_filters(wv, False), _kernel_filters(wv, True)
+    grads = []
+    for fused in (True, False):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        tt = torch.from_numpy(th).requires_grad_(True)
+        if fused:
+            y = vt.fused_denoise_multilevel(xt, wv, levels=4, thresholds=tt,
+                                            boundary=boundary, mode=mode)
+        else:
+            y = mc.denoise_plain(xt, tt, 4, fd, fr, boundary == "periodic", mode)
+        grads.append(torch.autograd.grad((y * wts).sum(), (xt, tt), allow_unused=True))
+    (gx, gt), (px, pt) = grads
+    _close(gx, px.numpy())
+    if mode == "soft":
+        _close(gt, pt.numpy())
+        assert float(gt.abs().max()) > 1e-3
+    else:
+        assert float(gt.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("mode,analyses", [("soft", 2), ("hard", 2), ("none", 1)])
+def test_fused_denoise_backward_runs_through_the_kernel_wrappers(monkeypatch, mode,
+                                                                 analyses):
+    """The backward calls the kernel wrappers (which launch the kernels on a
+    CUDA tensor): analysis on the reconstruction taps, once more on the
+    decomposition taps for the mask, and synthesis once."""
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+
+    calls = {"analysis": 0, "synthesis": 0}
+    for name in calls:
+        orig = getattr(mc, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            calls[_name] += 1
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(mc, name, spy)
+    xt = torch.from_numpy(_noisy(2, 512, seed=25)).requires_grad_(True)
+    y = vt.fused_denoise_multilevel(xt, "db4", levels=3, thresholds=torch.full(
+        (2, 3), 0.1, dtype=torch.float64), mode=mode)
+    assert calls == {"analysis": 0, "synthesis": 0}
+    y.sum().backward()
+    assert calls == {"analysis": analyses, "synthesis": 1}

@@ -1,0 +1,674 @@
+"""Port parity: the 2-D MODWT family (transforms/twodim.py) and its kernel tier.
+
+The same seeded numpy inputs go through vectorwave_tpu and
+vectorwave_tpu_torch.  Tolerances:
+
+* float64, port against the JAX package's jnp path: 1e-12 max abs (the same
+  float64 arithmetic in another order, values of order 1); ``denoise2``,
+  whose MAD sigma and threshold pass through a sort, 1e-10;
+* float32, the port's kernel tier (its wrappers run their plain versions on
+  the CPU) against the JAX Pallas kernels in interpret mode: 2e-5 per band,
+  4e-5 for a deep case that crosses the TPU cascade tier, 3e-5 and 5e-5 for
+  round trips (the bounds of ``tests/test_modwt2_pallas.py``: fp32 sums in
+  another order over composite filters of up to hundreds of taps);
+* the CUDA kernels' windows, walked in numpy in float64 against the plain
+  versions: 1e-12.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vectorwave_tpu as vw
+import vectorwave_tpu_torch as vt
+from vectorwave_tpu.kernels import modwt2_mxu as jk2
+from vectorwave_tpu.kernels.modwt2_pallas import (
+    imodwt2_multilevel_pallas,
+    modwt2_multilevel_pallas,
+)
+from vectorwave_tpu.transforms import twodim as jtwo
+from vectorwave_tpu.transforms.modwt import _resolve_discrete as jwavelet
+from vectorwave_tpu_torch import convert
+from vectorwave_tpu_torch.errors import InvalidArgumentError, InvalidSignalError
+from vectorwave_tpu_torch.kernels import modwt2 as k2
+from vectorwave_tpu_torch.kernels import modwt2_composite as c2
+from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+torch.set_num_threads(1)
+
+TOL = 1e-12
+BOUNDARIES = ["periodic", "zero", "symmetric"]
+
+
+def _image(h=64, w=96, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.sin(2 * np.pi * yy / 16) + np.cos(2 * np.pi * xx / 12)
+    return img + 0.1 * rng.standard_normal((h, w))
+
+
+def _randn(shape, seed=0, dtype=np.float64):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def _port_wavelet(name):
+    if name.startswith("bior"):
+        w = vw.wavelet(name)
+        return convert.wavelet_from_arrays(name, w.dec_lo, w.dec_hi, w.rec_lo, w.rec_hi)
+    return vt.wavelet(name)
+
+
+def _close(got, want, tol=TOL, msg=""):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, msg
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=msg)
+
+
+def _close_result(got, want, tol=TOL):
+    """Every band of two multi-level 2-D results, level by level."""
+    assert len(got.details) == len(want.details)
+    for j, (g3, w3) in enumerate(zip(got.details, want.details), start=1):
+        for g, w, tag in zip(g3, w3, ("lh", "hl", "hh")):
+            _close(g, w, tol, f"level {j} {tag}")
+    _close(got.approx, want.approx, tol, "ll")
+
+
+def _jnp(fn):
+    vw.set_backend("jnp")
+    try:
+        return fn()
+    finally:
+        vw.set_backend("auto")
+
+
+# --- the CUDA kernels' windows, walked in numpy ------------------------------------
+
+
+def _edge_index(g, n, edge):
+    if edge == "zero":
+        return np.where((g >= 0) & (g < n), g, -1)
+    p = 2 * n if edge == "symmetric" else n
+    m = np.mod(g, p)
+    return np.where(m < n, m, p - 1 - m)
+
+
+def _gather(img, rows, cols):
+    """img[rows][:, cols] with -1 reading 0 (the zero edge)."""
+    h, w = img.shape
+    out = img[np.clip(rows, 0, h - 1)][:, np.clip(cols, 0, w - 1)]
+    return np.where((rows[:, None] >= 0) & (cols[None, :] >= 0), out, 0.0)
+
+
+def _blocks(b, h, w, s, tile):
+    """(image, residue, k0, c0) of every block, in the kernels' grid order."""
+    th, tw = tile
+    blocks, chunks, wtiles = k2.grid_blocks(b, h, w, s, tile)
+    for bid in range(blocks):
+        rest, wt = divmod(bid, wtiles)
+        rest, chunk = divmod(rest, chunks)
+        image, res = divmod(rest, s)
+        yield image, res, chunk * th, wt * tw
+
+
+def _store(outs, image, res, k0, c0, s, tile, vals):
+    """Write the block's [.., th, tw] values where rows and columns are in
+    range, as the kernels' stores do; count each pixel's writes."""
+    th, tw = tile
+    h, w = outs[0].shape[-2:]
+    rows = res + s * (k0 + np.arange(th))
+    cols = c0 + np.arange(tw)
+    ok_r, ok_c = rows < h, cols < w
+    for out, v in zip(outs, vals):
+        out[image][np.ix_(rows[ok_r], cols[ok_c])] += v[np.ix_(ok_r, ok_c)]
+
+
+def _walk_analysis(x, filters, s, edge, tile):
+    """modwt2_analysis.cu's block loop: window of th + L - 1 rows of the
+    residue class by tw + s (L - 1) columns, the W pass on every window row,
+    the H pass on the block's rows."""
+    lo, hi = (np.asarray(f) for f in filters)
+    taps = len(lo)
+    b, h, w = x.shape
+    rows_n, width = k2.analysis_window(taps, s, tile)
+    th, tw = tile
+    outs = [np.zeros_like(x) for _ in range(4)]  # ll, lh, hl, hh
+    for image, res, k0, c0 in _blocks(b, h, w, s, tile):
+        gr = _edge_index(res + s * (k0 - (taps - 1) + np.arange(rows_n)), h, edge)
+        gc = _edge_index(c0 - s * (taps - 1) + np.arange(width), w, edge)
+        win = _gather(x[image], gr, gc)
+        cols = np.arange(tw)
+        aw = sum(lo[l] * win[:, cols + s * (taps - 1) - s * l] for l in range(taps))
+        dw = sum(hi[l] * win[:, cols + s * (taps - 1) - s * l] for l in range(taps))
+        ks = np.arange(th)
+        ll = sum(lo[l] * aw[ks + taps - 1 - l] for l in range(taps))
+        hl = sum(hi[l] * aw[ks + taps - 1 - l] for l in range(taps))
+        lh = sum(lo[l] * dw[ks + taps - 1 - l] for l in range(taps))
+        hh = sum(hi[l] * dw[ks + taps - 1 - l] for l in range(taps))
+        _store(outs, image, res, k0, c0, s, tile, (ll, lh, hl, hh))
+    return outs
+
+
+def _walk_synthesis(planes, filters, s, ops, edge, tile):
+    """modwt2_synthesis.cu's block loop: per plane, the th + L - 1 rows of
+    the class its H op reads by the window of columns the W ops read; W pass
+    into row_a (ll, lh: low along H) or row_d (hl, hh); then the H pass."""
+    ll, lh, hl, hh = planes
+    lo, hi = (np.asarray(f) for f in filters)
+    taps = len(lo)
+    b, h, w = ll.shape
+    rows_n, width, wlo = k2.synthesis_window(taps, s, ops, tile)
+    lo_s, lo_o, hi_s, hi_o = ops
+    th, tw = tile
+    out = np.zeros_like(ll)
+    cs = np.arange(tw)
+    mrel = {False: min(0, lo_s * (taps - 1)), True: min(0, hi_s * (taps - 1))}
+    for image, res, k0, c0 in _blocks(b, h, w, s, tile):
+        row = {False: np.zeros((rows_n, tw)), True: np.zeros((rows_n, tw))}
+        gc = _edge_index(c0 + wlo + np.arange(width), w, edge)
+        for p, plane in enumerate((ll, lh, hl, hh)):
+            w_hi, h_hi = bool(p & 1), bool(p >> 1)
+            h_off = hi_o if h_hi else lo_o
+            gr = _edge_index(res + h_off + s * (k0 + mrel[h_hi] + np.arange(rows_n)), h,
+                             edge)
+            buf = _gather(plane[image], gr, gc)
+            f = hi if w_hi else lo
+            w_sign, w_off = (hi_s, hi_o) if w_hi else (lo_s, lo_o)
+            row[h_hi] += sum(f[l] * buf[:, cs + w_off + w_sign * s * l - wlo]
+                             for l in range(taps))
+        ks = np.arange(th)
+        val = sum(lo[l] * row[False][ks + lo_s * l - mrel[False]]
+                  + hi[l] * row[True][ks + hi_s * l - mrel[True]] for l in range(taps))
+        _store([out], image, res, k0, c0, s, tile, (val,))
+    return out
+
+
+WALK_CASES = [
+    # (wavelet, level, edge, shape, tile): small tiles give many blocks and
+    # ragged edges; (16, 128) is the kernels' first choice.
+    ("db4", 1, "periodic", (2, 40, 56), (4, 8)),
+    ("db4", 3, "periodic", (1, 40, 56), (2, 16)),
+    ("db4", 2, "zero", (2, 37, 29), (4, 8)),
+    ("db4", 3, "symmetric", (1, 45, 52), (4, 8)),
+    ("sym8", 2, "symmetric", (1, 64, 48), (16, 128)),
+    ("haar", 5, "periodic", (1, 24, 40), (4, 8)),  # spacing 16, span above H
+    ("haar", 4, "symmetric", (1, 20, 18), (1, 32)),
+]
+
+
+@pytest.mark.parametrize("name,level,edge,shape,tile", WALK_CASES)
+def test_kernel_windows_reproduce_the_plain_level(name, level, edge, shape, tile):
+    """The CUDA kernels' index arithmetic (windows, polyphase rows, edge
+    mapping, ragged stores), walked in numpy, equals the plain versions for
+    every band and writes every pixel exactly once."""
+    w = vt.wavelet(name)
+    s = 1 << (level - 1)
+    x = _randn(shape, seed=level)
+    fa = _kernel_filters(w, synthesis=False)
+    want = k2.analysis2_level_plain(torch.from_numpy(x), fa, s, edge)
+    got = _walk_analysis(x, fa, s, edge, tile)
+    for g, wt, tag in zip(got, want, ("ll", "lh", "hl", "hh")):
+        _close(g, wt, msg=tag)
+    count = _walk_analysis(np.ones_like(x), ((1.0,), (0.0,)), s, "periodic", tile)[0]
+    assert np.array_equal(count, np.ones_like(x))
+    planes = [_randn(shape, seed=10 + i) for i in range(4)]
+    fs = _kernel_filters(w, synthesis=True)
+    ops = k2.synthesis_ops(w, level, edge)[level - 1]
+    want = k2.synthesis2_level_plain(*(torch.from_numpy(p) for p in planes), fs, s, ops,
+                                     edge)
+    _close(_walk_synthesis(planes, fs, s, ops, edge, tile), want)
+
+
+@pytest.mark.parametrize("name,levels", [("db4", 6), ("sym8", 6), ("db20", 4), ("haar", 10)])
+def test_the_main_widths_fit_shared_memory(name, levels):
+    """db4 and sym8 to J=6, a long filter (db20 J=4) and haar J=10 get a
+    tile at every level and in every edge mode; the first levels get the
+    widest."""
+    w = vt.wavelet(name)
+    for edge in BOUNDARIES:
+        for j, ops in enumerate(k2.synthesis_ops(w, levels, edge), start=1):
+            s = 1 << (j - 1)
+            a, syn = k2.analysis_tile(w.filter_length, s), k2.synthesis_tile(
+                w.filter_length, s, ops)
+            assert a is not None and syn is not None
+            assert k2.analysis_shared_bytes(w.filter_length, s, a) <= k2.SHARED_LIMIT
+            assert k2.synthesis_shared_bytes(w.filter_length, s, ops, syn) <= k2.SHARED_LIMIT
+        assert k2.analysis_tile(w.filter_length, 1) == k2.TILES[0]
+
+
+# --- parity with the Pallas kernels (interpret mode, float32) ----------------------
+
+
+def _kernel_tier(x, name, levels, boundary):
+    res = vt.modwt2_multilevel(torch.from_numpy(x), name, levels=levels,
+                               boundary=boundary, backend="kernel")
+    return res, vt.imodwt2_multilevel(res, name, boundary=boundary, backend="kernel")
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "zero"])
+@pytest.mark.parametrize("name,levels", [("db4", 3), ("haar", 4), ("sym8", 2)])
+def test_kernel_tier_matches_pallas_kernels(name, levels, boundary):
+    x = _randn((2, 256, 256), dtype=np.float32)
+    det, ll = modwt2_multilevel_pallas(jnp.asarray(x), jwavelet(name), levels, boundary,
+                                       "float32", interpret=True)
+    got, _ = _kernel_tier(x, name, levels, boundary)
+    _close_result(got, vt.MultiLevelMODWT2Result(det, ll), tol=2e-5)
+
+
+def test_kernel_tier_matches_pallas_cascade_tier_deep():
+    """db4 J=5 at 512x512 crosses the TPU kernels' cascade tier
+    (``_cascade_start``); the port runs every level as one stage."""
+    x = _randn((1, 512, 512), seed=3, dtype=np.float32)
+    det, ll = modwt2_multilevel_pallas(jnp.asarray(x), jwavelet("db4"), 5, "periodic",
+                                       "float32", interpret=True)
+    got, _ = _kernel_tier(x, "db4", 5, "periodic")
+    _close_result(got, vt.MultiLevelMODWT2Result(det, ll), tol=4e-5)
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "zero"])
+@pytest.mark.parametrize("levels,hw,tol", [(3, 256, 3e-5), (5, 512, 5e-5)])
+def test_kernel_tier_round_trip_matches_pallas(levels, hw, tol, boundary):
+    x = _randn((1, hw, hw), seed=4, dtype=np.float32)
+    w = jwavelet("db4")
+    det, ll = modwt2_multilevel_pallas(jnp.asarray(x), w, levels, boundary, "float32",
+                                       interpret=True)
+    want = imodwt2_multilevel_pallas(det, ll, w, boundary, "float32", interpret=True)
+    res = convert.modwt2_result_from_arrays(det, ll, device="cpu")
+    got = vt.imodwt2_multilevel(res, "db4", boundary=boundary, backend="kernel")
+    _close(got, want, tol)
+    if boundary == "periodic":
+        _close(_kernel_tier(x, "db4", levels, boundary)[1], x, tol)
+
+
+@pytest.mark.parametrize("name,levels", [("db4", 3), ("sym8", 2)])
+def test_symmetric_kernel_tier_matches_jax_fast_paths(name, levels):
+    """The symmetric edge mode against the JAX reflect-padded symmetric fast
+    paths (Pallas, interpret mode) at 2e-5, and against the jnp cascade in
+    float64 at 1e-12."""
+    x = _randn((2, 256, 256), seed=5, dtype=np.float32)
+    w = jwavelet(name)
+    vw.set_backend("pallas")
+    vw.set_fused_precision("float32")
+    try:
+        fast = jtwo._modwt2_symmetric_fast(jnp.asarray(x), w, levels)
+        assert fast is not None
+        fast_inv = jtwo._imodwt2_symmetric_fast(fast, w)
+        assert fast_inv is not None
+    finally:
+        vw.set_backend("auto")
+        vw.set_fused_precision("bf16_3x")
+    got = vt.modwt2_multilevel(torch.from_numpy(x), name, levels=levels,
+                               boundary="symmetric", backend="kernel")
+    _close_result(got, fast, tol=2e-5)
+    res = convert.modwt2_result_from_arrays(fast.details, fast.approx, device="cpu")
+    _close(vt.imodwt2_multilevel(res, name, boundary="symmetric", backend="kernel"),
+           fast_inv, 2e-5)
+    x64 = x.astype(np.float64)[:1, :96, :80]
+    want = _jnp(lambda: jtwo.modwt2_multilevel(jnp.asarray(x64), name, levels=levels,
+                                               boundary="symmetric"))
+    got = vt.modwt2_multilevel(torch.from_numpy(x64), name, levels=levels,
+                               boundary="symmetric", backend="kernel")
+    _close_result(got, want)
+    _close(vt.imodwt2_multilevel(got, name, boundary="symmetric", backend="kernel"),
+           _jnp(lambda: jtwo.imodwt2_multilevel(want, name, boundary="symmetric")))
+
+
+# --- parity with the cascade in float64 ----------------------------------------------
+
+
+@pytest.mark.parametrize("name,levels,shape,boundary", [
+    *(("db4", 3, (3, 200, 328), b) for b in BOUNDARIES),  # H != W, not 128-multiples
+    *(("sym8", 2, (2, 64, 96), b) for b in BOUNDARIES),
+    *(("bior2.2", 2, (1, 48, 64), b) for b in BOUNDARIES),
+    ("haar", 5, (24, 40), "periodic"),  # the level-5 span (16) wraps past H - 16
+])
+def test_public_pair_matches_jax_cascade(name, levels, shape, boundary):
+    x = _randn(shape, seed=7)
+    want = _jnp(lambda: vw.modwt2_multilevel(jnp.asarray(x), name, levels=levels,
+                                             boundary=boundary))
+    want_y = _jnp(lambda: vw.imodwt2_multilevel(want, name, boundary=boundary))
+    w = _port_wavelet(name)
+    for backend in ("torch", "kernel"):
+        got = vt.modwt2_multilevel(torch.from_numpy(x), w, levels=levels,
+                                   boundary=boundary, backend=backend)
+        _close_result(got, want)
+        _close(vt.imodwt2_multilevel(got, w, boundary=boundary, backend=backend), want_y)
+    if boundary == "periodic":
+        _close(want_y, x, 1e-10)
+
+
+# --- the composite form ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "zero"])
+@pytest.mark.parametrize("name,levels", [("db4", 3), ("sym8", 2), ("haar", 4)])
+def test_composite_form_matches_jax_fast_path_and_the_cascade(name, levels, boundary):
+    """modwt2_multilevel_composite against the JAX banded-matmul path at 2e-5
+    in float32, and against the port's per-level cascade (the kernel tier's
+    definition) at 1e-12 in float64, both directions."""
+    x = _randn((2, 128, 256), seed=8, dtype=np.float32)
+    w = vt.wavelet(name)
+    det, ll = c2.modwt2_multilevel_composite(torch.from_numpy(x), w, levels, boundary)
+    jdet, jll = jk2.modwt2_multilevel_fast(jnp.asarray(x), jwavelet(name), levels,
+                                           boundary, "float32")
+    _close_result(vt.MultiLevelMODWT2Result(det, ll), vt.MultiLevelMODWT2Result(jdet, jll),
+                  tol=2e-5)
+    _close(c2.imodwt2_multilevel_composite(det, ll, w, boundary),
+           jk2.imodwt2_multilevel_fast(jdet, jll, jwavelet(name), boundary, "float32"),
+           5e-5)
+    x64 = torch.from_numpy(x.astype(np.float64)[:, :64, :80])
+    det, ll = c2.modwt2_multilevel_composite(x64, w, levels, boundary)
+    casc = vt.modwt2_multilevel(x64, w, levels=levels, boundary=boundary, backend="kernel")
+    _close_result(vt.MultiLevelMODWT2Result(det, ll), casc)
+    _close(c2.imodwt2_multilevel_composite(casc.details, casc.approx, w, boundary),
+           vt.imodwt2_multilevel(casc, w, boundary=boundary, backend="kernel"))
+
+
+def test_composite_planes_split_matches_jax():
+    low, high = np.array([0.4, 0.6, -0.1]), np.array([0.2, -0.7, 0.3])
+    for got, want in zip(c2.composite_planes_split(low, high, 3),
+                         jk2.composite_planes_split(low, high, 3)):
+        for g, wt in zip(got, want):
+            np.testing.assert_array_equal(g, wt)
+    with pytest.raises(InvalidArgumentError):
+        c2.modwt2_multilevel_composite(torch.zeros(1, 16, 16), vt.wavelet("haar"), 1,
+                                       "symmetric")
+
+
+# --- mirrors of tests/test_twodim.py -------------------------------------------------
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "zero"])
+def test_modwt2_roundtrip(boundary):
+    x = _image()
+    res = vt.modwt2(torch.from_numpy(x), "db4", boundary=boundary)
+    want = jtwo.modwt2(jnp.asarray(x), "db4", boundary=boundary)
+    for g, wt in zip(res, want):
+        _close(g, wt)
+    xr = vt.imodwt2(res, "db4", boundary=boundary)
+    _close(xr, jtwo.imodwt2(want, "db4", boundary=boundary))
+    err = (xr.numpy() - x)
+    if boundary == "periodic":
+        assert np.abs(err).max() < 1e-10
+    else:
+        assert np.abs(err[16:-16, 16:-16]).max() < 1e-9
+
+
+def test_modwt2_symmetric_matches_1d_contract():
+    x = _image()
+    res = vt.modwt2(torch.from_numpy(x), "haar", boundary="symmetric")
+    xr = vt.imodwt2(res, "haar", boundary="symmetric")
+    _close(xr, jtwo.imodwt2(jtwo.modwt2(jnp.asarray(x), "haar", boundary="symmetric"),
+                            "haar", boundary="symmetric"))
+    interior = (xr.numpy() - x)[16:-16, 16:-16]
+    assert np.sqrt(np.mean(interior**2)) / np.std(x[16:-16, 16:-16]) < 0.6
+
+
+def test_modwt2_separability_oracle():
+    x = torch.from_numpy(_image(32, 48))
+    res = vt.modwt2(x, "haar")
+    col = vt.modwt(x, "haar")
+    row = vt.modwt(col.approx.transpose(-1, -2), "haar")
+    _close(res.ll, row.approx.transpose(-1, -2).numpy())
+    _close(res.hl, row.detail.transpose(-1, -2).numpy())
+    _close(res.ll, jtwo.modwt2(jnp.asarray(x.numpy()), "haar").ll)
+
+
+def test_modwt2_subband_orientation():
+    """A horizontal edge excites hl (high along H), a vertical one lh, in the
+    plain single level and in the kernel tier's first level alike."""
+    img = np.zeros((64, 64))
+    img[32:, :] = 1.0
+    for img_, big, small in ((img, "hl", "lh"), (img.T.copy(), "lh", "hl")):
+        res = vt.modwt2(torch.from_numpy(img_), "haar")
+        assert float((getattr(res, big) ** 2).sum()) > 100 * max(
+            float((getattr(res, small) ** 2).sum()), 1e-30)
+        kern = vt.modwt2_multilevel(torch.from_numpy(img_), "haar", levels=1,
+                                    backend="kernel")
+        lh, hl, _ = kern.details[0]
+        _close(lh, res.lh.numpy())
+        _close(hl, res.hl.numpy())
+
+
+def test_modwt2_energy_preserved_orthogonal():
+    x = _image()
+    res = vt.modwt2(torch.from_numpy(x), "db4")
+    np.testing.assert_allclose(float(res.energy()), float((x**2).sum()), rtol=1e-10)
+    _close(res.energy(), jtwo.modwt2(jnp.asarray(x), "db4").energy(), 1e-9)
+
+
+def test_modwt2_multilevel_roundtrip_and_batch():
+    x = np.stack([_image(seed=s) for s in range(3)])
+    res = vt.modwt2_multilevel(torch.from_numpy(x), "sym4", levels=3)
+    assert res.levels == 3 and res.details[0][0].shape == x.shape
+    want = jtwo.modwt2_multilevel(jnp.asarray(x), "sym4", levels=3)
+    _close_result(res, want)
+    xr = vt.imodwt2_multilevel(res, "sym4")
+    _close(xr, jtwo.imodwt2_multilevel(want, "sym4"))
+    assert np.abs(xr.numpy() - x).max() < 1e-9
+    _close(res.detail_energy(2), want.detail_energy(2), 1e-9)
+
+
+@pytest.mark.parametrize("wavelet", ["haar", "db4", "bior2.2"])
+def test_dwt2_roundtrip(wavelet):
+    x = _image(64, 64)
+    w = _port_wavelet(wavelet)
+    res = vt.dwt2(torch.from_numpy(x), w)
+    assert res.ll.shape == (32, 32)
+    want = jtwo.dwt2(jnp.asarray(x), wavelet)
+    for g, wt in zip(res, want):
+        _close(g, wt)
+    xr = vt.idwt2(res, w)
+    _close(xr, jtwo.idwt2(want, wavelet))
+    _close(xr, x, 1e-9)
+
+
+def test_wavedec2_roundtrip():
+    x = _image(64, 64)
+    details, ll = vt.wavedec2(torch.from_numpy(x), "db2", levels=3)
+    assert ll.shape == (8, 8) and len(details) == 3
+    jdet, jll = jtwo.wavedec2(jnp.asarray(x), "db2", levels=3)
+    _close_result(vt.MultiLevelMODWT2Result(tuple(details), ll),
+                  vt.MultiLevelMODWT2Result(tuple(jdet), jll))
+    xr = vt.waverec2(details, ll, "db2")
+    _close(xr, jtwo.waverec2(jdet, jll, "db2"))
+    _close(xr, x, 1e-9)
+
+
+def test_denoise2_reduces_noise():
+    rng = np.random.default_rng(3)
+    clean = _image(64, 64) - 0.1 * rng.standard_normal((64, 64))
+    noisy = clean + 0.5 * rng.standard_normal((64, 64))
+    den = vt.denoise2(torch.from_numpy(noisy), "sym4", levels=3)
+    _close(den, jtwo.denoise2(jnp.asarray(noisy), "sym4", levels=3), 1e-10)
+    rmse_noisy = np.sqrt(np.mean((noisy - clean) ** 2))
+    assert np.sqrt(np.mean((den.numpy() - clean) ** 2)) < 0.6 * rmse_noisy
+
+
+def test_twodim_validation():
+    with pytest.raises(InvalidSignalError):
+        vt.modwt2(torch.zeros(16), "db4")
+    with pytest.raises(InvalidArgumentError):
+        vt.modwt2_multilevel(torch.zeros(8, 8), "db4", levels=0)
+    with pytest.raises(InvalidArgumentError):
+        vt.modwt2_multilevel(torch.zeros(8, 8), "db4", levels=2)  # filter too long
+    with pytest.raises(InvalidArgumentError):
+        vt.wavedec2(torch.zeros(12, 12), "haar", levels=3)
+
+
+def test_denoise2_orientation_invariant():
+    noisy = _image(64, 96) + 0.4 * np.random.default_rng(9).standard_normal((64, 96))
+    a = vt.denoise2(torch.from_numpy(noisy), "sym4", levels=2)
+    b = vt.denoise2(torch.from_numpy(noisy.T.copy()), "sym4", levels=2)
+    _close(a, b.numpy().T, 1e-10)
+    _close(a, jtwo.denoise2(jnp.asarray(noisy), "sym4", levels=2), 1e-10)
+
+
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+@pytest.mark.parametrize("method,mode", [("universal", "soft"), ("sure", "hard")])
+def test_denoise2_matches_jax_per_boundary(method, mode, boundary):
+    noisy = np.stack([_image(48, 64, seed=s) for s in range(2)])
+    noisy = noisy + 0.3 * np.random.default_rng(10).standard_normal(noisy.shape)
+    got = vt.denoise2(torch.from_numpy(noisy), "db4", levels=2, method=method, mode=mode,
+                      boundary=boundary)
+    want = jtwo.denoise2(jnp.asarray(noisy), "db4", levels=2, method=method, mode=mode,
+                         boundary=boundary)
+    _close(got, want, 1e-10)
+
+
+# --- mirrors of tests/test_modwt2_fast.py ---------------------------------------------
+
+
+@pytest.mark.parametrize("h,wd,name,levels,boundary", [
+    (256, 128, "db4", 3, "periodic"),
+    (128, 256, "sym8", 2, "zero"),
+    (128, 128, "haar", 4, "periodic"),
+    (256, 256, "bior2.2", 2, "periodic"),
+])
+def test_fast2_matches_jnp(h, wd, name, levels, boundary):
+    """The port's kernel tier and composite form against the JAX jnp cascade
+    in float64 (1e-12), and its kernel tier against the JAX fast path in
+    float32 (3e-6 per band, 5e-6 on the inverse, as the JAX test)."""
+    x = _randn((2, h, wd))
+    w = _port_wavelet(name)
+    ref = _jnp(lambda: vw.modwt2_multilevel(jnp.asarray(x), name, levels=levels,
+                                            boundary=boundary))
+    ref_inv = _jnp(lambda: vw.imodwt2_multilevel(ref, name, boundary=boundary))
+    got = vt.modwt2_multilevel(torch.from_numpy(x), w, levels=levels, boundary=boundary,
+                               backend="kernel")
+    _close_result(got, ref)
+    _close(vt.imodwt2_multilevel(got, w, boundary=boundary, backend="kernel"), ref_inv)
+    det, ll = c2.modwt2_multilevel_composite(torch.from_numpy(x), w, levels, boundary)
+    _close_result(vt.MultiLevelMODWT2Result(det, ll), ref)
+    x32 = x.astype(np.float32)
+    jdet, jll = jk2.modwt2_multilevel_fast(jnp.asarray(x32), jwavelet(name), levels,
+                                           boundary, "float32")
+    got = vt.modwt2_multilevel(torch.from_numpy(x32), w, levels=levels, boundary=boundary,
+                               backend="kernel")
+    _close_result(got, vt.MultiLevelMODWT2Result(jdet, jll), tol=3e-6)
+    if boundary == "periodic":
+        _close(vt.imodwt2_multilevel(got, w, boundary=boundary, backend="kernel"), x32,
+               5e-6)
+
+
+def test_fast2_ineligible_shapes_fall_back():
+    """On the CPU, ``auto`` takes the plain cascade for shapes the JAX fast
+    path leaves to jnp (unaligned axes, symmetric edges); the results equal
+    the JAX package's."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((100, 96))
+    res = vt.modwt2_multilevel(torch.from_numpy(x), "db4", levels=2)
+    _close(vt.imodwt2_multilevel(res, "db4"), x, 1e-10)
+    x2 = rng.standard_normal((128, 128))
+    res2 = vt.modwt2_multilevel(torch.from_numpy(x2), "db4", levels=2,
+                                boundary="symmetric")
+    ref = _jnp(lambda: vw.imodwt2_multilevel(
+        vw.modwt2_multilevel(jnp.asarray(x2), "db4", levels=2, boundary="symmetric"),
+        "db4", boundary="symmetric"))
+    _close(vt.imodwt2_multilevel(res2, "db4", boundary="symmetric"), ref)
+
+
+def test_fast2_energy_and_dtype_preserved():
+    x = _randn((128, 128), seed=2, dtype=np.float32)
+    for backend in ("torch", "kernel"):
+        res = vt.modwt2_multilevel(torch.from_numpy(x), "haar", levels=3, backend=backend)
+        assert res.approx.dtype == torch.float32
+        assert np.isfinite(float(res.approx.var()))
+
+
+# --- routing and the gate ------------------------------------------------------------
+
+
+def test_gate_sides():
+    """Both sides of each gate of modwt2_kernel_eligible's admission test."""
+    w4, w38 = vt.wavelet("db4"), vt.wavelet("db38")
+    x = torch.zeros(1, 256, 256)
+    assert k2.kernel_refusal(x, w4, 4, "periodic") is None
+    assert "float32" in k2.kernel_refusal(x.double(), w4, 4, "periodic")
+    assert "float32" in k2.kernel_refusal(x.bfloat16(), w4, 4, "periodic")
+    for b in ("zero", "symmetric", "sym", "per"):
+        assert k2.kernel_refusal(x, w4, 4, b) is None
+    assert "boundary" in k2.kernel_refusal(x, w4, 4, "antireflect")
+    assert k2.kernel_refusal(torch.zeros(1, 22, 300), w4, 2, "periodic") is None
+    assert "longer" in k2.kernel_refusal(torch.zeros(1, 21, 300), w4, 3, "periodic")
+    assert "levels" in k2.kernel_refusal(x, w4, 11, "periodic")
+    big = torch.empty(1, 1 << 14, 1 << 14, device="meta")
+    assert k2.kernel_refusal(big, w38, 4, "periodic") is None
+    assert "shared memory" in k2.kernel_refusal(big, w38, 5, "periodic")
+
+
+def test_gate_needs_a_card_under_auto_and_follows_the_backend():
+    x = torch.zeros(1, 256, 256)
+    w = vt.wavelet("db4")
+    assert not k2.modwt2_kernel_eligible(x, w, 2, "periodic")  # a CPU tensor
+    vt.set_backend("kernel")
+    try:
+        assert k2.modwt2_kernel_eligible(x, w, 2, "periodic")
+        assert not k2.modwt2_kernel_eligible(x.double(), w, 2, "periodic")
+    finally:
+        vt.set_backend("torch")
+    try:
+        assert not k2.modwt2_kernel_eligible(x, w, 2, "periodic")
+    finally:
+        vt.set_backend("auto")
+
+
+def test_kernel_backend_on_cpu_runs_the_plain_versions(monkeypatch):
+    """``backend='kernel'`` (and the global ``set_backend('pallas')``) on a
+    CPU tensor goes through the level wrappers, which run their plain
+    versions and count no launch; ``'torch'`` skips the wrappers."""
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+
+    calls = {"analysis2_level": 0, "synthesis2_level": 0}
+    for name in calls:
+        orig = getattr(k2, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            calls[_name] += 1
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(k2, name, spy)
+    x = torch.from_numpy(_randn((2, 40, 48), seed=11, dtype=np.float32))
+    mc.reset_launches()
+    res = vt.modwt2_multilevel(x, "db4", levels=2, backend="pallas")
+    vt.imodwt2_multilevel(res, "db4", backend="kernel")
+    assert calls == {"analysis2_level": 2, "synthesis2_level": 2}
+    vt.set_backend("kernel")
+    try:
+        vt.denoise2(x, "db4", levels=2)
+    finally:
+        vt.set_backend("auto")
+    assert calls == {"analysis2_level": 4, "synthesis2_level": 4}
+    vt.modwt2_multilevel(x, "db4", levels=2, backend="torch")
+    assert calls["analysis2_level"] == 4
+    assert mc.LAUNCHES["modwt2_analysis"] == mc.LAUNCHES["modwt2_synthesis"] == 0
+    with pytest.raises(Exception):
+        vt.modwt2_multilevel(x, "db4", levels=2, backend="tpu")
+
+
+def test_cpu_gradient_through_the_plain_path():
+    """On the CPU the 2-D pair differentiates natively, on either backend."""
+    x = torch.from_numpy(_randn((1, 32, 40), seed=12)).requires_grad_(True)
+    for backend in ("torch", "kernel"):
+        res = vt.modwt2_multilevel(x, "db4", levels=2, backend=backend)
+        y = vt.imodwt2_multilevel(res, "db4", backend=backend)
+        (g,) = torch.autograd.grad((y * y).sum(), x)
+        _close(g, 2 * x.detach().numpy(), 1e-10)
+
+
+def test_modwt2_result_from_arrays():
+    x = _randn((2, 32, 48), seed=13)
+    want = _jnp(lambda: vw.modwt2_multilevel(jnp.asarray(x), "db4", levels=2))
+    res = convert.modwt2_result_from_arrays(want.details, want.approx, device="cpu")
+    assert isinstance(res, vt.MultiLevelMODWT2Result) and res.approx.dtype == torch.float64
+    _close(vt.imodwt2_multilevel(res, "db4"), x, 1e-10)
+    with pytest.raises(InvalidArgumentError):
+        convert.modwt2_result_from_arrays(((x[0], x[0]),), x[0], device="cpu")
+
+
+def test_modwt2_result_from_arrays_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(InvalidArgumentError, match="no CUDA device"):
+        convert.modwt2_result_from_arrays(((np.zeros((4, 4)),) * 3,), np.zeros((4, 4)))

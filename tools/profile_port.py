@@ -12,7 +12,11 @@ device's busy share of the wall time, the number of kernel launches, and the
 device kernels that take the most time.  The calls are the periodic round
 trip, the fused round trip, the denoise, the symmetric round trip, and
 ``swt_denoise`` (sym8, 4 levels, symmetric, universal soft) at 128 x 65536
-and 1 x 16384.  Exits non-zero without a CUDA device.
+and 1 x 16384, the fused denoise's forward and backward (db4, 6 levels,
+soft, 128 x 65536), and at the 2-D shape (8 x 2048 x 2048 float32) the db4
+round trips ``modwt2_multilevel`` -> ``imodwt2_multilevel`` at 4 and 6
+levels and ``denoise2`` (db4, 4 levels, universal soft).  Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,6 +49,14 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(128, 65536, device=dev, generator=gen)
     x16k = x[:1, :16384].contiguous()
+    img = torch.randn(8, 2048, 2048, device=dev, generator=gen)
+    xg = x.clone().requires_grad_(True)
+    ths = torch.full((128, 6), 0.5, device=dev)
+
+    def fused_backward():
+        y = vt.fused_denoise_multilevel(xg, "db4", levels=6, thresholds=ths, mode="soft")
+        return torch.autograd.grad(y.sum(), xg)
+
     calls = {
         "modwt_multilevel + imodwt_multilevel": lambda: vt.imodwt_multilevel(
             vt.modwt_multilevel(x, "db4", levels=6), "db4"),
@@ -58,6 +70,13 @@ def main() -> int:
             x, "sym8", levels=4, boundary="symmetric"),
         "swt_denoise sym8 J=4 symmetric 1x16384": lambda: vt.swt_denoise(
             x16k, "sym8", levels=4, boundary="symmetric"),
+        "fused_denoise_multilevel soft, forward + backward": fused_backward,
+        "modwt2_multilevel + imodwt2_multilevel db4 J=4 8x2048x2048":
+            lambda: vt.imodwt2_multilevel(vt.modwt2_multilevel(img, "db4", levels=4), "db4"),
+        "modwt2_multilevel + imodwt2_multilevel db4 J=6 8x2048x2048":
+            lambda: vt.imodwt2_multilevel(vt.modwt2_multilevel(img, "db4", levels=6), "db4"),
+        "denoise2 db4 J=4 universal soft 8x2048x2048":
+            lambda: vt.denoise2(img, "db4", levels=4, method="universal", mode="soft"),
     }
     for label, fn in calls.items():
         for _ in range(3):

@@ -3,16 +3,19 @@
 What is ported: discrete orthogonal wavelets (haar, db, sym), single- and
 multi-level MODWT with periodic, zero and symmetric boundaries, the SWT
 facade, the decimated DWT, padding strategies, single- and multi-level
-denoising, the exact precision tier (double-float planes, round trips
-within 1e-10), and the kernel tier behind them: six hand-written CUDA
-kernels for Hopper (multi-level analysis with an optional head splice,
-synthesis, fused denoise and the symmetric synthesis with its adjoint, in
-fp32; exact analysis and synthesis in fp64) with their plain PyTorch
-versions.
+denoising (the fused denoise differentiable on the card), the exact
+precision tier (double-float planes, round trips within 1e-10), the 2-D
+family (MODWT2, DWT2, ``denoise2`` and the 2-D SWT), and the kernel tier
+behind them: eight hand-written CUDA kernels for Hopper (multi-level
+analysis with an optional head splice, synthesis, fused denoise, the
+symmetric synthesis with its adjoint and the 2-D analysis and synthesis
+levels, in fp32; exact analysis and synthesis in fp64) with their plain
+PyTorch versions.
 
 The package imports ``torch``, ``numpy`` and ``mpmath`` and never JAX or
 ``vectorwave_tpu``.  Inputs and outputs are ``[..., N]`` tensors; the device
-is the input's.  Only what is ported is exported.
+is the input's (``[..., H, W]`` for the 2-D family).  Only what is ported
+is exported.
 """
 
 from . import config, convert, errors, kernels
@@ -78,6 +81,7 @@ from .transforms.multilevel import (
     modwt_multilevel,
     resolve_tolerance,
 )
+from .transforms.swt2 import SWT2Result, extract_level2, iswt2, mra2, swt2, swt2_denoise
 from .transforms.swt import (
     SWTResult,
     apply_universal_threshold,
@@ -88,12 +92,27 @@ from .transforms.swt import (
     swt_denoise,
     threshold_level,
 )
+from .transforms.twodim import (
+    DWT2Result,
+    MODWT2Result,
+    MultiLevelMODWT2Result,
+    denoise2,
+    dwt2,
+    idwt2,
+    imodwt2,
+    imodwt2_multilevel,
+    modwt2,
+    modwt2_multilevel,
+    wavedec2,
+    waverec2,
+)
 from .wavelets.base import DiscreteWavelet, WaveletType
 from .wavelets.registry import as_wavelet, available_wavelets, wavelet
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "DWT2Result",
     "DWTResult",
     "DiscreteWavelet",
     "ErrorCode",
@@ -102,9 +121,12 @@ __all__ = [
     "InvalidConfigurationError",
     "InvalidSignalError",
     "InvalidStateError",
+    "MODWT2Result",
     "MODWTResult",
+    "MultiLevelMODWT2Result",
     "MultiLevelMODWTResult",
     "PADDING_STRATEGIES",
+    "SWT2Result",
     "SWTResult",
     "VectorWaveError",
     "WavedecResult",
@@ -118,11 +140,14 @@ __all__ = [
     "config",
     "convert",
     "denoise",
+    "denoise2",
     "denoise_fixed",
     "denoise_multilevel",
     "dwt",
+    "dwt2",
     "errors",
     "extract_level",
+    "extract_level2",
     "fdr_threshold",
     "fused_analysis",
     "fused_denoise_multilevel",
@@ -132,10 +157,14 @@ __all__ = [
     "get_sigma_estimator",
     "hard_threshold",
     "idwt",
+    "idwt2",
     "imodwt",
+    "imodwt2",
+    "imodwt2_multilevel",
     "imodwt_multilevel",
     "imodwt_multilevel_exact",
     "iswt",
+    "iswt2",
     "kernel_available",
     "kernels",
     "mad_sigma",
@@ -144,11 +173,14 @@ __all__ = [
     "median_magnitude",
     "minimax_threshold",
     "modwt",
+    "modwt2",
+    "modwt2_multilevel",
     "modwt_multilevel",
     "modwt_multilevel_exact",
     "modwt_roundtrip_exact",
     "modwt_roundtrip_fused",
     "mra",
+    "mra2",
     "pad_signal",
     "resolve_tolerance",
     "select_threshold",
@@ -158,11 +190,15 @@ __all__ = [
     "soft_threshold",
     "sure_threshold",
     "swt",
+    "swt2",
+    "swt2_denoise",
     "swt_denoise",
     "threshold_coeffs",
     "threshold_level",
     "universal_threshold",
     "wavedec",
+    "wavedec2",
     "wavelet",
     "waverec",
+    "waverec2",
 ]

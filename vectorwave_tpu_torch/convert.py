@@ -2,7 +2,8 @@
 
 The two packages share no code, so these helpers take plain numpy arrays:
 a filter bank exported from a ``vectorwave_tpu`` wavelet, a threshold
-array, or the planes of an exact-tier result becomes the port's object.
+array, the planes of an exact-tier result or the bands of a 2-D MODWT
+result becomes the port's object.
 The parity tests use them so that both packages filter with identical taps
 and each package's inverse can read the other's planes.
 """
@@ -106,4 +107,32 @@ def exact_result_from_arrays(details_hi, approx_hi, details_lo, approx_lo,
     return ExactMODWTResult(
         tuple(tensor(a) for a in details_hi), tensor(approx_hi),
         tuple(tensor(a) for a in details_lo), tensor(approx_lo),
+    )
+
+
+def modwt2_result_from_arrays(details, approx, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.MultiLevelMODWT2Result` from the bands
+    of a 2-D MODWT result as arrays (for example the fields of a
+    ``vectorwave_tpu`` ``MultiLevelMODWT2Result``): ``details`` is one
+    ``(lh, hl, hh)`` triple per level, ``approx`` the final ``ll``.  The
+    dtype is kept; the tensors go to ``device`` (default: the card; pass
+    ``device="cpu"`` for the CPU).  Without a card the default raises."""
+    from .transforms.twodim import MultiLevelMODWT2Result
+
+    dev = _device(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    details = tuple(tuple(trip) for trip in details)
+    shapes = {np.shape(a) for a in (approx, *(p for trip in details for p in trip))}
+    if any(len(trip) != 3 for trip in details) or len(shapes) != 1:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "every level needs an (lh, hl, hh) triple, all bands of one shape",
+            context={"triples": [len(trip) for trip in details],
+                     "shapes": sorted(shapes)},
+        )
+    return MultiLevelMODWT2Result(
+        tuple(tuple(tensor(p) for p in trip) for trip in details), tensor(approx)
     )

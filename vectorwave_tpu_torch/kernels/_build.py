@@ -130,9 +130,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vw_modwt_symmetric_synthesis.argtypes = [ptrs, ptr, ptr, ptr, ptr, ptr, i64,
                                                  i64, i32, i32, i32, i32, i32, i32,
                                                  i32, i32, ptr]
+    # (x, ll, lh, hl, hh, taps, batch, h, w, taps_len, spacing, edge, th, tw,
+    #  stream)
+    lib.vw_modwt2_analysis_level.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64,
+                                             i64, i32, i32, i32, i32, i32, ptr]
+    # (ll, lh, hl, hh, out, taps, batch, h, w, taps_len, spacing, lo_sign, lo_off,
+    #  hi_sign, hi_off, edge, th, tw, stream)
+    lib.vw_modwt2_synthesis_level.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64,
+                                              i64, i32, i32, i32, i32, i32, i32, i32,
+                                              i32, i32, ptr]
     for fn in (lib.vw_modwt_analysis, lib.vw_modwt_synthesis, lib.vw_modwt_denoise,
                lib.vw_modwt_exact_analysis, lib.vw_modwt_exact_synthesis,
-               lib.vw_modwt_symmetric_synthesis):
+               lib.vw_modwt_symmetric_synthesis, lib.vw_modwt2_analysis_level,
+               lib.vw_modwt2_synthesis_level):
         fn.restype = i32
 
 

@@ -22,7 +22,8 @@ wrapper                       CUDA source                        TPU kernel it r
 A wrapper given a CPU tensor runs its plain version (``*_plain``), a cascade
 of rolled sums in plain PyTorch; given a CUDA tensor it launches its kernel
 or raises.  Each launch adds one to its entry of :data:`LAUNCHES`, so a run
-can show that it went through the kernels.
+can show that it went through the kernels; the 2-D level kernels of
+:mod:`.modwt2` count there too.
 
 ``filters`` arguments are ``(lo, hi)`` tuples of Python floats, already
 scaled by 1/sqrt(2) per stage (``modwt_fused._kernel_filters``).  The
@@ -55,7 +56,8 @@ from ._build import library
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
 LAUNCHES = {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
             "modwt_exact_analysis": 0, "modwt_exact_synthesis": 0,
-            "modwt_symmetric_synthesis": 0, "modwt_symmetric_adjoint": 0}
+            "modwt_symmetric_synthesis": 0, "modwt_symmetric_adjoint": 0,
+            "modwt2_analysis": 0, "modwt2_synthesis": 0}
 
 #: Outputs per block, per kernel (the denoise kernel holds J planes of its
 #: tile in shared memory, so its tile is smaller).

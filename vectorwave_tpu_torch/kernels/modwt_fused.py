@@ -11,7 +11,9 @@ The analysis map A and synthesis map S are linear, and for periodic and
 zero boundaries the synthesis structure with the analysis filters is exactly
 A^T (each level's (t+l) correlation is the transpose of the (t-l)
 convolution).  So each gradient runs the opposite kernel with the forward
-map's own filters: one kernel pass per gradient, and no extra kernel.
+map's own filters: one kernel pass per gradient, and no extra kernel.  The
+fused denoise's gradient is S^T (the analysis kernel on the reconstruction
+taps), the shrink mask recomputed by one more analysis, and A^T.
 
 Precision: ``precision=`` names one of the JAX package's tiers (float32,
 bf16_3x, bf16).  Every tier runs the same fp32 kernel, whose error is within
@@ -105,6 +107,45 @@ class _Synthesis(torch.autograd.Function):
         return (None, None, None, *planes)
 
 
+class _Denoise(torch.autograd.Function):
+    """The fused denoise with the JAX package's recompute-based adjoint
+    (``modwt_pallas._fused_denoise_bwd``): with S^T the analysis kernel on
+    the reconstruction taps and A^T the synthesis kernel on the decomposition
+    taps, ``dx = A^T(mask * S^T g)``, the mask ``|d_j| > t_j`` recomputed by
+    one more analysis (the approximation plane unmasked), and
+    ``d/dt_j = -sum sign(d_j) mask_j (S^T g)_j`` for soft, 0 for hard.  The
+    round trip (``mode='none'``) is ``A^T S^T g`` with no mask."""
+
+    @staticmethod
+    def forward(ctx, x, thresholds, levels, filters_dec, filters_rec, periodic, mode):
+        ctx.save_for_backward(x, thresholds)
+        ctx.args = (levels, filters_dec, filters_rec, periodic, mode)
+        return modwt_composite.denoise(x, thresholds, levels, filters_dec, filters_rec,
+                                       periodic, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, th = ctx.saved_tensors
+        levels, filters_dec, filters_rec, periodic, mode = ctx.args
+        gs = modwt_composite.analysis(g.contiguous(), levels, filters_rec, periodic)
+        if mode == "none":
+            dx = modwt_composite.synthesis(gs, levels, filters_dec, periodic)
+            return dx, torch.zeros_like(th), None, None, None, None, None
+        d = modwt_composite.analysis(x, levels, filters_dec, periodic)
+        masks = [d[j].abs() > th[:, j : j + 1].to(d[j].dtype) for j in range(levels)]
+        gd = tuple(torch.where(masks[j], gs[j], torch.zeros_like(gs[j]))
+                   for j in range(levels)) + (gs[levels],)
+        dx = modwt_composite.synthesis(gd, levels, filters_dec, periodic)
+        if mode == "soft":
+            dth = torch.stack([
+                (-torch.sign(d[j]) * gd[j]).sum(dim=-1, dtype=torch.float64)
+                for j in range(levels)
+            ], dim=-1).to(th.dtype)
+        else:
+            dth = torch.zeros_like(th)
+        return dx, dth, None, None, None, None, None
+
+
 def fused_analysis(
     x: torch.Tensor,
     wavelet,
@@ -185,9 +226,11 @@ def fused_denoise_multilevel(
     with the coefficient planes kept in shared memory.
 
     Returns None for a symmetric boundary (the caller takes the 3-call
-    path), as the JAX package does.  Any N is served.  On a CUDA tensor the
-    gradient is not yet ported, so an input that requires grad raises; on a
-    CPU tensor the plain version differentiates natively.
+    path), as the JAX package does.  Any N is served.  Differentiable in x
+    and in the thresholds (:class:`_Denoise`): on a CUDA tensor the backward
+    launches the analysis kernel twice and the synthesis kernel once (once
+    each for ``mode='none'``); on a CPU tensor the same backward runs their
+    plain versions.
     """
     from ..transforms.modwt import _resolve_discrete
 
@@ -196,20 +239,11 @@ def fused_denoise_multilevel(
         return None
     _check_precision(precision)
     w = _resolve_discrete(wavelet)
-    if x.device.type == "cuda" and torch.is_grad_enabled() and (
-        x.requires_grad or thresholds.requires_grad
-    ):
-        raise InvalidArgumentError(
-            ErrorCode.CFG_INVALID_CONFIG,
-            "The fused denoise kernel has no gradient yet",
-            suggestions=("Differentiate through modwt_multilevel + "
-                         "imodwt_multilevel, or run the denoise under "
-                         "torch.no_grad()",),
-        )
     lead, n = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, n).contiguous()
-    th2 = thresholds.reshape(-1, thresholds.shape[-1]).to(torch.float32).contiguous()
-    out = modwt_composite.denoise(
+    th_dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    th2 = thresholds.reshape(-1, thresholds.shape[-1]).to(th_dtype).contiguous()
+    out = _Denoise.apply(
         x2, th2, levels, _kernel_filters(w, synthesis=False),
         _kernel_filters(w, synthesis=True), edge == "periodic", mode,
     )
