@@ -21,6 +21,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    synthesis kernel (forward and adjoint) and the analysis kernel with a
    head splice, at db4 J=6 and sym8 J=4 128x65536, db4 J=6 3x5000, haar J=4,
    a long filter that needs a smaller tile (db36 J=8), and once in bfloat16;
+   the cascade pair (``run_analysis_mxu`` / ``run_synthesis_mxu``) in each
+   edge mode (periodic, zero, and the analysis's per-level mirror) at db4
+   J=6 and sym8 J=4 128x65536, db4 J=6 3x5000, db4 J=6 2x300 and sym8 J=4
+   2x150 (N shorter than the span; the mirror's window outlasts the
+   signal), haar J=5, db36 J=8 (the mirror at its 9088 tile, where the
+   second block's window starts before the signal) and once in bfloat16;
    the 2-D analysis and synthesis level kernels, every band, in each edge
    mode (periodic, zero, symmetric with the inverse's per-filter offsets),
    at levels 1 and 4 of db4 and 1 and 6 of sym8 at 8x2048x2048, at db4 level
@@ -34,10 +40,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    reset and reading of the counters: ``precision='exact'`` and
    ``tolerance=1e-10`` round trips (RMSE of hi + lo against x <= 1e-10), the
    exact symmetric analysis against the float64 plain cascade on the CPU,
-   and an input that requires grad, which must raise; then the symmetric
-   path, with its own reset and reading of the counters: the db4 J=6
-   symmetric round trip at 128x65536 (exactly one analysis and one
-   symmetric synthesis launch) against the plain cascade on the card,
+   and an input that requires grad, which must raise; then the probe's path
+   (``tools/perf_probe_mxu.py``): ``run_analysis_mxu`` -> ``run_synthesis_mxu``
+   db4 J=6 periodic at each precision, each round trip with its own reset
+   and reading of the counters (one launch each way, RMSE <= 3e-7); then the
+   symmetric path, with its own reset and reading of the counters: the db4
+   J=6 symmetric round trip at 128x65536 (exactly one mirror-mode analysis
+   and one symmetric synthesis launch, and no zero-mode analysis launch in
+   the whole symmetric path) against the plain cascade on the card,
    ``swt_denoise`` sym8 J=4 soft universal at 128x65536 and 1x16384 against
    the plain path, the symmetric gradients of both directions against plain
    autograd (their backward launches the synthesis kernel and the adjoint),
@@ -58,10 +68,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    beside its plain version and one PyTorch library call that computes the
    same function (``F.conv1d`` with the composite filters; not for the
    denoise; ``F.conv2d`` with the outer products of a level's taps for the
-   2-D kernels, which are timed at level 1 and at level 6), with the least
-   time the card could take (bytes over 3.35 TB/s or operations over the
-   peak rate, the larger), and of the public entry points (the 2-D ones and
-   the fused denoise's backward included).
+   2-D kernels, which are timed at level 1 and at level 6; the cascade
+   analysis also in mirror mode), with the least time the card could take (bytes over 3.35 TB/s
+   or operations over the peak rate, the larger), and of the public entry
+   points (the 2-D ones, the fused denoise's backward and the probe's round
+   trip at each precision included).
 
 The last two lines are a JSON object with one entry per kernel and the
 device line ``{"ok": true, "device": {...}}``.
@@ -142,11 +153,24 @@ KERNELS = {
         "vectorwave_tpu_torch/kernels/csrc/modwt2_synthesis.cu",
         "vectorwave_tpu/kernels/modwt2_pallas.py:423",
     ),
+    "modwt_mxu_analysis": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt_analysis.cu",
+        "vectorwave_tpu/kernels/modwt_mxu.py:267",
+    ),
+    "modwt_mxu_synthesis": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt_synthesis.cu",
+        "vectorwave_tpu/kernels/modwt_mxu.py:407",
+    ),
 }
 MAIN_PATH = ("modwt_analysis", "modwt_synthesis", "modwt_denoise")
 EXACT_PATH = ("modwt_exact_analysis", "modwt_exact_synthesis")
-SYMMETRIC_PATH = ("modwt_analysis", "modwt_symmetric_synthesis", "modwt_symmetric_adjoint")
-BF16_ROWS = MAIN_PATH + ("modwt_symmetric_synthesis", "modwt_symmetric_adjoint")
+SYMMETRIC_PATH = ("modwt_mxu_analysis", "modwt_symmetric_synthesis",
+                  "modwt_symmetric_adjoint")
+MXU_PATH = ("modwt_mxu_analysis", "modwt_mxu_synthesis")
+BF16_ROWS = MAIN_PATH + ("modwt_symmetric_synthesis", "modwt_symmetric_adjoint") + MXU_PATH
+#: the tile tools/perf_probe_mxu.py passes the TPU pair; a layout hint that
+#: the port's wrappers accept and ignore
+PROBE_TILE = 8192
 TWOD_PATH = ("modwt2_analysis", "modwt2_synthesis")
 #: the 2-D path's images (the TPU bench's 2-D shape) and its round-trip bound
 #: (the JAX package's 2-D kernel test bound, tests/test_modwt2_pallas.py).
@@ -250,6 +274,7 @@ def main() -> int:
     from vectorwave_tpu_torch.denoise.denoiser import _fused_sigma
     from vectorwave_tpu_torch.kernels import _build
     from vectorwave_tpu_torch.kernels import modwt2 as k2
+    from vectorwave_tpu_torch.kernels import modwt_cascade as mx
     from vectorwave_tpu_torch.kernels import modwt_composite as mc
     from vectorwave_tpu_torch.kernels import modwt_symmetric as ms
     from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
@@ -397,6 +422,53 @@ def main() -> int:
             check(err <= tol, f"{kname}{tag} {label}: max |kernel - plain| "
                               f"{err:.3e} <= {tol:.3e}")
 
+    # the cascade pair in each edge mode: (wavelet, levels, batch, n, dtype);
+    # the synthesis runs on the plain analysis planes of the same edge (zero
+    # for the mirror's)
+    cascade_cases = [
+        (WAVELET, LEVELS, BATCH, N, torch.float32),
+        ("sym8", 4, BATCH, N, torch.float32),
+        (WAVELET, LEVELS, 3, 5000, torch.float32),
+        (WAVELET, LEVELS, 2, 300, torch.float32),  # reach 224 <= N < span 441
+        ("sym8", 4, 2, 150, torch.float32),  # reach 120 <= N < span 225
+        ("haar", 5, 2, 4096, torch.float32),
+        ("db36", 8, 2, N, torch.float32),  # the mirror's tile 71 * 128 < span
+        (WAVELET, LEVELS, BATCH, N, torch.bfloat16),
+    ]
+    for name, levels, b, n, dtype in cascade_cases:
+        wc = vt.wavelet(name)
+        cd, cr = _kernel_filters(wc, synthesis=False), _kernel_filters(wc, synthesis=True)
+        x = torch.randn(b, n, device=dev, generator=gen).to(dtype)
+        for edge in ("periodic", "zero", "mirror"):
+            periodic, mirror = edge == "periodic", edge == "mirror"
+            used = mc.analysis_tile(wc.filter_length, levels, mirror)
+            label = f"{name} J={levels} {b}x{n} {edge} {str(dtype)[6:]} (tile {used})"
+            want = mx.analysis_plain(x, levels, cd, edge)
+            results = [
+                ("modwt_mxu_analysis", mx.run_analysis_mxu(
+                    x, levels, cd, periodic, PROBE_TILE, "float32", False,
+                    symmetric=mirror),
+                 want),
+                ("modwt_mxu_synthesis",
+                 mx.run_synthesis_mxu(want, levels, cr, periodic, PROBE_TILE, "float32",
+                                      False),
+                 mc.synthesis_plain(want, levels, cr, periodic)),
+            ]
+            torch.cuda.synchronize()
+            for kname, got, ref in results:
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                err = max(max_err(g, p) for g, p in zip(got, ref))
+                if dtype == torch.float32:
+                    tol = TOL_F32
+                    worst[kname] = max(worst[kname], err)
+                else:
+                    tol = BF16_ULP * max(p.float().abs().max().item() for p in ref)
+                    worst_bf16[kname] = max(worst_bf16[kname], err)
+                check(err <= tol, f"{kname} {label}: max |kernel - plain| "
+                                  f"{err:.3e} <= {tol:.3e}")
+            del want, results
+
     # the 2-D level kernels: (wavelet, level, shape), each in the three edge
     # modes; the synthesis planes are independent unit-variance images
     img_cases = [
@@ -528,13 +600,30 @@ def main() -> int:
         refused = True
     check(refused, "an exact request on an input that requires grad raises")
 
+    print(f"  the probe's path (run_analysis_mxu -> run_synthesis_mxu), {BATCH}x{N} "
+          "float32", flush=True)
+    for tier in mx.PRECISIONS:
+        mc.reset_launches()
+        planes = mx.run_analysis_mxu(x, LEVELS, fd, True, PROBE_TILE, tier, False)
+        y = mx.run_synthesis_mxu(planes, LEVELS, fr, True, PROBE_TILE, tier, False)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in mc.LAUNCHES.items() if v}
+        check(got == dict.fromkeys(MXU_PATH, 1), f"probe round trip {tier}: launches {got}")
+        for name in MXU_PATH:
+            launches[name] += got[name]
+        rmse = (y - x).pow(2).mean().sqrt().item()
+        check(rmse <= RT_RMSE and max_err(y, x) <= RT_MAX,
+              f"probe round trip {tier}: rmse {rmse:.3e} <= {RT_RMSE:.0e}, "
+              f"max {max_err(y, x):.3e} <= {RT_MAX:.0e}")
+    del planes
+
     print(f"  the symmetric path, {BATCH}x{N} float32", flush=True)
     mc.reset_launches()
     res = vt.modwt_multilevel(x, WAVELET, levels=LEVELS, boundary="symmetric")
     y = vt.imodwt_multilevel(res, WAVELET, boundary="symmetric")
     torch.cuda.synchronize()
     rt_launches = {k: v for k, v in mc.LAUNCHES.items() if v}
-    check(rt_launches == {"modwt_analysis": 1, "modwt_symmetric_synthesis": 1},
+    check(rt_launches == {"modwt_mxu_analysis": 1, "modwt_symmetric_synthesis": 1},
           f"symmetric round trip launches {rt_launches}")
     ref = vt.modwt_multilevel(x, WAVELET, levels=LEVELS, boundary="symmetric",
                               backend="torch")
@@ -596,9 +685,11 @@ def main() -> int:
     for name in SYMMETRIC_PATH + ("modwt_synthesis",):
         check(sym_launches[name] > 0, f"{name} launched {sym_launches[name]} times "
                                       "in the symmetric path")
-    for name in KERNELS:
-        launches[name] = launches.get(name, 0) + (
-            sym_launches[name] if name in SYMMETRIC_PATH else 0)
+    check(sym_launches["modwt_analysis"] == 0,
+          f"modwt_analysis launched {sym_launches['modwt_analysis']} times in the "
+          "symmetric path (its analysis is the mirror mode)")
+    for name in SYMMETRIC_PATH:
+        launches[name] += sym_launches[name]
 
     print(f"  the fused denoise's gradient, {BATCH}x{N} float32", flush=True)
     th = gap_thresholds(mc._analysis_cascade(noisy, LEVELS, fd, True), LEVELS)
@@ -767,6 +858,17 @@ def main() -> int:
             lambda: mc.symmetric_adjoint_plain(c, LEVELS, fr, ops),
             lambda: F.conv1d(F.pad(c[:, None], (sbank.shape[1] - 1 - g_sym, g_sym)),
                              sbank.flip(-1)[:, None])),
+        # the probe's call; the library call is rows 3 and 4's (the mirror is
+        # no convolution)
+        "modwt_mxu_analysis": (
+            lambda: mx.run_analysis_mxu(x, LEVELS, fd, True, PROBE_TILE, "float32", False),
+            lambda: mx.analysis_plain(x, LEVELS, fd, "periodic"),
+            lambda: F.conv1d(F.pad(x[:, None], (span, 0), mode="circular"), bank_d[:, None])),
+        "modwt_mxu_synthesis": (
+            lambda: mx.run_synthesis_mxu(planes, LEVELS, fr, True, PROBE_TILE, "float32",
+                                         False),
+            lambda: mc.synthesis_plain(planes, LEVELS, fr, True),
+            lambda: F.conv1d(F.pad(stacked, (0, span), mode="circular"), bank_r[None])),
     }
     #: bytes each kernel must move (each input read once, each output written
     #: once) and the FMAs its cascade does, per sample of one 128 x 65536 call
@@ -780,6 +882,8 @@ def main() -> int:
         "modwt_exact_synthesis": (2 * plane_bytes + 8, 2 * taps * LEVELS, FP64_FLOPS),
         "modwt_symmetric_synthesis": (plane_bytes + 4, 2 * taps * LEVELS, FP32_FLOPS),
         "modwt_symmetric_adjoint": (4 + plane_bytes, 2 * taps * LEVELS, FP32_FLOPS),
+        "modwt_mxu_analysis": (4 + plane_bytes, 2 * taps * LEVELS, FP32_FLOPS),
+        "modwt_mxu_synthesis": (plane_bytes + 4, 2 * taps * LEVELS, FP32_FLOPS),
     }
     extra_bytes = {"modwt_symmetric_synthesis": 4 * BATCH * (span_l + span_r)}
     ms_of, bound = {}, {}
@@ -796,6 +900,11 @@ def main() -> int:
               f"{samples * nbytes / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms, library "
               f"{'-' if l_ms is None else f'{l_ms:.4f} ms'}, bound {bound[name][0]:.4f} ms "
               f"({bound[name][1]}; {100 * bound[name][0] / k_ms:.1f}% of it)", flush=True)
+    # the cascade analysis in both edges the card's paths use (the mirror is
+    # the symmetric route's launch); "ms" is the probe's periodic call
+    modes = {edge: median_ms(lambda edge=edge: mx.cascade_analysis(x, LEVELS, fd, edge))
+             for edge in ("periodic", "mirror")}
+    print(f"  modwt_mxu_analysis by edge: {modes} ms", flush=True)
 
     # the 2-D level kernels at level 1 and at level 6 of db4 on the 2-D path's
     # images, periodic; library call: F.conv2d of the circularly padded input
@@ -869,8 +978,15 @@ def main() -> int:
     y_fused = vt.fused_denoise_multilevel(xg, WAVELET, levels=LEVELS, thresholds=th,
                                           mode="soft")
 
+    def probe_round_trip(precision):
+        return mx.run_synthesis_mxu(
+            mx.run_analysis_mxu(x, LEVELS, fd, True, PROBE_TILE, precision, False),
+            LEVELS, fr, True, PROBE_TILE, precision, False)
+
     for label, fn, count in (
         ("modwt_multilevel + imodwt_multilevel", public_round_trip, samples),
+        *((f"run_analysis_mxu + run_synthesis_mxu, precision='{p}'",
+           lambda p=p: probe_round_trip(p), samples) for p in mx.PRECISIONS),
         ("modwt_multilevel + imodwt_multilevel, precision='exact'",
          lambda: public_round_trip(precision="exact"), samples),
         ("modwt_multilevel + imodwt_multilevel, boundary='symmetric'",
@@ -911,6 +1027,7 @@ def main() -> int:
             "bound_by": bound[name][1],
             "library_ms": ms_of[name][2],
             **({"deepest": deep[name]} if name in deep else {}),
+            **({"ms_by_edge": modes} if name == "modwt_mxu_analysis" else {}),
         }
         for name, (source, replaces) in KERNELS.items()
     ]}

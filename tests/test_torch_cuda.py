@@ -12,7 +12,9 @@ bfloat16 one bfloat16 ulp of the largest output (both round the same fp32
 values to bfloat16); the exact fp64 kernels against their fp64 plain
 versions 1e-13 on hi + lo (the same fp64 arithmetic, which differs only in
 fused multiply-adds); the symmetric pair against its plain versions, which
-sum in float64, 2e-5 in float32 and one bfloat16 ulp in bfloat16; the 2-D
+sum in float64, 2e-5 in float32 and one bfloat16 ulp in bfloat16; the
+cascade pair in each edge mode (the mirror's plain version is the plain
+symmetric cascade) as the analysis and synthesis kernels; the 2-D
 kernels against their plain versions 2e-5; the fused denoise's threshold
 gradient, a sum over 8192 samples, 1e-3 of its largest value.
 """
@@ -24,6 +26,7 @@ import vectorwave_tpu_torch as vt
 from chip_smoke import gap_thresholds
 from vectorwave_tpu_torch.errors import InvalidArgumentError
 from vectorwave_tpu_torch.kernels import modwt2 as k2
+from vectorwave_tpu_torch.kernels import modwt_cascade as mx
 from vectorwave_tpu_torch.kernels import modwt_composite as mc
 from vectorwave_tpu_torch.kernels import modwt_symmetric as ms
 from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
@@ -103,7 +106,8 @@ def test_public_entry_points_launch_the_kernels(cuda):
                            "modwt_denoise": 2, "modwt_exact_analysis": 0,
                            "modwt_exact_synthesis": 0, "modwt_symmetric_synthesis": 0,
                            "modwt_symmetric_adjoint": 0, "modwt2_analysis": 0,
-                           "modwt2_synthesis": 0}
+                           "modwt2_synthesis": 0, "modwt_mxu_analysis": 0,
+                           "modwt_mxu_synthesis": 0}
     assert float((y - x).abs().max()) < 3e-6
     assert float((z - x).abs().max()) < 3e-6
     assert d.shape == x.shape and bool(torch.isfinite(d).all())
@@ -243,7 +247,8 @@ def test_exact_public_entry_points_launch_the_exact_kernels(cuda):
     assert mc.LAUNCHES == {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
                            "modwt_exact_analysis": 1, "modwt_exact_synthesis": 2,
                            "modwt_symmetric_synthesis": 0, "modwt_symmetric_adjoint": 0,
-                           "modwt2_analysis": 0, "modwt2_synthesis": 0}
+                           "modwt2_analysis": 0, "modwt2_synthesis": 0,
+                           "modwt_mxu_analysis": 0, "modwt_mxu_synthesis": 0}
     assert torch.equal(y, x)
     assert float((hi.double() + lo.double() - x.double()).pow(2).mean().sqrt()) <= 1e-12
     sym = vt.modwt_multilevel_exact(x, "sym8", levels=4, boundary="symmetric")
@@ -299,7 +304,7 @@ def test_symmetric_public_path_launches_the_kernels(cuda):
     y = vt.imodwt_multilevel(res, "db4", boundary="symmetric")
     torch.cuda.synchronize()
     assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
-        "modwt_analysis": 1, "modwt_symmetric_synthesis": 1}
+        "modwt_mxu_analysis": 1, "modwt_symmetric_synthesis": 1}
     ref = vt.modwt_multilevel(x.cpu().double(), "db4", levels=LEVELS, boundary="symmetric")
     y_ref = vt.imodwt_multilevel(ref, "db4", boundary="symmetric")
     assert _err((*res.details, res.approx), tuple(p.to(cuda) for p in (*ref.details,
@@ -314,12 +319,16 @@ def test_symmetric_gradients_match_plain_autograd(cuda):
     x = _input(cuda, 2, 8192, torch.float32, seed=13)
     wts = [_input(cuda, 2, 8192, torch.float32, seed=20 + j) for j in range(LEVELS + 1)]
     grads = []
+    mc.reset_launches()
     for backend in ("kernel", "torch"):
         xg = x.clone().requires_grad_(True)
         res = vt.modwt_multilevel(xg, "db4", levels=LEVELS, boundary="symmetric",
                                   backend=backend)
         loss = sum((p * w).sum() for p, w in zip((*res.details, res.approx), wts))
         grads.append(torch.autograd.grad(loss, xg)[0])
+    # forward: the mirror-mode analysis; backward: the zero-mode synthesis
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
+        "modwt_mxu_analysis": 1, "modwt_synthesis": 1}
     assert _err((grads[0],), (grads[1],)) <= TOL_F32
     planes = [w.clone() for w in wts]
     grads = []
@@ -331,6 +340,75 @@ def test_symmetric_gradients_match_plain_autograd(cuda):
         grads.append(torch.autograd.grad((y * x).sum(), ps))
     assert mc.LAUNCHES["modwt_symmetric_adjoint"] == 1
     assert _err(grads[0], grads[1]) <= TOL_F32
+
+
+# --- the cascade pair (run_analysis_mxu / run_synthesis_mxu) ------------------------
+
+# (wavelet, levels, batch, n): signals shorter than the span S but not than
+# the mirror's reach (L-1) 2^(J-1) (db4 J=6 at 300, sym8 J=4 at 150), and
+# db36 J=8, whose mirror tile (L-1) 2^7 = 9088 leaves the second block's
+# window starting before the signal
+CASCADE_CASES = [("db4", LEVELS, 4, 8192), ("db4", LEVELS, 3, 5000), ("db4", LEVELS, 2, 300),
+                 ("sym8", 4, 2, 4096), ("sym8", 4, 2, 150), ("haar", 5, 2, 300),
+                 ("db36", 8, 1, 65536)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,levels,b,n", CASCADE_CASES)
+def test_cascade_pair_matches_plain(cuda, name, levels, b, n, dtype):
+    """Both wrappers in each edge mode against their plain versions (the
+    mirror's is the plain symmetric cascade), one launch each; ``tile`` is
+    the TPU kernels' layout hint, which the port ignores."""
+    w = vt.wavelet(name)
+    fd, fr = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+    x = _input(cuda, b, n, dtype, seed=14)
+    mc.reset_launches()
+    for periodic, symmetric in ((True, False), (False, False), (False, True)):
+        edge = "mirror" if symmetric else ("periodic" if periodic else "zero")
+        got = mx.run_analysis_mxu(x, levels, fd, periodic, 2048, "float32", False,
+                                  symmetric=symmetric)
+        want = mx.analysis_plain(x, levels, fd, edge)
+        torch.cuda.synchronize()
+        assert all(g.dtype == dtype and g.shape == x.shape for g in got)
+        assert _err(got, want) <= _tol(dtype, want), edge
+        y = mx.run_synthesis_mxu(want, levels, fr, periodic, 2048, "float32", False)
+        y_want = mc.synthesis_plain(want, levels, fr, periodic)
+        torch.cuda.synchronize()
+        assert _err((y,), (y_want,)) <= _tol(dtype, (y_want,)), edge
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
+        "modwt_mxu_analysis": 3, "modwt_mxu_synthesis": 3}
+
+
+def test_cascade_probe_round_trip_launches_one_kernel_each_way(cuda, filters):
+    """The probe's path (tools/perf_probe_mxu.py: db4 J=6 periodic, tile
+    8192) at every precision, the float32 rung's round-trip bounds; inputs
+    that require grad, and a mirror below (L-1) 2^(J-1) (also through the
+    public symmetric analysis), raise."""
+    fd, fr = filters
+    x = _input(cuda, 4, 8192, torch.float32, seed=15)
+    for precision in mx.PRECISIONS:
+        mc.reset_launches()
+        planes = mx.run_analysis_mxu(x, LEVELS, fd, True, 8192, precision, False)
+        y = mx.run_synthesis_mxu(planes, LEVELS, fr, True, 8192, precision, False)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
+            "modwt_mxu_analysis": 1, "modwt_mxu_synthesis": 1}
+        assert float((y - x).pow(2).mean().sqrt()) <= 3e-7
+        assert float((y - x).abs().max()) <= 3e-6
+    with pytest.raises(InvalidArgumentError, match="no gradient"):
+        mx.run_analysis_mxu(x.clone().requires_grad_(True), LEVELS, fd, True, 8192,
+                            "float32", False)
+    with pytest.raises(InvalidArgumentError, match="no gradient"):
+        mx.run_synthesis_mxu([p.clone().requires_grad_(True) for p in planes], LEVELS, fr,
+                             True, 8192, "float32", False)
+    with torch.no_grad():
+        mx.run_analysis_mxu(x.clone().requires_grad_(True), LEVELS, fd, True, 8192,
+                            "float32", False)
+    with pytest.raises(InvalidArgumentError, match="mirror edge"):
+        mx.run_analysis_mxu(x[:, :200].contiguous(), LEVELS, fd, False, 2048, "float32",
+                            False, symmetric=True)
+    with pytest.raises(InvalidArgumentError, match="mirror's reach"):
+        vt.fused_analysis(x[:, :200], "db4", levels=LEVELS, boundary="symmetric")
 
 
 # --- the 2-D kernels ---------------------------------------------------------------

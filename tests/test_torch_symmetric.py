@@ -346,9 +346,9 @@ def test_symmetric_gradients_match_jax_grad():
 
 def test_route_gates_both_sides():
     w = vt.wavelet("db4")
-    span = mc.composite_halo_samples(w.filter_length, 6)
-    assert ms.route_fits(w, 6, span, synthesis=False)
-    assert not ms.route_fits(w, 6, span - 1, synthesis=False)
+    reach = mc.mirror_reach(w.filter_length, 6)  # the analysis kernel's mirror
+    assert ms.route_fits(w, 6, reach, synthesis=False)
+    assert not ms.route_fits(w, 6, reach - 1, synthesis=False)
     ops = ms.symmetric_level_ops(w, 6)
     _, _, w_head, w_tail = ms.synthesis_windows(w.filter_length, ops)
     assert ms.route_fits(w, 6, w_head + w_tail, synthesis=True)

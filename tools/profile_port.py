@@ -10,7 +10,10 @@ entry point on the host clock (synchronised), traces 10 calls with
 ``torch.profiler``, and prints per call: wall ms, device (kernel) ms, the
 device's busy share of the wall time, the number of kernel launches, and the
 device kernels that take the most time.  The calls are the periodic round
-trip, the fused round trip, the denoise, the symmetric round trip, and
+trip, the probe's round trip through the cascade pair (``run_analysis_mxu``
+-> ``run_synthesis_mxu``, float32, with the arguments ``tools/perf_probe_mxu.py``
+gives the JAX pair; the port ignores their tile), the fused round trip, the denoise, the symmetric round
+trip (its analysis the cascade kernel's mirror mode), and
 ``swt_denoise`` (sym8, 4 levels, symmetric, universal soft) at 128 x 65536
 and 1 x 16384, the fused denoise's forward and backward (db4, 6 levels,
 soft, 128 x 65536), and at the 2-D shape (8 x 2048 x 2048 float32) the db4
@@ -39,6 +42,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import modwt_cascade as mx
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -52,6 +57,8 @@ def main() -> int:
     img = torch.randn(8, 2048, 2048, device=dev, generator=gen)
     xg = x.clone().requires_grad_(True)
     ths = torch.full((128, 6), 0.5, device=dev)
+    w = vt.wavelet("db4")
+    fd, fr = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
 
     def fused_backward():
         y = vt.fused_denoise_multilevel(xg, "db4", levels=6, thresholds=ths, mode="soft")
@@ -60,6 +67,9 @@ def main() -> int:
     calls = {
         "modwt_multilevel + imodwt_multilevel": lambda: vt.imodwt_multilevel(
             vt.modwt_multilevel(x, "db4", levels=6), "db4"),
+        "run_analysis_mxu + run_synthesis_mxu, float32": lambda: mx.run_synthesis_mxu(
+            mx.run_analysis_mxu(x, 6, fd, True, 8192, "float32", False), 6, fr, True,
+            8192, "float32", False),
         "modwt_roundtrip_fused": lambda: vt.modwt_roundtrip_fused(x, "db4", levels=6),
         "denoise_multilevel universal soft": lambda: vt.denoise_multilevel(
             x, "db4", levels=6, method="universal", mode="soft"),

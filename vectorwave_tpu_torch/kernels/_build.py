@@ -107,7 +107,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, ptrs = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
     i64, i32 = ctypes.c_longlong, ctypes.c_int
     # (x, outs, taps, head, head_samples, batch, n, levels, taps_len, tile,
-    #  periodic, dtype, stream)
+    #  edge, dtype, stream)
     lib.vw_modwt_analysis.argtypes = [ptr, ptrs, ptr, ptr, i32, i64, i64, i32, i32,
                                       i32, i32, i32, ptr]
     # (ins, out, taps, batch, n, levels, taps_len, tile, periodic, dtype, stream)

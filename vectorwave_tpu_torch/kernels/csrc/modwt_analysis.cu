@@ -1,10 +1,12 @@
 // J-level MODWT analysis in one pass: x -> d_1..d_J, a_J.
 //
-// Replaces the TPU kernel vectorwave_tpu/kernels/modwt_mxu.py
+// Replaces two TPU kernels of vectorwave_tpu/kernels/modwt_mxu.py:
 // `_composite_analysis_call`, which computes every plane directly from x
 // with a precomposed composite filter as banded 128x128 bf16 matmuls (the
-// only fast path of the TPU's matrix unit).  Here the plane filters are not
-// composed: the block runs the per-level a trous cascade in shared memory,
+// only fast path of the TPU's matrix unit), and `_mxu_analysis_call`, which
+// runs the per-level cascade as banded 128x256 matmuls, with an optional
+// per-level mirror.  Here the plane filters are not composed: the block runs
+// the per-level a trous cascade in shared memory,
 //     a_j[p] = sum_k lo[k] a_{j-1}[p - 2^{j-1} k],
 //     d_j[p] = sum_k hi[k] a_{j-1}[p - 2^{j-1} k],
 // which equals the composite form exactly for periodic and zero edges (both
@@ -20,26 +22,42 @@
 // the tap pair once per shared load (lo and hi share it), and writes the
 // detail planes straight from registers with coalesced stores.  Every
 // precision tier (float32, bf16_3x, bf16) runs this same fp32 kernel, which
-// meets each tier's error contract; tensor-core tiers are later work.
+// meets each tier's error contract; tensor-core tiers are later work.  In
+// bfloat16 the approximations stay fp32 between levels (the TPU cascade
+// rounds each to bf16).
 //
-// Head splice (the symmetric boundary, `head_samples` of the TPU kernel):
-// with a `head` of [J+1, batch, head_samples] fp32 values, every plane's
-// outputs at positions < head_samples are stored from it instead of from
-// the cascade.  The symmetric analysis is causal, so only its first S
-// outputs see the mirror: it is this kernel in zero mode with the head
-// computed by the plain symmetric cascade on the first S samples of each
-// row, one launch and no copy of a full plane.
+// Edges (`edge`, CascadeEdge): zero, periodic, or mirror.  The mirror is the
+// symmetric analysis: before level j, the level's input at g in
+// [-(L-1) 2^(j-1), 0) is its own value at -1 - g (a half-point reflection at
+// the signal start; level 1 reflects x as the window loads).  That is exact
+// for n >= (L-1) 2^(J-1), where the reflection's source lies in the signal;
+// shorter signals need the period-2n extension and take the plain path.  A
+// block whose window starts before 0 (t0 < S, block 0 and, with a small
+// tile, a few after it) reflects its own window, which needs the sources
+// [0, (L-1) 2^(J-1)) in it: the tile is at least that long.  Those blocks'
+// outputs at p >= 0 stay exact at every level, as the cascade's validity
+// bookkeeping below assumes for zero and periodic edges; values it computes
+// before 0 are overwritten by the next reflection or never read.
+//
+// Head splice (`head_samples` of `_composite_analysis_call`): with a `head`
+// of [J+1, batch, head_samples] fp32 values, every plane's outputs at
+// positions < head_samples are stored from it instead of from the cascade.
+// The symmetric analysis used it before the mirror mode existed; the
+// streaming tier's symmetric first block is its next caller.  It is a
+// template flag (kSplice): a launch without a head runs a kernel whose
+// stores do not test for one.
 #include "modwt_common.cuh"
 
 namespace vw {
 
-template <typename T>
+// kSplice: the head splice; without it no store looks at `head`.
+template <typename T, bool kSplice>
 __global__ void __launch_bounds__(kThreads)
 modwt_analysis_kernel(const T* __restrict__ x, PlanePtrs out,
                       const float* __restrict__ taps,
                       const float* __restrict__ head, int head_samples,
                       long long n, int levels, int L, int tile,
-                      int tiles_per_row, int periodic) {
+                      int tiles_per_row, int edge) {
   extern __shared__ float smem[];
   const int span = cascade_span(L, levels);
   const int width = tile + span;
@@ -58,23 +76,35 @@ modwt_analysis_kernel(const T* __restrict__ x, PlanePtrs out,
                                head_samples;
   const float* head_row = head == nullptr ? nullptr : head + b * head_samples;
   const int head_end =
-      static_cast<int>(min(static_cast<long long>(n_out),
-                           max(static_cast<long long>(head_samples) - t0, 0LL)));
+      kSplice ? static_cast<int>(min(static_cast<long long>(n_out),
+                                     max(static_cast<long long>(head_samples) - t0, 0LL)))
+              : 0;
 
   for (int k = threadIdx.x; k < L; k += blockDim.x) {
     s_lo[k] = taps[k];
     s_hi[k] = taps[L + k];
   }
-  // window [t0 - span, t0 + tile) of the extended signal
+  // window [t0 - span, t0 + tile) of the extended signal; its first `before`
+  // samples lie before the signal start
   const long long g0 = t0 - span;
+  const int before = static_cast<int>(max(-g0, 0LL));
   for (int q = threadIdx.x; q < width; q += blockDim.x) {
-    cur[q] = load_ext(row, g0 + q, n, periodic != 0);
+    cur[q] = load_edge(row, g0 + q, n, edge);
   }
   __syncthreads();
 
   int valid = 0;  // first window index where the current level is exact
   for (int j = 1; j <= levels; ++j) {
     const int s = 1 << (j - 1);
+    if (edge == kCascadeMirror && j > 1 && before > 0) {
+      // window index q holds g = q - before; g in [-reach, 0) takes the
+      // value at -1 - g, window index 2 before - 1 - q
+      for (int q = max(before - level_reach(L, j), 0) + threadIdx.x; q < before;
+           q += blockDim.x) {
+        cur[q] = cur[2 * before - 1 - q];
+      }
+      __syncthreads();
+    }
     const int first = valid + (L - 1) * s;
     T* dj = static_cast<T*>(out.p[j - 1]) + row_off + t0;
     for (int q = first + threadIdx.x; q < width; q += blockDim.x) {
@@ -88,7 +118,8 @@ modwt_analysis_kernel(const T* __restrict__ x, PlanePtrs out,
       nxt[q] = a;
       const int o = q - span;
       if (o >= 0 && o < n_out) {
-        dj[o] = from_f32<T>(o < head_end ? head_row[(j - 1) * head_plane + t0 + o] : d);
+        dj[o] = from_f32<T>(kSplice && o < head_end
+                                ? head_row[(j - 1) * head_plane + t0 + o] : d);
       }
     }
     __syncthreads();
@@ -99,8 +130,8 @@ modwt_analysis_kernel(const T* __restrict__ x, PlanePtrs out,
   }
   T* aj = static_cast<T*>(out.p[levels]) + row_off + t0;
   for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
-    aj[o] = from_f32<T>(o < head_end ? head_row[levels * head_plane + t0 + o]
-                                     : cur[span + o]);
+    aj[o] = from_f32<T>(kSplice && o < head_end ? head_row[levels * head_plane + t0 + o]
+                                                : cur[span + o]);
   }
 }
 
@@ -109,36 +140,55 @@ inline size_t analysis_shared_bytes(int L, int levels, int tile) {
                           2 * static_cast<size_t>(tile + cascade_span(L, levels)));
 }
 
-template <typename T>
-cudaError_t launch_analysis(const void* x, void* const* outs, const float* taps,
-                            const float* head, int head_samples,
-                            long long batch, long long n, int levels, int L,
-                            int tile, int periodic, cudaStream_t stream) {
+template <typename T, bool kSplice>
+cudaError_t launch_analysis_kernel(const void* x, void* const* outs, const float* taps,
+                                   const float* head, int head_samples,
+                                   long long batch, long long n, int levels, int L,
+                                   int tile, int edge, cudaStream_t stream) {
   PlanePtrs planes{};
   for (int i = 0; i <= levels; ++i) planes.p[i] = outs[i];
   const long long tiles = (n + tile - 1) / tile;
   const long long blocks = batch * tiles;
   if (tiles > 0x7fffffffLL || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t bytes = analysis_shared_bytes(L, levels, tile);
-  cudaError_t err = reserve_shared(modwt_analysis_kernel<T>, bytes);
+  cudaError_t err = reserve_shared(modwt_analysis_kernel<T, kSplice>, bytes);
   if (err != cudaSuccess) return err;
-  modwt_analysis_kernel<T><<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
+  modwt_analysis_kernel<T, kSplice><<<static_cast<unsigned>(blocks), kThreads, bytes,
+                                      stream>>>(
       static_cast<const T*>(x), planes, taps, head, head_samples, n, levels, L,
-      tile, static_cast<int>(tiles), periodic);
+      tile, static_cast<int>(tiles), edge);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_analysis(const void* x, void* const* outs, const float* taps,
+                            const float* head, int head_samples,
+                            long long batch, long long n, int levels, int L,
+                            int tile, int edge, cudaStream_t stream) {
+  return head == nullptr
+             ? launch_analysis_kernel<T, false>(x, outs, taps, head, head_samples, batch,
+                                                n, levels, L, tile, edge, stream)
+             : launch_analysis_kernel<T, true>(x, outs, taps, head, head_samples, batch,
+                                               n, levels, L, tile, edge, stream);
 }
 
 }  // namespace vw
 
 // head: null (no splice) or [levels + 1, batch, head_samples] fp32 values.
+// edge: vw::CascadeEdge; the mirror takes n and tile >= (L - 1) 2^(levels-1).
 extern "C" int vw_modwt_analysis(const void* x, void* const* outs,
                                  const void* taps, const void* head,
                                  int head_samples, long long batch, long long n,
-                                 int levels, int taps_len, int tile, int periodic,
+                                 int levels, int taps_len, int tile, int edge,
                                  int dtype, void* stream) {
   if (!vw::valid_config(batch, n, levels, taps_len, tile) || head_samples < 0 ||
-      (head == nullptr) != (head_samples == 0)) {
+      (head == nullptr) != (head_samples == 0) || edge < vw::kCascadeZero ||
+      edge > vw::kCascadeMirror) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (edge == vw::kCascadeMirror) {
+    const int reach = vw::level_reach(taps_len, levels);
+    if (tile < reach || n < reach) return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* t = static_cast<const float*>(taps);
   const float* h = static_cast<const float*>(head);
@@ -146,10 +196,10 @@ extern "C" int vw_modwt_analysis(const void* x, void* const* outs,
   cudaError_t err;
   if (dtype == vw::kFloat32) {
     err = vw::launch_analysis<float>(x, outs, t, h, head_samples, batch, n, levels,
-                                     taps_len, tile, periodic, s);
+                                     taps_len, tile, edge, s);
   } else if (dtype == vw::kBFloat16) {
     err = vw::launch_analysis<__nv_bfloat16>(x, outs, t, h, head_samples, batch, n,
-                                             levels, taps_len, tile, periodic, s);
+                                             levels, taps_len, tile, edge, s);
   } else {
     err = cudaErrorInvalidValue;
   }

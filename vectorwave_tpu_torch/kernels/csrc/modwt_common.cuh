@@ -11,6 +11,7 @@
 //     pair followed by the synthesis pair);
 //   * the signal is extended past [0, n) either periodically (index taken
 //     modulo n, so n may be shorter than the cascade span) or with zeros;
+//     the analysis kernel also takes the per-level mirror (CascadeEdge);
 //   * one block serves one (signal, tile of `tile` outputs); the grid is
 //     flattened to blockIdx.x = signal * tiles_per_row + tile_index, so the
 //     batch is not bounded by gridDim.y;
@@ -67,6 +68,28 @@ __device__ __forceinline__ float load_ext(const T* __restrict__ row,
     return to_f32(row[m]);
   }
   return (g >= 0 && g < n) ? to_f32(row[g]) : 0.0f;
+}
+
+// Left edges of the analysis cascade: zero, periodic, or the per-level
+// half-point mirror at the signal start (the symmetric analysis).
+enum CascadeEdge : int { kCascadeZero = 0, kCascadePeriodic = 1, kCascadeMirror = 2 };
+
+// Sample g of the row extended by `edge`: as load_ext for zero and periodic;
+// the mirror reads row[-1 - g] for g < 0, and 0 where that, or g, lies
+// past n.
+template <typename T>
+__device__ __forceinline__ float load_edge(const T* __restrict__ row, long long g,
+                                           long long n, int edge) {
+  if (edge == kCascadePeriodic) return load_ext(row, g, n, true);
+  if (edge == kCascadeMirror && g < 0) g = -1 - g;
+  return load_ext(row, g, n, false);
+}
+
+// Reach of level j's filters before an output, (L - 1) 2^(j-1): the mirror
+// mode reflects that many samples at every level, and its deepest level
+// needs (L - 1) 2^(J-1) samples of signal and of a block's tile.
+__host__ __device__ __forceinline__ int level_reach(int taps, int level) {
+  return (taps - 1) << (level - 1);
 }
 
 // Cascade span (L - 1)(2^J - 1): how far the J-level composite filter reaches.

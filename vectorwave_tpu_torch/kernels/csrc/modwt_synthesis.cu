@@ -1,10 +1,12 @@
 // J-level inverse MODWT in one pass: d_1..d_J, a_J -> x.
 //
-// Replaces the TPU kernel vectorwave_tpu/kernels/modwt_mxu.py
+// Replaces two TPU kernels of vectorwave_tpu/kernels/modwt_mxu.py:
 // `_composite_synthesis_call`, which sums every plane filtered with forward
 // reads by its composite reconstruction filter, as banded 128x128 bf16
-// matmuls.  Here the block runs the inverse cascade from coarse to fine in
-// shared memory, with forward reads,
+// matmuls, and `_mxu_synthesis_call`, which runs the inverse cascade level
+// by level as banded 128x128 matmuls, the arithmetic of this kernel.  Here
+// the block runs the inverse cascade from coarse to fine in shared memory,
+// with forward reads,
 //     c_{j-1}[p] = sum_k lo[k] c_j[p + 2^{j-1} k] + hi[k] d_j[p + 2^{j-1} k],
 // starting from c_J = a_J; it equals the composite form exactly for periodic
 // and zero right edges and costs 2 L J FMAs per sample.  With the analysis

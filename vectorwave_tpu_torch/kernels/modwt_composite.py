@@ -19,11 +19,16 @@ wrapper                       CUDA source                        TPU kernel it r
 :func:`symmetric_adjoint`     ``modwt_symmetric_synthesis.cu``   ``_symsyn_adjoint_kernel``
 ============================  =================================  =============================
 
+The first two kernels also replace ``_mxu_analysis_call`` and
+``_mxu_synthesis_call``, through the wrappers of :mod:`.modwt_cascade`,
+which launch them with :func:`launch_analysis` (whose mirror edge is the
+symmetric analysis) and :func:`launch_synthesis`.
+
 A wrapper given a CPU tensor runs its plain version (``*_plain``), a cascade
 of rolled sums in plain PyTorch; given a CUDA tensor it launches its kernel
 or raises.  Each launch adds one to its entry of :data:`LAUNCHES`, so a run
 can show that it went through the kernels; the 2-D level kernels of
-:mod:`.modwt2` count there too.
+:mod:`.modwt2` and the cascade wrappers count there too.
 
 ``filters`` arguments are ``(lo, hi)`` tuples of Python floats, already
 scaled by 1/sqrt(2) per stage (``modwt_fused._kernel_filters``).  The
@@ -53,11 +58,14 @@ from ..errors import ErrorCode, InvalidArgumentError
 from ..ops.convolve import atrous_analysis_pair, atrous_convolve
 from ._build import library
 
-#: Kernel launches since the last :func:`reset_launches`, by kernel.
+#: Kernel launches since the last :func:`reset_launches`, by kernel.  The
+#: cascade wrappers of :mod:`.modwt_cascade` launch the analysis and
+#: synthesis kernels too, and count under ``modwt_mxu_*``.
 LAUNCHES = {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
             "modwt_exact_analysis": 0, "modwt_exact_synthesis": 0,
             "modwt_symmetric_synthesis": 0, "modwt_symmetric_adjoint": 0,
-            "modwt2_analysis": 0, "modwt2_synthesis": 0}
+            "modwt2_analysis": 0, "modwt2_synthesis": 0,
+            "modwt_mxu_analysis": 0, "modwt_mxu_synthesis": 0}
 
 #: Outputs per block, per kernel (the denoise kernel holds J planes of its
 #: tile in shared memory, so its tile is smaller).
@@ -73,6 +81,9 @@ SHARED_LIMIT = 232448
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"none": 0, "soft": 1, "hard": 2}
+#: Left edges of the analysis kernel (``CascadeEdge`` in the CUDA source):
+#: zero, periodic, or the per-level mirror of the symmetric analysis.
+EDGES = {"zero": 0, "periodic": 1, "mirror": 2}
 
 
 def reset_launches() -> None:
@@ -83,6 +94,14 @@ def reset_launches() -> None:
 def composite_halo_samples(filter_length: int, levels: int) -> int:
     """Cumulative cascade support: (L0-1)(2^J - 1) samples."""
     return (filter_length - 1) * ((1 << levels) - 1)
+
+
+def mirror_reach(filter_length: int, levels: int) -> int:
+    """(L0-1) 2^(J-1): how far the deepest level reads before an output.  The
+    analysis kernel's mirror mode serves n >= it (the reflection's sources
+    lie in the signal) and needs a tile of at least it (they lie in block
+    0's window)."""
+    return (filter_length - 1) << (levels - 1)
 
 
 def _upsample_filter(f: np.ndarray, s: int) -> np.ndarray:
@@ -116,6 +135,17 @@ def composite_plane_filters(
 def analysis_shared_bytes(taps: int, levels: int, tile: int = ANALYSIS_TILE) -> int:
     """Shared memory of one analysis block: taps + two rows of tile + span."""
     return 4 * (2 * taps + 2 * (tile + composite_halo_samples(taps, levels)))
+
+
+def analysis_tile(taps: int, levels: int, mirror: bool = False) -> int | None:
+    """The analysis kernel's tile: :data:`ANALYSIS_TILE` halved until one
+    block fits shared memory (None below 128); in mirror mode at least
+    :func:`mirror_reach` (None where that does not fit)."""
+    tile = _fitting_tile(lambda t: analysis_shared_bytes(taps, levels, t), ANALYSIS_TILE)
+    if not mirror:
+        return tile
+    tile = max(tile or 0, mirror_reach(taps, levels))
+    return tile if analysis_shared_bytes(taps, levels, tile) <= SHARED_LIMIT else None
 
 
 def synthesis_shared_bytes(taps: int, levels: int, tile: int = SYNTHESIS_TILE) -> int:
@@ -394,17 +424,21 @@ def _fitting_tile(bytes_of_tile, preferred: int) -> int | None:
     return None
 
 
-def _tile(bytes_fn, taps: int, levels: int, preferred: int) -> int:
-    """The preferred tile, halved until the block fits shared memory."""
-    tile = _fitting_tile(lambda t: bytes_fn(taps, levels, t), preferred)
-    if tile is not None:
-        return tile
-    raise InvalidArgumentError(
+def _too_large(taps: int, levels: int) -> InvalidArgumentError:
+    return InvalidArgumentError(
         ErrorCode.VAL_TOO_LARGE,
         "The cascade halo does not fit the kernel's shared memory",
         context={"taps": taps, "levels": levels},
         suggestions=("Use fewer levels or backend='torch'",),
     )
+
+
+def _tile(bytes_fn, taps: int, levels: int, preferred: int) -> int:
+    """The preferred tile, halved until the block fits shared memory."""
+    tile = _fitting_tile(lambda t: bytes_fn(taps, levels, t), preferred)
+    if tile is not None:
+        return tile
+    raise _too_large(taps, levels)
 
 
 def _check_operand(t: torch.Tensor, what: str, device=None) -> None:
@@ -462,12 +496,29 @@ def analysis(x, levels, filters, periodic, head=None) -> tuple[torch.Tensor, ...
     """[B, N] -> (d_1, ..., d_J, a_J); periodic or zero boundary, any N.
 
     ``head``, a float32 ``[J+1, B, H]`` tensor with H <= N, splices each
-    plane's first H outputs in the kernel (the symmetric analysis)."""
+    plane's first H outputs in the kernel."""
     if x.device.type == "cpu":
         return analysis_plain(x, levels, filters, periodic, head)
+    return launch_analysis(x, levels, filters, _boundary(periodic), "modwt_analysis",
+                           head=head)
+
+
+def launch_analysis(x, levels, filters, edge, counter, head=None):
+    """Launch the analysis kernel on a CUDA ``x`` with left edge ``edge``
+    (:data:`EDGES`) at :func:`analysis_tile`, adding one to
+    ``LAUNCHES[counter]``; the mirror edge takes N >= :func:`mirror_reach`."""
     _check_operand(x, "x")
     code = _check_dtype(x, "x")
     _check_levels(levels)
+    taps = len(filters[0])
+    mirror = edge == "mirror"
+    if mirror and x.shape[1] < mirror_reach(taps, levels):
+        raise InvalidArgumentError(
+            ErrorCode.VAL_TOO_SHORT,
+            "The mirror edge serves signals of at least (L-1) 2^(J-1) samples",
+            context={"n": x.shape[1], "taps": taps, "levels": levels},
+            suggestions=("Use the plain symmetric cascade for shorter signals",),
+        )
     head_samples = 0
     if head is not None:
         if (head.device != x.device or head.dtype != torch.float32
@@ -481,8 +532,9 @@ def analysis(x, levels, filters, periodic, head=None) -> tuple[torch.Tensor, ...
                 context={"shape": tuple(head.shape), "dtype": head.dtype},
             )
         head_samples = head.shape[2]
-    taps = len(filters[0])
-    tile = _tile(analysis_shared_bytes, taps, levels, ANALYSIS_TILE)
+    tile = analysis_tile(taps, levels, mirror)
+    if tile is None:
+        raise _too_large(taps, levels)
     lib = library()
     outs = [torch.empty_like(x) for _ in range(levels + 1)]
     out_ptrs = (ctypes.c_void_p * (levels + 1))(*[o.data_ptr() for o in outs])
@@ -492,10 +544,10 @@ def analysis(x, levels, filters, periodic, head=None) -> tuple[torch.Tensor, ...
         err = lib.vw_modwt_analysis(
             x.data_ptr(), out_ptrs, tap_t.data_ptr(),
             None if head is None else head.data_ptr(), head_samples, b, n, levels,
-            taps, tile, int(periodic), code, _stream(x.device),
+            taps, tile, EDGES[edge], code, _stream(x.device),
         )
-    _raise_on_error(err, "modwt_analysis")
-    LAUNCHES["modwt_analysis"] += 1
+    _raise_on_error(err, counter)
+    LAUNCHES[counter] += 1
     return tuple(outs)
 
 
@@ -520,6 +572,12 @@ def synthesis(planes, levels, filters, periodic) -> torch.Tensor:
     """(d_1, ..., d_J, a_J), each [B, N] -> [B, N]; periodic or zero."""
     if planes[0].device.type == "cpu":
         return synthesis_plain(planes, levels, filters, periodic)
+    return launch_synthesis(planes, levels, filters, periodic, "modwt_synthesis")
+
+
+def launch_synthesis(planes, levels, filters, periodic, counter):
+    """Launch the synthesis kernel on CUDA planes, adding one to
+    ``LAUNCHES[counter]``."""
     if len(planes) != levels + 1:
         raise InvalidArgumentError(
             ErrorCode.VAL_INVALID_SHAPE,
@@ -540,8 +598,8 @@ def synthesis(planes, levels, filters, periodic) -> torch.Tensor:
             in_ptrs, out.data_ptr(), tap_t.data_ptr(), b, n, levels, taps, tile,
             int(periodic), code, _stream(first.device),
         )
-    _raise_on_error(err, "modwt_synthesis")
-    LAUNCHES["modwt_synthesis"] += 1
+    _raise_on_error(err, counter)
+    LAUNCHES[counter] += 1
     return out
 
 

@@ -5,7 +5,8 @@ lives in :mod:`.modwt_composite` (hand-written CUDA kernels and their plain
 versions); this module keeps the public surface: halo math, the
 differentiable :func:`fused_analysis` / :func:`fused_synthesis`, the fused
 denoise and the one-pass round trip.  Symmetric boundaries go to
-:mod:`.modwt_symmetric` (zero-boundary body plus edge splice).
+:mod:`.modwt_symmetric`: the analysis kernel's per-level mirror mode, and
+the symmetric synthesis kernel with its edge splice.
 
 The analysis map A and synthesis map S are linear, and for periodic and
 zero boundaries the synthesis structure with the analysis filters is exactly
@@ -158,10 +159,11 @@ def fused_analysis(
     ``(details tuple, approx)``.
 
     Periodic, zero or symmetric boundary.  On a CUDA tensor it is one launch
-    of the analysis kernel (for symmetric, in zero mode with the first
-    outputs spliced from the plain symmetric cascade of the head); on a CPU
-    tensor the kernel's plain version.  Differentiable: the gradient is one
-    synthesis pass (plus autograd through the symmetric head).
+    of the analysis kernel (for symmetric, in its per-level mirror mode,
+    which serves N >= (L-1) 2^(J-1)); on a CPU tensor the kernel's plain
+    version.  Differentiable: the gradient is one synthesis pass (for
+    symmetric, plus the VJP of the plain symmetric cascade on the first
+    (L-1)(2^J-1) samples).
     """
     from ..transforms.modwt import _resolve_discrete
     from .modwt_symmetric import fused_symmetric_analysis

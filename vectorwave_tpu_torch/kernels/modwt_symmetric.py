@@ -1,14 +1,17 @@
-"""Symmetric-boundary MODWT in the kernel tier: zero-boundary body + edge splice.
+"""Symmetric-boundary MODWT in the kernel tier.
 
 Counterpart of ``vectorwave_tpu/kernels/modwt_symmetric.py``.  The per-level
 mirror of the evolving approximation is not a filter composition, but only
 the first and last outputs ever read across a mirror:
 
-* **Analysis** is causal, so outputs at ``p >= S`` (S = (L-1)(2^J-1), the
-  cascade span) equal the zero-boundary transform.  One launch of the
-  analysis kernel in zero mode computes them, and splices the first S
-  outputs of every plane in-kernel from ``head``: the plain symmetric
-  cascade on the first S samples of each row (it needs nothing beyond them).
+* **Analysis** is causal, so it reads across the mirror at the signal start
+  only.  One launch of the analysis kernel in its mirror mode
+  (:func:`.modwt_cascade.cascade_analysis`, the counterpart of the JAX
+  package's ``run_analysis_mxu(..., symmetric=True)``) reflects each
+  level's input at the start before the level runs.  It serves N >=
+  (L-1) 2^(J-1), where one reflection is the period-2N extension: a
+  shorter CUDA signal is refused (the router sends it to the plain path),
+  and a CPU one runs the plain cascade at any N.
 * **Synthesis** reads both ways.  Away from the edges it is the sum of the
   planes, zero outside the signal, each filtered by the composition of the
   alignment-shifted per-level ops (:func:`symmetric_synthesis_plane_filters`);
@@ -19,12 +22,14 @@ the first and last outputs ever read across a mirror:
   synthesis kernel runs the composition level by level and applies the
   splice on its store.
 
-Both are differentiable (``torch.autograd.Function``): the analysis backward
-is the synthesis kernel in zero mode on the cotangent masked to ``p >= S``,
-plus autograd through the plain head cascade; the synthesis backward is the
-symmetric kernel's adjoint mode on the cotangent masked to the interior, plus
-the head and tail slabs, which autograd carries on through the plain head
-and tail inverses.
+Both are differentiable (``torch.autograd.Function``).  Outputs at ``p >=
+S`` (S = (L-1)(2^J-1), the cascade span) equal the zero-boundary transform,
+so the analysis backward is the synthesis kernel in zero mode on the
+cotangent masked to ``p >= S``, plus the VJP of the plain symmetric cascade
+on the first S samples, recomputed in the backward; the synthesis backward
+is the symmetric kernel's adjoint mode on the cotangent masked to the
+interior, plus the head and tail slabs, which autograd carries on through
+the plain head and tail inverses.
 
 The JAX package's long-filter body path (``_symsyn_core``), which exists
 because its splice slab holds at most 8 rows, has no counterpart: every
@@ -45,8 +50,8 @@ from ..transforms.multilevel import (
     _tau_j,
     imodwt_multilevel,
 )
-from . import modwt_composite
-from .modwt_composite import _compute_dtype, composite_halo_samples
+from . import modwt_cascade, modwt_composite
+from .modwt_composite import _compute_dtype, composite_halo_samples, mirror_reach
 
 # --- alignment-composed per-plane synthesis filters (numpy) ------------------------
 
@@ -146,13 +151,14 @@ def _symmetric_inverse(planes, w) -> torch.Tensor:
 
 
 def analysis_fits(taps: int, levels: int) -> bool:
-    """Whether the symmetric analysis kernel (the zero-mode analysis) and its
-    backward (the zero-mode synthesis) fit one block at a tile of >= 128."""
-    return all(
-        modwt_composite._fitting_tile(lambda t, f=f: f(taps, levels, t),
-                                      modwt_composite.ANALYSIS_TILE) is not None
-        for f in (modwt_composite.analysis_shared_bytes,
-                  modwt_composite.synthesis_shared_bytes)
+    """Whether the symmetric analysis kernel (the analysis kernel's mirror
+    mode, at a tile of at least (L-1) 2^(J-1)) and its backward (the
+    zero-mode synthesis, at a tile of >= 128) fit one block."""
+    return (
+        modwt_composite.analysis_tile(taps, levels, mirror=True) is not None
+        and modwt_composite._fitting_tile(
+            lambda t: modwt_composite.synthesis_shared_bytes(taps, levels, t),
+            modwt_composite.SYNTHESIS_TILE) is not None
     )
 
 
@@ -174,20 +180,21 @@ def synthesis_fits(taps: int, ops, n: int) -> bool:
 
 
 def route_fits(w, levels: int, n: int, synthesis: bool) -> bool:
-    """The router's symmetric gate: the head window holds the analysis span
-    (analysis), the splice windows do not overlap (synthesis), and the
-    kernels of that direction fit shared memory."""
+    """The router's symmetric gate: the signal holds the mirror's reach,
+    (L-1) 2^(J-1) samples (analysis), the splice windows do not overlap
+    (synthesis), and the kernels of that direction fit shared memory."""
     taps = w.filter_length
     if synthesis:
         return synthesis_fits(taps, symmetric_level_ops(w, levels), n)
-    return n >= composite_halo_samples(taps, levels) and analysis_fits(taps, levels)
+    return n >= mirror_reach(taps, levels) and analysis_fits(taps, levels)
 
 
 def _refuse(entry: str, taps: int, levels: int, n: int) -> InvalidArgumentError:
     return InvalidArgumentError(
         ErrorCode.VAL_TOO_LARGE,
         f"{entry}: the symmetric kernel tier does not serve this call (its "
-        "windows do not fit shared memory, or the splice windows overlap)",
+        "windows do not fit shared memory, the splice windows overlap, or the "
+        "signal is shorter than the mirror's reach)",
         context={"taps": taps, "levels": levels, "n": n},
         suggestions=("Use backend='torch' (or 'auto') for this shape",),
     )
@@ -198,19 +205,28 @@ def _refuse(entry: str, taps: int, levels: int, n: int) -> InvalidArgumentError:
 
 class _SymmetricAnalysis(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, head, levels, filters):
+    def forward(ctx, x, levels, filters):
         ctx.levels, ctx.filters = levels, filters
-        ctx.cut, ctx.head_dtype = head.shape[-1], head.dtype
-        return modwt_composite.analysis(x, levels, filters, False, head)
+        ctx.save_for_backward(x)
+        return modwt_cascade.cascade_analysis(x, levels, filters, "mirror")
 
     @staticmethod
     def backward(ctx, *cots):
-        body = torch.arange(cots[0].shape[-1], device=cots[0].device) >= ctx.cut
+        (x,) = ctx.saved_tensors
+        n = x.shape[-1]
+        cut = min(composite_halo_samples(len(ctx.filters[0]), ctx.levels), n)
+        body = torch.arange(n, device=x.device) >= cut
         gx = modwt_composite.synthesis(
             tuple((c * body).contiguous() for c in cots), ctx.levels, ctx.filters, False
         )
-        ghead = torch.stack([c[..., : ctx.cut] for c in cots]).to(ctx.head_dtype)
-        return gx, ghead, None, None
+        with torch.enable_grad():
+            head = x[..., :cut].detach().to(_compute_dtype(x)).requires_grad_(True)
+            planes = _symmetric_cascade(head, ctx.filters, ctx.levels)
+            (ghead,) = torch.autograd.grad(
+                planes, head, [c[..., :cut].to(head.dtype) for c in cots]
+            )
+        gx[..., :cut] += ghead.to(gx.dtype)
+        return gx, None, None
 
 
 class _SymmetricSynthesis(torch.autograd.Function):
@@ -236,21 +252,17 @@ class _SymmetricSynthesis(torch.autograd.Function):
 
 def fused_symmetric_analysis(x: torch.Tensor, w, *, levels: int) -> tuple[torch.Tensor, ...]:
     """Symmetric J-level analysis of ``[B, N]`` signals -> the J+1 planes
-    ``(d_1, ..., d_J, a_J)``: one launch of the analysis kernel in zero mode,
-    whose first ``min(S, N)`` outputs of every plane are spliced from the
-    plain symmetric cascade on that many head samples."""
+    ``(d_1, ..., d_J, a_J)``: on a CUDA tensor one launch of the analysis
+    kernel in mirror mode, for N >= (L-1) 2^(J-1); on a CPU tensor the plain
+    symmetric cascade, any N."""
     from .modwt_fused import _kernel_filters
 
     filters = _kernel_filters(w, synthesis=False)
-    taps = len(filters[0])
-    n = x.shape[-1]
-    if not analysis_fits(taps, levels):
+    taps, n = len(filters[0]), x.shape[-1]
+    if not analysis_fits(taps, levels) or (
+            x.device.type == "cuda" and n < mirror_reach(taps, levels)):
         raise _refuse("fused_analysis", taps, levels, n)
-    cut = min(composite_halo_samples(taps, levels), n)
-    head = torch.stack(
-        _symmetric_cascade(x[..., :cut].to(_compute_dtype(x)), filters, levels)
-    ).contiguous()
-    return _SymmetricAnalysis.apply(x, head, levels, filters)
+    return _SymmetricAnalysis.apply(x, levels, filters)
 
 
 def fused_symmetric_synthesis(planes, w) -> torch.Tensor:
