@@ -31,6 +31,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    mode (periodic, zero, symmetric with the inverse's per-filter offsets),
    at levels 1 and 4 of db4 and 1 and 6 of sym8 at 8x2048x2048, at db4 level
    3 on 3x200x328, haar level 5 on 1x24x40 and db20 level 4 on 2x1024x1024;
+   the filter-bank pair (``bank_analysis`` / ``bank_synthesis``) in both edge
+   modes with random dense taps (3 planes of 1, 37 and 300 taps) at 3x5000
+   and 2x301, periodic at 2x150 (the span outlasts the signal) and once in
+   bfloat16, an à trous pair at spacing 16, the sym8 packet trees of depth 4
+   (30 planes) and 5 (62 planes), the DTCWT's composed planes (both trees, 5
+   levels), and the identity <A x, y> = <x, A^T y> for each edge;
 3. the main path through the public entry points at 128x65536 float32:
    ``modwt_multilevel`` -> ``imodwt_multilevel`` at every precision tier,
    ``modwt_roundtrip_fused`` and ``denoise_multilevel``, with the launch
@@ -63,7 +69,18 @@ Phases, in order; any failure raises and the exit code is not 0:
    5e-5), db4 J=4 zero and sym8 J=4 symmetric round trips and ``denoise2``
    db4 J=4 universal soft against the plain path, a small input in each edge
    mode against the float64 plain cascade on the CPU, and a 2-D input that
-   requires grad, which must raise;
+   requires grad, which must raise; then the packet and dual-tree path, each
+   public call with its own reset and reading of the counters, at 64x16384
+   and 128x65536 float32: ``modwpt`` -> ``imodwpt`` sym8 depth 4 on the
+   whole-tree route (one bank launch each way) and on the per-level route
+   (one per level), every level against the plain route, the round trip
+   against x, and under the default backend; a gradient through ``modwpt``
+   on each route against the plain route; ``wpt`` -> ``iwpt`` (sym8, bior4.4
+   and coif3; no kernel); ``dtcwt`` -> ``idtcwt`` sym8 5 levels on the
+   whole-tree route, the per-stage route and under the default backend
+   against the plain route; ``denoise_packet`` depth 4 and ``dtcwt_denoise``
+   at 8x16384 against their plain routes; a small input against the float64
+   plain cascade on the CPU;
 4. timing with CUDA events (3 warm-ups, median of 20 runs) of each kernel
    beside its plain version and one PyTorch library call that computes the
    same function (``F.conv1d`` with the composite filters; not for the
@@ -72,7 +89,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    analysis also in mirror mode), with the least time the card could take (bytes over 3.35 TB/s
    or operations over the peak rate, the larger), and of the public entry
    points (the 2-D ones, the fused denoise's backward and the probe's round
-   trip at each precision included).
+   trip at each precision included); the bank kernels at the sym8 depth-4
+   tree and at one level-4 pair as ``modwpt`` calls it, for 64x16384 and
+   128x65536, and every route of ``modwpt`` + ``imodwpt`` (depths 3, 4, 5)
+   and ``dtcwt`` + ``idtcwt`` at both shapes and at 1x1024 (the dual tree
+   also at 64x65536), and the two denoisers at 8x16384.
 
 The last two lines are a JSON object with one entry per kernel and the
 device line ``{"ok": true, "device": {...}}``.
@@ -161,13 +182,34 @@ KERNELS = {
         "vectorwave_tpu_torch/kernels/csrc/modwt_synthesis.cu",
         "vectorwave_tpu/kernels/modwt_mxu.py:407",
     ),
+    "modwt_bank_analysis": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt_bank_analysis.cu",
+        "vectorwave_tpu/kernels/modwt_mxu.py:688",
+    ),
+    "modwt_bank_synthesis": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt_bank_synthesis.cu",
+        "vectorwave_tpu/kernels/modwt_mxu.py:910",
+    ),
 }
 MAIN_PATH = ("modwt_analysis", "modwt_synthesis", "modwt_denoise")
 EXACT_PATH = ("modwt_exact_analysis", "modwt_exact_synthesis")
 SYMMETRIC_PATH = ("modwt_mxu_analysis", "modwt_symmetric_synthesis",
                   "modwt_symmetric_adjoint")
 MXU_PATH = ("modwt_mxu_analysis", "modwt_mxu_synthesis")
-BF16_ROWS = MAIN_PATH + ("modwt_symmetric_synthesis", "modwt_symmetric_adjoint") + MXU_PATH
+BANK_PATH = ("modwt_bank_analysis", "modwt_bank_synthesis")
+BF16_ROWS = (MAIN_PATH + ("modwt_symmetric_synthesis", "modwt_symmetric_adjoint") + MXU_PATH
+             + BANK_PATH)
+#: the packet and dual-tree path: sym8, packet depth 4, 5 DTCWT levels, at the
+#: batch shape of the JAX package's bench rows and at the main path's
+PACKET_WAVELET, PACKET_DEPTH, DTCWT_LEVELS = "sym8", 4, 5
+PACKET_SHAPES = ((64, 16384), (BATCH, N))
+#: bank routes against the plain route: the whole tree composes up to 5
+#: stages into one fp32 filter (3e-5, the JAX package's DTCWT kernel bound)
+TOL_DTCWT = 3e-5
+#: a gradient through the bank against the plain route, of its largest entry
+TOL_BANK_GRAD = 5e-6
+#: the adjoint identity, relative
+TOL_ADJOINT = 1e-5
 #: the tile tools/perf_probe_mxu.py passes the TPU pair; a layout hint that
 #: the port's wrappers accept and ignore
 PROBE_TILE = 8192
@@ -262,6 +304,355 @@ def symmetric_bank(filters, ops, device):
     for i, f in enumerate(dense):
         bank[i, : len(f)] = torch.tensor(f, device=device)
     return bank, g, d_max
+
+
+class routed:
+    """Run the packet or dual-tree entry points on one named route: ``tree``
+    (the whole tree in one bank launch: backend ``kernel``), ``level`` (one
+    bank pair per level: backend ``auto`` with the whole-tree route switched
+    off), ``plain`` (backend ``torch``) or ``default`` (backend ``auto`` as
+    the package ships: it chooses between the two bank routes)."""
+
+    def __init__(self, route: str):
+        self.route = route
+
+    def __enter__(self):
+        import vectorwave_tpu_torch as vt
+        from vectorwave_tpu_torch.transforms import dtcwt as td
+        from vectorwave_tpu_torch.transforms import packets as tp
+
+        self.saved = (tp.AUTO_TREE_MAX_DEPTH, td.AUTO_WHOLE_TREE_MAX_WORK)
+        vt.set_backend({"tree": "kernel", "plain": "torch"}.get(self.route, "auto"))
+        if self.route == "level":
+            tp.AUTO_TREE_MAX_DEPTH, td.AUTO_WHOLE_TREE_MAX_WORK = 0, 0
+
+    def __exit__(self, *exc):
+        import vectorwave_tpu_torch as vt
+        from vectorwave_tpu_torch.transforms import dtcwt as td
+        from vectorwave_tpu_torch.transforms import packets as tp
+
+        tp.AUTO_TREE_MAX_DEPTH, td.AUTO_WHOLE_TREE_MAX_WORK = self.saved
+        vt.set_backend("auto")
+
+
+def bank_kernels_against_plain(dev, gen, worst, worst_bf16):
+    """Phase 2 for the filter-bank pair: each kernel against its plain
+    version, and the adjoint identity for each edge."""
+    import numpy as np
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import modwt_bank as mb
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.transforms import dtcwt as td
+    from vectorwave_tpu_torch.transforms import packets as tp
+
+    rng = np.random.default_rng(SEED)
+    # random dense taps, scaled so that the outputs are of the order of x
+    random_dense = tuple(tuple((rng.standard_normal(k) / math.sqrt(k)).tolist())
+                         for k in (1, 37, 300))
+    w = vt.wavelet(PACKET_WAVELET)
+    pair16 = tp._pair_dense(w.dec_lo / math.sqrt(2.0), w.dec_hi / math.sqrt(2.0), 16)
+    dual, _ = td._dual_tree_bank(w, DTCWT_LEVELS)
+    dual_half, _ = td._dual_tree_bank(w, DTCWT_LEVELS, 0.5)
+    # (label, analysis taps, synthesis taps or None for the same, planes the
+    #  synthesis reads (a slice of the analysis output), batch, n, edges, dtype)
+    cases = [
+        ("random taps 1/37/300", random_dense, None, slice(None), 3, 5000,
+         ("periodic", "zero"), torch.float32),
+        ("random taps 1/37/300", random_dense, None, slice(None), 2, 301,
+         ("periodic", "zero"), torch.float32),
+        ("random taps 1/37/300, span >= N", random_dense, None, slice(None), 2, 150,
+         ("periodic",), torch.float32),
+        ("random taps 1/37/300", random_dense, None, slice(None), 3, 5000,
+         ("periodic",), torch.bfloat16),
+        ("sym8 pair at spacing 16", pair16, None, slice(None), 4, 4096,
+         ("periodic", "zero"), torch.float32),
+    ]
+    for depth in (PACKET_DEPTH, 5):
+        cases.append((f"sym8 depth-{depth} tree ({(2 << depth) - 2} planes)",
+                      tp._tree_dense(w, depth, dec=True), tp._tree_dense(w, depth, dec=False),
+                      slice(-(1 << depth), None), 2, 8192, ("periodic", "zero"),
+                      torch.float32))
+    cases.append((f"sym8 dual tree, {DTCWT_LEVELS} levels ({len(dual)} planes)", dual,
+                  dual_half, slice(None), 2, 8192, ("periodic",), torch.float32))
+    for label, dense, dense_syn, pick, b, n, edges, dtype in cases:
+        dense_syn = dense if dense_syn is None else dense_syn
+        for edge in edges:
+            periodic = edge == "periodic"
+            x = torch.randn(b, n, device=dev, generator=gen).to(dtype)
+            before = dict(mc.LAUNCHES)
+            want = mb.bank_analysis_plain(x, dense, periodic)
+            got = mb.bank_analysis(x, dense, periodic)
+            planes = tuple(want[pick])
+            y_want = mb.bank_synthesis_plain(planes, dense_syn, periodic)
+            y_got = mb.bank_synthesis(planes, dense_syn, periodic)
+            torch.cuda.synchronize()
+            launched = {k: mc.LAUNCHES[k] - before[k] for k in BANK_PATH}
+            check(launched == dict.fromkeys(BANK_PATH, 1),
+                  f"a CUDA tensor launches the bank kernels: {launched}")
+            tag = f"{label} {b}x{n} {edge} {str(dtype)[6:]}"
+            for kname, g, p in (("modwt_bank_analysis", got, want),
+                                ("modwt_bank_synthesis", (y_got,), (y_want,))):
+                err = max(max_err(a, c) for a, c in zip(g, p))
+                if dtype == torch.float32:
+                    tol = TOL_F32
+                    worst[kname] = max(worst[kname], err)
+                else:
+                    tol = BF16_ULP * max(c.float().abs().max().item() for c in p)
+                    worst_bf16[kname] = max(worst_bf16[kname], err)
+                check(err <= tol, f"{kname} {tag}: max |kernel - plain| {err:.3e} <= "
+                                  f"{tol:.3e}")
+            if dtype == torch.float32 and dense_syn is dense:
+                # <A x, y> = <x, A^T y>, both sides from the kernels, in float64
+                ys = [torch.randn(b, n, device=dev, generator=gen) for _ in dense]
+                lhs = sum((a.double() * c.double()).sum() for a, c in zip(got, ys)).item()
+                rhs = (x.double() * mb.bank_synthesis(tuple(ys), dense, periodic).double()
+                       ).sum().item()
+                rel = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+                check(rel <= TOL_ADJOINT, f"adjoint identity {tag}: |<Ax,y> - <x,A'y>| "
+                                          f"{rel:.3e} <= {TOL_ADJOINT:.0e} relative")
+
+
+def packet_path(dev, gen):
+    """Phase 3 for the packet and dual-tree family.  Returns the bank kernels'
+    launches, summed over the public calls (each with its own reset)."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+
+    total = dict.fromkeys(BANK_PATH, 0)
+
+    def counted(label, expect, fn):
+        """Run fn with the counters set to 0 just before and read just after;
+        ``expect`` None accepts any count above 0 of both bank kernels."""
+        mc.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in mc.LAUNCHES.items() if v}
+        check(got == expect if expect is not None else
+              (set(got) <= set(BANK_PATH) and len(got) >= 1), f"{label}: launches {got}")
+        for k in BANK_PATH:
+            total[k] += got.get(k, 0)
+        return out
+
+    name, depth, levels = PACKET_WAVELET, PACKET_DEPTH, DTCWT_LEVELS
+
+    def coeffs(res):
+        return (*res.highpasses, res.lowpass_a, res.lowpass_b)
+
+    for b, n in PACKET_SHAPES:
+        x = torch.randn(b, n, device=dev, generator=gen)
+        scale = x.abs().max().item()
+        with routed("plain"):
+            ref = counted(f"modwpt plain route {b}x{n}", {},
+                          lambda: vt.modwpt(x, name, depth))
+        for route, each in (("tree", 1), ("level", depth), ("default", None)):
+            with routed(route):
+                tree = counted(f"modwpt {name} depth {depth} {b}x{n}, {route} route",
+                               None if each is None else {"modwt_bank_analysis": each},
+                               lambda: vt.modwpt(x, name, depth))
+                y = counted(f"imodwpt {name} depth {depth} {b}x{n}, {route} route",
+                            None if each is None else {"modwt_bank_synthesis": each},
+                            lambda: vt.imodwpt(tree, name))
+            err = max(max_err(g, r) for g, r in zip(tree.levels, ref.levels))
+            check(tree.leaves.shape == (b, 1 << depth, n) and err <= TOL_F32
+                  and max_err(y, x) <= TOL_F32 * scale,
+                  f"modwpt {b}x{n} {route} route: every level vs plain route {err:.3e} <= "
+                  f"{TOL_F32:.0e}, round trip {max_err(y, x):.3e} <= {TOL_F32 * scale:.3e}")
+            del tree, y
+        del ref
+        for wname in (name, "bior4.4", "coif3") if b == PACKET_SHAPES[0][0] else (name,):
+            y = counted(f"wpt -> iwpt {wname} depth {depth} {b}x{n} (no kernel)", {},
+                        lambda: vt.iwpt(vt.wpt(x, wname, depth), wname))
+            check(y.device == x.device and max_err(y, x) <= TOL_F32 * scale,
+                  f"wpt round trip {wname} {b}x{n} on {y.device}: {max_err(y, x):.3e} <= "
+                  f"{TOL_F32 * scale:.3e}")
+        with routed("plain"):
+            ref = counted(f"dtcwt plain route {b}x{n}", {},
+                          lambda: vt.dtcwt(x, name, levels=levels))
+        for route, each in (("tree", 1), ("level", 2 * levels), ("default", None)):
+            with routed(route):
+                res = counted(f"dtcwt {name} {levels} levels {b}x{n}, {route} route",
+                              None if each is None else {"modwt_bank_analysis": each},
+                              lambda: vt.dtcwt(x, name, levels=levels))
+                y = counted(f"idtcwt {name} {levels} levels {b}x{n}, {route} route",
+                            None if each is None else {"modwt_bank_synthesis": each},
+                            lambda: vt.idtcwt(res, name))
+            err = max((g - r).abs().max().item() for g, r in zip(coeffs(res), coeffs(ref)))
+            check(res.highpasses[0].dtype == torch.complex64 and err <= TOL_DTCWT
+                  and max_err(y, x) <= TOL_DTCWT * scale,
+                  f"dtcwt {b}x{n} {route} route: coefficients vs plain route {err:.3e} <= "
+                  f"{TOL_DTCWT:.0e}, round trip {max_err(y, x):.3e} <= "
+                  f"{TOL_DTCWT * scale:.3e}")
+            del res, y
+        del ref
+
+    b, n = PACKET_SHAPES[0]
+    xg = torch.randn(b, n, device=dev, generator=gen).requires_grad_(True)
+    grads = {}
+    for route, expect in (("plain", {}),
+                          ("tree", {"modwt_bank_analysis": 1, "modwt_bank_synthesis": 1}),
+                          ("level", {"modwt_bank_analysis": depth,
+                                     "modwt_bank_synthesis": depth})):
+        with routed(route):
+            grads[route] = counted(
+                f"gradient through modwpt {b}x{n}, {route} route", expect,
+                lambda: torch.autograd.grad(
+                    (vt.modwpt(xg, name, depth).leaves ** 2).sum(), xg)[0])
+    top = grads["plain"].abs().max().item()
+    for route in ("tree", "level"):
+        err = max_err(grads[route], grads["plain"])
+        check(err <= TOL_BANK_GRAD * top,
+              f"gradient through modwpt, {route} route vs plain route: {err:.3e} <= "
+              f"{TOL_BANK_GRAD * top:.3e}")
+
+    t = torch.arange(16384, device=dev, dtype=torch.float32)
+    noisy = (torch.sin(2 * math.pi * 0.41 * t) + torch.sin(2 * math.pi * t / 64.0)
+             + 0.3 * torch.randn(8, 16384, device=dev, generator=gen)).contiguous()
+    for label, fn in (
+        (f"denoise_packet {name} depth {depth}", lambda: vt.denoise_packet(noisy, name, depth)),
+        (f"dtcwt_denoise {name} {levels} levels",
+         lambda: vt.dtcwt_denoise(noisy, name, levels=levels)),
+    ):
+        got = counted(f"{label} 8x16384", None, fn)
+        with routed("plain"):
+            want = fn()
+        check(got.shape == noisy.shape and bool(torch.isfinite(got).all())
+              and max_err(got, want) <= TOL_SWT,
+              f"{label} 8x16384 vs plain route: {max_err(got, want):.3e} <= {TOL_SWT:.0e}")
+
+    small = torch.randn(4, 1024, device=dev, generator=gen)
+    with routed("plain"):
+        ref_tree = vt.modwpt(small.cpu().double(), name, 3)
+        ref_res = vt.dtcwt(small.cpu().double(), name, levels=3)
+    for route in ("tree", "level"):
+        with routed(route):
+            tree = vt.modwpt(small, name, 3)
+            res = vt.dtcwt(small, name, levels=3)
+        err = max(max_err(g.cpu(), r) for g, r in zip(tree.levels, ref_tree.levels))
+        err_d = max((g.cpu() - r).abs().max().item()
+                    for g, r in zip(coeffs(res), coeffs(ref_res)))
+        check(err <= TOL_F32 and err_d <= TOL_DTCWT,
+              f"4x1024 {route} route vs float64 CPU cascade: modwpt {err:.3e}, dtcwt "
+              f"{err_d:.3e}")
+    print(f"  launches during the packet and dual-tree path: {total}", flush=True)
+    for k in BANK_PATH:
+        check(total[k] > 0, f"{k} launched {total[k]} times")
+    return total
+
+
+def bank_timing(dev, gen):
+    """Phase 4 for the filter-bank pair and the entry points above it.
+    Returns ({kernel: (ms, plain ms, library ms)}, {kernel: (bound ms, by)},
+    {kernel: [the other timed cases]}) with the depth-4 tree at the main
+    path's shape as each kernel's row."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import modwt_bank as mb
+    from vectorwave_tpu_torch.transforms import packets as tp
+
+    w = vt.wavelet(PACKET_WAVELET)
+    depth = PACKET_DEPTH
+    low, high = w.dec_lo / math.sqrt(2.0), w.dec_hi / math.sqrt(2.0)
+    spacing = 1 << (depth - 1)
+    tree_a, tree_s = tp._tree_dense(w, depth, dec=True), tp._tree_dense(w, depth, dec=False)
+    pair = tp._pair_dense(low, high, spacing)
+
+    def weight(dense):
+        """[P, span+1] taps (zero-padded to one length) on the card."""
+        k = max(len(f) for f in dense)
+        bank = torch.zeros(len(dense), k, device=dev)
+        for i, f in enumerate(dense):
+            bank[i, : len(f)] = torch.tensor(f, device=dev)
+        return bank
+
+    ms_of, bound, cases = {}, {}, {k: [] for k in BANK_PATH}
+    for b, n in PACKET_SHAPES:
+        for label, dense_a, dense_s, rows, dil in (
+            (f"sym8 depth-{depth} tree", tree_a, tree_s, b, 1),
+            # a level of modwpt: its 2^(depth-1) nodes ride the batch axis
+            (f"sym8 level-{depth} pair", pair, pair, b * (1 << (depth - 1)), spacing),
+        ):
+            x = torch.randn(rows, n, device=dev, generator=gen)
+            planes = mb.bank_analysis(x, dense_a, True)[-len(dense_s):]
+            stacked = torch.stack(planes, dim=1)
+            # one library call: the taps reversed for the analysis (conv1d
+            # correlates), the pair's 16 taps at dilation 2^(j-1)
+            wa = weight(tuple(f[::dil] for f in dense_a))
+            ws = weight(tuple(f[::dil] for f in dense_s))
+            span = dil * (wa.shape[1] - 1)
+            wa_rev = wa.flip(-1)[:, None].contiguous()
+            calls = {
+                "modwt_bank_analysis": (
+                    dense_a,
+                    lambda: mb.bank_analysis(x, dense_a, True),
+                    lambda: mb.bank_analysis_plain(x, dense_a, True),
+                    lambda: F.conv1d(F.pad(x[:, None], (span, 0), mode="circular"), wa_rev,
+                                     dilation=dil)),
+                "modwt_bank_synthesis": (
+                    dense_s,
+                    lambda: mb.bank_synthesis(planes, dense_s, True),
+                    lambda: mb.bank_synthesis_plain(planes, dense_s, True),
+                    lambda: F.conv1d(F.pad(stacked, (0, span), mode="circular"), ws[None],
+                                     dilation=dil)),
+            }
+            lib_err = max(
+                max_err(calls["modwt_bank_analysis"][3]()[:, -1],
+                        calls["modwt_bank_analysis"][1]()[-1]),
+                max_err(calls["modwt_bank_synthesis"][3]()[:, 0],
+                        calls["modwt_bank_synthesis"][1]()))
+            check(lib_err <= 1e-4, f"{label} {rows}x{n}: F.conv1d computes the bank "
+                                   f"kernels' function ({lib_err:.3e})")
+            for kname, (dense, kernel, plain, library_call) in calls.items():
+                taps = mb.bank_taps(dense)
+                samples = rows * n
+                t_bytes = samples * 4 * (1 + taps.planes) / HBM_BPS * 1e3
+                t_ops = samples * taps.nonzeros * 2 / FP32_FLOPS * 1e3
+                by = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+                times = (median_ms(kernel), median_ms(plain, 1, 5), median_ms(library_call))
+                if "tree" in label and (b, n) == PACKET_SHAPES[-1]:
+                    ms_of[kname], bound[kname] = times, by
+                else:
+                    cases[kname].append({
+                        "case": f"{label} {rows}x{n}", "ms": times[0], "plain_ms": times[1],
+                        "library_ms": times[2], "bound_ms": by[0], "bound_by": by[1]})
+                print(f"  {kname} {label} {rows}x{n} ({taps.planes} planes, "
+                      f"{taps.nonzeros} taps): kernel {times[0]:.4f} ms "
+                      f"({2e-9 * samples * taps.nonzeros / times[0]:.2f} TFLOP/s, "
+                      f"{4e-6 * samples * (1 + taps.planes) / times[0]:.1f} GB/s), plain "
+                      f"{times[1]:.4f} ms, library {times[2]:.4f} ms, bound {by[0]:.4f} ms "
+                      f"({by[1]}; {100 * by[0] / times[0]:.1f}% of it)", flush=True)
+            del x, planes, stacked, calls
+
+    name = PACKET_WAVELET
+    routes = ("tree", "level", "plain", "default")
+    for b, n in ((1, 1024),) + PACKET_SHAPES:
+        x = torch.randn(b, n, device=dev, generator=gen)
+        for d in (3, 4, 5):
+            for route in routes:
+                with routed(route):
+                    t_ms = median_ms(lambda: vt.imodwpt(vt.modwpt(x, name, d), name), 2, 10)
+                print(f"  modwpt + imodwpt {name} depth {d} {b}x{n}, {route} route: "
+                      f"{t_ms:.4f} ms ({b * n / t_ms / 1e3:.1f} Msamples/s)", flush=True)
+        del x
+    # the dual tree also between the two shapes, where its bank routes cross
+    for b, n in ((1, 1024), PACKET_SHAPES[0], (64, 65536), PACKET_SHAPES[1]):
+        x = torch.randn(b, n, device=dev, generator=gen)
+        for route in routes:
+            with routed(route):
+                t_ms = median_ms(lambda: vt.idtcwt(
+                    vt.dtcwt(x, name, levels=DTCWT_LEVELS), name), 2, 10)
+            print(f"  dtcwt + idtcwt {name} {DTCWT_LEVELS} levels {b}x{n}, {route} route: "
+                  f"{t_ms:.4f} ms ({b * n / t_ms / 1e3:.1f} Msamples/s)", flush=True)
+        del x
+    noisy = torch.randn(8, 16384, device=dev, generator=gen)
+    for label, fn in (
+        (f"denoise_packet depth {depth}", lambda: vt.denoise_packet(noisy, name, depth)),
+        (f"dtcwt_denoise {DTCWT_LEVELS} levels",
+         lambda: vt.dtcwt_denoise(noisy, name, levels=DTCWT_LEVELS)),
+    ):
+        for route in ("default", "plain"):
+            with routed(route):
+                t_ms = median_ms(fn, 2, 10)
+            print(f"  {label} 8x16384, {route} route: {t_ms:.4f} ms", flush=True)
+    return ms_of, bound, cases
 
 
 def main() -> int:
@@ -501,6 +892,8 @@ def main() -> int:
                                   f"plain| {err:.3e} <= {TOL_F32:.0e}")
             del got, want
         del xi, planes
+
+    bank_kernels_against_plain(dev, gen, worst, worst_bf16)
 
     print(f"phase 3: main path through the public entry points, "
           f"{BATCH}x{N} float32", flush=True)
@@ -807,6 +1200,10 @@ def main() -> int:
         check(twod_launches[name] > 0, f"{name} launched {twod_launches[name]} times")
         launches[name] = twod_launches[name]
 
+    print(f"  the packet and dual-tree path, {' and '.join(f'{b}x{n}' for b, n in PACKET_SHAPES)} "
+          "float32", flush=True)
+    launches.update(packet_path(dev, gen))
+
     print("phase 4: timing (CUDA events, 3 warm-ups, median of 20)", flush=True)
     print(smi, flush=True)
     samples = BATCH * N
@@ -1012,6 +1409,10 @@ def main() -> int:
         print(f"  {label}: {t_ms:.4f} ms ({count / t_ms / 1e3:.1f} Msamples/s)",
               flush=True)
 
+    bank_ms, bank_bound, bank_cases = bank_timing(dev, gen)
+    ms_of.update(bank_ms)
+    bound.update(bank_bound)
+
     report = {"kernels": [
         {
             "name": name,
@@ -1028,6 +1429,7 @@ def main() -> int:
             "library_ms": ms_of[name][2],
             **({"deepest": deep[name]} if name in deep else {}),
             **({"ms_by_edge": modes} if name == "modwt_mxu_analysis" else {}),
+            **({"cases": bank_cases[name]} if name in bank_cases else {}),
         }
         for name, (source, replaces) in KERNELS.items()
     ]}

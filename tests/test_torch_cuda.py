@@ -16,7 +16,10 @@ sum in float64, 2e-5 in float32 and one bfloat16 ulp in bfloat16; the
 cascade pair in each edge mode (the mirror's plain version is the plain
 symmetric cascade) as the analysis and synthesis kernels; the 2-D
 kernels against their plain versions 2e-5; the fused denoise's threshold
-gradient, a sum over 8192 samples, 1e-3 of its largest value.
+gradient, a sum over 8192 samples, 1e-3 of its largest value; the
+filter-bank pair against its plain versions 2e-5 (the synthesis, a sum over
+P planes, P times that), and the packet and dual-tree routes against the
+plain route 2e-5 and 3e-5.
 """
 
 import pytest
@@ -102,12 +105,8 @@ def test_public_entry_points_launch_the_kernels(cuda):
     z = vt.modwt_roundtrip_fused(x, "db4", levels=LEVELS)
     d = vt.denoise_multilevel(x, "db4", levels=LEVELS)
     torch.cuda.synchronize()
-    assert mc.LAUNCHES == {"modwt_analysis": 1, "modwt_synthesis": 1,
-                           "modwt_denoise": 2, "modwt_exact_analysis": 0,
-                           "modwt_exact_synthesis": 0, "modwt_symmetric_synthesis": 0,
-                           "modwt_symmetric_adjoint": 0, "modwt2_analysis": 0,
-                           "modwt2_synthesis": 0, "modwt_mxu_analysis": 0,
-                           "modwt_mxu_synthesis": 0}
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
+        "modwt_analysis": 1, "modwt_synthesis": 1, "modwt_denoise": 2}
     assert float((y - x).abs().max()) < 3e-6
     assert float((z - x).abs().max()) < 3e-6
     assert d.shape == x.shape and bool(torch.isfinite(d).all())
@@ -244,11 +243,8 @@ def test_exact_public_entry_points_launch_the_exact_kernels(cuda):
         tuple(zip(res.details, res.details_lo)), (res.approx, res.approx_lo), "db4")
     torch.cuda.synchronize()
     assert isinstance(res, vt.ExactMODWTResult) and res.approx.device == x.device
-    assert mc.LAUNCHES == {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
-                           "modwt_exact_analysis": 1, "modwt_exact_synthesis": 2,
-                           "modwt_symmetric_synthesis": 0, "modwt_symmetric_adjoint": 0,
-                           "modwt2_analysis": 0, "modwt2_synthesis": 0,
-                           "modwt_mxu_analysis": 0, "modwt_mxu_synthesis": 0}
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
+        "modwt_exact_analysis": 1, "modwt_exact_synthesis": 2}
     assert torch.equal(y, x)
     assert float((hi.double() + lo.double() - x.double()).pow(2).mean().sqrt()) <= 1e-12
     sym = vt.modwt_multilevel_exact(x, "sym8", levels=4, boundary="symmetric")
@@ -483,3 +479,142 @@ def test_2d_routing_on_the_card(cuda):
     with torch.no_grad():
         vt.modwt2_multilevel(xg, "db4", levels=2)
     assert mc.LAUNCHES["modwt2_analysis"] == 2
+
+
+# --- the filter-bank pair, packets and the dual tree ------------------------------------
+
+
+def _bank_cases():
+    import math
+
+    import numpy as np
+
+    from vectorwave_tpu_torch.transforms import dtcwt as td
+    from vectorwave_tpu_torch.transforms import packets as tp
+
+    rng = np.random.default_rng(0)
+    w = vt.wavelet("sym8")
+    random_dense = tuple(tuple((rng.standard_normal(k) / math.sqrt(k)).tolist())
+                         for k in (1, 37, 300))
+    return {
+        "random": random_dense,
+        "pair16": tp._pair_dense(w.dec_lo / math.sqrt(2.0), w.dec_hi / math.sqrt(2.0), 16),
+        "tree3": tp._tree_dense(w, 3, dec=True),
+        "dual4": td._dual_tree_bank(w, 4)[0],
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "zero"])
+@pytest.mark.parametrize("kind,b,n", [("random", 3, 5000), ("random", 2, 301),
+                                      ("random", 2, 150), ("pair16", 4, 4096),
+                                      ("tree3", 2, 8192), ("dual4", 2, 4096)])
+def test_bank_kernels_match_plain(cuda, kind, b, n, periodic, dtype):
+    from vectorwave_tpu_torch.kernels import modwt_bank as mb
+
+    dense = _bank_cases()[kind]
+    x = _input(cuda, b, n, dtype, seed=20)
+    before = dict(mc.LAUNCHES)
+    want = mb.bank_analysis_plain(x, dense, periodic)
+    got = mb.bank_analysis(x, dense, periodic)
+    y_want = mb.bank_synthesis_plain(want, dense, periodic)
+    y_got = mb.bank_synthesis(want, dense, periodic)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["modwt_bank_analysis"] == before["modwt_bank_analysis"] + 1
+    assert mc.LAUNCHES["modwt_bank_synthesis"] == before["modwt_bank_synthesis"] + 1
+    assert all(g.dtype == dtype and g.shape == x.shape for g in got)
+    assert _err(got, want) <= _tol(dtype, want)
+    # the synthesis sums len(dense) planes of the order of x
+    assert _err((y_got,), (y_want,)) <= len(dense) * _tol(dtype, (y_want,))
+
+
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "zero"])
+def test_bank_kernels_are_adjoints_and_each_others_gradient(cuda, periodic):
+    from vectorwave_tpu_torch.kernels import modwt_bank as mb
+
+    dense = _bank_cases()["random"]
+    x = _input(cuda, 2, 3001, torch.float32, seed=21).requires_grad_(True)
+    ys = [_input(cuda, 2, 3001, torch.float32, seed=22 + i) for i in range(len(dense))]
+    mc.reset_launches()
+    outs = mb.bank_analysis(x, dense, periodic)
+    lhs = sum((o.double() * y.double()).sum() for o, y in zip(outs, ys))
+    (g,) = torch.autograd.grad(sum((o * y).sum() for o, y in zip(outs, ys)), x)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
+        "modwt_bank_analysis": 1, "modwt_bank_synthesis": 1}
+    rhs = (x.detach().double() * g.double()).sum()
+    assert abs(float(lhs - rhs)) <= 1e-5 * abs(float(lhs))
+    assert _err((g,), (mb.bank_synthesis_plain(ys, dense, periodic),)) <= 3 * TOL_F32
+
+
+def test_bank_wrappers_refuse_on_the_card_what_the_kernels_cannot_take(cuda):
+    from vectorwave_tpu_torch.kernels import modwt_bank as mb
+
+    x = _input(cuda, 2, 256, torch.float32)
+    with pytest.raises(InvalidArgumentError):
+        mb.bank_analysis(x.double(), ((1.0,),), True)
+    with pytest.raises(InvalidArgumentError, match="at most 64 planes"):
+        mb.bank_analysis(x, tuple((1.0,) for _ in range(65)), True)
+    with pytest.raises(InvalidArgumentError, match="shared memory"):
+        mb.bank_analysis(x, ((0.0,) * 60000 + (1.0,),), True)
+    try:
+        vt.set_backend("kernel")
+        with pytest.raises(InvalidArgumentError):  # span 37 * 2^9 words: no window fits
+            vt.modwpt(_input(cuda, 1, 1 << 16, torch.float32), "db38", 11)
+    finally:
+        vt.set_backend("auto")
+
+
+@pytest.mark.parametrize("backend,packet,dual", [
+    ("kernel", (1, 1), (1, 1)),        # the whole tree in one launch each way
+    ("auto", (3, 3), (1, 1)),          # per-level pairs; a small dual tree whole
+    ("torch", (0, 0), (0, 0)),
+])
+def test_packet_and_dual_tree_routing_on_the_card(cuda, backend, packet, dual):
+    x = _input(cuda, 4, 4096, torch.float32, seed=23)
+    try:
+        vt.set_backend("torch")
+        ref = vt.modwpt(x, "sym8", 3)
+        ref_d = vt.dtcwt(x, "sym8", levels=4)
+        vt.set_backend(backend)
+        mc.reset_launches()
+        tree = vt.modwpt(x, "sym8", 3)
+        y = vt.imodwpt(tree, "sym8")
+        torch.cuda.synchronize()
+        assert (mc.LAUNCHES["modwt_bank_analysis"], mc.LAUNCHES["modwt_bank_synthesis"]) == packet
+        mc.reset_launches()
+        res = vt.dtcwt(x, "sym8", levels=4)
+        z = vt.idtcwt(res, "sym8")
+        torch.cuda.synchronize()
+        assert (mc.LAUNCHES["modwt_bank_analysis"], mc.LAUNCHES["modwt_bank_synthesis"]) == dual
+    finally:
+        vt.set_backend("auto")
+    assert _err(tree.levels, ref.levels) <= TOL_F32 and _err((y,), (x,)) <= 5 * TOL_F32
+    got = (*res.highpasses, res.lowpass_a, res.lowpass_b)
+    want = (*ref_d.highpasses, ref_d.lowpass_a, ref_d.lowpass_b)
+    assert max(float((g - w).abs().max()) for g, w in zip(got, want)) <= 3e-5
+    assert _err((z,), (x,)) <= 3e-5 * float(x.abs().max())
+
+
+def test_dual_tree_auto_takes_the_pairs_beyond_the_measured_work(cuda, monkeypatch):
+    from vectorwave_tpu_torch.transforms import dtcwt as td
+
+    x = _input(cuda, 4, 4096, torch.float32, seed=24)
+    monkeypatch.setattr(td, "AUTO_WHOLE_TREE_MAX_WORK", 4 * 4096 * 100)
+    mc.reset_launches()
+    vt.idtcwt(vt.dtcwt(x, "sym8", levels=4), "sym8")
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES["modwt_bank_analysis"], mc.LAUNCHES["modwt_bank_synthesis"]) == (8, 8)
+
+
+def test_float64_and_symmetric_packets_take_the_plain_cascade_on_the_card(cuda):
+    x = _input(cuda, 2, 1024, torch.float32, seed=25)
+    mc.reset_launches()
+    vt.imodwpt(vt.modwpt(x.double(), "db4", 2), "db4")
+    vt.idtcwt(vt.dtcwt(x.double(), levels=2))
+    vt.modwpt(x, "db4", 2, boundary="symmetric")
+    vt.denoise_packet(x.double(), "db4", 2)
+    torch.cuda.synchronize()
+    assert not any(mc.LAUNCHES.values())
+    got = vt.denoise_packet(x, "db4", 2)
+    assert mc.LAUNCHES["modwt_bank_analysis"] == 2 and got.device == x.device

@@ -3,7 +3,9 @@
 Same seeded numpy input to both packages.  In float64 the port must agree
 with vectorwave_tpu to 1e-10: the median and the decimated sigma reproduce
 the JAX package's float32 semantics (including its summation order), so
-they agree bit for bit.
+they agree bit for bit.  So must ``denoise_packet`` (named and callable
+costs: both packages must pick the same basis) and ``dtcwt_denoise``, which
+mirror ``tests/test_packets.py`` and ``tests/test_dtcwt_shrink.py``.
 """
 
 import math
@@ -392,3 +394,121 @@ def test_fused_denoise_backward_runs_through_the_kernel_wrappers(monkeypatch, mo
     assert calls == {"analysis": 0, "synthesis": 0}
     y.sum().backward()
     assert calls == {"analysis": analyses, "synthesis": 1}
+
+
+# --- best-basis packet denoising and the dual tree's bivariate shrinkage ------------------
+
+
+def _two_tones(b, n, seed=14, noise=0.5):
+    t = np.arange(n)
+    clean = np.sin(2 * np.pi * 0.41 * t) + np.sin(2 * np.pi * 0.02 * t)
+    return clean, clean + np.random.default_rng(seed).normal(0.0, noise, (b, n))
+
+
+@pytest.mark.parametrize("cost", ["threshold", "risk", "shannon", "log_energy", "l1"])
+def test_denoise_packet_matches_jax_for_every_named_cost(cost):
+    _, x = _two_tones(2, 512)
+    want = vw.denoise_packet(jnp.asarray(x), "sym8", 3, cost=cost)
+    _close(vt.denoise_packet(torch.from_numpy(x), "sym8", 3, cost=cost), want)
+
+
+@pytest.mark.parametrize("method,mode,boundary", [
+    ("universal", "soft", "periodic"), ("sure", "hard", "periodic"),
+    ("bayes", "soft", "zero"), ("minimax", "soft", "periodic"),
+])
+def test_denoise_packet_matches_jax_for_methods_modes_and_boundaries(method, mode, boundary):
+    _, x = _two_tones(2, 512, seed=15)
+    kwargs = dict(method=method, mode=mode, boundary=boundary)
+    want = vw.denoise_packet(jnp.asarray(x), "db4", 3, **kwargs)
+    _close(vt.denoise_packet(torch.from_numpy(x), "db4", 3, **kwargs), want)
+
+
+def test_denoise_packet_with_a_callable_cost_matches_jax():
+    _, x = _two_tones(1, 512, seed=16)
+    want = vw.denoise_packet(jnp.asarray(x[0]), "db4", 3,
+                             cost=lambda node: jnp.abs(node).sum())
+    got = vt.denoise_packet(torch.from_numpy(x[0]), "db4", 3,
+                            cost=lambda node: node.abs().sum())
+    _close(got, want)
+    _close(got, vw.denoise_packet(jnp.asarray(x[0]), "db4", 3, cost="l1"))
+
+
+def test_denoise_packet_keeps_a_high_band_tone_the_modwt_denoiser_loses():
+    clean, x = _two_tones(1, 2048)
+    xt = torch.from_numpy(x[0])
+
+    def mse(a):
+        return float(((a.numpy() - clean) ** 2).mean())
+
+    assert mse(vt.denoise_packet(xt, "sym8", 4)) < 0.75 * mse(
+        vt.denoise_multilevel(xt, "sym8", levels=4))
+    tone = torch.from_numpy(np.sin(2 * np.pi * 0.01 * np.arange(1024)))
+    assert float((vt.denoise_packet(tone, "db4", 3) - tone).abs().max()) < 0.05
+
+
+def test_denoise_packet_through_the_bank_matches_the_plain_route():
+    _, x = _two_tones(2, 1024, seed=17)
+    x32 = torch.from_numpy(x.astype(np.float32))
+    want = vt.denoise_packet(x32, "sym8", 3)
+    try:
+        vt.set_backend("kernel")
+        got = vt.denoise_packet(x32, "sym8", 3)
+    finally:
+        vt.set_backend("auto")
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def _doppler(n):
+    t = np.linspace(1e-3, 1, n)
+    x = np.sqrt(t * (1 - t)) * np.sin(2.1 * np.pi / (t + 0.05))
+    return x / x.std()
+
+
+@pytest.mark.parametrize("levels,window,noise_sigma", [(5, 7, None), (5, 7, 0.3), (3, 5, None),
+                                                       (1, 7, 0.2)])
+def test_dtcwt_denoise_matches_jax(levels, window, noise_sigma):
+    from vectorwave_tpu.denoise import dtcwt_denoise as jax_dtcwt_denoise
+
+    clean = np.stack([_doppler(1024), -_doppler(1024)])
+    x = clean + 0.3 * np.random.default_rng(2).standard_normal(clean.shape)
+    kwargs = dict(levels=levels, window=window, noise_sigma=noise_sigma)
+    want = jax_dtcwt_denoise(jnp.asarray(x), **kwargs)
+    got = vt.dtcwt_denoise(torch.from_numpy(x), **kwargs)
+    _close(got, want)
+    if levels == 5:
+        for b in range(2):
+            snr = lambda est: 10 * np.log10(np.sum(clean[b] ** 2)
+                                            / np.sum((est - clean[b]) ** 2))
+            assert snr(got[b].numpy()) > snr(x[b]) + 6
+
+
+def test_dtcwt_denoise_helpers_match_jax():
+    from vectorwave_tpu.denoise import dtcwt_shrink as jshrink
+    from vectorwave_tpu_torch.denoise import dtcwt_shrink as tshrink
+
+    delta = np.zeros(32)
+    delta[16] = 7.0
+    out = tshrink._local_power(torch.from_numpy(delta), 7, (0,))
+    _close(out, jshrink._local_power(jnp.asarray(delta), 7, (0,)))
+    assert out[12] == 0 and out[20] == 0 and float(out[16]) == pytest.approx(1.0)
+    mag2 = _x((2, 5), seed=3) ** 2
+    _close(tshrink._upsample_parent(torch.from_numpy(mag2), (2, 9), (1,)),
+           jshrink._upsample_parent(jnp.asarray(mag2), (2, 9), (1,)))
+    z = _x((2, 64), seed=4) + 1j * _x((2, 64), seed=5)
+    parent = _x((2, 64), seed=6) ** 2
+    sigma2 = np.full((2, 1), 0.09)
+    _close(tshrink._bivariate(torch.from_numpy(z), torch.from_numpy(parent),
+                              torch.from_numpy(sigma2), 7, (1,)),
+           jshrink._bivariate(jnp.asarray(z), jnp.asarray(parent), jnp.asarray(sigma2), 7, (1,)))
+
+
+def test_dtcwt_denoise_through_the_bank_matches_the_plain_route():
+    x = (_doppler(1024) + 0.3 * np.random.default_rng(7).standard_normal((2, 1024)))
+    x32 = torch.from_numpy(x.astype(np.float32))
+    want = vt.dtcwt_denoise(x32, levels=4)
+    try:
+        vt.set_backend("kernel")
+        got = vt.dtcwt_denoise(x32, levels=4)
+    finally:
+        vt.set_backend("auto")
+    assert float((got - want).abs().max()) <= 1e-4

@@ -195,7 +195,8 @@ def test_build_uses_only_repo_sources_and_hopper_flags(monkeypatch, tmp_path):
     sources = [c for _, cmd in units for c in cmd if c.endswith(".cu")]
     assert sorted(p.split("/")[-1] for p in sources) == [
         "modwt2_analysis.cu", "modwt2_synthesis.cu",
-        "modwt_analysis.cu", "modwt_denoise.cu", "modwt_exact_analysis.cu",
+        "modwt_analysis.cu", "modwt_bank_analysis.cu", "modwt_bank_synthesis.cu",
+        "modwt_denoise.cu", "modwt_exact_analysis.cu",
         "modwt_exact_synthesis.cu", "modwt_symmetric_synthesis.cu", "modwt_synthesis.cu"]
     assert all(str(_build.CSRC) in u for u in sources)
     link = _build.link_command([obj for obj, _ in units], tmp_path / "lib.so")

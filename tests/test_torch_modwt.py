@@ -149,8 +149,10 @@ def test_invalid_arguments_raise():
 
 def test_kernel_backend_with_symmetric_boundary_raises():
     """Forced onto the kernel tier, a symmetric call the kernels cannot serve
-    raises: windows too wide for shared memory (db38, 9 levels), or head and
-    tail splice windows that overlap (a short signal)."""
+    raises off the CPU (a meta tensor stands for a CUDA one): windows too
+    wide for shared memory (db38, 9 levels), or head and tail splice windows
+    that overlap (a short signal).  The gates are the card's: a CPU tensor
+    runs the plain version under every backend, and returns."""
     from vectorwave_tpu_torch.kernels.modwt_symmetric import (
         symmetric_level_ops,
         synthesis_windows,
@@ -158,10 +160,19 @@ def test_kernel_backend_with_symmetric_boundary_raises():
 
     x = torch.randn(2, 20000)
     with pytest.raises(InvalidArgumentError, match="symmetric kernel tier"):
-        vt.modwt_multilevel(x, "db38", levels=9, boundary="symmetric", backend="kernel")
+        vt.modwt_multilevel(x.to("meta"), "db38", levels=9, boundary="symmetric",
+                            backend="kernel")
+    got = vt.modwt_multilevel(x, "db38", levels=9, boundary="symmetric", backend="kernel")
+    want = vt.modwt_multilevel(x, "db38", levels=9, boundary="symmetric", backend="torch")
+    assert torch.equal(got.approx, want.approx)
     w = vt.wavelet("db4")
     _, _, w_head, w_tail = synthesis_windows(w.filter_length, symmetric_level_ops(w, 3))
     res = vt.modwt_multilevel(torch.randn(2, w_head + w_tail - 1), "db4", levels=3,
                               boundary="symmetric")
+    on_card = vt.MultiLevelMODWTResult(tuple(d.to("meta") for d in res.details),
+                                       res.approx.to("meta"))
     with pytest.raises(InvalidArgumentError, match="symmetric kernel tier"):
-        vt.imodwt_multilevel(res, "db4", boundary="symmetric", backend="pallas")
+        vt.imodwt_multilevel(on_card, "db4", boundary="symmetric", backend="pallas")
+    y = vt.imodwt_multilevel(res, "db4", boundary="symmetric", backend="pallas")
+    assert torch.equal(y, vt.imodwt_multilevel(res, "db4", boundary="symmetric",
+                                               backend="torch"))

@@ -383,7 +383,8 @@ def test_router_admits_symmetric_boundaries(monkeypatch):
 
 
 def test_kernel_backend_too_long_filter_raises_in_both_directions():
-    planes = [torch.zeros(2, 20000) for _ in range(10)]
+    # the card's gates hold off the CPU only (a meta tensor stands for a CUDA one)
+    planes = [torch.zeros(2, 20000, device="meta") for _ in range(10)]
     res = vt.MultiLevelMODWTResult(tuple(planes[:-1]), planes[-1])
     with pytest.raises(InvalidArgumentError, match="symmetric kernel tier"):
         vt.imodwt_multilevel(res, "db38", boundary="symmetric", backend="kernel")

@@ -27,6 +27,11 @@ torch.set_num_threads(1)
 PORTED = ["haar", "db1"] + [f"db{p}" for p in range(2, 39)] + [
     f"sym{p}" for p in range(2, 21)
 ]
+#: every discrete name of the JAX registry beyond haar, db and sym
+FAMILIES = sorted(
+    n for n in vw.available_wavelets()
+    if n not in PORTED and isinstance(vw.wavelet(n), vw.DiscreteWavelet)
+)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -42,12 +47,82 @@ def test_filters_match_jax(name):
     assert ours.validate_perfect_reconstruction()
 
 
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_filters_match_jax(name):
+    ours, ref = vt.wavelet(name), vw.wavelet(name)
+    for field in ("dec_lo", "dec_hi", "rec_lo", "rec_hi"):
+        np.testing.assert_allclose(
+            getattr(ours, field), getattr(ref, field), rtol=0, atol=1e-14
+        )
+    assert (ours.name, ours.family, ours.vanishing_moments, ours.wavelet_type.value) == (
+        ref.name, ref.family, ref.vanishing_moments, ref.wavelet_type.value)
+    assert ours.validation_tolerance() == ref.validation_tolerance()
+    assert ours.validate_perfect_reconstruction()
+
+
+def test_families_cover_every_discrete_family():
+    assert {re.match(r"[a-z]+", n).group() for n in FAMILIES} == {
+        "coif", "bior", "rbio", "dmey", "blem"}
+    assert len(FAMILIES) == 17 + 15 + 15 + 1 + 5
+
+
+def test_qshift_filters_match_jax():
+    from vectorwave_tpu.wavelets import qshift as jq
+    from vectorwave_tpu_torch.wavelets import qshift as tq
+
+    assert tq.QSHIFT_THETAS_14 == jq.QSHIFT_THETAS_14
+    for ours, ref in zip(tq.qshift_filters(), jq.qshift_filters()):
+        np.testing.assert_array_equal(ours, ref)
+    with pytest.raises(ValueError):
+        tq.qshift_filters(10)
+
+
 def test_available_wavelets_are_the_ported_families():
-    assert vt.available_wavelets() == sorted(PORTED)
+    assert vt.available_wavelets() == sorted(PORTED + FAMILIES)
     assert set(vt.available_wavelets()) <= set(vw.available_wavelets())
 
 
-@pytest.mark.parametrize("name", ["coif3", "bior2.2", "rbio3.5", "dmey", "blem2",
+def _names(values):
+    return [v.value if hasattr(v, "value") else v for v in values]
+
+
+def test_registry_queries_match_jax_over_the_discrete_names():
+    discrete = set(vt.available_wavelets())
+    for wtype in vt.WaveletType:
+        ref = vw.wavelets_of_type(vw.WaveletType(wtype.value))
+        assert vt.wavelets_of_type(wtype) == [n for n in ref if n in discrete]
+    for family in ("db", "Daubechies", "sym", "coif", "Coiflet", "bior", "rbio", "blem",
+                   "dmey", "BattleLemarie", "morl", "nothing"):
+        ref = [n for n in vw.wavelets_in_family(family) if n in discrete]
+        assert vt.wavelets_in_family(family) == ref, family
+    for name in ("haar", "db4", "coif3", "bior4.4", "rbio2.2", "dmey", "blem3"):
+        assert _names(vt.supported_transforms(name)) == _names(vw.supported_transforms(name))
+        assert vt.recommended_transform(name).value == vw.recommended_transform(name).value
+        for t in vt.TransformType:
+            assert vt.is_compatible(name, t) == vw.is_compatible(
+                name, vw.TransformType(t.value))
+    assert [t.value for t in vt.TransformType] == [t.value for t in vw.TransformType]
+    assert vt.Wavelet is vt.DiscreteWavelet
+
+
+def test_register_wavelet_and_alias():
+    from vectorwave_tpu_torch.wavelets import registry
+
+    try:
+        vt.register_wavelet("MyHaar", lambda: vt.wavelet("haar"))
+        registry.register_alias("mh", "myhaar")
+        assert vt.wavelet("myhaar") is vt.wavelet("haar")
+        assert vt.wavelet("MH") is vt.wavelet("haar")
+        assert "myhaar" in vt.available_wavelets()
+    finally:
+        registry._FACTORIES.pop("myhaar", None)
+        registry._ALIASES.pop("mh", None)
+        registry.wavelet.cache_clear()
+    with pytest.raises(InvalidArgumentError):
+        vt.wavelet("myhaar")
+
+
+@pytest.mark.parametrize("name", ["gaus2", "cgau3", "shan", "fbsp", "morse",
                                   "morl", "cmor", "mexh", "paul4", "dog"])
 def test_unported_families_raise(name):
     vw.wavelet(name)  # registered in the JAX package
@@ -128,6 +203,17 @@ def test_port_imports_without_jax():
         "r = vt.modwt_multilevel(x, 'db4', levels=6)\n"
         "y = vt.imodwt_multilevel(r, 'db4')\n"
         "assert float((y - x).abs().max()) < 1e-5\n"
+        "import vectorwave_tpu_torch.kernels.modwt_bank\n"
+        "import vectorwave_tpu_torch.denoise.packet, vectorwave_tpu_torch.denoise.dtcwt_shrink\n"
+        "import vectorwave_tpu_torch.transforms.packets, vectorwave_tpu_torch.transforms.dtcwt\n"
+        "from vectorwave_tpu_torch.wavelets import (biorthogonal, coiflets,\n"
+        "    fourier_families, qshift, _coiflet_seeds)\n"
+        "for name in ('coif2', 'bior4.4', 'rbio1.3', 'dmey', 'blem2'):\n"
+        "    assert vt.wavelet(name).validate_perfect_reconstruction()\n"
+        "z = vt.idtcwt(vt.dtcwt(x, levels=3))\n"
+        "assert float((z - x).abs().max()) < 1e-5\n"
+        "z = vt.imodwpt(vt.modwpt(x, 'bior4.4', 3), 'bior4.4')\n"
+        "assert float((z - x).abs().max()) < 1e-5\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

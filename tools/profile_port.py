@@ -18,8 +18,12 @@ trip (its analysis the cascade kernel's mirror mode), and
 and 1 x 16384, the fused denoise's forward and backward (db4, 6 levels,
 soft, 128 x 65536), and at the 2-D shape (8 x 2048 x 2048 float32) the db4
 round trips ``modwt2_multilevel`` -> ``imodwt2_multilevel`` at 4 and 6
-levels and ``denoise2`` (db4, 4 levels, universal soft).  Exits non-zero
-without a CUDA device.
+levels and ``denoise2`` (db4, 4 levels, universal soft), and for the packet
+and dual-tree family (sym8, float32, 64 x 16384 and 128 x 65536) ``modwpt``
+-> ``imodwpt`` at depth 4 and ``dtcwt`` -> ``idtcwt`` at 5 levels under each
+backend (``kernel``: the whole tree in one bank launch; ``auto``: the route
+the package chooses; ``torch``: the plain cascade), and ``denoise_packet``
+and ``dtcwt_denoise`` at 8 x 16384.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -88,6 +92,27 @@ def main() -> int:
         "denoise2 db4 J=4 universal soft 8x2048x2048":
             lambda: vt.denoise2(img, "db4", levels=4, method="universal", mode="soft"),
     }
+
+    def under(backend, fn):
+        def run():
+            vt.set_backend(backend)
+            try:
+                return fn()
+            finally:
+                vt.set_backend("auto")
+        return run
+
+    for b, n in ((64, 16384), (128, 65536)):
+        xp = x[:b, :n].contiguous()
+        for backend in ("kernel", "auto", "torch"):
+            calls[f"modwpt + imodwpt sym8 depth 4 {b}x{n}, backend {backend}"] = under(
+                backend, lambda xp=xp: vt.imodwpt(vt.modwpt(xp, "sym8", 4), "sym8"))
+            calls[f"dtcwt + idtcwt sym8 5 levels {b}x{n}, backend {backend}"] = under(
+                backend, lambda xp=xp: vt.idtcwt(vt.dtcwt(xp, "sym8", levels=5), "sym8"))
+    x8 = x[:8, :16384].contiguous()
+    calls["denoise_packet sym8 depth 4 8x16384"] = lambda: vt.denoise_packet(x8, "sym8", 4)
+    calls["dtcwt_denoise sym8 5 levels 8x16384"] = lambda: vt.dtcwt_denoise(
+        x8, "sym8", levels=5)
     for label, fn in calls.items():
         for _ in range(3):
             fn()

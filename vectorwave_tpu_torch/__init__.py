@@ -1,16 +1,19 @@
 """vectorwave_tpu_torch — the PyTorch/CUDA port of vectorwave_tpu.
 
-What is ported: discrete orthogonal wavelets (haar, db, sym), single- and
-multi-level MODWT with periodic, zero and symmetric boundaries, the SWT
+What is ported: every discrete wavelet family (haar, db, sym, coif, the
+biorthogonal and reverse biorthogonal splines, discrete Meyer,
+Battle-Lemarie) with the registry's queries, single- and multi-level MODWT with periodic, zero and symmetric boundaries, the SWT
 facade, the decimated DWT, padding strategies, single- and multi-level
 denoising (the fused denoise differentiable on the card), the exact
 precision tier (double-float planes, round trips within 1e-10), the 2-D
-family (MODWT2, DWT2, ``denoise2`` and the 2-D SWT), and the kernel tier
-behind them: eight hand-written CUDA kernels for Hopper (multi-level
-analysis with an optional head splice, synthesis, fused denoise, the
-symmetric synthesis with its adjoint and the 2-D analysis and synthesis
-levels, in fp32; exact analysis and synthesis in fp64) with their plain
-PyTorch versions.
+family (MODWT2, DWT2, ``denoise2`` and the 2-D SWT), wavelet packets (WPT,
+MODWPT, best basis, ``denoise_packet``) and the dual-tree complex wavelet
+transform (``dtcwt``, ``dtcwt_denoise``), and the kernel tier behind them:
+ten hand-written CUDA kernels for Hopper (multi-level analysis with an
+optional head splice, synthesis, fused denoise, the symmetric synthesis with
+its adjoint, the 2-D analysis and synthesis levels and the general filter
+bank's analysis and synthesis, in fp32; exact analysis and synthesis in
+fp64) with their plain PyTorch versions.
 
 The package imports ``torch``, ``numpy`` and ``mpmath`` and never JAX or
 ``vectorwave_tpu``.  Inputs and outputs are ``[..., N]`` tensors; the device
@@ -28,6 +31,8 @@ from .config import (
     set_sigma_estimator,
 )
 from .denoise.denoiser import denoise, denoise_fixed, denoise_multilevel, threshold_coeffs
+from .denoise.dtcwt_shrink import dtcwt_denoise
+from .denoise.packet import denoise_packet
 from .errors import (
     ErrorCode,
     InvalidArgumentError,
@@ -72,14 +77,34 @@ from .ops.thresholds import (
 )
 from .padding import STRATEGIES as PADDING_STRATEGIES
 from .padding import adaptive_strategy, pad_signal
+from .transforms.dtcwt import (
+    DTCWTResult,
+    coefficient_delay,
+    dtcwt,
+    dtcwt_max_levels,
+    idtcwt,
+)
 from .transforms.modwt import MODWTResult, imodwt, modwt
 from .transforms.multilevel import (
+    MAX_DECOMPOSITION_LEVELS,
     ExactMODWTResult,
     MultiLevelMODWTResult,
     imodwt_multilevel,
     max_levels,
     modwt_multilevel,
     resolve_tolerance,
+)
+from .transforms.packets import (
+    WaveletPacketTree,
+    basis_coefficients,
+    best_basis,
+    frequency_order,
+    imodwpt,
+    iwpt,
+    modwpt,
+    packet_frequency_bands,
+    reconstruct_basis,
+    wpt,
 )
 from .transforms.swt2 import SWT2Result, extract_level2, iswt2, mra2, swt2, swt2_denoise
 from .transforms.swt import (
@@ -106,12 +131,23 @@ from .transforms.twodim import (
     wavedec2,
     waverec2,
 )
-from .wavelets.base import DiscreteWavelet, WaveletType
-from .wavelets.registry import as_wavelet, available_wavelets, wavelet
+from .wavelets.base import DiscreteWavelet, TransformType, Wavelet, WaveletType
+from .wavelets.registry import (
+    as_wavelet,
+    available_wavelets,
+    is_compatible,
+    recommended_transform,
+    register_wavelet,
+    supported_transforms,
+    wavelet,
+    wavelets_in_family,
+    wavelets_of_type,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "DTCWTResult",
     "DWT2Result",
     "DWTResult",
     "DiscreteWavelet",
@@ -121,6 +157,7 @@ __all__ = [
     "InvalidConfigurationError",
     "InvalidSignalError",
     "InvalidStateError",
+    "MAX_DECOMPOSITION_LEVELS",
     "MODWT2Result",
     "MODWTResult",
     "MultiLevelMODWT2Result",
@@ -128,27 +165,39 @@ __all__ = [
     "PADDING_STRATEGIES",
     "SWT2Result",
     "SWTResult",
+    "TransformType",
     "VectorWaveError",
     "WavedecResult",
+    "Wavelet",
+    "WaveletPacketTree",
     "WaveletType",
+    "__version__",
     "adaptive_strategy",
     "apply_threshold",
     "apply_universal_threshold",
     "as_wavelet",
     "available_wavelets",
+    "basis_coefficients",
     "bayes_threshold",
+    "best_basis",
+    "coefficient_delay",
     "config",
     "convert",
     "denoise",
     "denoise2",
     "denoise_fixed",
     "denoise_multilevel",
+    "denoise_packet",
+    "dtcwt",
+    "dtcwt_denoise",
+    "dtcwt_max_levels",
     "dwt",
     "dwt2",
     "errors",
     "extract_level",
     "extract_level2",
     "fdr_threshold",
+    "frequency_order",
     "fused_analysis",
     "fused_denoise_multilevel",
     "fused_synthesis",
@@ -156,15 +205,19 @@ __all__ = [
     "get_fused_precision",
     "get_sigma_estimator",
     "hard_threshold",
+    "idtcwt",
     "idwt",
     "idwt2",
+    "imodwpt",
     "imodwt",
     "imodwt2",
     "imodwt2_multilevel",
     "imodwt_multilevel",
     "imodwt_multilevel_exact",
+    "is_compatible",
     "iswt",
     "iswt2",
+    "iwpt",
     "kernel_available",
     "kernels",
     "mad_sigma",
@@ -172,6 +225,7 @@ __all__ = [
     "max_levels",
     "median_magnitude",
     "minimax_threshold",
+    "modwpt",
     "modwt",
     "modwt2",
     "modwt2_multilevel",
@@ -181,13 +235,18 @@ __all__ = [
     "modwt_roundtrip_fused",
     "mra",
     "mra2",
+    "packet_frequency_bands",
     "pad_signal",
+    "recommended_transform",
+    "reconstruct_basis",
+    "register_wavelet",
     "resolve_tolerance",
     "select_threshold",
     "set_backend",
     "set_fused_precision",
     "set_sigma_estimator",
     "soft_threshold",
+    "supported_transforms",
     "sure_threshold",
     "swt",
     "swt2",
@@ -199,6 +258,9 @@ __all__ = [
     "wavedec",
     "wavedec2",
     "wavelet",
+    "wavelets_in_family",
+    "wavelets_of_type",
     "waverec",
     "waverec2",
+    "wpt",
 ]

@@ -2,8 +2,9 @@
 
 The two packages share no code, so these helpers take plain numpy arrays:
 a filter bank exported from a ``vectorwave_tpu`` wavelet, a threshold
-array, the planes of an exact-tier result or the bands of a 2-D MODWT
-result becomes the port's object.
+array, the planes of an exact-tier result, the bands of a 2-D MODWT
+result, the levels of a packet tree or the coefficients of a DTCWT result
+becomes the port's object.
 The parity tests use them so that both packages filter with identical taps
 and each package's inverse can read the other's planes.
 """
@@ -135,4 +136,53 @@ def modwt2_result_from_arrays(details, approx, device="cuda"):
         )
     return MultiLevelMODWT2Result(
         tuple(tuple(tensor(p) for p in trip) for trip in details), tensor(approx)
+    )
+
+
+def packet_tree_from_arrays(levels, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.WaveletPacketTree` from the per-depth
+    node arrays of a packet tree (for example the ``levels`` of a
+    ``vectorwave_tpu`` ``WaveletPacketTree``): ``levels[j]`` is
+    ``[..., 2^j, N_j]``.  The dtype is kept; the tensors go to ``device``
+    (default: the card; pass ``device="cpu"`` for the CPU).  Without a card
+    the default raises."""
+    from .transforms.packets import WaveletPacketTree
+
+    dev = _device(device)
+    arrays = [np.array(a) for a in levels]
+    if not arrays or any(a.ndim < 2 or a.shape[-2] != (1 << j)
+                         or a.shape[:-2] != arrays[0].shape[:-2]
+                         for j, a in enumerate(arrays)):
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "levels[j] must be [..., 2^j, N_j] with the same leading axes",
+            context={"shapes": [a.shape for a in arrays]},
+        )
+    return WaveletPacketTree(tuple(torch.from_numpy(a).to(dev) for a in arrays))
+
+
+def dtcwt_result_from_arrays(highpasses, lowpass_a, lowpass_b, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.DTCWTResult` from the complex
+    highpasses (finest first) and the two real lowpasses of a DTCWT result as
+    arrays (for example the fields of a ``vectorwave_tpu`` ``DTCWTResult``).
+    The dtypes are kept; the tensors go to ``device`` (default: the card;
+    pass ``device="cpu"`` for the CPU).  Without a card the default raises."""
+    from .transforms.dtcwt import DTCWTResult
+
+    dev = _device(device)
+    highs = [np.array(z) for z in highpasses]
+    low_a, low_b = np.array(lowpass_a), np.array(lowpass_b)
+    halving = all(2 * b.shape[-1] == a.shape[-1] for a, b in zip(highs, highs[1:]))
+    if (not highs or not all(np.iscomplexobj(z) for z in highs) or not halving
+            or low_a.shape != low_b.shape or low_a.shape != highs[-1].shape):
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "highpasses must be complex, halving in length level by level, and "
+            "both lowpasses of the coarsest highpass's shape",
+            context={"highpasses": [z.shape for z in highs],
+                     "lowpasses": [low_a.shape, low_b.shape]},
+        )
+    return DTCWTResult(
+        tuple(torch.from_numpy(z).to(dev) for z in highs),
+        torch.from_numpy(low_a).to(dev), torch.from_numpy(low_b).to(dev),
     )

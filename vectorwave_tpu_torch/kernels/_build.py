@@ -139,10 +139,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vw_modwt2_synthesis_level.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64,
                                               i64, i32, i32, i32, i32, i32, i32, i32,
                                               i32, i32, ptr]
+    # (x, outs, starts, offsets, values, batch, n, planes, plane_groups, span,
+    #  tile, edge, dtype, stream)
+    lib.vw_modwt_bank_analysis.argtypes = [ptr, ptrs, ptr, ptr, ptr, i64, i64, i32, i32,
+                                           i32, i32, i32, i32, ptr]
+    # (ins, out, starts, spans, offsets, values, batch, n, planes, span, tile,
+    #  edge, dtype, stream)
+    lib.vw_modwt_bank_synthesis.argtypes = [ptrs, ptr, ptr, ptr, ptr, ptr, i64, i64, i32,
+                                            i32, i32, i32, i32, ptr]
     for fn in (lib.vw_modwt_analysis, lib.vw_modwt_synthesis, lib.vw_modwt_denoise,
                lib.vw_modwt_exact_analysis, lib.vw_modwt_exact_synthesis,
                lib.vw_modwt_symmetric_synthesis, lib.vw_modwt2_analysis_level,
-               lib.vw_modwt2_synthesis_level):
+               lib.vw_modwt2_synthesis_level, lib.vw_modwt_bank_analysis,
+               lib.vw_modwt_bank_synthesis):
         fn.restype = i32
 
 

@@ -1,0 +1,332 @@
+"""The general multi-output filter bank: wrappers, plain versions, gradients.
+
+Counterpart of the ``planes_override`` mode of the JAX package's composite
+pair (``run_analysis_composite(..., planes_override=)`` and
+``run_synthesis_composite(..., planes_override=)`` in
+``vectorwave_tpu/kernels/modwt_mxu.py``) and of ``_bank_ana_core`` /
+``_bank_syn_core`` in ``vectorwave_tpu/transforms/packets.py``:
+
+* :func:`bank_analysis`: plane p is x filtered with backward reads by its
+  own dense tap vector, ``out_p[t] = sum_tau f_p[tau] x[t - tau]``, with a
+  periodic or zero left edge;
+* :func:`bank_synthesis`: the adjoint, with forward reads,
+  ``out[t] = sum_p sum_tau f_p[tau] c_p[t + tau]``, periodic or zero right
+  edge.
+
+===========================  ==============================  ==========================================
+wrapper                      CUDA source                     TPU kernel mode it replaces
+===========================  ==============================  ==========================================
+:func:`bank_analysis`        ``modwt_bank_analysis.cu``      ``_composite_analysis_call``, planes_override
+:func:`bank_synthesis`       ``modwt_bank_synthesis.cu``     ``_composite_synthesis_call``, planes_override
+===========================  ==============================  ==========================================
+
+``dense`` is a tuple of tuples of Python floats, one dense tap vector per
+plane, composed in float64 on the host; the kernels take the non-zero taps
+as per-plane (offset, value) lists rounded once to fp32 (:class:`BankTaps`),
+so an à trous filter costs its L non-zeros and not its (L-1)s+1 dense taps.
+Both compute in fp32 and store in the input type (float32 or bfloat16), any
+N >= 1, up to :data:`MAX_PLANES` planes; periodic wrap is taken modulo N, so
+a filter longer than the signal is served.  The plain versions
+(``bank_*_plain``) are sums of shifted slices over the non-zero taps, in
+float64 for float64 input and in float32 otherwise.  A wrapper given a CPU
+tensor runs its plain version; given a CUDA tensor it launches its kernel
+or raises.  Launches count under ``modwt_bank_analysis`` and
+``modwt_bank_synthesis`` in :data:`.modwt_composite.LAUNCHES`.
+
+With the same taps each direction is the other's transpose, edges included,
+so each is a ``torch.autograd.Function`` whose backward is one launch of
+the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ..errors import ErrorCode, InvalidArgumentError
+from ._build import library
+from .modwt_composite import (
+    LAUNCHES,
+    SHARED_LIMIT,
+    _check_dtype,
+    _check_operand,
+    _check_planes,
+    _compute_dtype,
+    _raise_on_error,
+    _stream,
+)
+
+#: Edges of the bank kernels (``BankEdge`` in the CUDA sources): zero or
+#: periodic.  An external halo slab would be a third value.
+EDGES = {"zero": 0, "periodic": 1}
+#: Planes one launch serves (``kMaxBankPlanes``: the plane pointers travel in
+#: the kernel's parameter block); a depth-5 packet tree has 62.
+MAX_PLANES = 64
+#: Threads of a block and outputs per thread (``kThreads``, ``kPerThread``):
+#: a tile is a multiple of THREADS, at most THREADS * PER_THREAD outputs.
+THREADS = 256
+PER_THREAD = 8
+#: Taps staged in shared memory at a time (``kTapChunk``).
+TAP_CHUNK = 1024
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BankTaps:
+    """The non-zero taps of a bank: plane p owns ``offsets[starts[p]:
+    starts[p+1]]`` and the ``values`` beside them; ``spans[p]`` is its
+    greatest offset and ``span`` the greatest of all."""
+
+    starts: tuple[int, ...]
+    spans: tuple[int, ...]
+    offsets: tuple[int, ...]
+    values: tuple[float, ...]
+
+    @property
+    def planes(self) -> int:
+        return len(self.spans)
+
+    @property
+    def span(self) -> int:
+        return max(self.spans)
+
+    @property
+    def nonzeros(self) -> int:
+        return len(self.offsets)
+
+    def plane(self, p: int) -> list[tuple[int, float]]:
+        lo, hi = self.starts[p], self.starts[p + 1]
+        return list(zip(self.offsets[lo:hi], self.values[lo:hi]))
+
+
+@functools.lru_cache(maxsize=64)
+def bank_taps(dense: tuple) -> BankTaps:
+    """The sparse form of a tuple of dense tap vectors."""
+    if not dense or any(len(f) == 0 for f in dense):
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            "a bank needs at least one plane, each with at least one tap",
+        )
+    starts, spans, offsets, values = [0], [], [], []
+    for f in dense:
+        nz = [(tau, float(v)) for tau, v in enumerate(f) if v != 0.0]
+        offsets += [tau for tau, _ in nz]
+        values += [v for _, v in nz]
+        starts.append(len(offsets))
+        spans.append(nz[-1][0] if nz else 0)
+    return BankTaps(tuple(starts), tuple(spans), tuple(offsets), tuple(values))
+
+
+def _extend(t: torch.Tensor, span: int, periodic: bool, left: bool) -> torch.Tensor:
+    """``t`` extended by ``span`` samples on one side: zeros, or the signal
+    wrapped as often as the span needs (span >= N included)."""
+    if span == 0:
+        return t
+    if not periodic:
+        return F.pad(t, (span, 0) if left else (0, span))
+    n = t.shape[-1]
+    reps = -(-span // n) + 1
+    tiled = torch.cat([t] * reps, dim=-1)
+    return tiled[..., tiled.shape[-1] - (n + span):] if left else tiled[..., : n + span]
+
+
+def bank_analysis_plain(x: torch.Tensor, dense, periodic: bool) -> tuple[torch.Tensor, ...]:
+    """Plain version of :func:`bank_analysis`: per plane, the sum over its
+    non-zero taps of shifted slices of the left-extended signal."""
+    taps = bank_taps(dense)
+    n, span = x.shape[-1], taps.span
+    ext = _extend(x.to(_compute_dtype(x)), span, periodic, left=True)
+    outs = []
+    for p in range(taps.planes):
+        acc = torch.zeros_like(ext[..., :n])
+        for tau, v in taps.plane(p):
+            acc = acc + ext[..., span - tau : span - tau + n] * v
+        outs.append(acc.to(x.dtype))
+    return tuple(outs)
+
+
+def bank_synthesis_plain(planes, dense, periodic: bool) -> torch.Tensor:
+    """Plain version of :func:`bank_synthesis`: the sum over planes and
+    non-zero taps of shifted slices of the right-extended planes."""
+    taps = bank_taps(dense)
+    _check_plane_count(planes, taps)
+    n = planes[0].shape[-1]
+    acc = torch.zeros_like(planes[0], dtype=_compute_dtype(planes[0]))
+    for p, plane in enumerate(planes):
+        ext = _extend(plane.to(acc.dtype), taps.spans[p], periodic, left=False)
+        for tau, v in taps.plane(p):
+            acc = acc + ext[..., tau : tau + n] * v
+    return acc.to(planes[0].dtype)
+
+
+# --- launch plan -------------------------------------------------------------------
+
+
+def bank_shared_bytes(span: int, tile: int) -> int:
+    """Shared memory of one bank block: a window of tile + span floats and
+    one chunk of staged taps (offset and value)."""
+    return 4 * (tile + span) + 8 * TAP_CHUNK
+
+
+def bank_tile(span: int) -> int | None:
+    """The bank kernels' tile: THREADS * PER_THREAD outputs, halved until the
+    window fits shared memory (None if it does not at THREADS outputs)."""
+    tile = THREADS * PER_THREAD
+    while tile >= THREADS:
+        if bank_shared_bytes(span, tile) <= SHARED_LIMIT:
+            return tile
+        tile //= 2
+    return None
+
+
+def bank_fits(dense) -> bool:
+    """Whether the kernels serve this bank: at most :data:`MAX_PLANES`
+    planes and a window that fits one block's shared memory."""
+    taps = bank_taps(dense)
+    return taps.planes <= MAX_PLANES and bank_tile(taps.span) is not None
+
+
+def plane_groups(blocks: int, planes: int, sms: int) -> int:
+    """How many groups the analysis kernel splits its planes into (over
+    ``blockIdx.y``): one where the (signal, tile) blocks alone give every
+    SM two blocks, else as many as bring the grid there."""
+    return max(1, min(planes, -(-2 * sms // blocks)))
+
+
+def _check_plane_count(planes, taps: BankTaps) -> None:
+    if len(planes) != taps.planes:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            f"expected {taps.planes} planes, one per tap vector, got {len(planes)}",
+        )
+
+
+def _launch_plan(taps: BankTaps) -> int:
+    if taps.planes > MAX_PLANES:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_TOO_LARGE,
+            f"one bank launch serves at most {MAX_PLANES} planes, got {taps.planes}",
+        )
+    tile = bank_tile(taps.span)
+    if tile is None:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_TOO_LARGE,
+            "The bank's window does not fit the kernel's shared memory",
+            context={"span": taps.span},
+            suggestions=("Use shorter filters or backend='torch'",),
+        )
+    return tile
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(taps: BankTaps, device_index: int):
+    """(int32 [starts | spans | offsets], float32 values) on the card."""
+    dev = f"cuda:{device_index}"
+    ints = torch.tensor(taps.starts + taps.spans + taps.offsets, dtype=torch.int32,
+                        device=dev)
+    vals = torch.tensor(taps.values or (0.0,), dtype=torch.float32, device=dev)
+    return ints, vals
+
+
+def _table_pointers(taps: BankTaps, device: torch.device):
+    ints, vals = _device_table(taps, device.index)
+    base = ints.data_ptr()
+    p = taps.planes
+    return base, base + 4 * (p + 1), base + 4 * (2 * p + 1), vals.data_ptr()
+
+
+def _launch_analysis(x: torch.Tensor, taps: BankTaps, periodic: bool):
+    _check_operand(x, "x")
+    code = _check_dtype(x, "x")
+    tile = _launch_plan(taps)
+    b, n = x.shape
+    lib = library()
+    outs = [torch.empty_like(x) for _ in range(taps.planes)]
+    out_ptrs = (ctypes.c_void_p * taps.planes)(*[o.data_ptr() for o in outs])
+    starts, _, offsets, values = _table_pointers(taps, x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    groups = plane_groups(b * -(-n // tile), taps.planes, sms)
+    with torch.cuda.device(x.device):
+        err = lib.vw_modwt_bank_analysis(
+            x.data_ptr(), out_ptrs, starts, offsets, values, b, n, taps.planes, groups,
+            taps.span, tile, EDGES["periodic" if periodic else "zero"], code,
+            _stream(x.device),
+        )
+    _raise_on_error(err, "modwt_bank_analysis")
+    LAUNCHES["modwt_bank_analysis"] += 1
+    return tuple(outs)
+
+
+def _launch_synthesis(planes, taps: BankTaps, periodic: bool) -> torch.Tensor:
+    _check_plane_count(planes, taps)
+    code = _check_planes(planes)
+    tile = _launch_plan(taps)
+    first = planes[0]
+    b, n = first.shape
+    lib = library()
+    out = torch.empty_like(first)
+    in_ptrs = (ctypes.c_void_p * taps.planes)(*[p.data_ptr() for p in planes])
+    starts, spans, offsets, values = _table_pointers(taps, first.device)
+    with torch.cuda.device(first.device):
+        err = lib.vw_modwt_bank_synthesis(
+            in_ptrs, out.data_ptr(), starts, spans, offsets, values, b, n, taps.planes,
+            taps.span, tile, EDGES["periodic" if periodic else "zero"], code,
+            _stream(first.device),
+        )
+    _raise_on_error(err, "modwt_bank_synthesis")
+    LAUNCHES["modwt_bank_synthesis"] += 1
+    return out
+
+
+def _analysis(x, dense, periodic):
+    if x.device.type == "cpu":
+        return bank_analysis_plain(x, dense, periodic)
+    return _launch_analysis(x, bank_taps(dense), periodic)
+
+
+def _synthesis(planes, dense, periodic):
+    if planes[0].device.type == "cpu":
+        return bank_synthesis_plain(planes, dense, periodic)
+    return _launch_synthesis(planes, bank_taps(dense), periodic)
+
+
+class _BankAnalysis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dense, periodic):
+        ctx.dense, ctx.periodic = dense, periodic
+        return _analysis(x, dense, periodic)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        planes = tuple(c.contiguous() for c in cots)
+        return _synthesis(planes, ctx.dense, ctx.periodic), None, None
+
+
+class _BankSynthesis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dense, periodic, *planes):
+        ctx.dense, ctx.periodic = dense, periodic
+        return _synthesis(planes, dense, periodic)
+
+    @staticmethod
+    def backward(ctx, cot):
+        return (None, None, *_analysis(cot.contiguous(), ctx.dense, ctx.periodic))
+
+
+def bank_analysis(x: torch.Tensor, dense, periodic: bool) -> tuple[torch.Tensor, ...]:
+    """``[B, N]`` -> ``len(dense)`` planes of ``[B, N]``: plane p is
+    ``sum_tau dense[p][tau] x[t - tau]`` with a periodic or zero left edge.
+    Differentiable: the backward is one :func:`bank_synthesis` pass with the
+    same taps."""
+    return _BankAnalysis.apply(x, dense, bool(periodic))
+
+
+def bank_synthesis(planes, dense, periodic: bool) -> torch.Tensor:
+    """``len(dense)`` planes of ``[B, N]`` -> ``[B, N]``:
+    ``sum_p sum_tau dense[p][tau] planes[p][t + tau]`` with a periodic or
+    zero right edge, the transpose of :func:`bank_analysis`.  Differentiable:
+    the backward is one :func:`bank_analysis` pass with the same taps."""
+    return _BankSynthesis.apply(dense, bool(periodic), *planes)

@@ -60,12 +60,14 @@ from ._build import library
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.  The
 #: cascade wrappers of :mod:`.modwt_cascade` launch the analysis and
-#: synthesis kernels too, and count under ``modwt_mxu_*``.
+#: synthesis kernels too, and count under ``modwt_mxu_*``; the bank kernels
+#: of :mod:`.modwt_bank` count under ``modwt_bank_*``.
 LAUNCHES = {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
             "modwt_exact_analysis": 0, "modwt_exact_synthesis": 0,
             "modwt_symmetric_synthesis": 0, "modwt_symmetric_adjoint": 0,
             "modwt2_analysis": 0, "modwt2_synthesis": 0,
-            "modwt_mxu_analysis": 0, "modwt_mxu_synthesis": 0}
+            "modwt_mxu_analysis": 0, "modwt_mxu_synthesis": 0,
+            "modwt_bank_analysis": 0, "modwt_bank_synthesis": 0}
 
 #: Outputs per block, per kernel (the denoise kernel holds J planes of its
 #: tile in shared memory, so its tile is smaller).

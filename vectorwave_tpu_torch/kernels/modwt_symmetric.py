@@ -259,8 +259,8 @@ def fused_symmetric_analysis(x: torch.Tensor, w, *, levels: int) -> tuple[torch.
 
     filters = _kernel_filters(w, synthesis=False)
     taps, n = len(filters[0]), x.shape[-1]
-    if not analysis_fits(taps, levels) or (
-            x.device.type == "cuda" and n < mirror_reach(taps, levels)):
+    if x.device.type != "cpu" and not (
+            analysis_fits(taps, levels) and n >= mirror_reach(taps, levels)):
         raise _refuse("fused_analysis", taps, levels, n)
     return _SymmetricAnalysis.apply(x, levels, filters)
 
@@ -269,7 +269,9 @@ def fused_symmetric_synthesis(planes, w) -> torch.Tensor:
     """Symmetric inverse of the J+1 ``[B, N]`` planes ``(d_1, ..., d_J,
     a_J)``: one launch of the symmetric synthesis kernel, its first span_l
     and last span_r outputs spliced from the plain symmetric inverse of the
-    head and tail windows."""
+    head and tail windows.  The kernel's gates (windows that fit shared
+    memory and do not overlap) hold for CUDA tensors only: CPU planes they
+    would refuse take the plain symmetric inverse, at any shape it serves."""
     from .modwt_fused import _kernel_filters
 
     levels = len(planes) - 1
@@ -278,6 +280,8 @@ def fused_symmetric_synthesis(planes, w) -> torch.Tensor:
     taps = len(filters[0])
     n = planes[0].shape[-1]
     if not synthesis_fits(taps, ops, n):
+        if planes[0].device.type == "cpu":
+            return _symmetric_inverse(planes, w)
         raise _refuse("fused_synthesis", taps, levels, n)
     span_l, span_r, w_head, w_tail = synthesis_windows(taps, ops)
     cd = _compute_dtype(planes[0])

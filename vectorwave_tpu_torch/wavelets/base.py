@@ -12,9 +12,10 @@ Conventions (identical to the JAX package, so coefficients agree):
 * QMF: ``dec_hi[i] = (-1)^i * dec_lo[L-1-i]``.
 * Orthogonal wavelets: reconstruction filters equal decomposition filters;
   the synthesis convolution uses adjoint ``(t+l)`` indexing.
-* Biorthogonal: ``dec_hi = qmf_alt(rec_lo)``, ``rec_hi = qmf_alt(dec_lo)``
-  (the type exists so that :func:`~vectorwave_tpu_torch.convert.wavelet_from_arrays`
-  can carry such filters across; no biorthogonal family is generated yet).
+* Biorthogonal: ``dec_hi = qmf_alt(rec_lo)``, ``rec_hi = qmf_alt(dec_lo)``.
+
+The continuous wavelets (``ContinuousWavelet``) are not ported yet, so
+:data:`Wavelet` names the discrete type alone.
 """
 
 from __future__ import annotations
@@ -29,6 +30,14 @@ import numpy as np
 class WaveletType(enum.Enum):
     ORTHOGONAL = "orthogonal"
     BIORTHOGONAL = "biorthogonal"
+
+
+class TransformType(enum.Enum):
+    """Transform-compatibility categories."""
+
+    MODWT = "modwt"
+    SWT = "swt"
+    CWT = "cwt"
 
 
 def qmf_highpass(low: np.ndarray) -> np.ndarray:
@@ -74,7 +83,7 @@ class DiscreteWavelet:
     def validation_tolerance(self) -> float:
         """Per-wavelet perfect-reconstruction tolerance: the generated
         filters are machine-precision; only the truncated Fourier families
-        (not yet ported) need slack."""
+        need slack (dmey ~1e-5, the short Battle-Lemarie truncations ~5e-2)."""
         if self.family == "BattleLemarie":
             return 5e-2
         if self.name == "dmey":
@@ -137,3 +146,32 @@ def orthogonal_wavelet(
         wavelet_type=WaveletType.ORTHOGONAL,
         description=description,
     )
+
+
+def biorthogonal_wavelet(
+    name: str,
+    family: str,
+    dec_lo: np.ndarray,
+    rec_lo: np.ndarray,
+    vanishing_moments: int,
+    description: str = "",
+) -> DiscreteWavelet:
+    """Build a biorthogonal wavelet from analysis/synthesis low-pass filters."""
+    dec_lo = np.asarray(dec_lo, dtype=np.float64)
+    rec_lo = np.asarray(rec_lo, dtype=np.float64)
+    return DiscreteWavelet(
+        name=name,
+        family=family,
+        dec_lo=dec_lo,
+        dec_hi=qmf_alternate(rec_lo),
+        rec_lo=rec_lo,
+        rec_hi=qmf_alternate(dec_lo),
+        vanishing_moments=vanishing_moments,
+        wavelet_type=WaveletType.BIORTHOGONAL,
+        description=description,
+    )
+
+
+#: Every wavelet type of the port; the continuous wavelets join it when the
+#: CWT is ported.
+Wavelet = DiscreteWavelet

@@ -1,12 +1,14 @@
-"""Wavelet registry: name -> wavelet resolution.
+"""Wavelet registry: name -> wavelet resolution plus family/compat queries.
 
-Counterpart of ``vectorwave_tpu/wavelets/registry.py`` for the families
-ported so far: haar (alias db1), db2-db38 and sym2-sym20, generated in
-:mod:`.orthogonal`.  The JAX package's other registered names (coiflets,
-biorthogonal and reverse-biorthogonal splines, discrete Meyer,
-Battle-Lemarie and the continuous wavelets) raise
-:class:`~vectorwave_tpu_torch.errors.InvalidArgumentError` saying that the
-family is not yet ported.
+Counterpart of ``vectorwave_tpu/wavelets/registry.py``: a plain dict of lazy
+factories keyed by lowercase string names (PyWavelets-compatible), with
+results memoized.  Every discrete family is registered: haar (alias db1),
+db2-db38, sym2-sym20, coif1-coif17, the biorthogonal and reverse
+biorthogonal splines, the discrete Meyer and Battle-Lemarie wavelets.
+Further factories register through :func:`register_wavelet`.  The JAX
+package's continuous wavelets raise
+:class:`~vectorwave_tpu_torch.errors.InvalidArgumentError` saying that they
+are not yet ported.
 """
 
 from __future__ import annotations
@@ -16,30 +18,57 @@ import re
 from typing import Callable
 
 from ..errors import ErrorCode, InvalidArgumentError
-from . import orthogonal
-from .base import DiscreteWavelet
+from . import biorthogonal as bior
+from . import coiflets, fourier_families, orthogonal
+from .base import DiscreteWavelet, TransformType, Wavelet, WaveletType
 
-_FACTORIES: dict[str, Callable[[], DiscreteWavelet]] = {}
-_ALIASES: dict[str, str] = {"db1": "haar"}
+_FACTORIES: dict[str, Callable[[], Wavelet]] = {}
+_ALIASES: dict[str, str] = {}
 
-_FACTORIES["haar"] = orthogonal.haar
-for _order in range(2, 39):
-    _FACTORIES[f"db{_order}"] = functools.partial(orthogonal.daubechies, _order)
-for _order in range(2, 21):
-    _FACTORIES[f"sym{_order}"] = functools.partial(orthogonal.symlet, _order)
-
-#: Registered in the JAX package, not yet ported: the discrete families by
-#: pattern, the continuous wavelets by name.
+#: Registered in the JAX package, not yet ported: the continuous wavelets.
 _NOT_YET_PORTED = re.compile(
-    r"(coif\d+|bior\d\.\d+|rbio\d\.\d+|dmey|blem\d+"
-    r"|cgau\d+|gaus\d+|dog\d*|paul\d*|herm\d+|mexh|mexh_matlab|mexican_hat"
+    r"(cgau\d+|gaus\d+|dog\d*|paul\d*|herm\d+|mexh|mexh_matlab|mexican_hat"
     r"|ricker|gaussian|morl|morlet|cmor|shan|cshan|cshanb|shangabor|fbsp"
     r"|meyr|morse)"
 )
 
 
+def register_wavelet(name: str, factory: Callable[[], Wavelet]) -> None:
+    """Register a wavelet factory under ``name`` (case-insensitive)."""
+    _FACTORIES[name.lower()] = factory
+    wavelet.cache_clear()
+
+
+def register_alias(alias: str, target: str) -> None:
+    _ALIASES[alias.lower()] = target.lower()
+
+
+def _register_builtins() -> None:
+    _FACTORIES["haar"] = orthogonal.haar
+    _ALIASES["db1"] = "haar"
+    for order in range(2, 39):
+        _FACTORIES[f"db{order}"] = functools.partial(orthogonal.daubechies, order)
+    for order in range(2, 21):
+        _FACTORIES[f"sym{order}"] = functools.partial(orthogonal.symlet, order)
+    for order in range(1, coiflets.MAX_ORDER + 1):
+        _FACTORIES[f"coif{order}"] = functools.partial(coiflets.coiflet, order)
+    for nr, nd in bior.VARIANTS:
+        _FACTORIES[f"bior{nr}.{nd}"] = functools.partial(bior.biorthogonal, nr, nd)
+        _FACTORIES[f"rbio{nr}.{nd}"] = functools.partial(
+            bior.reverse_biorthogonal, nr, nd
+        )
+    _FACTORIES["dmey"] = fourier_families.discrete_meyer
+    for order in range(1, 6):
+        _FACTORIES[f"blem{order}"] = functools.partial(
+            fourier_families.battle_lemarie, order
+        )
+
+
+_register_builtins()
+
+
 @functools.lru_cache(maxsize=None)
-def wavelet(name: str) -> DiscreteWavelet:
+def wavelet(name: str) -> Wavelet:
     """Resolve a wavelet by name (case-insensitive)."""
     key = name.lower()
     key = _ALIASES.get(key, key)
@@ -51,7 +80,8 @@ def wavelet(name: str) -> DiscreteWavelet:
             ErrorCode.CFG_UNSUPPORTED_WAVELET,
             f"Wavelet family of {name!r} is not yet ported to vectorwave_tpu_torch",
             context={"requested": name},
-            suggestions=("Ported families: haar, db1-db38, sym2-sym20",),
+            suggestions=("The discrete families are ported; the continuous "
+                         "wavelets are not",),
         )
     close = [n for n in sorted(_FACTORIES) if n[:2] == key[:2]][:8]
     raise InvalidArgumentError(
@@ -65,7 +95,7 @@ def wavelet(name: str) -> DiscreteWavelet:
     )
 
 
-def as_wavelet(spec: str | DiscreteWavelet) -> DiscreteWavelet:
+def as_wavelet(spec: str | Wavelet) -> Wavelet:
     """Accept either a wavelet object or a registry name."""
     if isinstance(spec, DiscreteWavelet):
         return spec
@@ -75,3 +105,46 @@ def as_wavelet(spec: str | DiscreteWavelet) -> DiscreteWavelet:
 def available_wavelets() -> list[str]:
     """All registered (ported) wavelet names, sorted."""
     return sorted(set(_FACTORIES) | set(_ALIASES))
+
+
+def wavelets_of_type(wtype: WaveletType) -> list[str]:
+    """Names of registered wavelets of the given type."""
+    return [n for n in sorted(_FACTORIES) if wavelet(n).wavelet_type is wtype]
+
+
+#: short registry prefixes accepted as family aliases (PyWavelets-style)
+_FAMILY_SHORT = {
+    "db": "daubechies",
+    "sym": "symlet",
+    "coif": "coiflet",
+    "bior": "biorthogonalspline",
+    "rbio": "reversebiorthogonalspline",
+    "blem": "battlelemarie",
+    "dmey": "discretemeyer",
+}
+
+
+def wavelets_in_family(family: str) -> list[str]:
+    """Names in a family; accepts the full family name ('Daubechies') or the
+    short name prefix ('db')."""
+    fam = family.lower()
+    fam = _FAMILY_SHORT.get(fam, fam)
+    return [n for n in sorted(_FACTORIES) if wavelet(n).family.lower() == fam]
+
+
+def supported_transforms(name: str | Wavelet) -> tuple[TransformType, ...]:
+    """Transform-compatibility matrix: a discrete wavelet serves the MODWT
+    and the SWT.  (The CWT's row arrives with the continuous wavelets.)"""
+    as_wavelet(name)
+    return (TransformType.MODWT, TransformType.SWT)
+
+
+def is_compatible(name: str | Wavelet, transform: TransformType) -> bool:
+    """Whether a wavelet supports a transform."""
+    return transform in supported_transforms(name)
+
+
+def recommended_transform(name: str | Wavelet) -> TransformType:
+    """Best default transform for a wavelet: the MODWT for a discrete one."""
+    as_wavelet(name)
+    return TransformType.MODWT
