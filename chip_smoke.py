@@ -36,7 +36,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    and 2x301, periodic at 2x150 (the span outlasts the signal) and once in
    bfloat16, an à trous pair at spacing 16, the sym8 packet trees of depth 4
    (30 planes) and 5 (62 planes), the DTCWT's composed planes (both trees, 5
-   levels), and the identity <A x, y> = <x, A^T y> for each edge;
+   levels), and the identity <A x, y> = <x, A^T y> for each edge; the
+   streaming modes: the analysis kernel's external edge (alone and with the
+   head splice) and the denoise kernel's stream mode (none, soft, hard) at
+   db4 J=6 128x65536 and 128x8192 (the streaming path's blocks) with a
+   halo of the span, 3x5000 with a short halo,
+   2x300 (shorter than the span), sym8 J=4 8x65536 with a long halo, db36
+   J=8 (span 18105, longer than the tile; the analysis only, the denoise's
+   windows do not fit) and the analysis in bfloat16;
 3. the main path through the public entry points at 128x65536 float32:
    ``modwt_multilevel`` -> ``imodwt_multilevel`` at every precision tier,
    ``modwt_roundtrip_fused`` and ``denoise_multilevel``, with the launch
@@ -80,7 +87,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    whole-tree route, the per-stage route and under the default backend
    against the plain route; ``denoise_packet`` depth 4 and ``dtcwt_denoise``
    at 8x16384 against their plain routes; a small input against the float64
-   plain cascade on the CPU;
+   plain cascade on the CPU; then the streaming path, db4 J=6, 128 streams x
+   8 blocks x 8192 float32, each block with its own reset and reading of the
+   counters: ``StreamingTransform`` with the zero, symmetric and periodic
+   boundaries (one analysis launch a block, the symmetric first block's with
+   the head splice) against the plain whole-signal transform (each block's
+   own for periodic), ``streaming_denoise_block_kernel`` (one denoise launch a block)
+   against its plain version, ``streaming_denoise_blocks_kernel`` with the 8
+   blocks (one launch, equal bit for bit to the 8 single steps),
+   ``StreamingDenoiser`` under auto, ``SlidingStreamingTransform`` (512) and
+   ``StreamIngest`` (512-tick frames, hop 407, on the C++ ring) against the
+   direct transform, with no launch;
 4. timing with CUDA events (3 warm-ups, median of 20 runs) of each kernel
    beside its plain version and one PyTorch library call that computes the
    same function (``F.conv1d`` with the composite filters; not for the
@@ -93,7 +110,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    tree and at one level-4 pair as ``modwpt`` calls it, for 64x16384 and
    128x65536, and every route of ``modwpt`` + ``imodwpt`` (depths 3, 4, 5)
    and ``dtcwt`` + ``idtcwt`` at both shapes and at 1x1024 (the dual tree
-   also at 64x65536), and the two denoisers at 8x16384.
+   also at 64x65536), and the two denoisers at 8x16384; the external edge
+   (library call: ``F.conv1d`` of the composite filters on ``[halo | x]``)
+   and the stream mode at 128x65536, the streaming rows at 128 x 8 x 8192
+   (block streaming zero and symmetric, the denoiser a step a block and 8
+   blocks a launch), the sliding window's time a sample and the ring's and
+   ``StreamIngest``'s Mticks/s (host clock).
 
 The last two lines are a JSON object with one entry per kernel and the
 device line ``{"ok": true, "device": {...}}``.
@@ -190,6 +212,16 @@ KERNELS = {
         "vectorwave_tpu_torch/kernels/csrc/modwt_bank_synthesis.cu",
         "vectorwave_tpu/kernels/modwt_mxu.py:910",
     ),
+    # the streaming modes: rows of their own, counted under the kernels'
+    # own entries (modwt_analysis, modwt_denoise) on the streaming path
+    "modwt_analysis_external": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt_analysis.cu",
+        "vectorwave_tpu/kernels/modwt_mxu.py:688",
+    ),
+    "modwt_denoise_stream": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt_denoise.cu",
+        "vectorwave_tpu/kernels/modwt_mxu.py:1338",
+    ),
 }
 MAIN_PATH = ("modwt_analysis", "modwt_synthesis", "modwt_denoise")
 EXACT_PATH = ("modwt_exact_analysis", "modwt_exact_synthesis")
@@ -198,7 +230,7 @@ SYMMETRIC_PATH = ("modwt_mxu_analysis", "modwt_symmetric_synthesis",
 MXU_PATH = ("modwt_mxu_analysis", "modwt_mxu_synthesis")
 BANK_PATH = ("modwt_bank_analysis", "modwt_bank_synthesis")
 BF16_ROWS = (MAIN_PATH + ("modwt_symmetric_synthesis", "modwt_symmetric_adjoint") + MXU_PATH
-             + BANK_PATH)
+             + BANK_PATH + ("modwt_analysis_external",))
 #: the packet and dual-tree path: sym8, packet depth 4, 5 DTCWT levels, at the
 #: batch shape of the JAX package's bench rows and at the main path's
 PACKET_WAVELET, PACKET_DEPTH, DTCWT_LEVELS = "sym8", 4, 5
@@ -218,6 +250,12 @@ TWOD_PATH = ("modwt2_analysis", "modwt2_synthesis")
 #: (the JAX package's 2-D kernel test bound, tests/test_modwt2_pallas.py).
 IMG = (8, 2048, 2048)
 RT2_MAX = 5e-5
+#: the streaming path (the JAX package's bench rows, bench_full.py:230-268):
+#: 128 streams x 8 blocks x 8192 samples, db4 J=6, float32; the sliding
+#: window and the ingest frames of bench_full.py:333-380 (512 samples, the
+#: ingest's hop 407 = 512 - (L-1)(2^4-1), so 4 levels)
+STREAM_B, STREAM_NBLK, STREAM_BLK = 128, 8, 8192
+SLIDE_BUFFER, INGEST_LEVELS = 512, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -655,6 +693,319 @@ def bank_timing(dev, gen):
     return ms_of, bound, cases
 
 
+def stream_kernels_against_plain(dev, gen, worst, worst_bf16):
+    """Phase 2 for the streaming modes: the analysis kernel's external edge
+    (with and without the head splice) and the denoise kernel's stream mode
+    against their plain versions.  Halos shorter than, equal to and longer
+    than the span; the streaming path's 128x8192 blocks with a halo of the
+    span; a block shorter than the span; db36 J=8, whose span
+    (18105) outlasts the tile; bfloat16 for the analysis."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels import modwt_symmetric as ms
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+    # (wavelet, levels, batch, n, halo samples, dtype)
+    cases = [
+        (WAVELET, LEVELS, BATCH, N, 441, torch.float32),
+        # the streaming path's own blocks and carry
+        (WAVELET, LEVELS, STREAM_B, STREAM_BLK, 441, torch.float32),
+        (WAVELET, LEVELS, 3, 5000, 100, torch.float32),
+        (WAVELET, LEVELS, 2, 300, 441, torch.float32),
+        ("sym8", 4, 8, N, 700, torch.float32),
+        ("db36", 8, 2, N, 18105, torch.float32),  # 72 taps: span 18105 > tile 2048
+        (WAVELET, LEVELS, BATCH, N, 441, torch.bfloat16),
+    ]
+    for name, levels, b, n, h, dtype in cases:
+        ws = vt.wavelet(name)
+        fd, fr = _kernel_filters(ws, synthesis=False), _kernel_filters(ws, synthesis=True)
+        span = mc.composite_halo_samples(ws.filter_length, levels)
+        x = torch.randn(b, n, device=dev, generator=gen).to(dtype)
+        halo = torch.randn(b, h, device=dev, generator=gen).to(dtype)
+        tag = (f"{name} J={levels} {b}x{n} halo {h} (span {span}, tile "
+               f"{mc.analysis_tile(ws.filter_length, levels)}) {str(dtype)[6:]}")
+        results = [("modwt_analysis_external", "", mc.analysis(x, levels, fd, False, halo=halo),
+                    mc.analysis_plain(x, levels, fd, False, halo=halo))]
+        if dtype == torch.float32 and n >= span:
+            head = torch.stack(ms._symmetric_cascade(x[:, :span], fd, levels)).contiguous()
+            results.append(("modwt_analysis_external", " with head splice",
+                             mc.analysis(x, levels, fd, False, head=head, halo=halo),
+                             mc.analysis_plain(x, levels, fd, False, head=head, halo=halo)))
+        if dtype == torch.float32 and mc.denoise_tile(ws.filter_length, levels) is not None:
+            th = gap_thresholds(mc._external_cascade(x, halo, levels, fd), levels)
+            for mode in ("none", "soft", "hard"):
+                results.append(("modwt_denoise_stream", f" {mode}",
+                                mc.denoise(x, th, levels, fd, fr, False, mode, halo=halo),
+                                mc.denoise_plain(x, th, levels, fd, fr, False, mode, halo=halo)))
+        torch.cuda.synchronize()
+        for kname, extra, got, want in results:
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(max_err(g, p) for g, p in zip(got, want))
+            if dtype == torch.float32:
+                tol = TOL_F32
+                worst[kname] = max(worst[kname], err)
+            else:
+                tol = BF16_ULP * max(p.float().abs().max().item() for p in want)
+                worst_bf16[kname] = max(worst_bf16[kname], err)
+            check(err <= tol, f"{kname}{extra} {tag}: max |kernel - plain| {err:.3e} <= "
+                              f"{tol:.3e}")
+        del x, halo, results
+
+
+def streaming_path(dev, gen):
+    """Phase 3 for the streaming tier at full width, each public call with its
+    own reset and reading of the counters.  Returns the streaming rows'
+    launches: the external edge's (modwt_analysis on the zero and symmetric
+    streams) and the stream mode's (modwt_denoise)."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import native
+    from vectorwave_tpu_torch import streaming as st
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+
+    total = {"modwt_analysis_external": 0, "modwt_denoise_stream": 0}
+
+    def counted(label, expect, fn):
+        mc.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in mc.LAUNCHES.items() if v}
+        check(got == expect, f"{label}: launches {got}")
+        return out, got
+
+    x = torch.randn(STREAM_B, STREAM_NBLK * STREAM_BLK, device=dev, generator=gen)
+    blocks = x.reshape(STREAM_B, STREAM_NBLK, STREAM_BLK).transpose(0, 1).contiguous()
+    shape = f"{STREAM_B} streams x {STREAM_NBLK} x {STREAM_BLK}"
+
+    def planes(res):
+        return (*res.details, res.approx)
+
+    for boundary in ("zero", "symmetric", "periodic"):
+        t = st.StreamingTransform(WAVELET, levels=LEVELS, boundary=boundary,
+                                  batch_shape=(STREAM_B,))
+        check(t.backend == "kernel", f"StreamingTransform {boundary}: the kernel tier")
+        outs = []
+        for i in range(STREAM_NBLK):
+            res, got = counted(f"StreamingTransform {boundary} block {i}",
+                               {"modwt_analysis": 1}, lambda: t.process(blocks[i]))
+            outs.append(res)
+            if boundary != "periodic":
+                total["modwt_analysis_external"] += got.get("modwt_analysis", 0)
+        if boundary == "periodic":
+            err = max(max_err(g, r) for i, o in enumerate(outs) for g, r in zip(
+                planes(o), planes(vt.modwt_multilevel(blocks[i], WAVELET, levels=LEVELS,
+                                                      backend="torch"))))
+            what = "each block vs its own plain periodic transform"
+        else:
+            whole = vt.modwt_multilevel(x, WAVELET, levels=LEVELS, boundary=boundary,
+                                        backend="torch")
+            err = max(max_err(torch.cat([o[j] for o in map(planes, outs)], -1), w)
+                      for j, w in enumerate(planes(whole)))
+            what = "concatenated blocks vs the plain whole-signal transform"
+        check(err <= TOL_F32, f"StreamingTransform {boundary} {shape}: {what} "
+                              f"{err:.3e} <= {TOL_F32:.0e}")
+        del outs
+
+    ramp = torch.arange(STREAM_NBLK * STREAM_BLK, device=dev, dtype=torch.float32)
+    clean = torch.sin(2 * math.pi * ramp / 64.0).expand(STREAM_B, -1)
+    noisy = clean + 0.5 * torch.randn(STREAM_B, ramp.numel(), device=dev, generator=gen)
+    nblocks = noisy.reshape(STREAM_B, STREAM_NBLK, STREAM_BLK).transpose(0, 1).contiguous()
+    state0 = st.kernel_streaming_denoiser_init(WAVELET, levels=LEVELS, batch_shape=(STREAM_B,))
+    state, plain_state, outs, plain = state0, state0, [], []
+    for i in range(STREAM_NBLK):
+        (state, out), got = counted(
+            f"streaming_denoise_block_kernel block {i}", {"modwt_denoise": 1},
+            lambda: st.streaming_denoise_block_kernel(state, nblocks[i], WAVELET,
+                                                      levels=LEVELS))
+        total["modwt_denoise_stream"] += got.get("modwt_denoise", 0)
+        outs.append(out)
+        plain_state, p_out = st.streaming_denoise_block_kernel(
+            plain_state, nblocks[i], WAVELET, levels=LEVELS, backend="torch")
+        plain.append(p_out)
+    err = max(max_err(a, b) for a, b in zip(outs, plain))
+    check(torch.equal(state.noise_window, plain_state.noise_window) and err <= TOL_F32,
+          f"streaming denoise {shape}: kernel vs plain version {err:.3e} <= {TOL_F32:.0e}, "
+          "noise windows equal")
+    den = torch.cat(outs, -1)
+    check(den.shape == noisy.shape and bool(torch.isfinite(den).all()),
+          f"streaming denoise output finite, shape {tuple(den.shape)}")
+    (m_state, m_out), got = counted(
+        f"streaming_denoise_blocks_kernel K={STREAM_NBLK}", {"modwt_denoise": 1},
+        lambda: st.streaming_denoise_blocks_kernel(state0, nblocks, WAVELET, levels=LEVELS))
+    total["modwt_denoise_stream"] += got.get("modwt_denoise", 0)
+    gap = max_err(m_out, torch.stack(outs))
+    check(torch.equal(m_out, torch.stack(outs)) and torch.equal(m_state.history, state.history)
+          and torch.equal(m_state.noise_window, state.noise_window),
+          f"multiblock K={STREAM_NBLK} equals {STREAM_NBLK} single steps bit for bit "
+          f"(max gap {gap:.3e})")
+    d = st.StreamingDenoiser(WAVELET, implementation="quality")
+    check(d.backend == "kernel", "StreamingDenoiser under auto: the kernel tier")
+    y, _ = counted("StreamingDenoiser.denoise 8192", {"modwt_denoise": 1},
+                   lambda: d.denoise(noisy[0, :STREAM_BLK]))
+    check(y.shape == (STREAM_BLK,) and y.device == dev, "StreamingDenoiser output on the card")
+    del outs, plain, m_out
+
+    stream = torch.randn(SLIDE_BUFFER * 8, device=dev, generator=gen)
+    slide = st.SlidingStreamingTransform(WAVELET, buffer_size=SLIDE_BUFFER)
+    windows, _ = counted(f"SlidingStreamingTransform {SLIDE_BUFFER} (plain path)", {},
+                         lambda: slide.process(stream))
+    step = slide.step
+    err = max(max_err(torch.stack(list(w)), torch.stack(list(vt.modwt(
+        stream[i * step:i * step + SLIDE_BUFFER], WAVELET)))) for i, w in enumerate(windows))
+    check(len(windows) == 1 + (stream.numel() - SLIDE_BUFFER) // step and err == 0.0,
+          f"sliding windows: {len(windows)}, vs the direct transform {err:.3e}")
+
+    check(native.native_available(), "the C++ ring buffer builds and loads")
+    ingest = st.StreamIngest(WAVELET, buffer_size=SLIDE_BUFFER, levels=INGEST_LEVELS,
+                             capacity=1 << 16)
+    check(ingest.step == 407 and ingest.ring.backend == "native",
+          f"StreamIngest hop {ingest.step} on the {ingest.ring.backend} ring")
+    ticks = stream.cpu().numpy()
+    ingest.push(ticks)
+    out, _ = counted("StreamIngest.drain (plain path)", {}, ingest.drain)
+    ref = st.SlidingStreamingTransform(WAVELET, buffer_size=SLIDE_BUFFER,
+                                       levels=INGEST_LEVELS).process(stream)
+    err = max(max_err(out.approx[i], r.approx) for i, r in enumerate(ref))
+    check(out.approx.shape[0] == len(ref) and out.approx.device == dev and err == 0.0,
+          f"StreamIngest: {out.approx.shape[0]} windows on {out.approx.device} vs the "
+          f"sliding transform {err:.3e}")
+    print(f"  launches during the streaming path: {total}", flush=True)
+    for k, v in total.items():
+        check(v > 0, f"{k} launched {v} times")
+    return total
+
+
+def streaming_timing(dev, gen):
+    """Phase 4 for the streaming modes and the entry points above them.
+    Returns ({row: (ms, plain ms, library ms)}, {row: (bound ms, by)})."""
+    import numpy as np
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import native
+    from vectorwave_tpu_torch import streaming as st
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+    w = vt.wavelet(WAVELET)
+    fd, fr = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+    span = mc.composite_halo_samples(w.filter_length, LEVELS)
+    x = torch.randn(BATCH, N, device=dev, generator=gen)
+    halo = torch.randn(BATCH, span, device=dev, generator=gen)
+    th = torch.full((BATCH, LEVELS), 0.1, device=dev)
+    bank = composite_bank(fd, LEVELS, dev, torch.float32)
+    hx = torch.cat([halo, x], -1)[:, None].contiguous()
+    lib_err = max_err(F.conv1d(hx, bank[:, None])[:, -1],
+                      mc.analysis(x, LEVELS, fd, False, halo=halo)[-1])
+    check(lib_err <= 1e-4, f"F.conv1d on [halo | x] computes the external edge ({lib_err:.3e})")
+    samples, taps = BATCH * N, w.filter_length
+    rows = {
+        "modwt_analysis_external": (
+            lambda: mc.analysis(x, LEVELS, fd, False, halo=halo),
+            lambda: mc.analysis_plain(x, LEVELS, fd, False, halo=halo),
+            lambda: F.conv1d(hx, bank[:, None]),
+            # x and the halo in, J + 1 planes out; 2 L J FMAs a sample
+            4 * (samples + BATCH * span) + 4 * (LEVELS + 1) * samples,
+            2 * taps * LEVELS * samples),
+        "modwt_denoise_stream": (
+            lambda: mc.denoise(x, th, LEVELS, fd, fr, False, "soft", halo=halo),
+            lambda: mc.denoise_plain(x, th, LEVELS, fd, fr, False, "soft", halo=halo),
+            None,
+            # x, the halo and the thresholds in, x_hat out; 4 L J FMAs a sample
+            4 * (2 * samples + BATCH * span + BATCH * LEVELS),
+            4 * taps * LEVELS * samples),
+    }
+    ms_of, bound = {}, {}
+    for name, (kernel, plain, library_call, nbytes, fmas) in rows.items():
+        ms_of[name] = (median_ms(kernel), median_ms(plain),
+                       None if library_call is None else median_ms(library_call))
+        t_bytes, t_ops = nbytes / HBM_BPS * 1e3, 2 * fmas / FP32_FLOPS * 1e3
+        bound[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        k_ms, p_ms, l_ms = ms_of[name]
+        print(f"  {name} {BATCH}x{N}, halo {span}: kernel {k_ms:.4f} ms "
+              f"({samples / k_ms / 1e3:.1f} Msamples/s), plain {p_ms:.4f} ms, library "
+              f"{'-' if l_ms is None else f'{l_ms:.4f} ms'}, bound {bound[name][0]:.4f} ms "
+              f"({bound[name][1]}; {100 * bound[name][0] / k_ms:.1f}% of it)", flush=True)
+    del x, halo, hx
+
+    sx = torch.randn(STREAM_B, STREAM_NBLK * STREAM_BLK, device=dev, generator=gen)
+    blocks = sx.reshape(STREAM_B, STREAM_NBLK, STREAM_BLK).transpose(0, 1).contiguous()
+    stream_samples = sx.numel()
+
+    def stream_row(boundary):
+        state = st.kernel_streaming_init(WAVELET, LEVELS, batch_shape=(STREAM_B,))
+        for i in range(STREAM_NBLK):
+            state, res = st.modwt_stream_block_kernel(state, blocks[i], WAVELET,
+                                                      levels=LEVELS, boundary=boundary)
+        return res
+
+    def denoise_row():
+        state = st.kernel_streaming_denoiser_init(WAVELET, levels=LEVELS,
+                                                  batch_shape=(STREAM_B,))
+        for i in range(STREAM_NBLK):
+            state, out = st.streaming_denoise_block_kernel(state, blocks[i], WAVELET,
+                                                           levels=LEVELS)
+        return out
+
+    def multiblock_row():
+        state = st.kernel_streaming_denoiser_init(WAVELET, levels=LEVELS,
+                                                  batch_shape=(STREAM_B,))
+        return st.streaming_denoise_blocks_kernel(state, blocks, WAVELET, levels=LEVELS)
+
+    shape = f"{STREAM_B} streams x {STREAM_NBLK} x {STREAM_BLK}"
+    for label, fn in (
+        (f"block streaming zero {shape} (8 launches)", lambda: stream_row("zero")),
+        (f"block streaming symmetric {shape}", lambda: stream_row("symmetric")),
+        (f"streaming denoise {shape}, one step a block", denoise_row),
+        (f"streaming denoise {shape}, K={STREAM_NBLK} in one launch", multiblock_row),
+    ):
+        t_ms = median_ms(fn, 2, 10)
+        print(f"  {label}: {t_ms:.4f} ms ({stream_samples / t_ms / 1e3:.1f} Msamples/s)",
+              flush=True)
+
+    slide = st.SlidingStreamingTransform(WAVELET, buffer_size=SLIDE_BUFFER)
+    feed = torch.randn(SLIDE_BUFFER + 200 * slide.step, device=dev, generator=gen)
+    slide.process(feed[:SLIDE_BUFFER])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(200):
+        slide.process(feed[SLIDE_BUFFER + i * slide.step:SLIDE_BUFFER + (i + 1) * slide.step])
+    torch.cuda.synchronize()
+    per_window = (time.perf_counter() - t0) / 200
+    print(f"  sliding window {SLIDE_BUFFER} db4 (step {slide.step}): "
+          f"{per_window * 1e3:.4f} ms a window, {per_window / slide.step * 1e6:.4f} us a "
+          "sample (host clock)", flush=True)
+
+    chunk = np.random.default_rng(SEED).standard_normal((4096, 1)).astype(np.float32)
+    nticks = 1 << 22
+    for backend in ("native", "python"):
+        rb = native.RingBuffer(1 << 16, backend=backend)
+        pushed = 0
+        t0 = time.perf_counter()
+        while pushed < nticks:
+            pushed += rb.push(chunk)
+            while rb.available >= SLIDE_BUFFER:
+                if not rb.pop_frames(SLIDE_BUFFER, 407, max_frames=8).size:
+                    break
+        dt = time.perf_counter() - t0
+        rb.close()
+        print(f"  ring buffer push + pop_frames({SLIDE_BUFFER}, 407), {backend}: "
+              f"{pushed / dt / 1e6:.1f} Mticks/s (host clock)", flush=True)
+    ingest = st.StreamIngest(WAVELET, buffer_size=SLIDE_BUFFER, levels=INGEST_LEVELS,
+                             capacity=1 << 16)
+    pushed, frames = 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while pushed < nticks:
+        pushed += ingest.push(chunk)
+        out = ingest.drain()
+        frames += 0 if out is None else out.approx.shape[0]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"  StreamIngest push + drain, {INGEST_LEVELS} levels, {frames} windows: "
+          f"{pushed / dt / 1e6:.2f} Mticks/s (host clock, transforms on the card)",
+          flush=True)
+    return ms_of, bound
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a "
@@ -894,6 +1245,7 @@ def main() -> int:
         del xi, planes
 
     bank_kernels_against_plain(dev, gen, worst, worst_bf16)
+    stream_kernels_against_plain(dev, gen, worst, worst_bf16)
 
     print(f"phase 3: main path through the public entry points, "
           f"{BATCH}x{N} float32", flush=True)
@@ -1204,6 +1556,10 @@ def main() -> int:
           "float32", flush=True)
     launches.update(packet_path(dev, gen))
 
+    print(f"  the streaming path, {STREAM_B} streams x {STREAM_NBLK} blocks x {STREAM_BLK} "
+          "float32", flush=True)
+    launches.update(streaming_path(dev, gen))
+
     print("phase 4: timing (CUDA events, 3 warm-ups, median of 20)", flush=True)
     print(smi, flush=True)
     samples = BATCH * N
@@ -1412,6 +1768,9 @@ def main() -> int:
     bank_ms, bank_bound, bank_cases = bank_timing(dev, gen)
     ms_of.update(bank_ms)
     bound.update(bank_bound)
+    stream_ms, stream_bound = streaming_timing(dev, gen)
+    ms_of.update(stream_ms)
+    bound.update(stream_bound)
 
     report = {"kernels": [
         {

@@ -19,7 +19,11 @@ kernels against their plain versions 2e-5; the fused denoise's threshold
 gradient, a sum over 8192 samples, 1e-3 of its largest value; the
 filter-bank pair against its plain versions 2e-5 (the synthesis, a sum over
 P planes, P times that), and the packet and dual-tree routes against the
-plain route 2e-5 and 3e-5.
+plain route 2e-5 and 3e-5; the analysis kernel's external edge and the
+denoise kernel's stream mode against their plain versions 2e-5 (one
+bfloat16 ulp in bfloat16), the streaming tier's block outputs against the
+whole-signal plain cascade 2e-5, and the multiblock denoise against its
+single steps bit for bit.
 """
 
 import pytest
@@ -618,3 +622,136 @@ def test_float64_and_symmetric_packets_take_the_plain_cascade_on_the_card(cuda):
     assert not any(mc.LAUNCHES.values())
     got = vt.denoise_packet(x, "db4", 2)
     assert mc.LAUNCHES["modwt_bank_analysis"] == 2 and got.device == x.device
+
+
+# --- the streaming tier: the external edge and the stream mode ----------------------
+
+STREAM_CASES = [("db4", 6, 4, 8192, 441), ("db4", 6, 3, 5000, 100), ("db4", 6, 2, 300, 441),
+                ("sym8", 4, 3, 5000, 700), ("db36", 8, 2, 16384, 8925)]
+
+
+@pytest.mark.parametrize("name,levels,b,n,h", STREAM_CASES)
+def test_external_edge_and_stream_mode_match_plain(cuda, name, levels, b, n, h):
+    """Halos shorter than, equal to and longer than the span; a block
+    shorter than the span; db36 J=8, whose span outlasts the tile."""
+    w = vt.wavelet(name)
+    fd, fr = _kernel_filters(w, False), _kernel_filters(w, True)
+    x, halo = _input(cuda, b, n, torch.float32, seed=30), _input(cuda, b, h, torch.float32, 31)
+    got = mc.analysis(x, levels, fd, False, halo=halo)
+    want = mc.analysis_plain(x, levels, fd, False, halo=halo)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= TOL_F32
+    th = gap_thresholds(mc._external_cascade(x, halo, levels, fd), levels)
+    if mc.denoise_tile(w.filter_length, levels) is None:
+        with pytest.raises(InvalidArgumentError):
+            mc.denoise(x, th, levels, fd, fr, False, "soft", halo=halo)
+        return
+    for mode in ("none", "soft", "hard"):
+        got = mc.denoise(x, th, levels, fd, fr, False, mode, halo=halo)
+        want = mc.denoise_plain(x, th, levels, fd, fr, False, mode, halo=halo)
+        torch.cuda.synchronize()
+        assert _err((got,), (want,)) <= TOL_F32
+
+
+def test_external_edge_bfloat16_and_with_the_head_splice(cuda, filters):
+    fd, _ = filters
+    x = _input(cuda, 3, 5000, torch.bfloat16, seed=32)
+    halo = _input(cuda, 3, 441, torch.bfloat16, seed=33)
+    want = mc.analysis_plain(x, LEVELS, fd, False, halo=halo)
+    got = mc.analysis(x, LEVELS, fd, False, halo=halo)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= _tol(torch.bfloat16, want)
+    xf, hf = x.float(), halo.float()
+    head = torch.stack(ms._symmetric_cascade(xf[:, :441], fd, LEVELS)).contiguous()
+    got = mc.analysis(xf, LEVELS, fd, False, head=head, halo=hf)
+    want = mc.analysis_plain(xf, LEVELS, fd, False, head=head, halo=hf)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= TOL_F32
+
+
+def test_stream_wrappers_refuse_what_the_kernels_do_not_take(cuda, filters):
+    fd, fr = filters
+    x = _input(cuda, 2, 1024, torch.float32)
+    with pytest.raises(InvalidArgumentError, match="dtype"):
+        mc.analysis(x, 3, fd, False, halo=_input(cuda, 2, 49, torch.bfloat16))
+    with pytest.raises(InvalidArgumentError, match="periodic"):
+        mc.analysis(x, 3, fd, True, halo=_input(cuda, 2, 49, torch.float32))
+    with pytest.raises(InvalidArgumentError):
+        mc.launch_analysis(x, 3, fd, "external", "modwt_analysis")  # no halo
+    with pytest.raises(InvalidArgumentError, match="periodic"):
+        mc.denoise(x, torch.zeros(2, 3, device=cuda), 3, fd, fr, True, "soft",
+                   halo=_input(cuda, 2, 49, torch.float32))
+
+
+def test_streaming_paths_launch_one_kernel_per_block(cuda):
+    from vectorwave_tpu_torch import streaming as st
+
+    blocks = _input(cuda, 4, 4 * 2048, torch.float32, seed=34).reshape(4, 4, 2048)
+    blocks = blocks.transpose(0, 1).contiguous()  # [K, B, block]
+    whole = {b: vt.modwt_multilevel(blocks.transpose(0, 1).reshape(4, -1), "db4",
+                                    levels=LEVELS, boundary=b, backend="torch")
+             for b in ("zero", "symmetric")}
+    for boundary in ("zero", "symmetric", "periodic"):
+        t = st.StreamingTransform("db4", levels=LEVELS, boundary=boundary,
+                                  batch_shape=(4,))
+        assert t.backend == "kernel"
+        outs = []
+        for i in range(4):
+            mc.reset_launches()
+            outs.append(t.process(blocks[i]))
+            torch.cuda.synchronize()
+            assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_analysis": 1}
+        if boundary != "periodic":
+            got = torch.cat([o.approx for o in outs], -1)
+            assert float((got - whole[boundary].approx).abs().max()) <= TOL_F32
+    state = st.kernel_streaming_denoiser_init("db4", levels=LEVELS, batch_shape=(4,))
+    st_s, outs = state, []
+    for i in range(4):
+        mc.reset_launches()
+        st_s, o = st.streaming_denoise_block_kernel(st_s, blocks[i], "db4", levels=LEVELS)
+        outs.append(o)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_denoise": 1}
+    mc.reset_launches()
+    st_m, out_m = st.streaming_denoise_blocks_kernel(state, blocks, "db4", levels=LEVELS)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_denoise": 1}
+    assert torch.equal(torch.stack(outs), out_m)
+    assert torch.equal(st_s.noise_window, st_m.noise_window)
+    _, o_p = st.streaming_denoise_block_kernel(state, blocks[0], "db4", levels=LEVELS,
+                                               backend="torch")
+    assert float((o_p - outs[0]).abs().max()) <= TOL_F32
+
+
+def test_streaming_gates_on_the_card(cuda):
+    """Under auto a shape the kernels cannot serve takes the plain version
+    before any launch; with backend='kernel' it raises."""
+    from vectorwave_tpu_torch import streaming as st
+
+    w = vt.wavelet("db38")
+    assert mc.analysis_tile(w.filter_length, 10) is None
+    state = st.kernel_streaming_init(w, 10, batch_shape=(1,))
+    x = _input(cuda, 1, 4096, torch.float32, seed=35)
+    mc.reset_launches()
+    _, res = st.modwt_stream_block_kernel(state, x, w, levels=10)
+    assert not any(mc.LAUNCHES.values()) and res.approx.device == x.device
+    with pytest.raises(InvalidArgumentError):
+        st.modwt_stream_block_kernel(state, x, w, levels=10, backend="kernel")
+    s64 = st.kernel_streaming_init("db4", 3, batch_shape=(1,), dtype=torch.float64)
+    st.modwt_stream_block_kernel(s64, x.double(), "db4", levels=3)
+    assert not any(mc.LAUNCHES.values())
+    with pytest.raises(InvalidArgumentError):
+        st.modwt_stream_block_kernel(s64, x.double(), "db4", levels=3, backend="kernel")
+    d_state = st.kernel_streaming_denoiser_init("db20", levels=8, batch_shape=(1,))
+    assert mc.denoise_tile(40, 8) is None
+    st.streaming_denoise_block_kernel(d_state, x, "db20", levels=8)
+    assert not any(mc.LAUNCHES.values())
+    with pytest.raises(InvalidArgumentError):
+        st.streaming_denoise_block_kernel(d_state, x, "db20", levels=8, backend="kernel")
+    sym = st.kernel_streaming_init("db4", LEVELS, batch_shape=(1,))
+    with pytest.raises(InvalidArgumentError, match="first block"):
+        st.modwt_stream_block_kernel(sym, x[:, :440], "db4", levels=LEVELS,
+                                     boundary="symmetric")
+    mc.reset_launches()
+    st.modwt_stream_block_kernel(sym, x[:, :441], "db4", levels=LEVELS, boundary="symmetric")
+    assert mc.LAUNCHES["modwt_analysis"] == 1

@@ -23,7 +23,14 @@ and dual-tree family (sym8, float32, 64 x 16384 and 128 x 65536) ``modwpt``
 -> ``imodwpt`` at depth 4 and ``dtcwt`` -> ``idtcwt`` at 5 levels under each
 backend (``kernel``: the whole tree in one bank launch; ``auto``: the route
 the package chooses; ``torch``: the plain cascade), and ``denoise_packet``
-and ``dtcwt_denoise`` at 8 x 16384.  Exits non-zero without a CUDA device.
+and ``dtcwt_denoise`` at 8 x 16384, and the two streaming rows (db4, 6
+levels, 128 streams x 8 blocks x 8192 float32): block streaming with the
+zero and the symmetric boundary, one ``modwt_stream_block_kernel`` step a
+block, and the streaming denoiser, one ``streaming_denoise_block_kernel``
+step a block and ``streaming_denoise_blocks_kernel`` with the 8 blocks in
+one launch.  For the streaming rows it also prints the host side: the self
+CPU time of the traced ops per call and the ops that take the most (the
+trace's own cost included).  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import streaming as st
     from vectorwave_tpu_torch.kernels import modwt_cascade as mx
     from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
 
@@ -113,6 +121,29 @@ def main() -> int:
     calls["denoise_packet sym8 depth 4 8x16384"] = lambda: vt.denoise_packet(x8, "sym8", 4)
     calls["dtcwt_denoise sym8 5 levels 8x16384"] = lambda: vt.dtcwt_denoise(
         x8, "sym8", levels=5)
+    blocks = x[:, :8 * 8192].reshape(128, 8, 8192).transpose(0, 1).contiguous()
+
+    def stream_row(boundary):
+        state = st.kernel_streaming_init("db4", 6, batch_shape=(128,))
+        for blk in blocks:
+            state, res = st.modwt_stream_block_kernel(state, blk, "db4", levels=6,
+                                                      boundary=boundary)
+        return res
+
+    def denoise_row(multiblock):
+        state = st.kernel_streaming_denoiser_init("db4", levels=6, batch_shape=(128,))
+        if multiblock:
+            return st.streaming_denoise_blocks_kernel(state, blocks, "db4", levels=6)
+        for blk in blocks:
+            state, out = st.streaming_denoise_block_kernel(state, blk, "db4", levels=6)
+        return out
+
+    stream = "128 streams x 8 x 8192 db4 J=6"
+    for boundary in ("zero", "symmetric"):
+        calls[f"block streaming {boundary} {stream}, a step a block"] = (
+            lambda boundary=boundary: stream_row(boundary))
+    calls[f"streaming denoise {stream}, a step a block"] = lambda: denoise_row(False)
+    calls[f"streaming denoise {stream}, 8 blocks a launch"] = lambda: denoise_row(True)
     for label, fn in calls.items():
         for _ in range(3):
             fn()
@@ -123,9 +154,11 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / REPS
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             for _ in range(REPS):
                 fn()
             torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3 / REPS
         # device-side events only: the CPU op that launched a kernel reports
         # the same time as its own device time
         kernels = [e for e in prof.key_averages()
@@ -137,6 +170,18 @@ def main() -> int:
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
             print(f"    {e.self_device_time_total / 1e3 / REPS:8.4f} ms "
                   f"x{e.count // REPS:<3d} {e.key[:90]}")
+        if "stream" in label:
+            # where the host time goes: the self CPU time of the traced ops
+            # (aten ops, CUDA runtime calls) per call, and what is left of
+            # the traced wall time, the Python between them
+            ops = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+            op_ms = sum(e.self_cpu_time_total for e in ops) / 1e3 / REPS
+            print(f"    host: {op_ms:.4f} ms self CPU in {sum(e.count for e in ops) / REPS:.0f} "
+                  f"traced ops per call (traced wall {traced_ms:.4f} ms)")
+            for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]:
+                print(f"    {e.self_cpu_time_total / 1e3 / REPS:8.4f} ms host "
+                      f"x{e.count // REPS:<4d} {e.key[:80]}")
     return 0
 
 

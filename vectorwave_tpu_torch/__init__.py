@@ -8,9 +8,12 @@ denoising (the fused denoise differentiable on the card), the exact
 precision tier (double-float planes, round trips within 1e-10), the 2-D
 family (MODWT2, DWT2, ``denoise2`` and the 2-D SWT), wavelet packets (WPT,
 MODWPT, best basis, ``denoise_packet``) and the dual-tree complex wavelet
-transform (``dtcwt``, ``dtcwt_denoise``), and the kernel tier behind them:
-ten hand-written CUDA kernels for Hopper (multi-level analysis with an
-optional head splice, synthesis, fused denoise, the symmetric synthesis with
+transform (``dtcwt``, ``dtcwt_denoise``), streaming (block streaming with
+carried state, sliding windows, ring-buffer ingest through a native C++
+ring, the streaming denoiser; ``streaming``, ``native``), and the kernel
+tier behind them: ten hand-written CUDA kernels for Hopper (multi-level
+analysis with an optional head splice and an external left halo,
+synthesis, fused denoise with a stream mode, the symmetric synthesis with
 its adjoint, the 2-D analysis and synthesis levels and the general filter
 bank's analysis and synthesis, in fp32; exact analysis and synthesis in
 fp64) with their plain PyTorch versions.
@@ -21,7 +24,7 @@ is the input's (``[..., H, W]`` for the 2-D family).  Only what is ported
 is exported.
 """
 
-from . import config, convert, errors, kernels
+from . import config, convert, errors, kernels, native, streaming
 from .config import (
     get_backend,
     get_fused_precision,
@@ -235,6 +238,7 @@ __all__ = [
     "modwt_roundtrip_fused",
     "mra",
     "mra2",
+    "native",
     "packet_frequency_bands",
     "pad_signal",
     "recommended_transform",
@@ -247,6 +251,7 @@ __all__ = [
     "set_sigma_estimator",
     "soft_threshold",
     "supported_transforms",
+    "streaming",
     "sure_threshold",
     "swt",
     "swt2",

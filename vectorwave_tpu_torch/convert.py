@@ -3,8 +3,9 @@
 The two packages share no code, so these helpers take plain numpy arrays:
 a filter bank exported from a ``vectorwave_tpu`` wavelet, a threshold
 array, the planes of an exact-tier result, the bands of a 2-D MODWT
-result, the levels of a packet tree or the coefficients of a DTCWT result
-becomes the port's object.
+result, the levels of a packet tree, the coefficients of a DTCWT result or
+one of the four streaming states becomes the port's object (a stream
+checkpointed in JAX resumes in the port).
 The parity tests use them so that both packages filter with identical taps
 and each package's inverse can read the other's planes.
 """
@@ -185,4 +186,74 @@ def dtcwt_result_from_arrays(highpasses, lowpass_a, lowpass_b, device="cuda"):
     return DTCWTResult(
         tuple(torch.from_numpy(z).to(dev) for z in highs),
         torch.from_numpy(low_a).to(dev), torch.from_numpy(low_b).to(dev),
+    )
+
+
+# --- streaming states -----------------------------------------------------------
+
+
+def _state_tensor(a, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _count(a) -> int:
+    """A JAX state's device scalar (a counter) as the port's Python int."""
+    arr = np.asarray(a)
+    if arr.shape != ():
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE, "a state counter must be a scalar",
+            context={"shape": arr.shape},
+        )
+    return int(arr)
+
+
+def streaming_state_from_arrays(histories, blocks_processed, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.streaming.StreamingState` from the
+    fields of a ``vectorwave_tpu`` ``StreamingState`` as arrays: the
+    per-level histories and the block counter, on ``device`` (default: the
+    card; pass ``device="cpu"`` for the CPU).  Without a card the default
+    raises."""
+    from .streaming.stream import StreamingState
+
+    dev = _device(device)
+    return StreamingState(tuple(_state_tensor(h, dev) for h in histories),
+                          _count(blocks_processed))
+
+
+def kernel_streaming_state_from_arrays(history, blocks_processed, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.streaming.KernelStreamingState` from
+    the fields of a ``vectorwave_tpu`` ``KernelStreamingState`` as arrays
+    (the raw-input tail and the block counter), on ``device``."""
+    from .streaming.stream import KernelStreamingState
+
+    dev = _device(device)
+    return KernelStreamingState(_state_tensor(history, dev), _count(blocks_processed))
+
+
+def streaming_denoiser_state_from_arrays(histories, blocks_processed, noise_window,
+                                         window_pos, window_fill, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.streaming.StreamingDenoiserState` from
+    the fields of a ``vectorwave_tpu`` ``StreamingDenoiserState`` as arrays:
+    its transform's histories and block counter, the noise window and the
+    window's cursor and fill, on ``device``."""
+    from .streaming.denoiser_stream import StreamingDenoiserState
+
+    dev = _device(device)
+    return StreamingDenoiserState(
+        streaming_state_from_arrays(histories, blocks_processed, dev),
+        _state_tensor(noise_window, dev), _count(window_pos), _count(window_fill),
+    )
+
+
+def kernel_streaming_denoiser_state_from_arrays(history, noise_window, window_pos,
+                                                window_fill, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.streaming.KernelStreamingDenoiserState`
+    from the fields of a ``vectorwave_tpu`` ``KernelStreamingDenoiserState``
+    as arrays, on ``device``."""
+    from .streaming.denoiser_stream import KernelStreamingDenoiserState
+
+    dev = _device(device)
+    return KernelStreamingDenoiserState(
+        _state_tensor(history, dev), _state_tensor(noise_window, dev),
+        _count(window_pos), _count(window_fill),
     )

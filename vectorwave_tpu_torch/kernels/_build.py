@@ -106,17 +106,17 @@ def build() -> pathlib.Path:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, ptrs = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
     i64, i32 = ctypes.c_longlong, ctypes.c_int
-    # (x, outs, taps, head, head_samples, batch, n, levels, taps_len, tile,
-    #  edge, dtype, stream)
-    lib.vw_modwt_analysis.argtypes = [ptr, ptrs, ptr, ptr, i32, i64, i64, i32, i32,
-                                      i32, i32, i32, ptr]
+    # (x, outs, taps, head, head_samples, halo, halo_len, batch, n, levels,
+    #  taps_len, tile, edge, dtype, stream)
+    lib.vw_modwt_analysis.argtypes = [ptr, ptrs, ptr, ptr, i32, ptr, i32, i64, i64, i32,
+                                      i32, i32, i32, i32, ptr]
     # (ins, out, taps, batch, n, levels, taps_len, tile, periodic, dtype, stream)
     lib.vw_modwt_synthesis.argtypes = [ptrs, ptr, ptr, i64, i64, i32, i32, i32,
                                        i32, i32, ptr]
-    # (x, out, thresholds, taps, batch, n, levels, taps_len, tile, periodic,
-    #  mode, dtype, stream)
-    lib.vw_modwt_denoise.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32,
-                                     i32, i32, i32, ptr]
+    # (x, out, thresholds, taps, halo, halo_len, batch, n, levels, taps_len,
+    #  tile, periodic, mode, dtype, stream)
+    lib.vw_modwt_denoise.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, i64, i32, i32,
+                                     i32, i32, i32, i32, ptr]
     # (x_hi, x_lo, outs, taps, batch, n, first, levels, taps_len, tile,
     #  periodic, direct, stream)
     lib.vw_modwt_exact_analysis.argtypes = [ptr, ptr, ptrs, ptr, i64, i64, i32, i32,

@@ -26,7 +26,7 @@
 // bfloat16 the approximations stay fp32 between levels (the TPU cascade
 // rounds each to bf16).
 //
-// Edges (`edge`, CascadeEdge): zero, periodic, or mirror.  The mirror is the
+// Edges (`edge`, CascadeEdge): zero, periodic, mirror or external.  The mirror is the
 // symmetric analysis: before level j, the level's input at g in
 // [-(L-1) 2^(j-1), 0) is its own value at -1 - g (a half-point reflection at
 // the signal start; level 1 reflects x as the window loads).  That is exact
@@ -39,11 +39,23 @@
 // bookkeeping below assumes for zero and periodic edges; values it computes
 // before 0 are overwritten by the next reflection or never read.
 //
+// External edge (`edge="external"` of `_composite_analysis_call`, the
+// streaming tier's carry and the tiled tier's neighbour exchange): `halo`
+// holds each row's left neighbour, [batch, halo_len] in the input type, and
+// the window reads halo[halo_len + g] for g < 0 (0 before the halo) and 0
+// past n (load_halo).  The extended row is then a zero-edge row with the
+// halo in front, so the zero edge's validity bookkeeping holds unchanged: a
+// block whose window starts before 0 (t0 < S; with a span longer than the
+// tile, several blocks of a row) reads the halo as it loads its window, and
+// a halo shorter than S reads zeros before it, as the plain version, the
+// zero-edge cascade of [halo | x] sliced back to n, does.
+//
 // Head splice (`head_samples` of `_composite_analysis_call`): with a `head`
 // of [J+1, batch, head_samples] fp32 values, every plane's outputs at
 // positions < head_samples are stored from it instead of from the cascade.
-// The symmetric analysis used it before the mirror mode existed; the
-// streaming tier's symmetric first block is its next caller.  It is a
+// The streaming tier's symmetric first block calls it together with the
+// external edge: the head of the plain symmetric cascade of the block's
+// first S samples replaces the outputs the mirror reaches.  It is a
 // template flag (kSplice): a launch without a head runs a kernel whose
 // stores do not test for one.
 #include "modwt_common.cuh"
@@ -56,6 +68,7 @@ __global__ void __launch_bounds__(kThreads)
 modwt_analysis_kernel(const T* __restrict__ x, PlanePtrs out,
                       const float* __restrict__ taps,
                       const float* __restrict__ head, int head_samples,
+                      const T* __restrict__ halo, int halo_len,
                       long long n, int levels, int L, int tile,
                       int tiles_per_row, int edge) {
   extern __shared__ float smem[];
@@ -75,6 +88,7 @@ modwt_analysis_kernel(const T* __restrict__ x, PlanePtrs out,
   const long long head_plane = static_cast<long long>(gridDim.x / tiles_per_row) *
                                head_samples;
   const float* head_row = head == nullptr ? nullptr : head + b * head_samples;
+  const T* halo_row = halo == nullptr ? nullptr : halo + b * halo_len;
   const int head_end =
       kSplice ? static_cast<int>(min(static_cast<long long>(n_out),
                                      max(static_cast<long long>(head_samples) - t0, 0LL)))
@@ -89,7 +103,7 @@ modwt_analysis_kernel(const T* __restrict__ x, PlanePtrs out,
   const long long g0 = t0 - span;
   const int before = static_cast<int>(max(-g0, 0LL));
   for (int q = threadIdx.x; q < width; q += blockDim.x) {
-    cur[q] = load_edge(row, g0 + q, n, edge);
+    cur[q] = load_edge(row, halo_row, halo_len, g0 + q, n, edge);
   }
   __syncthreads();
 
@@ -143,8 +157,9 @@ inline size_t analysis_shared_bytes(int L, int levels, int tile) {
 template <typename T, bool kSplice>
 cudaError_t launch_analysis_kernel(const void* x, void* const* outs, const float* taps,
                                    const float* head, int head_samples,
-                                   long long batch, long long n, int levels, int L,
-                                   int tile, int edge, cudaStream_t stream) {
+                                   const void* halo, int halo_len, long long batch,
+                                   long long n, int levels, int L, int tile, int edge,
+                                   cudaStream_t stream) {
   PlanePtrs planes{};
   for (int i = 0; i <= levels; ++i) planes.p[i] = outs[i];
   const long long tiles = (n + tile - 1) / tile;
@@ -155,35 +170,43 @@ cudaError_t launch_analysis_kernel(const void* x, void* const* outs, const float
   if (err != cudaSuccess) return err;
   modwt_analysis_kernel<T, kSplice><<<static_cast<unsigned>(blocks), kThreads, bytes,
                                       stream>>>(
-      static_cast<const T*>(x), planes, taps, head, head_samples, n, levels, L,
-      tile, static_cast<int>(tiles), edge);
+      static_cast<const T*>(x), planes, taps, head, head_samples,
+      static_cast<const T*>(halo), halo_len, n, levels, L, tile,
+      static_cast<int>(tiles), edge);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_analysis(const void* x, void* const* outs, const float* taps,
-                            const float* head, int head_samples,
-                            long long batch, long long n, int levels, int L,
-                            int tile, int edge, cudaStream_t stream) {
+                            const float* head, int head_samples, const void* halo,
+                            int halo_len, long long batch, long long n, int levels,
+                            int L, int tile, int edge, cudaStream_t stream) {
   return head == nullptr
-             ? launch_analysis_kernel<T, false>(x, outs, taps, head, head_samples, batch,
-                                                n, levels, L, tile, edge, stream)
-             : launch_analysis_kernel<T, true>(x, outs, taps, head, head_samples, batch,
-                                               n, levels, L, tile, edge, stream);
+             ? launch_analysis_kernel<T, false>(x, outs, taps, head, head_samples, halo,
+                                                halo_len, batch, n, levels, L, tile,
+                                                edge, stream)
+             : launch_analysis_kernel<T, true>(x, outs, taps, head, head_samples, halo,
+                                               halo_len, batch, n, levels, L, tile, edge,
+                                               stream);
 }
 
 }  // namespace vw
 
 // head: null (no splice) or [levels + 1, batch, head_samples] fp32 values.
-// edge: vw::CascadeEdge; the mirror takes n and tile >= (L - 1) 2^(levels-1).
+// halo: [batch, halo_len] values of x's type, given with the external edge
+// only.  edge: vw::CascadeEdge; the mirror takes n and tile >=
+// (L - 1) 2^(levels-1).
 extern "C" int vw_modwt_analysis(const void* x, void* const* outs,
                                  const void* taps, const void* head,
-                                 int head_samples, long long batch, long long n,
-                                 int levels, int taps_len, int tile, int edge,
-                                 int dtype, void* stream) {
+                                 int head_samples, const void* halo, int halo_len,
+                                 long long batch, long long n, int levels,
+                                 int taps_len, int tile, int edge, int dtype,
+                                 void* stream) {
   if (!vw::valid_config(batch, n, levels, taps_len, tile) || head_samples < 0 ||
       (head == nullptr) != (head_samples == 0) || edge < vw::kCascadeZero ||
-      edge > vw::kCascadeMirror) {
+      edge > vw::kCascadeExternal ||
+      (edge == vw::kCascadeExternal) != (halo != nullptr) ||
+      (halo == nullptr) != (halo_len == 0) || halo_len < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (edge == vw::kCascadeMirror) {
@@ -195,11 +218,12 @@ extern "C" int vw_modwt_analysis(const void* x, void* const* outs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == vw::kFloat32) {
-    err = vw::launch_analysis<float>(x, outs, t, h, head_samples, batch, n, levels,
-                                     taps_len, tile, edge, s);
+    err = vw::launch_analysis<float>(x, outs, t, h, head_samples, halo, halo_len,
+                                     batch, n, levels, taps_len, tile, edge, s);
   } else if (dtype == vw::kBFloat16) {
-    err = vw::launch_analysis<__nv_bfloat16>(x, outs, t, h, head_samples, batch, n,
-                                             levels, taps_len, tile, edge, s);
+    err = vw::launch_analysis<__nv_bfloat16>(x, outs, t, h, head_samples, halo,
+                                             halo_len, batch, n, levels, taps_len,
+                                             tile, edge, s);
   } else {
     err = cudaErrorInvalidValue;
   }

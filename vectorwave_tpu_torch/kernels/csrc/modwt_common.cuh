@@ -11,7 +11,8 @@
 //     pair followed by the synthesis pair);
 //   * the signal is extended past [0, n) either periodically (index taken
 //     modulo n, so n may be shorter than the cascade span) or with zeros;
-//     the analysis kernel also takes the per-level mirror (CascadeEdge);
+//     the analysis kernel also takes the per-level mirror and an external
+//     left halo (CascadeEdge), the denoise kernel the external halo;
 //   * one block serves one (signal, tile of `tile` outputs); the grid is
 //     flattened to blockIdx.x = signal * tiles_per_row + tile_index, so the
 //     batch is not bounded by gridDim.y;
@@ -70,17 +71,40 @@ __device__ __forceinline__ float load_ext(const T* __restrict__ row,
   return (g >= 0 && g < n) ? to_f32(row[g]) : 0.0f;
 }
 
-// Left edges of the analysis cascade: zero, periodic, or the per-level
-// half-point mirror at the signal start (the symmetric analysis).
-enum CascadeEdge : int { kCascadeZero = 0, kCascadePeriodic = 1, kCascadeMirror = 2 };
+// Sample g of a row whose left neighbour's last `halo_len` samples are
+// `halo` (the external edge): g < 0 reads halo[halo_len + g], and 0 before
+// the halo starts; g >= n reads 0.  A halo longer than a kernel's span is
+// read only in its last span samples.
+template <typename T>
+__device__ __forceinline__ float load_halo(const T* __restrict__ row,
+                                           const T* __restrict__ halo, int halo_len,
+                                           long long g, long long n) {
+  if (g < 0) {
+    const long long h = halo_len + g;
+    return h >= 0 ? to_f32(halo[h]) : 0.0f;
+  }
+  return g < n ? to_f32(row[g]) : 0.0f;
+}
+
+// Left edges of the analysis cascade: zero, periodic, the per-level
+// half-point mirror at the signal start (the symmetric analysis), or an
+// external halo (the streaming tier's carry).
+enum CascadeEdge : int {
+  kCascadeZero = 0,
+  kCascadePeriodic = 1,
+  kCascadeMirror = 2,
+  kCascadeExternal = 3
+};
 
 // Sample g of the row extended by `edge`: as load_ext for zero and periodic;
 // the mirror reads row[-1 - g] for g < 0, and 0 where that, or g, lies
-// past n.
+// past n; the external edge is load_halo.
 template <typename T>
-__device__ __forceinline__ float load_edge(const T* __restrict__ row, long long g,
-                                           long long n, int edge) {
+__device__ __forceinline__ float load_edge(const T* __restrict__ row,
+                                           const T* __restrict__ halo, int halo_len,
+                                           long long g, long long n, int edge) {
   if (edge == kCascadePeriodic) return load_ext(row, g, n, true);
+  if (edge == kCascadeExternal) return load_halo(row, halo, halo_len, g, n);
   if (edge == kCascadeMirror && g < 0) g = -1 - g;
   return load_ext(row, g, n, false);
 }

@@ -7,7 +7,9 @@
 // memory sees only x in and x_hat out.  Mode "none" makes it the one-pass
 // round trip (`modwt_roundtrip_fused`).  Here both halves are the per-level
 // a trous cascades of modwt_analysis.cu and modwt_synthesis.cu:
-//   * the block loads x over [t0 - S, t0 + tile + S) with S = (L-1)(2^J-1);
+//   * the block loads x over [t0 - S, t0 + tile + S) with S = (L-1)(2^J-1)
+//     (wrapped, zero-extended, or in stream mode read from the halo left of
+//     0, below);
 //   * analysis runs over the whole window and keeps d_1..d_J (thresholded)
 //     and a_J for the plane window [t0, t0 + tile + S);
 //   * soft is d - clamp(d, -t, t), hard keeps |d| > t, none passes d;
@@ -15,6 +17,16 @@
 //     before synthesis, because the inverse zero-extends the coefficients
 //     while the window's tail holds the analysis of zero-extended x;
 //   * synthesis runs from coarse to fine into [t0, t0 + tile).
+//
+// Stream mode (`run_denoise_composite_stream`, the streaming denoiser's
+// step): a zero boundary whose left side is an external halo, [batch,
+// halo_len] values of x's type holding the raw stream just before the
+// block.  The window reads halo[halo_len + g] for g < 0 (0 before the halo;
+// load_halo) and 0 past n; the plane samples past n are zeroed as on the
+// zero boundary, so the inverse is block-local with zero coefficients on
+// the right (the TPU kernel's `zero_tail`).  Synthesis reads only forward,
+// so the left needs no coefficient extension.  Nothing else changes: the
+// mode is a load rule.
 //
 // What bounds it on the H100: device-memory traffic is 8 B per sample for
 // float32, so the kernel is bound by shared-memory loads and fp32 throughput
@@ -39,7 +51,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 modwt_denoise_kernel(const T* __restrict__ x, T* __restrict__ out,
                      const float* __restrict__ thresholds,
-                     const float* __restrict__ taps, long long n, int levels,
+                     const float* __restrict__ taps, const T* __restrict__ halo,
+                     int halo_len, long long n, int levels,
                      int L, int tile, int tiles_per_row, int periodic,
                      int mode) {
   extern __shared__ float smem[];
@@ -68,8 +81,10 @@ modwt_denoise_kernel(const T* __restrict__ x, T* __restrict__ out,
     r_hi[k] = taps[3 * L + k];
   }
   const long long g0 = t0 - span;
+  const T* halo_row = halo == nullptr ? nullptr : halo + b * halo_len;
   for (int q = threadIdx.x; q < width; q += blockDim.x) {
-    cur[q] = load_ext(row, g0 + q, n, wrap);
+    cur[q] = halo_row == nullptr ? load_ext(row, g0 + q, n, wrap)
+                                 : load_halo(row, halo_row, halo_len, g0 + q, n);
   }
   __syncthreads();
 
@@ -145,7 +160,8 @@ inline size_t denoise_shared_bytes(int L, int levels, int tile) {
 
 template <typename T>
 cudaError_t launch_denoise(const void* x, void* out, const float* thresholds,
-                           const float* taps, long long batch, long long n,
+                           const float* taps, const void* halo, int halo_len,
+                           long long batch, long long n,
                            int levels, int L, int tile, int periodic, int mode,
                            cudaStream_t stream) {
   const long long tiles = (n + tile - 1) / tile;
@@ -155,19 +171,24 @@ cudaError_t launch_denoise(const void* x, void* out, const float* thresholds,
   cudaError_t err = reserve_shared(modwt_denoise_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
   modwt_denoise_kernel<T><<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), thresholds, taps, n, levels,
-      L, tile, static_cast<int>(tiles), periodic, mode);
+      static_cast<const T*>(x), static_cast<T*>(out), thresholds, taps,
+      static_cast<const T*>(halo), halo_len, n, levels, L, tile,
+      static_cast<int>(tiles), periodic, mode);
   return cudaGetLastError();
 }
 
 }  // namespace vw
 
+// halo: null, or in stream mode (periodic == 0) [batch, halo_len] values of
+// x's type, the raw samples left of each row.
 extern "C" int vw_modwt_denoise(const void* x, void* out, const void* thresholds,
-                                const void* taps, long long batch, long long n,
-                                int levels, int taps_len, int tile, int periodic,
-                                int mode, int dtype, void* stream) {
+                                const void* taps, const void* halo, int halo_len,
+                                long long batch, long long n, int levels,
+                                int taps_len, int tile, int periodic, int mode,
+                                int dtype, void* stream) {
   if (!vw::valid_config(batch, n, levels, taps_len, tile) || mode < vw::kNone ||
-      mode > vw::kHard) {
+      mode > vw::kHard || (halo == nullptr) != (halo_len == 0) || halo_len < 0 ||
+      (halo != nullptr && periodic != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* th = static_cast<const float*>(thresholds);
@@ -175,11 +196,11 @@ extern "C" int vw_modwt_denoise(const void* x, void* out, const void* thresholds
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == vw::kFloat32) {
-    err = vw::launch_denoise<float>(x, out, th, t, batch, n, levels, taps_len, tile,
-                                    periodic, mode, s);
+    err = vw::launch_denoise<float>(x, out, th, t, halo, halo_len, batch, n, levels,
+                                    taps_len, tile, periodic, mode, s);
   } else if (dtype == vw::kBFloat16) {
-    err = vw::launch_denoise<__nv_bfloat16>(x, out, th, t, batch, n, levels,
-                                            taps_len, tile, periodic, mode, s);
+    err = vw::launch_denoise<__nv_bfloat16>(x, out, th, t, halo, halo_len, batch, n,
+                                            levels, taps_len, tile, periodic, mode, s);
   } else {
     err = cudaErrorInvalidValue;
   }

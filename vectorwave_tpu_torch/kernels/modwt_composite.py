@@ -30,6 +30,15 @@ or raises.  Each launch adds one to its entry of :data:`LAUNCHES`, so a run
 can show that it went through the kernels; the 2-D level kernels of
 :mod:`.modwt2` and the cascade wrappers count there too.
 
+:func:`analysis` and :func:`denoise` take an external left ``halo``, ``[B,
+H]`` raw samples just before each row (the streaming tier's carry, the JAX
+package's ``run_analysis_composite(halo=)`` and
+``run_denoise_composite_stream``): the row is extended by the halo on the
+left, zeros before it, and zeros past N.  Their plain versions are the
+zero-boundary cascade of ``[halo | x]`` sliced back to N (the denoise's
+synthesis then block-local with zero coefficients past N).  Both modes count
+under the kernel's own entry of :data:`LAUNCHES`.
+
 ``filters`` arguments are ``(lo, hi)`` tuples of Python floats, already
 scaled by 1/sqrt(2) per stage (``modwt_fused._kernel_filters``).  The
 first three kernels and the symmetric pair compute in fp32 and store in the
@@ -84,8 +93,9 @@ SHARED_LIMIT = 232448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"none": 0, "soft": 1, "hard": 2}
 #: Left edges of the analysis kernel (``CascadeEdge`` in the CUDA source):
-#: zero, periodic, or the per-level mirror of the symmetric analysis.
-EDGES = {"zero": 0, "periodic": 1, "mirror": 2}
+#: zero, periodic, the per-level mirror of the symmetric analysis, or an
+#: external halo.
+EDGES = {"zero": 0, "periodic": 1, "mirror": 2, "external": 3}
 
 
 def reset_launches() -> None:
@@ -160,6 +170,12 @@ def denoise_shared_bytes(taps: int, levels: int, tile: int = DENOISE_TILE) -> in
     tile + 2 span and J plane rows of tile + span."""
     span = composite_halo_samples(taps, levels)
     return 4 * (4 * taps + 2 * (tile + 2 * span) + levels * (tile + span))
+
+
+def denoise_tile(taps: int, levels: int) -> int | None:
+    """The denoise kernel's tile: :data:`DENOISE_TILE` halved until one
+    block fits shared memory (None below 128)."""
+    return _fitting_tile(lambda t: denoise_shared_bytes(taps, levels, t), DENOISE_TILE)
 
 
 def exact_analysis_shared_bytes(taps: int, levels: int, tile: int = EXACT_TILE,
@@ -304,10 +320,24 @@ def _synthesis_cascade(planes, levels, filters, periodic, first_level=1) -> torc
     return cur
 
 
-def analysis_plain(x, levels, filters, periodic, head=None) -> tuple[torch.Tensor, ...]:
-    """Plain version of :func:`analysis`: the per-level cascade as rolled sums,
+def _external_cascade(x, halo, levels, filters) -> list[torch.Tensor]:
+    """The zero-boundary cascade of ``[halo | x]``, sliced back to x's N."""
+    h = halo.shape[-1]
+    planes = _analysis_cascade(torch.cat([halo.to(x.dtype), x], dim=-1), levels,
+                               filters, False)
+    return [p[..., h:] for p in planes]
+
+
+def analysis_plain(x, levels, filters, periodic, head=None, halo=None
+                   ) -> tuple[torch.Tensor, ...]:
+    """Plain version of :func:`analysis`: the per-level cascade as rolled sums
+    (of ``[halo | x]`` with a zero edge, sliced back to N, given a halo),
     with each plane's first ``head.shape[-1]`` outputs taken from ``head``."""
-    planes = _analysis_cascade(x, levels, filters, periodic)
+    if halo is not None:
+        _refuse_periodic_halo(periodic)
+        planes = _external_cascade(x, halo, levels, filters)
+    else:
+        planes = _analysis_cascade(x, levels, filters, periodic)
     if head is not None:
         cut = head.shape[-1]
         planes = [torch.cat([h.to(p.dtype), p[..., cut:]], dim=-1)
@@ -401,10 +431,16 @@ def _shrink(d: torch.Tensor, t: torch.Tensor, mode: str) -> torch.Tensor:
     return d
 
 
-def denoise_plain(x, thresholds, levels, filters_dec, filters_rec, periodic, mode):
-    """Plain version of :func:`denoise`: analysis, per-(signal, level)
-    threshold of the unrounded detail planes, synthesis."""
-    planes = _analysis_cascade(x, levels, filters_dec, periodic)
+def denoise_plain(x, thresholds, levels, filters_dec, filters_rec, periodic, mode,
+                  halo=None):
+    """Plain version of :func:`denoise`: analysis (of ``[halo | x]`` with a
+    zero edge, sliced back to N, given a halo), per-(signal, level) threshold
+    of the unrounded detail planes, synthesis on N samples."""
+    if halo is not None:
+        _refuse_periodic_halo(periodic)
+        planes = _external_cascade(x, halo, levels, filters_dec)
+    else:
+        planes = _analysis_cascade(x, levels, filters_dec, periodic)
     th = thresholds.to(planes[0].dtype)
     shrunk = [
         _shrink(planes[j], th[:, j : j + 1], mode) for j in range(levels)
@@ -472,6 +508,29 @@ def _check_dtype(t: torch.Tensor, what: str) -> int:
     return code
 
 
+def _refuse_periodic_halo(periodic: bool) -> None:
+    if periodic:
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            "an external halo is the row's left edge; it does not combine with a "
+            "periodic boundary",
+            suggestions=("Pass periodic=False with halo=",),
+        )
+
+
+def _check_halo(halo: torch.Tensor, x: torch.Tensor) -> int:
+    """Check a CUDA halo against x: a contiguous [batch, H] tensor, H >= 1,
+    on x's device and of x's dtype; returns H."""
+    _check_operand(halo, "halo", x.device)
+    if halo.dtype != x.dtype or halo.shape[0] != x.shape[0] or halo.shape[1] < 1:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            f"halo must be a [{x.shape[0]}, H >= 1] tensor of x's dtype {x.dtype}",
+            context={"shape": tuple(halo.shape), "dtype": halo.dtype},
+        )
+    return halo.shape[1]
+
+
 def _check_levels(levels: int) -> None:
     if not 1 <= levels <= 10:
         raise InvalidArgumentError(
@@ -494,24 +553,38 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def analysis(x, levels, filters, periodic, head=None) -> tuple[torch.Tensor, ...]:
+def analysis(x, levels, filters, periodic, head=None, halo=None
+             ) -> tuple[torch.Tensor, ...]:
     """[B, N] -> (d_1, ..., d_J, a_J); periodic or zero boundary, any N.
 
     ``head``, a float32 ``[J+1, B, H]`` tensor with H <= N, splices each
-    plane's first H outputs in the kernel."""
+    plane's first H outputs in the kernel.  ``halo``, ``[B, H]`` of x's
+    dtype, is the external left edge (``periodic`` must be False): the
+    kernel's ``external`` edge."""
     if x.device.type == "cpu":
-        return analysis_plain(x, levels, filters, periodic, head)
-    return launch_analysis(x, levels, filters, _boundary(periodic), "modwt_analysis",
-                           head=head)
+        return analysis_plain(x, levels, filters, periodic, head, halo)
+    if halo is not None:
+        _refuse_periodic_halo(periodic)
+    edge = _boundary(periodic) if halo is None else "external"
+    return launch_analysis(x, levels, filters, edge, "modwt_analysis", head=head,
+                           halo=halo)
 
 
-def launch_analysis(x, levels, filters, edge, counter, head=None):
+def launch_analysis(x, levels, filters, edge, counter, head=None, halo=None):
     """Launch the analysis kernel on a CUDA ``x`` with left edge ``edge``
     (:data:`EDGES`) at :func:`analysis_tile`, adding one to
-    ``LAUNCHES[counter]``; the mirror edge takes N >= :func:`mirror_reach`."""
+    ``LAUNCHES[counter]``; the mirror edge takes N >= :func:`mirror_reach`,
+    the external edge (and only it) a ``[B, H]`` ``halo`` of x's dtype."""
     _check_operand(x, "x")
     code = _check_dtype(x, "x")
     _check_levels(levels)
+    if edge not in EDGES or (edge == "external") != (halo is not None):
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            f"edge {edge!r}: the external edge, and only it, takes a halo",
+            suggestions=(f"Use one of {tuple(EDGES)}",),
+        )
+    halo_len = 0 if halo is None else _check_halo(halo, x)
     taps = len(filters[0])
     mirror = edge == "mirror"
     if mirror and x.shape[1] < mirror_reach(taps, levels):
@@ -545,7 +618,8 @@ def launch_analysis(x, levels, filters, edge, counter, head=None):
     with torch.cuda.device(x.device):
         err = lib.vw_modwt_analysis(
             x.data_ptr(), out_ptrs, tap_t.data_ptr(),
-            None if head is None else head.data_ptr(), head_samples, b, n, levels,
+            None if head is None else head.data_ptr(), head_samples,
+            None if halo is None else halo.data_ptr(), halo_len, b, n, levels,
             taps, tile, EDGES[edge], code, _stream(x.device),
         )
     _raise_on_error(err, counter)
@@ -605,22 +679,28 @@ def launch_synthesis(planes, levels, filters, periodic, counter):
     return out
 
 
-def denoise(x, thresholds, levels, filters_dec, filters_rec, periodic, mode):
+def denoise(x, thresholds, levels, filters_dec, filters_rec, periodic, mode,
+            halo=None):
     """[B, N] x and [B, J] float32 thresholds -> [B, N]: analysis, soft/hard
     threshold per (signal, level) (``mode='none'``: the round trip),
-    synthesis; periodic or zero."""
+    synthesis; periodic or zero.  ``halo``, ``[B, H]`` of x's dtype, is the
+    stream mode (``periodic`` must be False): the raw samples left of each
+    row feed the analysis, and the synthesis stays block-local."""
     if mode not in _MODES:
         raise InvalidArgumentError(
             ErrorCode.CFG_INVALID_CONFIG,
             f"Unknown threshold mode {mode!r}",
             suggestions=("Use 'none', 'soft' or 'hard'",),
         )
+    if halo is not None:
+        _refuse_periodic_halo(periodic)
     if x.device.type == "cpu":
         return denoise_plain(
-            x, thresholds, levels, filters_dec, filters_rec, periodic, mode
+            x, thresholds, levels, filters_dec, filters_rec, periodic, mode, halo
         )
     _check_operand(x, "x")
     code = _check_dtype(x, "x")
+    halo_len = 0 if halo is None else _check_halo(halo, x)
     _check_operand(thresholds, "thresholds", x.device)
     if thresholds.dtype != torch.float32 or thresholds.shape != (x.shape[0], levels):
         raise InvalidArgumentError(
@@ -647,8 +727,8 @@ def denoise(x, thresholds, levels, filters_dec, filters_rec, periodic, mode):
     with torch.cuda.device(x.device):
         err = lib.vw_modwt_denoise(
             x.data_ptr(), out.data_ptr(), thresholds.data_ptr(), tap_t.data_ptr(),
-            b, n, levels, taps, tile, int(periodic), _MODES[mode], code,
-            _stream(x.device),
+            None if halo is None else halo.data_ptr(), halo_len, b, n, levels, taps,
+            tile, int(periodic), _MODES[mode], code, _stream(x.device),
         )
     _raise_on_error(err, "modwt_denoise")
     LAUNCHES["modwt_denoise"] += 1
