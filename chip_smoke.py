@@ -43,7 +43,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    halo of the span, 3x5000 with a short halo,
    2x300 (shorter than the span), sym8 J=4 8x65536 with a long halo, db36
    J=8 (span 18105, longer than the tile; the analysis only, the denoise's
-   windows do not fit) and the analysis in bfloat16;
+   windows do not fit) and the analysis in bfloat16; the tiled tier's
+   edges: the synthesis kernel's external right halo and the exact pair's
+   halos (a raw left halo for the analysis, (hi, lo) right halos for the
+   synthesis) at db4 J=6 128x65536 with a halo of the span (441), 3x5000
+   with a short halo, 2x300 (shorter than the span), the exact pair on a
+   split plan (sym8 J=10, two launches on [halo | x]) and the synthesis in
+   bfloat16;
 3. the main path through the public entry points at 128x65536 float32:
    ``modwt_multilevel`` -> ``imodwt_multilevel`` at every precision tier,
    ``modwt_roundtrip_fused`` and ``denoise_multilevel``, with the launch
@@ -97,7 +103,23 @@ Phases, in order; any failure raises and the exit code is not 0:
    blocks (one launch, equal bit for bit to the 8 single steps),
    ``StreamingDenoiser`` under auto, ``SlidingStreamingTransform`` (512) and
    ``StreamIngest`` (512-tick frames, hop 407, on the C++ ring) against the
-   direct transform, with no launch;
+   direct transform, with no launch; then the tiled path, every mesh
+   virtual shards on this card, each public call with its own reset and
+   reading of the counters: ``modwt_multilevel_tiled`` ->
+   ``imodwt_multilevel_tiled`` db4 J=6 at 128x65536 over 4 and 8 shards
+   (one external-edge analysis launch and one external-halo synthesis
+   launch for all shards, every plane within 2e-5 of the untiled
+   ``modwt_multilevel``, round-trip RMSE <= 3e-7) and the exact tiled round
+   trip on the same shape (one launch each way, RMSE of hi + lo <= 1e-10);
+   the reference's fault shape (db4 J=8, 2x1024 over 8 shards: the periodic
+   halo wraps twice) and a hop chain three shards deep (db20 J=6 over 64
+   shards of 1024) against the untiled plain transform; config #4
+   (``modwt_multilevel_sharded_batch`` 256x16384 db4 J=4 on a one-card mesh,
+   equal to ``modwt_multilevel``); ``modwt_multilevel_multihost`` on a 2x4
+   mesh; ``modwt2_multilevel_tiled`` -> ``imodwt2_multilevel_tiled`` db4 J=4
+   at 8x2048x2048 over 4 row shards (the plain route) within 5e-5 of
+   ``modwt2_multilevel``; the symmetric tiled round trip at 8x65536 (the
+   plain route) against the untiled plain path;
 4. timing with CUDA events (3 warm-ups, median of 20 runs) of each kernel
    beside its plain version and one PyTorch library call that computes the
    same function (``F.conv1d`` with the composite filters; not for the
@@ -115,7 +137,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    and the stream mode at 128x65536, the streaming rows at 128 x 8 x 8192
    (block streaming zero and symmetric, the denoiser a step a block and 8
    blocks a launch), the sliding window's time a sample and the ring's and
-   ``StreamIngest``'s Mticks/s (host clock).
+   ``StreamIngest``'s Mticks/s (host clock); the external right halo
+   (library call: ``F.conv1d`` of the composite filters on ``[plane |
+   halo]``) and the exact pair's halos (the fp64 convolution) at 128x65536
+   with a halo of the span, and the tiled round trip over 4 and 8 shards and
+   the tiled exact round trip beside the untiled round trip.
 
 The last two lines are a JSON object with one entry per kernel and the
 device line ``{"ok": true, "device": {...}}``.
@@ -147,7 +173,7 @@ RT_RMSE, RT_MAX = 3e-7, 3e-6
 #: and differ only in fused multiply-adds, for unit-variance data.
 TOL_EXACT = 1e-13
 #: the exact tier's round trip (BASELINE.json's parity bar), and its
-#: symmetric analysis against the float64 plain cascade.
+#: symmetric and tiled transforms against the float64 plain cascade.
 EXACT_RMSE, EXACT_SYM = 1e-10, 1e-12
 #: swt_denoise, kernel path against plain path: soft shrinkage is continuous,
 #: so thresholds a few ulps apart move the output by a few ulps of its scale.
@@ -222,6 +248,20 @@ KERNELS = {
         "vectorwave_tpu_torch/kernels/csrc/modwt_denoise.cu",
         "vectorwave_tpu/kernels/modwt_mxu.py:1338",
     ),
+    # the tiled tier's external halos: rows of their own, counted under the
+    # kernels' own entries (modwt_synthesis, modwt_exact_*) on the tiled path
+    "modwt_synthesis_external": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt_synthesis.cu",
+        "vectorwave_tpu/kernels/modwt_mxu.py:910",
+    ),
+    "modwt_exact_analysis_halo": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt_exact_analysis.cu",
+        "vectorwave_tpu/kernels/modwt_exact.py:241",
+    ),
+    "modwt_exact_synthesis_halo": (
+        "vectorwave_tpu_torch/kernels/csrc/modwt_exact_synthesis.cu",
+        "vectorwave_tpu/kernels/modwt_exact.py:386",
+    ),
 }
 MAIN_PATH = ("modwt_analysis", "modwt_synthesis", "modwt_denoise")
 EXACT_PATH = ("modwt_exact_analysis", "modwt_exact_synthesis")
@@ -230,7 +270,7 @@ SYMMETRIC_PATH = ("modwt_mxu_analysis", "modwt_symmetric_synthesis",
 MXU_PATH = ("modwt_mxu_analysis", "modwt_mxu_synthesis")
 BANK_PATH = ("modwt_bank_analysis", "modwt_bank_synthesis")
 BF16_ROWS = (MAIN_PATH + ("modwt_symmetric_synthesis", "modwt_symmetric_adjoint") + MXU_PATH
-             + BANK_PATH + ("modwt_analysis_external",))
+             + BANK_PATH + ("modwt_analysis_external", "modwt_synthesis_external"))
 #: the packet and dual-tree path: sym8, packet depth 4, 5 DTCWT levels, at the
 #: batch shape of the JAX package's bench rows and at the main path's
 PACKET_WAVELET, PACKET_DEPTH, DTCWT_LEVELS = "sym8", 4, 5
@@ -256,6 +296,8 @@ RT2_MAX = 5e-5
 #: ingest's hop 407 = 512 - (L-1)(2^4-1), so 4 levels)
 STREAM_B, STREAM_NBLK, STREAM_BLK = 128, 8, 8192
 SLIDE_BUFFER, INGEST_LEVELS = 512, 4
+#: the tiled path: virtual shards of the main path's signals on one card
+TILED_SHARDS = (4, 8)
 
 
 class SmokeFailure(RuntimeError):
@@ -1006,6 +1048,313 @@ def streaming_timing(dev, gen):
     return ms_of, bound
 
 
+def halo_kernels_against_plain(dev, gen, worst, worst_bf16):
+    """Phase 2 for the tiled tier's edges: the synthesis kernel's external
+    right halo (row 4c) and the exact pair's halos (rows 7b and 8b) against
+    their plain versions.  A halo of the span at the main path's shape, a
+    short halo, planes shorter than the span, an exact plan split over two
+    launches (sym8 J=10, where the wrapper runs on [halo | x]), and the
+    synthesis once in bfloat16."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+    # (wavelet, levels, batch, n, halo samples, dtype)
+    cases = [
+        (WAVELET, LEVELS, BATCH, N, 441, torch.float32),
+        (WAVELET, LEVELS, 3, 5000, 100, torch.float32),
+        (WAVELET, LEVELS, 2, 300, 441, torch.float32),
+        ("sym8", 10, 2, 16384, 15345, torch.float32),  # exact: a split plan
+        (WAVELET, LEVELS, BATCH, N, 441, torch.bfloat16),
+    ]
+    for name, levels, b, n, h, dtype in cases:
+        wh = vt.wavelet(name)
+        fd, fr = _kernel_filters(wh, synthesis=False), _kernel_filters(wh, synthesis=True)
+        x = torch.randn(b, n, device=dev, generator=gen)
+        planes = mc.analysis_plain(x, levels, fd, False)
+        halo = tuple(torch.randn(b, h, device=dev, generator=gen) for _ in range(levels + 1))
+        tag = f"{name} J={levels} {b}x{n} halo {h} {str(dtype)[6:]}"
+        if mc.kernels_fit(wh.filter_length, levels):
+            p_t = tuple(p.to(dtype) for p in planes)
+            h_t = tuple(t.to(dtype) for t in halo)
+            got = mc.synthesis(p_t, levels, fr, False, halo=h_t)
+            want = mc.synthesis_plain(p_t, levels, fr, False, halo=h_t)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            if dtype == torch.float32:
+                tol = TOL_F32
+                worst["modwt_synthesis_external"] = max(worst["modwt_synthesis_external"], err)
+            else:
+                tol = BF16_ULP * want.float().abs().max().item()
+                worst_bf16["modwt_synthesis_external"] = max(
+                    worst_bf16["modwt_synthesis_external"], err)
+            check(err <= tol, f"modwt_synthesis_external {tag}: max |kernel - plain| "
+                              f"{err:.3e} <= {tol:.3e}")
+        if dtype != torch.float32:
+            continue
+        plan = mc.exact_launches(mc.exact_analysis_shared_bytes, wh.filter_length, levels)
+        how = "load rule" if mc._one_window(plan) else f"split plan, {len(plan)} launches"
+        x_halo = torch.randn(b, h, device=dev, generator=gen)
+        pairs = tuple(mc._split_pair(p.double()) for p in planes)
+        halo_pairs = tuple(mc._split_pair(t.double() / 3) for t in halo)
+        before = dict(mc.LAUNCHES)
+        got = mc.exact_analysis(x, None, levels, fd, False, halo=x_halo)
+        want = mc.exact_analysis_plain(x, None, levels, fd, False, halo=x_halo)
+        y_got = mc.exact_synthesis(pairs, levels, fr, False, halo=halo_pairs)
+        y_want = mc.exact_synthesis_plain(pairs, levels, fr, False, halo=halo_pairs)
+        torch.cuda.synchronize()
+        launched = {k: mc.LAUNCHES[k] - before[k] for k in EXACT_PATH}
+        for kname, err, count in (
+                ("modwt_exact_analysis_halo", pair_err(got, want),
+                 launched["modwt_exact_analysis"]),
+                ("modwt_exact_synthesis_halo", pair_err((y_got,), (y_want,)),
+                 launched["modwt_exact_synthesis"])):
+            worst[kname] = max(worst[kname], err)
+            check(err <= TOL_EXACT and count == len(plan),
+                  f"{kname} {tag} ({how}): max |kernel - plain| {err:.3e} <= "
+                  f"{TOL_EXACT:.0e}, {count} launches")
+        del x, planes, halo, pairs, halo_pairs, got, want
+
+
+def tiled_path(dev, gen):
+    """Phase 3 for the parallel tier at full width, every mesh virtual
+    shards on this card, each public call with its own reset and reading of
+    the counters.  Returns the tiled rows' launches."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import parallel as par
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+
+    total = {"modwt_analysis_external": 0, "modwt_synthesis_external": 0,
+             "modwt_exact_analysis_halo": 0, "modwt_exact_synthesis_halo": 0}
+    rows = {"modwt_analysis": "modwt_analysis_external",
+            "modwt_synthesis": "modwt_synthesis_external",
+            "modwt_exact_analysis": "modwt_exact_analysis_halo",
+            "modwt_exact_synthesis": "modwt_exact_synthesis_halo"}
+
+    def counted(label, expect, fn):
+        mc.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in mc.LAUNCHES.items() if v}
+        check(got == expect, f"{label}: launches {got}")
+        for k, v in got.items():
+            if k in rows:
+                total[rows[k]] += v
+        return out
+
+    def planes(res):
+        return (*res.details, res.approx)
+
+    def virtual(shape):
+        return par.make_mesh(shape, devices=[dev] * math.prod(shape.values()))
+
+    # the plain cascade in float32 and in float64, so the tiled kernels are
+    # held against versions that run no kernel at the shapes the tiling
+    # gives them ([B·T, N/T] rows with a halo of the span)
+    x = torch.randn(BATCH, N, device=dev, generator=gen)
+    untiled = vt.modwt_multilevel(x, WAVELET, levels=LEVELS, backend="torch")
+    oracle = vt.modwt_multilevel(x.double(), WAVELET, levels=LEVELS, backend="torch")
+    for shards in TILED_SHARDS:
+        mesh = virtual({"signal": shards})
+        label = f"{shards} shards, {BATCH}x{N} db4 J={LEVELS}"
+        res = counted(f"modwt_multilevel_tiled {label}", {"modwt_analysis": 1},
+                      lambda: par.modwt_multilevel_tiled(x, WAVELET, levels=LEVELS, mesh=mesh))
+        y = counted(f"imodwt_multilevel_tiled {label}", {"modwt_synthesis": 1},
+                    lambda: par.imodwt_multilevel_tiled(res, WAVELET, mesh=mesh))
+        err = max(max_err(a, b) for a, b in zip(planes(res), planes(untiled)))
+        syn_err = max_err(y, vt.imodwt_multilevel(res, WAVELET, backend="torch"))
+        rmse = (y - x).pow(2).mean().sqrt().item()
+        check(err <= TOL_F32 and syn_err <= TOL_F32 and rmse <= RT_RMSE,
+              f"tiled {label} vs the untiled plain cascade: every plane {err:.3e}, the "
+              f"inverse of the same planes {syn_err:.3e} <= {TOL_F32:.0e}; round trip "
+              f"rmse {rmse:.3e} <= {RT_RMSE:.0e}")
+        pairs = counted(f"modwt_multilevel_tiled_exact {label}", {"modwt_exact_analysis": 1},
+                        lambda: par.modwt_multilevel_tiled_exact(x, WAVELET, levels=LEVELS,
+                                                                 mesh=mesh))
+        hi, lo = counted(f"imodwt_multilevel_tiled_exact {label}",
+                         {"modwt_exact_synthesis": 1},
+                         lambda: par.imodwt_multilevel_tiled_exact(*pairs, WAVELET, mesh=mesh))
+        combined = [p[0].double() + p[1].double() for p in (*pairs[0], pairs[1])]
+        ana_err = max(max_err(a, b) for a, b in zip(combined, planes(oracle)))
+        syn_err = max_err(hi.double() + lo.double(), vt.imodwt_multilevel(
+            vt.MultiLevelMODWTResult(tuple(combined[:-1]), combined[-1]), WAVELET,
+            backend="torch"))
+        rmse = (hi.double() + lo.double() - x.double()).pow(2).mean().sqrt().item()
+        check(ana_err <= EXACT_SYM and syn_err <= EXACT_SYM and rmse <= EXACT_RMSE,
+              f"tiled exact {label} vs the float64 plain cascade: every plane "
+              f"{ana_err:.3e}, the inverse of the same planes {syn_err:.3e} <= "
+              f"{EXACT_SYM:.0e}; round trip rmse of hi + lo {rmse:.3e} <= {EXACT_RMSE:.0e}")
+        del res, y, pairs, hi, lo, combined
+    del untiled, oracle
+
+    # the reference's fault shape: the periodic span (1785) outlasts the
+    # signal, so the halo wraps twice; and a hop chain three shards deep
+    for name, levels, b, n, shards in ((WAVELET, 8, 2, 1024, 8), ("db20", 6, 8, N, 64)):
+        mesh = virtual({"signal": shards})
+        xs = torch.randn(b, n, device=dev, generator=gen)
+        span = (vt.wavelet(name).filter_length - 1) * ((1 << levels) - 1)
+        label = f"{name} J={levels} {b}x{n} over {shards} shards (span {span})"
+        res = counted(f"modwt_multilevel_tiled {label}", {"modwt_analysis": 1},
+                      lambda: par.modwt_multilevel_tiled(xs, name, levels=levels, mesh=mesh))
+        y = counted(f"imodwt_multilevel_tiled {label}", {"modwt_synthesis": 1},
+                    lambda: par.imodwt_multilevel_tiled(res, name, mesh=mesh))
+        ref = vt.modwt_multilevel(xs, name, levels=levels, backend="torch")
+        err = max(max_err(a, r) for a, r in zip(planes(res), planes(ref)))
+        check(err <= TOL_F32 and max_err(y, xs) <= RT_MAX,
+              f"tiled {label} vs untiled plain transform: {err:.3e} <= {TOL_F32:.0e}; "
+              f"round trip max {max_err(y, xs):.3e} <= {RT_MAX:.0e}")
+
+    # BASELINE config #4: the batch facade on a one-card mesh
+    xb = torch.randn(256, 16384, device=dev, generator=gen)
+    one_card = par.make_mesh({"data": 1})
+    res = counted("modwt_multilevel_sharded_batch 256x16384 db4 J=4", {"modwt_analysis": 1},
+                  lambda: par.modwt_multilevel_sharded_batch(xb, WAVELET, levels=4,
+                                                             mesh=one_card))
+    ref = vt.modwt_multilevel(xb, WAVELET, levels=4)
+    plain = vt.modwt_multilevel(xb, WAVELET, levels=4, backend="torch")
+    err = max(max_err(a, p) for a, p in zip(planes(res), planes(plain)))
+    check(all(torch.equal(a, r) for a, r in zip(planes(res), planes(ref))) and err <= TOL_F32,
+          f"config #4 batch facade equals modwt_multilevel bit for bit, and the plain "
+          f"cascade within {err:.3e} <= {TOL_F32:.0e}")
+
+    hosts = par.make_multihost_mesh(2, 4, devices=[dev] * 8)
+    res = counted(f"modwt_multilevel_multihost 2x4, {BATCH}x{N}", {"modwt_analysis": 1},
+                  lambda: par.modwt_multilevel_multihost(x, WAVELET, levels=LEVELS, mesh=hosts))
+    y = counted(f"imodwt_multilevel_multihost 2x4, {BATCH}x{N}", {"modwt_synthesis": 1},
+                lambda: par.imodwt_multilevel_multihost(res, WAVELET, mesh=hosts))
+    ref = vt.modwt_multilevel(x, WAVELET, levels=LEVELS, backend="torch")
+    err = max(max_err(a, r) for a, r in zip(planes(res), planes(ref)))
+    syn_err = max_err(y, vt.imodwt_multilevel(res, WAVELET, backend="torch"))
+    rmse = (y - x).pow(2).mean().sqrt().item()
+    check(err <= TOL_F32 and syn_err <= TOL_F32 and rmse <= RT_RMSE,
+          f"multihost 2x4 vs the untiled plain cascade: {err:.3e}, its inverse "
+          f"{syn_err:.3e} <= {TOL_F32:.0e}; round trip rmse {rmse:.3e} <= {RT_RMSE:.0e}")
+    del res, y, ref
+
+    img = torch.randn(*IMG, device=dev, generator=gen)
+    rows4 = virtual({"rows": 4})
+    res = counted("modwt2_multilevel_tiled db4 J=4 over 4 row shards (plain)", {},
+                  lambda: par.modwt2_multilevel_tiled(img, WAVELET, levels=4, mesh=rows4))
+    y = counted("imodwt2_multilevel_tiled db4 J=4 over 4 row shards (plain)", {},
+                lambda: par.imodwt2_multilevel_tiled(res, WAVELET, mesh=rows4))
+    ref = vt.modwt2_multilevel(img, WAVELET, levels=4)
+    err = max(max_err(a, r) for a, r in zip(
+        [p for t in res.details for p in t] + [res.approx],
+        [p for t in ref.details for p in t] + [ref.approx]))
+    check(err <= RT2_MAX and max_err(y, img) <= RT2_MAX,
+          f"tiled 2-D {'x'.join(map(str, IMG))} vs modwt2_multilevel: {err:.3e}; round "
+          f"trip max {max_err(y, img):.3e} <= {RT2_MAX:.0e}")
+    del img, res, y, ref
+
+    xs = torch.randn(8, N, device=dev, generator=gen)
+    mesh = virtual({"signal": 8})
+    res = counted(f"modwt_multilevel_tiled symmetric 8x{N} (plain)", {},
+                  lambda: par.modwt_multilevel_tiled(xs, WAVELET, levels=LEVELS, mesh=mesh,
+                                                     boundary="symmetric"))
+    y = counted(f"imodwt_multilevel_tiled symmetric 8x{N} (plain)", {},
+                lambda: par.imodwt_multilevel_tiled(res, WAVELET, mesh=mesh,
+                                                    boundary="symmetric"))
+    ref = vt.modwt_multilevel(xs, WAVELET, levels=LEVELS, boundary="symmetric", backend="torch")
+    y_ref = vt.imodwt_multilevel(ref, WAVELET, boundary="symmetric", backend="torch")
+    err = max(max_err(a, r) for a, r in zip(planes(res), planes(ref)))
+    check(err <= TOL_F32 and max_err(y, y_ref) <= TOL_F32,
+          f"tiled symmetric vs untiled plain: analysis {err:.3e}, synthesis "
+          f"{max_err(y, y_ref):.3e} <= {TOL_F32:.0e}")
+    print(f"  launches during the tiled path: {total}", flush=True)
+    for k, v in total.items():
+        check(v > 0, f"{k} launched {v} times on the tiled path")
+    return total
+
+
+def tiled_timing(dev, gen):
+    """Phase 4 for rows 4c, 7b and 8b at the main path's shape with a halo of
+    the span, and the tiled round trips beside the untiled one.  Returns
+    ({row: (ms, plain ms, library ms)}, {row: (bound ms, by)})."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import parallel as par
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+    w = vt.wavelet(WAVELET)
+    fd, fr = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+    span = mc.composite_halo_samples(w.filter_length, LEVELS)
+    x = torch.randn(BATCH, N, device=dev, generator=gen)
+    x_halo = torch.randn(BATCH, span, device=dev, generator=gen)
+    planes = mc.analysis(x, LEVELS, fd, True)
+    halo = tuple(torch.randn(BATCH, span, device=dev, generator=gen) for _ in planes)
+    pairs = mc.exact_analysis(x, None, LEVELS, fd, True)
+    halo_pairs = tuple(mc._split_pair(t.double() / 3) for t in halo)
+    bank_d = composite_bank(fd, LEVELS, dev, torch.float32)
+    bank_r = composite_bank(fr, LEVELS, dev, torch.float32).flip(-1)
+    ext = torch.cat([torch.stack(planes, 1), torch.stack(halo, 1)], -1)
+    ext64 = torch.cat([torch.stack([mc._combine(*p) for p in pairs], 1),
+                       torch.stack([mc._combine(*p) for p in halo_pairs], 1)], -1)
+    hx64 = torch.cat([x_halo, x], -1).double()[:, None]
+    lib_err = max_err(F.conv1d(ext, bank_r[None])[:, 0],
+                      mc.synthesis(planes, LEVELS, fr, False, halo=halo))
+    check(lib_err <= 1e-4, f"F.conv1d on [plane | halo] computes the external right halo "
+                           f"({lib_err:.3e})")
+    samples, taps = BATCH * N, w.filter_length
+    halo_samples = BATCH * span
+    rows = {
+        "modwt_synthesis_external": (
+            lambda: mc.synthesis(planes, LEVELS, fr, False, halo=halo),
+            lambda: mc.synthesis_plain(planes, LEVELS, fr, False, halo=halo),
+            lambda: F.conv1d(ext, bank_r[None]),
+            # J + 1 planes and their halos in, x out
+            4 * (LEVELS + 1) * (samples + halo_samples) + 4 * samples, FP32_FLOPS),
+        "modwt_exact_analysis_halo": (
+            lambda: mc.exact_analysis(x, None, LEVELS, fd, False, halo=x_halo),
+            lambda: mc.exact_analysis_plain(x, None, LEVELS, fd, False, halo=x_halo),
+            lambda: F.conv1d(hx64, bank_d.double()[:, None]),
+            # x and its halo in, J + 1 pairs out
+            4 * (samples + halo_samples) + 8 * (LEVELS + 1) * samples, FP64_FLOPS),
+        "modwt_exact_synthesis_halo": (
+            lambda: mc.exact_synthesis(pairs, LEVELS, fr, False, halo=halo_pairs),
+            lambda: mc.exact_synthesis_plain(pairs, LEVELS, fr, False, halo=halo_pairs),
+            lambda: F.conv1d(ext64, bank_r.double()[None]),
+            # J + 1 pairs and their halo pairs in, one pair out
+            8 * (LEVELS + 1) * (samples + halo_samples) + 8 * samples, FP64_FLOPS),
+    }
+    ms_of, bound = {}, {}
+    for name, (kernel, plain, library_call, nbytes, rate) in rows.items():
+        ms_of[name] = (median_ms(kernel), median_ms(plain), median_ms(library_call))
+        t_bytes = nbytes / HBM_BPS * 1e3
+        t_ops = 2 * 2 * taps * LEVELS * samples / rate * 1e3
+        bound[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        k_ms, p_ms, l_ms = ms_of[name]
+        print(f"  {name} {BATCH}x{N}, halo {span}: kernel {k_ms:.4f} ms "
+              f"({samples / k_ms / 1e3:.1f} Msamples/s), plain {p_ms:.4f} ms, library "
+              f"{l_ms:.4f} ms, bound {bound[name][0]:.4f} ms ({bound[name][1]}; "
+              f"{100 * bound[name][0] / k_ms:.1f}% of it)", flush=True)
+    del planes, halo, pairs, halo_pairs, ext, ext64, hx64
+
+    def untiled():
+        return vt.imodwt_multilevel(vt.modwt_multilevel(x, WAVELET, levels=LEVELS), WAVELET)
+
+    def tiled(mesh, exact=False):
+        if exact:
+            return par.imodwt_multilevel_tiled_exact(*par.modwt_multilevel_tiled_exact(
+                x, WAVELET, levels=LEVELS, mesh=mesh), WAVELET, mesh=mesh)
+        return par.imodwt_multilevel_tiled(par.modwt_multilevel_tiled(
+            x, WAVELET, levels=LEVELS, mesh=mesh), WAVELET, mesh=mesh)
+
+    meshes = {s: par.make_mesh({"signal": s}, devices=[dev] * s) for s in TILED_SHARDS}
+    timed = [("modwt_multilevel + imodwt_multilevel (untiled)", untiled)]
+    for s, mesh in meshes.items():
+        timed.append((f"modwt_multilevel_tiled + imodwt_multilevel_tiled, {s} shards",
+                      lambda mesh=mesh: tiled(mesh)))
+    for s, mesh in meshes.items():
+        timed.append((f"the tiled exact round trip, {s} shards",
+                      lambda mesh=mesh: tiled(mesh, exact=True)))
+    timed.append(("modwt_multilevel + imodwt_multilevel (untiled)", untiled))
+    for label, fn in timed:
+        t_ms = median_ms(fn)
+        print(f"  {label}, {BATCH}x{N} db4 J={LEVELS}: {t_ms:.4f} ms "
+              f"({samples / t_ms / 1e3:.1f} Msamples/s)", flush=True)
+    return ms_of, bound
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a "
@@ -1246,6 +1595,7 @@ def main() -> int:
 
     bank_kernels_against_plain(dev, gen, worst, worst_bf16)
     stream_kernels_against_plain(dev, gen, worst, worst_bf16)
+    halo_kernels_against_plain(dev, gen, worst, worst_bf16)
 
     print(f"phase 3: main path through the public entry points, "
           f"{BATCH}x{N} float32", flush=True)
@@ -1560,6 +1910,11 @@ def main() -> int:
           "float32", flush=True)
     launches.update(streaming_path(dev, gen))
 
+    print(f"  the tiled path, {BATCH}x{N} over {' and '.join(map(str, TILED_SHARDS))} "
+          "virtual shards", flush=True)
+    for name, count in tiled_path(dev, gen).items():
+        launches[name] = launches.get(name, 0) + count
+
     print("phase 4: timing (CUDA events, 3 warm-ups, median of 20)", flush=True)
     print(smi, flush=True)
     samples = BATCH * N
@@ -1771,6 +2126,9 @@ def main() -> int:
     stream_ms, stream_bound = streaming_timing(dev, gen)
     ms_of.update(stream_ms)
     bound.update(stream_bound)
+    tiled_ms, tiled_bound = tiled_timing(dev, gen)
+    ms_of.update(tiled_ms)
+    bound.update(tiled_bound)
 
     report = {"kernels": [
         {

@@ -755,3 +755,132 @@ def test_streaming_gates_on_the_card(cuda):
     mc.reset_launches()
     st.modwt_stream_block_kernel(sym, x[:, :441], "db4", levels=LEVELS, boundary="symmetric")
     assert mc.LAUNCHES["modwt_analysis"] == 1
+
+
+# --- the tiled tier: the synthesis's and the exact pair's external halos -------------
+
+HALO_CASES = [("db4", 6, 4, 8192, 441), ("db4", 6, 3, 5000, 100), ("db4", 6, 2, 300, 441),
+              ("sym8", 4, 3, 5000, 700), ("db36", 8, 2, 16384, 18105)]
+
+
+def _halos(cuda, b, h, count, dtype, seed):
+    return tuple(_input(cuda, b, h, dtype, seed=seed + i) for i in range(count))
+
+
+@pytest.mark.parametrize("name,levels,b,n,h", HALO_CASES)
+def test_synthesis_external_halo_matches_plain(cuda, name, levels, b, n, h):
+    """Right halos shorter than, equal to and longer than the span; planes
+    shorter than the span; db36 J=8, whose span outlasts the tile."""
+    fr = _kernel_filters(vt.wavelet(name), True)
+    planes = _halos(cuda, b, n, levels + 1, torch.float32, 40)
+    halo = _halos(cuda, b, h, levels + 1, torch.float32, 60)
+    got = mc.synthesis(planes, levels, fr, False, halo=halo)
+    want = mc.synthesis_plain(planes, levels, fr, False, halo=halo)
+    torch.cuda.synchronize()
+    assert _err((got,), (want,)) <= TOL_F32
+
+
+def test_synthesis_external_halo_bfloat16(cuda, filters):
+    _, fr = filters
+    planes = _halos(cuda, 3, 5000, LEVELS + 1, torch.bfloat16, 70)
+    halo = _halos(cuda, 3, 441, LEVELS + 1, torch.bfloat16, 80)
+    want = mc.synthesis_plain(planes, LEVELS, fr, False, halo=halo)
+    got = mc.synthesis(planes, LEVELS, fr, False, halo=halo)
+    torch.cuda.synchronize()
+    assert _err((got,), (want,)) <= _tol(torch.bfloat16, (want,))
+
+
+#: (wavelet, levels, batch, n, halo samples, lo word, launches each way): db4
+#: J=6 is one window launch (the load rule), sym8 J=10 a split plan (the
+#: materialised [halo | x])
+EXACT_HALO_CASES = [("db4", 6, 4, 8192, 441, False, 1), ("db4", 6, 3, 5000, 100, True, 1),
+                    ("db4", 6, 2, 300, 441, False, 1), ("sym8", 10, 2, 16384, 20000, False, 2),
+                    ("sym8", 10, 2, 3000, 5000, True, 2)]
+
+
+@pytest.mark.parametrize("name,levels,b,n,h,with_lo,launches", EXACT_HALO_CASES)
+def test_exact_halos_match_plain(cuda, name, levels, b, n, h, with_lo, launches):
+    w = vt.wavelet(name)
+    fd, fr = _kernel_filters(w, False), _kernel_filters(w, True)
+    x = _input(cuda, b, n, torch.float32, seed=90)
+    x_lo = x * 2.0**-26 * _input(cuda, b, n, torch.float32, seed=91) if with_lo else None
+    halo = _input(cuda, b, h, torch.float32, seed=92)
+    before = dict(mc.LAUNCHES)
+    got = mc.exact_analysis(x, x_lo, levels, fd, False, halo=halo)
+    want = mc.exact_analysis_plain(x, x_lo, levels, fd, False, halo=halo)
+    pair_halo = tuple((a[:, : h // 2].contiguous(), b_[:, : h // 2].contiguous())
+                      for a, b_ in mc.exact_analysis_plain(
+                          _input(cuda, b, h, torch.float32, seed=93), None, levels, fd, True))
+    y = mc.exact_synthesis(want, levels, fr, False, halo=pair_halo)
+    y_want = mc.exact_synthesis_plain(want, levels, fr, False, halo=pair_halo)
+    torch.cuda.synchronize()
+    assert _pair_err(got, want) <= 1e-13
+    assert _pair_err((y,), (y_want,)) <= 1e-13
+    for k in ("modwt_exact_analysis", "modwt_exact_synthesis"):
+        assert mc.LAUNCHES[k] - before[k] == launches
+
+
+def test_halo_wrappers_refuse_what_the_kernels_do_not_take(cuda, filters):
+    fd, fr = filters
+    planes = _halos(cuda, 2, 1024, 4, torch.float32, 100)
+    halo = _halos(cuda, 2, 49, 4, torch.float32, 110)
+    with pytest.raises(InvalidArgumentError, match="periodic"):
+        mc.synthesis(planes, 3, fr, True, halo=halo)
+    with pytest.raises(InvalidArgumentError, match="per plane"):
+        mc.synthesis(planes, 3, fr, False, halo=halo[:3])
+    with pytest.raises(InvalidArgumentError, match="same width"):
+        mc.synthesis(planes, 3, fr, False, halo=halo[:3] + (halo[3][:, :10].contiguous(),))
+    with pytest.raises(InvalidArgumentError, match="dtype"):
+        mc.synthesis(planes, 3, fr, False, halo=tuple(t.bfloat16() for t in halo))
+    with pytest.raises(InvalidArgumentError, match="periodic"):
+        mc.exact_analysis(planes[0], None, 3, fd, True, halo=halo[0])
+    pairs = tuple((p, torch.zeros_like(p)) for p in planes)
+    with pytest.raises(InvalidArgumentError, match="periodic"):
+        mc.exact_synthesis(pairs, 3, fr, True, halo=tuple((h, h) for h in halo))
+    mc.reset_launches()
+    mc.synthesis(planes, 3, fr, False, halo=halo)
+    assert mc.LAUNCHES["modwt_synthesis"] == 1
+
+
+@pytest.mark.parametrize("shards", [4, 8, 64])  # 64: a hop chain of two shards
+def test_tiled_round_trip_launches_once_each_way_for_all_shards(cuda, shards):
+    from vectorwave_tpu_torch import parallel as par
+
+    mesh = par.make_mesh({"signal": shards}, devices=[cuda] * shards)
+    x = _input(cuda, 8, 16384, torch.float32, seed=120)
+    mc.reset_launches()
+    res = par.modwt_multilevel_tiled(x, "db4", levels=LEVELS, mesh=mesh)
+    y = par.imodwt_multilevel_tiled(res, "db4", mesh=mesh)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_analysis": 1,
+                                                            "modwt_synthesis": 1}
+    ref = vt.modwt_multilevel(x, "db4", levels=LEVELS, backend="torch")
+    assert _err((*res.details, res.approx), (*ref.details, ref.approx)) <= TOL_F32
+    assert float((y - x).pow(2).mean().sqrt()) <= 3e-7
+    mc.reset_launches()
+    d, a = par.modwt_multilevel_tiled_exact(x, "db4", levels=LEVELS, mesh=mesh)
+    hi, lo = par.imodwt_multilevel_tiled_exact(d, a, "db4", mesh=mesh)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_exact_analysis": 1,
+                                                            "modwt_exact_synthesis": 1}
+    assert float((hi.double() + lo.double() - x.double()).pow(2).mean().sqrt()) <= 1e-10
+
+
+def test_tiled_gates_on_the_card(cuda):
+    """Under auto a symmetric boundary or a window the kernels cannot serve
+    takes the plain route before any launch; backend='kernel' raises."""
+    from vectorwave_tpu_torch import parallel as par
+
+    mesh = par.make_mesh({"signal": 4}, devices=[cuda] * 4)
+    x = _input(cuda, 2, 65536, torch.float32, seed=130)
+    for boundary, name, levels in (("symmetric", "db4", 3), ("periodic", "db38", 10)):
+        mc.reset_launches()
+        par.modwt_multilevel_tiled(x, name, levels=levels, mesh=mesh, boundary=boundary)
+        torch.cuda.synchronize()
+        assert not any(mc.LAUNCHES.values())
+        with pytest.raises(InvalidArgumentError):
+            par.modwt_multilevel_tiled(x, name, levels=levels, mesh=mesh, boundary=boundary,
+                                       backend="kernel")
+    mc.reset_launches()
+    par.modwt_multilevel_tiled(x, "db4", levels=3, mesh=mesh, boundary="zero")
+    assert mc.LAUNCHES["modwt_analysis"] == 1

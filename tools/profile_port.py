@@ -28,9 +28,18 @@ levels, 128 streams x 8 blocks x 8192 float32): block streaming with the
 zero and the symmetric boundary, one ``modwt_stream_block_kernel`` step a
 block, and the streaming denoiser, one ``streaming_denoise_block_kernel``
 step a block and ``streaming_denoise_blocks_kernel`` with the 8 blocks in
-one launch.  For the streaming rows it also prints the host side: the self
-CPU time of the traced ops per call and the ops that take the most (the
-trace's own cost included).  Exits non-zero without a CUDA device.
+one launch, and the tiled tier at the main-path shape over 4 and 8 virtual
+shards of the card: ``modwt_multilevel_tiled`` -> ``imodwt_multilevel_tiled``
+(one external-halo launch each way), the exact tiled round trip and the
+symmetric tiled round trip (the plain route).  For the streaming and tiled
+rows it also prints the host side: the self CPU time of the traced ops per
+call and the ops that take the most (the trace's own cost included).  Exits
+non-zero without a CUDA device.
+
+With arguments, only the calls whose label holds one of them are profiled:
+``python3 tools/profile_port.py tiled`` profiles the tiled rows alone, and
+run from another checkout's root it profiles that checkout's package, so
+two versions can be compared in one session on the card.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import parallel as par
     from vectorwave_tpu_torch import streaming as st
     from vectorwave_tpu_torch.kernels import modwt_cascade as mx
     from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
@@ -144,6 +154,22 @@ def main() -> int:
             lambda boundary=boundary: stream_row(boundary))
     calls[f"streaming denoise {stream}, a step a block"] = lambda: denoise_row(False)
     calls[f"streaming denoise {stream}, 8 blocks a launch"] = lambda: denoise_row(True)
+    for shards in (4, 8):
+        mesh = par.make_mesh({"signal": shards}, devices=[dev] * shards)
+        calls[f"tiled round trip db4 J=6 128x65536, {shards} shards"] = (
+            lambda mesh=mesh: par.imodwt_multilevel_tiled(par.modwt_multilevel_tiled(
+                x, "db4", levels=6, mesh=mesh), "db4", mesh=mesh))
+        calls[f"tiled exact round trip db4 J=6 128x65536, {shards} shards"] = (
+            lambda mesh=mesh: par.imodwt_multilevel_tiled_exact(
+                *par.modwt_multilevel_tiled_exact(x, "db4", levels=6, mesh=mesh), "db4",
+                mesh=mesh))
+    calls["tiled round trip symmetric db4 J=6 128x65536, 8 shards"] = (
+        lambda mesh=mesh: par.imodwt_multilevel_tiled(par.modwt_multilevel_tiled(
+            x, "db4", levels=6, mesh=mesh, boundary="symmetric"), "db4", mesh=mesh,
+            boundary="symmetric"))
+    words = sys.argv[1:]
+    if words:
+        calls = {k: v for k, v in calls.items() if any(word in k for word in words)}
     for label, fn in calls.items():
         for _ in range(3):
             fn()
@@ -170,7 +196,7 @@ def main() -> int:
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
             print(f"    {e.self_device_time_total / 1e3 / REPS:8.4f} ms "
                   f"x{e.count // REPS:<3d} {e.key[:90]}")
-        if "stream" in label:
+        if "stream" in label or "tiled" in label:
             # where the host time goes: the self CPU time of the traced ops
             # (aten ops, CUDA runtime calls) per call, and what is left of
             # the traced wall time, the Python between them

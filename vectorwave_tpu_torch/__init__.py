@@ -10,12 +10,15 @@ family (MODWT2, DWT2, ``denoise2`` and the 2-D SWT), wavelet packets (WPT,
 MODWPT, best basis, ``denoise_packet``) and the dual-tree complex wavelet
 transform (``dtcwt``, ``dtcwt_denoise``), streaming (block streaming with
 carried state, sliding windows, ring-buffer ingest through a native C++
-ring, the streaming denoiser; ``streaming``, ``native``), and the kernel
-tier behind them: ten hand-written CUDA kernels for Hopper (multi-level
-analysis with an optional head splice and an external left halo,
-synthesis, fused denoise with a stream mode, the symmetric synthesis with
-its adjoint, the 2-D analysis and synthesis levels and the general filter
-bank's analysis and synthesis, in fp32; exact analysis and synthesis in
+ring, the streaming denoiser; ``streaming``, ``native``), the parallel tier
+(meshes of torch devices, the batch facade, long-signal and 2-D tiling with
+halo exchange, the sharded exact tier, the host x chip layout;
+``parallel``), and the kernel tier behind them: ten hand-written CUDA
+kernels for Hopper (multi-level analysis with an optional head splice and
+an external left halo, synthesis with an external right halo, fused
+denoise with a stream mode, the symmetric synthesis with its adjoint, the
+2-D analysis and synthesis levels and the general filter bank's analysis
+and synthesis, in fp32; exact analysis and synthesis with their halos in
 fp64) with their plain PyTorch versions.
 
 The package imports ``torch``, ``numpy`` and ``mpmath`` and never JAX or
@@ -24,7 +27,7 @@ is the input's (``[..., H, W]`` for the 2-D family).  Only what is ported
 is exported.
 """
 
-from . import config, convert, errors, kernels, native, streaming
+from . import config, convert, errors, kernels, native, parallel, streaming
 from .config import (
     get_backend,
     get_fused_precision,
@@ -240,6 +243,7 @@ __all__ = [
     "mra2",
     "native",
     "packet_frequency_bands",
+    "parallel",
     "pad_signal",
     "recommended_transform",
     "reconstruct_basis",

@@ -110,21 +110,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     #  taps_len, tile, edge, dtype, stream)
     lib.vw_modwt_analysis.argtypes = [ptr, ptrs, ptr, ptr, i32, ptr, i32, i64, i64, i32,
                                       i32, i32, i32, i32, ptr]
-    # (ins, out, taps, batch, n, levels, taps_len, tile, periodic, dtype, stream)
-    lib.vw_modwt_synthesis.argtypes = [ptrs, ptr, ptr, i64, i64, i32, i32, i32,
-                                       i32, i32, ptr]
+    # (ins, halos, halo_len, out, taps, batch, n, levels, taps_len, tile,
+    #  periodic, dtype, stream)
+    lib.vw_modwt_synthesis.argtypes = [ptrs, ptrs, i32, ptr, ptr, i64, i64, i32, i32,
+                                       i32, i32, i32, ptr]
     # (x, out, thresholds, taps, halo, halo_len, batch, n, levels, taps_len,
     #  tile, periodic, mode, dtype, stream)
     lib.vw_modwt_denoise.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, i64, i32, i32,
                                      i32, i32, i32, i32, ptr]
-    # (x_hi, x_lo, outs, taps, batch, n, first, levels, taps_len, tile,
-    #  periodic, direct, stream)
-    lib.vw_modwt_exact_analysis.argtypes = [ptr, ptr, ptrs, ptr, i64, i64, i32, i32,
-                                            i32, i32, i32, i32, ptr]
-    # (ins, out_hi, out_lo, taps, batch, n, first, levels, taps_len, tile,
-    #  periodic, direct, stream)
-    lib.vw_modwt_exact_synthesis.argtypes = [ptrs, ptr, ptr, ptr, i64, i64, i32, i32,
-                                             i32, i32, i32, i32, ptr]
+    # (x_hi, x_lo, halo, halo_len, outs, taps, batch, n, first, levels,
+    #  taps_len, tile, periodic, direct, stream)
+    lib.vw_modwt_exact_analysis.argtypes = [ptr, ptr, ptr, i32, ptrs, ptr, i64, i64,
+                                            i32, i32, i32, i32, i32, i32, ptr]
+    # (ins, halos, halo_len, out_hi, out_lo, taps, batch, n, first, levels,
+    #  taps_len, tile, periodic, direct, stream)
+    lib.vw_modwt_exact_synthesis.argtypes = [ptrs, ptrs, i32, ptr, ptr, ptr, i64, i64,
+                                             i32, i32, i32, i32, i32, i32, ptr]
     # (planes, signal, head, tail, taps, plan, batch, n, levels, taps_len, tile,
     #  width, span_l, span_r, adjoint, dtype, stream)
     lib.vw_modwt_symmetric_synthesis.argtypes = [ptrs, ptr, ptr, ptr, ptr, ptr, i64,

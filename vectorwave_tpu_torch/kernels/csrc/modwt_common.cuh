@@ -12,7 +12,9 @@
 //   * the signal is extended past [0, n) either periodically (index taken
 //     modulo n, so n may be shorter than the cascade span) or with zeros;
 //     the analysis kernel also takes the per-level mirror and an external
-//     left halo (CascadeEdge), the denoise kernel the external halo;
+//     left halo (CascadeEdge), the denoise kernel the external halo, the
+//     synthesis kernel an external right halo per plane, and the exact
+//     pair the same two halos on (hi, lo) pairs (the tiled tier's edges);
 //   * one block serves one (signal, tile of `tile` outputs); the grid is
 //     flattened to blockIdx.x = signal * tiles_per_row + tile_index, so the
 //     batch is not bounded by gridDim.y;
@@ -84,6 +86,20 @@ __device__ __forceinline__ float load_halo(const T* __restrict__ row,
     return h >= 0 ? to_f32(halo[h]) : 0.0f;
   }
   return g < n ? to_f32(row[g]) : 0.0f;
+}
+
+// Sample g >= 0 of a row whose right neighbour's first `halo_len` samples
+// are `halo` (the synthesis's external right edge): g < n reads the row,
+// n <= g < n + halo_len reads halo[g - n], and later samples read 0.  The
+// synthesis reads forward only, so g < 0 never occurs.
+template <typename T>
+__device__ __forceinline__ float load_right_halo(const T* __restrict__ row,
+                                                 const T* __restrict__ halo,
+                                                 int halo_len, long long g,
+                                                 long long n) {
+  if (g < n) return to_f32(row[g]);
+  const long long h = g - n;
+  return h < halo_len ? to_f32(halo[h]) : 0.0f;
 }
 
 // Left edges of the analysis cascade: zero, periodic, the per-level
@@ -160,6 +176,31 @@ __device__ __forceinline__ double load_ext_pair(const float* __restrict__ hi,
   }
   const double v = static_cast<double>(hi[m]);
   return lo == nullptr ? v : v + static_cast<double>(lo[m]);
+}
+
+// The exact pair's external edges.  Left (the analysis): a halo of raw
+// float32 samples whose lo word is zero; g < 0 reads halo[halo_len + g], 0
+// before the halo starts, and g >= n reads 0.  Right (the synthesis): a
+// (hi, lo) halo pair per plane; n <= g < n + halo_len reads it at g - n,
+// later samples read 0.
+__device__ __forceinline__ double load_left_halo_pair(
+    const float* __restrict__ hi, const float* __restrict__ lo,
+    const float* __restrict__ halo, int halo_len, long long g, long long n) {
+  if (g < 0) {
+    const long long h = halo_len + g;
+    return h >= 0 ? static_cast<double>(halo[h]) : 0.0;
+  }
+  return load_ext_pair(hi, lo, g, n, false);
+}
+
+__device__ __forceinline__ double load_right_halo_pair(
+    const float* __restrict__ hi, const float* __restrict__ lo,
+    const float* __restrict__ halo_hi, const float* __restrict__ halo_lo,
+    int halo_len, long long g, long long n) {
+  if (g < n) return load_ext_pair(hi, lo, g, n, false);
+  const long long h = g - n;
+  if (h >= halo_len) return 0.0;
+  return static_cast<double>(halo_hi[h]) + static_cast<double>(halo_lo[h]);
 }
 
 __device__ __forceinline__ void store_pair(float* __restrict__ hi,

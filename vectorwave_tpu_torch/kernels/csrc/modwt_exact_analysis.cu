@@ -22,6 +22,15 @@
 // (long filters at levels 8-10): each output reads its L inputs straight
 // from device memory instead of a shared window.
 //
+// External left halo (`halo=` of `analysis_exact`, the tiled exact tier's
+// neighbour exchange): `halo` holds [batch, halo_len] raw float32 samples
+// just left of each row, whose lo word is zero (f32 neighbour samples are
+// exact), and the window reads them through load_left_halo_pair: the halo
+// for g < 0, 0 before it, 0 past n, as the zero edge of [halo | x] does.
+// Only a one-launch window plan takes it: the later launches of a split plan
+// read an approximation pair that the neighbour never sent, so the wrapper
+// runs a split plan on [halo | x] with zero edges instead.
+//
 // What bounds it on the H100: per sample it reads 4 B (8 B with x_lo) and
 // writes 8 (K+1) B, about 0.5 GB at 128 x 65536 with K = 6, against
 // 2 L K = 96 fp64 FMAs and L K = 48 eight-byte shared loads per sample.  At
@@ -35,8 +44,9 @@ namespace vw {
 
 __global__ void __launch_bounds__(kThreads)
 modwt_exact_analysis_kernel(const float* __restrict__ x_hi,
-                            const float* __restrict__ x_lo, PairPtrs out,
-                            const double* __restrict__ taps, long long n,
+                            const float* __restrict__ x_lo,
+                            const float* __restrict__ halo, int halo_len,
+                            PairPtrs out, const double* __restrict__ taps, long long n,
                             int first, int levels, int L, int tile,
                             int tiles_per_row, int periodic, int direct) {
   extern __shared__ double smem_d[];
@@ -81,8 +91,12 @@ modwt_exact_analysis_kernel(const float* __restrict__ x_hi,
   }
   // window [t0 - span, t0 + tile) of the extended signal
   const long long g0 = t0 - span;
+  const float* row_halo = halo == nullptr ? nullptr : halo + b * halo_len;
   for (int q = threadIdx.x; q < width; q += blockDim.x) {
-    cur[q] = load_ext_pair(x_hi + row_off, row_lo, g0 + q, n, periodic != 0);
+    cur[q] = row_halo != nullptr
+                 ? load_left_halo_pair(x_hi + row_off, row_lo, row_halo, halo_len,
+                                       g0 + q, n)
+                 : load_ext_pair(x_hi + row_off, row_lo, g0 + q, n, periodic != 0);
   }
   __syncthreads();
 
@@ -125,13 +139,17 @@ inline size_t exact_analysis_shared_bytes(int L, int first, int levels, int tile
 
 }  // namespace vw
 
+// A non-null `halo` of halo_len >= 1 samples a row selects the external left
+// edge; periodic and direct must then be 0.
 extern "C" int vw_modwt_exact_analysis(const void* x_hi, const void* x_lo,
+                                       const void* halo, int halo_len,
                                        void* const* outs, const void* taps,
                                        long long batch, long long n, int first,
                                        int levels, int taps_len, int tile,
                                        int periodic, int direct, void* stream) {
   if (!vw::valid_config(batch, n, levels, taps_len, tile) || first < 1 ||
-      first + levels - 1 > vw::kMaxLevels || (direct && levels != 1)) {
+      first + levels - 1 > vw::kMaxLevels || (direct && levels != 1) ||
+      (halo != nullptr && (halo_len < 1 || periodic || direct))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   vw::PairPtrs planes{};
@@ -147,7 +165,8 @@ extern "C" int vw_modwt_exact_analysis(const void* x_hi, const void* x_lo,
   if (err != cudaSuccess) return static_cast<int>(err);
   vw::modwt_exact_analysis_kernel<<<static_cast<unsigned>(blocks), vw::kThreads, bytes,
                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x_hi), static_cast<const float*>(x_lo), planes,
+      static_cast<const float*>(x_hi), static_cast<const float*>(x_lo),
+      static_cast<const float*>(halo), halo_len, planes,
       static_cast<const double*>(taps), n, first, levels, taps_len, tile,
       static_cast<int>(tiles), periodic, direct);
   return static_cast<int>(cudaGetLastError());

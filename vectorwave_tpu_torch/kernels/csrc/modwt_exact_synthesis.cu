@@ -20,6 +20,13 @@
 // serves one level whose halo alone does not fit shared memory: each output
 // reads its 2 L inputs straight from device memory.
 //
+// External right halo (`halo=` of `synthesis_exact`, the tiled exact tier's
+// neighbour exchange): `halos` holds, for each of the K+1 planes, a (hi, lo)
+// pair of [batch, halo_len] samples just right of the row's end, read
+// through load_right_halo_pair: the plane below n, the halo pair on [n, n +
+// halo_len), zeros after it.  Only a one-launch window plan takes it; the
+// wrapper runs a split plan on [plane | halo] with zero edges instead.
+//
 // What bounds it on the H100: per sample it reads 8 (K+1) B and writes 8 B,
 // about 0.5 GB at 128 x 65536 with K = 6 (plus each tile's right halo of
 // S = (L-1)(2^K-1) samples per plane, L2-served), against 2 L K = 96 fp64
@@ -32,7 +39,8 @@
 namespace vw {
 
 __global__ void __launch_bounds__(kThreads)
-modwt_exact_synthesis_kernel(PairPtrs in, float* __restrict__ out_hi,
+modwt_exact_synthesis_kernel(PairPtrs in, PairPtrs halos, int halo_len,
+                             float* __restrict__ out_hi,
                              float* __restrict__ out_lo,
                              const double* __restrict__ taps, long long n,
                              int first, int levels, int L, int tile,
@@ -50,6 +58,19 @@ modwt_exact_synthesis_kernel(PairPtrs in, float* __restrict__ out_hi,
   const long long t0 = static_cast<long long>(blockIdx.x % tiles_per_row) * tile;
   const long long row_off = b * n;
   const int n_out = static_cast<int>(min(static_cast<long long>(tile), n - t0));
+  const long long halo_off = b * halo_len;
+  // sample g of plane pair i (hi at 2i, lo at 2i + 1), extended by the
+  // right halo or by the edge rule
+  auto load = [&](int i, long long g) {
+    const float* h = static_cast<const float*>(in.p[2 * i]) + row_off;
+    const float* l = static_cast<const float*>(in.p[2 * i + 1]) + row_off;
+    if (halo_len > 0) {
+      return load_right_halo_pair(
+          h, l, static_cast<const float*>(halos.p[2 * i]) + halo_off,
+          static_cast<const float*>(halos.p[2 * i + 1]) + halo_off, halo_len, g, n);
+    }
+    return load_ext_pair(h, l, g, n, periodic != 0);
+  };
 
   for (int k = threadIdx.x; k < L; k += blockDim.x) {
     s_lo[k] = taps[k];
@@ -74,20 +95,12 @@ modwt_exact_synthesis_kernel(PairPtrs in, float* __restrict__ out_hi,
     return;
   }
   // c = the approximation over the window [t0, t0 + tile + span)
-  const float* ah = static_cast<const float*>(in.p[2 * levels]) + row_off;
-  const float* al = static_cast<const float*>(in.p[2 * levels + 1]) + row_off;
-  for (int q = threadIdx.x; q < width; q += blockDim.x) {
-    cur[q] = load_ext_pair(ah, al, t0 + q, n, periodic != 0);
-  }
+  for (int q = threadIdx.x; q < width; q += blockDim.x) cur[q] = load(levels, t0 + q);
 
   int valid_end = width;  // the current level is exact on [0, valid_end)
   for (int i = levels - 1; i >= 0; --i) {
     const int s = 1 << (first - 1 + i);
-    const float* dh = static_cast<const float*>(in.p[2 * i]) + row_off;
-    const float* dl = static_cast<const float*>(in.p[2 * i + 1]) + row_off;
-    for (int q = threadIdx.x; q < valid_end; q += blockDim.x) {
-      det[q] = load_ext_pair(dh, dl, t0 + q, n, periodic != 0);
-    }
+    for (int q = threadIdx.x; q < valid_end; q += blockDim.x) det[q] = load(i, t0 + q);
     __syncthreads();
     const int new_end = valid_end - (L - 1) * s;
     for (int q = threadIdx.x; q < new_end; q += blockDim.x) {
@@ -119,17 +132,26 @@ inline size_t exact_synthesis_shared_bytes(int L, int first, int levels, int til
 
 }  // namespace vw
 
-extern "C" int vw_modwt_exact_synthesis(const void* const* ins, void* out_hi,
-                                        void* out_lo, const void* taps,
+// `halos` (2(K+1) pointers, (hi, lo) of each plane, to [batch, halo_len]
+// rows) and halo_len > 0 select the external right edge; periodic and direct
+// must then be 0.
+extern "C" int vw_modwt_exact_synthesis(const void* const* ins,
+                                        const void* const* halos, int halo_len,
+                                        void* out_hi, void* out_lo, const void* taps,
                                         long long batch, long long n, int first,
                                         int levels, int taps_len, int tile,
                                         int periodic, int direct, void* stream) {
   if (!vw::valid_config(batch, n, levels, taps_len, tile) || first < 1 ||
-      first + levels - 1 > vw::kMaxLevels || (direct && levels != 1)) {
+      first + levels - 1 > vw::kMaxLevels || (direct && levels != 1) || halo_len < 0 ||
+      (halo_len > 0 && (halos == nullptr || periodic || direct))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   vw::PairPtrs planes{};
-  for (int i = 0; i < 2 * (levels + 1); ++i) planes.p[i] = const_cast<void*>(ins[i]);
+  vw::PairPtrs halo_planes{};
+  for (int i = 0; i < 2 * (levels + 1); ++i) {
+    planes.p[i] = const_cast<void*>(ins[i]);
+    if (halo_len > 0) halo_planes.p[i] = const_cast<void*>(halos[i]);
+  }
   const long long tiles = (n + tile - 1) / tile;
   const long long blocks = batch * tiles;
   if (tiles > 0x7fffffffLL || blocks > 0x7fffffffLL) {
@@ -141,7 +163,8 @@ extern "C" int vw_modwt_exact_synthesis(const void* const* ins, void* out_hi,
   if (err != cudaSuccess) return static_cast<int>(err);
   vw::modwt_exact_synthesis_kernel<<<static_cast<unsigned>(blocks), vw::kThreads, bytes,
                                      static_cast<cudaStream_t>(stream)>>>(
-      planes, static_cast<float*>(out_hi), static_cast<float*>(out_lo),
+      planes, halo_planes, halo_len, static_cast<float*>(out_hi),
+      static_cast<float*>(out_lo),
       static_cast<const double*>(taps), n, first, levels, taps_len, tile,
       static_cast<int>(tiles), periodic, direct);
   return static_cast<int>(cudaGetLastError());

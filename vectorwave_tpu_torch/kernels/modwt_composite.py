@@ -39,6 +39,16 @@ zero-boundary cascade of ``[halo | x]`` sliced back to N (the denoise's
 synthesis then block-local with zero coefficients past N).  Both modes count
 under the kernel's own entry of :data:`LAUNCHES`.
 
+:func:`synthesis` takes an external right ``halo``, one ``[B, H]`` tensor
+per plane holding the samples just right of the plane's end (the JAX
+package's ``run_synthesis_composite(halo=)``, the tiled tier's neighbour
+exchange): each plane is extended by its halo on the right and by zeros
+after it, and its plain version is the zero-boundary synthesis of ``[plane
+| halo]`` sliced to the first N.  The exact pair takes the same two halos on
+(hi, lo) pairs: :func:`exact_analysis` a ``[B, H]`` left halo of raw float32
+samples whose lo word is zero, :func:`exact_synthesis` one ``(hi, lo)``
+right-halo pair per plane.  No halo combines with a periodic boundary.
+
 ``filters`` arguments are ``(lo, hi)`` tuples of Python floats, already
 scaled by 1/sqrt(2) per stage (``modwt_fused._kernel_filters``).  The
 first three kernels and the symmetric pair compute in fp32 and store in the
@@ -345,9 +355,21 @@ def analysis_plain(x, levels, filters, periodic, head=None, halo=None
     return tuple(p.to(x.dtype) for p in planes)
 
 
-def synthesis_plain(planes, levels, filters, periodic) -> torch.Tensor:
-    """Plain version of :func:`synthesis`."""
-    return _synthesis_cascade(planes, levels, filters, periodic).to(planes[0].dtype)
+def _right_extended(planes, halo) -> list[torch.Tensor]:
+    """Each plane followed by its right halo."""
+    return [torch.cat([p, h.to(p.dtype)], dim=-1) for p, h in zip(planes, halo)]
+
+
+def synthesis_plain(planes, levels, filters, periodic, halo=None) -> torch.Tensor:
+    """Plain version of :func:`synthesis` (given a right ``halo``, the
+    zero-boundary synthesis of each ``[plane | halo]``, sliced to N)."""
+    if halo is None:
+        return _synthesis_cascade(planes, levels, filters, periodic).to(planes[0].dtype)
+    _check_halo_count(halo, levels)
+    _refuse_periodic_halo(periodic)
+    n = planes[0].shape[-1]
+    out = _synthesis_cascade(_right_extended(planes, halo), levels, filters, False)
+    return out[..., :n].to(planes[0].dtype)
 
 
 def _combine(hi: torch.Tensor, lo: torch.Tensor | None) -> torch.Tensor:
@@ -361,17 +383,34 @@ def _split_pair(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, (v - hi.to(torch.float64)).to(torch.float32)
 
 
-def exact_analysis_plain(x, x_lo, levels, filters, periodic, first_level=1):
+def exact_analysis_plain(x, x_lo, levels, filters, periodic, first_level=1, halo=None):
     """Plain version of :func:`exact_analysis`: the float64 cascade of
-    hi + lo, each plane split into a float32 pair."""
-    planes = _analysis_cascade(_combine(x, x_lo), levels, filters, periodic, first_level)
+    hi + lo (of ``[halo | x]`` with a zero edge, sliced back to N, given a
+    left halo), each plane split into a float32 pair."""
+    v = _combine(x, x_lo)
+    if halo is None:
+        planes = _analysis_cascade(v, levels, filters, periodic, first_level)
+    else:
+        _refuse_periodic_halo(periodic)
+        h = halo.shape[-1]
+        planes = _analysis_cascade(torch.cat([halo.to(torch.float64), v], dim=-1), levels,
+                                   filters, False, first_level)
+        planes = [p[..., h:] for p in planes]
     return tuple(_split_pair(p) for p in planes)
 
 
-def exact_synthesis_plain(pairs, levels, filters, periodic, first_level=1):
-    """Plain version of :func:`exact_synthesis`."""
+def exact_synthesis_plain(pairs, levels, filters, periodic, first_level=1, halo=None):
+    """Plain version of :func:`exact_synthesis` (given right halo pairs,
+    the zero-boundary synthesis of each ``[plane | halo]``, sliced to N)."""
     planes = [_combine(hi, lo) for hi, lo in pairs]
-    return _split_pair(_synthesis_cascade(planes, levels, filters, periodic, first_level))
+    if halo is None:
+        return _split_pair(_synthesis_cascade(planes, levels, filters, periodic,
+                                              first_level))
+    _check_halo_count(halo, levels)
+    _refuse_periodic_halo(periodic)
+    n = planes[0].shape[-1]
+    ext = _right_extended(planes, [_combine(hi, lo) for hi, lo in halo])
+    return _split_pair(_synthesis_cascade(ext, levels, filters, False, first_level)[..., :n])
 
 
 def _dense_plane_filters(filters, ops):
@@ -512,10 +551,32 @@ def _refuse_periodic_halo(periodic: bool) -> None:
     if periodic:
         raise InvalidArgumentError(
             ErrorCode.CFG_INVALID_CONFIG,
-            "an external halo is the row's left edge; it does not combine with a "
+            "an external halo is the row's edge; it does not combine with a "
             "periodic boundary",
             suggestions=("Pass periodic=False with halo=",),
         )
+
+
+def _check_halo_count(halo, levels: int) -> None:
+    """A right halo is one entry per plane."""
+    if len(halo) != levels + 1:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            f"expected one right halo per plane ({levels + 1}), got {len(halo)}",
+        )
+
+
+def _halo_width(halos, like: torch.Tensor) -> int:
+    """Check CUDA right halos against the first plane, all of one width;
+    returns that width."""
+    widths = {_check_halo(h, like) for h in halos}
+    if len(widths) != 1:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "every plane's right halo must have the same width",
+            context={"widths": sorted(widths)},
+        )
+    return widths.pop()
 
 
 def _check_halo(halo: torch.Tensor, x: torch.Tensor) -> int:
@@ -644,16 +705,19 @@ def _check_planes(planes) -> int:
     return code
 
 
-def synthesis(planes, levels, filters, periodic) -> torch.Tensor:
-    """(d_1, ..., d_J, a_J), each [B, N] -> [B, N]; periodic or zero."""
+def synthesis(planes, levels, filters, periodic, halo=None) -> torch.Tensor:
+    """(d_1, ..., d_J, a_J), each [B, N] -> [B, N]; periodic or zero.
+    ``halo``, J+1 ``[B, H]`` tensors of the planes' dtype, is the external
+    right edge (``periodic`` must be False)."""
     if planes[0].device.type == "cpu":
-        return synthesis_plain(planes, levels, filters, periodic)
-    return launch_synthesis(planes, levels, filters, periodic, "modwt_synthesis")
+        return synthesis_plain(planes, levels, filters, periodic, halo)
+    return launch_synthesis(planes, levels, filters, periodic, "modwt_synthesis", halo)
 
 
-def launch_synthesis(planes, levels, filters, periodic, counter):
+def launch_synthesis(planes, levels, filters, periodic, counter, halo=None):
     """Launch the synthesis kernel on CUDA planes, adding one to
-    ``LAUNCHES[counter]``."""
+    ``LAUNCHES[counter]``; ``halo``, one ``[B, H]`` tensor per plane, is the
+    external right edge."""
     if len(planes) != levels + 1:
         raise InvalidArgumentError(
             ErrorCode.VAL_INVALID_SHAPE,
@@ -662,17 +726,24 @@ def launch_synthesis(planes, levels, filters, periodic, counter):
     first = planes[0]
     code = _check_planes(planes)
     _check_levels(levels)
+    halo_len = 0
+    if halo is not None:
+        _check_halo_count(halo, levels)
+        _refuse_periodic_halo(periodic)
+        halo_len = _halo_width(halo, first)
     taps = len(filters[0])
     tile = _tile(synthesis_shared_bytes, taps, levels, SYNTHESIS_TILE)
     lib = library()
     out = torch.empty_like(first)
     in_ptrs = (ctypes.c_void_p * (levels + 1))(*[p.data_ptr() for p in planes])
+    halo_ptrs = (None if halo is None else
+                 (ctypes.c_void_p * (levels + 1))(*[h.data_ptr() for h in halo]))
     tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), first.device.index)
     b, n = first.shape
     with torch.cuda.device(first.device):
         err = lib.vw_modwt_synthesis(
-            in_ptrs, out.data_ptr(), tap_t.data_ptr(), b, n, levels, taps, tile,
-            int(periodic), code, _stream(first.device),
+            in_ptrs, halo_ptrs, halo_len, out.data_ptr(), tap_t.data_ptr(), b, n,
+            levels, taps, tile, int(periodic), code, _stream(first.device),
         )
     _raise_on_error(err, counter)
     LAUNCHES[counter] += 1
@@ -900,18 +971,42 @@ def _check_pair(hi: torch.Tensor, lo: torch.Tensor | None, what: str, like=None)
             )
 
 
-def exact_analysis(x, x_lo, levels, filters, periodic, first_level=1):
+def _one_window(plan) -> bool:
+    """Whether an exact launch plan is one window launch: only then does a
+    halo go to the kernel's load rule (a later launch of a split plan would
+    read an approximation pair the neighbour never sent)."""
+    return len(plan) == 1 and not plan[0][3]
+
+
+def exact_analysis(x, x_lo, levels, filters, periodic, first_level=1, halo=None):
     """[B, N] float32 x (with an optional lo word ``x_lo``) -> ``levels + 1``
     float32 (hi, lo) pairs (d_first .. d_last, a_last), computed in fp64;
     periodic or zero boundary, any N.  The cascade starts at ``first_level``
-    (stride 2^(first_level-1))."""
-    _refuse_grad(x, x_lo)
+    (stride 2^(first_level-1)).
+
+    ``halo``, ``[B, H]`` float32 raw samples just left of each row (lo word
+    zero), is the external left edge (``periodic`` must be False).  A plan
+    of one window launch reads it through the kernel's load rule; a split
+    plan (several launches, or ``direct``) runs on ``[halo | x]``, the halo
+    cut to the span, with zero edges, and slices each plane back to N."""
+    _refuse_grad(x, x_lo, halo)
     if x.device.type == "cpu":
-        return exact_analysis_plain(x, x_lo, levels, filters, periodic, first_level)
+        return exact_analysis_plain(x, x_lo, levels, filters, periodic, first_level, halo)
     _check_pair(x, x_lo, "x")
     _check_exact_levels(levels, first_level)
     taps = len(filters[0])
     plan = exact_launches(exact_analysis_shared_bytes, taps, levels, first_level)
+    halo_len = 0
+    if halo is not None:
+        _refuse_periodic_halo(periodic)
+        halo_len = _check_halo(halo, x)
+        if not _one_window(plan):
+            span = composite_halo_samples(taps, levels) << (first_level - 1)
+            h = min(halo_len, span)
+            ext_lo = None if x_lo is None else torch.cat([torch.zeros_like(halo[:, :h]), x_lo], -1)
+            pairs = exact_analysis(torch.cat([halo[:, halo_len - h:], x], -1), ext_lo, levels,
+                                   filters, False, first_level)
+            return tuple((hi[:, h:].contiguous(), lo[:, h:].contiguous()) for hi, lo in pairs)
     lib = library()
     tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), x.device.index,
                          torch.float64)
@@ -924,6 +1019,7 @@ def exact_analysis(x, x_lo, levels, filters, periodic, first_level=1):
         with torch.cuda.device(x.device):
             err = lib.vw_modwt_exact_analysis(
                 cur_hi.data_ptr(), None if cur_lo is None else cur_lo.data_ptr(),
+                None if halo is None else halo.data_ptr(), halo_len,
                 out_ptrs, tap_t.data_ptr(), b, n, first, count, taps, tile,
                 int(periodic), int(direct), _stream(x.device),
             )
@@ -934,12 +1030,19 @@ def exact_analysis(x, x_lo, levels, filters, periodic, first_level=1):
     return tuple(pairs) + ((cur_hi, cur_lo),)
 
 
-def exact_synthesis(pairs, levels, filters, periodic, first_level=1):
+def exact_synthesis(pairs, levels, filters, periodic, first_level=1, halo=None):
     """``levels + 1`` float32 (hi, lo) pairs, each [B, N] -> the (hi, lo)
-    reconstruction, computed in fp64; periodic or zero."""
-    _refuse_grad(*(t for pair in pairs for t in pair))
+    reconstruction, computed in fp64; periodic or zero.
+
+    ``halo``, one ``(hi, lo)`` pair of ``[B, H]`` float32 samples per plane,
+    just right of its end, is the external right edge (``periodic`` must be
+    False): the load rule for a plan of one window launch, ``[plane | halo]``
+    with zero edges sliced to N for a split plan, as in
+    :func:`exact_analysis`."""
+    _refuse_grad(*(t for pair in pairs for t in pair),
+                 *(t for pair in (halo or ()) for t in pair))
     if pairs[0][0].device.type == "cpu":
-        return exact_synthesis_plain(pairs, levels, filters, periodic, first_level)
+        return exact_synthesis_plain(pairs, levels, filters, periodic, first_level, halo)
     if len(pairs) != levels + 1:
         raise InvalidArgumentError(
             ErrorCode.VAL_INVALID_SHAPE,
@@ -951,6 +1054,21 @@ def exact_synthesis(pairs, levels, filters, periodic, first_level=1):
     _check_exact_levels(levels, first_level)
     taps = len(filters[0])
     plan = exact_launches(exact_synthesis_shared_bytes, taps, levels, first_level)
+    halo_len, halo_ptrs = 0, None
+    if halo is not None:
+        _refuse_periodic_halo(periodic)
+        _check_halo_count(halo, levels)
+        halo_len = _halo_width([t for pair in halo for t in pair], first_hi)
+        if not _one_window(plan):
+            span = composite_halo_samples(taps, levels) << (first_level - 1)
+            h = min(halo_len, span)
+            n = first_hi.shape[1]
+            ext = tuple((torch.cat([hi, h_hi[:, :h]], -1), torch.cat([lo, h_lo[:, :h]], -1))
+                        for (hi, lo), (h_hi, h_lo) in zip(pairs, halo))
+            out_hi, out_lo = exact_synthesis(ext, levels, filters, False, first_level)
+            return out_hi[:, :n].contiguous(), out_lo[:, :n].contiguous()
+        halo_ptrs = (ctypes.c_void_p * (2 * (levels + 1)))(
+            *[t.data_ptr() for pair in halo for t in pair])
     lib = library()
     tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), first_hi.device.index,
                          torch.float64)
@@ -963,9 +1081,9 @@ def exact_synthesis(pairs, levels, filters, periodic, first_level=1):
         out_hi, out_lo = torch.empty_like(first_hi), torch.empty_like(first_hi)
         with torch.cuda.device(first_hi.device):
             err = lib.vw_modwt_exact_synthesis(
-                in_ptrs, out_hi.data_ptr(), out_lo.data_ptr(), tap_t.data_ptr(), b, n,
-                first, count, taps, tile, int(periodic), int(direct),
-                _stream(first_hi.device),
+                in_ptrs, halo_ptrs, halo_len, out_hi.data_ptr(), out_lo.data_ptr(),
+                tap_t.data_ptr(), b, n, first, count, taps, tile, int(periodic),
+                int(direct), _stream(first_hi.device),
             )
         _raise_on_error(err, "modwt_exact_synthesis")
         LAUNCHES["modwt_exact_synthesis"] += 1

@@ -15,9 +15,19 @@ RMSE near 1e-16 and hi equal to x.
 ``profile=`` keeps the JAX names (:data:`PROFILES`) and is validated, but is
 otherwise a no-op: fp64 meets both the ``balanced`` (<=1e-10) and the
 ``full`` (~1e-13) contract.  The JAX ``interpret=`` and ``tile=`` arguments
-are dropped; the external-halo ``halo=`` arguments of the sharded exact tier
-are not yet ported.  The tier has no gradient, as in JAX: an input that
-requires grad raises.
+are dropped.  The tier has no gradient, as in JAX: an input that requires
+grad raises.
+
+``halo=`` is the sharded exact tier's neighbour exchange
+(``parallel.tiled``): a left halo of raw float32 samples for the analysis,
+one right ``(hi, lo)`` halo pair per plane for the synthesis, with zero
+edges beyond them (``periodic`` must be False; JAX lets the halo override
+it).  Where the launch plan is one window launch (db4 J=6, the config #2
+shape) the kernels read the halo through a load rule.  Where the plan is
+split (several launches, as sym8 J=10, or a ``direct`` level) the later
+launches would read an approximation pair the neighbour never sent, so the
+wrapper materialises ``[halo | x]`` (``[plane | halo]``) once, runs the
+zero-edge plan and slices each plane back to N.
 """
 
 from __future__ import annotations
@@ -56,22 +66,29 @@ def analysis_exact(
     filters: tuple,
     periodic: bool,
     x_lo: torch.Tensor | None = None,
+    halo: torch.Tensor | None = None,
     profile="balanced",
 ):
     """[B, N] (or a pair with ``x_lo``) -> tuple of ``levels + 1`` (hi, lo)
     float32 plane pairs, d_1 .. d_J then a_J.  One launch of the exact
     analysis kernel on a CUDA tensor (more where a deep halo does not fit
-    shared memory), its plain version on a CPU tensor."""
+    shared memory), its plain version on a CPU tensor.  ``halo``: ``[B, H]``
+    raw samples just left of each row (module docstring)."""
     _resolve_profile(profile)
-    return modwt_composite.exact_analysis(_f32(x), _f32(x_lo), levels, filters, periodic)
+    return modwt_composite.exact_analysis(_f32(x), _f32(x_lo), levels, filters, periodic,
+                                          halo=_f32(halo))
 
 
 def synthesis_exact(coeff_pairs, levels: int, filters: tuple, periodic: bool,
-                    profile="balanced"):
-    """Tuple of ``levels + 1`` (hi, lo) pairs -> the reconstructed (hi, lo)."""
+                    halo=None, profile="balanced"):
+    """Tuple of ``levels + 1`` (hi, lo) pairs -> the reconstructed (hi, lo).
+    ``halo``: one ``(hi, lo)`` pair of ``[B, H]`` samples just right of each
+    plane's end (module docstring)."""
     _resolve_profile(profile)
     pairs = tuple((_f32(hi), _f32(lo)) for hi, lo in coeff_pairs)
-    return modwt_composite.exact_synthesis(pairs, levels, filters, periodic)
+    if halo is not None:
+        halo = tuple((_f32(hi), _f32(lo)) for hi, lo in halo)
+    return modwt_composite.exact_synthesis(pairs, levels, filters, periodic, halo=halo)
 
 
 def modwt_roundtrip_exact(x, wavelet, *, levels: int, profile="balanced"):

@@ -1,0 +1,46 @@
+"""Sharded and tiled transforms over a mesh of torch devices.
+
+Counterpart of ``vectorwave_tpu/parallel``: batch sharding
+(:mod:`.batch`), long-signal tiling with halo exchange (:mod:`.tiled`, with
+its exact tier), 2-D row tiling (:mod:`.tiled2d`) and the host x chip
+layout (:mod:`.multihost`), all in one process (:mod:`.mesh`).  The tiled
+CWT (``cwt_tiled``, ``cwt_tiled_2d``) waits for the port of the CWT.
+"""
+
+from .mesh import Mesh, default_mesh, make_mesh
+from .batch import shard_batch, modwt_multilevel_sharded_batch
+from .tiled import (
+    imodwt_multilevel_tiled,
+    imodwt_multilevel_tiled_exact,
+    modwt_multilevel_tiled,
+    modwt_multilevel_tiled_exact,
+    tiled_roundtrip_check,
+)
+from .tiled2d import imodwt2_multilevel_tiled, modwt2_multilevel_tiled
+from .multihost import (
+    CommunicationReport,
+    communication_report,
+    imodwt_multilevel_multihost,
+    make_multihost_mesh,
+    modwt_multilevel_multihost,
+)
+
+__all__ = [
+    "Mesh",
+    "make_mesh",
+    "default_mesh",
+    "shard_batch",
+    "modwt_multilevel_sharded_batch",
+    "modwt_multilevel_tiled",
+    "imodwt_multilevel_tiled",
+    "modwt2_multilevel_tiled",
+    "imodwt2_multilevel_tiled",
+    "modwt_multilevel_tiled_exact",
+    "imodwt_multilevel_tiled_exact",
+    "tiled_roundtrip_check",
+    "make_multihost_mesh",
+    "modwt_multilevel_multihost",
+    "imodwt_multilevel_multihost",
+    "communication_report",
+    "CommunicationReport",
+]
