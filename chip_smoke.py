@@ -124,13 +124,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    beside its plain version and one PyTorch library call that computes the
    same function (``F.conv1d`` with the composite filters; not for the
    denoise; ``F.conv2d`` with the outer products of a level's taps for the
-   2-D kernels, which are timed at level 1 and at level 6; the cascade
-   analysis also in mirror mode), with the least time the card could take (bytes over 3.35 TB/s
+   2-D kernels, which are timed at every level 1-6, with the sums of levels
+   1-4 and 1-6 beside their bounds; the cascade analysis also in mirror
+   mode), with the least time the card could take (bytes over 3.35 TB/s
    or operations over the peak rate, the larger), and of the public entry
    points (the 2-D ones, the fused denoise's backward and the probe's round
    trip at each precision included); the bank kernels at the sym8 depth-4
    tree and at one level-4 pair as ``modwpt`` calls it, for 64x16384 and
-   128x65536, and every route of ``modwpt`` + ``imodwpt`` (depths 3, 4, 5)
+   128x65536, and ``dtcwt``'s whole-tree bank at 64x16384, and every route of ``modwpt`` + ``imodwpt`` (depths 3, 4, 5)
    and ``dtcwt`` + ``idtcwt`` at both shapes and at 1x1024 (the dual tree
    also at 64x65536), and the two denoisers at 8x16384; the external edge
    (library call: ``F.conv1d`` of the composite filters on ``[halo | x]``)
@@ -626,6 +627,7 @@ def bank_timing(dev, gen):
     path's shape as each kernel's row."""
     import vectorwave_tpu_torch as vt
     from vectorwave_tpu_torch.kernels import modwt_bank as mb
+    from vectorwave_tpu_torch.transforms import dtcwt as td
     from vectorwave_tpu_torch.transforms import packets as tp
 
     w = vt.wavelet(PACKET_WAVELET)
@@ -643,13 +645,18 @@ def bank_timing(dev, gen):
             bank[i, : len(f)] = torch.tensor(f, device=dev)
         return bank
 
+    dual_a = td._dual_tree_bank(w, DTCWT_LEVELS)[0]
+    dual_s = td._dual_tree_bank(w, DTCWT_LEVELS, 0.5)[0]
     ms_of, bound, cases = {}, {}, {k: [] for k in BANK_PATH}
     for b, n in PACKET_SHAPES:
         for label, dense_a, dense_s, rows, dil in (
             (f"sym8 depth-{depth} tree", tree_a, tree_s, b, 1),
             # a level of modwpt: its 2^(depth-1) nodes ride the batch axis
             (f"sym8 level-{depth} pair", pair, pair, b * (1 << (depth - 1)), spacing),
-        ):
+            # dtcwt's whole-tree bank (both trees' composed planes), as the
+            # default route takes it at this shape
+        ) + (((f"sym8 dtcwt {DTCWT_LEVELS}-level whole tree", dual_a, dual_s, b, 1),)
+             if (b, n) == PACKET_SHAPES[0] else ()):
             x = torch.randn(rows, n, device=dev, generator=gen)
             planes = mb.bank_analysis(x, dense_a, True)[-len(dense_s):]
             stacked = torch.stack(planes, dim=1)
@@ -2014,8 +2021,8 @@ def main() -> int:
              for edge in ("periodic", "mirror")}
     print(f"  modwt_mxu_analysis by edge: {modes} ms", flush=True)
 
-    # the 2-D level kernels at level 1 and at level 6 of db4 on the 2-D path's
-    # images, periodic; library call: F.conv2d of the circularly padded input
+    # the 2-D level kernels at every level 1-6 of db4 on the 2-D path's
+    # images, periodic (level 1 the row, every level in "levels"); library call: F.conv2d of the circularly padded input
     # with the [4, 1, L, L] outer products of the level's taps (synthesis:
     # [1, 4, L, L] on the four padded planes) at dilation 2^(j-1)
     import numpy as np
@@ -2039,7 +2046,8 @@ def main() -> int:
     t_ops2 = 12 * taps * pixels / FP32_FLOPS * 1e3
     bound2 = (max(t_bytes2, t_ops2), "bytes" if t_bytes2 >= t_ops2 else "operations")
     deep = {}
-    for level in (1, LEVELS):
+    by_level = {name: [] for name in TWOD_PATH}
+    for level in range(1, LEVELS + 1):
         sp = 1 << (level - 1)
         pad = sp * (taps - 1)
         twod = {
@@ -2062,17 +2070,24 @@ def main() -> int:
         check(lib_err <= 1e-4, f"level {level}: F.conv2d computes the 2-D kernels' "
                                f"function ({lib_err:.3e})")
         for name, (kernel, plain, library_call) in twod.items():
-            times = (median_ms(kernel), median_ms(plain), median_ms(library_call))
+            times = (median_ms(kernel), median_ms(plain, 1, 5), median_ms(library_call, 1, 5))
+            by_level[name].append({"level": level, "ms": times[0], "plain_ms": times[1],
+                                   "library_ms": times[2], "bound_ms": bound2[0]})
             if level == 1:
                 ms_of[name], bound[name] = times, bound2
-            else:
-                deep[name] = {"level": level, "ms": times[0], "plain_ms": times[1],
-                              "library_ms": times[2], "bound_ms": bound2[0]}
+            elif level == LEVELS:
+                deep[name] = by_level[name][-1]
             print(f"  {name} level {level}: kernel {times[0]:.4f} ms "
                   f"({20 * pixels / times[0] / 1e6:.1f} GB/s), plain {times[1]:.4f} ms, "
                   f"library {times[2]:.4f} ms, bound {bound2[0]:.4f} ms ({bound2[1]}; "
                   f"{100 * bound2[0] / times[0]:.1f}% of it)", flush=True)
     del planes4, stacked4
+    for name, rows in by_level.items():
+        for j in (4, LEVELS):
+            total = sum(r["ms"] for r in rows[:j])
+            print(f"  {name} levels 1-{j}: {total:.4f} ms against a bound of "
+                  f"{j * bound2[0]:.4f} ms ({100 * j * bound2[0] / total:.1f}% of it)",
+                  flush=True)
 
     def public_round_trip(**how):
         return vt.imodwt_multilevel(
@@ -2144,7 +2159,7 @@ def main() -> int:
             "bound_ms": bound[name][0],
             "bound_by": bound[name][1],
             "library_ms": ms_of[name][2],
-            **({"deepest": deep[name]} if name in deep else {}),
+            **({"deepest": deep[name], "levels": by_level[name]} if name in deep else {}),
             **({"ms_by_edge": modes} if name == "modwt_mxu_analysis" else {}),
             **({"cases": bank_cases[name]} if name in bank_cases else {}),
         }

@@ -227,9 +227,12 @@ def test_the_cards_gates_on_both_sides():
         mb._launch_plan(mb.bank_taps(tuple((1.0,) for _ in range(65))))
     with pytest.raises(InvalidArgumentError, match="shared memory"):
         mb._launch_plan(mb.bank_taps(((0.0,) * (edge + 1) + (1.0,),)))
-    # plane groups: one where the (signal, tile) blocks fill the card
+    # the analysis window (its tile and the span) gives the same widest span
+    assert mb.analysis_shared_bytes(edge) <= SHARED_LIMIT
+    assert mb.analysis_shared_bytes(edge + 1) > SHARED_LIMIT
+    # plane groups: one where the (signal, tile) blocks give every SM eight
     assert mb.plane_groups(4096, 30, 132) == 1
-    assert mb.plane_groups(8, 30, 132) == 30 and mb.plane_groups(100, 30, 132) == 3
+    assert mb.plane_groups(8, 30, 132) == 30 and mb.plane_groups(100, 30, 132) == 11
 
 
 # --- a numpy walk of the CUDA kernels' plan ------------------------------------------
@@ -243,32 +246,63 @@ def _bank_load(row, g, n, periodic):
     return row[g % n] if periodic else 0.0
 
 
-def _walk_analysis(x, taps, periodic, tile, groups, chunk):
-    """modwt_bank_analysis_kernel block by block: one window of tile + span
-    samples per (signal, tile), planes split over ``groups`` grid rows, taps
-    staged ``chunk`` at a time as (span - offset, value).  Every window slot
-    that is not loaded holds NaN, and every read must stay inside the window."""
+def _walk_analysis(x, taps, periodic, groups):
+    """modwt_bank_analysis_kernel block by block, its 256 threads as numpy
+    rows: a window of n_out + span samples per (signal, tile) (the rest
+    NaN), the planes cut into the plane groups, and each thread's RUN_BLOCK
+    outputs of one residue class stepping through its plane's runs RUN_CHUNK
+    taps at a time, the samples carried from one step to the next as the
+    kernel carries them in registers, then the taps left over one at a time.
+    Every read must stay inside the window; returns the planes and how often
+    each output was written."""
+    runs = mb.bank_runs(taps)
+    bounds = mb.group_bounds(runs, groups)
+    assert bounds[0] == 0 and bounds[-1] == taps.planes and len(bounds) - 1 <= groups
+    assert all(a < b for a, b in zip(bounds, bounds[1:]))
+    vals = np.asarray(runs.values)
     b, n = x.shape
-    span = taps.span
+    span, tile, block, step = taps.span, mb.ANALYSIS_TILE, mb.RUN_BLOCK, mb.RUN_CHUNK
     outs = [np.full((b, n), np.nan) for _ in range(taps.planes)]
-    per_block = -(-taps.planes // groups)
+    writes = np.zeros((taps.planes, b, n), dtype=int)
+    tid, r = np.arange(mb.THREADS), np.arange(block)
     for row in range(b):
         for t0 in range(0, n, tile):
             n_out = min(tile, n - t0)
-            win = np.array([_bank_load(x[row], t0 - span + q, n, periodic)
-                            for q in range(tile + span)])
-            for group in range(-(-taps.planes // per_block)):
-                for p in range(group * per_block, min(taps.planes, (group + 1) * per_block)):
-                    acc = np.zeros(tile)
-                    for k0 in range(taps.starts[p], taps.starts[p + 1], chunk):
-                        count = min(chunk, taps.starts[p + 1] - k0)
-                        s_off = [span - taps.offsets[k0 + i] for i in range(count)]
-                        s_val = [np.float32(taps.values[k0 + i]) for i in range(count)]
-                        for off, v in zip(s_off, s_val):
-                            assert 0 <= off and off + tile <= tile + span
-                            acc += float(v) * win[off:off + tile]
-                    outs[p][row, t0:t0 + n_out] = acc[:n_out]
-    return outs
+            win = np.full(tile + span, np.nan)
+            win[:n_out + span] = [_bank_load(x[row], t0 - span + q, n, periodic)
+                                  for q in range(n_out + span)]
+            for p in range(taps.planes):
+                shift = runs.shifts[p]
+                d = 1 << shift
+                base = (tid & (d - 1)) + ((tid >> shift) << shift) * block
+                live = base < n_out
+                acc = np.zeros((mb.THREADS, block))
+                for first, count, start in runs.plane(p):
+                    assert start % 4 == 0 and count >= 1
+                    src = (base + span - first)[live]
+
+                    def sample(m, src=src, d=d):
+                        idx = src[:, None] + np.asarray(m)[None, :] * d
+                        assert idx.min() >= 0 and idx.max() < tile + span
+                        return win[idx]
+
+                    i0, got = 0, np.zeros((len(src), block))
+                    if count >= step:
+                        old = sample(np.arange(1, step + 1))
+                        while i0 + step <= count:
+                            fresh = sample(-(i0 + step - 1) + np.arange(step))
+                            both = np.concatenate([fresh, old], axis=1)
+                            for t in range(step):
+                                got += vals[start + i0 + t] * both[:, r - t + step - 1]
+                            old, i0 = fresh, i0 + step
+                    for i in range(i0, count):
+                        got += vals[start + i] * sample(r - i)
+                    acc[live] += got
+                o = base[:, None] + r[None, :] * d
+                keep = (o < n_out) & live[:, None]
+                outs[p][row, t0 + o[keep]] = acc[keep]
+                writes[p, row, t0 + o[keep]] += 1
+    return outs, writes
 
 
 def _walk_synthesis(planes, taps, periodic, tile, chunk):
@@ -296,12 +330,32 @@ def _walk_synthesis(planes, taps, periodic, tile, chunk):
 
 
 WALKS = [
-    # (shape, tap lengths or a tree's depth, tile, plane groups, chunk)
-    ((2, 301), (1, 37, 300), 256, 1, 1024),   # odd N, a last tile of 45 outputs
+    # (shape, tap lengths, a tree's depth or a pair's spacing, synthesis tile,
+    #  plane groups, synthesis chunk)
+    ((2, 301), (1, 37, 300), 256, 1, 1024),   # odd N, one ragged tile
     ((2, 150), (1, 37, 300), 256, 3, 1024),   # span >= N: the wrap goes round twice
-    ((1, 700), (1, 37, 300), 256, 2, 64),     # taps staged in five chunks; 2 groups of 2, 1
+    ((1, 700), (1, 37, 300), 256, 2, 64),     # taps staged in five chunks; 2 groups
     ((1, 1024), 3, 512, 4, 16),               # a db4 depth-3 tree, 14 planes in 4 groups
+    ((2, 2 * mb.ANALYSIS_TILE + 5), ("pair", 16), 512, 1, 1024),  # stride 16, 3 tiles
+    ((1, 3000), ("pair", 512), 2048, 2, 64),  # stride 256 with zero taps; span >= N
+    ((1, 2000), "gaps", 256, 2, 1024),        # runs bridged and cut at their gaps
 ]
+
+
+def _walk_dense(rng, spec):
+    if isinstance(spec, int):
+        return _tree_dense("db4", spec)
+    if spec == "gaps":
+        # stride 4; gaps of 2 steps (bridged) and 9 steps (a new run); a
+        # plane of 13 taps at stride 1 leaves 5 taps over after one step
+        f = np.zeros(4 * 40 + 1)
+        f[[0, 4, 8, 16, 20, 56, 60, 64, 68, 72, 76, 80, 84, 88, 160]] = rng.standard_normal(15)
+        return (tuple(f.tolist()), tuple(rng.standard_normal(13).tolist()))
+    if isinstance(spec, tuple) and spec[0] == "pair":
+        w = vt.wavelet("sym8")
+        return tpackets._pair_dense(w.dec_lo / math.sqrt(2.0), w.dec_hi / math.sqrt(2.0),
+                                    spec[1])
+    return _random_dense(rng, spec)
 
 
 @pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "zero"])
@@ -309,15 +363,54 @@ WALKS = [
 def test_numpy_walk_of_the_kernels_windows_and_tap_staging(shape, spec, tile, groups, chunk,
                                                            periodic):
     rng = np.random.default_rng(5)
-    dense = _tree_dense("db4", spec) if isinstance(spec, int) else _random_dense(rng, spec)
+    dense = _walk_dense(rng, spec)
     taps = mb.bank_taps(dense)
     assert tile % mb.THREADS == 0 and tile <= mb.bank_tile(taps.span)
     # the values the kernels see are the float64 taps rounded once to fp32
     rounded = tuple(tuple(float(np.float32(v)) for v in f) for f in dense)
     x = rng.standard_normal(shape)
-    got = _walk_analysis(x, taps, periodic, tile, groups, chunk)
+    got, writes = _walk_analysis(x, taps, periodic, groups)
+    assert np.all(writes == 1)
     for g, w in zip(got, _direct_analysis(x, rounded, periodic)):
         assert np.max(np.abs(g - w)) <= TOL_F64
     planes = [rng.standard_normal(shape) for _ in dense]
     y = _walk_synthesis(planes, taps, periodic, tile, chunk)
     assert np.max(np.abs(y - _direct_synthesis(planes, rounded, periodic))) <= TOL_F64
+
+
+def test_bank_runs_of_the_routes_banks():
+    """A packet tree and the dual tree are one stride-1 run a plane, an à
+    trous pair one run at its spacing (at most THREADS: wider spacings
+    bridge their gaps with zero taps), and the plane groups balance the
+    taps."""
+    w = vt.wavelet("sym8")
+    tree = mb.bank_runs(mb.bank_taps(tpackets._tree_dense(w, 4, True)))
+    assert tree.shifts == (0,) * 30 and len(tree.runs) == 3 * 30
+    assert [c for _, c, _ in tree.plane(29)] == [226]
+    for spacing, shift, count in ((8, 3, 16), (256, 8, 16), (1024, 8, 61)):
+        pair = mb.bank_runs(mb.bank_taps(tpackets._pair_dense(w.dec_lo, w.dec_hi, spacing)))
+        assert pair.shifts == (shift, shift) and pair.plane(1) == [(0, count, pair.runs[5])]
+    bounds = mb.group_bounds(tree, 3)
+    assert bounds == (0, 16, 23, 30)
+    loads = [sum(tree.costs[a:b]) for a, b in zip(bounds, bounds[1:])]
+    assert max(loads) - min(loads) <= max(tree.costs)
+    assert mb.group_bounds(tree, 1) == (0, 30)
+    # more groups than planes: the cheap planes still share groups
+    many = mb.group_bounds(tree, 64)
+    assert many[-1] == 30 and 16 < len(many) - 1 < 30
+
+
+#: What the kernels served before the register-blocked analysis kernel:
+#: at most 64 planes, and a span up to the widest whose window of
+#: 256 + span floats fit beside one 1024-tap chunk of (offset, value) pairs,
+#: (232448 - 8 * 1024) // 4 - 256 = 55808.
+OLD_WIDEST_SPAN = 55808
+
+
+@pytest.mark.parametrize("planes", [1, 30, 62, 64])
+def test_every_bank_the_old_plan_served_is_served(planes):
+    for span in (0, 1, 15, 225, 465, 4096, 18105, OLD_WIDEST_SPAN):
+        dense = tuple((0.0,) * span + (1.0,) for _ in range(planes))
+        assert mb.bank_fits(dense), span
+        mb._launch_plan(mb.bank_taps(dense))
+        assert mb.analysis_shared_bytes(span) <= SHARED_LIMIT

@@ -427,6 +427,14 @@ def _image(cuda, shape, seed=0):
     ("db4", 3, (3, 200, 328)),
     ("haar", 5, (1, 24, 40)),
     ("db20", 4, (1, 384, 320)),
+    # the synthesis plans: every db4 level to 6 on ragged widths (the tile
+    # and the W-pass block change with the level), and a deep haar level
+    # (one output a thread)
+    ("db4", 2, (2, 256, 259)),
+    ("db4", 5, (1, 512, 517)),
+    ("db4", 6, (2, 512, 1000)),
+    ("sym8", 3, (1, 300, 333)),
+    ("haar", 10, (1, 1100, 1030)),
 ])
 def test_2d_kernels_match_plain(cuda, name, level, shape, edge):
     """Every band of one analysis level, and one synthesis level with the
@@ -500,11 +508,21 @@ def _bank_cases():
     w = vt.wavelet("sym8")
     random_dense = tuple(tuple((rng.standard_normal(k) / math.sqrt(k)).tolist())
                          for k in (1, 37, 300))
+    gaps = np.zeros(161)
+    gaps[[0, 4, 8, 16, 20, 56, 60, 64, 68, 72, 76, 80, 84, 88, 160]] = (
+        rng.standard_normal(15) / math.sqrt(15))
+    low, high = w.dec_lo / math.sqrt(2.0), w.dec_hi / math.sqrt(2.0)
     return {
         "random": random_dense,
-        "pair16": tp._pair_dense(w.dec_lo / math.sqrt(2.0), w.dec_hi / math.sqrt(2.0), 16),
+        "pair16": tp._pair_dense(low, high, 16),
         "tree3": tp._tree_dense(w, 3, dec=True),
         "dual4": td._dual_tree_bank(w, 4)[0],
+        # the analysis kernel's register blocks: a tree over a ragged last
+        # tile, a stride above its widest (zero taps bridge the gaps), runs
+        # bridged and cut at gaps with taps left over after the steps of 8
+        "tree4": tp._tree_dense(w, 4, dec=True),
+        "pair512": tp._pair_dense(low, high, 512),
+        "gaps": (tuple(gaps.tolist()), tuple((rng.standard_normal(13) / 4).tolist())),
     }
 
 
@@ -512,7 +530,9 @@ def _bank_cases():
 @pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "zero"])
 @pytest.mark.parametrize("kind,b,n", [("random", 3, 5000), ("random", 2, 301),
                                       ("random", 2, 150), ("pair16", 4, 4096),
-                                      ("tree3", 2, 8192), ("dual4", 2, 4096)])
+                                      ("tree3", 2, 8192), ("dual4", 2, 4096),
+                                      ("tree4", 3, 2 * 2304 + 7), ("pair512", 2, 3000),
+                                      ("gaps", 2, 1001), ("random", 5, 4617)])
 def test_bank_kernels_match_plain(cuda, kind, b, n, periodic, dtype):
     from vectorwave_tpu_torch.kernels import modwt_bank as mb
 

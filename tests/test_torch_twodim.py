@@ -150,38 +150,100 @@ def _walk_analysis(x, filters, s, edge, tile):
     return outs
 
 
-def _walk_synthesis(planes, filters, s, ops, edge, tile):
-    """modwt2_synthesis.cu's block loop: per plane, the th + L - 1 rows of
-    the class its H op reads by the window of columns the W ops read; W pass
-    into row_a (ll, lh: low along H) or row_d (hl, hh); then the H pass."""
-    ll, lh, hl, hh = planes
-    lo, hi = (np.asarray(f) for f in filters)
+def _forward(f, sign, off, s):
+    """An op's forward-read form, as the synthesis kernel builds it: taps in
+    read order (reversed for sign -1) and the base offset."""
+    f = np.asarray(f)
+    return (f, off) if sign > 0 else (f[::-1], off - s * (len(f) - 1))
+
+
+def _filter_line(line, k, g):
+    """filter_line of modwt2_synthesis.cu: acc[j] += sum_l g[l] line(j + l),
+    j < k, taps 4 at a time with the k + 3 samples of a step loaded and k - 1
+    of them carried to the next, then the taps left over one at a time."""
+    taps = len(g)
+    full = taps & ~3
+    acc = [0.0] * k
+    b = {e: line(e) for e in range(k - 1)} if full else {}
+    for l0 in range(0, full, 4):
+        b.update({e: line(l0 + e) for e in range(k - 1, k + 3)})
+        for u in range(4):
+            for j in range(k):
+                acc[j] = acc[j] + g[l0 + u] * b[j + u]
+        b = {e: b[e + 4] for e in range(k - 1)}
+    for tap in range(full, taps):
+        for j in range(k):
+            acc[j] = acc[j] + g[tap] * line(j + tap)
+    return acc
+
+
+def _walk_synthesis(planes, filters, s, ops, edge, plan):
+    """modwt2_synthesis.cu's block loop for a plan: per H op, the windows of
+    its two planes (th + L - 1 rows of the class it reads by the columns the
+    W ops read), the W pass in strips of ``plan.block`` outputs of one column
+    class into the row buffer (with one stage the first plane's sums stored
+    and the second's added; with more, both summed before the store: the
+    same sums in another rounding order); the H pass in items of 4 class
+    rows (fewer at a ragged tile's end), summed over the two H ops; then the
+    stores.  How many windows the block holds at once changes when copies
+    run, not what is read.  Every read must stay inside its window or the
+    buffer, and every buffer slot is written once a pass."""
+    lo, hi = filters
     taps = len(lo)
-    b, h, w = ll.shape
-    rows_n, width, wlo = k2.synthesis_window(taps, s, ops, tile)
-    lo_s, lo_o, hi_s, hi_o = ops
-    th, tw = tile
-    out = np.zeros_like(ll)
-    cs = np.arange(tw)
-    mrel = {False: min(0, lo_s * (taps - 1)), True: min(0, hi_s * (taps - 1))}
-    for image, res, k0, c0 in _blocks(b, h, w, s, tile):
-        row = {False: np.zeros((rows_n, tw)), True: np.zeros((rows_n, tw))}
+    b, h, w = planes[0].shape
+    th, tw = plan.tile
+    rows_n, width, wlo = k2.synthesis_window(taps, s, ops, plan.tile)
+    (g_lo, base_lo), (g_hi, base_hi) = (_forward(lo, *ops[:2], s), _forward(hi, *ops[2:], s))
+    kw = plan.block
+    assert tw % (8 * kw) == 0 and (kw == 1 or tw % (4 * s) == 0)
+    sigma = np.arange(tw // kw)
+    cols = sigma if kw == 1 else sigma % s + s * kw * (sigma // s)
+    out = np.zeros_like(planes[0])
+    for image, res, k0, c0 in _blocks(b, h, w, s, plan.tile):
         gc = _edge_index(c0 + wlo + np.arange(width), w, edge)
-        for p, plane in enumerate((ll, lh, hl, hh)):
-            w_hi, h_hi = bool(p & 1), bool(p >> 1)
-            h_off = hi_o if h_hi else lo_o
-            gr = _edge_index(res + h_off + s * (k0 + mrel[h_hi] + np.arange(rows_n)), h,
-                             edge)
-            buf = _gather(plane[image], gr, gc)
-            f = hi if w_hi else lo
-            w_sign, w_off = (hi_s, hi_o) if w_hi else (lo_s, lo_o)
-            row[h_hi] += sum(f[l] * buf[:, cs + w_off + w_sign * s * l - wlo]
-                             for l in range(taps))
-        ks = np.arange(th)
-        val = sum(lo[l] * row[False][ks + lo_s * l - mrel[False]]
-                  + hi[l] * row[True][ks + hi_s * l - mrel[True]] for l in range(taps))
-        _store([out], image, res, k0, c0, s, tile, (val,))
+        oacc = np.zeros((th, tw))
+        for hh_, (g_h, base_h) in enumerate(((g_lo, base_lo), (g_hi, base_hi))):
+            gr = _edge_index(res + base_h + s * (k0 + np.arange(rows_n)), h, edge)
+            rowbuf = np.full((rows_n, tw), np.nan)
+            written = np.zeros((rows_n, tw), dtype=int)
+            for ww, (g_w, base_w) in enumerate(((g_lo, base_lo), (g_hi, base_hi))):
+                win = _gather(planes[2 * hh_ + ww][image], gr, gc)
+
+                def line(e, win=win, off=base_w - wlo):
+                    idx = cols[None, :] + off + s * e
+                    assert idx.min() >= 0 and idx.max() < width
+                    return win[:, idx[0]]
+                acc = _filter_line(line, kw, g_w)
+                for j in range(kw):
+                    if ww == 0:
+                        rowbuf[:, cols + s * j] = acc[j]
+                        written[:, cols + s * j] += 1
+                    else:
+                        rowbuf[:, cols + s * j] = rowbuf[:, cols + s * j] + acc[j]
+            assert np.all(written == 1)
+            for k in range(0, th, 4):
+                if k + 4 <= th:
+                    def hline(e, k=k):
+                        assert k + e < rows_n
+                        return rowbuf[k + e]
+                    for j, v in enumerate(_filter_line(hline, 4, g_h)):
+                        oacc[k + j] += v
+                else:
+                    for j in range(th - k):
+                        def hline1(e, r=k + j):
+                            assert r + e < rows_n
+                            return rowbuf[r + e]
+                        oacc[k + j] += _filter_line(hline1, 1, g_h)[0]
+        _store([out], image, res, k0, c0, s, plan.tile, (oacc,))
     return out
+
+
+def _walk_plan(taps, s, ops, tile, stages):
+    """A plan for a walk's tile: the kernel's W-pass block where the tile
+    takes it, else one output a thread."""
+    tw = tile[1]
+    block = 4 if tw % (4 * s) == 0 and tw % 32 == 0 else 1
+    return k2.SynthesisPlan(tile, stages, 0, 0, block)
 
 
 WALK_CASES = [
@@ -217,7 +279,57 @@ def test_kernel_windows_reproduce_the_plain_level(name, level, edge, shape, tile
     ops = k2.synthesis_ops(w, level, edge)[level - 1]
     want = k2.synthesis2_level_plain(*(torch.from_numpy(p) for p in planes), fs, s, ops,
                                      edge)
-    _close(_walk_synthesis(planes, fs, s, ops, edge, tile), want)
+    plan = _walk_plan(len(fs[0]), s, ops, tile, 2)
+    _close(_walk_synthesis(planes, fs, s, ops, edge, plan), want)
+    ones = [np.ones_like(x)] + [np.zeros_like(x)] * 3
+    count = _walk_synthesis(ones, ((1.0,), (0.0,)), s, k2.FORWARD_OPS, "periodic",
+                            _walk_plan(1, s, k2.FORWARD_OPS, tile, 2))
+    assert np.array_equal(count, np.ones_like(x))
+
+
+#: The synthesis planner's own tiles on images big enough for them, the
+#: tile changing between levels (db4: (32, 128) at level 1, wider at level
+#: 6), ragged W, a class row count that is not a multiple of 4, and
+#: a one-output-a-thread W pass (haar level 9).
+PLAN_WALKS = [
+    ("db4", 1, "periodic", (1, 70, 300)),
+    ("db4", 6, "periodic", (1, 300, 530)),
+    ("db4", 6, "symmetric", (1, 290, 520)),
+    ("sym8", 4, "zero", (1, 150, 301)),
+    ("haar", 9, "periodic", (1, 520, 600)),
+]
+
+
+@pytest.mark.parametrize("name,level,edge,shape", PLAN_WALKS)
+def test_synthesis_plans_walk_to_the_plain_level(name, level, edge, shape):
+    w = vt.wavelet(name)
+    s = 1 << (level - 1)
+    fs = _kernel_filters(w, synthesis=True)
+    ops = k2.synthesis_ops(w, level, edge)[level - 1]
+    plan = k2.synthesis_plan(w.filter_length, s, ops)
+    assert plan is not None and plan.stages == 2
+    planes = [_randn(shape, seed=20 + i) for i in range(4)]
+    want = k2.synthesis2_level_plain(*(torch.from_numpy(p) for p in planes), fs, s, ops,
+                                     edge)
+    _close(_walk_synthesis(planes, fs, s, ops, edge, plan), want)
+
+
+def test_the_synthesis_tile_follows_the_level():
+    """The planner takes tall tiles at shallow levels and wide ones at deep
+    levels, where the W reach (L - 1) s would make (16, 128) read each plane
+    almost 4 times, and keeps three blocks to an SM."""
+    w = vt.wavelet("db4")
+    tiles = [k2.synthesis_tile(8, 1 << (j - 1), k2.FORWARD_OPS) for j in range(1, 7)]
+    assert tiles[0] == (32, 128) and tiles[5] == (8, 256)
+
+    def reads(tile):
+        rows, width, _ = k2.synthesis_window(8, 32, k2.FORWARD_OPS, tile)
+        return rows * width / (tile[0] * tile[1])
+    assert reads(tiles[5]) < reads((16, 128))
+    for j, ops in enumerate(k2.synthesis_ops(w, 6, "periodic"), start=1):
+        plan = k2.synthesis_plan(8, 1 << (j - 1), ops)
+        assert k2.plan_shared_bytes(8, 1 << (j - 1), ops, plan) <= k2.THREE_BLOCKS_SHARED
+        assert plan.block == 4 and plan.pitch % 32 == min(1 << (j - 1), 8)
 
 
 @pytest.mark.parametrize("name,levels", [("db4", 6), ("sym8", 6), ("db20", 4), ("haar", 10)])
@@ -229,12 +341,41 @@ def test_the_main_widths_fit_shared_memory(name, levels):
     for edge in BOUNDARIES:
         for j, ops in enumerate(k2.synthesis_ops(w, levels, edge), start=1):
             s = 1 << (j - 1)
-            a, syn = k2.analysis_tile(w.filter_length, s), k2.synthesis_tile(
+            a, syn = k2.analysis_tile(w.filter_length, s), k2.synthesis_plan(
                 w.filter_length, s, ops)
             assert a is not None and syn is not None
             assert k2.analysis_shared_bytes(w.filter_length, s, a) <= k2.SHARED_LIMIT
-            assert k2.synthesis_shared_bytes(w.filter_length, s, ops, syn) <= k2.SHARED_LIMIT
+            assert k2.plan_shared_bytes(w.filter_length, s, ops, syn) <= k2.SHARED_LIMIT
         assert k2.analysis_tile(w.filter_length, 1) == k2.TILES[0]
+
+
+#: The synthesis gate before the two-stage kernel, as a table: the deepest
+#: level whose one-plane block (2 L taps, one window, two W-pass sums of
+#: rows x columns and the row and column tables) fit 232448 bytes at a tile
+#: of TILES, in every edge mode.
+OLD_DEEPEST_SYNTHESIS = {"db4": 10, "sym8": 8, "db20": 6, "haar": 10}
+
+
+def _old_synthesis_tile(taps, s, ops):
+    for tile in k2.TILES:
+        rows, width, _ = k2.synthesis_window(taps, s, ops, tile)
+        if 4 * (2 * taps + rows * width + 2 * rows * tile[1] + rows + width) <= 232448:
+            return tile
+    return None
+
+
+@pytest.mark.parametrize("name", sorted(OLD_DEEPEST_SYNTHESIS))
+def test_every_level_the_old_synthesis_served_is_served(name):
+    w = vt.wavelet(name)
+    for edge in BOUNDARIES:
+        for j, ops in enumerate(k2.synthesis_ops(w, 10, edge), start=1):
+            s = 1 << (j - 1)
+            old = _old_synthesis_tile(w.filter_length, s, ops)
+            assert (old is not None) == (j <= OLD_DEEPEST_SYNTHESIS[name])
+            if old is not None:
+                plan = k2.synthesis_plan(w.filter_length, s, ops)
+                assert plan is not None
+                assert k2.plan_shared_bytes(w.filter_length, s, ops, plan) <= k2.SHARED_LIMIT
 
 
 # --- parity with the Pallas kernels (interpret mode, float32) ----------------------

@@ -136,14 +136,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vw_modwt2_analysis_level.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64,
                                              i64, i32, i32, i32, i32, i32, ptr]
     # (ll, lh, hl, hh, out, taps, batch, h, w, taps_len, spacing, lo_sign, lo_off,
-    #  hi_sign, hi_off, edge, th, tw, stream)
+    #  hi_sign, hi_off, edge, th, tw, stages, pitch, row_pitch, block, stream)
     lib.vw_modwt2_synthesis_level.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64,
                                               i64, i32, i32, i32, i32, i32, i32, i32,
-                                              i32, i32, ptr]
-    # (x, outs, starts, offsets, values, batch, n, planes, plane_groups, span,
-    #  tile, edge, dtype, stream)
-    lib.vw_modwt_bank_analysis.argtypes = [ptr, ptrs, ptr, ptr, ptr, i64, i64, i32, i32,
-                                           i32, i32, i32, i32, ptr]
+                                              i32, i32, i32, i32, i32, i32, ptr]
+    # (x, outs, plane_runs, shifts, runs, values, group_bounds, groups, batch, n,
+    #  planes, span, edge, dtype, stream)
+    lib.vw_modwt_bank_analysis.argtypes = [ptr, ptrs, ptr, ptr, ptr, ptr,
+                                           ctypes.POINTER(i32), i32, i64, i64, i32, i32,
+                                           i32, i32, ptr]
     # (ins, out, starts, spans, offsets, values, batch, n, planes, span, tile,
     #  edge, dtype, stream)
     lib.vw_modwt_bank_synthesis.argtypes = [ptrs, ptr, ptr, ptr, ptr, ptr, i64, i64, i32,

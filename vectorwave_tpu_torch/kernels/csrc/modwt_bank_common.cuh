@@ -1,18 +1,20 @@
 // Shared pieces of the general filter-bank kernels (sm_90a),
 // modwt_bank_analysis.cu and modwt_bank_synthesis.cu.
 //
-// A bank is P planes, each with its own tap vector.  The taps arrive sparse:
-// plane p owns the non-zero taps offs[starts[p] .. starts[p+1]) with the
-// fp32 values beside them, so an à trous filter costs its L non-zeros and
-// not its (L-1) s + 1 dense taps.  A whole packet tree is thousands of taps
-// (more than constant memory holds), so they live in device memory and a
-// block stages kTapChunk of them at a time in shared memory.
+// A bank is P planes, each with its own tap vector.  The taps arrive sparse,
+// so an à trous filter costs its L non-zeros and not its (L-1) s + 1 dense
+// taps.  A whole packet tree is thousands of taps (more than constant memory
+// holds), so they live in device memory:
 //   * data are [batch, n] rows, float32 or bfloat16; the kernels compute in
 //     fp32 FMA and store in the input type;
-//   * one block serves one (signal, tile of `tile` outputs); a thread owns
-//     the outputs threadIdx.x + r kThreads, r < tile / kThreads, and keeps
-//     their sums in registers, so its shared-memory reads of the window are
-//     conflict-free and each staged tap is a broadcast read;
+//   * one block serves one (signal, tile of outputs) and keeps its window of
+//     the signal in shared memory; the sums stay in registers;
+//   * the synthesis takes plane p's non-zero taps offs[starts[p] ..
+//     starts[p+1]) with the fp32 values beside them, stages kTapChunk of
+//     them at a time in shared memory, and a thread owns the outputs
+//     threadIdx.x + r kThreads, r < tile / kThreads;
+//   * the analysis takes the taps as runs on one stride per plane (see
+//     modwt_bank_analysis.cu);
 //   * the plane pointers travel by value in the kernel's parameter block
 //     (kMaxBankPlanes of them, 512 bytes).
 #pragma once

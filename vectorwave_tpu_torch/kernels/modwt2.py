@@ -37,6 +37,7 @@ tier defines none: a CUDA input that requires grad raises.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -57,8 +58,20 @@ from .modwt_fused import _kernel_boundary, _kernel_filters
 EDGES = {"periodic": 0, "zero": 1, "symmetric": 2}
 #: Block tiles ``(rows, columns)`` in order of preference: a block owns
 #: ``rows`` output rows of one residue class mod the spacing and ``columns``
-#: adjacent columns; the first tile whose windows fit shared memory is taken.
+#: adjacent columns; the first tile whose windows fit shared memory is taken
+#: (the analysis; the synthesis falls back to them).
 TILES = ((16, 128), (8, 128), (8, 64), (4, 64), (4, 32), (2, 32), (1, 32))
+#: The synthesis's own tiles: per level it takes the one that reads each
+#: plane the fewest times, ``(rows + L - 1) * width / (rows * columns)``,
+#: among those whose two-stage block leaves room for three blocks on an SM
+#: (else two).
+SYNTHESIS_TILES = ((4, 512), (8, 256), (8, 512), (16, 128), (16, 256), (32, 64), (32, 128))
+#: Outputs a synthesis thread owns in the W pass (``kW``), and the H-pass
+#: items (of 4 class rows, ``kMaxItems`` a thread) a tile may have.
+SYNTHESIS_BLOCK, SYNTHESIS_ITEMS = 4, 1024
+#: Shared memory a block may take for three (two) to fit an SM: a third (a
+#: half) of the SM's 228 KB less the 1 KB the card reserves for each block.
+THREE_BLOCKS_SHARED, TWO_BLOCKS_SHARED = 233472 // 3 - 1024, 233472 // 2 - 1024
 #: Periodic and zero synthesis ops: forward reads, no offset, both filters.
 FORWARD_OPS = (1, 0, 1, 0)
 
@@ -105,14 +118,6 @@ def analysis_shared_bytes(taps: int, spacing: int, tile: tuple[int, int]) -> int
     return 4 * (2 * taps + rows * width + 2 * rows * tile[1] + rows + width)
 
 
-def synthesis_shared_bytes(taps: int, spacing: int, ops, tile: tuple[int, int]) -> int:
-    """Shared memory of one synthesis block: taps, one plane window, the two
-    W-pass sums (to be filtered low and high along H) and the window's row
-    and column index tables."""
-    rows, width, _ = synthesis_window(taps, spacing, ops, tile)
-    return 4 * (2 * taps + rows * width + 2 * rows * tile[1] + rows + width)
-
-
 @functools.lru_cache(maxsize=512)
 def analysis_tile(taps: int, spacing: int) -> tuple[int, int] | None:
     """The first of :data:`TILES` whose analysis block fits shared memory."""
@@ -122,13 +127,85 @@ def analysis_tile(taps: int, spacing: int) -> tuple[int, int] | None:
     return None
 
 
+class SynthesisPlan(NamedTuple):
+    """One synthesis launch's layout: the tile, how many plane windows the
+    block holds at once (2: the next one's copies in flight while the
+    current one is filtered; 1: copy, then filter), the window's and the
+    W-pass sums' row pitch in words, and the outputs a thread owns in the W
+    pass (``kW``: 4 of one column class where the tile is a multiple of 4
+    spacings wide, else 1)."""
+
+    tile: tuple[int, int]
+    stages: int
+    pitch: int
+    row_pitch: int
+    block: int
+
+
+def _plan(taps: int, spacing: int, ops, tile, stages: int, padded: bool) -> SynthesisPlan:
+    """The plan for one tile: padded, the pitches are rounded up so that a
+    warp's 8 strips by 4 rows of W-pass reads fall on 32 banks
+    (``min(spacing, 8)`` words mod 32) and, where that is a multiple of 4,
+    the window rows start on 16 bytes; unpadded, they are the widths."""
+    tw = tile[1]
+    _, width, _ = synthesis_window(taps, spacing, ops, tile)
+    block = SYNTHESIS_BLOCK if tw % (SYNTHESIS_BLOCK * spacing) == 0 else 1
+    if not padded:
+        return SynthesisPlan(tile, stages, width, tw, block)
+    mod = min(spacing, 8) if block > 1 else 8
+    base = width if mod % 4 else -(-width // 4) * 4
+    return SynthesisPlan(tile, stages, base + (mod - base) % 32, tw + (mod - tw) % 32, block)
+
+
+def plan_shared_bytes(taps: int, spacing: int, ops, plan: SynthesisPlan) -> int:
+    """Shared memory of one synthesis block: the taps in forward-read order
+    (each filter padded to a multiple of 4), ``stages`` plane windows and the
+    W-pass sums."""
+    rows, _, _ = synthesis_window(taps, spacing, ops, plan.tile)
+    taps4 = -(-taps // 4) * 4
+    return 4 * (2 * taps4 + rows * (plan.stages * plan.pitch + plan.row_pitch))
+
+
+def _serves(plan: SynthesisPlan) -> bool:
+    th, tw = plan.tile
+    return tw % (8 * plan.block) == 0 and -(-th // 4) * tw <= SYNTHESIS_ITEMS
+
+
 @functools.lru_cache(maxsize=512)
-def synthesis_tile(taps: int, spacing: int, ops) -> tuple[int, int] | None:
-    """The first of :data:`TILES` whose synthesis block fits shared memory."""
+def synthesis_plan(taps: int, spacing: int, ops) -> SynthesisPlan | None:
+    """The synthesis launch's plan: of :data:`SYNTHESIS_TILES`, two stages,
+    the tile that reads each plane the fewest times among those that leave
+    room for three blocks on an SM, else two (measured on an H100: at db4
+    level 6, (8, 256) three to an SM beats (16, 256) two to an SM, which
+    reads less); else the first of :data:`TILES` that fits one block's
+    shared memory, two stages padded or one unpadded (never more than the
+    earlier one-plane layout took, so every level it served is served)."""
+    ops = tuple(int(v) for v in ops)
+    for limit in (THREE_BLOCKS_SHARED, TWO_BLOCKS_SHARED):
+        best = None
+        for tile in SYNTHESIS_TILES:
+            plan = _plan(taps, spacing, ops, tile, 2, True)
+            nbytes = plan_shared_bytes(taps, spacing, ops, plan)
+            if not _serves(plan) or nbytes > limit:
+                continue
+            rows, width, _ = synthesis_window(taps, spacing, ops, tile)
+            key = (rows * width / (tile[0] * tile[1]), nbytes)
+            if best is None or key < best[0]:
+                best = (key, plan)
+        if best is not None:
+            return best[1]
     for tile in TILES:
-        if synthesis_shared_bytes(taps, spacing, ops, tile) <= SHARED_LIMIT:
-            return tile
+        for plan in (_plan(taps, spacing, ops, tile, 2, True),
+                     _plan(taps, spacing, ops, tile, 1, False)):
+            if _serves(plan) and plan_shared_bytes(taps, spacing, ops, plan) <= SHARED_LIMIT:
+                return plan
     return None
+
+
+def synthesis_tile(taps: int, spacing: int, ops) -> tuple[int, int] | None:
+    """The tile of :func:`synthesis_plan`, or None where no plan fits."""
+    plan = synthesis_plan(taps, spacing, ops)
+    return None if plan is None else plan.tile
 
 
 def grid_blocks(batch: int, h: int, w: int, spacing: int, tile) -> tuple[int, int, int]:
@@ -297,8 +374,8 @@ def synthesis2_level(ll, lh, hl, hh, filters, spacing: int, ops, edge: str) -> t
         _check_image(t, what, ll)
     taps = len(filters[0])
     ops = tuple(int(v) for v in ops)
-    tile = synthesis_tile(taps, spacing, ops)
-    if tile is None:
+    plan = synthesis_plan(taps, spacing, ops)
+    if plan is None:
         raise _refuse_tile("synthesis", taps, spacing)
     b, h, w = ll.shape
     lib = library()
@@ -307,8 +384,8 @@ def synthesis2_level(ll, lh, hl, hh, filters, spacing: int, ops, edge: str) -> t
     with torch.cuda.device(ll.device):
         err = lib.vw_modwt2_synthesis_level(
             ll.data_ptr(), lh.data_ptr(), hl.data_ptr(), hh.data_ptr(), out.data_ptr(),
-            tap_t.data_ptr(), b, h, w, taps, spacing, *ops, EDGES[edge], tile[0],
-            tile[1], _stream(ll.device),
+            tap_t.data_ptr(), b, h, w, taps, spacing, *ops, EDGES[edge], *plan.tile,
+            plan.stages, plan.pitch, plan.row_pitch, plan.block, _stream(ll.device),
         )
     _raise_on_error(err, "modwt2_synthesis")
     LAUNCHES["modwt2_synthesis"] += 1

@@ -22,8 +22,10 @@ wrapper                      CUDA source                     TPU kernel mode it 
 
 ``dense`` is a tuple of tuples of Python floats, one dense tap vector per
 plane, composed in float64 on the host; the kernels take the non-zero taps
-as per-plane (offset, value) lists rounded once to fp32 (:class:`BankTaps`),
-so an à trous filter costs its L non-zeros and not its (L-1)s+1 dense taps.
+rounded once to fp32, so an à trous filter costs its L non-zeros and not
+its (L-1)s+1 dense taps: the synthesis as per-plane (offset, value) lists
+(:class:`BankTaps`), the analysis as runs of taps on one stride per plane
+(:class:`BankRuns`), which its register-blocked threads step through.
 Both compute in fp32 and store in the input type (float32 or bfloat16), any
 N >= 1, up to :data:`MAX_PLANES` planes; periodic wrap is taken modulo N, so
 a filter longer than the signal is served.  The plain versions
@@ -43,7 +45,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -66,12 +70,23 @@ EDGES = {"zero": 0, "periodic": 1}
 #: Planes one launch serves (``kMaxBankPlanes``: the plane pointers travel in
 #: the kernel's parameter block); a depth-5 packet tree has 62.
 MAX_PLANES = 64
-#: Threads of a block and outputs per thread (``kThreads``, ``kPerThread``):
-#: a tile is a multiple of THREADS, at most THREADS * PER_THREAD outputs.
+#: Threads of a block and outputs per thread (``kThreads``, ``kPerThread``)
+#: of the synthesis kernel: a tile is a multiple of THREADS, at most
+#: THREADS * PER_THREAD outputs.
 THREADS = 256
 PER_THREAD = 8
-#: Taps staged in shared memory at a time (``kTapChunk``).
+#: Taps the synthesis kernel stages in shared memory at a time (``kTapChunk``).
 TAP_CHUNK = 1024
+#: The analysis kernel (``kRunBlock``, ``kRunChunk``, ``kAnalysisTile``): a
+#: thread owns RUN_BLOCK outputs of one residue class mod its plane's tap
+#: stride and steps through a run of taps RUN_CHUNK at a time with the
+#: window samples in registers; a block's tile is THREADS * RUN_BLOCK.
+RUN_BLOCK = 9
+RUN_CHUNK = 8
+ANALYSIS_TILE = THREADS * RUN_BLOCK
+#: Zero taps a run takes in to bridge a gap in its stride rather than end
+#: (a new run costs RUN_CHUNK window loads; a zero tap RUN_BLOCK FMAs).
+RUN_FILL = 3
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -102,9 +117,27 @@ class BankTaps:
         return list(zip(self.offsets[lo:hi], self.values[lo:hi]))
 
 
-@functools.lru_cache(maxsize=64)
+#: bank_taps by the identity of its argument: a whole tree is thousands of
+#: floats, too many to hash on every call; the entry keeps the tuple alive,
+#: so its id is not reused while it stands.
+_TAPS_BY_ID: dict[int, tuple] = {}
+
+
 def bank_taps(dense: tuple) -> BankTaps:
-    """The sparse form of a tuple of dense tap vectors."""
+    """The sparse form of a tuple of dense tap vectors (the routes pass the
+    same tuple on every call, which is then found by its identity)."""
+    hit = _TAPS_BY_ID.get(id(dense))
+    if hit is not None and hit[0] is dense:
+        return hit[1]
+    taps = _bank_taps(dense)
+    if len(_TAPS_BY_ID) >= 64:
+        _TAPS_BY_ID.clear()
+    _TAPS_BY_ID[id(dense)] = (dense, taps)
+    return taps
+
+
+@functools.lru_cache(maxsize=64)
+def _bank_taps(dense: tuple) -> BankTaps:
     if not dense or any(len(f) == 0 for f in dense):
         raise InvalidArgumentError(
             ErrorCode.CFG_INVALID_CONFIG,
@@ -118,6 +151,65 @@ def bank_taps(dense: tuple) -> BankTaps:
         starts.append(len(offsets))
         spans.append(nz[-1][0] if nz else 0)
     return BankTaps(tuple(starts), tuple(spans), tuple(offsets), tuple(values))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BankRuns:
+    """The analysis kernel's tap runs: plane p has stride ``2^shifts[p]``
+    and owns the runs ``plane_runs[p] .. plane_runs[p+1]``; run k is
+    ``runs[3k: 3k+3] = (first offset, count, start in values)``, its taps at
+    offsets ``first + i * stride`` with the values ``values[start + i]``
+    (fp32, zero where a run bridges a gap), every start a multiple of 4."""
+
+    plane_runs: tuple[int, ...]
+    shifts: tuple[int, ...]
+    runs: tuple[int, ...]
+    values: tuple[float, ...]
+
+    def plane(self, p: int) -> list[tuple[int, int, int]]:
+        return [tuple(self.runs[3 * k: 3 * k + 3])
+                for k in range(self.plane_runs[p], self.plane_runs[p + 1])]
+
+    @property
+    def costs(self) -> tuple[int, ...]:
+        """Per plane, the taps its runs step through plus one output block:
+        what the plane groups are balanced on."""
+        return tuple(RUN_BLOCK + sum(c for _, c, _ in self.plane(p))
+                     for p in range(len(self.shifts)))
+
+
+def _stride(offsets: list[int]) -> int:
+    """The largest power of two, at most THREADS, that divides every gap
+    between a plane's offsets (1 for a single tap)."""
+    g = 0
+    for o in offsets[1:]:
+        g = math.gcd(g, o - offsets[0])
+    return min(g & -g, THREADS) if g else 1
+
+
+@functools.lru_cache(maxsize=64)
+def bank_runs(taps: BankTaps) -> BankRuns:
+    """Cut each plane's non-zero taps into runs on one stride per plane; a
+    gap of at most :data:`RUN_FILL` stride steps is bridged with zero taps."""
+    plane_runs, shifts, runs, values = [0], [], [], []
+    for p in range(taps.planes):
+        nz = taps.plane(p)
+        d = _stride([o for o, _ in nz]) if nz else 1
+        shifts.append(d.bit_length() - 1)
+        run: list[float] = []
+        first = prev = None
+        for o, v in nz + [(None, 0.0)]:
+            if o is not None and prev is not None and (o - prev) // d - 1 <= RUN_FILL:
+                run += [0.0] * ((o - prev) // d - 1) + [float(np.float32(v))]
+            else:
+                if run:
+                    values += [0.0] * (-len(values) % 4)
+                    runs += [first, len(run), len(values)]
+                    values += run
+                first, run = o, [float(np.float32(v))]
+            prev = o
+        plane_runs.append(len(runs) // 3)
+    return BankRuns(tuple(plane_runs), tuple(shifts), tuple(runs), tuple(values))
 
 
 def _extend(t: torch.Tensor, span: int, periodic: bool, left: bool) -> torch.Tensor:
@@ -166,14 +258,22 @@ def bank_synthesis_plain(planes, dense, periodic: bool) -> torch.Tensor:
 
 
 def bank_shared_bytes(span: int, tile: int) -> int:
-    """Shared memory of one bank block: a window of tile + span floats and
-    one chunk of staged taps (offset and value)."""
+    """Shared memory of one synthesis block: a window of tile + span floats
+    and one chunk of staged taps (offset and value)."""
     return 4 * (tile + span) + 8 * TAP_CHUNK
 
 
+def analysis_shared_bytes(span: int) -> int:
+    """Shared memory of one analysis block: a window of
+    :data:`ANALYSIS_TILE` + span floats (the taps are read from device
+    memory as broadcasts)."""
+    return 4 * (ANALYSIS_TILE + span)
+
+
 def bank_tile(span: int) -> int | None:
-    """The bank kernels' tile: THREADS * PER_THREAD outputs, halved until the
-    window fits shared memory (None if it does not at THREADS outputs)."""
+    """The synthesis kernel's tile: THREADS * PER_THREAD outputs, halved
+    until the window fits shared memory (None if it does not at THREADS
+    outputs)."""
     tile = THREADS * PER_THREAD
     while tile >= THREADS:
         if bank_shared_bytes(span, tile) <= SHARED_LIMIT:
@@ -182,18 +282,39 @@ def bank_tile(span: int) -> int | None:
     return None
 
 
+def _span_fits(span: int) -> bool:
+    return bank_tile(span) is not None and analysis_shared_bytes(span) <= SHARED_LIMIT
+
+
 def bank_fits(dense) -> bool:
     """Whether the kernels serve this bank: at most :data:`MAX_PLANES`
-    planes and a window that fits one block's shared memory."""
+    planes and windows that fit one block's shared memory."""
     taps = bank_taps(dense)
-    return taps.planes <= MAX_PLANES and bank_tile(taps.span) is not None
+    return taps.planes <= MAX_PLANES and _span_fits(taps.span)
 
 
 def plane_groups(blocks: int, planes: int, sms: int) -> int:
     """How many groups the analysis kernel splits its planes into (over
     ``blockIdx.y``): one where the (signal, tile) blocks alone give every
-    SM two blocks, else as many as bring the grid there."""
-    return max(1, min(planes, -(-2 * sms // blocks)))
+    SM eight blocks (two rounds of the four that fit an SM), else as many
+    as bring the grid there."""
+    return max(1, min(planes, -(-8 * sms // blocks)))
+
+
+@functools.lru_cache(maxsize=256)
+def group_bounds(runs: BankRuns, groups: int) -> tuple[int, ...]:
+    """First plane of each of at most ``groups`` groups of consecutive
+    planes, and the plane count: plane p joins the group its cost's
+    midpoint falls in, so the groups hold about equal costs."""
+    costs = runs.costs
+    total, acc, bounds, current = sum(costs), 0, [0], 0
+    for p, c in enumerate(costs):
+        g = min(groups - 1, int((2 * acc + c) * groups // (2 * total)))
+        if p > 0 and g > current:
+            bounds.append(p)
+            current = g
+        acc += c
+    return tuple(bounds) + (len(costs),)
 
 
 def _check_plane_count(planes, taps: BankTaps) -> None:
@@ -205,20 +326,20 @@ def _check_plane_count(planes, taps: BankTaps) -> None:
 
 
 def _launch_plan(taps: BankTaps) -> int:
+    """The synthesis kernel's tile; raises for a bank either kernel refuses."""
     if taps.planes > MAX_PLANES:
         raise InvalidArgumentError(
             ErrorCode.VAL_TOO_LARGE,
             f"one bank launch serves at most {MAX_PLANES} planes, got {taps.planes}",
         )
-    tile = bank_tile(taps.span)
-    if tile is None:
+    if not _span_fits(taps.span):
         raise InvalidArgumentError(
             ErrorCode.VAL_TOO_LARGE,
             "The bank's window does not fit the kernel's shared memory",
             context={"span": taps.span},
             suggestions=("Use shorter filters or backend='torch'",),
         )
-    return tile
+    return bank_tile(taps.span)
 
 
 @functools.lru_cache(maxsize=64)
@@ -228,6 +349,16 @@ def _device_table(taps: BankTaps, device_index: int):
     ints = torch.tensor(taps.starts + taps.spans + taps.offsets, dtype=torch.int32,
                         device=dev)
     vals = torch.tensor(taps.values or (0.0,), dtype=torch.float32, device=dev)
+    return ints, vals
+
+
+@functools.lru_cache(maxsize=64)
+def _device_runs(runs: BankRuns, device_index: int):
+    """(int32 [plane_runs | shifts | runs], float32 values) on the card."""
+    dev = f"cuda:{device_index}"
+    ints = torch.tensor(runs.plane_runs + runs.shifts + runs.runs, dtype=torch.int32,
+                        device=dev)
+    vals = torch.tensor(runs.values or (0.0,), dtype=torch.float32, device=dev)
     return ints, vals
 
 
@@ -241,23 +372,28 @@ def _table_pointers(taps: BankTaps, device: torch.device):
 def _launch_analysis(x: torch.Tensor, taps: BankTaps, periodic: bool):
     _check_operand(x, "x")
     code = _check_dtype(x, "x")
-    tile = _launch_plan(taps)
+    _launch_plan(taps)
+    runs = bank_runs(taps)
     b, n = x.shape
     lib = library()
-    outs = [torch.empty_like(x) for _ in range(taps.planes)]
+    # one allocation for all planes (a launch of a tree makes 30 or 62)
+    outs = torch.empty((taps.planes, b, n), dtype=x.dtype, device=x.device).unbind(0)
     out_ptrs = (ctypes.c_void_p * taps.planes)(*[o.data_ptr() for o in outs])
-    starts, _, offsets, values = _table_pointers(taps, x.device)
+    ints, vals = _device_runs(runs, x.device.index)
+    p = taps.planes
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    groups = plane_groups(b * -(-n // tile), taps.planes, sms)
+    bounds = group_bounds(runs, plane_groups(b * -(-n // ANALYSIS_TILE), p, sms))
+    c_bounds = (ctypes.c_int * len(bounds))(*bounds)
     with torch.cuda.device(x.device):
         err = lib.vw_modwt_bank_analysis(
-            x.data_ptr(), out_ptrs, starts, offsets, values, b, n, taps.planes, groups,
-            taps.span, tile, EDGES["periodic" if periodic else "zero"], code,
-            _stream(x.device),
+            x.data_ptr(), out_ptrs, ints.data_ptr(), ints.data_ptr() + 4 * (p + 1),
+            ints.data_ptr() + 4 * (2 * p + 1), vals.data_ptr(), c_bounds,
+            len(bounds) - 1, b, n, p, taps.span, EDGES["periodic" if periodic else "zero"],
+            code, _stream(x.device),
         )
     _raise_on_error(err, "modwt_bank_analysis")
     LAUNCHES["modwt_bank_analysis"] += 1
-    return tuple(outs)
+    return outs
 
 
 def _launch_synthesis(planes, taps: BankTaps, periodic: bool) -> torch.Tensor:
