@@ -30,12 +30,15 @@ Phases, in order; any failure raises and the exit code is not 0:
    the 2-D analysis and synthesis level kernels, every band, in each edge
    mode (periodic, zero, symmetric with the inverse's per-filter offsets),
    at levels 1 and 4 of db4 and 1 and 6 of sym8 at 8x2048x2048, at db4 level
-   3 on 3x200x328, haar level 5 on 1x24x40 and db20 level 4 on 2x1024x1024;
-   the filter-bank pair (``bank_analysis`` / ``bank_synthesis``) in both edge
-   modes with random dense taps (3 planes of 1, 37 and 300 taps) at 3x5000
-   and 2x301, periodic at 2x150 (the span outlasts the signal) and once in
-   bfloat16, an à trous pair at spacing 16, the sym8 packet trees of depth 4
-   (30 planes) and 5 (62 planes), the DTCWT's composed planes (both trees, 5
+   3 on 3x200x328, haar level 5 on 1x24x40, db20 level 4 on 2x1024x1024,
+   every db4 level 1-6 on 2x1000x1030, haar level 10 and db20 level 6 (its
+   deepest); the filter-bank pair (``bank_analysis`` / ``bank_synthesis``)
+   in both edge modes with random dense taps (3 planes of 1, 37 and 300
+   taps) at 3x5000 and 2x301, periodic at 2x150 (the span outlasts the
+   signal) and once in bfloat16, an à trous pair at spacing 16, a span of
+   30000 (one synthesis window buffer), the sym8 packet trees of depth 4
+   (30 planes) and 5 (62 planes), the depth-4 tree at 64x16384 (a ragged
+   last tile) and in bfloat16, the DTCWT's composed planes (both trees, 5
    levels), and the identity <A x, y> = <x, A^T y> for each edge; the
    streaming modes: the analysis kernel's external edge (alone and with the
    head splice) and the denoise kernel's stream mode (none, soft, hard) at
@@ -131,7 +134,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    points (the 2-D ones, the fused denoise's backward and the probe's round
    trip at each precision included); the bank kernels at the sym8 depth-4
    tree and at one level-4 pair as ``modwpt`` calls it, for 64x16384 and
-   128x65536, and ``dtcwt``'s whole-tree bank at 64x16384, and every route of ``modwpt`` + ``imodwpt`` (depths 3, 4, 5)
+   128x65536, and ``dtcwt``'s whole-tree bank at 64x16384, and every route of ``modwpt`` + ``imodwpt`` (depths 2-5)
    and ``dtcwt`` + ``idtcwt`` at both shapes and at 1x1024 (the dual tree
    also at 64x65536), and the two denoisers at 8x16384; the external edge
    (library call: ``F.conv1d`` of the composite filters on ``[halo | x]``)
@@ -402,17 +405,17 @@ class routed:
         from vectorwave_tpu_torch.transforms import dtcwt as td
         from vectorwave_tpu_torch.transforms import packets as tp
 
-        self.saved = (tp.AUTO_TREE_MAX_DEPTH, td.AUTO_WHOLE_TREE_MAX_WORK)
+        self.saved = (tp.AUTO_TREE_MAX_WORK, td.AUTO_WHOLE_TREE_MAX_WORK)
         vt.set_backend({"tree": "kernel", "plain": "torch"}.get(self.route, "auto"))
         if self.route == "level":
-            tp.AUTO_TREE_MAX_DEPTH, td.AUTO_WHOLE_TREE_MAX_WORK = 0, 0
+            tp.AUTO_TREE_MAX_WORK, td.AUTO_WHOLE_TREE_MAX_WORK = 0, 0
 
     def __exit__(self, *exc):
         import vectorwave_tpu_torch as vt
         from vectorwave_tpu_torch.transforms import dtcwt as td
         from vectorwave_tpu_torch.transforms import packets as tp
 
-        tp.AUTO_TREE_MAX_DEPTH, td.AUTO_WHOLE_TREE_MAX_WORK = self.saved
+        tp.AUTO_TREE_MAX_WORK, td.AUTO_WHOLE_TREE_MAX_WORK = self.saved
         vt.set_backend("auto")
 
 
@@ -430,6 +433,11 @@ def bank_kernels_against_plain(dev, gen, worst, worst_bf16):
     # random dense taps, scaled so that the outputs are of the order of x
     random_dense = tuple(tuple((rng.standard_normal(k) / math.sqrt(k)).tolist())
                          for k in (1, 37, 300))
+    # a span past the widest that takes two synthesis window buffers: one
+    far = np.zeros(30001)
+    far[[0, 3, 30000]] = rng.standard_normal(3) / math.sqrt(3)
+    wide = (tuple(far.tolist()), tuple((rng.standard_normal(13) / math.sqrt(13)).tolist()))
+    assert mb.synthesis_stages(30000) == 1 and mb.synthesis_stages(300) == 2
     w = vt.wavelet(PACKET_WAVELET)
     pair16 = tp._pair_dense(w.dec_lo / math.sqrt(2.0), w.dec_hi / math.sqrt(2.0), 16)
     dual, _ = td._dual_tree_bank(w, DTCWT_LEVELS)
@@ -447,12 +455,21 @@ def bank_kernels_against_plain(dev, gen, worst, worst_bf16):
          ("periodic",), torch.bfloat16),
         ("sym8 pair at spacing 16", pair16, None, slice(None), 4, 4096,
          ("periodic", "zero"), torch.float32),
+        ("span 30000, one synthesis buffer", wide, None, slice(None), 2, 4096,
+         ("periodic", "zero"), torch.float32),
     ]
     for depth in (PACKET_DEPTH, 5):
         cases.append((f"sym8 depth-{depth} tree ({(2 << depth) - 2} planes)",
                       tp._tree_dense(w, depth, dec=True), tp._tree_dense(w, depth, dec=False),
                       slice(-(1 << depth), None), 2, 8192, ("periodic", "zero"),
                       torch.float32))
+    # the packet path's shape (the last of 8 tiles a row holds 256 outputs)
+    # and the tree in bfloat16
+    tree4 = (tp._tree_dense(w, PACKET_DEPTH, dec=True), tp._tree_dense(w, PACKET_DEPTH, False))
+    cases += [(f"sym8 depth-{PACKET_DEPTH} tree", *tree4, slice(-(1 << PACKET_DEPTH), None),
+               *PACKET_SHAPES[0], ("periodic",), torch.float32),
+              (f"sym8 depth-{PACKET_DEPTH} tree", *tree4, slice(-(1 << PACKET_DEPTH), None),
+               2, 8192, ("periodic",), torch.bfloat16)]
     cases.append((f"sym8 dual tree, {DTCWT_LEVELS} levels ({len(dual)} planes)", dual,
                   dual_half, slice(None), 2, 8192, ("periodic",), torch.float32))
     for label, dense, dense_syn, pick, b, n, edges, dtype in cases:
@@ -712,7 +729,7 @@ def bank_timing(dev, gen):
     routes = ("tree", "level", "plain", "default")
     for b, n in ((1, 1024),) + PACKET_SHAPES:
         x = torch.randn(b, n, device=dev, generator=gen)
-        for d in (3, 4, 5):
+        for d in (2, 3, 4, 5):
             for route in routes:
                 with routed(route):
                     t_ms = median_ms(lambda: vt.imodwpt(vt.modwpt(x, name, d), name), 2, 10)
@@ -1572,6 +1589,10 @@ def main() -> int:
     img_cases = [
         (WAVELET, 1, IMG), (WAVELET, 4, IMG), ("sym8", 1, IMG), ("sym8", 6, IMG),
         (WAVELET, 3, (3, 200, 328)), ("haar", 5, (1, 24, 40)), ("db20", 4, (2, 1024, 1024)),
+        # every db4 level 1-6 on ragged widths (the planners' tiles change
+        # with the level), haar level 10, db20 at its deepest served level
+        *((WAVELET, j, (2, 1000, 1030)) for j in range(1, LEVELS + 1)),
+        ("haar", 10, (1, 1100, 1030)), ("db20", 6, (1, 600, 700)),
     ]
     for name, level, shape in img_cases:
         wi = vt.wavelet(name)

@@ -5,7 +5,7 @@ The JAX counterpart is the ``planes_override`` mode of the composite pair
 ``vectorwave_tpu/kernels/modwt_mxu.py``), run here as the JAX package's own
 tests run it on the CPU: ``precision='float32'`` in interpret mode.  On the
 CPU the port's wrappers run their plain versions; the CUDA kernels cannot run
-here, so their window and tap-staging plan is walked in numpy instead.
+here, so their windows and register blocks are walked in numpy instead.
 
 Tolerances: 2e-5 against the JAX kernels (float32, another summation order;
 the JAX package's own bound in ``tests/test_bank_kernel.py``), 1e-12 against
@@ -50,6 +50,8 @@ def _direct_analysis(x, dense, periodic):
     for f in dense:
         out = np.zeros((b, n))
         for tau, v in enumerate(f):
+            if v == 0.0:
+                continue
             idx = np.arange(n) - tau
             if periodic:
                 out += v * x[:, idx % n]
@@ -65,6 +67,8 @@ def _direct_synthesis(planes, dense, periodic):
     out = np.zeros((b, n))
     for c, f in zip(planes, dense):
         for tau, v in enumerate(f):
+            if v == 0.0:
+                continue
             idx = np.arange(n) + tau
             if periodic:
                 out += v * c[:, idx % n]
@@ -206,12 +210,19 @@ def test_cpu_tensors_never_launch_and_wrong_plane_counts_raise():
 
 def test_the_cards_gates_on_both_sides():
     """What one launch serves: at most MAX_PLANES planes, and a window of
-    tile + span floats beside one chunk of taps within shared memory."""
-    assert mb.bank_tile(0) == mb.THREADS * mb.PER_THREAD
-    edge = (SHARED_LIMIT - 8 * mb.TAP_CHUNK) // 4 - mb.THREADS  # widest span served
-    assert mb.bank_tile(edge) == mb.THREADS and mb.bank_tile(edge + 1) is None
-    assert mb.bank_shared_bytes(edge, mb.THREADS) <= SHARED_LIMIT
+    TILE + span floats within shared memory; the synthesis holds two
+    windows up to the widest span where both fit, one beyond."""
+    edge = SHARED_LIMIT // 4 - mb.TILE  # widest span served
+    assert mb.analysis_shared_bytes(edge) == SHARED_LIMIT
+    assert mb.analysis_shared_bytes(edge + 1) > SHARED_LIMIT
+    assert mb.synthesis_shared_bytes(edge, 1) == SHARED_LIMIT
+    assert mb.synthesis_shared_bytes(edge + 1, 1) > SHARED_LIMIT
+    assert mb.synthesis_stages(0) == 2 and mb.synthesis_stages(edge) == 1
+    assert mb.synthesis_stages(TWO_BUFFERS) == 2 and mb.synthesis_stages(TWO_BUFFERS + 1) == 1
+    assert mb.synthesis_shared_bytes(TWO_BUFFERS, 2) <= SHARED_LIMIT
+    assert mb.synthesis_shared_bytes(TWO_BUFFERS + 1, 2) > SHARED_LIMIT
     assert mb.bank_fits(_tree_dense("sym8", 5))  # 62 planes, span 465
+    assert mb.synthesis_stages(465) == 2
     assert not mb.bank_fits(tuple((1.0,) for _ in range(mb.MAX_PLANES + 1)))
     assert mb.bank_fits(tuple((1.0,) for _ in range(mb.MAX_PLANES)))
     assert not mb.bank_fits(((0.0,) * (edge + 1) + (1.0,),))
@@ -227,9 +238,6 @@ def test_the_cards_gates_on_both_sides():
         mb._launch_plan(mb.bank_taps(tuple((1.0,) for _ in range(65))))
     with pytest.raises(InvalidArgumentError, match="shared memory"):
         mb._launch_plan(mb.bank_taps(((0.0,) * (edge + 1) + (1.0,),)))
-    # the analysis window (its tile and the span) gives the same widest span
-    assert mb.analysis_shared_bytes(edge) <= SHARED_LIMIT
-    assert mb.analysis_shared_bytes(edge + 1) > SHARED_LIMIT
     # plane groups: one where the (signal, tile) blocks give every SM eight
     assert mb.plane_groups(4096, 30, 132) == 1
     assert mb.plane_groups(8, 30, 132) == 30 and mb.plane_groups(100, 30, 132) == 11
@@ -237,13 +245,20 @@ def test_the_cards_gates_on_both_sides():
 
 # --- a numpy walk of the CUDA kernels' plan ------------------------------------------
 
+#: The widest span at which two synthesis windows fit shared memory:
+#: 2 * 4 * (TILE + span) <= 232448.
+TWO_BUFFERS = 232448 // 8 - 2304
 
-def _bank_load(row, g, n, periodic):
-    """``bank_load`` of modwt_bank_common.cuh: the row inside [0, n), outside
-    it zero or the wrap modulo n."""
-    if 0 <= g < n:
-        return row[g]
-    return row[g % n] if periodic else 0.0
+
+def _window(row, g0, count, n, periodic):
+    """Samples g0 .. g0 + count of the extended row, as ``bank_load`` of
+    modwt_bank_common.cuh reads them: the row inside [0, n), outside it
+    zero or the wrap modulo n."""
+    g = g0 + np.arange(count)
+    inside = (g >= 0) & (g < n)
+    if periodic:
+        return row[g % n]
+    return np.where(inside, row[np.clip(g, 0, n - 1)], 0.0)
 
 
 def _walk_analysis(x, taps, periodic, groups):
@@ -261,7 +276,7 @@ def _walk_analysis(x, taps, periodic, groups):
     assert all(a < b for a, b in zip(bounds, bounds[1:]))
     vals = np.asarray(runs.values)
     b, n = x.shape
-    span, tile, block, step = taps.span, mb.ANALYSIS_TILE, mb.RUN_BLOCK, mb.RUN_CHUNK
+    span, tile, block, step = taps.span, mb.TILE, mb.RUN_BLOCK, mb.RUN_CHUNK
     outs = [np.full((b, n), np.nan) for _ in range(taps.planes)]
     writes = np.zeros((taps.planes, b, n), dtype=int)
     tid, r = np.arange(mb.THREADS), np.arange(block)
@@ -269,8 +284,7 @@ def _walk_analysis(x, taps, periodic, groups):
         for t0 in range(0, n, tile):
             n_out = min(tile, n - t0)
             win = np.full(tile + span, np.nan)
-            win[:n_out + span] = [_bank_load(x[row], t0 - span + q, n, periodic)
-                                  for q in range(n_out + span)]
+            win[:n_out + span] = _window(x[row], t0 - span, n_out + span, n, periodic)
             for p in range(taps.planes):
                 shift = runs.shifts[p]
                 d = 1 << shift
@@ -305,40 +319,88 @@ def _walk_analysis(x, taps, periodic, groups):
     return outs, writes
 
 
-def _walk_synthesis(planes, taps, periodic, tile, chunk):
-    """modwt_bank_synthesis_kernel block by block: one accumulator tile; each
-    plane in turn loads tile + spans[p] samples into the one window (the rest
-    of it poisoned here) and stages its taps ``chunk`` at a time."""
+def _walk_synthesis(planes, taps, periodic, stages):
+    """modwt_bank_synthesis_kernel block by block, its 256 threads as numpy
+    rows: every plane's runs on the least stride of the bank, so a thread
+    owns the same RUN_BLOCK outputs of one residue class in every plane and
+    sums the planes in order into them.  Plane p's window of n_out +
+    spans[p] samples goes into buffer p mod ``stages``, poisoned (NaN) when
+    its copy is issued: with two buffers plane p + 1's copy is issued before
+    plane p's runs, which must then read their own buffer only.  Each thread
+    steps through the runs RUN_CHUNK taps at a time with the samples carried
+    from one step to the next (forward reads: output r reads w[r + i] for
+    tap i), then the taps left over one at a time; the threads whose
+    outputs all lie past n_out skip the runs.  Every read must stay inside
+    its buffer; returns the signal and how often each output was written."""
+    runs = mb.bank_runs(taps, one_stride=True)
+    assert len(set(runs.shifts)) == 1 and runs.spans == taps.spans
+    vals = np.asarray(runs.values)
     b, n = planes[0].shape
+    tile, block, step = mb.TILE, mb.RUN_BLOCK, mb.RUN_CHUNK
+    buffer = -(-(tile + taps.span) // 4) * 4
+    assert mb.synthesis_shared_bytes(taps.span, stages) == 4 * stages * buffer
+    shift = runs.shifts[0]
+    d = 1 << shift
+    tid, r = np.arange(mb.THREADS), np.arange(block)
+    base = (tid & (d - 1)) + ((tid >> shift) << shift) * block
     out = np.full((b, n), np.nan)
+    writes = np.zeros((b, n), dtype=int)
     for row in range(b):
         for t0 in range(0, n, tile):
             n_out = min(tile, n - t0)
-            acc = np.zeros(tile)
+            live = base < n_out
+            bufs = np.zeros((stages, buffer))
+
+            def copy(p, row=row, t0=t0, n_out=n_out, bufs=bufs):
+                count = n_out + runs.spans[p]
+                bufs[p % stages] = np.nan
+                bufs[p % stages, :count] = _window(planes[p][row], t0, count, n, periodic)
+
+            acc = np.zeros((int(live.sum()), block))
+            copy(0)
             for p in range(taps.planes):
-                win = np.full(tile + taps.span, np.nan)
-                width = tile + taps.spans[p]
-                win[:width] = [_bank_load(planes[p][row], t0 + q, n, periodic)
-                               for q in range(width)]
-                for k0 in range(taps.starts[p], taps.starts[p + 1], chunk):
-                    count = min(chunk, taps.starts[p + 1] - k0)
-                    for i in range(count):
-                        off = taps.offsets[k0 + i]
-                        acc += float(np.float32(taps.values[k0 + i])) * win[off:off + tile]
-            out[row, t0:t0 + n_out] = acc[:n_out]
-    return out
+                if stages == 2 and p + 1 < taps.planes:
+                    copy(p + 1)
+                win = bufs[p % stages]
+                for first, count, start in runs.plane(p):
+                    assert start % 4 == 0 and count >= 1
+                    src = (base + first)[live]
+
+                    def sample(m, src=src, win=win):
+                        idx = src[:, None] + np.asarray(m)[None, :] * d
+                        assert idx.min() >= 0 and idx.max() < buffer
+                        return win[idx]
+
+                    i0 = 0
+                    if count >= step:
+                        old = sample(np.arange(step))
+                        while i0 + step <= count:
+                            fresh = sample(i0 + step + np.arange(step))
+                            both = np.concatenate([old, fresh], axis=1)
+                            for t in range(step):
+                                acc += vals[start + i0 + t] * both[:, r + t]
+                            old, i0 = fresh, i0 + step
+                    for i in range(i0, count):
+                        acc += vals[start + i] * sample(r + i)
+                if stages == 1 and p + 1 < taps.planes:
+                    copy(p + 1)
+            o = base[live][:, None] + r[None, :] * d
+            keep = o < n_out
+            out[row, t0 + o[keep]] = acc[keep]
+            writes[row, t0 + o[keep]] += 1
+    return out, writes
 
 
 WALKS = [
-    # (shape, tap lengths, a tree's depth or a pair's spacing, synthesis tile,
-    #  plane groups, synthesis chunk)
-    ((2, 301), (1, 37, 300), 256, 1, 1024),   # odd N, one ragged tile
-    ((2, 150), (1, 37, 300), 256, 3, 1024),   # span >= N: the wrap goes round twice
-    ((1, 700), (1, 37, 300), 256, 2, 64),     # taps staged in five chunks; 2 groups
-    ((1, 1024), 3, 512, 4, 16),               # a db4 depth-3 tree, 14 planes in 4 groups
-    ((2, 2 * mb.ANALYSIS_TILE + 5), ("pair", 16), 512, 1, 1024),  # stride 16, 3 tiles
-    ((1, 3000), ("pair", 512), 2048, 2, 64),  # stride 256 with zero taps; span >= N
-    ((1, 2000), "gaps", 256, 2, 1024),        # runs bridged and cut at their gaps
+    # (shape, tap lengths, a tree's depth or a pair's spacing, analysis plane
+    #  groups, synthesis window buffers)
+    ((2, 301), (1, 37, 300), 1, 2),             # odd N, one ragged tile
+    ((2, 150), (1, 37, 300), 3, 1),             # span >= N: the wrap goes round twice
+    ((1, 700), (1, 37, 300), 2, 1),             # 2 groups; one buffer
+    ((1, 1024), 3, 4, 2),                       # a db4 depth-3 tree, 14 planes in 4 groups
+    ((2, 2 * mb.TILE + 5), ("pair", 16), 1, 2),  # stride 16, 3 tiles
+    ((1, 3000), ("pair", 512), 2, 1),           # stride 256 with zero taps; span >= N
+    ((1, 2000), "gaps", 2, 2),                  # runs bridged and cut at their gaps
 ]
 
 
@@ -348,6 +410,7 @@ def _walk_dense(rng, spec):
     if spec == "gaps":
         # stride 4; gaps of 2 steps (bridged) and 9 steps (a new run); a
         # plane of 13 taps at stride 1 leaves 5 taps over after one step
+        # (and puts the synthesis's runs of both planes on stride 1)
         f = np.zeros(4 * 40 + 1)
         f[[0, 4, 8, 16, 20, 56, 60, 64, 68, 72, 76, 80, 84, 88, 160]] = rng.standard_normal(15)
         return (tuple(f.tolist()), tuple(rng.standard_normal(13).tolist()))
@@ -358,24 +421,47 @@ def _walk_dense(rng, spec):
     return _random_dense(rng, spec)
 
 
-@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "zero"])
-@pytest.mark.parametrize("shape,spec,tile,groups,chunk", WALKS)
-def test_numpy_walk_of_the_kernels_windows_and_tap_staging(shape, spec, tile, groups, chunk,
-                                                           periodic):
-    rng = np.random.default_rng(5)
-    dense = _walk_dense(rng, spec)
+def _check_walks(x, planes, dense, periodic, groups, stages):
     taps = mb.bank_taps(dense)
-    assert tile % mb.THREADS == 0 and tile <= mb.bank_tile(taps.span)
     # the values the kernels see are the float64 taps rounded once to fp32
     rounded = tuple(tuple(float(np.float32(v)) for v in f) for f in dense)
-    x = rng.standard_normal(shape)
     got, writes = _walk_analysis(x, taps, periodic, groups)
     assert np.all(writes == 1)
     for g, w in zip(got, _direct_analysis(x, rounded, periodic)):
         assert np.max(np.abs(g - w)) <= TOL_F64
-    planes = [rng.standard_normal(shape) for _ in dense]
-    y = _walk_synthesis(planes, taps, periodic, tile, chunk)
+    y, writes = _walk_synthesis(planes, taps, periodic, stages)
+    assert np.all(writes == 1)
     assert np.max(np.abs(y - _direct_synthesis(planes, rounded, periodic))) <= TOL_F64
+
+
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "zero"])
+@pytest.mark.parametrize("shape,spec,groups,stages", WALKS)
+def test_numpy_walk_of_the_kernels_windows_and_tap_staging(shape, spec, groups, stages,
+                                                           periodic):
+    rng = np.random.default_rng(5)
+    dense = _walk_dense(rng, spec)
+    x = rng.standard_normal(shape)
+    planes = [rng.standard_normal(shape) for _ in dense]
+    _check_walks(x, planes, dense, periodic, groups, stages)
+
+
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "zero"])
+@pytest.mark.parametrize("span", [TWO_BUFFERS, TWO_BUFFERS + 1])
+def test_numpy_walk_at_the_two_buffer_limit(span, periodic):
+    """A bank at the widest span that takes two synthesis buffers, and one
+    past it, which takes one: the host's choice of buffers, walked on a
+    short signal that the span wraps round many times."""
+    rng = np.random.default_rng(6)
+    far = np.zeros(span + 1)
+    far[[0, 3, span]] = rng.standard_normal(3)
+    dense = (tuple(far.tolist()), tuple(rng.standard_normal(13).tolist()))
+    taps = mb.bank_taps(dense)
+    stages = mb.synthesis_stages(taps.span)
+    assert stages == (2 if span == TWO_BUFFERS else 1)
+    assert mb.synthesis_shared_bytes(taps.span, stages) <= SHARED_LIMIT
+    x = rng.standard_normal((2, 300))
+    planes = [rng.standard_normal((2, 300)) for _ in dense]
+    _check_walks(x, planes, dense, periodic, 1, stages)
 
 
 def test_bank_runs_of_the_routes_banks():
@@ -405,12 +491,19 @@ def test_bank_runs_of_the_routes_banks():
 #: 256 + span floats fit beside one 1024-tap chunk of (offset, value) pairs,
 #: (232448 - 8 * 1024) // 4 - 256 = 55808.
 OLD_WIDEST_SPAN = 55808
+#: The synthesis kernel's own gate before its register-blocked design,
+#: ``bank_tile(span) is not None``: a tile of 2048 outputs halved to no less
+#: than 256 until 4 (tile + span) + 8 * 1024 bytes fit 232448.
+OLD_SYNTHESIS_WIDEST_SPAN = (232448 - 8 * 1024) // 4 - 256
 
 
 @pytest.mark.parametrize("planes", [1, 30, 62, 64])
 def test_every_bank_the_old_plan_served_is_served(planes):
-    for span in (0, 1, 15, 225, 465, 4096, 18105, OLD_WIDEST_SPAN):
+    assert OLD_SYNTHESIS_WIDEST_SPAN == OLD_WIDEST_SPAN
+    for span in (0, 1, 15, 225, 465, 4096, 18105, TWO_BUFFERS, TWO_BUFFERS + 1,
+                 OLD_SYNTHESIS_WIDEST_SPAN):
         dense = tuple((0.0,) * span + (1.0,) for _ in range(planes))
         assert mb.bank_fits(dense), span
         mb._launch_plan(mb.bank_taps(dense))
         assert mb.analysis_shared_bytes(span) <= SHARED_LIMIT
+        assert mb.synthesis_shared_bytes(span, mb.synthesis_stages(span)) <= SHARED_LIMIT

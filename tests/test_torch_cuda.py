@@ -427,14 +427,18 @@ def _image(cuda, shape, seed=0):
     ("db4", 3, (3, 200, 328)),
     ("haar", 5, (1, 24, 40)),
     ("db20", 4, (1, 384, 320)),
-    # the synthesis plans: every db4 level to 6 on ragged widths (the tile
-    # and the W-pass block change with the level), and a deep haar level
-    # (one output a thread)
+    # the planners' tiles: every db4 level to 6 on ragged widths (the tile
+    # and the W-pass block change with the level), a deep haar level (one
+    # output a thread) and db20 at its deepest served level
+    ("db4", 1, (2, 300, 301)),
     ("db4", 2, (2, 256, 259)),
+    ("db4", 3, (1, 400, 333)),
+    ("db4", 4, (1, 300, 517)),
     ("db4", 5, (1, 512, 517)),
     ("db4", 6, (2, 512, 1000)),
     ("sym8", 3, (1, 300, 333)),
     ("haar", 10, (1, 1100, 1030)),
+    ("db20", 6, (1, 600, 700)),
 ])
 def test_2d_kernels_match_plain(cuda, name, level, shape, edge):
     """Every band of one analysis level, and one synthesis level with the
@@ -511,6 +515,9 @@ def _bank_cases():
     gaps = np.zeros(161)
     gaps[[0, 4, 8, 16, 20, 56, 60, 64, 68, 72, 76, 80, 84, 88, 160]] = (
         rng.standard_normal(15) / math.sqrt(15))
+    # the widest span served, where the synthesis holds one window buffer
+    widest = np.zeros(55809)
+    widest[[0, 3, 55808]] = rng.standard_normal(3) / math.sqrt(3)
     low, high = w.dec_lo / math.sqrt(2.0), w.dec_hi / math.sqrt(2.0)
     return {
         "random": random_dense,
@@ -523,6 +530,7 @@ def _bank_cases():
         "tree4": tp._tree_dense(w, 4, dec=True),
         "pair512": tp._pair_dense(low, high, 512),
         "gaps": (tuple(gaps.tolist()), tuple((rng.standard_normal(13) / 4).tolist())),
+        "widest": (tuple(widest.tolist()), tuple((rng.standard_normal(13) / 4).tolist())),
     }
 
 
@@ -532,7 +540,9 @@ def _bank_cases():
                                       ("random", 2, 150), ("pair16", 4, 4096),
                                       ("tree3", 2, 8192), ("dual4", 2, 4096),
                                       ("tree4", 3, 2 * 2304 + 7), ("pair512", 2, 3000),
-                                      ("gaps", 2, 1001), ("random", 5, 4617)])
+                                      ("gaps", 2, 1001), ("random", 5, 4617),
+                                      ("tree4", 2, 16384), ("tree4", 5, 4617),
+                                      ("widest", 2, 3000)])
 def test_bank_kernels_match_plain(cuda, kind, b, n, periodic, dtype):
     from vectorwave_tpu_torch.kernels import modwt_bank as mb
 
@@ -553,12 +563,17 @@ def test_bank_kernels_match_plain(cuda, kind, b, n, periodic, dtype):
 
 
 @pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "zero"])
-def test_bank_kernels_are_adjoints_and_each_others_gradient(cuda, periodic):
+@pytest.mark.parametrize("kind,b,n", [("random", 2, 3001), ("tree4", 2, 16384),
+                                      ("tree4", 5, 4617), ("random", 2, 150),
+                                      ("widest", 1, 3000)])
+def test_bank_kernels_are_adjoints_and_each_others_gradient(cuda, kind, b, n, periodic):
+    """In float32: a ragged tree, a span >= N, and the widest span, whose
+    synthesis holds one window buffer."""
     from vectorwave_tpu_torch.kernels import modwt_bank as mb
 
-    dense = _bank_cases()["random"]
-    x = _input(cuda, 2, 3001, torch.float32, seed=21).requires_grad_(True)
-    ys = [_input(cuda, 2, 3001, torch.float32, seed=22 + i) for i in range(len(dense))]
+    dense = _bank_cases()[kind]
+    x = _input(cuda, b, n, torch.float32, seed=21).requires_grad_(True)
+    ys = [_input(cuda, b, n, torch.float32, seed=22 + i) for i in range(len(dense))]
     mc.reset_launches()
     outs = mb.bank_analysis(x, dense, periodic)
     lhs = sum((o.double() * y.double()).sum() for o, y in zip(outs, ys))
@@ -569,6 +584,7 @@ def test_bank_kernels_are_adjoints_and_each_others_gradient(cuda, periodic):
     rhs = (x.detach().double() * g.double()).sum()
     assert abs(float(lhs - rhs)) <= 1e-5 * abs(float(lhs))
     assert _err((g,), (mb.bank_synthesis_plain(ys, dense, periodic),)) <= 3 * TOL_F32
+    assert mb.synthesis_stages(mb.bank_taps(dense).span) == (1 if kind == "widest" else 2)
 
 
 def test_bank_wrappers_refuse_on_the_card_what_the_kernels_cannot_take(cuda):
@@ -591,7 +607,7 @@ def test_bank_wrappers_refuse_on_the_card_what_the_kernels_cannot_take(cuda):
 
 @pytest.mark.parametrize("backend,packet,dual", [
     ("kernel", (1, 1), (1, 1)),        # the whole tree in one launch each way
-    ("auto", (3, 3), (1, 1)),          # per-level pairs; a small dual tree whole
+    ("auto", (1, 1), (1, 1)),          # small trees whole
     ("torch", (0, 0), (0, 0)),
 ])
 def test_packet_and_dual_tree_routing_on_the_card(cuda, backend, packet, dual):
@@ -620,6 +636,23 @@ def test_packet_and_dual_tree_routing_on_the_card(cuda, backend, packet, dual):
     assert _err((z,), (x,)) <= 3e-5 * float(x.abs().max())
 
 
+def test_packet_auto_takes_the_pairs_beyond_the_measured_work(cuda, monkeypatch):
+    from vectorwave_tpu_torch.transforms import packets as tp
+
+    x = _input(cuda, 4, 4096, torch.float32, seed=24)
+    # the sym8 depth-3 tree has 1064 taps: this call's work is one past the gate
+    monkeypatch.setattr(tp, "AUTO_TREE_MAX_WORK", 4 * 4096 * 1064 - 1)
+    mc.reset_launches()
+    vt.imodwpt(vt.modwpt(x, "sym8", 3), "sym8")
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES["modwt_bank_analysis"], mc.LAUNCHES["modwt_bank_synthesis"]) == (3, 3)
+    monkeypatch.setattr(tp, "AUTO_TREE_MAX_WORK", 4 * 4096 * 1064)
+    mc.reset_launches()
+    vt.imodwpt(vt.modwpt(x, "sym8", 3), "sym8")
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES["modwt_bank_analysis"], mc.LAUNCHES["modwt_bank_synthesis"]) == (1, 1)
+
+
 def test_dual_tree_auto_takes_the_pairs_beyond_the_measured_work(cuda, monkeypatch):
     from vectorwave_tpu_torch.transforms import dtcwt as td
 
@@ -641,7 +674,8 @@ def test_float64_and_symmetric_packets_take_the_plain_cascade_on_the_card(cuda):
     torch.cuda.synchronize()
     assert not any(mc.LAUNCHES.values())
     got = vt.denoise_packet(x, "db4", 2)
-    assert mc.LAUNCHES["modwt_bank_analysis"] == 2 and got.device == x.device
+    # the whole tree in one launch: far below packets.AUTO_TREE_MAX_WORK
+    assert mc.LAUNCHES["modwt_bank_analysis"] == 1 and got.device == x.device
 
 
 # --- the streaming tier: the external edge and the stream mode ----------------------

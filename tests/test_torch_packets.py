@@ -161,7 +161,7 @@ def test_routing_gates_on_both_sides(kernel_backend, monkeypatch):
     assert calls == [62]
     vt.modwpt(x32, "haar", 6)                       # depth 6: 126 planes, so pairs
     assert calls == [62] + [2] * 6
-    assert tpackets.TREE_MAX_DEPTH == 5 and tpackets.AUTO_TREE_MAX_DEPTH <= 5
+    assert tpackets.TREE_MAX_DEPTH == 5
     vt.set_backend("torch")
     vt.modwpt(x32, "haar", 2)
     vt.set_backend("auto")                          # no card here: the cascade
@@ -174,6 +174,26 @@ def test_routing_gates_on_both_sides(kernel_backend, monkeypatch):
     assert not tpackets._bank_serves(meta, wide, "kernel")
     assert tpackets._bank_serves(x32, wide, "kernel") and not mb.bank_fits(wide)
     assert tpackets._bank_serves(meta, ((1.0,),), "auto")
+
+
+def test_the_whole_tree_gate_on_both_sides_of_the_measured_work():
+    """``auto`` takes the whole tree up to AUTO_TREE_MAX_WORK FMAs (samples
+    times the analysis tree's taps) and the per-level pairs beyond, where
+    they measured faster on an H100: the sym8 tree to depth 4 at 64 x 16384
+    and to depth 2 at 128 x 65536; ``kernel`` takes it to TREE_MAX_DEPTH."""
+    w = vt.wavelet("sym8")
+    taps = {d: mb.bank_taps(tpackets._tree_dense(w, d, True)).nonzeros for d in range(1, 6)}
+    assert taps == {1: 32, 2: 216, 3: 1064, 4: 4680, 5: 19592}
+    edge = tpackets.AUTO_TREE_MAX_WORK // taps[4]
+    assert tpackets._use_tree(4, "auto", edge, w)
+    assert not tpackets._use_tree(4, "auto", edge + 1, w)
+    for (b, n), tree in (((64, 16384), (1, 2, 3, 4)), ((128, 65536), (1, 2)), ((1, 1024),
+                                                                                (1, 2, 3, 4, 5))):
+        for depth in range(1, 6):
+            assert tpackets._use_tree(depth, "auto", b * n, w) == (depth in tree), (b, n, depth)
+            assert tpackets._use_tree(depth, "kernel", b * n, w)
+    assert not tpackets._use_tree(6, "kernel", 1024, w)
+    assert not tpackets._use_tree(6, "auto", 1024, w)
 
 
 def test_packet_plane_filters_match_jax_and_compose_the_cascade():

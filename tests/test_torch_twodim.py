@@ -124,29 +124,52 @@ def _store(outs, image, res, k0, c0, s, tile, vals):
         out[image][np.ix_(rows[ok_r], cols[ok_c])] += v[np.ix_(ok_r, ok_c)]
 
 
-def _walk_analysis(x, filters, s, edge, tile):
-    """modwt2_analysis.cu's block loop: window of th + L - 1 rows of the
-    residue class by tw + s (L - 1) columns, the W pass on every window row,
-    the H pass on the block's rows."""
+def _walk_analysis(x, filters, s, edge, plan):
+    """modwt2_analysis.cu's block loop for a plan: the window of th + L - 1
+    rows of the residue class by tw + s (L - 1) columns; the W pass in
+    strips of ``plan.block`` outputs of one column class, forward reads of
+    the reversed taps, into the low and high row buffers; the H pass in
+    items of 4 class rows (fewer at a ragged tile's end), forward reads down
+    the buffers' columns; then the stores.  Every read must stay inside the
+    window or a buffer, and every buffer slot is written once."""
     lo, hi = (np.asarray(f) for f in filters)
     taps = len(lo)
+    g_lo, g_hi = lo[::-1], hi[::-1]
     b, h, w = x.shape
-    rows_n, width = k2.analysis_window(taps, s, tile)
-    th, tw = tile
+    th, tw = plan.tile
+    rows_n, width = k2.analysis_window(taps, s, plan.tile)
+    kw = plan.block
+    assert tw % (8 * kw) == 0 and (kw == 1 or tw % (4 * s) == 0)
+    sigma = np.arange(tw // kw)
+    cols = sigma if kw == 1 else sigma % s + s * kw * (sigma // s)
     outs = [np.zeros_like(x) for _ in range(4)]  # ll, lh, hl, hh
-    for image, res, k0, c0 in _blocks(b, h, w, s, tile):
+    for image, res, k0, c0 in _blocks(b, h, w, s, plan.tile):
         gr = _edge_index(res + s * (k0 - (taps - 1) + np.arange(rows_n)), h, edge)
         gc = _edge_index(c0 - s * (taps - 1) + np.arange(width), w, edge)
         win = _gather(x[image], gr, gc)
-        cols = np.arange(tw)
-        aw = sum(lo[l] * win[:, cols + s * (taps - 1) - s * l] for l in range(taps))
-        dw = sum(hi[l] * win[:, cols + s * (taps - 1) - s * l] for l in range(taps))
-        ks = np.arange(th)
-        ll = sum(lo[l] * aw[ks + taps - 1 - l] for l in range(taps))
-        hl = sum(hi[l] * aw[ks + taps - 1 - l] for l in range(taps))
-        lh = sum(lo[l] * dw[ks + taps - 1 - l] for l in range(taps))
-        hh = sum(hi[l] * dw[ks + taps - 1 - l] for l in range(taps))
-        _store(outs, image, res, k0, c0, s, tile, (ll, lh, hl, hh))
+
+        def line(e):
+            idx = cols[None, :] + s * e
+            assert idx.min() >= 0 and idx.max() < width
+            return win[:, idx[0]]
+        aw, dw = np.full((rows_n, tw), np.nan), np.full((rows_n, tw), np.nan)
+        written = np.zeros((rows_n, tw), dtype=int)
+        for j, (a, d) in enumerate(zip(_filter_line(line, kw, g_lo),
+                                       _filter_line(line, kw, g_hi))):
+            aw[:, cols + s * j], dw[:, cols + s * j] = a, d
+            written[:, cols + s * j] += 1
+        assert np.all(written == 1)
+        bands = [np.zeros((th, tw)) for _ in range(4)]  # ll, lh, hl, hh
+        for k in range(0, th, 4):
+            for r0, kh in ((k, 4),) if k + 4 <= th else ((k + j, 1) for j in range(th - k)):
+                for buf, (b_lo, b_hi) in ((aw, (0, 2)), (dw, (1, 3))):
+                    def hline(e, r0=r0, buf=buf):
+                        assert r0 + e < rows_n
+                        return buf[r0 + e]
+                    for g, band in ((g_lo, b_lo), (g_hi, b_hi)):
+                        for j, v in enumerate(_filter_line(hline, kh, g)):
+                            bands[band][r0 + j] = v
+        _store(outs, image, res, k0, c0, s, plan.tile, bands)
     return outs
 
 
@@ -238,12 +261,12 @@ def _walk_synthesis(planes, filters, s, ops, edge, plan):
     return out
 
 
-def _walk_plan(taps, s, ops, tile, stages):
-    """A plan for a walk's tile: the kernel's W-pass block where the tile
+def _walk_plan(tile, s, stages):
+    """A plan for a walk's tile: the kernels' W-pass block where the tile
     takes it, else one output a thread."""
     tw = tile[1]
     block = 4 if tw % (4 * s) == 0 and tw % 32 == 0 else 1
-    return k2.SynthesisPlan(tile, stages, 0, 0, block)
+    return k2.LevelPlan(tile, stages, 0, 0, block)
 
 
 WALK_CASES = [
@@ -269,21 +292,22 @@ def test_kernel_windows_reproduce_the_plain_level(name, level, edge, shape, tile
     x = _randn(shape, seed=level)
     fa = _kernel_filters(w, synthesis=False)
     want = k2.analysis2_level_plain(torch.from_numpy(x), fa, s, edge)
-    got = _walk_analysis(x, fa, s, edge, tile)
+    got = _walk_analysis(x, fa, s, edge, _walk_plan(tile, s, 1))
     for g, wt, tag in zip(got, want, ("ll", "lh", "hl", "hh")):
         _close(g, wt, msg=tag)
-    count = _walk_analysis(np.ones_like(x), ((1.0,), (0.0,)), s, "periodic", tile)[0]
+    count = _walk_analysis(np.ones_like(x), ((1.0,), (0.0,)), s, "periodic",
+                           _walk_plan(tile, s, 1))[0]
     assert np.array_equal(count, np.ones_like(x))
     planes = [_randn(shape, seed=10 + i) for i in range(4)]
     fs = _kernel_filters(w, synthesis=True)
     ops = k2.synthesis_ops(w, level, edge)[level - 1]
     want = k2.synthesis2_level_plain(*(torch.from_numpy(p) for p in planes), fs, s, ops,
                                      edge)
-    plan = _walk_plan(len(fs[0]), s, ops, tile, 2)
+    plan = _walk_plan(tile, s, 2)
     _close(_walk_synthesis(planes, fs, s, ops, edge, plan), want)
     ones = [np.ones_like(x)] + [np.zeros_like(x)] * 3
     count = _walk_synthesis(ones, ((1.0,), (0.0,)), s, k2.FORWARD_OPS, "periodic",
-                            _walk_plan(1, s, k2.FORWARD_OPS, tile, 2))
+                            _walk_plan(tile, s, 2))
     assert np.array_equal(count, np.ones_like(x))
 
 
@@ -335,18 +359,20 @@ def test_the_synthesis_tile_follows_the_level():
 @pytest.mark.parametrize("name,levels", [("db4", 6), ("sym8", 6), ("db20", 4), ("haar", 10)])
 def test_the_main_widths_fit_shared_memory(name, levels):
     """db4 and sym8 to J=6, a long filter (db20 J=4) and haar J=10 get a
-    tile at every level and in every edge mode; the first levels get the
-    widest."""
+    tile at every level and in every edge mode; the first level's analysis
+    a planned tile that leaves two blocks to an SM."""
     w = vt.wavelet(name)
     for edge in BOUNDARIES:
         for j, ops in enumerate(k2.synthesis_ops(w, levels, edge), start=1):
             s = 1 << (j - 1)
-            a, syn = k2.analysis_tile(w.filter_length, s), k2.synthesis_plan(
+            a, syn = k2.analysis_plan(w.filter_length, s), k2.synthesis_plan(
                 w.filter_length, s, ops)
             assert a is not None and syn is not None
             assert k2.analysis_shared_bytes(w.filter_length, s, a) <= k2.SHARED_LIMIT
             assert k2.plan_shared_bytes(w.filter_length, s, ops, syn) <= k2.SHARED_LIMIT
-        assert k2.analysis_tile(w.filter_length, 1) == k2.TILES[0]
+        first = k2.analysis_plan(w.filter_length, 1)
+        assert first.tile in k2.PLAN_TILES
+        assert k2.analysis_shared_bytes(w.filter_length, 1, first) <= k2.TWO_BLOCKS_SHARED
 
 
 #: The synthesis gate before the two-stage kernel, as a table: the deepest
@@ -376,6 +402,71 @@ def test_every_level_the_old_synthesis_served_is_served(name):
                 plan = k2.synthesis_plan(w.filter_length, s, ops)
                 assert plan is not None
                 assert k2.plan_shared_bytes(w.filter_length, s, ops, plan) <= k2.SHARED_LIMIT
+
+
+@pytest.mark.parametrize("name,level,edge,shape", PLAN_WALKS)
+def test_analysis_plans_walk_to_the_plain_level(name, level, edge, shape):
+    """The analysis planner's tiles (as the synthesis's above): every band
+    of the walked kernel equals the plain level."""
+    w = vt.wavelet(name)
+    s = 1 << (level - 1)
+    fa = _kernel_filters(w, synthesis=False)
+    plan = k2.analysis_plan(w.filter_length, s)
+    assert plan is not None and plan.stages == 1
+    x = _randn(shape, seed=30 + level)
+    want = k2.analysis2_level_plain(torch.from_numpy(x), fa, s, edge)
+    for g, wt, tag in zip(_walk_analysis(x, fa, s, edge, plan), want,
+                          ("ll", "lh", "hl", "hh")):
+        _close(g, wt, msg=tag)
+
+
+def test_the_analysis_tile_follows_the_level():
+    """The analysis planner takes the synthesis's rule with two blocks to an
+    SM: tall tiles at shallow levels, wide ones at deep levels, where the
+    first-fit (16, 128) would read the input 3.95 times at level 6."""
+    tiles = [k2.analysis_tile(8, 1 << (j - 1)) for j in range(1, 7)]
+    assert tiles[0] == (32, 128) and tiles[5] == (16, 256)
+
+    def reads(tile):
+        rows, width = k2.analysis_window(8, 32, tile)
+        return rows * width / (tile[0] * tile[1])
+    assert reads((16, 128)) == pytest.approx(3.953125)
+    assert reads(tiles[5]) == pytest.approx(2.6953125)
+    for j in range(1, 7):
+        s = 1 << (j - 1)
+        plan = k2.analysis_plan(8, s)
+        assert k2.analysis_shared_bytes(8, s, plan) <= k2.TWO_BLOCKS_SHARED
+        assert plan.block == 4 and plan.pitch % 32 == min(s, 8)
+
+
+#: The analysis gate before the planned kernel, as a table: the deepest
+#: level whose block (2 L taps, one window, two W-pass sums of rows x
+#: columns and the row and column index tables) fit 232448 bytes at the
+#: first fitting tile of TILES.
+OLD_DEEPEST_ANALYSIS = {"db4": 10, "sym8": 8, "db20": 6, "db38": 4, "haar": 10}
+
+
+def _old_analysis_tile(taps, s):
+    for tile in k2.TILES:
+        rows, width = k2.analysis_window(taps, s, tile)
+        if 4 * (2 * taps + rows * width + 2 * rows * tile[1] + rows + width) <= 232448:
+            return tile
+    return None
+
+
+@pytest.mark.parametrize("name", sorted(OLD_DEEPEST_ANALYSIS))
+def test_every_level_the_old_analysis_served_is_served(name):
+    """Every level the old gate served is served, and no other: the routing
+    (kernel_refusal) accepts what it accepted."""
+    taps = vt.wavelet(name).filter_length
+    for j in range(1, 11):
+        s = 1 << (j - 1)
+        old = _old_analysis_tile(taps, s)
+        assert (old is not None) == (j <= OLD_DEEPEST_ANALYSIS[name])
+        plan = k2.analysis_plan(taps, s)
+        assert (plan is not None) == (old is not None)
+        if plan is not None:
+            assert k2.analysis_shared_bytes(taps, s, plan) <= k2.SHARED_LIMIT
 
 
 # --- parity with the Pallas kernels (interpret mode, float32) ----------------------

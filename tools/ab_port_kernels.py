@@ -1,37 +1,46 @@
 #!/usr/bin/env python3
-"""Time two versions of the port's bank analysis and 2-D synthesis kernels
-on one GPU, in turns, in one process.
+"""Time two versions of the port's bank and 2-D kernels on one GPU, in turns,
+in one process.
 
 Run from the root of a checkout, with one Hopper card visible and an older
 checkout's kernel sources unpacked under a directory (for example the parent
 commit: ``git archive HEAD vectorwave_tpu_torch/kernels | tar -x -C DIR``):
 
-    python3 tools/ab_port_kernels.py --parent DIR [bank] [twod] [probe] [probe_new]
-                                     [tiles] [pitch4]
+    python3 tools/ab_port_kernels.py --parent DIR [banksyn] [twoda] [probea]
+                                     [probea_new] [atiles] [avariants]
 
 ``DIR``'s ``vectorwave_tpu_torch/kernels/csrc/*.cu`` are built into a
 library of their own (one nvcc per source, all started together) and called
-with that version's C interface: the bank analysis with its tap table, tile
-and plane groups, the 2-D synthesis with its first-fit tile.  The checkout's
-kernels are called through their C interface too, with the plan their
-wrapper would use, and both with their outputs allocated once; the
+with that version's C interface and the plan its wrapper would use; the
+checkout's kernels are called through their C interface too, with the plan
+their wrapper would use, and both with their outputs allocated once; the
 wrapper's own time is printed beside them.  Each case runs parent, change,
 change, parent (CUDA-event medians) after both have been held against the
-plain version; ptxas's registers and spills of the two kernels are printed
-first.
+plain version; ptxas's registers and spills of the compared kernels are
+printed first.  Targets for a parent whose bank synthesis takes per-plane
+(offset, value) tap lists and whose 2-D analysis takes a first-fit tile:
 
-* ``bank``: the sym8 depth-4 packet tree and a level-4 pair (as ``modwpt``
-  calls it) at 64x16384 and 128x65536, and ``dtcwt``'s whole-tree bank (sym8,
-  5 levels) at 64x16384, each with ``F.conv1d`` (TF32 off) beside it;
-* ``twod``: the 2-D synthesis at db4 levels 1-6, 8x2048x2048, periodic, with
-  ``F.conv2d`` (TF32 off) beside it;
-* ``probe``: the parent's 2-D synthesis split into phases by probe builds of
-  its source: the plane loads alone, the loads and the W pass, the whole
-  kernel, at levels 1-6; ``probe_new`` the same split of the checkout's
-  kernel (with ``twod``);
-* ``tiles`` and ``pitch4`` (with ``twod``): the checkout's 2-D synthesis
-  with every tile of ``modwt2.SYNTHESIS_TILES`` that fits, and with its
-  window rows on 16 bytes.
+* ``banksyn``: the bank synthesis on the sym8 depth-4 packet tree's leaves
+  and a level-4 pair (as ``imodwpt`` calls it) at 64x16384 and 128x65536,
+  and ``dtcwt``'s whole-tree synthesis bank (sym8, 5 levels) at 64x16384,
+  each with ``F.conv1d`` (TF32 off) beside it, and the change also with one
+  window buffer (``stages`` = 1);
+* ``twoda``: the 2-D analysis at db4 levels 1-6, 8x2048x2048, periodic,
+  with ``F.conv2d`` (TF32 off) beside it; ``atiles`` (with ``twoda``) times
+  the change with every tile of ``modwt2.PLAN_TILES`` that fits, and
+  ``avariants`` (with ``twoda``) the same for builds that hold 4 or 2
+  blocks to an SM (``ANALYSIS_VARIANTS``);
+* ``probea``: the parent's 2-D analysis split into phases by probe builds of
+  its source: the loads and stores alone (both passes reduced to a copy),
+  with the W pass, and the whole kernel, at levels 1-6; ``probea_new`` the
+  same split of the checkout's kernel (with ``twoda``).
+
+Targets for a parent from before the bank analysis and the 2-D synthesis
+were redesigned (a bank analysis with per-plane tap lists, a 2-D synthesis
+with a first-fit tile): ``bank``, ``twod``, ``probe``,
+``probe_new``, ``tiles`` and ``pitch4`` (the bank analysis and the 2-D
+synthesis the same way; ``tiles`` times every ``modwt2.PLAN_TILES`` plan of
+the synthesis).
 
 Prints the card's name and power limit first, and one JSON line of every
 time last.
@@ -44,6 +53,7 @@ import ctypes
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -77,6 +87,43 @@ PROBE_H = (
     }""",
     "    v = a[0] + d[0];",
 )
+#: probe builds of the parent's 2-D analysis: its W-pass and H-pass loops
+PROBE_A_W = (
+    """    for (int l = 0; l < L; ++l) {
+      const float v = src[-s * l];
+      a = fmaf(s_lo[l], v, a);
+      d = fmaf(s_hi[l], v, d);
+    }""",
+    "    a = src[0];\n    d = a;",
+)
+PROBE_A_H = (
+    """    for (int l = 0; l < L; ++l) {
+      const int i = (k + L - 1 - l) * tw + c;
+      const float a = aw[i];
+      const float d = dw[i];
+      v_ll = fmaf(s_lo[l], a, v_ll);
+      v_hl = fmaf(s_hi[l], a, v_hl);
+      v_lh = fmaf(s_lo[l], d, v_lh);
+      v_hh = fmaf(s_hi[l], d, v_hh);
+    }""",
+    "    v_ll = aw[(k + L - 1) * tw + c];\n    v_lh = dw[(k + L - 1) * tw + c];",
+)
+#: variant builds of the change's 2-D analysis (target ``avariants``): the
+#: blocks an SM must hold, and so the registers a thread may take
+ANALYSIS_VARIANTS = {
+    "min4": (("__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 4)"),),
+    "min2": (("__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 2)"),),
+}
+#: probe builds of the change's 2-D analysis
+PROBE_NEW_A_W = (
+    "    filter_line2<kW>(a, d, win + i * pitch + c, s, g_lo, g_hi, L);",
+    "    a[0] = win[i * pitch + c];\n    d[0] = a[0];",
+)
+PROBE_NEW_A_H = (
+    """      filter_line2<kH>(ll, hl, a_col, rpitch, g_lo, g_hi, L);
+      filter_line2<kH>(lh, hh, d_col, rpitch, g_lo, g_hi, L);""",
+    "      ll[0] = a_col[0];\n      lh[0] = d_col[0];",
+)
 
 
 def median_ms(fn, warmup=3, reps=20):
@@ -96,7 +143,8 @@ def median_ms(fn, warmup=3, reps=20):
     return times[len(times) // 2]
 
 
-SHOWN = ("modwt_bank_analysis", "modwt2_synthesis")
+SHOWN = ("modwt_bank_analysis", "modwt_bank_synthesis", "modwt2_analysis",
+         "modwt2_synthesis")
 
 
 def build(sources, out_dir: pathlib.Path, name: str, defines=()):
@@ -136,6 +184,38 @@ def parent_synthesis_tile(taps, spacing):
     raise RuntimeError("no parent tile")
 
 
+def parent_analysis_tile(taps, spacing):
+    """The first-fit tile of a 2-D analysis with index tables."""
+    for th, tw in PARENT_TILES:
+        rows, width = th + taps - 1, tw + spacing * (taps - 1)
+        if 4 * (2 * taps + rows * width + 2 * rows * tw + rows + width) <= SHARED_LIMIT:
+            return th, tw
+    raise RuntimeError("no parent tile")
+
+
+def parent_bank_tile(span):
+    """The tile of a bank synthesis that stages its taps in 1024-tap chunks."""
+    tile = 2048
+    while tile >= 256:
+        if 4 * (tile + span) + 8 * 1024 <= SHARED_LIMIT:
+            return tile
+        tile //= 2
+    raise RuntimeError("no parent tile")
+
+
+def split(name, csrc, text, patches, build_dir, fn_name, argtypes):
+    """A probe build of one kernel source with text replaced."""
+    for before, after in patches:
+        assert before in text, before
+        text = text.replace(before, after)
+    src = csrc / f"{name}.cu"
+    src.write_text(text)
+    fn = getattr(build([src], build_dir, name), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def declare_synthesis(lib):
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn = lib.vw_modwt2_synthesis_level
@@ -158,7 +238,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, type=pathlib.Path)
-    ap.add_argument("what", nargs="*", default=["bank", "twod", "probe"])
+    ap.add_argument("what", nargs="*", default=["banksyn", "twoda", "probea"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -214,17 +294,14 @@ def main() -> int:
             b, n = x.shape
             outs = [torch.empty_like(x) for _ in range(taps.planes)]
             optrs = (ctypes.c_void_p * taps.planes)(*[o.data_ptr() for o in outs])
-            ints, vals = mb._device_runs(runs, dev.index)
+            plane_runs, shifts, _, run_table, values = mb.runs_pointers(runs, dev)
             p = taps.planes
-            bounds = mb.group_bounds(runs, mb.plane_groups(b * -(-n // mb.ANALYSIS_TILE),
-                                                           p, sms))
+            bounds = mb.group_bounds(runs, mb.plane_groups(b * -(-n // mb.TILE), p, sms))
             cb = (i32 * len(bounds))(*bounds)
-            base = ints.data_ptr()
 
             def call():
-                err = vfn(x.data_ptr(), optrs, base, base + 4 * (p + 1), base + 8 * p + 4,
-                          vals.data_ptr(), cb, len(bounds) - 1, b, n, p, taps.span, 1, 0,
-                          _stream(dev))
+                err = vfn(x.data_ptr(), optrs, plane_runs, shifts, run_table, values, cb,
+                          len(bounds) - 1, b, n, p, taps.span, 1, 0, _stream(dev))
                 if err:
                     raise RuntimeError(f"kernel launch failed with CUDA error {err}")
                 return outs
@@ -234,9 +311,15 @@ def main() -> int:
         for label, dense, b, n, dil in cases:
             taps = mb.bank_taps(dense)
             x = torch.randn(b, n, device=dev, generator=gen)
-            tile = mb.bank_tile(taps.span)
+            tile = parent_bank_tile(taps.span)
             groups = max(1, min(taps.planes, -(-2 * sms // (b * -(-n // tile)))))
-            starts, _, offsets, values = mb._table_pointers(taps, dev)
+            # that analysis's table: [starts | spans | offsets] and the values
+            ints = torch.tensor(taps.starts + taps.spans + taps.offsets, dtype=torch.int32,
+                                device=dev)
+            tvals = torch.tensor(taps.values, dtype=torch.float32, device=dev)
+            starts = ints.data_ptr()
+            offsets = starts + 4 * (2 * taps.planes + 1)
+            values = tvals.data_ptr()
             outs = [torch.empty_like(x) for _ in range(taps.planes)]
             optrs = (ctypes.c_void_p * taps.planes)(*[o.data_ptr() for o in outs])
 
@@ -374,9 +457,10 @@ def main() -> int:
                           f"(max |kernel - plain| {err:.3e})", flush=True)
             if "tiles" in args.what:
                 row["tiles"] = {}
-                for tile in k2.SYNTHESIS_TILES + ((8, 128),):
+                for tile in k2.PLAN_TILES + ((8, 128),):
                     for stages in (2,):
-                        alt = k2._plan(taps, s, k2.FORWARD_OPS, tile, stages, True)
+                        width = k2.synthesis_window(taps, s, k2.FORWARD_OPS, tile)[1]
+                        alt = k2._plan(width, s, tile, stages, True)
                         nbytes = k2.plan_shared_bytes(taps, s, k2.FORWARD_OPS, alt)
                         if not k2._serves(alt) or nbytes > SHARED_LIMIT:
                             continue
@@ -423,6 +507,226 @@ def main() -> int:
                   f"{row['loads_w']:.4f} ms, whole {row['whole']:.4f} ms", flush=True)
             rows.append(row)
         results["probe"] = rows
+
+    if "banksyn" in args.what:
+        print("bank synthesis: parent vs change", flush=True)
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn = parent.vw_modwt_bank_synthesis
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ptr, ptr, ptr, ptr, ptr, i64, i64,
+                       i32, i32, i32, i32, i32, ptr]
+        fn.restype = i32
+        new_fn = mb.library().vw_modwt_bank_synthesis
+        w = vt.wavelet("sym8")
+        low, high = w.dec_lo / math.sqrt(2.0), w.dec_hi / math.sqrt(2.0)
+        cases = []
+        for b, n in BANK_SHAPES:
+            cases.append((f"sym8 depth-4 tree {b}x{n}", tp._tree_dense(w, 4, False), b, n, 1))
+            cases.append((f"sym8 level-4 pair {8 * b}x{n}", tp._pair_dense(low, high, 8),
+                          8 * b, n, 8))
+        cases.append(("dtcwt sym8 5-level whole tree 64x16384",
+                      td._dual_tree_bank(w, 5, 0.5)[0], 64, 16384, 1))
+        rows = []
+        for label, dense, b, n, dil in cases:
+            taps = mb.bank_taps(dense)
+            p = taps.planes
+            planes = torch.randn(p, b, n, device=dev, generator=gen).unbind(0)
+            iptrs = (ctypes.c_void_p * p)(*[q.data_ptr() for q in planes])
+            out = torch.empty_like(planes[0])
+            # the parent's table: [starts | spans | offsets] and the values
+            ints = torch.tensor(taps.starts + taps.spans + taps.offsets, dtype=torch.int32,
+                                device=dev)
+            vals = torch.tensor(taps.values, dtype=torch.float32, device=dev)
+            base = ints.data_ptr()
+            tile = parent_bank_tile(taps.span)
+
+            def old(b=b, n=n, p=p, iptrs=iptrs, out=out, base=base, vals=vals, tile=tile,
+                    taps=taps):
+                err = fn(iptrs, out.data_ptr(), base, base + 4 * (p + 1),
+                         base + 4 * (2 * p + 1), vals.data_ptr(), b, n, p, taps.span, tile,
+                         1, 0, _stream(dev))
+                if err:
+                    raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+                return out
+
+            runs = mb.bank_runs(taps, one_stride=True)
+            pr, _, spans, run_table, values = mb.runs_pointers(runs, dev)
+
+            def change(stages, b=b, n=n, p=p, iptrs=iptrs, out=out, taps=taps, runs=runs,
+                       pr=pr, spans=spans, run_table=run_table, values=values):
+                def call():
+                    err = new_fn(iptrs, out.data_ptr(), pr, spans, run_table, values, b, n, p,
+                                 taps.span, runs.shifts[0], stages, 1, 0, _stream(dev))
+                    if err:
+                        raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+                    return out
+                return call
+
+            want = mb.bank_synthesis_plain(planes, dense, True)
+
+            def check(f, want=want):
+                got = f()
+                torch.cuda.synchronize()
+                return float((got - want).abs().max())
+
+            row = turns(label, old, change(mb.synthesis_stages(taps.span)), check)
+            one = change(1)
+            row["change_one_buffer_ms"] = median_ms(one)
+            row["change_one_buffer_err"] = check(one)
+            row["wrapper_ms"] = median_ms(lambda planes=planes, dense=dense: mb.bank_synthesis(
+                planes, dense, True))
+            print(f"    one window buffer: {row['change_one_buffer_ms']:.4f} ms; the wrapper "
+                  f"(bank_synthesis): {row['wrapper_ms']:.4f} ms", flush=True)
+            k = max(len(f) for f in dense)
+            ws = torch.zeros(p, k, device=dev)
+            for i, f in enumerate(dense):
+                ws[i, : len(f)] = torch.tensor(f, device=dev)
+            ws = ws[:, ::dil].contiguous()
+            span = dil * (ws.shape[-1] - 1)
+            stacked = torch.stack(planes, dim=1)
+            row["library_ms"] = median_ms(lambda: F.conv1d(
+                F.pad(stacked, (0, span), mode="circular"), ws[None], dilation=dil))
+            t_ops = b * n * taps.nonzeros * 2 / 67e12 * 1e3
+            t_bytes = b * n * 4 * (1 + p) / 3.35e12 * 1e3
+            row["bound_ms"] = max(t_ops, t_bytes)
+            row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            print(f"    F.conv1d {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})", flush=True)
+            rows.append(row)
+            del planes, out, want, stacked
+        results["banksyn"] = rows
+
+    if "twoda" in args.what:
+        print("2-D analysis: parent vs change, db4, 8x2048x2048, periodic", flush=True)
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        parent_args = [ptr] * 6 + [i64] * 3 + [i32] * 5 + [ptr]
+        fn = parent.vw_modwt2_analysis_level
+        fn.argtypes, fn.restype = parent_args, i32
+        new_fn = mb.library().vw_modwt2_analysis_level
+        w = vt.wavelet("db4")
+        fa = _kernel_filters(w, synthesis=False)
+        taps = len(fa[0])
+        x = torch.randn(*IMG, device=dev, generator=gen)
+        outs = [torch.empty_like(x) for _ in range(4)]
+        tap_t = _device_taps(tuple(fa[0]) + tuple(fa[1]), dev.index)
+        pixels = math.prod(IMG)
+        import numpy as np
+        lo, hi = np.array(fa[0]), np.array(fa[1])
+        bank_a = torch.tensor(np.stack([np.outer(fh[::-1], fw[::-1]) for fh, fw in (
+            (lo, lo), (lo, hi), (hi, lo), (hi, hi))]), dtype=torch.float32, device=dev)[:, None]
+
+        def old_call(f, level):
+            s = 1 << (level - 1)
+            th, tw = parent_analysis_tile(taps, s)
+
+            def call():
+                err = f(x.data_ptr(), *(o.data_ptr() for o in outs), tap_t.data_ptr(), *IMG,
+                        taps, s, k2.EDGES["periodic"], th, tw, _stream(dev))
+                if err:
+                    raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+                return outs
+            return call
+
+        def new_call(f, level, plan):
+            s = 1 << (level - 1)
+
+            def call():
+                err = f(x.data_ptr(), *(o.data_ptr() for o in outs), tap_t.data_ptr(), *IMG,
+                        taps, s, k2.EDGES["periodic"], *plan.tile, plan.pitch,
+                        plan.row_pitch, plan.block, _stream(dev))
+                if err:
+                    raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+                return outs
+            return call
+
+        # probe and variant builds of the checkout's kernel, beside a copy of
+        # its headers
+        here = ROOT / "vectorwave_tpu_torch" / "kernels" / "csrc"
+        new_src = work / "change_csrc"
+        new_src.mkdir(parents=True, exist_ok=True)
+        for header in here.glob("*.cuh"):
+            shutil.copy(header, new_src / header.name)
+        text = (here / "modwt2_analysis.cu").read_text()
+        probes_new = {}
+        if "probea_new" in args.what:
+            for name, patches in (("loads_stores", (PROBE_NEW_A_W, PROBE_NEW_A_H)),
+                                  ("loads_w", (PROBE_NEW_A_H,))):
+                probes_new[name] = split(f"probea_new_{name}_modwt2_analysis", new_src, text,
+                                         patches, work, "vw_modwt2_analysis_level",
+                                         new_fn.argtypes)
+        variants = {}
+        if "avariants" in args.what:
+            for name, patches in ANALYSIS_VARIANTS.items():
+                variants[name] = split(f"variant_{name}_modwt2_analysis", new_src, text,
+                                       patches, work, "vw_modwt2_analysis_level",
+                                       new_fn.argtypes)
+        rows = []
+        for level in range(1, 7):
+            s = 1 << (level - 1)
+            want = k2.analysis2_level_plain(x, fa, s, "periodic")
+
+            def check(f, want=want):
+                got = f()
+                torch.cuda.synchronize()
+                return max(float((g - p).abs().max()) for g, p in zip(got, want))
+
+            plan = k2.analysis_plan(taps, s)
+            row = turns(f"level {level} {plan}", old_call(fn, level),
+                        new_call(new_fn, level, plan), check)
+            row["wrapper_ms"] = median_ms(lambda s=s: k2.analysis2_level(x, fa, s, "periodic"))
+            print(f"    the wrapper (analysis2_level): {row['wrapper_ms']:.4f} ms", flush=True)
+            for name, f in probes_new.items():
+                row[f"probe_{name}"] = median_ms(new_call(f, level, plan))
+            if probes_new:
+                print(f"    change split: loads and stores {row['probe_loads_stores']:.4f} ms, "
+                      f"with the W pass {row['probe_loads_w']:.4f} ms", flush=True)
+            for vname, vfn in [("change", new_fn)] * ("atiles" in args.what) + list(
+                    variants.items()):
+                row[f"tiles_{vname}"] = {}
+                for tile in k2.PLAN_TILES:
+                    width = k2.analysis_window(taps, s, tile)[1]
+                    alt = k2._plan(width, s, tile, 1, True)
+                    nbytes = k2.analysis_shared_bytes(taps, s, alt)
+                    if not k2._serves_analysis(alt) or nbytes > SHARED_LIMIT:
+                        continue
+                    call = new_call(vfn, level, alt)
+                    row[f"tiles_{vname}"][str(tile)] = (median_ms(call), nbytes, check(call))
+                print(f"    tiles, {vname}: " + ", ".join(
+                    f"{t} {v[0]:.4f} ms ({v[1] // 1024} KB, err {v[2]:.1e})"
+                    for t, v in row[f"tiles_{vname}"].items()), flush=True)
+            pad = s * (taps - 1)
+            row["library_ms"] = median_ms(lambda: F.conv2d(
+                F.pad(x[:, None], (pad, 0, pad, 0), mode="circular"), bank_a, dilation=s))
+            row["bound_ms"] = 20 * pixels / 3.35e12 * 1e3
+            print(f"    F.conv2d {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms",
+                  flush=True)
+            rows.append(row)
+            del want
+        for key in ("parent_ms", "change_ms"):
+            for j in (4, 6):
+                total = [sum(r[key][i] for r in rows[:j]) for i in (0, 1)]
+                print(f"  sum of levels 1-{j}, {key[:-3]}: {total[0]:.4f} / {total[1]:.4f} ms",
+                      flush=True)
+        results["twoda"] = rows
+
+        if "probea" in args.what:
+            print("2-D analysis, parent split by probe builds (db4, periodic)", flush=True)
+            text = (csrc / "modwt2_analysis.cu").read_text()
+            probes = {name: split(f"probea_{name}_modwt2_analysis", csrc, text, patches, work,
+                                  "vw_modwt2_analysis_level", parent_args)
+                      for name, patches in (("loads_stores", (PROBE_A_W, PROBE_A_H)),
+                                            ("loads_w", (PROBE_A_H,)))}
+            probes["whole"] = fn
+            split_rows = []
+            for level in range(1, 7):
+                row = {"level": level}
+                for name, f in probes.items():
+                    row[name] = median_ms(old_call(f, level))
+                print(f"  level {level}: loads and stores {row['loads_stores']:.4f} ms, with "
+                      f"the W pass {row['loads_w']:.4f} ms, whole {row['whole']:.4f} ms",
+                      flush=True)
+                split_rows.append(row)
+            results["probea"] = split_rows
+        del x, outs
 
     print(json.dumps(results), flush=True)
     return 0

@@ -132,9 +132,10 @@ def _declare(lib: ctypes.CDLL) -> None:
                                                  i64, i32, i32, i32, i32, i32, i32,
                                                  i32, i32, ptr]
     # (x, ll, lh, hl, hh, taps, batch, h, w, taps_len, spacing, edge, th, tw,
-    #  stream)
+    #  pitch, row_pitch, block, stream)
     lib.vw_modwt2_analysis_level.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64,
-                                             i64, i32, i32, i32, i32, i32, ptr]
+                                             i64, i32, i32, i32, i32, i32, i32, i32,
+                                             i32, ptr]
     # (ll, lh, hl, hh, out, taps, batch, h, w, taps_len, spacing, lo_sign, lo_off,
     #  hi_sign, hi_off, edge, th, tw, stages, pitch, row_pitch, block, stream)
     lib.vw_modwt2_synthesis_level.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64,
@@ -145,10 +146,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vw_modwt_bank_analysis.argtypes = [ptr, ptrs, ptr, ptr, ptr, ptr,
                                            ctypes.POINTER(i32), i32, i64, i64, i32, i32,
                                            i32, i32, ptr]
-    # (ins, out, starts, spans, offsets, values, batch, n, planes, span, tile,
-    #  edge, dtype, stream)
+    # (ins, out, plane_runs, spans, runs, values, batch, n, planes, span, shift,
+    #  stages, edge, dtype, stream)
     lib.vw_modwt_bank_synthesis.argtypes = [ptrs, ptr, ptr, ptr, ptr, ptr, i64, i64, i32,
-                                            i32, i32, i32, i32, ptr]
+                                            i32, i32, i32, i32, i32, ptr]
     for fn in (lib.vw_modwt_analysis, lib.vw_modwt_synthesis, lib.vw_modwt_denoise,
                lib.vw_modwt_exact_analysis, lib.vw_modwt_exact_synthesis,
                lib.vw_modwt_symmetric_synthesis, lib.vw_modwt2_analysis_level,

@@ -16,8 +16,10 @@
 //   * the edge is applied per axis where a window is loaded: periodic takes
 //     the index mod n (so a span above n works), zero reads 0 outside [0, n),
 //     symmetric takes it mod 2n and mirrors the upper half (the half-point
-//     symmetric extension of ops/convolve.py); a block maps its window's rows
-//     and columns once into index tables in shared memory;
+//     symmetric extension of ops/convolve.py); a window is copied with
+//     cp.async, whole rows a warp (copy_window);
+//   * the tile (th, tw), the window's row pitch and the W-pass block come
+//     from the wrapper's planner (kernels/modwt2.py), per level;
 //   * each C entry point returns cudaGetLastError() after its launch, or
 //     cudaErrorInvalidValue for arguments it does not take.
 #pragma once
@@ -27,6 +29,9 @@
 namespace vw {
 
 enum Edge : int { kEdgePeriodic = 0, kEdgeZero = 1, kEdgeSymmetric = 2 };
+
+// Class rows a thread owns in either kernel's H pass.
+constexpr int kH = 4;
 
 // Index of sample g of the extended axis of length n, or -1 where the zero
 // edge reads 0.
@@ -60,32 +65,42 @@ inline bool valid_config2(long long batch, long long h, long long w, int taps, i
          edge <= kEdgeSymmetric && th >= 1 && tw >= 1 && th * tw <= 4096;
 }
 
-// Calls f(i, q) for every (i, q) of an [n_i, n_q] index space, the block's
-// threads striding over it in row-major order (neighbouring threads on
-// neighbouring q), with no integer division inside the loop.
-template <typename F>
-__device__ __forceinline__ void for_each_2d(int n_i, int n_q, F f) {
-  const int step_i = blockDim.x / n_q;
-  const int step_q = blockDim.x - step_i * n_q;
-  int i = threadIdx.x / n_q;
-  int q = threadIdx.x - i * n_q;
-  while (i < n_i) {
-    f(i, q);
-    i += step_i;
-    q += step_q;
-    if (q >= n_q) {
-      q -= n_q;
-      ++i;
+// Copies rows x width of plane `src` into dst (row pitch `pitch`): window
+// row i is image row edge(row0 + s i), column q image column edge(col0 + q).
+// A warp takes whole rows.  `vec`: the columns lie inside the image, col0,
+// the pitch and W are multiples of 4 and the plane 16-byte aligned, so
+// 16-byte copies serve the row (rounded up to 4 columns, which the image
+// holds); else 4-byte copies.
+__device__ __forceinline__ void copy_window(float* dst, const float* __restrict__ src,
+                                            long long row0, int s, long long H, long long W,
+                                            long long col0, int rows, int width, int pitch,
+                                            bool inside, bool vec, int edge) {
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x >> 5; i < rows; i += kThreads / 32) {
+    float* d = dst + i * pitch;
+    const long long gr = edge_index(row0 + static_cast<long long>(s) * i, H, edge);
+    if (gr < 0) {
+      for (int q = lane; q < width; q += 32) d[q] = 0.0f;
+      continue;
     }
-  }
-}
-
-// Fills table[0..n) with edge_index(first + stride t, len, edge): the rows or
-// columns a window reads, mapped once per block rather than per element.
-__device__ __forceinline__ void fill_index(int* table, int n, long long first,
-                                           long long stride, long long len, int edge) {
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    table[t] = static_cast<int>(edge_index(first + stride * t, len, edge));
+    const float* row = src + gr * W;
+    if (vec) {
+      const float* from = row + col0;
+      for (int q = 4 * lane; q < width; q += 128) cp_async16(d + q, from + q);
+    } else if (inside) {
+      const float* from = row + col0;
+      for (int q = lane; q < width; q += 32) cp_async4(d + q, from + q);
+    } else {
+      for (int q = lane; q < width; q += 32) {
+        const long long g = col0 + q;
+        const long long gc = (g >= 0 && g < W) ? g : edge_index(g, W, edge);
+        if (gc < 0) {
+          d[q] = 0.0f;
+        } else {
+          cp_async4(d + q, row + gc);
+        }
+      }
+    }
   }
 }
 

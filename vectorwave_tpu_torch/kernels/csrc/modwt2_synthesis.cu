@@ -51,61 +51,7 @@ struct Ops2 {
   int lo_sign, lo_off, hi_sign, hi_off;
 };
 
-constexpr int kH = 4;          // class rows a thread owns in the H pass
 constexpr int kMaxItems = 4;   // H-pass items a thread owns: (th / kH) tw <= 1024
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Copies rows x width of plane `src` into dst (row pitch `pitch`): window
-// row i is image row edge(row0 + s i), column q image column edge(col0 + q).
-// A warp takes whole rows.  `vec`: the columns lie inside the image, col0,
-// the pitch and W are multiples of 4 and the plane 16-byte aligned, so
-// 16-byte copies serve the row (rounded up to 4 columns, which the image
-// holds); else 4-byte copies.
-__device__ __forceinline__ void copy_window(float* dst, const float* __restrict__ src,
-                                            long long row0, int s, long long H, long long W,
-                                            long long col0, int rows, int width, int pitch,
-                                            bool inside, bool vec, int edge) {
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x >> 5; i < rows; i += kThreads / 32) {
-    float* d = dst + i * pitch;
-    const long long gr = edge_index(row0 + static_cast<long long>(s) * i, H, edge);
-    if (gr < 0) {
-      for (int q = lane; q < width; q += 32) d[q] = 0.0f;
-      continue;
-    }
-    const float* row = src + gr * W;
-    if (vec) {
-      const float* from = row + col0;
-      for (int q = 4 * lane; q < width; q += 128) cp_async16(d + q, from + q);
-    } else if (inside) {
-      const float* from = row + col0;
-      for (int q = lane; q < width; q += 32) cp_async4(d + q, from + q);
-    } else {
-      for (int q = lane; q < width; q += 32) {
-        const long long g = col0 + q;
-        const long long gc = (g >= 0 && g < W) ? g : edge_index(g, W, edge);
-        if (gc < 0) {
-          d[q] = 0.0f;
-        } else {
-          cp_async4(d + q, row + gc);
-        }
-      }
-    }
-  }
-}
 
 // One filter along a line of the window, forward reads at stride `stride`:
 // acc[j] += sum_l g[l] line[(j + l) stride], j < K.  Taps 4 at a time (16-byte

@@ -12,21 +12,13 @@
 // single à trous pair is bound by bytes (32 FMAs against 12 bytes).  An SM
 // issues four warp FMAs a clock but serves one 32-bit warp load from shared
 // memory, so a design that loads a window sample for every FMA stops near a
-// fifth of the fp32 peak.  This one makes a loaded word feed several FMAs:
+// fifth of the fp32 peak.  This one makes a loaded word feed several FMAs,
+// with the register blocks of modwt_bank_common.cuh:
 //   * a block loads its tile of x with `span` samples of left halo into
 //     shared memory once, the edge resolved as it loads, and walks the
 //     planes of its group (blockIdx.y);
-//   * the host cuts each plane's taps into runs (first offset o, count c) on
-//     one stride d per plane, a power of two dividing kThreads (1 for a
-//     packet tree, 2^(j-1) for an à trous pair), values padded so that each
-//     run starts on 16 bytes;
-//   * a thread owns kRunBlock = 9 outputs u, u + d, ..., u + 8d of one
-//     residue class mod d, so that taps i, i + 1 read the same samples one
-//     step of d apart: a run of 8 taps needs 8 new samples, kept in
-//     registers and carried to the next 8 (two arrays that swap roles), and
-//     2 broadcast 16-byte loads of taps, for 72 FMAs;
-//   * the thread's first output is u = (tid mod d) + d kRunBlock (tid / d):
-//     an odd block keeps the 32 lanes of a warp on 32 banks for every d;
+//   * output r of a thread reads w[r - i] for tap i of a run, so a step of
+//     8 taps reads w[-(i0 + 7) .. 8 - i0];
 //   * taps left over after the runs' multiples of 8 are read one at a time.
 // The plane groups are cut on the host so that each holds about the same
 // number of taps.  Every precision tier runs this fp32 kernel.
@@ -34,20 +26,10 @@
 
 namespace vw {
 
-constexpr int kRunBlock = 9;
-constexpr int kRunChunk = 8;
-constexpr int kAnalysisTile = kThreads * kRunBlock;
-
 // First plane of each plane group and the end of the last, by value.
 struct GroupBounds {
   int p[kMaxBankPlanes + 1];
 };
-
-// Window sample m of the thread's run: w[m] = src[m d].
-template <bool kUnit>
-__device__ __forceinline__ float run_sample(const float* src, int m, int d) {
-  return src[kUnit ? m : m * d];
-}
 
 // Taps i0 .. i0 + 7 of a run: output r reads w[r - i0 - t] for tap i0 + t.
 // `fresh` is loaded with w[m0 .. m0 + 8), m0 = -(i0 + 7); `old` holds
@@ -166,9 +148,9 @@ modwt_bank_analysis_kernel(const T* __restrict__ x, BankPtrs out,
 
   const long long b = blockIdx.x / tiles_per_row;
   const long long t0 =
-      static_cast<long long>(blockIdx.x % tiles_per_row) * kAnalysisTile;
+      static_cast<long long>(blockIdx.x % tiles_per_row) * kBankTile;
   const long long row_off = b * n;
-  const int n_out = static_cast<int>(min(static_cast<long long>(kAnalysisTile), n - t0));
+  const int n_out = static_cast<int>(min(static_cast<long long>(kBankTile), n - t0));
   // win[q] = x_ext[t0 - span + q].  A ragged last tile loads only what its
   // outputs read; the threads whose outputs lie past n_out read slots never
   // loaded, and store nothing.
@@ -178,8 +160,7 @@ modwt_bank_analysis_kernel(const T* __restrict__ x, BankPtrs out,
   for (int p = groups.p[blockIdx.y]; p < groups.p[blockIdx.y + 1]; ++p) {
     const int shift = plane_shift[p];
     const int d = 1 << shift;
-    const int base =
-        (threadIdx.x & (d - 1)) + ((static_cast<int>(threadIdx.x) >> shift) << shift) * kRunBlock;
+    const int base = run_base(shift);
     float acc[kRunBlock];
 #pragma unroll
     for (int r = 0; r < kRunBlock; ++r) acc[r] = 0.0f;
@@ -207,7 +188,7 @@ modwt_bank_analysis_kernel(const T* __restrict__ x, BankPtrs out,
 }
 
 inline size_t bank_analysis_shared_bytes(int span) {
-  return sizeof(float) * (static_cast<size_t>(kAnalysisTile) + static_cast<size_t>(span));
+  return sizeof(float) * (static_cast<size_t>(kBankTile) + static_cast<size_t>(span));
 }
 
 // Three slots before the window let the block align it for 16-byte stores;
@@ -228,7 +209,7 @@ cudaError_t launch_bank_analysis(const void* x, const void* const* outs,
                                  int edge, cudaStream_t stream) {
   BankPtrs ptrs{};
   for (int i = 0; i < planes; ++i) ptrs.p[i] = const_cast<void*>(outs[i]);
-  const long long tiles = (n + kAnalysisTile - 1) / kAnalysisTile;
+  const long long tiles = (n + kBankTile - 1) / kBankTile;
   const long long blocks = batch * tiles;
   if (tiles > 0x7fffffffLL || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int lead = bank_analysis_lead(span);

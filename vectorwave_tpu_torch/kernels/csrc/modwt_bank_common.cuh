@@ -7,14 +7,19 @@
 // holds), so they live in device memory:
 //   * data are [batch, n] rows, float32 or bfloat16; the kernels compute in
 //     fp32 FMA and store in the input type;
-//   * one block serves one (signal, tile of outputs) and keeps its window of
-//     the signal in shared memory; the sums stay in registers;
-//   * the synthesis takes plane p's non-zero taps offs[starts[p] ..
-//     starts[p+1]) with the fp32 values beside them, stages kTapChunk of
-//     them at a time in shared memory, and a thread owns the outputs
-//     threadIdx.x + r kThreads, r < tile / kThreads;
-//   * the analysis takes the taps as runs on one stride per plane (see
-//     modwt_bank_analysis.cu);
+//   * one block serves one (signal, tile of kBankTile outputs) and keeps its
+//     window of the signal in shared memory; the sums stay in registers;
+//   * the host cuts each plane's taps into runs (first offset o, count c) on
+//     one stride d per plane, a power of two dividing kThreads (1 for a
+//     packet tree, 2^(j-1) for an à trous pair), values padded so that each
+//     run starts on 16 bytes (modwt_bank.bank_runs);
+//   * a thread owns kRunBlock = 9 outputs u, u + d, ..., u + 8d of one
+//     residue class mod d, so that taps i, i + 1 read the same samples one
+//     step of d apart: a run of 8 taps needs 8 new samples, kept in
+//     registers and carried to the next 8 (two arrays that swap roles), and
+//     2 broadcast 16-byte loads of taps, for 72 FMAs;
+//   * the thread's first output is u = (tid mod d) + d kRunBlock (tid / d):
+//     an odd block keeps the 32 lanes of a warp on 32 banks for every d;
 //   * the plane pointers travel by value in the kernel's parameter block
 //     (kMaxBankPlanes of them, 512 bytes).
 #pragma once
@@ -24,8 +29,9 @@
 namespace vw {
 
 constexpr int kMaxBankPlanes = 64;
-constexpr int kPerThread = 8;
-constexpr int kTapChunk = 1024;
+constexpr int kRunBlock = 9;
+constexpr int kRunChunk = 8;
+constexpr int kBankTile = kThreads * kRunBlock;
 
 // Edges of the bank: zero or periodic.  An external halo slab (the left or
 // right neighbour's samples) would be a third value.
@@ -48,16 +54,17 @@ __device__ __forceinline__ float bank_load(const T* __restrict__ row, long long 
   return to_f32(row[m]);
 }
 
-inline size_t bank_shared_bytes(int span, int tile) {
-  return sizeof(float) * (static_cast<size_t>(tile) + static_cast<size_t>(span)) +
-         (sizeof(float) + sizeof(int)) * static_cast<size_t>(kTapChunk);
+// The thread's first output in the tile for a plane of stride 2^shift.
+__device__ __forceinline__ int run_base(int shift) {
+  const int d = 1 << shift;
+  return (threadIdx.x & (d - 1)) +
+         ((static_cast<int>(threadIdx.x) >> shift) << shift) * kRunBlock;
 }
 
-inline bool valid_bank_config(long long batch, long long n, int planes, int span,
-                              int tile, int edge) {
-  return batch >= 1 && n >= 1 && planes >= 1 && planes <= kMaxBankPlanes &&
-         span >= 0 && tile >= kThreads && tile <= kThreads * kPerThread &&
-         tile % kThreads == 0 && (edge == kBankZero || edge == kBankPeriodic);
+// Window sample m of the thread's run: w[m] = src[m d].
+template <bool kUnit>
+__device__ __forceinline__ float run_sample(const float* src, int m, int d) {
+  return src[kUnit ? m : m * d];
 }
 
 }  // namespace vw

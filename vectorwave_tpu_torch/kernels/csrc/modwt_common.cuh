@@ -211,6 +211,34 @@ __device__ __forceinline__ void store_pair(float* __restrict__ hi,
   lo[i] = __double2float_rn(v - static_cast<double>(h));
 }
 
+// --- asynchronous copies from device memory to shared memory (cp.async) ---
+//
+// A copy is in flight until cp_async_wait_all() (every copy of the thread)
+// or cp_async_wait_one() (all but the latest committed group); a barrier
+// after the wait makes the block's copies visible to every thread.
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Opt in to more than 48 KB of dynamic shared memory where a launch needs it;
 // returns the error of the attribute call, or of the size check.
 template <typename Kernel>

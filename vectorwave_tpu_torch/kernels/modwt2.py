@@ -56,19 +56,20 @@ from .modwt_fused import _kernel_boundary, _kernel_filters
 
 #: Edge modes and their codes in the CUDA sources (``kEdge*``).
 EDGES = {"periodic": 0, "zero": 1, "symmetric": 2}
-#: Block tiles ``(rows, columns)`` in order of preference: a block owns
-#: ``rows`` output rows of one residue class mod the spacing and ``columns``
-#: adjacent columns; the first tile whose windows fit shared memory is taken
-#: (the analysis; the synthesis falls back to them).
+#: Block tiles ``(rows, columns)`` of the fallback, in order of
+#: preference: a block owns ``rows`` output rows of one residue class mod
+#: the spacing and ``columns`` adjacent columns; where no tile of
+#: :data:`PLAN_TILES` leaves two blocks to an SM, the first of these whose
+#: block fits shared memory is taken.
 TILES = ((16, 128), (8, 128), (8, 64), (4, 64), (4, 32), (2, 32), (1, 32))
-#: The synthesis's own tiles: per level it takes the one that reads each
-#: plane the fewest times, ``(rows + L - 1) * width / (rows * columns)``,
-#: among those whose two-stage block leaves room for three blocks on an SM
-#: (else two).
-SYNTHESIS_TILES = ((4, 512), (8, 256), (8, 512), (16, 128), (16, 256), (32, 64), (32, 128))
-#: Outputs a synthesis thread owns in the W pass (``kW``), and the H-pass
-#: items (of 4 class rows, ``kMaxItems`` a thread) a tile may have.
-SYNTHESIS_BLOCK, SYNTHESIS_ITEMS = 4, 1024
+#: The planners' tiles: per level each direction takes the one that reads
+#: its input the fewest times, ``(rows + L - 1) * width / (rows * columns)``,
+#: among those whose block leaves room for three blocks on an SM, else two
+#: (the synthesis), or for two (the analysis).
+PLAN_TILES = ((4, 512), (8, 256), (8, 512), (16, 128), (16, 256), (32, 64), (32, 128))
+#: Outputs a thread owns in the W pass (``kW``), and the H-pass items (of 4
+#: class rows, ``kMaxItems`` a thread) a synthesis tile may have.
+W_BLOCK, SYNTHESIS_ITEMS = 4, 1024
 #: Shared memory a block may take for three (two) to fit an SM: a third (a
 #: half) of the SM's 228 KB less the 1 KB the card reserves for each block.
 THREE_BLOCKS_SHARED, TWO_BLOCKS_SHARED = 233472 // 3 - 1024, 233472 // 2 - 1024
@@ -111,29 +112,13 @@ def synthesis_window(taps: int, spacing: int, ops, tile: tuple[int, int]) -> tup
     return th + taps - 1, tw + last - first, first
 
 
-def analysis_shared_bytes(taps: int, spacing: int, tile: tuple[int, int]) -> int:
-    """Shared memory of one analysis block: taps, the input window, the
-    W-pass low and high rows and the window's row and column index tables."""
-    rows, width = analysis_window(taps, spacing, tile)
-    return 4 * (2 * taps + rows * width + 2 * rows * tile[1] + rows + width)
-
-
-@functools.lru_cache(maxsize=512)
-def analysis_tile(taps: int, spacing: int) -> tuple[int, int] | None:
-    """The first of :data:`TILES` whose analysis block fits shared memory."""
-    for tile in TILES:
-        if analysis_shared_bytes(taps, spacing, tile) <= SHARED_LIMIT:
-            return tile
-    return None
-
-
-class SynthesisPlan(NamedTuple):
-    """One synthesis launch's layout: the tile, how many plane windows the
-    block holds at once (2: the next one's copies in flight while the
-    current one is filtered; 1: copy, then filter), the window's and the
-    W-pass sums' row pitch in words, and the outputs a thread owns in the W
-    pass (``kW``: 4 of one column class where the tile is a multiple of 4
-    spacings wide, else 1)."""
+class LevelPlan(NamedTuple):
+    """One level launch's layout: the tile, how many plane windows the block
+    holds at once (the synthesis: 2, the next one's copies in flight while
+    the current one is filtered; 1, copy, then filter; the analysis reads
+    one plane), the window's and the W-pass sums' row pitch in words, and
+    the outputs a thread owns in the W pass (``kW``: 4 of one column class
+    where the tile is a multiple of 4 spacings wide, else 1)."""
 
     tile: tuple[int, int]
     stages: int
@@ -142,22 +127,90 @@ class SynthesisPlan(NamedTuple):
     block: int
 
 
-def _plan(taps: int, spacing: int, ops, tile, stages: int, padded: bool) -> SynthesisPlan:
-    """The plan for one tile: padded, the pitches are rounded up so that a
-    warp's 8 strips by 4 rows of W-pass reads fall on 32 banks
-    (``min(spacing, 8)`` words mod 32) and, where that is a multiple of 4,
-    the window rows start on 16 bytes; unpadded, they are the widths."""
+def _plan(width: int, spacing: int, tile, stages: int, padded: bool) -> LevelPlan:
+    """The plan for one tile whose window is ``width`` columns: padded, the
+    pitches are rounded up so that a warp's 8 strips by 4 rows of W-pass
+    reads fall on 32 banks (``min(spacing, 8)`` words mod 32) and, where
+    that is a multiple of 4, the window rows start on 16 bytes; unpadded,
+    they are the widths."""
     tw = tile[1]
-    _, width, _ = synthesis_window(taps, spacing, ops, tile)
-    block = SYNTHESIS_BLOCK if tw % (SYNTHESIS_BLOCK * spacing) == 0 else 1
+    block = W_BLOCK if tw % (W_BLOCK * spacing) == 0 else 1
     if not padded:
-        return SynthesisPlan(tile, stages, width, tw, block)
+        return LevelPlan(tile, stages, width, tw, block)
     mod = min(spacing, 8) if block > 1 else 8
     base = width if mod % 4 else -(-width // 4) * 4
-    return SynthesisPlan(tile, stages, base + (mod - base) % 32, tw + (mod - tw) % 32, block)
+    return LevelPlan(tile, stages, base + (mod - base) % 32, tw + (mod - tw) % 32, block)
 
 
-def plan_shared_bytes(taps: int, spacing: int, ops, plan: SynthesisPlan) -> int:
+def _best_plan(plans, window, nbytes, serves, limits) -> LevelPlan | None:
+    """Of ``plans``, the one whose tile reads its input the fewest times,
+    ``rows * width / (th * tw)`` from ``window(tile)``, among those that
+    ``serve`` and whose block takes at most the first of ``limits`` bytes of
+    shared memory, else the next."""
+    for limit in limits:
+        best = None
+        for plan in plans:
+            size = nbytes(plan)
+            if not serves(plan) or size > limit:
+                continue
+            rows, width = window(plan.tile)
+            key = (rows * width / (plan.tile[0] * plan.tile[1]), size)
+            if best is None or key < best[0]:
+                best = (key, plan)
+        if best is not None:
+            return best[1]
+    return None
+
+
+def analysis_shared_bytes(taps: int, spacing: int, plan: LevelPlan) -> int:
+    """Shared memory of one analysis block: the taps in forward-read order
+    (each filter padded to a multiple of 4), the input window and the W
+    pass's low and high sums."""
+    rows, _ = analysis_window(taps, spacing, plan.tile)
+    taps4 = -(-taps // 4) * 4
+    return 4 * (2 * taps4 + rows * (plan.pitch + 2 * plan.row_pitch))
+
+
+def _serves_analysis(plan: LevelPlan) -> bool:
+    return plan.tile[1] % (8 * plan.block) == 0
+
+
+@functools.lru_cache(maxsize=512)
+def analysis_plan(taps: int, spacing: int) -> LevelPlan | None:
+    """The analysis launch's plan: of :data:`PLAN_TILES`, padded, the tile
+    that reads x the fewest times among those that leave room for two
+    blocks on an SM (measured on an H100 at db4 levels 1-6: as fast as the
+    three-block tiles at levels 1-4, faster at 5 and 6, where (16, 256)
+    beats (8, 256)); else the first of :data:`TILES` whose block fits shared
+    memory, padded or unpadded (never more than the earlier layout with its
+    index tables took, so every level it served is served)."""
+    def window(tile):
+        return analysis_window(taps, spacing, tile)
+
+    def plan_for(tile, padded):
+        return _plan(window(tile)[1], spacing, tile, 1, padded)
+
+    def nbytes(plan):
+        return analysis_shared_bytes(taps, spacing, plan)
+
+    plan = _best_plan([plan_for(t, True) for t in PLAN_TILES], window, nbytes,
+                      _serves_analysis, (TWO_BLOCKS_SHARED,))
+    if plan is not None:
+        return plan
+    for tile in TILES:
+        for plan in (plan_for(tile, True), plan_for(tile, False)):
+            if _serves_analysis(plan) and nbytes(plan) <= SHARED_LIMIT:
+                return plan
+    return None
+
+
+def analysis_tile(taps: int, spacing: int) -> tuple[int, int] | None:
+    """The tile of :func:`analysis_plan`, or None where no plan fits."""
+    plan = analysis_plan(taps, spacing)
+    return None if plan is None else plan.tile
+
+
+def plan_shared_bytes(taps: int, spacing: int, ops, plan: LevelPlan) -> int:
     """Shared memory of one synthesis block: the taps in forward-read order
     (each filter padded to a multiple of 4), ``stages`` plane windows and the
     W-pass sums."""
@@ -166,38 +219,39 @@ def plan_shared_bytes(taps: int, spacing: int, ops, plan: SynthesisPlan) -> int:
     return 4 * (2 * taps4 + rows * (plan.stages * plan.pitch + plan.row_pitch))
 
 
-def _serves(plan: SynthesisPlan) -> bool:
+def _serves(plan: LevelPlan) -> bool:
     th, tw = plan.tile
     return tw % (8 * plan.block) == 0 and -(-th // 4) * tw <= SYNTHESIS_ITEMS
 
 
 @functools.lru_cache(maxsize=512)
-def synthesis_plan(taps: int, spacing: int, ops) -> SynthesisPlan | None:
-    """The synthesis launch's plan: of :data:`SYNTHESIS_TILES`, two stages,
-    the tile that reads each plane the fewest times among those that leave
-    room for three blocks on an SM, else two (measured on an H100: at db4
-    level 6, (8, 256) three to an SM beats (16, 256) two to an SM, which
-    reads less); else the first of :data:`TILES` that fits one block's
-    shared memory, two stages padded or one unpadded (never more than the
-    earlier one-plane layout took, so every level it served is served)."""
+def synthesis_plan(taps: int, spacing: int, ops) -> LevelPlan | None:
+    """The synthesis launch's plan: of :data:`PLAN_TILES`, two stages, the
+    tile that reads each plane the fewest times among those that leave room
+    for three blocks on an SM, else two (measured on an H100: at db4 level
+    6, (8, 256) three to an SM beats (16, 256) two to an SM, which reads
+    less); else the first of :data:`TILES` that fits
+    one block's shared memory, two stages padded or one unpadded (never
+    more than the earlier one-plane layout took, so every level it served
+    is served)."""
     ops = tuple(int(v) for v in ops)
-    for limit in (THREE_BLOCKS_SHARED, TWO_BLOCKS_SHARED):
-        best = None
-        for tile in SYNTHESIS_TILES:
-            plan = _plan(taps, spacing, ops, tile, 2, True)
-            nbytes = plan_shared_bytes(taps, spacing, ops, plan)
-            if not _serves(plan) or nbytes > limit:
-                continue
-            rows, width, _ = synthesis_window(taps, spacing, ops, tile)
-            key = (rows * width / (tile[0] * tile[1]), nbytes)
-            if best is None or key < best[0]:
-                best = (key, plan)
-        if best is not None:
-            return best[1]
+
+    def window(tile):
+        return synthesis_window(taps, spacing, ops, tile)[:2]
+
+    def plan_for(tile, stages, padded):
+        return _plan(window(tile)[1], spacing, tile, stages, padded)
+
+    def nbytes(plan):
+        return plan_shared_bytes(taps, spacing, ops, plan)
+
+    plan = _best_plan([plan_for(t, 2, True) for t in PLAN_TILES], window, nbytes, _serves,
+                      (THREE_BLOCKS_SHARED, TWO_BLOCKS_SHARED))
+    if plan is not None:
+        return plan
     for tile in TILES:
-        for plan in (_plan(taps, spacing, ops, tile, 2, True),
-                     _plan(taps, spacing, ops, tile, 1, False)):
-            if _serves(plan) and plan_shared_bytes(taps, spacing, ops, plan) <= SHARED_LIMIT:
+        for plan in (plan_for(tile, 2, True), plan_for(tile, 1, False)):
+            if _serves(plan) and nbytes(plan) <= SHARED_LIMIT:
                 return plan
     return None
 
@@ -345,8 +399,8 @@ def analysis2_level(x: torch.Tensor, filters, spacing: int, edge: str):
         return analysis2_level_plain(x, filters, spacing, edge)
     _check_image(x, "x")
     taps = len(filters[0])
-    tile = analysis_tile(taps, spacing)
-    if tile is None:
+    plan = analysis_plan(taps, spacing)
+    if plan is None:
         raise _refuse_tile("analysis", taps, spacing)
     b, h, w = x.shape
     lib = library()
@@ -355,7 +409,8 @@ def analysis2_level(x: torch.Tensor, filters, spacing: int, edge: str):
     with torch.cuda.device(x.device):
         err = lib.vw_modwt2_analysis_level(
             x.data_ptr(), *(o.data_ptr() for o in outs), tap_t.data_ptr(), b, h, w,
-            taps, spacing, EDGES[edge], tile[0], tile[1], _stream(x.device),
+            taps, spacing, EDGES[edge], *plan.tile, plan.pitch, plan.row_pitch, plan.block,
+            _stream(x.device),
         )
     _raise_on_error(err, "modwt2_analysis")
     LAUNCHES["modwt2_analysis"] += 1

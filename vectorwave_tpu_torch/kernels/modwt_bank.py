@@ -23,9 +23,11 @@ wrapper                      CUDA source                     TPU kernel mode it 
 ``dense`` is a tuple of tuples of Python floats, one dense tap vector per
 plane, composed in float64 on the host; the kernels take the non-zero taps
 rounded once to fp32, so an à trous filter costs its L non-zeros and not
-its (L-1)s+1 dense taps: the synthesis as per-plane (offset, value) lists
-(:class:`BankTaps`), the analysis as runs of taps on one stride per plane
-(:class:`BankRuns`), which its register-blocked threads step through.
+its (L-1)s+1 dense taps, as runs of taps on one stride (:class:`BankRuns`,
+cut from the per-plane (offset, value) lists of :class:`BankTaps`), which
+their register-blocked threads step through: the analysis a stride per
+plane, the synthesis one stride for all planes, since its threads sum the
+planes into the same outputs.
 Both compute in fp32 and store in the input type (float32 or bfloat16), any
 N >= 1, up to :data:`MAX_PLANES` planes; periodic wrap is taken modulo N, so
 a filter longer than the signal is served.  The plain versions
@@ -70,20 +72,15 @@ EDGES = {"zero": 0, "periodic": 1}
 #: Planes one launch serves (``kMaxBankPlanes``: the plane pointers travel in
 #: the kernel's parameter block); a depth-5 packet tree has 62.
 MAX_PLANES = 64
-#: Threads of a block and outputs per thread (``kThreads``, ``kPerThread``)
-#: of the synthesis kernel: a tile is a multiple of THREADS, at most
-#: THREADS * PER_THREAD outputs.
+#: Both kernels (``kThreads``, ``kRunBlock``, ``kRunChunk``, ``kBankTile``):
+#: a thread of the THREADS of a block owns RUN_BLOCK outputs of one residue
+#: class mod its runs' tap stride and steps through a run of taps RUN_CHUNK
+#: at a time with the window samples in registers; a block's tile is
+#: THREADS * RUN_BLOCK outputs.
 THREADS = 256
-PER_THREAD = 8
-#: Taps the synthesis kernel stages in shared memory at a time (``kTapChunk``).
-TAP_CHUNK = 1024
-#: The analysis kernel (``kRunBlock``, ``kRunChunk``, ``kAnalysisTile``): a
-#: thread owns RUN_BLOCK outputs of one residue class mod its plane's tap
-#: stride and steps through a run of taps RUN_CHUNK at a time with the
-#: window samples in registers; a block's tile is THREADS * RUN_BLOCK.
 RUN_BLOCK = 9
 RUN_CHUNK = 8
-ANALYSIS_TILE = THREADS * RUN_BLOCK
+TILE = THREADS * RUN_BLOCK
 #: Zero taps a run takes in to bridge a gap in its stride rather than end
 #: (a new run costs RUN_CHUNK window loads; a zero tap RUN_BLOCK FMAs).
 RUN_FILL = 3
@@ -155,14 +152,16 @@ def _bank_taps(dense: tuple) -> BankTaps:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class BankRuns:
-    """The analysis kernel's tap runs: plane p has stride ``2^shifts[p]``
-    and owns the runs ``plane_runs[p] .. plane_runs[p+1]``; run k is
-    ``runs[3k: 3k+3] = (first offset, count, start in values)``, its taps at
-    offsets ``first + i * stride`` with the values ``values[start + i]``
-    (fp32, zero where a run bridges a gap), every start a multiple of 4."""
+    """The kernels' tap runs: plane p has stride ``2^shifts[p]``, its
+    greatest offset ``spans[p]``, and owns the runs ``plane_runs[p] ..
+    plane_runs[p+1]``; run k is ``runs[3k: 3k+3] = (first offset, count,
+    start in values)``, its taps at offsets ``first + i * stride`` with the
+    values ``values[start + i]`` (fp32, zero where a run bridges a gap),
+    every start a multiple of 4."""
 
     plane_runs: tuple[int, ...]
     shifts: tuple[int, ...]
+    spans: tuple[int, ...]
     runs: tuple[int, ...]
     values: tuple[float, ...]
 
@@ -187,14 +186,19 @@ def _stride(offsets: list[int]) -> int:
     return min(g & -g, THREADS) if g else 1
 
 
-@functools.lru_cache(maxsize=64)
-def bank_runs(taps: BankTaps) -> BankRuns:
-    """Cut each plane's non-zero taps into runs on one stride per plane; a
-    gap of at most :data:`RUN_FILL` stride steps is bridged with zero taps."""
+@functools.lru_cache(maxsize=128)
+def bank_runs(taps: BankTaps, one_stride: bool = False) -> BankRuns:
+    """Cut each plane's non-zero taps into runs on one stride per plane (or,
+    ``one_stride``, on the least of them for every plane: the synthesis's
+    threads own the same outputs in every plane); a gap of at most
+    :data:`RUN_FILL` stride steps is bridged with zero taps."""
+    strides = [_stride([o for o, _ in taps.plane(p)]) for p in range(taps.planes)]
+    if one_stride:
+        strides = [min(strides)] * taps.planes
     plane_runs, shifts, runs, values = [0], [], [], []
     for p in range(taps.planes):
         nz = taps.plane(p)
-        d = _stride([o for o, _ in nz]) if nz else 1
+        d = strides[p]
         shifts.append(d.bit_length() - 1)
         run: list[float] = []
         first = prev = None
@@ -209,7 +213,8 @@ def bank_runs(taps: BankTaps) -> BankRuns:
                 first, run = o, [float(np.float32(v))]
             prev = o
         plane_runs.append(len(runs) // 3)
-    return BankRuns(tuple(plane_runs), tuple(shifts), tuple(runs), tuple(values))
+    return BankRuns(tuple(plane_runs), tuple(shifts), taps.spans, tuple(runs),
+                    tuple(values))
 
 
 def _extend(t: torch.Tensor, span: int, periodic: bool, left: bool) -> torch.Tensor:
@@ -257,33 +262,28 @@ def bank_synthesis_plain(planes, dense, periodic: bool) -> torch.Tensor:
 # --- launch plan -------------------------------------------------------------------
 
 
-def bank_shared_bytes(span: int, tile: int) -> int:
-    """Shared memory of one synthesis block: a window of tile + span floats
-    and one chunk of staged taps (offset and value)."""
-    return 4 * (tile + span) + 8 * TAP_CHUNK
-
-
 def analysis_shared_bytes(span: int) -> int:
-    """Shared memory of one analysis block: a window of
-    :data:`ANALYSIS_TILE` + span floats (the taps are read from device
-    memory as broadcasts)."""
-    return 4 * (ANALYSIS_TILE + span)
+    """Shared memory of one analysis block: a window of :data:`TILE` + span
+    floats (the taps are read from device memory as broadcasts)."""
+    return 4 * (TILE + span)
 
 
-def bank_tile(span: int) -> int | None:
-    """The synthesis kernel's tile: THREADS * PER_THREAD outputs, halved
-    until the window fits shared memory (None if it does not at THREADS
-    outputs)."""
-    tile = THREADS * PER_THREAD
-    while tile >= THREADS:
-        if bank_shared_bytes(span, tile) <= SHARED_LIMIT:
-            return tile
-        tile //= 2
-    return None
+def synthesis_shared_bytes(span: int, stages: int) -> int:
+    """Shared memory of one synthesis block: ``stages`` window buffers of
+    :data:`TILE` + span floats, each rounded up to 16 bytes."""
+    return 4 * stages * (-(-(TILE + span) // 4) * 4)
+
+
+def synthesis_stages(span: int) -> int:
+    """Window buffers of a synthesis block: two (the next plane's copies in
+    flight while a plane's runs execute) where they fit shared memory, else
+    one (copy, then compute)."""
+    return 2 if synthesis_shared_bytes(span, 2) <= SHARED_LIMIT else 1
 
 
 def _span_fits(span: int) -> bool:
-    return bank_tile(span) is not None and analysis_shared_bytes(span) <= SHARED_LIMIT
+    return (analysis_shared_bytes(span) <= SHARED_LIMIT
+            and synthesis_shared_bytes(span, 1) <= SHARED_LIMIT)
 
 
 def bank_fits(dense) -> bool:
@@ -325,8 +325,8 @@ def _check_plane_count(planes, taps: BankTaps) -> None:
         )
 
 
-def _launch_plan(taps: BankTaps) -> int:
-    """The synthesis kernel's tile; raises for a bank either kernel refuses."""
+def _launch_plan(taps: BankTaps) -> None:
+    """Raises for a bank either kernel refuses."""
     if taps.planes > MAX_PLANES:
         raise InvalidArgumentError(
             ErrorCode.VAL_TOO_LARGE,
@@ -339,34 +339,25 @@ def _launch_plan(taps: BankTaps) -> int:
             context={"span": taps.span},
             suggestions=("Use shorter filters or backend='torch'",),
         )
-    return bank_tile(taps.span)
 
 
-@functools.lru_cache(maxsize=64)
-def _device_table(taps: BankTaps, device_index: int):
-    """(int32 [starts | spans | offsets], float32 values) on the card."""
-    dev = f"cuda:{device_index}"
-    ints = torch.tensor(taps.starts + taps.spans + taps.offsets, dtype=torch.int32,
-                        device=dev)
-    vals = torch.tensor(taps.values or (0.0,), dtype=torch.float32, device=dev)
-    return ints, vals
-
-
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=128)
 def _device_runs(runs: BankRuns, device_index: int):
-    """(int32 [plane_runs | shifts | runs], float32 values) on the card."""
+    """(int32 [plane_runs | shifts | spans | runs], float32 values) on the card."""
     dev = f"cuda:{device_index}"
-    ints = torch.tensor(runs.plane_runs + runs.shifts + runs.runs, dtype=torch.int32,
-                        device=dev)
+    ints = torch.tensor(runs.plane_runs + runs.shifts + runs.spans + runs.runs,
+                        dtype=torch.int32, device=dev)
     vals = torch.tensor(runs.values or (0.0,), dtype=torch.float32, device=dev)
     return ints, vals
 
 
-def _table_pointers(taps: BankTaps, device: torch.device):
-    ints, vals = _device_table(taps, device.index)
-    base = ints.data_ptr()
-    p = taps.planes
-    return base, base + 4 * (p + 1), base + 4 * (2 * p + 1), vals.data_ptr()
+def runs_pointers(runs: BankRuns, device: torch.device) -> tuple[int, ...]:
+    """Device addresses of the run table's parts: (plane_runs, shifts,
+    spans, runs, values)."""
+    ints, vals = _device_runs(runs, device.index)
+    base, p = ints.data_ptr(), len(runs.shifts)
+    return (base, base + 4 * (p + 1), base + 4 * (2 * p + 1), base + 4 * (3 * p + 1),
+            vals.data_ptr())
 
 
 def _launch_analysis(x: torch.Tensor, taps: BankTaps, periodic: bool):
@@ -379,15 +370,14 @@ def _launch_analysis(x: torch.Tensor, taps: BankTaps, periodic: bool):
     # one allocation for all planes (a launch of a tree makes 30 or 62)
     outs = torch.empty((taps.planes, b, n), dtype=x.dtype, device=x.device).unbind(0)
     out_ptrs = (ctypes.c_void_p * taps.planes)(*[o.data_ptr() for o in outs])
-    ints, vals = _device_runs(runs, x.device.index)
+    plane_runs, shifts, _, run_table, values = runs_pointers(runs, x.device)
     p = taps.planes
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    bounds = group_bounds(runs, plane_groups(b * -(-n // ANALYSIS_TILE), p, sms))
+    bounds = group_bounds(runs, plane_groups(b * -(-n // TILE), p, sms))
     c_bounds = (ctypes.c_int * len(bounds))(*bounds)
     with torch.cuda.device(x.device):
         err = lib.vw_modwt_bank_analysis(
-            x.data_ptr(), out_ptrs, ints.data_ptr(), ints.data_ptr() + 4 * (p + 1),
-            ints.data_ptr() + 4 * (2 * p + 1), vals.data_ptr(), c_bounds,
+            x.data_ptr(), out_ptrs, plane_runs, shifts, run_table, values, c_bounds,
             len(bounds) - 1, b, n, p, taps.span, EDGES["periodic" if periodic else "zero"],
             code, _stream(x.device),
         )
@@ -399,18 +389,19 @@ def _launch_analysis(x: torch.Tensor, taps: BankTaps, periodic: bool):
 def _launch_synthesis(planes, taps: BankTaps, periodic: bool) -> torch.Tensor:
     _check_plane_count(planes, taps)
     code = _check_planes(planes)
-    tile = _launch_plan(taps)
+    _launch_plan(taps)
+    runs = bank_runs(taps, one_stride=True)
     first = planes[0]
     b, n = first.shape
     lib = library()
     out = torch.empty_like(first)
     in_ptrs = (ctypes.c_void_p * taps.planes)(*[p.data_ptr() for p in planes])
-    starts, spans, offsets, values = _table_pointers(taps, first.device)
+    plane_runs, _, spans, run_table, values = runs_pointers(runs, first.device)
     with torch.cuda.device(first.device):
         err = lib.vw_modwt_bank_synthesis(
-            in_ptrs, out.data_ptr(), starts, spans, offsets, values, b, n, taps.planes,
-            taps.span, tile, EDGES["periodic" if periodic else "zero"], code,
-            _stream(first.device),
+            in_ptrs, out.data_ptr(), plane_runs, spans, run_table, values, b, n,
+            taps.planes, taps.span, runs.shifts[0], synthesis_stages(taps.span),
+            EDGES["periodic" if periodic else "zero"], code, _stream(first.device),
         )
     _raise_on_error(err, "modwt_bank_synthesis")
     LAUNCHES["modwt_bank_synthesis"] += 1

@@ -31,7 +31,7 @@ The MODWPT has three routes, chosen by :func:`~vectorwave_tpu_torch.config.get_b
 plain version) and raises on a CUDA tensor the kernel cannot take; ``torch``
 takes the cascade; ``auto`` takes, on a float32 or bfloat16 CUDA tensor on a
 Hopper card, the bank route that measured fastest there
-(:data:`AUTO_TREE_MAX_DEPTH`), and the cascade otherwise.  Symmetric
+(:data:`AUTO_TREE_MAX_WORK`), and the cascade otherwise.  Symmetric
 boundaries and float64 always take the cascade.
 """
 
@@ -56,12 +56,16 @@ _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 #: Deepest tree that one bank launch holds: its 2^(J+1) - 2 planes must be
 #: at most ``modwt_bank.MAX_PLANES``.
 TREE_MAX_DEPTH = 5
-#: Deepest tree that ``auto`` sends through one whole-tree launch.  The dense
-#: tree costs sum_j 2^j ((L-1)(2^j-1)+1) FMAs a sample against sum_j 2^j L for
-#: the per-level pairs; on an H100 the pairs measured faster at every depth
-#: from 2 (PERF.md, section 6), and at depth 1 the two routes are one launch
-#: of the same taps.
-AUTO_TREE_MAX_DEPTH = 1
+#: The most work, in FMAs (samples times the analysis tree's non-zero taps),
+#: that ``auto`` sends through one whole-tree launch each way; beyond it,
+#: one bank pair per level.  The dense tree costs sum_j 2^j ((L-1)(2^j-1)+1)
+#: FMAs a sample, bound by operations, against sum_j 2^j L for the pairs,
+#: bound by bytes but J launches and the host work between them.  On an H100
+#: the whole tree measured faster up to the sym8 depth-4 tree at 64 x 16384
+#: (2^20 samples, 4680 taps) and the depth-2 tree at 128 x 65536, the pairs
+#: from the depth-5 tree at 64 x 16384 and the depth-3 tree at 128 x 65536
+#: (PERF.md, section 6).
+AUTO_TREE_MAX_WORK = (1 << 20) * 4680
 
 
 class WaveletPacketTree(NamedTuple):
@@ -272,8 +276,15 @@ def _tree_dense(w, levels: int, dec: bool):
     )
 
 
-def _use_tree(levels: int, route: str) -> bool:
-    return levels <= (TREE_MAX_DEPTH if route == "kernel" else AUTO_TREE_MAX_DEPTH)
+def _use_tree(levels: int, route: str, samples: int, w) -> bool:
+    """``kernel`` takes the whole tree to :data:`TREE_MAX_DEPTH`; ``auto``
+    up to the measured work."""
+    if levels > TREE_MAX_DEPTH:
+        return False
+    if route == "kernel":
+        return True
+    taps = modwt_bank.bank_taps(_tree_dense(w, levels, dec=True)).nonzeros
+    return samples * taps <= AUTO_TREE_MAX_WORK
 
 
 def _modwpt_tree_kernel(x2: torch.Tensor, w, levels: int, boundary: str):
@@ -281,7 +292,7 @@ def _modwpt_tree_kernel(x2: torch.Tensor, w, levels: int, boundary: str):
     a composed à trous filter applied directly to x.  Returns per-level
     output lists, or None when this route does not serve the call."""
     route = _bank_route(x2, boundary)
-    if route is None or not _use_tree(levels, route):
+    if route is None or not _use_tree(levels, route, x2.numel(), w):
         return None
     dense = _tree_dense(w, levels, dec=True)
     if not _bank_serves(x2, dense, route):
@@ -302,7 +313,7 @@ def _imodwpt_tree_kernel(leaves2, w, boundary: str):
     ``leaves2``: list of 2^J tensors [B, N].  Returns [B, N] or None."""
     depth = int(round(math.log2(len(leaves2))))
     route = _bank_route(leaves2[0], boundary)
-    if route is None or not _use_tree(depth, route):
+    if route is None or not _use_tree(depth, route, leaves2[0].numel(), w):
         return None
     dense = _tree_dense(w, depth, dec=False)
     if not _bank_serves(leaves2[0], dense, route):
@@ -435,7 +446,7 @@ def imodwpt(
     n = nodes.shape[-1]
     lead = nodes.shape[:-2]
     route = _bank_route(nodes, boundary)
-    if route is not None and _use_tree(depth, route):
+    if route is not None and _use_tree(depth, route, n * math.prod(lead), w):
         leaves2 = [nodes[..., i, :].reshape(-1, n).contiguous() for i in range(1 << depth)]
         whole = _imodwpt_tree_kernel(leaves2, w, boundary)
         if whole is not None:
