@@ -769,6 +769,7 @@ def stream_kernels_against_plain(dev, gen, worst, worst_bf16):
     import vectorwave_tpu_torch as vt
     from vectorwave_tpu_torch.kernels import modwt_composite as mc
     from vectorwave_tpu_torch.kernels import modwt_symmetric as ms
+    from vectorwave_tpu_torch.kernels._build import library
     from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
 
     # (wavelet, levels, batch, n, halo samples, dtype)
@@ -779,7 +780,7 @@ def stream_kernels_against_plain(dev, gen, worst, worst_bf16):
         (WAVELET, LEVELS, 3, 5000, 100, torch.float32),
         (WAVELET, LEVELS, 2, 300, 441, torch.float32),
         ("sym8", 4, 8, N, 700, torch.float32),
-        ("db36", 8, 2, N, 18105, torch.float32),  # 72 taps: span 18105 > tile 2048
+        ("db36", 8, 2, N, 18105, torch.float32),  # 72 taps: span 18105 > tile
         (WAVELET, LEVELS, BATCH, N, 441, torch.bfloat16),
     ]
     for name, levels, b, n, h, dtype in cases:
@@ -788,8 +789,9 @@ def stream_kernels_against_plain(dev, gen, worst, worst_bf16):
         span = mc.composite_halo_samples(ws.filter_length, levels)
         x = torch.randn(b, n, device=dev, generator=gen).to(dtype)
         halo = torch.randn(b, h, device=dev, generator=gen).to(dtype)
-        tag = (f"{name} J={levels} {b}x{n} halo {h} (span {span}, tile "
-               f"{mc.analysis_tile(ws.filter_length, levels)}) {str(dtype)[6:]}")
+        tile = library().vw_modwt_analysis_tile(ws.filter_length, levels, n, mc.ANALYSIS_TILE,
+                                                mc.EDGES["external"])
+        tag = f"{name} J={levels} {b}x{n} halo {h} (span {span}, tile {tile}) {str(dtype)[6:]}"
         results = [("modwt_analysis_external", "", mc.analysis(x, levels, fd, False, halo=halo),
                     mc.analysis_plain(x, levels, fd, False, halo=halo))]
         if dtype == torch.float32 and n >= span:
@@ -1537,6 +1539,37 @@ def main() -> int:
             check(err <= tol, f"{kname}{tag} {label}: max |kernel - plain| "
                               f"{err:.3e} <= {tol:.3e}")
 
+    # the cascade pair's launch tile, the library's: every shape the routers'
+    # gates send (their rule, taps + 2 or 3 rows of tile + span) it launches,
+    # for every filter length and depth, and a short row's tile is the row
+    lib = _build.library()
+    refused = []
+    for taps in range(1, 129):  # kMaxTaps
+        for levels in range(1, 11):
+            reach = mc.mirror_reach(taps, levels)
+            if (mc.analysis_tile(taps, levels) is not None
+                    and not lib.vw_modwt_analysis_tile(taps, levels, 1 << 20, mc.ANALYSIS_TILE,
+                                                       mc.EDGES["periodic"])):
+                refused.append(("analysis", taps, levels))
+            if mc.analysis_tile(taps, levels, mirror=True) is not None and not all(
+                    lib.vw_modwt_analysis_tile(taps, levels, n, mc.ANALYSIS_TILE,
+                                               mc.EDGES["mirror"])
+                    for n in (max(reach, 1), 1 << 20)):
+                refused.append(("mirror analysis", taps, levels))
+            if (mc._fitting_tile(lambda t: mc.synthesis_shared_bytes(taps, levels, t),
+                                 mc.SYNTHESIS_TILE) is not None
+                    and not lib.vw_modwt_synthesis_tile(taps, levels, 1 << 20,
+                                                        mc.SYNTHESIS_TILE)):
+                refused.append(("synthesis", taps, levels))
+    check(not refused, f"the cascade pair launches every shape the gates send, filter "
+                       f"lengths 1-128, J 1-10 (refused: {refused[:5]})")
+    short = (lib.vw_modwt_analysis_tile(8, LEVELS, 1000, mc.ANALYSIS_TILE, 1),
+             lib.vw_modwt_synthesis_tile(8, LEVELS, 1000, mc.SYNTHESIS_TILE),
+             lib.vw_modwt_analysis_tile(8, LEVELS, N, mc.ANALYSIS_TILE, 1),
+             lib.vw_modwt_synthesis_tile(8, LEVELS, N, mc.SYNTHESIS_TILE))
+    check(short == (1000, 1000, mc.ANALYSIS_TILE, mc.SYNTHESIS_TILE),
+          f"db4 J={LEVELS} launch tiles, rows of 1000 / {N}: {short}")
+
     # the cascade pair in each edge mode: (wavelet, levels, batch, n, dtype);
     # the synthesis runs on the plain analysis planes of the same edge (zero
     # for the mirror's)
@@ -1549,6 +1582,16 @@ def main() -> int:
         ("haar", 5, 2, 4096, torch.float32),
         ("db36", 8, 2, N, torch.float32),  # the mirror's tile 71 * 128 < span
         (WAVELET, LEVELS, BATCH, N, torch.bfloat16),
+        # rows not a multiple of 4 long (each row after the first starts
+        # off 16 bytes), J=9 (stride 256 = the block's threads) and J=10
+        # (stride 512: two passes a chunk), haar at J=10, a long filter at a
+        # shallow depth, and bfloat16 on an unaligned row
+        (WAVELET, LEVELS, 3, 5001, torch.float32),
+        (WAVELET, 9, 2, 8195, torch.float32),
+        (WAVELET, 10, 2, 20003, torch.float32),
+        ("haar", 10, 3, 3001, torch.float32),
+        ("db36", 3, 2, 4099, torch.float32),
+        (WAVELET, LEVELS, 3, 5001, torch.bfloat16),
     ]
     for name, levels, b, n, dtype in cascade_cases:
         wc = vt.wavelet(name)
@@ -1556,7 +1599,8 @@ def main() -> int:
         x = torch.randn(b, n, device=dev, generator=gen).to(dtype)
         for edge in ("periodic", "zero", "mirror"):
             periodic, mirror = edge == "periodic", edge == "mirror"
-            used = mc.analysis_tile(wc.filter_length, levels, mirror)
+            used = lib.vw_modwt_analysis_tile(wc.filter_length, levels, n,
+                                              mc.ANALYSIS_TILE, mc.EDGES[edge])
             label = f"{name} J={levels} {b}x{n} {edge} {str(dtype)[6:]} (tile {used})"
             want = mx.analysis_plain(x, levels, cd, edge)
             results = [

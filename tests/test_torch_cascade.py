@@ -241,7 +241,7 @@ def test_mirror_tile_rule():
     """The mirror tile holds (L-1) 2^(J-1) samples and fits one block."""
     assert mc.analysis_tile(8, 6, mirror=True) == mc.ANALYSIS_TILE  # db4: reach 224
     assert mc.analysis_tile(72, 8, mirror=True) == 71 * 128  # db36 J=8
-    assert mc.analysis_tile(72, 8) == 2048
+    assert mc.analysis_tile(72, 8) == mc.ANALYSIS_TILE
     assert mc.analysis_shared_bytes(72, 8, 71 * 128) <= mc.SHARED_LIMIT
     assert mc.analysis_tile(76, 9, mirror=True) is None  # db38 J=9
     assert not ms.analysis_fits(76, 9) and ms.analysis_fits(72, 8)

@@ -42,7 +42,11 @@ pytestmark = pytest.mark.cuda
 
 LEVELS = 6
 TOL_F32 = 2e-5
-SHAPES = [(4, 8192, True), (3, 5000, False), (2, 300, True)]
+#: (batch, n, periodic): a row of whole 16-byte pieces, a ragged last tile,
+#: a periodic row shorter than the span, and rows not a multiple of 4 long
+#: (each row after the first starts off 16 bytes)
+SHAPES = [(4, 8192, True), (3, 5000, False), (2, 300, True), (3, 5001, True),
+          (3, 5001, False)]
 
 
 @pytest.fixture
@@ -347,10 +351,14 @@ def test_symmetric_gradients_match_plain_autograd(cuda):
 # (wavelet, levels, batch, n): signals shorter than the span S but not than
 # the mirror's reach (L-1) 2^(J-1) (db4 J=6 at 300, sym8 J=4 at 150), and
 # db36 J=8, whose mirror tile (L-1) 2^7 = 9088 leaves the second block's
-# window starting before the signal
+# window starting before the signal; rows not a multiple of 4 long, J=9
+# (stride 256, the block's threads) and J=10 (stride 512, two passes a
+# chunk), haar at J=10 (taps padded to a step of 8), and db36 at J=3 (9
+# steps of 8 taps)
 CASCADE_CASES = [("db4", LEVELS, 4, 8192), ("db4", LEVELS, 3, 5000), ("db4", LEVELS, 2, 300),
                  ("sym8", 4, 2, 4096), ("sym8", 4, 2, 150), ("haar", 5, 2, 300),
-                 ("db36", 8, 1, 65536)]
+                 ("db36", 8, 1, 65536), ("db4", LEVELS, 3, 5001), ("db4", 9, 2, 8195),
+                 ("db4", 10, 2, 20003), ("haar", 10, 3, 3001), ("db36", 3, 2, 4099)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -377,6 +385,64 @@ def test_cascade_pair_matches_plain(cuda, name, levels, b, n, dtype):
         assert _err((y,), (y_want,)) <= _tol(dtype, (y_want,)), edge
     assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
         "modwt_mxu_analysis": 3, "modwt_mxu_synthesis": 3}
+
+
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "zero"])
+@pytest.mark.parametrize("name,levels,b,n", [("db4", LEVELS, 3, 5001), ("db4", 10, 2, 20003),
+                                              ("haar", 10, 2, 3001), ("sym8", 4, 2, 150)])
+def test_analysis_and_synthesis_kernels_are_adjoints(cuda, name, levels, b, n, periodic):
+    """<A x, y> = <x, S y> with the analysis taps in both kernels: the
+    synthesis is the analysis's transpose (its gradient).  fp32 sums of
+    about 10^5 products: within 1e-5 of |A x| |y|."""
+    fd = _kernel_filters(vt.wavelet(name), synthesis=False)
+    x = _input(cuda, b, n, torch.float32, seed=16)
+    ys = [_input(cuda, b, n, torch.float32, seed=17 + i) for i in range(levels + 1)]
+    ax = mc.analysis(x, levels, fd, periodic)
+    sy = mc.synthesis(ys, levels, fd, periodic)
+    torch.cuda.synchronize()
+    lhs = sum(float((a.double() * y.double()).sum()) for a, y in zip(ax, ys))
+    rhs = float((x.double() * sy.double()).sum())
+    scale = float(torch.cat([a.flatten() for a in ax]).double().norm()
+                  * torch.cat([y.flatten() for y in ys]).double().norm())
+    assert abs(lhs - rhs) <= 1e-5 * scale
+
+
+def test_the_cascade_pair_launches_every_shape_the_gates_send(cuda):
+    """The launch tile is the library's: for every filter length 1-128 and
+    depth 1-10 it launches whatever the routers' gates (their rule, taps +
+    2 or 3 rows of tile + span) send, the mirror at the shortest row it
+    serves too; a row shorter than the preferred tile is its own tile, and
+    a block's shared memory fits."""
+    from vectorwave_tpu_torch.kernels._build import library
+
+    lib = library()
+    for taps in range(1, 129):
+        for levels in range(1, 11):
+            reach = mc.mirror_reach(taps, levels)
+            if mc.analysis_tile(taps, levels) is not None:
+                for edge in ("zero", "periodic", "external"):
+                    tile = lib.vw_modwt_analysis_tile(taps, levels, 1 << 20, mc.ANALYSIS_TILE,
+                                                      mc.EDGES[edge])
+                    assert tile >= 128, (taps, levels, edge)
+                    assert lib.vw_modwt_analysis_shared_bytes(taps, levels, tile) <= (
+                        mc.SHARED_LIMIT)
+            if mc.analysis_tile(taps, levels, mirror=True) is not None:
+                for n in (max(reach, 1), 1 << 20):
+                    tile = lib.vw_modwt_analysis_tile(taps, levels, n, mc.ANALYSIS_TILE,
+                                                      mc.EDGES["mirror"])
+                    assert tile >= reach, (taps, levels, n)
+            if mc._fitting_tile(lambda t: mc.synthesis_shared_bytes(taps, levels, t),
+                                mc.SYNTHESIS_TILE) is not None:
+                tile = lib.vw_modwt_synthesis_tile(taps, levels, 1 << 20, mc.SYNTHESIS_TILE)
+                assert tile >= 128, (taps, levels)
+                assert lib.vw_modwt_synthesis_shared_bytes(taps, levels, tile) <= (
+                    mc.SHARED_LIMIT)
+    for n in (1, 300, 1000, 4095):
+        assert lib.vw_modwt_analysis_tile(8, LEVELS, n, mc.ANALYSIS_TILE, 1) == n
+        assert lib.vw_modwt_synthesis_tile(8, LEVELS, n, mc.SYNTHESIS_TILE) == n
+    assert lib.vw_modwt_analysis_tile(8, LEVELS, 65536, mc.ANALYSIS_TILE, 1) == 4096
+    assert lib.vw_modwt_analysis_tile(72, 8, 65536, mc.ANALYSIS_TILE, 2) == 9088
+    assert lib.vw_modwt_analysis_tile(76, 10, 65536, mc.ANALYSIS_TILE, 1) == 0
 
 
 def test_cascade_probe_round_trip_launches_one_kernel_each_way(cuda, filters):

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time two versions of the port's bank and 2-D kernels on one GPU, in turns,
-in one process.
+"""Time two versions of the port's cascade, bank and 2-D kernels on one GPU,
+in turns, in one process.
 
 Run from the root of a checkout, with one Hopper card visible and an older
 checkout's kernel sources unpacked under a directory (for example the parent
 commit: ``git archive HEAD vectorwave_tpu_torch/kernels | tar -x -C DIR``):
 
-    python3 tools/ab_port_kernels.py --parent DIR [banksyn] [twoda] [probea]
-                                     [probea_new] [atiles] [avariants]
+    python3 tools/ab_port_kernels.py --parent DIR [pair] [ptiles] [pvariants]
+                                     [banksyn] [twoda] [probea] [probea_new]
+                                     [atiles] [avariants]
 
 ``DIR``'s ``vectorwave_tpu_torch/kernels/csrc/*.cu`` are built into a
 library of their own (one nvcc per source, all started together) and called
@@ -17,8 +18,22 @@ their wrapper would use, and both with their outputs allocated once; the
 wrapper's own time is printed beside them.  Each case runs parent, change,
 change, parent (CUDA-event medians) after both have been held against the
 plain version; ptxas's registers and spills of the compared kernels are
-printed first.  Targets for a parent whose bank synthesis takes per-plane
-(offset, value) tap lists and whose 2-D analysis takes a first-fit tile:
+printed first.
+
+* ``pair``: the cascade pair (``modwt_analysis.cu``, ``modwt_synthesis.cu``,
+  whose C interfaces the change keeps) at BASELINE config #2, db4 J=6
+  128x65536, the parent at its tile and the change at its own: the analysis
+  periodic, zero, mirror, external (halo of 441) and with the head splice,
+  the synthesis periodic, zero and with right halos of 441, both in
+  bfloat16; each with ``F.conv1d`` (TF32 off) and its
+  bound beside it; then both at short rows (``SHORT_ROWS``, where the
+  change's tile is the row); ``ptiles`` (with ``pair``) times the change at
+  the preferred tiles ``PAIR_TILES``, and ``pvariants`` builds of the change
+  with text replaced (``PAIR_VARIANTS``: no detail staging, other launch
+  bounds, probes without loads or stores).
+
+Targets for a parent whose bank synthesis takes per-plane (offset, value)
+tap lists and whose 2-D analysis takes a first-fit tile:
 
 * ``banksyn``: the bank synthesis on the sym8 depth-4 packet tree's leaves
   and a level-4 pair (as ``imodwpt`` calls it) at 64x16384 and 128x65536,
@@ -126,7 +141,11 @@ PROBE_NEW_A_H = (
 )
 
 
-def median_ms(fn, warmup=3, reps=20):
+def median_ms(fn, warmup=3, reps=20, queue=1):
+    """Median ms of one call.  queue=1 times each call from an idle card, so
+    the host's launch time is inside it; a larger queue times that many
+    calls back to back and divides, the card's own time once the host runs
+    ahead of it."""
     import torch
 
     for _ in range(warmup):
@@ -135,16 +154,58 @@ def median_ms(fn, warmup=3, reps=20):
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(queue):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / queue)
     times.sort()
     return times[len(times) // 2]
 
 
-SHOWN = ("modwt_bank_analysis", "modwt_bank_synthesis", "modwt2_analysis",
-         "modwt2_synthesis")
+#: calls timed back to back for a device time (median_ms's queue)
+QUEUE = 8
+
+
+SHOWN = ("modwt_analysis", "modwt_synthesis", "modwt_bank_analysis",
+         "modwt_bank_synthesis", "modwt2_analysis", "modwt2_synthesis")
+#: config #2 and the cascade pair's tiles and variant builds (target ``pair``)
+PAIR_SHAPE = (128, 65536)
+#: the parent's own tile at config #2 (its rule: 2048, halved until a block
+#: fits; the mirror at least (L-1) 2^(J-1) = 224)
+PARENT_PAIR_TILE = 2048
+PAIR_TILES = (1024, 1870, 2048, 2087, 3072, 4096, 4174, 4391, 6478, 8192)
+#: rows shorter than the preferred tile: (batch, n), the same samples as
+#: config #2 at n = 1024 and 2048 and a row of 3000
+SHORT_ROWS = ((8192, 1024), (4096, 2048), (2048, 3000))
+#: probe patches of the analysis: no window copy; stores that never happen
+#: (on values the compiler must still compute)
+A_NO_LOAD = ("  copy_row_window(cur + before, row + g0 + before, width - before);\n", "")
+A_NO_STORE = (
+    ("      if (o >= 0 && o < n_out) {",
+     "      if (o >= 0 && o < n_out && v == 1.2345e30f) {"),
+    ("    aj[o] = from_f32<T>(",
+     "    if (cur[span + o] == 1.2345e30f) aj[o] = from_f32<T>("),
+)
+PAIR_VARIANTS = {
+    "modwt_analysis": {
+        "nostage": (("const bool stage_here = staged != nullptr && s < kStagedStride;",
+                     "const bool stage_here = false;"),),
+        "bounds4": (("__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 4)"),),
+        "bounds2": (("__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 2)"),),
+        "guarded": (("          if (lim == kRunBlock && lp == L) {", "          if (false) {"),),
+        "noload": (A_NO_LOAD,),
+        "nostore": A_NO_STORE,
+        "computeonly": (A_NO_LOAD, *A_NO_STORE),
+    },
+    "modwt_synthesis": {
+        "guarded": (("        if (lim == kRunBlock && lp == L) {", "        if (false) {"),),
+        "noload": (("    copy_row_window(dst, row + t0, inside);\n", ""),),
+        "nostore": (("dst[o] = from_f32<T>(cur[o]);",
+                     "if (cur[o] == 1.2345e30f) dst[o] = from_f32<T>(cur[o]);"),),
+        "bounds3": (("__launch_bounds__(kThreads, 4)", "__launch_bounds__(kThreads, 3)"),),
+    },
+}
 
 
 def build(sources, out_dir: pathlib.Path, name: str, defines=()):
@@ -224,6 +285,292 @@ def declare_synthesis(lib):
     return fn
 
 
+def pair_target(args, parent, work, turns):
+    """The cascade pair, parent vs change, at config #2 (target ``pair``)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import _build
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels import modwt_symmetric as ms
+    from vectorwave_tpu_torch.kernels.modwt_composite import _device_taps, _stream
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    new_lib = _build.library()
+    for name in ("vw_modwt_analysis", "vw_modwt_synthesis"):  # one declaration for both
+        fn, new_fn = getattr(parent, name), getattr(new_lib, name)
+        fn.argtypes, fn.restype = new_fn.argtypes, new_fn.restype
+    levels, (b, n) = 6, PAIR_SHAPE
+    w = vt.wavelet("db4")
+    fd, fr = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+    taps = len(fd[0])
+    span = mc.composite_halo_samples(taps, levels)
+    tap_d = _device_taps(tuple(fd[0]) + tuple(fd[1]), dev.index)
+    tap_r = _device_taps(tuple(fr[0]) + tuple(fr[1]), dev.index)
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[q.data_ptr() for q in ts])  # noqa: E731
+    samples = b * n
+    bound = 32 * samples / 3.35e12 * 1e3  # x and 7 planes, 4 bytes each
+    comp = [torch.tensor(f, dtype=torch.float32, device=dev)
+            for f in mc.composite_plane_filters(np.array(fd[0]), np.array(fd[1]), levels)]
+    k = max(len(f) for f in comp)
+    bank = torch.zeros(levels + 1, k, device=dev)
+    for i, f in enumerate(comp):
+        bank[i, : len(f)] = f
+    bank_d = bank.flip(-1)[:, None].contiguous()
+    comp_r = [torch.tensor(f, dtype=torch.float32, device=dev)
+              for f in mc.composite_plane_filters(np.array(fr[0]), np.array(fr[1]), levels)]
+    bank_r = torch.zeros(levels + 1, k, device=dev)
+    for i, f in enumerate(comp_r):
+        bank_r[i, : len(f)] = f
+
+    def analysis_call(fn, x, outs, edge, tile, head=None, halo=None):
+        def call():
+            err = fn(x.data_ptr(), ptrs(outs), tap_d.data_ptr(),
+                     None if head is None else head.data_ptr(),
+                     0 if head is None else head.shape[-1],
+                     None if halo is None else halo.data_ptr(),
+                     0 if halo is None else halo.shape[-1], *x.shape, levels, taps, tile,
+                     mc.EDGES[edge], mc._DTYPE_CODES[x.dtype], _stream(dev))
+            if err:
+                raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+            return outs
+        return call
+
+    def synthesis_call(fn, planes, out, periodic, tile, halo=None):
+        def call():
+            err = fn(ptrs(planes), None if halo is None else ptrs(halo),
+                     0 if halo is None else halo[0].shape[-1], out.data_ptr(),
+                     tap_r.data_ptr(), *out.shape, levels, taps, tile, int(periodic),
+                     mc._DTYPE_CODES[out.dtype], _stream(dev))
+            if err:
+                raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+            return out
+        return call
+
+    def check_with(want):
+        def check(f):
+            got = f()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, (list, tuple)) else (got,)
+            ref = want if isinstance(want, (list, tuple)) else (want,)
+            return max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+        return check
+
+    variants = {}
+    if "pvariants" in args.what:
+        here = ROOT / "vectorwave_tpu_torch" / "kernels" / "csrc"
+        var_src = work / "pair_variants"
+        var_src.mkdir(parents=True, exist_ok=True)
+        for header in here.glob("*.cuh"):
+            shutil.copy(header, var_src / header.name)
+        for kernel, builds in PAIR_VARIANTS.items():
+            text = (here / f"{kernel}.cu").read_text()
+            for name, patches in builds.items():
+                variants[(kernel, name)] = split(
+                    f"{name}_{kernel}", var_src, text, patches, work, f"vw_{kernel}",
+                    getattr(new_lib, f"vw_{kernel}").argtypes)
+
+    rows = []
+    if "platency" in args.what:
+        # the change's time against the number of blocks: one block an SM
+        # (batch 4 at tile 2048: 128 blocks) gives a block's latency
+        for rows_b in (4, 8, 12, 16, 32, 64, 128):
+            xb = torch.randn(rows_b, n, device=dev, generator=gen)
+            ob = [torch.empty_like(xb) for _ in range(levels + 1)]
+            tile = new_lib.vw_modwt_analysis_tile(taps, levels, n, mc.ANALYSIS_TILE, 1)
+
+            def call_a(xb=xb, ob=ob, rows_b=rows_b):
+                err = new_lib.vw_modwt_analysis(
+                    xb.data_ptr(), ptrs(ob), tap_d.data_ptr(), None, 0, None, 0, rows_b, n,
+                    levels, taps, tile, mc.EDGES["periodic"], 0, _stream(dev))
+                assert err == 0
+
+            def call_s(xb=xb, ob=ob, rows_b=rows_b):
+                err = new_lib.vw_modwt_synthesis(
+                    ptrs(ob), None, 0, xb.data_ptr(), tap_r.data_ptr(), rows_b, n, levels,
+                    taps, tile, 1, 0, _stream(dev))
+                assert err == 0
+            blocks = rows_b * -(-n // tile)
+            print(f"  {rows_b}x{n} ({blocks} blocks of {tile}): analysis "
+                  f"{median_ms(call_a, queue=QUEUE):.4f} ms, synthesis "
+                  f"{median_ms(call_s, queue=QUEUE):.4f} ms ({QUEUE} queued)",
+                  flush=True)
+            del xb, ob
+        # the change at two tiles on the streaming tier's blocks (128 x 8192)
+        # and a tiled call's shards (1024 x 8192)
+        for rows_b, nb in ((128, 8192), (1024, 8192)):
+            xb = torch.randn(rows_b, nb, device=dev, generator=gen)
+            ob = [torch.empty_like(xb) for _ in range(levels + 1)]
+            line = []
+            for tile in (2048, 4096):
+                def call_a(xb=xb, ob=ob, rows_b=rows_b, nb=nb, tile=tile):
+                    err = new_lib.vw_modwt_analysis(
+                        xb.data_ptr(), ptrs(ob), tap_d.data_ptr(), None, 0, None, 0, rows_b,
+                        nb, levels, taps, tile, mc.EDGES["zero"], 0, _stream(dev))
+                    assert err == 0
+
+                def call_s(xb=xb, ob=ob, rows_b=rows_b, nb=nb, tile=tile):
+                    err = new_lib.vw_modwt_synthesis(
+                        ptrs(ob), None, 0, xb.data_ptr(), tap_r.data_ptr(), rows_b, nb,
+                        levels, taps, tile, 0, 0, _stream(dev))
+                    assert err == 0
+                line.append(f"tile {tile}: analysis {median_ms(call_a, queue=QUEUE):.4f}, "
+                            f"synthesis {median_ms(call_s, queue=QUEUE):.4f}")
+            print(f"  {rows_b}x{nb}: " + "; ".join(line) + f" ms ({QUEUE} queued)", flush=True)
+            del xb, ob
+        # the change's time against the depth, one block an SM and config #2
+        for rows_b in (4, 128):
+            xb = torch.randn(rows_b, n, device=dev, generator=gen)
+            ob = [torch.empty_like(xb) for _ in range(11)]
+            line = []
+            for depth in range(1, 11):
+                tile = new_lib.vw_modwt_analysis_tile(taps, depth, n, mc.ANALYSIS_TILE, 1)
+
+                def call_d(xb=xb, ob=ob, rows_b=rows_b, depth=depth, tile=tile):
+                    err = new_lib.vw_modwt_analysis(
+                        xb.data_ptr(), ptrs(ob[: depth + 1]), tap_d.data_ptr(), None, 0, None,
+                        0, rows_b, n, depth, taps, tile, mc.EDGES["periodic"], 0,
+                        _stream(dev))
+                    assert err == 0
+                line.append(f"J={depth} {median_ms(call_d, queue=QUEUE):.4f}")
+            print(f"  analysis {rows_b}x{n} by depth: " + ", ".join(line) + " ms", flush=True)
+            del xb, ob
+    print(f"cascade pair: parent vs change, db4 J={levels}, {b}x{n}", flush=True)
+    x32 = torch.randn(b, n, device=dev, generator=gen)
+    halo = torch.randn(b, span, device=dev, generator=gen)
+    head = torch.stack(ms._symmetric_cascade(x32[:, :span], fd, levels)).contiguous()
+    tile_a = new_lib.vw_modwt_analysis_tile(taps, levels, n, mc.ANALYSIS_TILE, 1)
+    cases_a = [("periodic", x32, "periodic", None, None), ("zero", x32, "zero", None, None),
+               ("mirror", x32, "mirror", None, None),
+               ("external halo 441", x32, "external", None, halo),
+               ("external with head splice", x32, "external", head, halo),
+               ("periodic bfloat16", x32.bfloat16(), "periodic", None, None)]
+    for label, x, edge, hd, hl in cases_a:
+        outs = [torch.empty_like(x) for _ in range(levels + 1)]
+        if edge == "mirror":
+            want = ms._symmetric_cascade(x, fd, levels)
+        else:
+            want = mc.analysis_plain(x, levels, fd, edge == "periodic", hd,
+                                     None if hl is None else hl.to(x.dtype))
+        tile = new_lib.vw_modwt_analysis_tile(taps, levels, n, mc.ANALYSIS_TILE,
+                                              mc.EDGES[edge])
+        hl = None if hl is None else hl.to(x.dtype)
+        check = check_with(want)
+        row = turns(f"analysis {label} (tiles {PARENT_PAIR_TILE} / {tile})",
+                    analysis_call(parent.vw_modwt_analysis, x, outs, edge, PARENT_PAIR_TILE,
+                                  hd, hl),
+                    analysis_call(new_lib.vw_modwt_analysis, x, outs, edge, tile, hd, hl),
+                    check)
+        row["kernel"], row["bound_ms"] = "modwt_analysis", bound
+        if label == "periodic":
+            row["wrapper_ms"] = median_ms(lambda: mc.analysis(x, levels, fd, True))
+            row["library_ms"] = median_ms(lambda: F.conv1d(
+                F.pad(x[:, None], (span, 0), mode="circular"), bank_d))
+            print(f"    the wrapper {row['wrapper_ms']:.4f} ms, F.conv1d "
+                  f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms (bytes)", flush=True)
+            if "ptiles" in args.what:
+                row["tiles"] = {}
+                for alt in PAIR_TILES:
+                    call = analysis_call(new_lib.vw_modwt_analysis, x, outs, edge, alt)
+                    used = new_lib.vw_modwt_analysis_tile(taps, levels, n, alt, 1)
+                    row["tiles"][alt] = (median_ms(call, queue=QUEUE), check(call),
+                                         new_lib.vw_modwt_analysis_shared_bytes(
+                                             taps, levels, used))
+                print("    tiles: " + ", ".join(f"{k} {v[0]:.4f} ms ({v[2]} B, err {v[1]:.1e})"
+                                                 for k, v in row["tiles"].items()), flush=True)
+            for (kernel, name), fn in variants.items():
+                if kernel == "modwt_analysis":
+                    row[f"variant_{name}"] = {}
+                    for alt in (tile_a, *PAIR_TILES) if "ptiles" in args.what else (tile_a,):
+                        call = analysis_call(fn, x, outs, edge, alt)
+                        row[f"variant_{name}"][alt] = (median_ms(call, queue=QUEUE),
+                                                       check(call))
+                    print(f"    variant {name}: " + ", ".join(
+                        f"{k} {v[0]:.4f} ms (err {v[1]:.1e})"
+                        for k, v in row[f"variant_{name}"].items()), flush=True)
+        rows.append(row)
+        del outs, want
+
+    planes32 = list(mc.analysis_plain(x32, levels, fd, True))
+    rhalo = [torch.randn(b, span, device=dev, generator=gen) for _ in range(levels + 1)]
+    tile_s = new_lib.vw_modwt_synthesis_tile(taps, levels, n, mc.SYNTHESIS_TILE)
+    cases_s = [("periodic", planes32, True, None), ("zero", planes32, False, None),
+               ("right halos 441", planes32, False, rhalo),
+               ("periodic bfloat16", [q.bfloat16() for q in planes32], True, None)]
+    for label, planes, periodic, hl in cases_s:
+        out = torch.empty_like(planes[0])
+        want = mc.synthesis_plain(planes, levels, fr, periodic, hl)
+        check = check_with(want)
+        row = turns(f"synthesis {label} (tiles {PARENT_PAIR_TILE} / {tile_s})",
+                    synthesis_call(parent.vw_modwt_synthesis, planes, out, periodic,
+                                   PARENT_PAIR_TILE, hl),
+                    synthesis_call(new_lib.vw_modwt_synthesis, planes, out, periodic, tile_s, hl),
+                    check)
+        row["kernel"], row["bound_ms"] = "modwt_synthesis", bound
+        if label == "periodic":
+            stacked = torch.stack(planes, dim=1)
+            row["wrapper_ms"] = median_ms(lambda: mc.synthesis(planes, levels, fr, True))
+            row["library_ms"] = median_ms(lambda: F.conv1d(
+                F.pad(stacked, (0, span), mode="circular"), bank_r[None]))
+            print(f"    the wrapper {row['wrapper_ms']:.4f} ms, F.conv1d "
+                  f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms (bytes)", flush=True)
+            del stacked
+            if "ptiles" in args.what:
+                row["tiles"] = {}
+                for alt in PAIR_TILES:
+                    call = synthesis_call(new_lib.vw_modwt_synthesis, planes, out, periodic, alt)
+                    used = new_lib.vw_modwt_synthesis_tile(taps, levels, n, alt)
+                    row["tiles"][alt] = (median_ms(call, queue=QUEUE), check(call),
+                                         new_lib.vw_modwt_synthesis_shared_bytes(
+                                             taps, levels, used))
+                print("    tiles: " + ", ".join(f"{k} {v[0]:.4f} ms ({v[2]} B, err {v[1]:.1e})"
+                                                 for k, v in row["tiles"].items()), flush=True)
+            for (kernel, name), fn in variants.items():
+                if kernel == "modwt_synthesis":
+                    row[f"variant_{name}"] = {}
+                    for alt in (tile_s, *PAIR_TILES) if "ptiles" in args.what else (tile_s,):
+                        call = synthesis_call(fn, planes, out, periodic, alt)
+                        row[f"variant_{name}"][alt] = (median_ms(call, queue=QUEUE),
+                                                       check(call))
+                    print(f"    variant {name}: " + ", ".join(
+                        f"{k} {v[0]:.4f} ms (err {v[1]:.1e})"
+                        for k, v in row[f"variant_{name}"].items()), flush=True)
+        rows.append(row)
+        del out, want
+
+    for rows_b, nb in SHORT_ROWS:
+        # rows shorter than the preferred tile: the change's block reserves
+        # shared memory for its row, the parent's for its tile of 2048
+        xb = torch.randn(rows_b, nb, device=dev, generator=gen)
+        outs = [torch.empty_like(xb) for _ in range(levels + 1)]
+        want = mc.analysis_plain(xb, levels, fd, True)
+        used = new_lib.vw_modwt_analysis_tile(taps, levels, nb, mc.ANALYSIS_TILE, 1)
+        row = turns(f"analysis periodic {rows_b}x{nb} (tiles {PARENT_PAIR_TILE} / {used})",
+                    analysis_call(parent.vw_modwt_analysis, xb, outs, "periodic",
+                                  PARENT_PAIR_TILE),
+                    analysis_call(new_lib.vw_modwt_analysis, xb, outs, "periodic",
+                                  mc.ANALYSIS_TILE),
+                    check_with(want))
+        row["kernel"], row["bound_ms"] = "modwt_analysis", 32 * xb.numel() / 3.35e12 * 1e3
+        rows.append(row)
+        out = torch.empty_like(xb)
+        used = new_lib.vw_modwt_synthesis_tile(taps, levels, nb, mc.SYNTHESIS_TILE)
+        row = turns(f"synthesis periodic {rows_b}x{nb} (tiles {PARENT_PAIR_TILE} / {used})",
+                    synthesis_call(parent.vw_modwt_synthesis, list(want), out, True,
+                                   PARENT_PAIR_TILE),
+                    synthesis_call(new_lib.vw_modwt_synthesis, list(want), out, True,
+                                   mc.SYNTHESIS_TILE),
+                    check_with(mc.synthesis_plain(list(want), levels, fr, True)))
+        row["kernel"], row["bound_ms"] = "modwt_synthesis", 32 * xb.numel() / 3.35e12 * 1e3
+        rows.append(row)
+        del xb, outs, out, want
+    return rows
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -238,7 +585,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, type=pathlib.Path)
-    ap.add_argument("what", nargs="*", default=["banksyn", "twoda", "probea"])
+    ap.add_argument("what", nargs="*", default=["pair", "ptiles", "pvariants"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -261,12 +608,18 @@ def main() -> int:
     def turns(label, old, new, check):
         err_old, err_new = check(old), check(new)
         t = [median_ms(old), median_ms(new), median_ms(new), median_ms(old)]
+        q = [median_ms(f, queue=QUEUE) for f in (old, new, new, old)]
         row = {"case": label, "parent_ms": [t[0], t[3]], "change_ms": [t[1], t[2]],
+               "parent_device_ms": [q[0], q[3]], "change_device_ms": [q[1], q[2]],
                "parent_err": err_old, "change_err": err_new}
         print(f"  {label}: parent {t[0]:.4f} / {t[3]:.4f} ms, change {t[1]:.4f} / "
-              f"{t[2]:.4f} ms; max |kernel - plain| parent {err_old:.3e}, change "
-              f"{err_new:.3e}", flush=True)
+              f"{t[2]:.4f} ms (a call from idle); {QUEUE} queued: parent {q[0]:.4f} / "
+              f"{q[3]:.4f}, change {q[1]:.4f} / {q[2]:.4f} ms; max |kernel - plain| "
+              f"parent {err_old:.3e}, change {err_new:.3e}", flush=True)
         return row
+
+    if "pair" in args.what:
+        results["pair"] = pair_target(args, parent, work, turns)
 
     if "bank" in args.what:
         print("bank analysis: parent vs change", flush=True)

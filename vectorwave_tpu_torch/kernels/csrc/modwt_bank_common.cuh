@@ -14,12 +14,10 @@
 //     packet tree, 2^(j-1) for an à trous pair), values padded so that each
 //     run starts on 16 bytes (modwt_bank.bank_runs);
 //   * a thread owns kRunBlock = 9 outputs u, u + d, ..., u + 8d of one
-//     residue class mod d, so that taps i, i + 1 read the same samples one
-//     step of d apart: a run of 8 taps needs 8 new samples, kept in
-//     registers and carried to the next 8 (two arrays that swap roles), and
-//     2 broadcast 16-byte loads of taps, for 72 FMAs;
-//   * the thread's first output is u = (tid mod d) + d kRunBlock (tid / d):
-//     an odd block keeps the 32 lanes of a warp on 32 banks for every d;
+//     residue class mod d (run_base, modwt_common.cuh): a run of 8 taps
+//     needs 8 new samples, kept in registers and carried to the next 8 (two
+//     arrays that swap roles), and 2 broadcast 16-byte loads of taps, for
+//     72 FMAs;
 //   * the plane pointers travel by value in the kernel's parameter block
 //     (kMaxBankPlanes of them, 512 bytes).
 #pragma once
@@ -29,8 +27,6 @@
 namespace vw {
 
 constexpr int kMaxBankPlanes = 64;
-constexpr int kRunBlock = 9;
-constexpr int kRunChunk = 8;
 constexpr int kBankTile = kThreads * kRunBlock;
 
 // Edges of the bank: zero or periodic.  An external halo slab (the left or
@@ -52,19 +48,6 @@ __device__ __forceinline__ float bank_load(const T* __restrict__ row, long long 
   long long m = g % n;
   if (m < 0) m += n;
   return to_f32(row[m]);
-}
-
-// The thread's first output in the tile for a plane of stride 2^shift.
-__device__ __forceinline__ int run_base(int shift) {
-  const int d = 1 << shift;
-  return (threadIdx.x & (d - 1)) +
-         ((static_cast<int>(threadIdx.x) >> shift) << shift) * kRunBlock;
-}
-
-// Window sample m of the thread's run: w[m] = src[m d].
-template <bool kUnit>
-__device__ __forceinline__ float run_sample(const float* src, int m, int d) {
-  return src[kUnit ? m : m * d];
 }
 
 }  // namespace vw

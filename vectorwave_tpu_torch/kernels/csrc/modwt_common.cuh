@@ -239,6 +239,105 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// --- register-blocked tap runs (the bank and cascade kernels) -------------
+//
+// A thread owns kRunBlock outputs u, u + d, ..., u + (kRunBlock - 1) d of
+// one residue class mod d, so that taps i and i + 1 read the same samples
+// one step of d apart; taps go in steps of kRunChunk, 8 new samples a step.
+
+constexpr int kRunBlock = 9;
+constexpr int kRunChunk = 8;
+
+// The thread's first output in a chunk of kThreads kRunBlock outputs for a
+// stride 2^shift dividing kThreads: u = (tid mod d) + d kRunBlock (tid / d).
+// The odd block keeps the 32 lanes of a warp on 32 banks for every d, and
+// for d <= 32 a warp's outputs are the 32 kRunBlock after its first.
+__device__ __forceinline__ int run_base(int shift) {
+  const int d = 1 << shift;
+  return (threadIdx.x & (d - 1)) +
+         ((static_cast<int>(threadIdx.x) >> shift) << shift) * kRunBlock;
+}
+
+// Window sample m of the thread's run: w[m] = src[m d].
+template <bool kUnit>
+__device__ __forceinline__ float run_sample(const float* src, int m, int d) {
+  return src[kUnit ? m : m * d];
+}
+
+// --- cascade windows in shared memory (modwt_analysis.cu, modwt_synthesis.cu)
+
+// Taps padded with zeros to whole steps of kRunChunk, so that every tap
+// step reads its taps as two 16-byte broadcasts.
+__host__ __device__ __forceinline__ int padded_taps(int taps) {
+  return (taps + kRunChunk - 1) & ~(kRunChunk - 1);
+}
+
+// Floats of one window row of `width` samples: up to 3 before it, so that
+// the window can start where its source starts modulo 16 bytes, rounded up
+// to 16 bytes, so that the next row starts on 16 bytes too.
+__host__ __device__ __forceinline__ int window_row_floats(int width) {
+  return (width + 6) & ~3;
+}
+
+// The tile of a cascade launch (modwt_analysis.cu, modwt_synthesis.cu): the
+// caller's preferred `tile`, no longer than the row (a shorter row would only
+// reserve shared memory it never uses), halved until `bytes_of(tile)` fit a
+// block, not below 128 (nor below a shorter row), and at least `least`; 0
+// where that does not fit.  The Python wrappers read it through the library.
+template <typename Bytes>
+inline int cascade_tile(int tile, long long n, int least, Bytes bytes_of) {
+  const size_t limit = static_cast<size_t>(kMaxSharedBytes);
+  int t = n < tile ? static_cast<int>(n) : tile;
+  while (t > 128 && bytes_of(t) > limit) t = t / 2 > 128 ? t / 2 : 128;
+  if (t < least) t = least;
+  return bytes_of(t) <= limit ? t : 0;
+}
+
+// Where a window of source sample `src` starts in its row: the float32
+// source's place modulo 16 bytes, so that the window's body copies in
+// 16-byte pieces (bfloat16 windows are converted as they are stored, and
+// start at 0).
+template <typename T>
+__device__ __forceinline__ int window_offset(const T* src) {
+  return sizeof(T) == sizeof(float) ? static_cast<int>((reinterpret_cast<size_t>(src) >> 2) & 3)
+                                    : 0;
+}
+
+// dst[0 .. count) = src[0 .. count), by the whole block.  float32: cp.async,
+// 16 bytes at a time where dst and src agree modulo 16 bytes, else 4, in
+// flight until the caller waits; bfloat16: pairs read as 4 bytes where they
+// line up, converted and stored.
+template <typename T>
+__device__ __forceinline__ void copy_row_window(float* dst, const T* __restrict__ src, int count) {
+  if (count <= 0) return;
+  int head = 0, body = 0;
+  if constexpr (sizeof(T) == sizeof(float)) {
+    const float* from = reinterpret_cast<const float*>(src);
+    if (((reinterpret_cast<size_t>(dst) ^ reinterpret_cast<size_t>(from)) & 15) == 0) {
+      head = min(count, static_cast<int>(((16 - (reinterpret_cast<size_t>(from) & 15)) & 15) >> 2));
+      body = (count - head) >> 2;
+      for (int i = threadIdx.x; i < body; i += blockDim.x) {
+        cp_async16(dst + head + 4 * i, from + head + 4 * i);
+      }
+    }
+    for (int q = threadIdx.x; q < head; q += blockDim.x) cp_async4(dst + q, from + q);
+    for (int q = head + 4 * body + threadIdx.x; q < count; q += blockDim.x) {
+      cp_async4(dst + q, from + q);
+    }
+  } else {
+    if ((reinterpret_cast<size_t>(src) & 3) == 0) {
+      body = count >> 1;
+      const __nv_bfloat162* from = reinterpret_cast<const __nv_bfloat162*>(src);
+      for (int i = threadIdx.x; i < body; i += blockDim.x) {
+        const float2 f = __bfloat1622float2(from[i]);
+        dst[2 * i] = f.x;
+        dst[2 * i + 1] = f.y;
+      }
+    }
+    for (int q = 2 * body + threadIdx.x; q < count; q += blockDim.x) dst[q] = to_f32(src[q]);
+  }
+}
+
 // Opt in to more than 48 KB of dynamic shared memory where a launch needs it;
 // returns the error of the attribute call, or of the size check.
 template <typename Kernel>

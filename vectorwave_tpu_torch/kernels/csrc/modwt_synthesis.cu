@@ -13,15 +13,32 @@
 // taps it is the exact adjoint of modwt_analysis.cu, so it is also that
 // kernel's gradient.
 //
-// What bounds it on the H100: the kernel reads J+1 planes (4 (J+1) B per
-// sample, plus the S = (L-1)(2^J-1) sample right halo of each tile) and
-// writes 4 B, so device-memory reads dominate its traffic; the arithmetic is
-// bound by shared-memory loads, two per FMA pair.  The design stages one
-// detail plane at a time in shared memory beside the running approximation
-// (three rows of tile + S floats, under 48 KB at tile 2048 for db4 J = 6),
-// with coalesced loads of each plane window.  Every precision tier
-// (float32, bf16_3x, bf16) runs this same fp32 kernel, which meets each
-// tier's error contract; tensor-core tiers are later work.
+// What bounds it on the H100: device-memory bytes.  The kernel reads J+1
+// planes (4 (J+1) B per sample, plus each tile's right halo of S =
+// (L-1)(2^J-1) samples) and writes 4 B, 32 B for J = 6 against 96 FMAs, so
+// fp32 CUDA cores suffice.  The design, the analysis kernel's with forward
+// reads (as modwt_bank_synthesis.cu is modwt_bank_analysis.cu's):
+//   * each plane's window is copied into shared memory with cp.async, 16
+//     bytes at a time (the rows start where the planes do modulo 16 bytes),
+//     and only its samples past the row's end take the edge rule;
+//   * three rows of tile + S (53 KB at tile 4096 for db4 J = 6, four blocks
+//     an SM): the running approximation, the next level's, and d_j's
+//     window, copied while the block waits (a second detail buffer, the
+//     next copy in flight during a level's arithmetic, measured 2-4% slower
+//     at tile 4096: it leaves three blocks an SM);
+//   * level j runs on stride s = 2^(j-1) with the register blocks of
+//     modwt_common.cuh: a thread owns kRunBlock = 9 outputs of one residue
+//     class mod s, output r reading w[r + i] for tap i, so a step of 8 taps
+//     loads 8 samples of c_j (and then of d_j) for 72 FMAs, with the taps,
+//     padded with zeros to whole steps, as 16-byte broadcasts;
+//   * a stride above kThreads (s = 512 at J = 10) takes s / kThreads passes,
+//     and a run that reaches past the level's end or reads the padded taps
+//     loads only what its outputs need;
+//   * each level's result goes to a shared row; the last is stored on
+//     consecutive addresses.
+// Every precision tier (float32, bf16_3x, bf16) runs this same fp32 kernel,
+// which meets each tier's error contract; bfloat16 windows are converted as
+// they are stored (no cp.async).
 //
 // External right halo (`halo=` of `run_synthesis_composite`, the tiled
 // tier's neighbour exchange): `halos` holds, for each of the J+1 planes, the
@@ -37,60 +54,158 @@
 
 namespace vw {
 
+// Taps i0 .. i0 + 7: output r reads w[r + i0 + t] for tap i0 + t.  `old`
+// holds w[i0 .. i0 + 8); `fresh` is loaded with w[m0 .. m0 + 8), m0 = i0 + 8.
+// kGuard: samples from m_hi on read 0; they feed only zero (padded) taps or
+// outputs that are not stored.
+template <bool kUnit, bool kGuard>
+__device__ __forceinline__ void fwd_step(float (&acc)[kRunBlock], float (&fresh)[kRunChunk],
+                                         const float (&old)[kRunChunk], const float* src,
+                                         int m0, int s, const float* v, int m_hi) {
+#pragma unroll
+  for (int e = 0; e < kRunChunk; ++e) {
+    fresh[e] = !kGuard || m0 + e < m_hi ? run_sample<kUnit>(src, m0 + e, s) : 0.0f;
+  }
+  const float4 v0 = reinterpret_cast<const float4*>(v)[0];
+  const float4 v1 = reinterpret_cast<const float4*>(v)[1];
+  const float tv[kRunChunk] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+  for (int t = 0; t < kRunChunk; ++t) {
+#pragma unroll
+    for (int r = 0; r < kRunBlock; ++r) {
+      const int e = r + t;
+      acc[r] = fmaf(tv[t], e < kRunChunk ? old[e] : fresh[e - kRunChunk], acc[r]);
+    }
+  }
+}
+
+// acc[r] += the sum of v[i] w[r + i], w[m] = src[m s], over `taps` (a
+// multiple of kRunChunk) padded taps.
+template <bool kUnit, bool kGuard>
+__device__ __forceinline__ void fwd_run(float (&acc)[kRunBlock], const float* src, int s,
+                                        const float* v, int taps, int m_hi) {
+  float a[kRunChunk], b[kRunChunk];
+#pragma unroll
+  for (int e = 0; e < kRunChunk; ++e) {
+    b[e] = !kGuard || e < m_hi ? run_sample<kUnit>(src, e, s) : 0.0f;
+  }
+  int i0 = 0;
+  for (; i0 + 2 * kRunChunk <= taps; i0 += 2 * kRunChunk) {
+    fwd_step<kUnit, kGuard>(acc, a, b, src, i0 + kRunChunk, s, v + i0, m_hi);
+    fwd_step<kUnit, kGuard>(acc, b, a, src, i0 + 2 * kRunChunk, s, v + i0 + kRunChunk, m_hi);
+  }
+  if (i0 < taps) fwd_step<kUnit, kGuard>(acc, a, b, src, i0 + kRunChunk, s, v + i0, m_hi);
+}
+
+// The level's sum of c_j (lo taps) and d_j (hi taps) into the thread's outputs.
+template <bool kUnit, bool kGuard>
+__device__ __forceinline__ void level_run(float (&acc)[kRunBlock], const float* c,
+                                          const float* d, int s, const float* lo,
+                                          const float* hi, int taps, int m_hi) {
+  fwd_run<kUnit, kGuard>(acc, c, s, lo, taps, m_hi);
+  fwd_run<kUnit, kGuard>(acc, d, s, hi, taps, m_hi);
+}
+
+// Shared memory of one block: the padded tap pair, two rows for the running
+// approximation and one for the detail, each of tile + span.
+inline size_t synthesis_shared_bytes(int L, int levels, int tile) {
+  return sizeof(float) *
+         (2 * static_cast<size_t>(padded_taps(L)) +
+          3 * static_cast<size_t>(window_row_floats(tile + cascade_span(L, levels))));
+}
+
+// The tile a launch uses for the caller's preferred `tile` (cascade_tile).
+inline int synthesis_tile(int L, int levels, long long n, int tile) {
+  return cascade_tile(tile, n, 1, [=](int t) { return synthesis_shared_bytes(L, levels, t); });
+}
+
+// Four blocks to an SM (64 registers a thread) where shared memory holds
+// them: measured faster than three with more registers at every tile.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-modwt_synthesis_kernel(PlanePtrs in, PlanePtrs halos, int halo_len,
+__global__ void __launch_bounds__(kThreads, 4)
+modwt_synthesis_kernel(const __grid_constant__ PlanePtrs in,
+                       const __grid_constant__ PlanePtrs halos, int halo_len,
                        T* __restrict__ out, const float* __restrict__ taps,
                        long long n, int levels, int L, int tile,
                        int tiles_per_row, int periodic) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int span = cascade_span(L, levels);
-  const int width = tile + span;
+  const int lp = padded_taps(L);
+  const int row_floats = window_row_floats(tile + span);
   float* s_lo = smem;
-  float* s_hi = smem + L;
-  float* cur = smem + 2 * L;
-  float* nxt = cur + width;
-  float* det = nxt + width;
+  float* s_hi = smem + lp;
 
   const long long b = blockIdx.x / tiles_per_row;
   const long long t0 = static_cast<long long>(blockIdx.x % tiles_per_row) * tile;
   const long long row_off = b * n;
   const int n_out = static_cast<int>(min(static_cast<long long>(tile), n - t0));
   const long long halo_off = b * halo_len;
-  // sample g of plane i, extended by the right halo or by the edge rule
-  auto load = [&](int i, long long g) {
+  // every row starts where a_J's window does modulo 16 bytes
+  const int off = window_offset(static_cast<const T*>(in.p[levels]) + row_off + t0);
+  float* cur = smem + 2 * lp + off;
+  float* nxt = cur + row_floats;
+  float* const det = nxt + row_floats;
+  // dst[0 .. count) = plane i over [t0, t0 + count), extended past n by the
+  // right halo or the edge rule; one cp.async group
+  auto copy = [&](float* dst, int i, int count) {
     const T* row = static_cast<const T*>(in.p[i]) + row_off;
-    if (halo_len > 0) {
-      return load_right_halo(row, static_cast<const T*>(halos.p[i]) + halo_off,
-                             halo_len, g, n);
+    const int inside = static_cast<int>(min(static_cast<long long>(count), n - t0));
+    copy_row_window(dst, row + t0, inside);
+    for (int q = inside + threadIdx.x; q < count; q += blockDim.x) {
+      const long long g = t0 + q;
+      dst[q] = halo_len > 0
+                   ? load_right_halo(row, static_cast<const T*>(halos.p[i]) + halo_off,
+                                     halo_len, g, n)
+                   : load_ext(row, g, n, periodic != 0);
     }
-    return load_ext(row, g, n, periodic != 0);
+    cp_async_commit();
   };
 
-  for (int k = threadIdx.x; k < L; k += blockDim.x) {
-    s_lo[k] = taps[k];
-    s_hi[k] = taps[L + k];
+  for (int k = threadIdx.x; k < lp; k += blockDim.x) {
+    s_lo[k] = k < L ? taps[k] : 0.0f;
+    s_hi[k] = k < L ? taps[L + k] : 0.0f;
   }
-  // c_J = a_J over the window [t0, t0 + tile + span)
-  for (int q = threadIdx.x; q < width; q += blockDim.x) cur[q] = load(levels, t0 + q);
-
-  int valid_end = width;  // the current level is exact on [0, valid_end)
+  // c_J = a_J and d_J over the window [t0, t0 + n_out + span), what the
+  // tile's outputs read
+  int valid_end = n_out + span;  // the current level is exact on [0, valid_end)
+  copy(cur, levels, valid_end);
+  copy(det, levels - 1, valid_end);
   for (int j = levels; j >= 1; --j) {
-    const int s = 1 << (j - 1);
-    for (int q = threadIdx.x; q < valid_end; q += blockDim.x) {
-      det[q] = load(j - 1, t0 + q);
-    }
-    __syncthreads();
+    const int shift = j - 1;
+    const int s = 1 << shift;
     const int new_end = valid_end - (L - 1) * s;
-    for (int q = threadIdx.x; q < new_end; q += blockDim.x) {
-      float c = 0.0f;
-      for (int k = 0; k < L; ++k) {
-        c = fmaf(s_lo[k], cur[q + k * s], c);
-        c = fmaf(s_hi[k], det[q + k * s], c);
+    cp_async_wait_all();
+    __syncthreads();
+    const int group = max(s, kThreads);
+    for (int c0 = 0; c0 < new_end; c0 += group * kRunBlock) {
+      for (int p = 0; p < group; p += kThreads) {
+        const int q0 = c0 + p + (s <= kThreads ? run_base(shift) : threadIdx.x);
+        if (q0 >= new_end) continue;
+        // the thread's outputs q0 + r s below the level's end
+        const int lim = min(kRunBlock, (new_end - q0 + s - 1) >> shift);
+        const int m_hi = lim + L - 1;
+        float acc[kRunBlock];
+#pragma unroll
+        for (int r = 0; r < kRunBlock; ++r) acc[r] = 0.0f;
+        if (lim == kRunBlock && lp == L) {
+          if (s == 1) {
+            level_run<true, false>(acc, cur + q0, det + q0, 1, s_lo, s_hi, lp, m_hi);
+          } else {
+            level_run<false, false>(acc, cur + q0, det + q0, s, s_lo, s_hi, lp, m_hi);
+          }
+        } else if (s == 1) {
+          level_run<true, true>(acc, cur + q0, det + q0, 1, s_lo, s_hi, lp, m_hi);
+        } else {
+          level_run<false, true>(acc, cur + q0, det + q0, s, s_lo, s_hi, lp, m_hi);
+        }
+#pragma unroll
+        for (int r = 0; r < kRunBlock; ++r) {
+          if (r < lim) nxt[q0 + r * s] = acc[r];
+        }
       }
-      nxt[q] = c;
     }
     __syncthreads();
+    if (j > 1) copy(det, j - 2, new_end);  // d_{j-1}: level j read the last of d_j
     float* tmp = cur;
     cur = nxt;
     nxt = tmp;
@@ -98,11 +213,6 @@ modwt_synthesis_kernel(PlanePtrs in, PlanePtrs halos, int halo_len,
   }
   T* dst = out + row_off + t0;
   for (int o = threadIdx.x; o < n_out; o += blockDim.x) dst[o] = from_f32<T>(cur[o]);
-}
-
-inline size_t synthesis_shared_bytes(int L, int levels, int tile) {
-  return sizeof(float) * (2 * static_cast<size_t>(L) +
-                          3 * static_cast<size_t>(tile + cascade_span(L, levels)));
 }
 
 template <typename T>
@@ -116,6 +226,8 @@ cudaError_t launch_synthesis(const void* const* ins, const void* const* halo_ptr
     planes.p[i] = const_cast<void*>(ins[i]);
     if (halo_len > 0) halos.p[i] = const_cast<void*>(halo_ptrs[i]);
   }
+  tile = synthesis_tile(L, levels, n, tile);
+  if (tile == 0) return cudaErrorInvalidValue;
   const long long tiles = (n + tile - 1) / tile;
   const long long blocks = batch * tiles;
   if (tiles > 0x7fffffffLL || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -131,7 +243,8 @@ cudaError_t launch_synthesis(const void* const* ins, const void* const* halo_ptr
 }  // namespace vw
 
 // `halos` (J+1 pointers to [batch, halo_len] rows) and halo_len > 0 select
-// the external right edge; periodic must then be 0.
+// the external right edge; periodic must then be 0.  `tile` is the preferred
+// tile: the launch uses vw_modwt_synthesis_tile's.
 extern "C" int vw_modwt_synthesis(const void* const* ins, const void* const* halos,
                                   int halo_len, void* out, const void* taps,
                                   long long batch, long long n, int levels,
@@ -154,4 +267,19 @@ extern "C" int vw_modwt_synthesis(const void* const* ins, const void* const* hal
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The tile of a launch for a preferred `tile` (clamped to the row, halved
+// until a block fits shared memory); 0 where none fits.
+extern "C" int vw_modwt_synthesis_tile(int taps_len, int levels, long long n, int tile) {
+  return vw::valid_config(1, n, levels, taps_len, tile)
+             ? vw::synthesis_tile(taps_len, levels, n, tile)
+             : 0;
+}
+
+// Shared memory of one block at `tile`, in bytes.
+extern "C" long long vw_modwt_synthesis_shared_bytes(int taps_len, int levels, int tile) {
+  return vw::valid_config(1, 1, levels, taps_len, tile)
+             ? static_cast<long long>(vw::synthesis_shared_bytes(taps_len, levels, tile))
+             : 0;
 }

@@ -89,9 +89,14 @@ LAUNCHES = {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
             "modwt_bank_analysis": 0, "modwt_bank_synthesis": 0}
 
 #: Outputs per block, per kernel (the denoise kernel holds J planes of its
-#: tile in shared memory, so its tile is smaller).
-ANALYSIS_TILE = 2048
-SYNTHESIS_TILE = 2048
+#: tile in shared memory, so its tile is smaller).  The cascade pair's is
+#: the preferred tile: the library clamps it to the row and halves it until
+#: a block fits (``vw_modwt_analysis_tile``, ``vw_modwt_synthesis_tile``).
+#: Measured (tools/ab_port_kernels.py pair ptiles, config #2 and 128 / 1024
+#: x 8192 on an H100): 4096 beats 2048 by a quarter in the analysis and a
+#: tenth in the synthesis, larger tiles gain at most 3%.
+ANALYSIS_TILE = 4096
+SYNTHESIS_TILE = 4096
 DENOISE_TILE = 1024
 EXACT_TILE = 2048
 SYMMETRIC_TILE = 2048
@@ -155,14 +160,18 @@ def composite_plane_filters(
 
 
 def analysis_shared_bytes(taps: int, levels: int, tile: int = ANALYSIS_TILE) -> int:
-    """Shared memory of one analysis block: taps + two rows of tile + span."""
+    """The room the routers' gates ask of an analysis block: taps + two rows
+    of tile + span.  The kernel's own layout (taps padded to steps of 8,
+    rows on 16 bytes, detail staging where it fits) and its tile are the
+    library's; it launches every shape this rule admits, which the card's
+    tests hold for every filter length and depth."""
     return 4 * (2 * taps + 2 * (tile + composite_halo_samples(taps, levels)))
 
 
 def analysis_tile(taps: int, levels: int, mirror: bool = False) -> int | None:
-    """The analysis kernel's tile: :data:`ANALYSIS_TILE` halved until one
-    block fits shared memory (None below 128); in mirror mode at least
-    :func:`mirror_reach` (None where that does not fit)."""
+    """The gates' analysis tile: :data:`ANALYSIS_TILE` halved until
+    :func:`analysis_shared_bytes` fits (None below 128); in mirror mode at
+    least :func:`mirror_reach` (None where that does not fit)."""
     tile = _fitting_tile(lambda t: analysis_shared_bytes(taps, levels, t), ANALYSIS_TILE)
     if not mirror:
         return tile
@@ -171,7 +180,9 @@ def analysis_tile(taps: int, levels: int, mirror: bool = False) -> int | None:
 
 
 def synthesis_shared_bytes(taps: int, levels: int, tile: int = SYNTHESIS_TILE) -> int:
-    """Shared memory of one synthesis block: taps + three rows of tile + span."""
+    """The room the routers' gates ask of a synthesis block: taps + three
+    rows of tile + span (the library's own layout, as for
+    :func:`analysis_shared_bytes`)."""
     return 4 * (2 * taps + 3 * (tile + composite_halo_samples(taps, levels)))
 
 
@@ -280,11 +291,13 @@ def symmetric_tile(taps: int, ops: tuple, adjoint: bool) -> int | None:
 
 
 def kernels_fit(taps: int, levels: int) -> bool:
-    """Whether all three kernels fit one block's shared memory at their tile
-    (the H100 counterpart of the JAX router's halo/VMEM check)."""
+    """Whether all three kernels fit one block's shared memory (the H100
+    counterpart of the JAX router's halo/VMEM check): the analysis and the
+    synthesis at a tile of 2048, the cascade pair's first tile, the denoise
+    at its own."""
     return max(
-        analysis_shared_bytes(taps, levels),
-        synthesis_shared_bytes(taps, levels),
+        analysis_shared_bytes(taps, levels, 2048),
+        synthesis_shared_bytes(taps, levels, 2048),
         denoise_shared_bytes(taps, levels),
     ) <= SHARED_LIMIT
 
@@ -633,7 +646,7 @@ def analysis(x, levels, filters, periodic, head=None, halo=None
 
 def launch_analysis(x, levels, filters, edge, counter, head=None, halo=None):
     """Launch the analysis kernel on a CUDA ``x`` with left edge ``edge``
-    (:data:`EDGES`) at :func:`analysis_tile`, adding one to
+    (:data:`EDGES`) at the library's tile for :data:`ANALYSIS_TILE`, adding one to
     ``LAUNCHES[counter]``; the mirror edge takes N >= :func:`mirror_reach`,
     the external edge (and only it) a ``[B, H]`` ``halo`` of x's dtype."""
     _check_operand(x, "x")
@@ -668,14 +681,14 @@ def launch_analysis(x, levels, filters, edge, counter, head=None, halo=None):
                 context={"shape": tuple(head.shape), "dtype": head.dtype},
             )
         head_samples = head.shape[2]
-    tile = analysis_tile(taps, levels, mirror)
-    if tile is None:
-        raise _too_large(taps, levels)
     lib = library()
+    b, n = x.shape
+    tile = lib.vw_modwt_analysis_tile(taps, levels, n, ANALYSIS_TILE, EDGES[edge])
+    if not tile:
+        raise _too_large(taps, levels)
     outs = [torch.empty_like(x) for _ in range(levels + 1)]
     out_ptrs = (ctypes.c_void_p * (levels + 1))(*[o.data_ptr() for o in outs])
     tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), x.device.index)
-    b, n = x.shape
     with torch.cuda.device(x.device):
         err = lib.vw_modwt_analysis(
             x.data_ptr(), out_ptrs, tap_t.data_ptr(),
@@ -732,14 +745,16 @@ def launch_synthesis(planes, levels, filters, periodic, counter, halo=None):
         _refuse_periodic_halo(periodic)
         halo_len = _halo_width(halo, first)
     taps = len(filters[0])
-    tile = _tile(synthesis_shared_bytes, taps, levels, SYNTHESIS_TILE)
     lib = library()
+    b, n = first.shape
+    tile = lib.vw_modwt_synthesis_tile(taps, levels, n, SYNTHESIS_TILE)
+    if not tile:
+        raise _too_large(taps, levels)
     out = torch.empty_like(first)
     in_ptrs = (ctypes.c_void_p * (levels + 1))(*[p.data_ptr() for p in planes])
     halo_ptrs = (None if halo is None else
                  (ctypes.c_void_p * (levels + 1))(*[h.data_ptr() for h in halo]))
     tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), first.device.index)
-    b, n = first.shape
     with torch.cuda.device(first.device):
         err = lib.vw_modwt_synthesis(
             in_ptrs, halo_ptrs, halo_len, out.data_ptr(), tap_t.data_ptr(), b, n,
