@@ -14,6 +14,8 @@ Phases, in order; any failure raises and the exit code is not 0:
 2. kernels against their plain PyTorch versions on the card (db4, 6 levels):
    analysis, synthesis and denoise (none/soft/hard) at 128x65536 periodic,
    3x5000 zero and 2x300 periodic in float32, and once in bfloat16; the
+   denoise also at haar J=1 and J=10 (a row of 700, shorter than the span),
+   sym8 J=4, db20 J=7, db4 J=1 and J=9, each in float32 and bfloat16; the
    exact fp64 analysis and synthesis at the same three shapes, with a lo
    word, from a first level above 1, with the levels split over two
    launches (sym8, 10 levels), and with levels too deep for shared memory
@@ -27,7 +29,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    2x150 (N shorter than the span; the mirror's window outlasts the
    signal), haar J=5, db36 J=8 (the mirror at its 9088 tile, where the
    second block's window starts before the signal) and once in bfloat16;
-   the 2-D analysis and synthesis level kernels, every band, in each edge
+   the library's launch tiles: the cascade pair's, the denoise's and the
+   exact synthesis's serve every shape the gates send (filter lengths
+   1-128, J 1-10, every first level of an exact plan); the 2-D analysis
+   and synthesis level kernels, every band, in each edge
    mode (periodic, zero, symmetric with the inverse's per-filter offsets),
    at levels 1 and 4 of db4 and 1 and 6 of sym8 at 8x2048x2048, at db4 level
    3 on 3x200x328, haar level 5 on 1x24x40, db20 level 4 on 2x1024x1024,
@@ -1457,6 +1462,37 @@ def main() -> int:
             check(err <= tol, f"{name}{tag} {label}: max |kernel - plain| "
                               f"{err:.3e} <= {tol:.3e}")
 
+    # the denoise kernel at other filters and depths, in both dtypes:
+    # (wavelet, levels, batch, n, periodic); haar at J = 1 and at its
+    # deepest (10, also shorter than the span), sym8 J=4, db20 at its deepest
+    # (J=7), db4 at J = 1 and at its deepest (9); zero and periodic edges
+    denoise_cases = [
+        ("haar", 1, 3, 5001, True), ("haar", 10, 2, 3001, False), ("haar", 10, 2, 700, True),
+        ("sym8", 4, 3, 5000, False), ("db20", 7, 2, 9000, True), (WAVELET, 1, 2, 1000, False),
+        (WAVELET, 9, 2, 9003, True),
+    ]
+    for name, levels, b, n, periodic in denoise_cases:
+        wd = vt.wavelet(name)
+        dd, dr = _kernel_filters(wd, synthesis=False), _kernel_filters(wd, synthesis=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, n, device=dev, generator=gen).to(dtype)
+            th = gap_thresholds(mc._analysis_cascade(x, levels, dd, periodic), levels)
+            label = (f"{name} J={levels} {b}x{n} {'periodic' if periodic else 'zero'} "
+                     f"{str(dtype)[6:]}")
+            for mode in ("none", "soft", "hard"):
+                got = mc.denoise(x, th, levels, dd, dr, periodic, mode)
+                want = mc.denoise_plain(x, th, levels, dd, dr, periodic, mode)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                if dtype == torch.float32:
+                    tol = TOL_F32
+                    worst["modwt_denoise"] = max(worst["modwt_denoise"], err)
+                else:
+                    tol = BF16_ULP * want.float().abs().max().item()
+                    worst_bf16["modwt_denoise"] = max(worst_bf16["modwt_denoise"], err)
+                check(err <= tol, f"modwt_denoise {mode} {label}: max |kernel - plain| "
+                                  f"{err:.3e} <= {tol:.3e}")
+
     # exact fp64 kernels: (wavelet, batch, n, periodic, first level, levels, lo word)
     exact_cases = [
         (WAVELET, BATCH, N, True, 1, LEVELS, False),
@@ -1563,6 +1599,24 @@ def main() -> int:
                 refused.append(("synthesis", taps, levels))
     check(not refused, f"the cascade pair launches every shape the gates send, filter "
                        f"lengths 1-128, J 1-10 (refused: {refused[:5]})")
+    # the denoise kernel's and the exact synthesis's launch tiles, the
+    # library's: every depth denoise_tile admits, and every window launch
+    # of the exact plans from every first level
+    refused = []
+    for taps in range(1, 129):
+        for levels in range(1, 11):
+            if (mc.denoise_tile(taps, levels) is not None
+                    and not lib.vw_modwt_denoise_tile(taps, levels, 1 << 20,
+                                                       mc.DENOISE_LAUNCH_TILE)):
+                refused.append(("denoise", taps, levels))
+            for first_level in range(1, 12 - levels):
+                for first, count, _, direct in mc.exact_launches(
+                        mc.exact_synthesis_shared_bytes, taps, levels, first_level):
+                    if not direct and not lib.vw_modwt_exact_synthesis_tile(
+                            taps, first, count, 1 << 20, mc.EXACT_SYNTHESIS_LAUNCH_TILE):
+                        refused.append(("exact synthesis", taps, first, count))
+    check(not refused, f"the denoise and exact synthesis kernels launch every shape the "
+                       f"gates send, filter lengths 1-128, J 1-10 (refused: {refused[:5]})")
     short = (lib.vw_modwt_analysis_tile(8, LEVELS, 1000, mc.ANALYSIS_TILE, 1),
              lib.vw_modwt_synthesis_tile(8, LEVELS, 1000, mc.SYNTHESIS_TILE),
              lib.vw_modwt_analysis_tile(8, LEVELS, N, mc.ANALYSIS_TILE, 1),

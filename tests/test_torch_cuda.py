@@ -93,16 +93,36 @@ def test_analysis_and_synthesis_kernels_match_plain(cuda, filters, b, n, periodi
     assert _err((y_got,), (y_want,)) <= _tol(dtype, (y_want,))
 
 
+#: (wavelet, levels, batch, n, periodic, stream halo or None): db4 J=6 at
+#: SHAPES; haar at J = 1 and 10 (its deepest), db4 at J = 1 and 9 (its
+#: deepest), sym8 J=4, db20 J=7 (its deepest); rows shorter than the span
+#: (db4 J=6 at 300, haar J=10 at 700); the stream mode with halos shorter
+#: than, equal to and longer than the span
+DENOISE_CASES = [("db4", LEVELS, b, n, periodic, None) for b, n, periodic in SHAPES] + [
+    ("haar", 1, 3, 5001, True, None), ("haar", 10, 2, 3001, False, None),
+    ("haar", 10, 2, 700, True, None), ("db4", 1, 2, 1000, False, None),
+    ("db4", 9, 2, 9003, True, None), ("sym8", 4, 3, 5000, True, None),
+    ("db20", 7, 2, 9000, True, None), ("db4", LEVELS, 3, 5001, False, 100),
+    ("db4", LEVELS, 2, 300, False, 441), ("sym8", 4, 2, 3000, False, 700),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["none", "soft", "hard"])
-@pytest.mark.parametrize("b,n,periodic", SHAPES)
-def test_denoise_kernel_matches_plain(cuda, filters, b, n, periodic, mode):
-    fd, fr = filters
-    x = _input(cuda, b, n, torch.float32, seed=1)
-    th = gap_thresholds(mc._analysis_cascade(x, LEVELS, fd, periodic), LEVELS)
-    got = mc.denoise(x, th, LEVELS, fd, fr, periodic, mode)
-    want = mc.denoise_plain(x, th, LEVELS, fd, fr, periodic, mode)
+@pytest.mark.parametrize("name,levels,b,n,periodic,h", DENOISE_CASES)
+def test_denoise_kernel_matches_plain(cuda, name, levels, b, n, periodic, h, mode, dtype):
+    w = vt.wavelet(name)
+    fd, fr = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+    x = _input(cuda, b, n, dtype, seed=1)
+    halo = None if h is None else _input(cuda, b, h, dtype, seed=3)
+    planes = (mc._analysis_cascade(x, levels, fd, periodic) if halo is None
+              else mc._external_cascade(x, halo, levels, fd))
+    th = gap_thresholds(planes, levels)
+    got = mc.denoise(x, th, levels, fd, fr, periodic, mode, halo=halo)
+    want = mc.denoise_plain(x, th, levels, fd, fr, periodic, mode, halo=halo)
     torch.cuda.synchronize()
-    assert _err((got,), (want,)) <= TOL_F32
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _err((got,), (want,)) <= _tol(dtype, (want,))
 
 
 def test_public_entry_points_launch_the_kernels(cuda):
@@ -443,6 +463,41 @@ def test_the_cascade_pair_launches_every_shape_the_gates_send(cuda):
     assert lib.vw_modwt_analysis_tile(8, LEVELS, 65536, mc.ANALYSIS_TILE, 1) == 4096
     assert lib.vw_modwt_analysis_tile(72, 8, 65536, mc.ANALYSIS_TILE, 2) == 9088
     assert lib.vw_modwt_analysis_tile(76, 10, 65536, mc.ANALYSIS_TILE, 1) == 0
+
+
+def test_denoise_and_exact_synthesis_launch_every_shape_the_gates_send(cuda):
+    """The library's launch tile and shared memory of the denoise kernel
+    (for every filter length and depth denoise_tile admits) and of the exact
+    synthesis (for every window launch of exact_launches' plans, from every
+    first level): a tile of at least 128 whose block fits; a short row's
+    tile is the row."""
+    from vectorwave_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for taps in range(1, 129):
+        for levels in range(1, 11):
+            if mc.denoise_tile(taps, levels) is not None:
+                tile = lib.vw_modwt_denoise_tile(taps, levels, 1 << 20,
+                                                  mc.DENOISE_LAUNCH_TILE)
+                assert tile >= 128, (taps, levels)
+                assert lib.vw_modwt_denoise_shared_bytes(taps, levels, tile) <= (
+                    mc.SHARED_LIMIT)
+            for first_level in range(1, 12 - levels):
+                for first, count, _, direct in mc.exact_launches(
+                        mc.exact_synthesis_shared_bytes, taps, levels, first_level):
+                    if direct:
+                        continue
+                    used = lib.vw_modwt_exact_synthesis_tile(
+                        taps, first, count, 1 << 20, mc.EXACT_SYNTHESIS_LAUNCH_TILE)
+                    assert used >= 128, (taps, first, count)
+                    assert lib.vw_modwt_exact_synthesis_shared_bytes(
+                        taps, first, count, used) <= mc.SHARED_LIMIT
+    assert lib.vw_modwt_denoise_tile(8, LEVELS, 1000, mc.DENOISE_LAUNCH_TILE) == 1000
+    assert lib.vw_modwt_denoise_tile(8, LEVELS, 65536, mc.DENOISE_LAUNCH_TILE) == 2048
+    assert lib.vw_modwt_denoise_tile(40, 8, 1 << 20, mc.DENOISE_LAUNCH_TILE) == 0
+    tile = mc.EXACT_SYNTHESIS_LAUNCH_TILE
+    assert lib.vw_modwt_exact_synthesis_tile(8, 1, LEVELS, 1000, tile) == 1000
+    assert lib.vw_modwt_exact_synthesis_tile(8, 1, LEVELS, 65536, tile) == 4096
 
 
 def test_cascade_probe_round_trip_launches_one_kernel_each_way(cuda, filters):

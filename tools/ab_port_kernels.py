@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time two versions of the port's cascade, bank and 2-D kernels on one GPU,
+"""Time two versions of the port's cascade, denoise, exact, bank and 2-D kernels on one GPU,
 in turns, in one process.
 
 Run from the root of a checkout, with one Hopper card visible and an older
@@ -7,6 +7,8 @@ checkout's kernel sources unpacked under a directory (for example the parent
 commit: ``git archive HEAD vectorwave_tpu_torch/kernels | tar -x -C DIR``):
 
     python3 tools/ab_port_kernels.py --parent DIR [pair] [ptiles] [pvariants]
+                                     [denoise] [dtiles] [dvariants]
+                                     [exactsyn] [xtiles] [xvariants]
                                      [banksyn] [twoda] [probea] [probea_new]
                                      [atiles] [avariants]
 
@@ -31,6 +33,20 @@ printed first.
   the preferred tiles ``PAIR_TILES``, and ``pvariants`` builds of the change
   with text replaced (``PAIR_VARIANTS``: no detail staging, other launch
   bounds, probes without loads or stores).
+
+* ``denoise``: the fused denoise (``modwt_denoise.cu``, whose C interface
+  the change keeps) at config #2 in soft, hard and none, periodic
+  and zero, the stream mode with 8 blocks of 8192 for 128 streams in one
+  launch (halos of the span) and periodic soft in bfloat16, each with its
+  bound (4 L J fp32 FMAs a sample, or 2 x 4 B); ``dtiles`` times the change
+  at the preferred tiles ``DENOISE_TILES`` and ``dvariants`` builds with
+  other launch bounds (``DENOISE_VARIANTS``);
+* ``exactsyn``: the exact synthesis (``modwt_exact_synthesis.cu``, whose C
+  interface the change keeps) at config #2 periodic, zero and with
+  right halo pairs of 441, and the sym8 J=10 plan of two launches at
+  128x65536, each with its byte bound; ``xtiles`` times the change at
+  ``EXACT_TILES`` and ``xvariants`` builds with other launch bounds and
+  other run lengths (``EXACT_VARIANTS``).
 
 Targets for a parent whose bank synthesis takes per-plane (offset, value)
 tap lists and whose 2-D analysis takes a first-fit tile:
@@ -168,7 +184,8 @@ QUEUE = 8
 
 
 SHOWN = ("modwt_analysis", "modwt_synthesis", "modwt_bank_analysis",
-         "modwt_bank_synthesis", "modwt2_analysis", "modwt2_synthesis")
+         "modwt_bank_synthesis", "modwt2_analysis", "modwt2_synthesis", "modwt_denoise",
+         "modwt_exact_synthesis")
 #: config #2 and the cascade pair's tiles and variant builds (target ``pair``)
 PAIR_SHAPE = (128, 65536)
 #: the parent's own tile at config #2 (its rule: 2048, halved until a block
@@ -571,6 +588,270 @@ def pair_target(args, parent, work, turns):
     return rows
 
 
+#: the denoise's preferred tiles (target ``dtiles``), the exact synthesis's
+#: (``xtiles``); the parent's denoise tile at config #2 (its rule: 1024,
+#: halved until a block fits) and the stream shape: 8 blocks of 8192 for
+#: 128 streams in one launch, with halos of the span
+DENOISE_TILES = (512, 1024, 1536, 2048, 2560, 3072, 4096)
+EXACT_TILES = (1024, 2048, 3072, 4096)
+PARENT_DENOISE_TILE = 1024
+STREAM_SHAPE = (8 * 128, 8192)
+#: variant builds of the change (targets ``dvariants``, ``xvariants``)
+DENOISE_VARIANTS = {
+    "bounds2": (("__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 2)"),),
+    "bounds4": (("__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 4)"),),
+    # probes (wrong results, timed alone): the window copy and the analysis
+    # half with its plane stores, no synthesis; the synthesis half on
+    # whatever the plane rows hold, no analysis
+    "probe_analysis": (("  for (int j = levels; j >= 1; --j) {",
+                        "  for (int j = levels; j >= 1 && n < 0; --j) {"),),
+    "probe_synthesis": (("  for (int j = 1; j <= levels; ++j) {",
+                         "  for (int j = 1; j <= levels && n < 0; ++j) {"),),
+}
+EXACT_VARIANTS = {
+    "bounds3": (("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 3)"),),
+    "block3": (("constexpr int kExactBlock = 9;", "constexpr int kExactBlock = 3;"),),
+    "block5": (("constexpr int kExactBlock = 9;", "constexpr int kExactBlock = 5;"),),
+}
+
+
+def variant_builds(kernel, builds, new_fn, work):
+    """Builds of the checkout's `kernel` source with text replaced, beside a
+    copy of its headers: {name: C entry point}."""
+    here = ROOT / "vectorwave_tpu_torch" / "kernels" / "csrc"
+    var_src = work / f"{kernel}_variants"
+    var_src.mkdir(parents=True, exist_ok=True)
+    for header in here.glob("*.cuh"):
+        shutil.copy(header, var_src / header.name)
+    text = (here / f"{kernel}.cu").read_text()
+    return {name: split(f"{name}_{kernel}", var_src, text, patches, work, f"vw_{kernel}",
+                        new_fn.argtypes)
+            for name, patches in builds.items()}
+
+
+def denoise_target(args, parent, work, turns):
+    """The fused denoise, parent vs change, at config #2 (target ``denoise``):
+    soft, hard and none in periodic and zero, the stream mode with K = 8
+    blocks of 8192 for 128 streams in one launch, and bfloat16; ``dtiles``
+    times the change at DENOISE_TILES, ``dvariants`` its variant builds."""
+    import torch
+
+    import vectorwave_tpu_torch as vt
+    from chip_smoke import gap_thresholds
+    from vectorwave_tpu_torch.kernels import _build
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels.modwt_composite import _device_taps, _stream
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    new_lib = _build.library()
+    fn, new_fn = parent.vw_modwt_denoise, new_lib.vw_modwt_denoise
+    fn.argtypes, fn.restype = new_fn.argtypes, new_fn.restype
+    variants = (variant_builds("modwt_denoise", DENOISE_VARIANTS, new_fn, work)
+                if "dvariants" in args.what else {})
+    levels, (b, n) = 6, PAIR_SHAPE
+    w = vt.wavelet("db4")
+    fd, fr = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+    taps = len(fd[0])
+    span = mc.composite_halo_samples(taps, levels)
+    tap_t = _device_taps(tuple(fd[0]) + tuple(fd[1]) + tuple(fr[0]) + tuple(fr[1]),
+                         dev.index)
+
+    def bound(x):
+        """Each input read once, each output written once, against 4 L J
+        fp32 FMAs a sample."""
+        t_bytes = 2 * x.element_size() * x.numel() / 3.35e12 * 1e3
+        t_ops = 2 * 4 * taps * levels * x.numel() / 67e12 * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def call(f, x, out, th, periodic, mode, tile, halo=None):
+        def run():
+            err = f(x.data_ptr(), out.data_ptr(), th.data_ptr(), tap_t.data_ptr(),
+                    None if halo is None else halo.data_ptr(),
+                    0 if halo is None else halo.shape[-1], *x.shape, levels, taps, tile,
+                    int(periodic), mc._MODES[mode], mc._DTYPE_CODES[x.dtype], _stream(dev))
+            if err:
+                raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+            return out
+        return run
+
+    def check_with(want):
+        def check(f):
+            got = f()
+            torch.cuda.synchronize()
+            return float((got.float() - want.float()).abs().max())
+        return check
+
+    print(f"fused denoise: parent vs change, db4 J={levels}", flush=True)
+    x32 = torch.randn(b, n, device=dev, generator=gen)
+    xs = torch.randn(*STREAM_SHAPE, device=dev, generator=gen)
+    hs = torch.randn(STREAM_SHAPE[0], span, device=dev, generator=gen)
+    cases = [(f"{mode} {'periodic' if periodic else 'zero'} {b}x{n}", x32, periodic, mode, None)
+             for periodic in (True, False) for mode in ("soft", "hard", "none")]
+    cases += [(f"soft stream K=8, {STREAM_SHAPE[0]}x{STREAM_SHAPE[1]} with halos of {span}",
+               xs, False, "soft", hs),
+              (f"soft periodic {b}x{n} bfloat16", x32.bfloat16(), True, "soft", None)]
+    rows = []
+    for label, x, periodic, mode, halo in cases:
+        planes = (mc._analysis_cascade(x, levels, fd, periodic) if halo is None
+                  else mc._external_cascade(x, halo, levels, fd))
+        th = gap_thresholds(planes, levels)
+        del planes
+        out = torch.empty_like(x)
+        want = mc.denoise_plain(x, th, levels, fd, fr, periodic, mode, halo)
+        check = check_with(want)
+        row = turns(label, call(fn, x, out, th, periodic, mode, PARENT_DENOISE_TILE, halo),
+                    call(new_fn, x, out, th, periodic, mode, mc.DENOISE_LAUNCH_TILE, halo),
+                    check)
+        row["kernel"] = "modwt_denoise"
+        row["bound_ms"], row["bound_by"] = bound(x)
+        used = new_lib.vw_modwt_denoise_tile(taps, levels, x.shape[1],
+                                             mc.DENOISE_LAUNCH_TILE)
+        row["tile"] = used
+        print(f"    bound {row['bound_ms']:.4f} ms ({row['bound_by']}); the change's tile "
+              f"{used}, {new_lib.vw_modwt_denoise_shared_bytes(taps, levels, used)} B",
+              flush=True)
+        if x.dtype == torch.float32 and mode == "soft" and (periodic or halo is not None):
+            if "dtiles" in args.what:
+                row["tiles"] = {}
+                for alt in DENOISE_TILES:
+                    f = call(new_fn, x, out, th, periodic, mode, alt, halo)
+                    got = new_lib.vw_modwt_denoise_tile(taps, levels, x.shape[1], alt)
+                    row["tiles"][alt] = (median_ms(f, queue=QUEUE), check(f),
+                                         new_lib.vw_modwt_denoise_shared_bytes(
+                                             taps, levels, got))
+                print("    tiles: " + ", ".join(
+                    f"{k} {v[0]:.4f} ms ({v[2]} B, err {v[1]:.1e})"
+                    for k, v in row["tiles"].items()), flush=True)
+            for name, vfn in variants.items():
+                row[f"variant_{name}"] = {}
+                for alt in (DENOISE_TILES if "dtiles" in args.what
+                            else (mc.DENOISE_LAUNCH_TILE,)):
+                    f = call(vfn, x, out, th, periodic, mode, alt, halo)
+                    row[f"variant_{name}"][alt] = (median_ms(f, queue=QUEUE), check(f))
+                print(f"    variant {name}: " + ", ".join(
+                    f"{k} {v[0]:.4f} ms (err {v[1]:.1e})"
+                    for k, v in row[f"variant_{name}"].items()), flush=True)
+        rows.append(row)
+        del out, want
+    return rows
+
+
+def exactsyn_target(args, parent, work, turns):
+    """The exact synthesis, parent vs change (target ``exactsyn``): config #2
+    periodic, zero and with right halo pairs of 441, and sym8 J=10, a plan
+    of two launches, at 128x65536; ``xtiles`` times the change at
+    EXACT_TILES, ``xvariants`` its variant builds."""
+    import torch
+
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import _build
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels.modwt_composite import _device_taps, _stream
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    new_lib = _build.library()
+    fn, new_fn = parent.vw_modwt_exact_synthesis, new_lib.vw_modwt_exact_synthesis
+    fn.argtypes, fn.restype = new_fn.argtypes, new_fn.restype
+    variants = (variant_builds("modwt_exact_synthesis", EXACT_VARIANTS, new_fn, work)
+                if "xvariants" in args.what else {})
+    b, n = PAIR_SHAPE
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[q.data_ptr() for q in ts])  # noqa: E731
+    rows = []
+    print("exact synthesis: parent vs change", flush=True)
+    for name, levels in (("db4", 6), ("sym8", 10)):
+        w = vt.wavelet(name)
+        fd, fr = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+        taps = len(fr[0])
+        span = mc.composite_halo_samples(taps, levels)
+        tap_t = _device_taps(tuple(fr[0]) + tuple(fr[1]), dev.index, torch.float64)
+        x = torch.randn(b, n, device=dev, generator=gen)
+        pairs = mc.exact_analysis_plain(x, None, levels, fd, True)
+        plan = mc.exact_launches(mc.exact_synthesis_shared_bytes, taps, levels)
+        halo = [tuple(torch.randn(b, span, device=dev, generator=gen) * 2.0**k
+                      for k in (0, -26)) for _ in range(levels + 1)]
+        outs = [(torch.empty_like(x), torch.empty_like(x)) for _ in plan]
+        cases = [("periodic", True, None), ("zero", False, None)]
+        if len(plan) == 1:
+            cases.append((f"zero with right halo pairs of {span}", False, halo))
+
+        def call(f, periodic, hl, tile):
+            """The plan's launches; a window launch of the change at `tile`
+            (the parent at the plan's)."""
+            def run():
+                cur = pairs[levels]
+                for (first, count, t, direct), (o_hi, o_lo) in zip(reversed(plan), outs):
+                    ins = [q for pair in (*pairs[first - 1: first - 1 + count], cur)
+                           for q in pair]
+                    err = f(ptrs(ins), None if hl is None else ptrs([q for p in hl for q in p]),
+                            0 if hl is None else span, o_hi.data_ptr(), o_lo.data_ptr(),
+                            tap_t.data_ptr(), b, n, first, count, taps,
+                            t if tile is None or direct else tile, int(periodic),
+                            int(direct),
+                            _stream(dev))
+                    if err:
+                        raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+                    cur = (o_hi, o_lo)
+                return cur
+            return run
+
+        for label, periodic, hl in cases:
+            want = mc.exact_synthesis_plain(pairs, levels, fr, periodic, 1, hl)
+
+            def check(f, want=want):
+                hi, lo = f()
+                torch.cuda.synchronize()
+                return float((hi.double() + lo.double() - want[0].double()
+                              - want[1].double()).abs().max())
+            label = f"{name} J={levels} {label} {b}x{n}, plan {plan}"
+            row = turns(label, call(fn, periodic, hl, None),
+                        call(new_fn, periodic, hl, mc.EXACT_SYNTHESIS_LAUNCH_TILE), check)
+            row["kernel"] = "modwt_exact_synthesis"
+            nbytes = (8 * (levels + 1) + 8) * b * n + (0 if hl is None else
+                                                       8 * (levels + 1) * b * span)
+            t_bytes = nbytes / 3.35e12 * 1e3
+            t_ops = 2 * 2 * taps * levels * b * n / 34e12 * 1e3
+            row["bound_ms"] = max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["tiles_used"] = [new_lib.vw_modwt_exact_synthesis_tile(
+                taps, first, count, n, mc.EXACT_SYNTHESIS_LAUNCH_TILE)
+                for first, count, _, _ in plan]
+            print(f"    bound {row['bound_ms']:.4f} ms ({row['bound_by']}); the change's "
+                  f"tiles {row['tiles_used']}, " + ", ".join(
+                      f"{new_lib.vw_modwt_exact_synthesis_shared_bytes(taps, first, count, u)} B"
+                      for (first, count, _, _), u in zip(plan, row["tiles_used"])),
+                  flush=True)
+            if label.startswith("db4") and periodic:
+                y = call(new_fn, periodic, hl, mc.EXACT_SYNTHESIS_LAUNCH_TILE)()
+                torch.cuda.synchronize()
+                print(f"    periodic round trip returns x exactly: {torch.equal(y[0], x)}",
+                      flush=True)
+                if "xtiles" in args.what:
+                    row["tiles"] = {}
+                    for alt in EXACT_TILES:
+                        f = call(new_fn, periodic, hl, alt)
+                        row["tiles"][alt] = (median_ms(f, queue=QUEUE), check(f))
+                    print("    tiles: " + ", ".join(f"{k} {v[0]:.4f} ms (err {v[1]:.1e})"
+                                                    for k, v in row["tiles"].items()),
+                          flush=True)
+                for vname, vfn in variants.items():
+                    row[f"variant_{vname}"] = {}
+                    for alt in (EXACT_TILES if "xtiles" in args.what
+                                else (mc.EXACT_SYNTHESIS_LAUNCH_TILE,)):
+                        f = call(vfn, periodic, hl, alt)
+                        row[f"variant_{vname}"][alt] = (median_ms(f, queue=QUEUE), check(f))
+                    print(f"    variant {vname}: " + ", ".join(
+                        f"{k} {v[0]:.4f} ms (err {v[1]:.1e})"
+                        for k, v in row[f"variant_{vname}"].items()), flush=True)
+            rows.append(row)
+            del want
+        del pairs, outs, halo, x
+    return rows
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -620,6 +901,10 @@ def main() -> int:
 
     if "pair" in args.what:
         results["pair"] = pair_target(args, parent, work, turns)
+    if "denoise" in args.what:
+        results["denoise"] = denoise_target(args, parent, work, turns)
+    if "exactsyn" in args.what:
+        results["exactsyn"] = exactsyn_target(args, parent, work, turns)
 
     if "bank" in args.what:
         print("bank analysis: parent vs change", flush=True)

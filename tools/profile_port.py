@@ -12,7 +12,8 @@ device's busy share of the wall time, the number of kernel launches, and the
 device kernels that take the most time.  The calls are the periodic round
 trip, the probe's round trip through the cascade pair (``run_analysis_mxu``
 -> ``run_synthesis_mxu``, float32, with the arguments ``tools/perf_probe_mxu.py``
-gives the JAX pair; the port ignores their tile), the fused round trip, the denoise, the symmetric round
+gives the JAX pair; the port ignores their tile), the exact round trip
+(``precision='exact'``), the fused round trip, the denoise, the symmetric round
 trip (its analysis the cascade kernel's mirror mode), and
 ``swt_denoise`` (sym8, 4 levels, symmetric, universal soft) at 128 x 65536
 and 1 x 16384, the fused denoise's forward and backward (db4, 6 levels,
@@ -92,6 +93,9 @@ def main() -> int:
         "run_analysis_mxu + run_synthesis_mxu, float32": lambda: mx.run_synthesis_mxu(
             mx.run_analysis_mxu(x, 6, fd, True, 8192, "float32", False), 6, fr, True,
             8192, "float32", False),
+        "modwt_multilevel + imodwt_multilevel, precision='exact'": lambda: vt.imodwt_multilevel(
+            vt.modwt_multilevel(x, "db4", levels=6, precision="exact"), "db4",
+            precision="exact"),
         "modwt_roundtrip_fused": lambda: vt.modwt_roundtrip_fused(x, "db4", levels=6),
         "denoise_multilevel universal soft": lambda: vt.denoise_multilevel(
             x, "db4", levels=6, method="universal", mode="soft"),

@@ -88,65 +88,6 @@ constexpr int kStageFloats = kThreads * kRunBlock;
 // in every 32-byte sector a warp store touches.
 constexpr int kStagedStride = 8;
 
-// Taps i0 .. i0 + 7 of the lo and hi filters: output r reads w[r - i0 - t]
-// for tap i0 + t.  `fresh` is loaded with w[m0 .. m0 + 8), m0 = -(i0 + 7);
-// `old` holds w[m0 + 8 .. m0 + 16), the previous step's `fresh`.  kGuard:
-// samples outside [m_lo, m_hi) read 0; they feed only zero (padded) taps or
-// outputs that are not stored.
-template <bool kUnit, bool kGuard>
-__device__ __forceinline__ void pair_step(float (&a)[kRunBlock], float (&d)[kRunBlock],
-                                          float (&fresh)[kRunChunk],
-                                          const float (&old)[kRunChunk], const float* src,
-                                          int m0, int s, const float* lo, const float* hi,
-                                          int m_lo, int m_hi) {
-#pragma unroll
-  for (int e = 0; e < kRunChunk; ++e) {
-    const int m = m0 + e;
-    fresh[e] = !kGuard || (m >= m_lo && m < m_hi) ? run_sample<kUnit>(src, m, s) : 0.0f;
-  }
-  const float4 l0 = reinterpret_cast<const float4*>(lo)[0];
-  const float4 l1 = reinterpret_cast<const float4*>(lo)[1];
-  const float4 h0 = reinterpret_cast<const float4*>(hi)[0];
-  const float4 h1 = reinterpret_cast<const float4*>(hi)[1];
-  const float tl[kRunChunk] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
-  const float th[kRunChunk] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-#pragma unroll
-  for (int t = 0; t < kRunChunk; ++t) {
-#pragma unroll
-    for (int r = 0; r < kRunBlock; ++r) {
-      const int e = r - t + kRunChunk - 1;
-      const float v = e < kRunChunk ? fresh[e] : old[e - kRunChunk];
-      a[r] = fmaf(tl[t], v, a[r]);
-      d[r] = fmaf(th[t], v, d[r]);
-    }
-  }
-}
-
-// The thread's kRunBlock outputs of one level: a[r], d[r] = the lo and hi
-// sums of w[r - k], w[m] = src[m s], over `taps` (a multiple of kRunChunk)
-// padded taps.
-template <bool kUnit, bool kGuard>
-__device__ __forceinline__ void pair_run(float (&a)[kRunBlock], float (&d)[kRunBlock],
-                                         const float* src, int s, const float* lo,
-                                         const float* hi, int taps, int m_lo, int m_hi) {
-  float u[kRunChunk], v[kRunChunk];
-#pragma unroll
-  for (int e = 0; e < kRunChunk; ++e) {
-    v[e] = !kGuard || e + 1 < m_hi ? run_sample<kUnit>(src, e + 1, s) : 0.0f;
-  }
-  int i0 = 0;
-  for (; i0 + 2 * kRunChunk <= taps; i0 += 2 * kRunChunk) {
-    pair_step<kUnit, kGuard>(a, d, u, v, src, -(i0 + kRunChunk - 1), s, lo + i0, hi + i0,
-                             m_lo, m_hi);
-    pair_step<kUnit, kGuard>(a, d, v, u, src, -(i0 + 2 * kRunChunk - 1), s,
-                             lo + i0 + kRunChunk, hi + i0 + kRunChunk, m_lo, m_hi);
-  }
-  if (i0 < taps) {
-    pair_step<kUnit, kGuard>(a, d, u, v, src, -(i0 + kRunChunk - 1), s, lo + i0, hi + i0,
-                             m_lo, m_hi);
-  }
-}
-
 // Shared memory of one block: the padded tap pair, two window rows of
 // tile + span, and, with `stage`, the detail staging buffers.
 inline size_t analysis_bytes(int L, int levels, int tile, bool stage) {

@@ -178,11 +178,10 @@ __device__ __forceinline__ double load_ext_pair(const float* __restrict__ hi,
   return lo == nullptr ? v : v + static_cast<double>(lo[m]);
 }
 
-// The exact pair's external edges.  Left (the analysis): a halo of raw
-// float32 samples whose lo word is zero; g < 0 reads halo[halo_len + g], 0
-// before the halo starts, and g >= n reads 0.  Right (the synthesis): a
-// (hi, lo) halo pair per plane; n <= g < n + halo_len reads it at g - n,
-// later samples read 0.
+// The exact analysis's external left edge: a halo of raw float32 samples
+// whose lo word is zero; g < 0 reads halo[halo_len + g], 0 before the halo
+// starts, and g >= n reads 0.  (The synthesis's right edge, a (hi, lo) halo
+// pair per plane, is read as its windows are copied: modwt_exact_synthesis.cu.)
 __device__ __forceinline__ double load_left_halo_pair(
     const float* __restrict__ hi, const float* __restrict__ lo,
     const float* __restrict__ halo, int halo_len, long long g, long long n) {
@@ -191,16 +190,6 @@ __device__ __forceinline__ double load_left_halo_pair(
     return h >= 0 ? static_cast<double>(halo[h]) : 0.0;
   }
   return load_ext_pair(hi, lo, g, n, false);
-}
-
-__device__ __forceinline__ double load_right_halo_pair(
-    const float* __restrict__ hi, const float* __restrict__ lo,
-    const float* __restrict__ halo_hi, const float* __restrict__ halo_lo,
-    int halo_len, long long g, long long n) {
-  if (g < n) return load_ext_pair(hi, lo, g, n, false);
-  const long long h = g - n;
-  if (h >= halo_len) return 0.0;
-  return static_cast<double>(halo_hi[h]) + static_cast<double>(halo_lo[h]);
 }
 
 __device__ __forceinline__ void store_pair(float* __restrict__ hi,
@@ -239,29 +228,183 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// --- register-blocked tap runs (the bank and cascade kernels) -------------
+// --- register-blocked tap runs (the bank, cascade, denoise and exact kernels)
 //
-// A thread owns kRunBlock outputs u, u + d, ..., u + (kRunBlock - 1) d of
-// one residue class mod d, so that taps i and i + 1 read the same samples
-// one step of d apart; taps go in steps of kRunChunk, 8 new samples a step.
+// A thread owns kBlock outputs u, u + d, ..., u + (kBlock - 1) d of one
+// residue class mod d, so that taps i and i + 1 read the same samples one
+// step of d apart; taps go in steps of kBlock - 1, that many new samples a
+// step.  The kernels take kRunBlock = 9 (steps of kRunChunk = 8 taps), in
+// fp32 and in fp64.
 
 constexpr int kRunBlock = 9;
 constexpr int kRunChunk = 8;
 
-// The thread's first output in a chunk of kThreads kRunBlock outputs for a
-// stride 2^shift dividing kThreads: u = (tid mod d) + d kRunBlock (tid / d).
-// The odd block keeps the 32 lanes of a warp on 32 banks for every d, and
-// for d <= 32 a warp's outputs are the 32 kRunBlock after its first.
+// The thread's first output in a chunk of kThreads kBlock outputs for a
+// stride 2^shift dividing kThreads: u = (tid mod d) + d kBlock (tid / d).
+// An odd block keeps the 32 lanes of a warp on 32 banks (fp64: each half
+// warp on 16 bank pairs) for every d, and for d <= 32 a warp's outputs are
+// the 32 kBlock after its first.
+template <int kBlock = kRunBlock>
 __device__ __forceinline__ int run_base(int shift) {
   const int d = 1 << shift;
   return (threadIdx.x & (d - 1)) +
-         ((static_cast<int>(threadIdx.x) >> shift) << shift) * kRunBlock;
+         ((static_cast<int>(threadIdx.x) >> shift) << shift) * kBlock;
 }
 
 // Window sample m of the thread's run: w[m] = src[m d].
-template <bool kUnit>
-__device__ __forceinline__ float run_sample(const float* src, int m, int d) {
+template <bool kUnit, typename Src>
+__device__ __forceinline__ auto run_sample(const Src& src, int m, int d) {
   return src[kUnit ? m : m * d];
+}
+
+// A window of (hi, lo) float32 pairs read as doubles, hi + lo (the exact
+// tier's planes in shared memory): the arithmetic of load_ext_pair.
+struct PairRow {
+  const float* hi;
+  const float* lo;
+  __device__ __forceinline__ double operator[](int i) const {
+    return static_cast<double>(hi[i]) + static_cast<double>(lo[i]);
+  }
+  __device__ __forceinline__ PairRow operator+(int k) const { return {hi + k, lo + k}; }
+};
+
+__device__ __forceinline__ float fma_of(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_of(double a, double b, double c) { return fma(a, b, c); }
+
+// Taps p[0 .. C) as 16-byte broadcasts (p on 16 bytes).
+template <int C>
+__device__ __forceinline__ void load_taps(const float* p, float (&t)[C]) {
+#pragma unroll
+  for (int k = 0; k < C / 4; ++k) {
+    const float4 q = reinterpret_cast<const float4*>(p)[k];
+    t[4 * k] = q.x;
+    t[4 * k + 1] = q.y;
+    t[4 * k + 2] = q.z;
+    t[4 * k + 3] = q.w;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void load_taps(const double* p, double (&t)[C]) {
+#pragma unroll
+  for (int k = 0; k < C / 2; ++k) {
+    const double2 q = reinterpret_cast<const double2*>(p)[k];
+    t[2 * k] = q.x;
+    t[2 * k + 1] = q.y;
+  }
+}
+
+// Analysis runs (backward reads).  Taps i0 .. i0 + C - 1 (C = kBlock - 1)
+// of the lo and hi filters: output r reads w[r - i0 - t] for tap i0 + t.
+// `fresh` is loaded with w[m0 .. m0 + C), m0 = -(i0 + C - 1); `old` holds
+// w[m0 + C .. m0 + 2C), the previous step's `fresh`.  kGuard: samples
+// outside [m_lo, m_hi) read 0; they feed only zero (padded) taps or outputs
+// that are not stored.
+template <bool kUnit, bool kGuard, typename V, int kBlock, typename Src>
+__device__ __forceinline__ void pair_step(V (&a)[kBlock], V (&d)[kBlock],
+                                          V (&fresh)[kBlock - 1],
+                                          const V (&old)[kBlock - 1], const Src& src,
+                                          int m0, int s, const V* lo, const V* hi,
+                                          int m_lo, int m_hi) {
+  constexpr int C = kBlock - 1;
+#pragma unroll
+  for (int e = 0; e < C; ++e) {
+    const int m = m0 + e;
+    fresh[e] = !kGuard || (m >= m_lo && m < m_hi) ? run_sample<kUnit>(src, m, s) : V(0);
+  }
+  V tl[C], th[C];
+  load_taps(lo, tl);
+  load_taps(hi, th);
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+#pragma unroll
+    for (int r = 0; r < kBlock; ++r) {
+      const int e = r - t + C - 1;
+      const V v = e < C ? fresh[e] : old[e - C];
+      a[r] = fma_of(tl[t], v, a[r]);
+      d[r] = fma_of(th[t], v, d[r]);
+    }
+  }
+}
+
+// The thread's kBlock outputs of one level: a[r], d[r] = the lo and hi sums
+// of w[r - k], w[m] = src[m s], over `taps` (a multiple of kBlock - 1)
+// padded taps.
+template <bool kUnit, bool kGuard, typename V, int kBlock, typename Src>
+__device__ __forceinline__ void pair_run(V (&a)[kBlock], V (&d)[kBlock], const Src& src,
+                                         int s, const V* lo, const V* hi, int taps,
+                                         int m_lo, int m_hi) {
+  constexpr int C = kBlock - 1;
+  V u[C], v[C];
+#pragma unroll
+  for (int e = 0; e < C; ++e) {
+    v[e] = !kGuard || e + 1 < m_hi ? run_sample<kUnit>(src, e + 1, s) : V(0);
+  }
+  int i0 = 0;
+  for (; i0 + 2 * C <= taps; i0 += 2 * C) {
+    pair_step<kUnit, kGuard>(a, d, u, v, src, -(i0 + C - 1), s, lo + i0, hi + i0, m_lo,
+                             m_hi);
+    pair_step<kUnit, kGuard>(a, d, v, u, src, -(i0 + 2 * C - 1), s, lo + i0 + C,
+                             hi + i0 + C, m_lo, m_hi);
+  }
+  if (i0 < taps) {
+    pair_step<kUnit, kGuard>(a, d, u, v, src, -(i0 + C - 1), s, lo + i0, hi + i0, m_lo,
+                             m_hi);
+  }
+}
+
+// Synthesis runs (forward reads).  Taps i0 .. i0 + C - 1: output r reads
+// w[r + i0 + t] for tap i0 + t.  `old` holds w[i0 .. i0 + C); `fresh` is
+// loaded with w[m0 .. m0 + C), m0 = i0 + C.  kGuard: samples from m_hi on
+// read 0; they feed only zero (padded) taps or outputs that are not stored.
+template <bool kUnit, bool kGuard, typename V, int kBlock, typename Src>
+__device__ __forceinline__ void fwd_step(V (&acc)[kBlock], V (&fresh)[kBlock - 1],
+                                         const V (&old)[kBlock - 1], const Src& src,
+                                         int m0, int s, const V* v, int m_hi) {
+  constexpr int C = kBlock - 1;
+#pragma unroll
+  for (int e = 0; e < C; ++e) {
+    fresh[e] = !kGuard || m0 + e < m_hi ? run_sample<kUnit>(src, m0 + e, s) : V(0);
+  }
+  V tv[C];
+  load_taps(v, tv);
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+#pragma unroll
+    for (int r = 0; r < kBlock; ++r) {
+      const int e = r + t;
+      acc[r] = fma_of(tv[t], e < C ? old[e] : fresh[e - C], acc[r]);
+    }
+  }
+}
+
+// acc[r] += the sum of v[i] w[r + i], w[m] = src[m s], over `taps` (a
+// multiple of kBlock - 1) padded taps.
+template <bool kUnit, bool kGuard, typename V, int kBlock, typename Src>
+__device__ __forceinline__ void fwd_run(V (&acc)[kBlock], const Src& src, int s,
+                                        const V* v, int taps, int m_hi) {
+  constexpr int C = kBlock - 1;
+  V a[C], b[C];
+#pragma unroll
+  for (int e = 0; e < C; ++e) {
+    b[e] = !kGuard || e < m_hi ? run_sample<kUnit>(src, e, s) : V(0);
+  }
+  int i0 = 0;
+  for (; i0 + 2 * C <= taps; i0 += 2 * C) {
+    fwd_step<kUnit, kGuard>(acc, a, b, src, i0 + C, s, v + i0, m_hi);
+    fwd_step<kUnit, kGuard>(acc, b, a, src, i0 + 2 * C, s, v + i0 + C, m_hi);
+  }
+  if (i0 < taps) fwd_step<kUnit, kGuard>(acc, a, b, src, i0 + C, s, v + i0, m_hi);
+}
+
+// A synthesis level's sum of c_j (lo taps) and d_j (hi taps) into the
+// thread's outputs.
+template <bool kUnit, bool kGuard, typename V, int kBlock, typename SrcC, typename SrcD>
+__device__ __forceinline__ void level_run(V (&acc)[kBlock], const SrcC& c, const SrcD& d,
+                                          int s, const V* lo, const V* hi, int taps,
+                                          int m_hi) {
+  fwd_run<kUnit, kGuard>(acc, c, s, lo, taps, m_hi);
+  fwd_run<kUnit, kGuard>(acc, d, s, hi, taps, m_hi);
 }
 
 // --- cascade windows in shared memory (modwt_analysis.cu, modwt_synthesis.cu)

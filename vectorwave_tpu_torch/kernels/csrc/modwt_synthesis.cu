@@ -54,58 +54,6 @@
 
 namespace vw {
 
-// Taps i0 .. i0 + 7: output r reads w[r + i0 + t] for tap i0 + t.  `old`
-// holds w[i0 .. i0 + 8); `fresh` is loaded with w[m0 .. m0 + 8), m0 = i0 + 8.
-// kGuard: samples from m_hi on read 0; they feed only zero (padded) taps or
-// outputs that are not stored.
-template <bool kUnit, bool kGuard>
-__device__ __forceinline__ void fwd_step(float (&acc)[kRunBlock], float (&fresh)[kRunChunk],
-                                         const float (&old)[kRunChunk], const float* src,
-                                         int m0, int s, const float* v, int m_hi) {
-#pragma unroll
-  for (int e = 0; e < kRunChunk; ++e) {
-    fresh[e] = !kGuard || m0 + e < m_hi ? run_sample<kUnit>(src, m0 + e, s) : 0.0f;
-  }
-  const float4 v0 = reinterpret_cast<const float4*>(v)[0];
-  const float4 v1 = reinterpret_cast<const float4*>(v)[1];
-  const float tv[kRunChunk] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-  for (int t = 0; t < kRunChunk; ++t) {
-#pragma unroll
-    for (int r = 0; r < kRunBlock; ++r) {
-      const int e = r + t;
-      acc[r] = fmaf(tv[t], e < kRunChunk ? old[e] : fresh[e - kRunChunk], acc[r]);
-    }
-  }
-}
-
-// acc[r] += the sum of v[i] w[r + i], w[m] = src[m s], over `taps` (a
-// multiple of kRunChunk) padded taps.
-template <bool kUnit, bool kGuard>
-__device__ __forceinline__ void fwd_run(float (&acc)[kRunBlock], const float* src, int s,
-                                        const float* v, int taps, int m_hi) {
-  float a[kRunChunk], b[kRunChunk];
-#pragma unroll
-  for (int e = 0; e < kRunChunk; ++e) {
-    b[e] = !kGuard || e < m_hi ? run_sample<kUnit>(src, e, s) : 0.0f;
-  }
-  int i0 = 0;
-  for (; i0 + 2 * kRunChunk <= taps; i0 += 2 * kRunChunk) {
-    fwd_step<kUnit, kGuard>(acc, a, b, src, i0 + kRunChunk, s, v + i0, m_hi);
-    fwd_step<kUnit, kGuard>(acc, b, a, src, i0 + 2 * kRunChunk, s, v + i0 + kRunChunk, m_hi);
-  }
-  if (i0 < taps) fwd_step<kUnit, kGuard>(acc, a, b, src, i0 + kRunChunk, s, v + i0, m_hi);
-}
-
-// The level's sum of c_j (lo taps) and d_j (hi taps) into the thread's outputs.
-template <bool kUnit, bool kGuard>
-__device__ __forceinline__ void level_run(float (&acc)[kRunBlock], const float* c,
-                                          const float* d, int s, const float* lo,
-                                          const float* hi, int taps, int m_hi) {
-  fwd_run<kUnit, kGuard>(acc, c, s, lo, taps, m_hi);
-  fwd_run<kUnit, kGuard>(acc, d, s, hi, taps, m_hi);
-}
-
 // Shared memory of one block: the padded tap pair, two rows for the running
 // approximation and one for the detail, each of tile + span.
 inline size_t synthesis_shared_bytes(int L, int levels, int tile) {

@@ -89,9 +89,11 @@ LAUNCHES = {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
             "modwt_bank_analysis": 0, "modwt_bank_synthesis": 0}
 
 #: Outputs per block, per kernel (the denoise kernel holds J planes of its
-#: tile in shared memory, so its tile is smaller).  The cascade pair's is
-#: the preferred tile: the library clamps it to the row and halves it until
-#: a block fits (``vw_modwt_analysis_tile``, ``vw_modwt_synthesis_tile``).
+#: tile in shared memory, so its tile is smaller).  The cascade pair's, the
+#: denoise's and the exact synthesis's are preferred tiles: the library
+#: clamps each to the row and halves it until a block fits
+#: (``vw_modwt_analysis_tile``, ``vw_modwt_synthesis_tile``,
+#: ``vw_modwt_denoise_tile``, ``vw_modwt_exact_synthesis_tile``).
 #: Measured (tools/ab_port_kernels.py pair ptiles, config #2 and 128 / 1024
 #: x 8192 on an H100): 4096 beats 2048 by a quarter in the analysis and a
 #: tenth in the synthesis, larger tiles gain at most 3%.
@@ -99,6 +101,14 @@ ANALYSIS_TILE = 4096
 SYNTHESIS_TILE = 4096
 DENOISE_TILE = 1024
 EXACT_TILE = 2048
+#: The preferred launch tiles of the denoise kernel and of the exact
+#: synthesis's window launches; the gates keep DENOISE_TILE's and
+#: EXACT_TILE's rules.  Measured (tools/ab_port_kernels.py denoise dtiles
+#: exactsyn xtiles, config #2 and 1024 x 8192 on an H100): the denoise at
+#: 2048 is 1.5x faster than at 1024 (its window's 2 S recompute), the exact
+#: synthesis at 4096 1.26x faster than at 2048.
+DENOISE_LAUNCH_TILE = 2048
+EXACT_SYNTHESIS_LAUNCH_TILE = 4096
 SYMMETRIC_TILE = 2048
 #: Ints per level of a symmetric plan (``kPlanStride`` in the CUDA source).
 PLAN_STRIDE = 8
@@ -187,8 +197,11 @@ def synthesis_shared_bytes(taps: int, levels: int, tile: int = SYNTHESIS_TILE) -
 
 
 def denoise_shared_bytes(taps: int, levels: int, tile: int = DENOISE_TILE) -> int:
-    """Shared memory of one denoise block: both tap pairs, two rows of
-    tile + 2 span and J plane rows of tile + span."""
+    """The room the gates ask of a denoise block: both tap pairs, two rows
+    of tile + 2 span and J plane rows of tile + span.  The kernel's own
+    layout and tile are the library's (``vw_modwt_denoise_tile``); it
+    launches every shape this rule admits, which the card's tests hold for
+    every filter length and depth."""
     span = composite_halo_samples(taps, levels)
     return 4 * (4 * taps + 2 * (tile + 2 * span) + levels * (tile + span))
 
@@ -209,8 +222,10 @@ def exact_analysis_shared_bytes(taps: int, levels: int, tile: int = EXACT_TILE,
 
 def exact_synthesis_shared_bytes(taps: int, levels: int, tile: int = EXACT_TILE,
                                  first_level: int = 1) -> int:
-    """Shared memory of one exact synthesis block: fp64 taps + three rows of
-    tile + span."""
+    """The room :func:`exact_launches` asks of an exact synthesis block:
+    fp64 taps + three rows of tile + span.  The kernel's layout and launch
+    tile are the library's (``vw_modwt_exact_synthesis_tile``); it launches
+    every window launch of the plans, which the card's tests hold."""
     span = composite_halo_samples(taps, levels) << (first_level - 1)
     return 8 * (2 * taps + 3 * (tile + span))
 
@@ -801,15 +816,18 @@ def denoise(x, thresholds, levels, filters_dec, filters_rec, periodic, mode,
             ErrorCode.CFG_INVALID_CONFIG,
             "analysis and synthesis filters must have the same length",
         )
-    tile = _tile(denoise_shared_bytes, taps, levels, DENOISE_TILE)
+    _tile(denoise_shared_bytes, taps, levels, DENOISE_TILE)  # the gate: raises where none fits
     lib = library()
+    b, n = x.shape
+    tile = lib.vw_modwt_denoise_tile(taps, levels, n, DENOISE_LAUNCH_TILE)
+    if not tile:
+        raise _too_large(taps, levels)
     out = torch.empty_like(x)
     tap_t = _device_taps(
         tuple(filters_dec[0]) + tuple(filters_dec[1])
         + tuple(filters_rec[0]) + tuple(filters_rec[1]),
         x.device.index,
     )
-    b, n = x.shape
     with torch.cuda.device(x.device):
         err = lib.vw_modwt_denoise(
             x.data_ptr(), out.data_ptr(), thresholds.data_ptr(), tap_t.data_ptr(),
@@ -1097,7 +1115,8 @@ def exact_synthesis(pairs, levels, filters, periodic, first_level=1, halo=None):
         with torch.cuda.device(first_hi.device):
             err = lib.vw_modwt_exact_synthesis(
                 in_ptrs, halo_ptrs, halo_len, out_hi.data_ptr(), out_lo.data_ptr(),
-                tap_t.data_ptr(), b, n, first, count, taps, tile, int(periodic),
+                tap_t.data_ptr(), b, n, first, count, taps,
+                tile if direct else EXACT_SYNTHESIS_LAUNCH_TILE, int(periodic),
                 int(direct), _stream(first_hi.device),
             )
         _raise_on_error(err, "modwt_exact_synthesis")
