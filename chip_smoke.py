@@ -19,19 +19,24 @@ Phases, in order; any failure raises and the exit code is not 0:
    exact fp64 analysis and synthesis at the same three shapes, with a lo
    word, from a first level above 1, with the levels split over two
    launches (sym8, 10 levels), and with levels too deep for shared memory
-   read straight from device memory (db38, 9 levels); the symmetric
+   read straight from device memory (db38, 9 levels), on odd rows (each
+   after the first off 16 bytes) and from levels 9 and 10 (strides of 256
+   and 512); the symmetric
    synthesis kernel (forward and adjoint) and the analysis kernel with a
    head splice, at db4 J=6 and sym8 J=4 128x65536, db4 J=6 3x5000, haar J=4,
-   a long filter that needs a smaller tile (db36 J=8), and once in bfloat16;
+   a long filter that needs a smaller tile (db36 J=8), and once in bfloat16,
+   on odd rows in float32 and bfloat16, and on rows one sample longer than
+   the two splices (db4 J=6 2x442, sym8 J=4 2x226);
    the cascade pair (``run_analysis_mxu`` / ``run_synthesis_mxu``) in each
    edge mode (periodic, zero, and the analysis's per-level mirror) at db4
    J=6 and sym8 J=4 128x65536, db4 J=6 3x5000, db4 J=6 2x300 and sym8 J=4
    2x150 (N shorter than the span; the mirror's window outlasts the
    signal), haar J=5, db36 J=8 (the mirror at its 9088 tile, where the
    second block's window starts before the signal) and once in bfloat16;
-   the library's launch tiles: the cascade pair's, the denoise's and the
-   exact synthesis's serve every shape the gates send (filter lengths
-   1-128, J 1-10, every first level of an exact plan); the 2-D analysis
+   the library's launch tiles: the cascade pair's, the denoise's, the exact
+   pair's and the symmetric synthesis's serve every shape the gates send
+   (filter lengths 1-128, J 1-10, every first level of an exact plan, every
+   registered wavelet's symmetric ops); the 2-D analysis
    and synthesis level kernels, every band, in each edge
    mode (periodic, zero, symmetric with the inverse's per-filter offsets),
    at levels 1 and 4 of db4 and 1 and 6 of sym8 at 8x2048x2048, at db4 level
@@ -137,7 +142,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    mode), with the least time the card could take (bytes over 3.35 TB/s
    or operations over the peak rate, the larger), and of the public entry
    points (the 2-D ones, the fused denoise's backward and the probe's round
-   trip at each precision included); the bank kernels at the sym8 depth-4
+   trip at each precision included); the symmetric synthesis also at sym8
+   J=4 (config #3's depth); the bank kernels at the sym8 depth-4
    tree and at one level-4 pair as ``modwpt`` calls it, for 64x16384 and
    128x65536, and ``dtcwt``'s whole-tree bank at 64x16384, and every route of ``modwpt`` + ``imodwpt`` (depths 2-5)
    and ``dtcwt`` + ``idtcwt`` at both shapes and at 1x1024 (the dual tree
@@ -1502,6 +1508,12 @@ def main() -> int:
         (WAVELET, 4, 8192, False, 3, 2, True),
         ("sym8", 2, 16384, True, 1, 10, False),  # two launches each
         ("db38", 2, 32768, False, 1, 9, False),  # levels 8-9 run direct
+        # odd rows (each after the first off 16 bytes), rows not a multiple
+        # of the tile, and strides of 256 and 512 (above the block's threads)
+        (WAVELET, 3, 5001, True, 1, LEVELS, True),
+        (WAVELET, 3, 9001, False, 1, LEVELS, False),
+        (WAVELET, 2, 5001, True, 9, 2, True),
+        (WAVELET, 2, 4099, False, 10, 1, False),
     ]
     for name, b, n, periodic, first, levels, with_lo in exact_cases:
         wx = vt.wavelet(name)
@@ -1535,6 +1547,13 @@ def main() -> int:
         ("haar", 4, 2, 4096, torch.float32),
         ("db36", 8, 2, N, torch.float32),  # windows too wide for a 2048 tile
         (WAVELET, LEVELS, BATCH, N, torch.bfloat16),
+        # odd rows (each after the first off 16 bytes; a ragged last tile),
+        # rows one sample longer than the two splices (441 and 225), and
+        # bfloat16 on unaligned rows
+        (WAVELET, LEVELS, 3, 5001, torch.float32),
+        (WAVELET, LEVELS, 2, 442, torch.float32),
+        ("sym8", 4, 2, 226, torch.float32),
+        (WAVELET, LEVELS, 3, 5001, torch.bfloat16),
     ]
     for name, levels, b, n, dtype in sym_cases:
         ws = vt.wavelet(name)
@@ -1548,9 +1567,10 @@ def main() -> int:
         hd = torch.randn(b, span_l, device=dev, generator=gen)
         tl = torch.randn(b, span_r, device=dev, generator=gen)
         c = torch.randn(b, n, device=dev, generator=gen).to(dtype)
-        label = (f"{name} J={levels} {b}x{n} {str(dtype)[6:]} (tiles "
-                 f"{mc.symmetric_tile(ws.filter_length, ops, False)}/"
-                 f"{mc.symmetric_tile(ws.filter_length, ops, True)})")
+        forward = lib.vw_modwt_symmetric_synthesis_tile(ws.filter_length, levels, n,
+                                                        mc.SYMMETRIC_LAUNCH_TILE)
+        label = (f"{name} J={levels} {b}x{n} {str(dtype)[6:]} (tiles: forward {forward}, "
+                 f"adjoint {mc.symmetric_tile(ws.filter_length, ops, True)})")
         results = [
             ("modwt_analysis", " with head splice",
              mc.analysis(x, levels, sd, False, head), planes),
@@ -1617,11 +1637,49 @@ def main() -> int:
                         refused.append(("exact synthesis", taps, first, count))
     check(not refused, f"the denoise and exact synthesis kernels launch every shape the "
                        f"gates send, filter lengths 1-128, J 1-10 (refused: {refused[:5]})")
+    # the symmetric synthesis's and the exact analysis's launch tiles, the
+    # library's: every registered wavelet and depth symmetric_tile admits,
+    # and every window launch of the exact plans from every first level (a
+    # tile of 128 or more where a block of 128 fits, else 64: the exact
+    # analysis's padded taps and rows take up to 208 bytes more than the
+    # gates' rule)
+    refused, served = [], 0
+    for name in vt.available_wavelets():
+        ws = vt.wavelet(name)
+        if not isinstance(ws, vt.DiscreteWavelet) or ws.filter_length > 128:
+            continue
+        for levels in range(1, 11):
+            if mc.symmetric_tile(ws.filter_length, ms.symmetric_level_ops(ws, levels),
+                                 False) is None:
+                continue
+            served += 1
+            if lib.vw_modwt_symmetric_synthesis_tile(ws.filter_length, levels, 1 << 20,
+                                                     mc.SYMMETRIC_LAUNCH_TILE) < 128:
+                refused.append(("symmetric synthesis", name, levels))
+    for taps in range(1, 129):
+        for levels in range(1, 11):
+            for first_level in range(1, 12 - levels):
+                for first, count, _, direct in mc.exact_launches(
+                        mc.exact_analysis_shared_bytes, taps, levels, first_level):
+                    fits = lib.vw_modwt_exact_analysis_shared_bytes(taps, first, count, 128)
+                    least = 128 if fits <= mc.SHARED_LIMIT else 64
+                    if not direct and lib.vw_modwt_exact_analysis_tile(
+                            taps, first, count, 1 << 20, mc.EXACT_ANALYSIS_LAUNCH_TILE) < least:
+                        refused.append(("exact analysis", taps, first, count))
+    check(not refused and served > 100,
+          f"the symmetric synthesis ({served} wavelets and depths) and the exact analysis "
+          f"launch every shape the gates send (refused: {refused[:5]})")
     short = (lib.vw_modwt_analysis_tile(8, LEVELS, 1000, mc.ANALYSIS_TILE, 1),
              lib.vw_modwt_synthesis_tile(8, LEVELS, 1000, mc.SYNTHESIS_TILE),
+             lib.vw_modwt_symmetric_synthesis_tile(8, LEVELS, 1000, mc.SYMMETRIC_LAUNCH_TILE),
+             lib.vw_modwt_exact_analysis_tile(8, 1, LEVELS, 1000,
+                                              mc.EXACT_ANALYSIS_LAUNCH_TILE),
              lib.vw_modwt_analysis_tile(8, LEVELS, N, mc.ANALYSIS_TILE, 1),
-             lib.vw_modwt_synthesis_tile(8, LEVELS, N, mc.SYNTHESIS_TILE))
-    check(short == (1000, 1000, mc.ANALYSIS_TILE, mc.SYNTHESIS_TILE),
+             lib.vw_modwt_synthesis_tile(8, LEVELS, N, mc.SYNTHESIS_TILE),
+             lib.vw_modwt_symmetric_synthesis_tile(8, LEVELS, N, mc.SYMMETRIC_LAUNCH_TILE),
+             lib.vw_modwt_exact_analysis_tile(8, 1, LEVELS, N, mc.EXACT_ANALYSIS_LAUNCH_TILE))
+    check(short == (1000,) * 4 + (mc.ANALYSIS_TILE, mc.SYNTHESIS_TILE,
+                                  mc.SYMMETRIC_LAUNCH_TILE, mc.EXACT_ANALYSIS_LAUNCH_TILE),
           f"db4 J={LEVELS} launch tiles, rows of 1000 / {N}: {short}")
 
     # the cascade pair in each edge mode: (wavelet, levels, batch, n, dtype);
@@ -2139,6 +2197,27 @@ def main() -> int:
     modes = {edge: median_ms(lambda edge=edge: mx.cascade_analysis(x, LEVELS, fd, edge))
              for edge in ("periodic", "mirror")}
     print(f"  modwt_mxu_analysis by edge: {modes} ms", flush=True)
+    # the symmetric synthesis at config #3's depth, sym8 J=4 (the row above
+    # is db4 J=6); its bound as the row's: the planes in, x out, the splices
+    w8 = vt.wavelet("sym8")
+    ops8, fr8 = ms.symmetric_level_ops(w8, 4), _kernel_filters(w8, synthesis=True)
+    res8 = vt.modwt_multilevel(x, "sym8", levels=4, boundary="symmetric")
+    planes8 = (*res8.details, res8.approx)
+    sl8, sr8 = mc.symmetric_spans(w8.filter_length, ops8)
+    hd8, tl8 = torch.zeros(BATCH, sl8, device=dev), torch.zeros(BATCH, sr8, device=dev)
+    t_bytes = (samples * 4 * (4 + 2) + 4 * BATCH * (sl8 + sr8)) / HBM_BPS * 1e3
+    t_ops = samples * 2 * w8.filter_length * 4 * 2 / FP32_FLOPS * 1e3
+    sym8_row = {
+        "case": f"sym8 J=4 {BATCH}x{N}",
+        "ms": median_ms(lambda: mc.symmetric_synthesis(planes8, hd8, tl8, 4, fr8, ops8)),
+        "plain_ms": median_ms(
+            lambda: mc.symmetric_synthesis_plain(planes8, hd8, tl8, 4, fr8, ops8), 1, 5),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"  modwt_symmetric_synthesis {sym8_row['case']}: kernel {sym8_row['ms']:.4f} ms, "
+          f"plain {sym8_row['plain_ms']:.4f} ms, bound {sym8_row['bound_ms']:.4f} ms "
+          f"({sym8_row['bound_by']}; {100 * sym8_row['bound_ms'] / sym8_row['ms']:.1f}% of it)",
+          flush=True)
+    del res8, planes8
 
     # the 2-D level kernels at every level 1-6 of db4 on the 2-D path's
     # images, periodic (level 1 the row, every level in "levels"); library call: F.conv2d of the circularly padded input
@@ -2255,6 +2334,7 @@ def main() -> int:
               flush=True)
 
     bank_ms, bank_bound, bank_cases = bank_timing(dev, gen)
+    bank_cases["modwt_symmetric_synthesis"] = [sym8_row]
     ms_of.update(bank_ms)
     bound.update(bank_bound)
     stream_ms, stream_bound = streaming_timing(dev, gen)

@@ -208,12 +208,18 @@ def test_kernel_gradients_match_plain_autograd(cuda, periodic):
 
 TOL_EXACT = 1e-13
 # (batch, n, periodic, first level, levels, with a lo word)
+# (rows not a multiple of the tile; odd rows, each after the first off 16
+# bytes; strides of 256 and 512, above kThreads, from levels 9 and 10)
 EXACT_CASES = [
     (4, 8192, True, 1, LEVELS, False),
     (3, 5000, False, 1, LEVELS, False),
     (2, 300, True, 1, LEVELS, False),
     (2, 4096, True, 1, LEVELS, True),
     (2, 4096, False, 3, 2, True),
+    (3, 5001, True, 1, LEVELS, True),
+    (3, 9001, False, 1, LEVELS, False),
+    (2, 5001, True, 9, 2, True),
+    (2, 4099, False, 10, 1, False),
 ]
 
 
@@ -286,9 +292,12 @@ def test_exact_public_entry_points_launch_the_exact_kernels(cuda):
                             precision="exact")
 
 
-# (wavelet, levels, batch, n)
+# (wavelet, levels, batch, n): rows not a multiple of the tile, odd rows
+# (each after the first off 16 bytes), rows one sample longer than the two
+# splices (span_l + span_r: 441 for db4 J=6, 225 for sym8 J=4)
 SYMMETRIC_CASES = [("db4", LEVELS, 4, 8192), ("sym8", 4, 3, 5000), ("haar", 4, 2, 4096),
-                   ("db36", 8, 1, 65536)]
+                   ("db36", 8, 1, 65536), ("db4", LEVELS, 3, 5001), ("db4", LEVELS, 3, 9001),
+                   ("db4", LEVELS, 2, 442), ("sym8", 4, 2, 226)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -498,6 +507,56 @@ def test_denoise_and_exact_synthesis_launch_every_shape_the_gates_send(cuda):
     tile = mc.EXACT_SYNTHESIS_LAUNCH_TILE
     assert lib.vw_modwt_exact_synthesis_tile(8, 1, LEVELS, 1000, tile) == 1000
     assert lib.vw_modwt_exact_synthesis_tile(8, 1, LEVELS, 65536, tile) == 4096
+
+
+def test_symmetric_and_exact_analysis_launch_every_shape_the_gates_send(cuda):
+    """The library's launch tile and shared memory of the symmetric
+    synthesis (for every registered wavelet and depth symmetric_tile admits)
+    and of the exact analysis (for every window launch of exact_launches'
+    plans, from every first level): a tile whose block fits, of at least 128
+    where the block fits at 128 (the exact analysis's padded taps and rows
+    take up to 208 bytes more than the gates' rule, so a few long filters at
+    levels 9-10 launch at 64); a short row's tile is the row."""
+    from vectorwave_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    served = 0
+    for name in vt.available_wavelets():
+        w = vt.wavelet(name)
+        if not isinstance(w, vt.DiscreteWavelet) or w.filter_length > 128:
+            continue
+        for levels in range(1, 11):
+            ops = ms.symmetric_level_ops(w, levels)
+            if mc.symmetric_tile(w.filter_length, ops, False) is None:
+                continue
+            tile = lib.vw_modwt_symmetric_synthesis_tile(w.filter_length, levels, 1 << 20,
+                                                         mc.SYMMETRIC_LAUNCH_TILE)
+            assert tile >= 128, (name, levels)
+            assert lib.vw_modwt_symmetric_synthesis_shared_bytes(
+                w.filter_length, levels, tile) <= mc.SHARED_LIMIT
+            served += 1
+    assert served > 100
+    for taps in range(1, 129):
+        for levels in range(1, 11):
+            for first_level in range(1, 12 - levels):
+                for first, count, _, direct in mc.exact_launches(
+                        mc.exact_analysis_shared_bytes, taps, levels, first_level):
+                    if direct:
+                        continue
+                    used = lib.vw_modwt_exact_analysis_tile(
+                        taps, first, count, 1 << 20, mc.EXACT_ANALYSIS_LAUNCH_TILE)
+                    fits = lib.vw_modwt_exact_analysis_shared_bytes(taps, first, count, 128)
+                    assert used >= (128 if fits <= mc.SHARED_LIMIT else 64), (
+                        taps, first, count)
+                    assert lib.vw_modwt_exact_analysis_shared_bytes(
+                        taps, first, count, used) <= mc.SHARED_LIMIT
+    assert lib.vw_modwt_symmetric_synthesis_tile(8, LEVELS, 1000,
+                                                 mc.SYMMETRIC_LAUNCH_TILE) == 1000
+    assert lib.vw_modwt_symmetric_synthesis_tile(8, LEVELS, 65536,
+                                                 mc.SYMMETRIC_LAUNCH_TILE) == 4096
+    tile = mc.EXACT_ANALYSIS_LAUNCH_TILE
+    assert lib.vw_modwt_exact_analysis_tile(8, 1, LEVELS, 1000, tile) == 1000
+    assert lib.vw_modwt_exact_analysis_tile(8, 1, LEVELS, 65536, tile) == tile
 
 
 def test_cascade_probe_round_trip_launches_one_kernel_each_way(cuda, filters):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time two versions of the port's cascade, denoise, exact, bank and 2-D kernels on one GPU,
-in turns, in one process.
+"""Time two versions of the port's cascade, denoise, exact, symmetric, bank and 2-D kernels
+on one GPU, in turns, in one process.
 
 Run from the root of a checkout, with one Hopper card visible and an older
 checkout's kernel sources unpacked under a directory (for example the parent
@@ -9,6 +9,8 @@ commit: ``git archive HEAD vectorwave_tpu_torch/kernels | tar -x -C DIR``):
     python3 tools/ab_port_kernels.py --parent DIR [pair] [ptiles] [pvariants]
                                      [denoise] [dtiles] [dvariants]
                                      [exactsyn] [xtiles] [xvariants]
+                                     [symsyn] [stiles] [svariants]
+                                     [exactana] [etiles] [evariants]
                                      [banksyn] [twoda] [probea] [probea_new]
                                      [atiles] [avariants]
 
@@ -46,7 +48,22 @@ printed first.
   right halo pairs of 441, and the sym8 J=10 plan of two launches at
   128x65536, each with its byte bound; ``xtiles`` times the change at
   ``EXACT_TILES`` and ``xvariants`` builds with other launch bounds and
-  other run lengths (``EXACT_VARIANTS``).
+  other run lengths (``EXACT_VARIANTS``); the periodic case also checks the
+  round trip from the plain float64 planes against x (RMSE of hi + lo <=
+  1e-10; the hi words that differ from x and the largest such |x|);
+* ``symsyn``: the symmetric synthesis (``modwt_symmetric_synthesis.cu``,
+  whose C interface and plan the change keeps) at config #2's symmetric
+  call, db4 J=6 128x65536 in float32 and bfloat16, and sym8 J=4, the parent
+  at the gates' tile and the change at its library's, then the adjoint
+  (row 6b) at db4 J=6; ``stiles`` times the change at ``SYMMETRIC_TILES``
+  and ``svariants`` builds with other launch bounds and run lengths
+  (``SYMMETRIC_VARIANTS``);
+* ``exactana``: the exact analysis (``modwt_exact_analysis.cu``, whose C
+  interface the change keeps) at 128x65536: db4 J=6 periodic, zero, with a
+  lo word and with a left halo of 441, sym8 J=10's two launches, and
+  launches from levels 4 and 9; ``etiles`` times the change at
+  ``EXACT_ANALYSIS_TILES`` and ``evariants`` builds with other run lengths
+  and launch bounds (``EXACT_ANALYSIS_VARIANTS``).
 
 Targets for a parent whose bank synthesis takes per-plane (offset, value)
 tap lists and whose 2-D analysis takes a first-fit tile:
@@ -185,7 +202,7 @@ QUEUE = 8
 
 SHOWN = ("modwt_analysis", "modwt_synthesis", "modwt_bank_analysis",
          "modwt_bank_synthesis", "modwt2_analysis", "modwt2_synthesis", "modwt_denoise",
-         "modwt_exact_synthesis")
+         "modwt_exact_synthesis", "modwt_exact_analysis", "modwt_symmetric_synthesis")
 #: config #2 and the cascade pair's tiles and variant builds (target ``pair``)
 PAIR_SHAPE = (128, 65536)
 #: the parent's own tile at config #2 (its rule: 2048, halved until a block
@@ -825,10 +842,21 @@ def exactsyn_target(args, parent, work, turns):
                       for (first, count, _, _), u in zip(plan, row["tiles_used"])),
                   flush=True)
             if label.startswith("db4") and periodic:
+                # the planes carry about 48 bits, so hi + lo returns x to about
+                # 1e-14; the hi word then rounds back to x except where |x| is
+                # below about 2^25 times that error (its half ulp is smaller)
                 y = call(new_fn, periodic, hl, mc.EXACT_SYNTHESIS_LAUNCH_TILE)()
                 torch.cuda.synchronize()
-                print(f"    periodic round trip returns x exactly: {torch.equal(y[0], x)}",
-                      flush=True)
+                e = y[0].double() + y[1].double() - x.double()
+                rmse, worst = float(e.pow(2).mean().sqrt()), float(e.abs().max())
+                unequal = y[0] != x
+                row["round_trip"] = (rmse, worst, int(unequal.sum()),
+                                     float(x[unequal].abs().max()) if unequal.any() else 0.0)
+                print(f"    periodic round trip from the plain float64 planes: RMSE of hi + lo "
+                      f"{rmse:.3e} <= 1e-10: {rmse <= 1e-10}; max error {worst:.3e}; "
+                      f"{row['round_trip'][2]} hi words differ from x, the largest such |x| "
+                      f"{row['round_trip'][3]:.3e} (2^25 x the max error: "
+                      f"{2.0**25 * worst:.3e})", flush=True)
                 if "xtiles" in args.what:
                     row["tiles"] = {}
                     for alt in EXACT_TILES:
@@ -849,6 +877,338 @@ def exactsyn_target(args, parent, work, turns):
             rows.append(row)
             del want
         del pairs, outs, halo, x
+    return rows
+
+
+#: the symmetric synthesis's preferred tiles (target ``stiles``) and variant
+#: builds of the change (``svariants``): other launch bounds and run lengths
+#: (a run of K outputs steps through the taps K - 1 at a time, read as
+#: 16-byte pieces: K - 1 divides the padded step of 8 and, in fp32, is a
+#: multiple of 4, so K = 5 or 9; in fp64 also 3)
+SYMMETRIC_TILES = (1024, 2048, 3072, 4096, 8192)
+SYMMETRIC_VARIANTS = {
+    "bounds3": (("__launch_bounds__(kThreads, 4)", "__launch_bounds__(kThreads, 3)"),),
+    "block5": (("constexpr int kSymBlock = kRunBlock;", "constexpr int kSymBlock = 5;"),),
+}
+#: the exact analysis's preferred tiles (``etiles``) and variant builds
+#: (``evariants``): run lengths 9, 5 and 3, other launch bounds
+EXACT_ANALYSIS_TILES = (2048, 3072, 4096)
+#: pair runs that read each tap pair from shared memory as the sums need it,
+#: in place of modwt_common.cuh's 16-byte tap broadcasts ahead of the sums
+LAZY_TAP_RUNS = (
+    "// Strides whose details are staged",
+    """template <bool kUnit, bool kGuard, typename V, int kBlock, typename Src>
+__device__ __forceinline__ void lazy_pair_step(V (&a)[kBlock], V (&d)[kBlock],
+                                               V (&fresh)[kBlock - 1],
+                                               const V (&old)[kBlock - 1], const Src& src,
+                                               int m0, int s, const V* lo, const V* hi,
+                                               int m_lo, int m_hi) {
+  constexpr int C = kBlock - 1;
+#pragma unroll
+  for (int e = 0; e < C; ++e) {
+    const int m = m0 + e;
+    fresh[e] = !kGuard || (m >= m_lo && m < m_hi) ? run_sample<kUnit>(src, m, s) : V(0);
+  }
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const V tl = lo[t], th = hi[t];
+#pragma unroll
+    for (int r = 0; r < kBlock; ++r) {
+      const int e = r - t + C - 1;
+      const V v = e < C ? fresh[e] : old[e - C];
+      a[r] = fma_of(tl, v, a[r]);
+      d[r] = fma_of(th, v, d[r]);
+    }
+  }
+}
+
+template <bool kUnit, bool kGuard, typename V, int kBlock, typename Src>
+__device__ __forceinline__ void lazy_pair_run(V (&a)[kBlock], V (&d)[kBlock], const Src& src,
+                                              int s, const V* lo, const V* hi, int taps,
+                                              int m_lo, int m_hi) {
+  constexpr int C = kBlock - 1;
+  V u[C], v[C];
+#pragma unroll
+  for (int e = 0; e < C; ++e) {
+    v[e] = !kGuard || e + 1 < m_hi ? run_sample<kUnit>(src, e + 1, s) : V(0);
+  }
+  int i0 = 0;
+  for (; i0 + 2 * C <= taps; i0 += 2 * C) {
+    lazy_pair_step<kUnit, kGuard>(a, d, u, v, src, -(i0 + C - 1), s, lo + i0, hi + i0,
+                                  m_lo, m_hi);
+    lazy_pair_step<kUnit, kGuard>(a, d, v, u, src, -(i0 + 2 * C - 1), s, lo + i0 + C,
+                                  hi + i0 + C, m_lo, m_hi);
+  }
+  if (i0 < taps) {
+    lazy_pair_step<kUnit, kGuard>(a, d, u, v, src, -(i0 + C - 1), s, lo + i0, hi + i0,
+                                  m_lo, m_hi);
+  }
+}
+
+// Strides whose details are staged""",
+)
+LAZY_CALLS = tuple((f"pair_run<{a}, {b}>(a, d,", f"lazy_pair_run<{a}, {b}>(a, d,")
+                   for a in ("true", "false") for b in ("true", "false"))
+EXACT_ANALYSIS_VARIANTS = {
+    "block9": (("constexpr int kExactAnalysisBlock = 5;",
+                "constexpr int kExactAnalysisBlock = 9;"),),
+    "block3": (("constexpr int kExactAnalysisBlock = 5;",
+                "constexpr int kExactAnalysisBlock = 3;"),),
+    "bounds3": (("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 3)"),),
+    "lazy5": (LAZY_TAP_RUNS, *LAZY_CALLS),
+    "lazy9": (LAZY_TAP_RUNS, *LAZY_CALLS, ("constexpr int kExactAnalysisBlock = 5;",
+                                           "constexpr int kExactAnalysisBlock = 9;")),
+    "lazy5_bounds3": (LAZY_TAP_RUNS, *LAZY_CALLS, ("__launch_bounds__(kThreads, 2)",
+                                                   "__launch_bounds__(kThreads, 3)")),
+}
+
+
+def symsyn_target(args, parent, work, turns):
+    """The symmetric synthesis, parent vs change (target ``symsyn``): the
+    forward kernel at config #2's symmetric call (db4 J=6, 128x65536) in
+    float32 and bfloat16 and at sym8 J=4 128x65536, each with its bound; then
+    the adjoint (row 6b, the same code on both sides unless the change
+    touched it) at db4 J=6.  The parent launches at the gates' tile
+    (``symmetric_tile``) and its plan; the change at its library's tile for
+    ``SYMMETRIC_LAUNCH_TILE``; ``stiles`` times the change at
+    SYMMETRIC_TILES, ``svariants`` its variant builds."""
+    import torch
+
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import _build
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels import modwt_symmetric as ms
+    from vectorwave_tpu_torch.kernels.modwt_composite import _device_taps, _stream
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    new_lib = _build.library()
+    fn, new_fn = parent.vw_modwt_symmetric_synthesis, new_lib.vw_modwt_symmetric_synthesis
+    fn.argtypes, fn.restype = new_fn.argtypes, new_fn.restype
+    variants = (variant_builds("modwt_symmetric_synthesis", SYMMETRIC_VARIANTS, new_fn, work)
+                if "svariants" in args.what else {})
+    preferred = mc.SYMMETRIC_LAUNCH_TILE
+    b, n = PAIR_SHAPE
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[q.data_ptr() for q in ts])  # noqa: E731
+    rows = []
+    print("symmetric synthesis: parent vs change", flush=True)
+    for name, levels, dtype in (("db4", 6, torch.float32), ("db4", 6, torch.bfloat16),
+                                ("sym8", 4, torch.float32)):
+        w = vt.wavelet(name)
+        fd, fr = _kernel_filters(w, synthesis=False), _kernel_filters(w, synthesis=True)
+        taps = len(fr[0])
+        ops = ms.symmetric_level_ops(w, levels)
+        span_l, span_r = mc.symmetric_spans(taps, ops)
+        tap_t = _device_taps(tuple(fr[0]) + tuple(fr[1]), dev.index)
+        x = torch.randn(b, n, device=dev, generator=gen).to(dtype)
+        planes = mc.analysis_plain(x, levels, fd, False)
+        head = torch.randn(b, span_l, device=dev, generator=gen)
+        tail = torch.randn(b, span_r, device=dev, generator=gen)
+        out = torch.empty_like(x)
+        code = mc._DTYPE_CODES[dtype]
+
+        def call(f, tile):
+            plan, width = mc.symmetric_plan(taps, ops, tile, False)
+            plan_t = _device_taps(plan, dev.index, torch.int32)
+            in_ptrs = ptrs(planes)
+
+            def run():
+                err = f(in_ptrs, out.data_ptr(), head.data_ptr(), tail.data_ptr(),
+                        tap_t.data_ptr(), plan_t.data_ptr(), b, n, levels, taps, tile, width,
+                        span_l, span_r, 0, code, _stream(dev))
+                if err:
+                    raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+                return out
+            return run
+
+        def tile_of(alt):
+            return new_lib.vw_modwt_symmetric_synthesis_tile(taps, levels, n, alt)
+
+        want = mc.symmetric_synthesis_plain(planes, head, tail, levels, fr, ops)
+
+        def check(f, want=want):
+            got = f()
+            torch.cuda.synchronize()
+            return float((got.float() - want.float()).abs().max())
+
+        old_tile, new_tile = mc.symmetric_tile(taps, ops, False), tile_of(preferred)
+        label = f"{name} J={levels} {b}x{n} {str(dtype)[6:]}"
+        row = turns(label, call(fn, old_tile), call(new_fn, new_tile), check)
+        row["kernel"], row["tiles"] = "modwt_symmetric_synthesis", (old_tile, new_tile)
+        size = x.element_size()
+        t_bytes = (size * (levels + 2) * b * n + 4 * b * (span_l + span_r)) / 3.35e12 * 1e3
+        t_ops = 2 * 2 * taps * levels * b * n / 67e12 * 1e3
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"    bound {row['bound_ms']:.4f} ms ({row['bound_by']}); tiles: parent "
+              f"{old_tile}, change {new_tile}", flush=True)
+        if dtype == torch.float32:
+            if "stiles" in args.what:
+                row["tile_sweep"] = {}
+                for alt in SYMMETRIC_TILES:
+                    f = call(new_fn, tile_of(alt))
+                    row["tile_sweep"][alt] = (tile_of(alt), median_ms(f, queue=QUEUE),
+                                              check(f))
+                print("    tiles: " + ", ".join(f"{k} ({v[0]}) {v[1]:.4f} ms (err {v[2]:.1e})"
+                                                for k, v in row["tile_sweep"].items()),
+                      flush=True)
+            for vname, vfn in variants.items():
+                f = call(vfn, new_tile)
+                row[f"variant_{vname}"] = (median_ms(f, queue=QUEUE), check(f))
+                print(f"    variant {vname}: {row[f'variant_{vname}'][0]:.4f} ms (err "
+                      f"{row[f'variant_{vname}'][1]:.1e})", flush=True)
+        rows.append(row)
+        del planes, want, x, out
+
+    # the adjoint (row 6b): c -> J+1 planes at the gates' adjoint tile
+    w = vt.wavelet("db4")
+    fr = _kernel_filters(w, synthesis=True)
+    taps, levels = len(fr[0]), 6
+    ops = ms.symmetric_level_ops(w, levels)
+    tap_t = _device_taps(tuple(fr[0]) + tuple(fr[1]), dev.index)
+    tile = mc.symmetric_tile(taps, ops, True)
+    plan, width = mc.symmetric_plan(taps, ops, tile, True)
+    plan_t = _device_taps(plan, dev.index, torch.int32)
+    c = torch.randn(b, n, device=dev, generator=gen)
+    outs = [torch.empty_like(c) for _ in range(levels + 1)]
+    out_ptrs = ptrs(outs)
+
+    def adjoint(f):
+        def run():
+            err = f(out_ptrs, c.data_ptr(), None, None, tap_t.data_ptr(), plan_t.data_ptr(),
+                    b, n, levels, taps, tile, width, 0, 0, 1, 0, _stream(dev))
+            if err:
+                raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+            return outs
+        return run
+
+    want = mc.symmetric_adjoint_plain(c, levels, fr, ops)
+
+    def check(f):
+        got = f()
+        torch.cuda.synchronize()
+        return max(float((g - p).abs().max()) for g, p in zip(got, want))
+
+    row = turns(f"adjoint db4 J={levels} {b}x{n} float32", adjoint(fn), adjoint(new_fn), check)
+    row["kernel"], row["tiles"] = "modwt_symmetric_adjoint", (tile, tile)
+    row["bound_ms"], row["bound_by"] = 4 * (levels + 2) * b * n / 3.35e12 * 1e3, "bytes"
+    print(f"    bound {row['bound_ms']:.4f} ms (bytes); tile {tile}", flush=True)
+    rows.append(row)
+    return rows
+
+
+def exactana_target(args, parent, work, turns):
+    """The exact analysis, parent vs change (target ``exactana``) at
+    128x65536: db4 J=6 periodic, zero, with a lo word and with a left halo
+    of 441; sym8 J=10, a plan of two launches; and launches from a later
+    first level (db4 levels 4-6, and levels 9-10, strides of kThreads and
+    above), each with its byte bound.  The parent launches at the plan's
+    tile; the change's window launches at ``EXACT_ANALYSIS_LAUNCH_TILE``
+    (its library's tile); ``etiles`` times the change at
+    EXACT_ANALYSIS_TILES and ``evariants`` its variant builds."""
+    import torch
+
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import _build
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels.modwt_composite import _device_taps, _stream
+    from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    new_lib = _build.library()
+    fn, new_fn = parent.vw_modwt_exact_analysis, new_lib.vw_modwt_exact_analysis
+    fn.argtypes, fn.restype = new_fn.argtypes, new_fn.restype
+    variants = (variant_builds("modwt_exact_analysis", EXACT_ANALYSIS_VARIANTS, new_fn, work)
+                if "evariants" in args.what else {})
+    preferred = mc.EXACT_ANALYSIS_LAUNCH_TILE
+    b, n = PAIR_SHAPE
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[q.data_ptr() for q in ts])  # noqa: E731
+    rows = []
+    print("exact analysis: parent vs change", flush=True)
+    # (wavelet, levels, first level, periodic, lo word, left halo)
+    cases = [("db4", 6, 1, True, False, 0), ("db4", 6, 1, False, False, 0),
+             ("db4", 6, 1, True, True, 0), ("db4", 6, 1, False, False, 441),
+             ("sym8", 10, 1, True, False, 0), ("db4", 3, 4, True, True, 0),
+             ("db4", 2, 9, True, True, 0)]
+    for name, levels, first_level, periodic, with_lo, h in cases:
+        w = vt.wavelet(name)
+        fd = _kernel_filters(w, synthesis=False)
+        taps = len(fd[0])
+        tap_t = _device_taps(tuple(fd[0]) + tuple(fd[1]), dev.index, torch.float64)
+        x = torch.randn(b, n, device=dev, generator=gen)
+        x_lo = x * 2.0**-26 * torch.randn(b, n, device=dev, generator=gen) if with_lo else None
+        halo = torch.randn(b, h, device=dev, generator=gen) if h else None
+        plan = mc.exact_launches(mc.exact_analysis_shared_bytes, taps, levels, first_level)
+        outs = [[torch.empty_like(x) for _ in range(2 * (count + 1))]
+                for _, count, _, _ in plan]
+
+        def call(f, tile):
+            """The plan's launches; a window launch of the change at `tile`
+            (the parent at the plan's)."""
+            out_ptrs = [ptrs(o) for o in outs]
+
+            def run():
+                cur_hi, cur_lo = x, x_lo
+                for (first, count, t, direct), o, op in zip(plan, outs, out_ptrs):
+                    err = f(cur_hi.data_ptr(), None if cur_lo is None else cur_lo.data_ptr(),
+                            None if halo is None else halo.data_ptr(), h, op,
+                            tap_t.data_ptr(), b, n, first, count, taps,
+                            t if tile is None or direct else tile, int(periodic),
+                            int(direct), _stream(dev))
+                    if err:
+                        raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+                    cur_hi, cur_lo = o[2 * count], o[2 * count + 1]
+                return [q for o in outs for q in o]
+            return run
+
+        want = mc.exact_analysis_plain(x, x_lo, levels, fd, periodic, first_level, halo)
+
+        def check(f, want=want):
+            f()
+            torch.cuda.synchronize()
+            pairs = []
+            for (_, count, _, _), o in zip(plan, outs):
+                pairs += [(o[2 * i], o[2 * i + 1]) for i in range(count)]
+            pairs.append((outs[-1][-2], outs[-1][-1]))
+            return max(float((g[0].double() + g[1].double() - p[0].double()
+                              - p[1].double()).abs().max()) for g, p in zip(pairs, want))
+
+        label = (f"{name} levels {first_level}..{first_level + levels - 1} {b}x{n} "
+                 f"{'periodic' if periodic else 'zero'}{' with lo' if with_lo else ''}"
+                 f"{f' with a left halo of {h}' if h else ''}, plan {plan}")
+        row = turns(label, call(fn, None), call(new_fn, preferred), check)
+        row["kernel"] = "modwt_exact_analysis"
+        nbytes = ((8 if with_lo else 4) + 8 * (levels + 1)) * b * n + 4 * b * h
+        t_bytes = nbytes / 3.35e12 * 1e3
+        t_ops = 2 * 2 * taps * levels * b * n / 34e12 * 1e3
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row["tiles_used"] = [new_lib.vw_modwt_exact_analysis_tile(taps, first, count, n,
+                                                                  preferred)
+                             for first, count, _, _ in plan]
+        print(f"    bound {row['bound_ms']:.4f} ms ({row['bound_by']}); the change's tiles "
+              f"{row['tiles_used']}", flush=True)
+        if name == "db4" and levels == 6 and periodic and not with_lo:
+            if "etiles" in args.what:
+                row["tile_sweep"] = {}
+                for alt in EXACT_ANALYSIS_TILES:
+                    f = call(new_fn, alt)
+                    row["tile_sweep"][alt] = (median_ms(f, queue=QUEUE), check(f))
+                print("    tiles: " + ", ".join(f"{k} {v[0]:.4f} ms (err {v[1]:.1e})"
+                                                for k, v in row["tile_sweep"].items()),
+                      flush=True)
+            for vname, vfn in variants.items():
+                row[f"variant_{vname}"] = {}
+                for alt in (EXACT_ANALYSIS_TILES if "etiles" in args.what else (preferred,)):
+                    f = call(vfn, alt)
+                    row[f"variant_{vname}"][alt] = (median_ms(f, queue=QUEUE), check(f))
+                print(f"    variant {vname}: " + ", ".join(
+                    f"{k} {v[0]:.4f} ms (err {v[1]:.1e})"
+                    for k, v in row[f"variant_{vname}"].items()), flush=True)
+        rows.append(row)
+        del want, outs, x, x_lo, halo
     return rows
 
 
@@ -905,6 +1265,10 @@ def main() -> int:
         results["denoise"] = denoise_target(args, parent, work, turns)
     if "exactsyn" in args.what:
         results["exactsyn"] = exactsyn_target(args, parent, work, turns)
+    if "symsyn" in args.what:
+        results["symsyn"] = symsyn_target(args, parent, work, turns)
+    if "exactana" in args.what:
+        results["exactana"] = exactana_target(args, parent, work, turns)
 
     if "bank" in args.what:
         print("bank analysis: parent vs change", flush=True)

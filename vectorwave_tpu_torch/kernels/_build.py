@@ -150,22 +150,27 @@ def _declare(lib: ctypes.CDLL) -> None:
     #  stages, edge, dtype, stream)
     lib.vw_modwt_bank_synthesis.argtypes = [ptrs, ptr, ptr, ptr, ptr, ptr, i64, i64, i32,
                                             i32, i32, i32, i32, i32, ptr]
-    # a launch's tile for a preferred one: the cascade pair's and the
-    # denoise's, (taps_len, levels, n, tile[, edge]), the exact synthesis's,
-    # (taps_len, first, levels, n, tile); and a block's shared bytes,
-    # (taps_len, [first,] levels, tile)
+    # a launch's tile for a preferred one: the cascade pair's, the denoise's
+    # and the symmetric synthesis's, (taps_len, levels, n, tile[, edge]), the
+    # exact pair's, (taps_len, first, levels, n, tile); and a block's shared
+    # bytes, (taps_len, [first,] levels, tile)
     lib.vw_modwt_analysis_tile.argtypes = [i32, i32, i64, i32, i32]
-    lib.vw_modwt_synthesis_tile.argtypes = [i32, i32, i64, i32]
-    lib.vw_modwt_denoise_tile.argtypes = [i32, i32, i64, i32]
-    lib.vw_modwt_exact_synthesis_tile.argtypes = [i32, i32, i32, i64, i32]
+    for fn in (lib.vw_modwt_synthesis_tile, lib.vw_modwt_denoise_tile,
+               lib.vw_modwt_symmetric_synthesis_tile):
+        fn.argtypes = [i32, i32, i64, i32]
+    for fn in (lib.vw_modwt_exact_analysis_tile, lib.vw_modwt_exact_synthesis_tile):
+        fn.argtypes = [i32, i32, i32, i64, i32]
     for fn in (lib.vw_modwt_analysis_tile, lib.vw_modwt_synthesis_tile,
-               lib.vw_modwt_denoise_tile, lib.vw_modwt_exact_synthesis_tile):
+               lib.vw_modwt_denoise_tile, lib.vw_modwt_symmetric_synthesis_tile,
+               lib.vw_modwt_exact_analysis_tile, lib.vw_modwt_exact_synthesis_tile):
         fn.restype = i32
     for fn in (lib.vw_modwt_analysis_shared_bytes, lib.vw_modwt_synthesis_shared_bytes,
-               lib.vw_modwt_denoise_shared_bytes):
+               lib.vw_modwt_denoise_shared_bytes,
+               lib.vw_modwt_symmetric_synthesis_shared_bytes):
         fn.argtypes, fn.restype = [i32, i32, i32], i64
-    lib.vw_modwt_exact_synthesis_shared_bytes.argtypes = [i32, i32, i32, i32]
-    lib.vw_modwt_exact_synthesis_shared_bytes.restype = i64
+    for fn in (lib.vw_modwt_exact_analysis_shared_bytes,
+               lib.vw_modwt_exact_synthesis_shared_bytes):
+        fn.argtypes, fn.restype = [i32, i32, i32, i32], i64
     for fn in (lib.vw_modwt_analysis, lib.vw_modwt_synthesis, lib.vw_modwt_denoise,
                lib.vw_modwt_exact_analysis, lib.vw_modwt_exact_synthesis,
                lib.vw_modwt_symmetric_synthesis, lib.vw_modwt2_analysis_level,

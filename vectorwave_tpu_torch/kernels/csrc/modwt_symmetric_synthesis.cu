@@ -29,76 +29,173 @@
 //
 // The window of every level, relative to the block's first output, and the
 // base and stride of each op's reads into the windows come from the host as
-// a plan of kPlanStride ints per level (modwt_composite.symmetric_plan):
+// a plan of kPlanStride ints per level (modwt_composite.symmetric_plan),
+// made for `tile` outputs:
 //   forward: [e_j, len_j, ed_j, bA, stA, bD, stD, 0] for c_j and d_j;
 //   adjoint: [e_{j-1}, len_{j-1}, bA, stA, bD, stD, 0, 0] for v_{j-1}.
+// Every window extends the tile by a fixed count, so a ragged last block
+// takes each window shortened by tile - n_out.
 //
-// What bounds it on the H100: like modwt_synthesis.cu, device memory for the
-// J+1 plane reads (4 (J+1) B per sample plus each window's halo) and one
-// shared-memory load per FMA for the arithmetic.  The design keeps the
-// running level and one staged plane window in shared memory (three rows of
-// at most tile + (L-1)(2^J-1) floats; two in adjoint mode) and writes the
-// output once, with the splice applied on the store.
+// What bounds it on the H100: device-memory bytes, as modwt_synthesis.cu.
+// The forward kernel reads J+1 planes (4 (J+1) B per sample, plus each
+// window's halo and the splice rows) and writes 4 B, 32 B for J = 6 against
+// 96 FMAs (0.080 ms and 0.024 ms at 128 x 65536), so fp32 CUDA cores
+// suffice.  The forward design is modwt_synthesis.cu's on the
+// alignment-shifted ops:
+//   * a backward op, c_j[t - s l + b] (step stA = -s), is a forward read of
+//     the reversed taps from (L-1) s samples earlier; the block keeps four
+//     tap rows in shared memory (lo and hi, each forward and reversed, zero
+//     padded after the last tap to whole steps of kRunChunk), so every op is
+//     a forward run (fwd_run);
+//   * each plane's window is copied with cp.async, 16 bytes at a time (each
+//     window starts where its source does modulo 16 bytes); only its parts
+//     outside [0, n) are zero-filled; bfloat16 is converted as it is stored;
+//   * three rows of tile + S, S = (L-1)(2^J-1) (53 KB at tile 4096 for db4
+//     J = 6, four blocks an SM): the running approximation, the next level's
+//     and d_j's window, the next detail copied once the level is done;
+//   * level j runs on stride s = 2^(j-1) with the register runs of
+//     modwt_common.cuh: a thread owns kSymBlock outputs of one residue class
+//     mod s, taps in steps of 8 as 16-byte broadcasts; a stride above
+//     kThreads takes several passes, and a run that reaches past the level's
+//     end or reads padded taps loads only what its outputs need (kGuard);
+//   * the last level's outputs are stored on consecutive addresses, with
+//     the first span_l taken from `head` and the last span_r from `tail`.
+// The adjoint keeps the first design: one output a thread, its taps and
+// samples read from shared memory in the loop, two rows of the widest
+// window (the next kernel to redesign).
 #include "modwt_common.cuh"
 
 namespace vw {
 
 constexpr int kPlanStride = 8;
+// Outputs a thread's forward run holds (the cascade pair's run).
+constexpr int kSymBlock = kRunBlock;
 
+// Shared memory of one forward block: four padded tap rows and three rows
+// of tile + span.
+inline size_t symmetric_forward_bytes(int L, int levels, int tile) {
+  return sizeof(float) *
+         (4 * static_cast<size_t>(padded_taps(L)) +
+          3 * static_cast<size_t>(window_row_floats(tile + cascade_span(L, levels))));
+}
+
+// The forward kernel's tile for the caller's preferred `tile` (cascade_tile).
+inline int symmetric_forward_tile(int L, int levels, long long n, int tile) {
+  return cascade_tile(tile, n, 1,
+                      [=](int t) { return symmetric_forward_bytes(L, levels, t); });
+}
+
+// The plane `row` over [g0, g0 + count), zero outside [0, n), into `base`;
+// returns where the window starts there (its part inside the row starts
+// where its source does modulo 16 bytes).  A bfloat16 window that starts on
+// an odd sample (most do: the plan's windows start at odd offsets) copies
+// that sample alone, so that the rest goes as 4-byte pairs.  One cp.async
+// group.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-symmetric_synthesis_kernel(PlanePtrs in, T* __restrict__ out,
+__device__ __forceinline__ float* copy_zero_window(float* base, const T* __restrict__ row,
+                                                   long long g0, int count, long long n) {
+  const long long first = max(g0, 0LL);
+  const long long end = min(g0 + count, n);
+  const int inside = end > first ? static_cast<int>(end - first) : 0;
+  const int before = inside > 0 ? static_cast<int>(first - g0) : count;
+  float* w = base + (inside > 0 ? (window_offset(row + first) - before) & 3 : 0);
+  for (int q = threadIdx.x; q < before; q += blockDim.x) w[q] = 0.0f;
+  for (int q = before + inside + threadIdx.x; q < count; q += blockDim.x) w[q] = 0.0f;
+  if (inside > 0) {
+    const int lead = sizeof(T) < sizeof(float) &&
+                     (reinterpret_cast<size_t>(row + first) & 3) != 0;
+    if (lead && threadIdx.x == 0) w[before] = to_f32(row[first]);
+    copy_row_window(w + before + lead, row + first + lead, inside - lead);
+  }
+  cp_async_commit();
+  return w;
+}
+
+// Four blocks to an SM (64 registers a thread), as modwt_synthesis.cu.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4)
+symmetric_synthesis_kernel(const __grid_constant__ PlanePtrs in, T* __restrict__ out,
                            const float* __restrict__ head,
                            const float* __restrict__ tail,
                            const float* __restrict__ taps,
                            const int* __restrict__ plan, long long n, int levels,
-                           int L, int tile, int tiles_per_row, int width,
-                           int span_l, int span_r) {
-  extern __shared__ float smem[];
-  float* s_lo = smem;
-  float* s_hi = smem + L;
-  float* cur = smem + 2 * L;
-  float* nxt = cur + width;
-  float* det = nxt + width;
+                           int L, int tile, int tiles_per_row, int span_l, int span_r) {
+  extern __shared__ __align__(16) float smem[];
+  const int lp = padded_taps(L);
+  const int row_floats = window_row_floats(tile + cascade_span(L, levels));
+  float* const s_taps = smem;  // lo, lo reversed, hi, hi reversed
+  float* cur_row = smem + 4 * lp;
+  float* nxt_row = cur_row + row_floats;
+  float* const det_row = nxt_row + row_floats;
 
   const long long b = blockIdx.x / tiles_per_row;
   const long long t0 = static_cast<long long>(blockIdx.x % tiles_per_row) * tile;
   const long long row_off = b * n;
   const int n_out = static_cast<int>(min(static_cast<long long>(tile), n - t0));
+  const int cut = tile - n_out;  // the plan's windows are for `tile` outputs
 
-  for (int k = threadIdx.x; k < L; k += blockDim.x) {
-    s_lo[k] = taps[k];
-    s_hi[k] = taps[L + k];
+  for (int k = threadIdx.x; k < lp; k += blockDim.x) {
+    const bool real = k < L;
+    s_taps[k] = real ? taps[k] : 0.0f;
+    s_taps[lp + k] = real ? taps[L - 1 - k] : 0.0f;
+    s_taps[2 * lp + k] = real ? taps[L + k] : 0.0f;
+    s_taps[3 * lp + k] = real ? taps[2 * L - 1 - k] : 0.0f;
   }
-  // c_J = a_J over its window
-  {
-    const int* p = plan + kPlanStride * (levels - 1);
-    const T* approx = static_cast<const T*>(in.p[levels]) + row_off;
-    for (int q = threadIdx.x; q < p[1]; q += blockDim.x) {
-      cur[q] = load_ext(approx, t0 + p[0] + q, n, false);
-    }
-  }
+  auto plane = [&](int i) { return static_cast<const T*>(in.p[i]) + row_off; };
+  // c_J = a_J and d_J over their windows
+  const int* p = plan + kPlanStride * (levels - 1);
+  float* cur = copy_zero_window(cur_row, plane(levels), t0 + p[0], p[1] - cut, n);
+  const float* det = copy_zero_window(det_row, plane(levels - 1), t0 + p[2], p[1] - cut, n);
   for (int j = levels; j >= 1; --j) {
-    const int* p = plan + kPlanStride * (j - 1);
-    const int len = p[1], ed = p[2], bA = p[3], stA = p[4], bD = p[5], stD = p[6];
-    const T* dj = static_cast<const T*>(in.p[j - 1]) + row_off;
-    for (int q = threadIdx.x; q < len; q += blockDim.x) {
-      det[q] = load_ext(dj, t0 + ed + q, n, false);
-    }
+    p = plan + kPlanStride * (j - 1);
+    const int shift = j - 1;
+    const int s = 1 << shift;
+    // c_{j-1}'s window, what the next level (or the tile) reads
+    const int new_len = j > 1 ? p[1 - kPlanStride] - cut : n_out;
+    // an op with step st < 0 reads the reversed taps from (L-1)|st| earlier
+    const float* lo = s_taps + (p[4] < 0 ? lp : 0);
+    const float* hi = s_taps + (p[6] < 0 ? 3 * lp : 2 * lp);
+    const float* src_c = cur + p[3] + min(p[4], 0) * (L - 1);
+    const float* src_d = det + p[5] + min(p[6], 0) * (L - 1);
+    cp_async_wait_all();
     __syncthreads();
-    const int len_out = j > 1 ? plan[kPlanStride * (j - 2) + 1] : tile;
-    for (int r = threadIdx.x; r < len_out; r += blockDim.x) {
-      float c = 0.0f;
-      for (int k = 0; k < L; ++k) {
-        c = fmaf(s_lo[k], cur[r + bA + stA * k], c);
-        c = fmaf(s_hi[k], det[r + bD + stD * k], c);
+    const int group = max(s, kThreads);
+    for (int c0 = 0; c0 < new_len; c0 += group * kSymBlock) {
+      for (int pass = 0; pass < group; pass += kThreads) {
+        const int q0 =
+            c0 + pass + (s <= kThreads ? run_base<kSymBlock>(shift) : threadIdx.x);
+        if (q0 >= new_len) continue;
+        // the thread's outputs q0 + r s below the window's end
+        const int lim = min(kSymBlock, (new_len - q0 + s - 1) >> shift);
+        const int m_hi = lim + L - 1;
+        float acc[kSymBlock];
+#pragma unroll
+        for (int r = 0; r < kSymBlock; ++r) acc[r] = 0.0f;
+        if (lim == kSymBlock && lp == L) {
+          if (s == 1) {
+            level_run<true, false>(acc, src_c + q0, src_d + q0, 1, lo, hi, lp, m_hi);
+          } else {
+            level_run<false, false>(acc, src_c + q0, src_d + q0, s, lo, hi, lp, m_hi);
+          }
+        } else if (s == 1) {
+          level_run<true, true>(acc, src_c + q0, src_d + q0, 1, lo, hi, lp, m_hi);
+        } else {
+          level_run<false, true>(acc, src_c + q0, src_d + q0, s, lo, hi, lp, m_hi);
+        }
+#pragma unroll
+        for (int r = 0; r < kSymBlock; ++r) {
+          if (r < lim) nxt_row[q0 + r * s] = acc[r];
+        }
       }
-      nxt[r] = c;
     }
     __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    if (j > 1) {  // d_{j-1}: level j read the last of d_j
+      det = copy_zero_window(det_row, plane(j - 2), t0 + p[2 - kPlanStride],
+                             p[1 - kPlanStride] - cut, n);
+    }
+    cur = nxt_row;  // c_{j-1}; the next level writes over c_j's row
+    nxt_row = cur_row;
+    cur_row = cur;
   }
   const long long tail_start = n - span_r;
   T* dst = out + row_off + t0;
@@ -165,9 +262,10 @@ symmetric_adjoint_kernel(const T* __restrict__ c, PlanePtrs out,
   for (int o = threadIdx.x; o < n_out; o += blockDim.x) aj[o] = from_f32<T>(cur[o]);
 }
 
-inline size_t symmetric_shared_bytes(int L, int width, int adjoint) {
-  return sizeof(float) * (2 * static_cast<size_t>(L) +
-                          (adjoint ? 2 : 3) * static_cast<size_t>(width));
+// Shared memory of one adjoint block: the taps and two rows of the widest
+// window.
+inline size_t symmetric_adjoint_bytes(int L, int width) {
+  return sizeof(float) * (2 * static_cast<size_t>(L) + 2 * static_cast<size_t>(width));
 }
 
 template <typename T>
@@ -181,21 +279,24 @@ cudaError_t launch_symmetric(void* const* planes, void* signal, const float* hea
   const long long tiles = (n + tile - 1) / tile;
   const long long blocks = batch * tiles;
   if (tiles > 0x7fffffffLL || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t bytes = symmetric_shared_bytes(L, width, adjoint);
   cudaError_t err;
   if (adjoint) {
+    const size_t bytes = symmetric_adjoint_bytes(L, width);
     err = reserve_shared(symmetric_adjoint_kernel<T>, bytes);
     if (err != cudaSuccess) return err;
     symmetric_adjoint_kernel<T><<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
         static_cast<const T*>(signal), ptrs, taps, plan, n, levels, L, tile,
         static_cast<int>(tiles), width);
   } else {
+    // the forward plan's widest window is c_J's, tile + span
+    if (width != tile + cascade_span(L, levels)) return cudaErrorInvalidValue;
+    const size_t bytes = symmetric_forward_bytes(L, levels, tile);
     err = reserve_shared(symmetric_synthesis_kernel<T>, bytes);
     if (err != cudaSuccess) return err;
     symmetric_synthesis_kernel<T><<<static_cast<unsigned>(blocks), kThreads, bytes,
                                     stream>>>(
         ptrs, static_cast<T*>(signal), head, tail, taps, plan, n, levels, L, tile,
-        static_cast<int>(tiles), width, span_l, span_r);
+        static_cast<int>(tiles), span_l, span_r);
   }
   return cudaGetLastError();
 }
@@ -203,9 +304,11 @@ cudaError_t launch_symmetric(void* const* planes, void* signal, const float* hea
 }  // namespace vw
 
 // Forward (adjoint = 0): planes d_1..d_J, a_J -> signal, with the splice from
-// head [batch, span_l] and tail [batch, span_r] (fp32).  Adjoint (adjoint = 1):
-// signal -> planes; head and tail are not read.  plan: kPlanStride ints per
-// level on the device; width: the longest window of the plan.
+// head [batch, span_l] and tail [batch, span_r] (fp32); `tile` is the one
+// vw_modwt_symmetric_synthesis_tile gives, and the plan is made for it.
+// Adjoint (adjoint = 1): signal -> planes; head and tail are not read.
+// plan: kPlanStride ints per level on the device; width: the longest window
+// of the plan.
 extern "C" int vw_modwt_symmetric_synthesis(
     void* const* planes, void* signal, const void* head, const void* tail,
     const void* taps, const void* plan, long long batch, long long n, int levels,
@@ -232,4 +335,21 @@ extern "C" int vw_modwt_symmetric_synthesis(
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The forward kernel's tile for a preferred `tile` (clamped to the row,
+// halved until a block fits shared memory); 0 where none fits.
+extern "C" int vw_modwt_symmetric_synthesis_tile(int taps_len, int levels, long long n,
+                                                 int tile) {
+  return vw::valid_config(1, n, levels, taps_len, tile)
+             ? vw::symmetric_forward_tile(taps_len, levels, n, tile)
+             : 0;
+}
+
+// Shared memory of one forward block at `tile`, in bytes.
+extern "C" long long vw_modwt_symmetric_synthesis_shared_bytes(int taps_len, int levels,
+                                                               int tile) {
+  return vw::valid_config(1, 1, levels, taps_len, tile)
+             ? static_cast<long long>(vw::symmetric_forward_bytes(taps_len, levels, tile))
+             : 0;
 }

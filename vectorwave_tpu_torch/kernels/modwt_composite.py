@@ -90,10 +90,11 @@ LAUNCHES = {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
 
 #: Outputs per block, per kernel (the denoise kernel holds J planes of its
 #: tile in shared memory, so its tile is smaller).  The cascade pair's, the
-#: denoise's and the exact synthesis's are preferred tiles: the library
-#: clamps each to the row and halves it until a block fits
-#: (``vw_modwt_analysis_tile``, ``vw_modwt_synthesis_tile``,
-#: ``vw_modwt_denoise_tile``, ``vw_modwt_exact_synthesis_tile``).
+#: denoise's, the exact pair's and the symmetric synthesis's are preferred
+#: tiles: the library clamps each to the row and halves it until a block
+#: fits (``vw_modwt_analysis_tile``, ``vw_modwt_synthesis_tile``,
+#: ``vw_modwt_denoise_tile``, ``vw_modwt_exact_analysis_tile``,
+#: ``vw_modwt_exact_synthesis_tile``, ``vw_modwt_symmetric_synthesis_tile``).
 #: Measured (tools/ab_port_kernels.py pair ptiles, config #2 and 128 / 1024
 #: x 8192 on an H100): 4096 beats 2048 by a quarter in the analysis and a
 #: tenth in the synthesis, larger tiles gain at most 3%.
@@ -109,7 +110,15 @@ EXACT_TILE = 2048
 #: synthesis at 4096 1.26x faster than at 2048.
 DENOISE_LAUNCH_TILE = 2048
 EXACT_SYNTHESIS_LAUNCH_TILE = 4096
+#: The gates' symmetric tile (both directions; the adjoint launches at it)
+#: and the preferred tiles of the symmetric synthesis's forward launch and of
+#: the exact analysis's window launches.  Measured (tools/ab_port_kernels.py
+#: symsyn stiles exactana etiles, config #2 on an H100): the symmetric
+#: synthesis at 4096 1.21x faster than at 2048 and 3% faster than at 8192,
+#: the exact analysis at 4096 1.11x faster than at 2048.
 SYMMETRIC_TILE = 2048
+SYMMETRIC_LAUNCH_TILE = 4096
+EXACT_ANALYSIS_LAUNCH_TILE = 4096
 #: Ints per level of a symmetric plan (``kPlanStride`` in the CUDA source).
 PLAN_STRIDE = 8
 #: Dynamic shared memory one block may use on Hopper (227 KB).
@@ -214,8 +223,11 @@ def denoise_tile(taps: int, levels: int) -> int | None:
 
 def exact_analysis_shared_bytes(taps: int, levels: int, tile: int = EXACT_TILE,
                                 first_level: int = 1) -> int:
-    """Shared memory of one exact analysis block: fp64 taps + two rows of
-    tile + span, for the levels first_level .. first_level + levels - 1."""
+    """The room :func:`exact_launches` asks of an exact analysis block:
+    fp64 taps + two rows of tile + span, for the levels first_level ..
+    first_level + levels - 1.  The kernel's layout and launch tile are the
+    library's (``vw_modwt_exact_analysis_tile``); it launches every window
+    launch of the plans, which the card's tests hold."""
     span = composite_halo_samples(taps, levels) << (first_level - 1)
     return 8 * (2 * taps + 2 * (tile + span))
 
@@ -292,8 +304,11 @@ def symmetric_plan(taps: int, ops: tuple, tile: int, adjoint: bool):
 
 
 def symmetric_shared_bytes(taps: int, ops: tuple, tile: int, adjoint: bool) -> int:
-    """Shared memory of one symmetric block: taps + three rows of the widest
-    window (two in adjoint mode)."""
+    """The room the gates ask of a symmetric block: taps + three rows of the
+    widest window (two in adjoint mode, the adjoint kernel's own layout).
+    The forward kernel's layout and launch tile are the library's
+    (``vw_modwt_symmetric_synthesis_tile``); it launches every shape this
+    rule admits, which the card's tests hold."""
     width = symmetric_plan(taps, ops, tile, adjoint)[1]
     return 4 * (2 * taps + (2 if adjoint else 3) * width)
 
@@ -897,9 +912,12 @@ def symmetric_synthesis(planes, head, tail, levels, filters, ops) -> torch.Tenso
             "the head and tail splices overlap",
             context={"span_l": span_l, "span_r": span_r, "n": n},
         )
-    tile = _symmetric_launch_tile(taps, tuple(ops), False)
-    plan, width = symmetric_plan(taps, tuple(ops), tile, False)
+    _symmetric_launch_tile(taps, tuple(ops), False)  # the gate: raises where none fits
     lib = library()
+    tile = lib.vw_modwt_symmetric_synthesis_tile(taps, levels, n, SYMMETRIC_LAUNCH_TILE)
+    if not tile:
+        raise _too_large(taps, levels)
+    plan, width = symmetric_plan(taps, tuple(ops), tile, False)
     out = torch.empty_like(first)
     in_ptrs = (ctypes.c_void_p * (levels + 1))(*[p.data_ptr() for p in planes])
     tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), first.device.index)
@@ -1053,8 +1071,9 @@ def exact_analysis(x, x_lo, levels, filters, periodic, first_level=1, halo=None)
             err = lib.vw_modwt_exact_analysis(
                 cur_hi.data_ptr(), None if cur_lo is None else cur_lo.data_ptr(),
                 None if halo is None else halo.data_ptr(), halo_len,
-                out_ptrs, tap_t.data_ptr(), b, n, first, count, taps, tile,
-                int(periodic), int(direct), _stream(x.device),
+                out_ptrs, tap_t.data_ptr(), b, n, first, count, taps,
+                tile if direct else EXACT_ANALYSIS_LAUNCH_TILE, int(periodic), int(direct),
+                _stream(x.device),
             )
         _raise_on_error(err, "modwt_exact_analysis")
         LAUNCHES["modwt_exact_analysis"] += 1
