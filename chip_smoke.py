@@ -26,7 +26,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    head splice, at db4 J=6 and sym8 J=4 128x65536, db4 J=6 3x5000, haar J=4,
    a long filter that needs a smaller tile (db36 J=8), and once in bfloat16,
    on odd rows in float32 and bfloat16, and on rows one sample longer than
-   the two splices (db4 J=6 2x442, sym8 J=4 2x226);
+   the two splices (db4 J=6 2x442, sym8 J=4 2x226), the adjoint also on the
+   cotangent's interior and at strides 256 and 512 (haar J=10, sym8 J=9);
    the cascade pair (``run_analysis_mxu`` / ``run_synthesis_mxu``) in each
    edge mode (periodic, zero, and the analysis's per-level mirror) at db4
    J=6 and sym8 J=4 128x65536, db4 J=6 3x5000, db4 J=6 2x300 and sym8 J=4
@@ -34,7 +35,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    signal), haar J=5, db36 J=8 (the mirror at its 9088 tile, where the
    second block's window starts before the signal) and once in bfloat16;
    the library's launch tiles: the cascade pair's, the denoise's, the exact
-   pair's and the symmetric synthesis's serve every shape the gates send
+   pair's and the symmetric pair's serve every shape the gates send
    (filter lengths 1-128, J 1-10, every first level of an exact plan, every
    registered wavelet's symmetric ops); the 2-D analysis
    and synthesis level kernels, every band, in each edge
@@ -1569,8 +1570,10 @@ def main() -> int:
         c = torch.randn(b, n, device=dev, generator=gen).to(dtype)
         forward = lib.vw_modwt_symmetric_synthesis_tile(ws.filter_length, levels, n,
                                                         mc.SYMMETRIC_LAUNCH_TILE)
+        adjoint = lib.vw_modwt_symmetric_adjoint_tile(ws.filter_length, levels, n,
+                                                      mc.SYMMETRIC_ADJOINT_LAUNCH_TILE)
         label = (f"{name} J={levels} {b}x{n} {str(dtype)[6:]} (tiles: forward {forward}, "
-                 f"adjoint {mc.symmetric_tile(ws.filter_length, ops, True)})")
+                 f"adjoint {adjoint})")
         results = [
             ("modwt_analysis", " with head splice",
              mc.analysis(x, levels, sd, False, head), planes),
@@ -1580,6 +1583,9 @@ def main() -> int:
             ("modwt_symmetric_adjoint", "",
              mc.symmetric_adjoint(c, levels, sr, ops),
              mc.symmetric_adjoint_plain(c, levels, sr, ops)),
+            ("modwt_symmetric_adjoint", " on the interior",
+             mc.symmetric_adjoint(c, levels, sr, ops, span_l, span_r),
+             mc.symmetric_adjoint_plain(c, levels, sr, ops, span_l, span_r)),
         ]
         torch.cuda.synchronize()
         for kname, tag, got, want in results:
@@ -1594,6 +1600,30 @@ def main() -> int:
                 worst_bf16[kname] = max(worst_bf16[kname], err)
             check(err <= tol, f"{kname}{tag} {label}: max |kernel - plain| "
                               f"{err:.3e} <= {tol:.3e}")
+
+    # the adjoint alone at strides 256 and 512 (passes), on the interior
+    for name, levels, b, n, dtype in (("haar", 10, 2, 20001, torch.float32),
+                                      ("sym8", 9, 2, 16001, torch.float32),
+                                      ("sym8", 9, 2, 16001, torch.bfloat16)):
+        ws = vt.wavelet(name)
+        sr = _kernel_filters(ws, synthesis=True)
+        ops = ms.symmetric_level_ops(ws, levels)
+        spans = mc.symmetric_spans(ws.filter_length, ops)
+        c = torch.randn(b, n, device=dev, generator=gen).to(dtype)
+        got = mc.symmetric_adjoint(c, levels, sr, ops, *spans)
+        want = mc.symmetric_adjoint_plain(c, levels, sr, ops, *spans)
+        torch.cuda.synchronize()
+        err = max(max_err(g, p) for g, p in zip(got, want))
+        if dtype == torch.float32:
+            tol = TOL_F32
+            worst["modwt_symmetric_adjoint"] = max(worst["modwt_symmetric_adjoint"], err)
+        else:
+            tol = BF16_ULP * max(p.float().abs().max().item() for p in want)
+            worst_bf16["modwt_symmetric_adjoint"] = max(
+                worst_bf16["modwt_symmetric_adjoint"], err)
+        check(err <= tol, f"modwt_symmetric_adjoint {name} J={levels} {b}x{n} "
+                          f"{str(dtype)[6:]} on the interior: max |kernel - plain| "
+                          f"{err:.3e} <= {tol:.3e}")
 
     # the cascade pair's launch tile, the library's: every shape the routers'
     # gates send (their rule, taps + 2 or 3 rows of tile + span) it launches,
@@ -1649,8 +1679,13 @@ def main() -> int:
         if not isinstance(ws, vt.DiscreteWavelet) or ws.filter_length > 128:
             continue
         for levels in range(1, 11):
-            if mc.symmetric_tile(ws.filter_length, ms.symmetric_level_ops(ws, levels),
-                                 False) is None:
+            ops = ms.symmetric_level_ops(ws, levels)
+            if mc.symmetric_tile(ws.filter_length, ops, True) is not None and (
+                    lib.vw_modwt_symmetric_adjoint_tile(
+                        ws.filter_length, levels, 1 << 20,
+                        mc.SYMMETRIC_ADJOINT_LAUNCH_TILE) < 128):
+                refused.append(("symmetric adjoint", name, levels))
+            if mc.symmetric_tile(ws.filter_length, ops, False) is None:
                 continue
             served += 1
             if lib.vw_modwt_symmetric_synthesis_tile(ws.filter_length, levels, 1 << 20,
@@ -1667,19 +1702,25 @@ def main() -> int:
                             taps, first, count, 1 << 20, mc.EXACT_ANALYSIS_LAUNCH_TILE) < least:
                         refused.append(("exact analysis", taps, first, count))
     check(not refused and served > 100,
-          f"the symmetric synthesis ({served} wavelets and depths) and the exact analysis "
+          f"the symmetric synthesis ({served} wavelets and depths), its adjoint and the "
+          f"exact analysis "
           f"launch every shape the gates send (refused: {refused[:5]})")
     short = (lib.vw_modwt_analysis_tile(8, LEVELS, 1000, mc.ANALYSIS_TILE, 1),
              lib.vw_modwt_synthesis_tile(8, LEVELS, 1000, mc.SYNTHESIS_TILE),
              lib.vw_modwt_symmetric_synthesis_tile(8, LEVELS, 1000, mc.SYMMETRIC_LAUNCH_TILE),
+             lib.vw_modwt_symmetric_adjoint_tile(8, LEVELS, 1000,
+                                                 mc.SYMMETRIC_ADJOINT_LAUNCH_TILE),
              lib.vw_modwt_exact_analysis_tile(8, 1, LEVELS, 1000,
                                               mc.EXACT_ANALYSIS_LAUNCH_TILE),
              lib.vw_modwt_analysis_tile(8, LEVELS, N, mc.ANALYSIS_TILE, 1),
              lib.vw_modwt_synthesis_tile(8, LEVELS, N, mc.SYNTHESIS_TILE),
              lib.vw_modwt_symmetric_synthesis_tile(8, LEVELS, N, mc.SYMMETRIC_LAUNCH_TILE),
+             lib.vw_modwt_symmetric_adjoint_tile(8, LEVELS, N,
+                                                 mc.SYMMETRIC_ADJOINT_LAUNCH_TILE),
              lib.vw_modwt_exact_analysis_tile(8, 1, LEVELS, N, mc.EXACT_ANALYSIS_LAUNCH_TILE))
-    check(short == (1000,) * 4 + (mc.ANALYSIS_TILE, mc.SYNTHESIS_TILE,
-                                  mc.SYMMETRIC_LAUNCH_TILE, mc.EXACT_ANALYSIS_LAUNCH_TILE),
+    check(short == (1000,) * 5 + (mc.ANALYSIS_TILE, mc.SYNTHESIS_TILE,
+                                  mc.SYMMETRIC_LAUNCH_TILE, mc.SYMMETRIC_ADJOINT_LAUNCH_TILE,
+                                  mc.EXACT_ANALYSIS_LAUNCH_TILE),
           f"db4 J={LEVELS} launch tiles, rows of 1000 / {N}: {short}")
 
     # the cascade pair in each edge mode: (wavelet, levels, batch, n, dtype);

@@ -330,6 +330,35 @@ def test_symmetric_kernels_match_plain(cuda, name, levels, b, n, dtype):
             mc.LAUNCHES["modwt_symmetric_adjoint"]) == (1, 1, 1)
 
 
+# (wavelet, levels, batch, n): a ragged last tile, odd rows (each after the
+# first off 16 bytes), rows one sample longer than the two splices, haar and
+# sym8 at J = 9 and 10 (strides 256 and 512: passes), a long filter, and a
+# one-sample last block whose levels take two runs (bior1.3)
+ADJOINT_CASES = [("db4", LEVELS, 3, 9001), ("db4", LEVELS, 3, 5001), ("db4", LEVELS, 2, 442),
+                 ("sym8", 4, 2, 226), ("sym8", 4, 3, 70001), ("haar", 10, 2, 20001),
+                 ("sym8", 9, 2, 16001), ("db20", 3, 3, 4097), ("bior1.3", 3, 2, 4097)]
+
+
+@pytest.mark.parametrize("interior", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,levels,b,n", ADJOINT_CASES)
+def test_symmetric_adjoint_matches_plain(cuda, name, levels, b, n, dtype, interior):
+    """The adjoint kernel at its library tile, with and without the interior
+    spans it reads the cotangent inside, against its plain version."""
+    w = vt.wavelet(name)
+    fr = _kernel_filters(w, synthesis=True)
+    ops = ms.symmetric_level_ops(w, levels)
+    spans = mc.symmetric_spans(w.filter_length, ops) if interior else (0, 0)
+    c = _input(cuda, b, n, dtype, seed=30)
+    mc.reset_launches()
+    got = mc.symmetric_adjoint(c, levels, fr, ops, *spans)
+    want = mc.symmetric_adjoint_plain(c, levels, fr, ops, *spans)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["modwt_symmetric_adjoint"] == 1
+    assert all(g.dtype == dtype and g.shape == c.shape for g in got)
+    assert _err(got, want) <= _tol(dtype, want)
+
+
 def test_symmetric_public_path_launches_the_kernels(cuda):
     x = _input(cuda, 4, 8192, torch.float32, seed=12)
     mc.reset_launches()
@@ -511,31 +540,48 @@ def test_denoise_and_exact_synthesis_launch_every_shape_the_gates_send(cuda):
 
 def test_symmetric_and_exact_analysis_launch_every_shape_the_gates_send(cuda):
     """The library's launch tile and shared memory of the symmetric
-    synthesis (for every registered wavelet and depth symmetric_tile admits)
-    and of the exact analysis (for every window launch of exact_launches'
-    plans, from every first level): a tile whose block fits, of at least 128
-    where the block fits at 128 (the exact analysis's padded taps and rows
-    take up to 208 bytes more than the gates' rule, so a few long filters at
-    levels 9-10 launch at 64); a short row's tile is the row."""
+    synthesis and of its adjoint (for every registered wavelet and depth
+    symmetric_tile admits in that direction; the adjoint's widest window
+    fits its row) and of the exact analysis (for every window launch of
+    exact_launches' plans, from every first level): a tile whose block fits,
+    of at least 128 where the block fits at 128 (the exact analysis's padded
+    taps and rows take up to 208 bytes more than the gates' rule, so a few
+    long filters at levels 9-10 launch at 64); a short row's tile is the
+    row."""
     from vectorwave_tpu_torch.kernels import _build
 
     lib = _build.library()
-    served = 0
+    served = adjoint_served = 0
     for name in vt.available_wavelets():
         w = vt.wavelet(name)
         if not isinstance(w, vt.DiscreteWavelet) or w.filter_length > 128:
             continue
+        taps = w.filter_length
         for levels in range(1, 11):
             ops = ms.symmetric_level_ops(w, levels)
-            if mc.symmetric_tile(w.filter_length, ops, False) is None:
+            if mc.symmetric_tile(taps, ops, True) is not None:
+                tile = lib.vw_modwt_symmetric_adjoint_tile(taps, levels, 1 << 20,
+                                                           mc.SYMMETRIC_ADJOINT_LAUNCH_TILE)
+                assert tile >= 128, (name, levels)
+                assert lib.vw_modwt_symmetric_adjoint_shared_bytes(
+                    taps, levels, tile) <= mc.SHARED_LIMIT
+                width = mc.symmetric_plan(taps, ops, tile, True)[1]
+                assert width <= tile + mc.composite_halo_samples(taps, levels) + 3
+                adjoint_served += 1
+            if mc.symmetric_tile(taps, ops, False) is None:
                 continue
-            tile = lib.vw_modwt_symmetric_synthesis_tile(w.filter_length, levels, 1 << 20,
+            tile = lib.vw_modwt_symmetric_synthesis_tile(taps, levels, 1 << 20,
                                                          mc.SYMMETRIC_LAUNCH_TILE)
             assert tile >= 128, (name, levels)
             assert lib.vw_modwt_symmetric_synthesis_shared_bytes(
-                w.filter_length, levels, tile) <= mc.SHARED_LIMIT
+                taps, levels, tile) <= mc.SHARED_LIMIT
             served += 1
-    assert served > 100
+    assert served > 100 and adjoint_served >= served
+    assert lib.vw_modwt_symmetric_adjoint_tile(8, LEVELS, 1000,
+                                               mc.SYMMETRIC_ADJOINT_LAUNCH_TILE) == 1000
+    assert lib.vw_modwt_symmetric_adjoint_tile(8, LEVELS, 65536,
+                                               mc.SYMMETRIC_ADJOINT_LAUNCH_TILE) == (
+        mc.SYMMETRIC_ADJOINT_LAUNCH_TILE)
     for taps in range(1, 129):
         for levels in range(1, 11):
             for first_level in range(1, 12 - levels):

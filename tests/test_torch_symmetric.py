@@ -344,6 +344,33 @@ def test_symmetric_gradients_match_jax_grad():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=2e-6 * scale)
 
 
+def test_symmetric_synthesis_gradient_matches_jax_kernel_tier():
+    """The gradient with respect to the planes of the port's kernel-tier
+    symmetric synthesis (its backward, the adjoint with the interior spans,
+    here the plain version) against ``jax.grad`` of the JAX kernel tier, whose
+    backward reaches ``_symsyn_adjoint_kernel`` (interpret mode, float32),
+    within 2e-6 of the largest gradient entry, the JAX test's bound."""
+    jw, w = jax_wavelet("db4"), _port_wavelet("db4")
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((1, 2048)).astype(np.float32)
+    res = vw.modwt_multilevel(jnp.asarray(x), jw, levels=3, boundary="symmetric",
+                              backend="jnp")
+    weights = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jloss(ds, a):
+        y = jax_sym_synthesis(ds, a, jw, interpret=True, precision="float32")
+        return jnp.sum(y * weights)
+
+    gj = jax.grad(jloss, argnums=(0, 1))(res.details, res.approx)
+    ps = [_tensor(p).requires_grad_(True) for p in _planes(res)]
+    y = vt.fused_synthesis(ps[:-1], ps[-1], w, boundary="symmetric", precision="float32")
+    gk = torch.autograd.grad((y * torch.from_numpy(weights)).sum(), ps)
+    want = (*gj[0], gj[1])
+    scale = max(float(jnp.max(jnp.abs(b))) for b in want)
+    for a, b in zip(gk, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=2e-6 * scale)
+
+
 def test_route_gates_both_sides():
     w = vt.wavelet("db4")
     reach = mc.mirror_reach(w.filter_length, 6)  # the analysis kernel's mirror

@@ -10,6 +10,7 @@ commit: ``git archive HEAD vectorwave_tpu_torch/kernels | tar -x -C DIR``):
                                      [denoise] [dtiles] [dvariants]
                                      [exactsyn] [xtiles] [xvariants]
                                      [symsyn] [stiles] [svariants]
+                                     [symadj] [adjtiles] [adjvariants]
                                      [exactana] [etiles] [evariants]
                                      [banksyn] [twoda] [probea] [probea_new]
                                      [atiles] [avariants]
@@ -54,10 +55,16 @@ printed first.
 * ``symsyn``: the symmetric synthesis (``modwt_symmetric_synthesis.cu``,
   whose C interface and plan the change keeps) at config #2's symmetric
   call, db4 J=6 128x65536 in float32 and bfloat16, and sym8 J=4, the parent
-  at the gates' tile and the change at its library's, then the adjoint
-  (row 6b) at db4 J=6; ``stiles`` times the change at ``SYMMETRIC_TILES``
-  and ``svariants`` builds with other launch bounds and run lengths
-  (``SYMMETRIC_VARIANTS``);
+  at the gates' tile and the change at its library's; ``stiles`` times the
+  change at ``SYMMETRIC_TILES`` and ``svariants`` builds with other launch
+  bounds and run lengths (``SYMMETRIC_VARIANTS``);
+* ``symadj``: its adjoint mode (row 6b, the gradient with respect to the
+  planes) at 128x65536: db4 J=6 in float32 and bfloat16, sym8 J=4 and sym8
+  J=8 (stride 128), the parent at the gates' adjoint tile on the cotangent
+  masked beforehand, the change at its library's tile with the interior
+  spans, each with its bound; ``adjtiles`` times the change at
+  ``ADJOINT_TILES`` and ``adjvariants`` builds with three blocks an SM, no
+  detail staging, and pair runs on other levels (``ADJOINT_VARIANTS``);
 * ``exactana``: the exact analysis (``modwt_exact_analysis.cu``, whose C
   interface the change keeps) at 128x65536: db4 J=6 periodic, zero, with a
   lo word and with a left halo of 441, sym8 J=10's two launches, and
@@ -261,7 +268,7 @@ def build(sources, out_dir: pathlib.Path, name: str, defines=()):
         if p.returncode != 0:
             raise RuntimeError(f"{' '.join(c)}\n{out}")
         for line in out.splitlines():
-            if ("registers" in line or "spill" in line) and any(
+            if ("registers" in line or "spill" in line or "properties" in line) and any(
                     k in c[-1] for k in SHOWN):
                 print(f"  [{name} {pathlib.Path(c[-1]).stem}] {line.strip()}", flush=True)
     lib = out_dir / f"lib{name}.so"
@@ -966,9 +973,8 @@ EXACT_ANALYSIS_VARIANTS = {
 def symsyn_target(args, parent, work, turns):
     """The symmetric synthesis, parent vs change (target ``symsyn``): the
     forward kernel at config #2's symmetric call (db4 J=6, 128x65536) in
-    float32 and bfloat16 and at sym8 J=4 128x65536, each with its bound; then
-    the adjoint (row 6b, the same code on both sides unless the change
-    touched it) at db4 J=6.  The parent launches at the gates' tile
+    float32 and bfloat16 and at sym8 J=4 128x65536, each with its bound
+    (the adjoint is ``symadj``'s).  The parent launches at the gates' tile
     (``symmetric_tile``) and its plan; the change at its library's tile for
     ``SYMMETRIC_LAUNCH_TILE``; ``stiles`` times the change at
     SYMMETRIC_TILES, ``svariants`` its variant builds."""
@@ -1060,155 +1066,128 @@ def symsyn_target(args, parent, work, turns):
                       f"{row[f'variant_{vname}'][1]:.1e})", flush=True)
         rows.append(row)
         del planes, want, x, out
-
-    # the adjoint (row 6b): c -> J+1 planes at the gates' adjoint tile
-    w = vt.wavelet("db4")
-    fr = _kernel_filters(w, synthesis=True)
-    taps, levels = len(fr[0]), 6
-    ops = ms.symmetric_level_ops(w, levels)
-    tap_t = _device_taps(tuple(fr[0]) + tuple(fr[1]), dev.index)
-    tile = mc.symmetric_tile(taps, ops, True)
-    plan, width = mc.symmetric_plan(taps, ops, tile, True)
-    plan_t = _device_taps(plan, dev.index, torch.int32)
-    c = torch.randn(b, n, device=dev, generator=gen)
-    outs = [torch.empty_like(c) for _ in range(levels + 1)]
-    out_ptrs = ptrs(outs)
-
-    def adjoint(f):
-        def run():
-            err = f(out_ptrs, c.data_ptr(), None, None, tap_t.data_ptr(), plan_t.data_ptr(),
-                    b, n, levels, taps, tile, width, 0, 0, 1, 0, _stream(dev))
-            if err:
-                raise RuntimeError(f"kernel launch failed with CUDA error {err}")
-            return outs
-        return run
-
-    want = mc.symmetric_adjoint_plain(c, levels, fr, ops)
-
-    def check(f):
-        got = f()
-        torch.cuda.synchronize()
-        return max(float((g - p).abs().max()) for g, p in zip(got, want))
-
-    row = turns(f"adjoint db4 J={levels} {b}x{n} float32", adjoint(fn), adjoint(new_fn), check)
-    row["kernel"], row["tiles"] = "modwt_symmetric_adjoint", (tile, tile)
-    row["bound_ms"], row["bound_by"] = 4 * (levels + 2) * b * n / 3.35e12 * 1e3, "bytes"
-    print(f"    bound {row['bound_ms']:.4f} ms (bytes); tile {tile}", flush=True)
-    rows.append(row)
     return rows
 
 
-def exactana_target(args, parent, work, turns):
-    """The exact analysis, parent vs change (target ``exactana``) at
-    128x65536: db4 J=6 periodic, zero, with a lo word and with a left halo
-    of 441; sym8 J=10, a plan of two launches; and launches from a later
-    first level (db4 levels 4-6, and levels 9-10, strides of kThreads and
-    above), each with its byte bound.  The parent launches at the plan's
-    tile; the change's window launches at ``EXACT_ANALYSIS_LAUNCH_TILE``
-    (its library's tile); ``etiles`` times the change at
-    EXACT_ANALYSIS_TILES and ``evariants`` its variant builds."""
+#: the adjoint's cases (target ``symadj``): (wavelet, levels, dtype), all at
+#: 128 x 65536; its preferred tiles (``adjtiles``) and variant builds of the
+#: change (``adjvariants``): three blocks an SM, no detail staging, every level
+#: as two runs (one for v_j, one for grad d_j), every level whose two ranges
+#: overlap as one pair run, and pair runs only below stride 8 or up to 32
+ADJOINT_CASES = (("db4", 6, "float32"), ("db4", 6, "bfloat16"), ("sym8", 4, "float32"),
+                 ("sym8", 8, "float32"))
+ADJOINT_TILES = (2048, 3072, 4096, 8192)
+ADJOINT_BOUNDS = "__launch_bounds__(kThreads, 2)\nsymmetric_adjoint_kernel"
+ADJOINT_RULE = "if (8 * (p1 - p0) <= 5 * (v_len + n_out)) {"
+ADJOINT_VARIANTS = {
+    "bounds3": ((ADJOINT_BOUNDS, ADJOINT_BOUNDS.replace("2)", "3)")),),
+    "nostage": (("const bool stage_here = stage_buf != nullptr && (1 << shift) < "
+                 "kAdjointStagedStride;", "const bool stage_here = false;"),),
+    "nomerge": ((ADJOINT_RULE, "if (false) {"),),
+    "allmerge": ((ADJOINT_RULE, "if (delta > -n_out && delta < v_len) {"),),
+    "merge_staged": ((ADJOINT_RULE, ADJOINT_RULE.replace(
+        ") {", " && (1 << shift) < kAdjointStagedStride) {")),),
+    "merge_s32": ((ADJOINT_RULE, ADJOINT_RULE.replace(") {", " && shift <= 5) {")),),
+}
+
+
+def symadj_target(args, parent, work, turns):
+    """The symmetric synthesis's adjoint (row 6b), parent vs change (target
+    ``symadj``), at ADJOINT_CASES: the gradient of the symmetric body with
+    respect to the planes, c -> J+1 planes.  The parent launches at the
+    gates' adjoint tile (``symmetric_tile(..., True)``) and its plan, on the
+    cotangent masked to the interior beforehand (it reads no spans); the
+    change at its library's tile for ``SYMMETRIC_ADJOINT_LAUNCH_TILE``, on
+    the unmasked cotangent with the interior spans.  Both are held against
+    ``symmetric_adjoint_plain`` with the spans.  ``adjtiles`` times the
+    change at ADJOINT_TILES, ``adjvariants`` its variant builds."""
     import torch
 
     import vectorwave_tpu_torch as vt
     from vectorwave_tpu_torch.kernels import _build
     from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.kernels import modwt_symmetric as ms
     from vectorwave_tpu_torch.kernels.modwt_composite import _device_taps, _stream
     from vectorwave_tpu_torch.kernels.modwt_fused import _kernel_filters
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(5)
     new_lib = _build.library()
-    fn, new_fn = parent.vw_modwt_exact_analysis, new_lib.vw_modwt_exact_analysis
+    fn, new_fn = parent.vw_modwt_symmetric_synthesis, new_lib.vw_modwt_symmetric_synthesis
     fn.argtypes, fn.restype = new_fn.argtypes, new_fn.restype
-    variants = (variant_builds("modwt_exact_analysis", EXACT_ANALYSIS_VARIANTS, new_fn, work)
-                if "evariants" in args.what else {})
-    preferred = mc.EXACT_ANALYSIS_LAUNCH_TILE
+    variants = (variant_builds("modwt_symmetric_synthesis", ADJOINT_VARIANTS, new_fn, work)
+                if "adjvariants" in args.what else {})
     b, n = PAIR_SHAPE
-    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[q.data_ptr() for q in ts])  # noqa: E731
     rows = []
-    print("exact analysis: parent vs change", flush=True)
-    # (wavelet, levels, first level, periodic, lo word, left halo)
-    cases = [("db4", 6, 1, True, False, 0), ("db4", 6, 1, False, False, 0),
-             ("db4", 6, 1, True, True, 0), ("db4", 6, 1, False, False, 441),
-             ("sym8", 10, 1, True, False, 0), ("db4", 3, 4, True, True, 0),
-             ("db4", 2, 9, True, True, 0)]
-    for name, levels, first_level, periodic, with_lo, h in cases:
+    print("symmetric adjoint: parent vs change", flush=True)
+    for name, levels, dtype_name in ADJOINT_CASES:
+        dtype = getattr(torch, dtype_name)
         w = vt.wavelet(name)
-        fd = _kernel_filters(w, synthesis=False)
-        taps = len(fd[0])
-        tap_t = _device_taps(tuple(fd[0]) + tuple(fd[1]), dev.index, torch.float64)
-        x = torch.randn(b, n, device=dev, generator=gen)
-        x_lo = x * 2.0**-26 * torch.randn(b, n, device=dev, generator=gen) if with_lo else None
-        halo = torch.randn(b, h, device=dev, generator=gen) if h else None
-        plan = mc.exact_launches(mc.exact_analysis_shared_bytes, taps, levels, first_level)
-        outs = [[torch.empty_like(x) for _ in range(2 * (count + 1))]
-                for _, count, _, _ in plan]
+        fr = _kernel_filters(w, synthesis=True)
+        taps = len(fr[0])
+        ops = ms.symmetric_level_ops(w, levels)
+        span_l, span_r = mc.symmetric_spans(taps, ops)
+        tap_t = _device_taps(tuple(fr[0]) + tuple(fr[1]), dev.index)
+        c = torch.randn(b, n, device=dev, generator=gen).to(dtype)
+        masked = mc._interior(c, span_l, span_r).contiguous()
+        outs = [torch.empty_like(c) for _ in range(levels + 1)]
+        out_ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+        code = mc._DTYPE_CODES[dtype]
 
-        def call(f, tile):
-            """The plan's launches; a window launch of the change at `tile`
-            (the parent at the plan's)."""
-            out_ptrs = [ptrs(o) for o in outs]
+        def call(f, tile, spans):
+            plan, width = mc.symmetric_plan(taps, ops, tile, True)
+            plan_t = _device_taps(plan, dev.index, torch.int32)
+            src = c if spans else masked
+            sl, sr = (span_l, span_r) if spans else (0, 0)
 
             def run():
-                cur_hi, cur_lo = x, x_lo
-                for (first, count, t, direct), o, op in zip(plan, outs, out_ptrs):
-                    err = f(cur_hi.data_ptr(), None if cur_lo is None else cur_lo.data_ptr(),
-                            None if halo is None else halo.data_ptr(), h, op,
-                            tap_t.data_ptr(), b, n, first, count, taps,
-                            t if tile is None or direct else tile, int(periodic),
-                            int(direct), _stream(dev))
-                    if err:
-                        raise RuntimeError(f"kernel launch failed with CUDA error {err}")
-                    cur_hi, cur_lo = o[2 * count], o[2 * count + 1]
-                return [q for o in outs for q in o]
+                err = f(out_ptrs, src.data_ptr(), None, None, tap_t.data_ptr(),
+                        plan_t.data_ptr(), b, n, levels, taps, tile, width, sl, sr, 1, code,
+                        _stream(dev))
+                if err:
+                    raise RuntimeError(f"kernel launch failed with CUDA error {err}")
+                return outs
             return run
 
-        want = mc.exact_analysis_plain(x, x_lo, levels, fd, periodic, first_level, halo)
+        def tile_of(alt):
+            return new_lib.vw_modwt_symmetric_adjoint_tile(taps, levels, n, alt)
+
+        want = mc.symmetric_adjoint_plain(c, levels, fr, ops, span_l, span_r)
 
         def check(f, want=want):
-            f()
+            got = f()
             torch.cuda.synchronize()
-            pairs = []
-            for (_, count, _, _), o in zip(plan, outs):
-                pairs += [(o[2 * i], o[2 * i + 1]) for i in range(count)]
-            pairs.append((outs[-1][-2], outs[-1][-1]))
-            return max(float((g[0].double() + g[1].double() - p[0].double()
-                              - p[1].double()).abs().max()) for g, p in zip(pairs, want))
+            return max(float((g.float() - p.float()).abs().max()) for g, p in zip(got, want))
 
-        label = (f"{name} levels {first_level}..{first_level + levels - 1} {b}x{n} "
-                 f"{'periodic' if periodic else 'zero'}{' with lo' if with_lo else ''}"
-                 f"{f' with a left halo of {h}' if h else ''}, plan {plan}")
-        row = turns(label, call(fn, None), call(new_fn, preferred), check)
-        row["kernel"] = "modwt_exact_analysis"
-        nbytes = ((8 if with_lo else 4) + 8 * (levels + 1)) * b * n + 4 * b * h
-        t_bytes = nbytes / 3.35e12 * 1e3
-        t_ops = 2 * 2 * taps * levels * b * n / 34e12 * 1e3
+        old_tile = mc.symmetric_tile(taps, ops, True)
+        new_tile = tile_of(mc.SYMMETRIC_ADJOINT_LAUNCH_TILE)
+        label = f"adjoint {name} J={levels} {b}x{n} {dtype_name}"
+        row = turns(label, call(fn, old_tile, False), call(new_fn, new_tile, True), check)
+        row["kernel"], row["tiles"] = "modwt_symmetric_adjoint", (old_tile, new_tile)
+        size = c.element_size()
+        t_bytes = size * (levels + 2) * b * n / 3.35e12 * 1e3
+        t_ops = 2 * 2 * taps * levels * b * n / 67e12 * 1e3
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        row["tiles_used"] = [new_lib.vw_modwt_exact_analysis_tile(taps, first, count, n,
-                                                                  preferred)
-                             for first, count, _, _ in plan]
-        print(f"    bound {row['bound_ms']:.4f} ms ({row['bound_by']}); the change's tiles "
-              f"{row['tiles_used']}", flush=True)
-        if name == "db4" and levels == 6 and periodic and not with_lo:
-            if "etiles" in args.what:
+        print(f"    bound {row['bound_ms']:.4f} ms ({row['bound_by']}); tiles: parent "
+              f"{old_tile}, change {new_tile}", flush=True)
+        if dtype == torch.float32:
+            if "adjtiles" in args.what:
                 row["tile_sweep"] = {}
-                for alt in EXACT_ANALYSIS_TILES:
-                    f = call(new_fn, alt)
-                    row["tile_sweep"][alt] = (median_ms(f, queue=QUEUE), check(f))
-                print("    tiles: " + ", ".join(f"{k} {v[0]:.4f} ms (err {v[1]:.1e})"
+                for alt in ADJOINT_TILES:
+                    f = call(new_fn, tile_of(alt), True)
+                    row["tile_sweep"][alt] = (tile_of(alt), median_ms(f, queue=QUEUE),
+                                              check(f))
+                print("    tiles: " + ", ".join(f"{k} ({v[0]}) {v[1]:.4f} ms (err {v[2]:.1e})"
                                                 for k, v in row["tile_sweep"].items()),
                       flush=True)
             for vname, vfn in variants.items():
-                row[f"variant_{vname}"] = {}
-                for alt in (EXACT_ANALYSIS_TILES if "etiles" in args.what else (preferred,)):
-                    f = call(vfn, alt)
-                    row[f"variant_{vname}"][alt] = (median_ms(f, queue=QUEUE), check(f))
-                print(f"    variant {vname}: " + ", ".join(
-                    f"{k} {v[0]:.4f} ms (err {v[1]:.1e})"
-                    for k, v in row[f"variant_{vname}"].items()), flush=True)
+                f = call(vfn, new_tile, True)
+                row[f"variant_{vname}"] = (median_ms(f, queue=QUEUE), check(f))
+                print(f"    variant {vname}: {row[f'variant_{vname}'][0]:.4f} ms (err "
+                      f"{row[f'variant_{vname}'][1]:.1e})", flush=True)
         rows.append(row)
-        del want, outs, x, x_lo, halo
+        del c, masked, outs, want
     return rows
 
 
@@ -1267,6 +1246,8 @@ def main() -> int:
         results["exactsyn"] = exactsyn_target(args, parent, work, turns)
     if "symsyn" in args.what:
         results["symsyn"] = symsyn_target(args, parent, work, turns)
+    if "symadj" in args.what:
+        results["symadj"] = symadj_target(args, parent, work, turns)
     if "exactana" in args.what:
         results["exactana"] = exactana_target(args, parent, work, turns)
 

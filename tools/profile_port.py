@@ -17,7 +17,9 @@ gives the JAX pair; the port ignores their tile), the exact round trip
 trip (its analysis the cascade kernel's mirror mode), and
 ``swt_denoise`` (sym8, 4 levels, symmetric, universal soft) at 128 x 65536
 and 1 x 16384, the fused denoise's forward and backward (db4, 6 levels,
-soft, 128 x 65536), and at the 2-D shape (8 x 2048 x 2048 float32) the db4
+soft, 128 x 65536), the gradient of the symmetric inverse with respect to its
+planes (db4, 6 levels, 128 x 65536: the forward and the backward, whose
+symmetric adjoint kernel is one launch), and at the 2-D shape (8 x 2048 x 2048 float32) the db4
 round trips ``modwt2_multilevel`` -> ``imodwt2_multilevel`` at 4 and 6
 levels and ``denoise2`` (db4, 4 levels, universal soft), and for the packet
 and dual-tree family (sym8, float32, 64 x 16384 and 128 x 65536) ``modwpt``
@@ -87,6 +89,15 @@ def main() -> int:
         y = vt.fused_denoise_multilevel(xg, "db4", levels=6, thresholds=ths, mode="soft")
         return torch.autograd.grad(y.sum(), xg)
 
+    sym = vt.modwt_multilevel(x, "db4", levels=6, boundary="symmetric")
+    sym_planes = [p.detach().clone().requires_grad_(True) for p in (*sym.details, sym.approx)]
+
+    def symmetric_planes_gradient():
+        y = vt.imodwt_multilevel(
+            vt.MultiLevelMODWTResult(tuple(sym_planes[:-1]), sym_planes[-1]), "db4",
+            boundary="symmetric")
+        return torch.autograd.grad(y, sym_planes, x)
+
     calls = {
         "modwt_multilevel + imodwt_multilevel": lambda: vt.imodwt_multilevel(
             vt.modwt_multilevel(x, "db4", levels=6), "db4"),
@@ -107,6 +118,8 @@ def main() -> int:
         "swt_denoise sym8 J=4 symmetric 1x16384": lambda: vt.swt_denoise(
             x16k, "sym8", levels=4, boundary="symmetric"),
         "fused_denoise_multilevel soft, forward + backward": fused_backward,
+        "imodwt_multilevel symmetric, gradient w.r.t. the planes (forward + backward)":
+            symmetric_planes_gradient,
         "modwt2_multilevel + imodwt2_multilevel db4 J=4 8x2048x2048":
             lambda: vt.imodwt2_multilevel(vt.modwt2_multilevel(img, "db4", levels=4), "db4"),
         "modwt2_multilevel + imodwt2_multilevel db4 J=6 8x2048x2048":

@@ -151,22 +151,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vw_modwt_bank_synthesis.argtypes = [ptrs, ptr, ptr, ptr, ptr, ptr, i64, i64, i32,
                                             i32, i32, i32, i32, i32, ptr]
     # a launch's tile for a preferred one: the cascade pair's, the denoise's
-    # and the symmetric synthesis's, (taps_len, levels, n, tile[, edge]), the
+    # and the symmetric pair's, (taps_len, levels, n, tile[, edge]), the
     # exact pair's, (taps_len, first, levels, n, tile); and a block's shared
     # bytes, (taps_len, [first,] levels, tile)
     lib.vw_modwt_analysis_tile.argtypes = [i32, i32, i64, i32, i32]
     for fn in (lib.vw_modwt_synthesis_tile, lib.vw_modwt_denoise_tile,
-               lib.vw_modwt_symmetric_synthesis_tile):
+               lib.vw_modwt_symmetric_synthesis_tile, lib.vw_modwt_symmetric_adjoint_tile):
         fn.argtypes = [i32, i32, i64, i32]
     for fn in (lib.vw_modwt_exact_analysis_tile, lib.vw_modwt_exact_synthesis_tile):
         fn.argtypes = [i32, i32, i32, i64, i32]
     for fn in (lib.vw_modwt_analysis_tile, lib.vw_modwt_synthesis_tile,
                lib.vw_modwt_denoise_tile, lib.vw_modwt_symmetric_synthesis_tile,
-               lib.vw_modwt_exact_analysis_tile, lib.vw_modwt_exact_synthesis_tile):
+               lib.vw_modwt_symmetric_adjoint_tile, lib.vw_modwt_exact_analysis_tile,
+               lib.vw_modwt_exact_synthesis_tile):
         fn.restype = i32
     for fn in (lib.vw_modwt_analysis_shared_bytes, lib.vw_modwt_synthesis_shared_bytes,
                lib.vw_modwt_denoise_shared_bytes,
-               lib.vw_modwt_symmetric_synthesis_shared_bytes):
+               lib.vw_modwt_symmetric_synthesis_shared_bytes,
+               lib.vw_modwt_symmetric_adjoint_shared_bytes):
         fn.argtypes, fn.restype = [i32, i32, i32], i64
     for fn in (lib.vw_modwt_exact_analysis_shared_bytes,
                lib.vw_modwt_exact_synthesis_shared_bytes):

@@ -397,6 +397,57 @@ __device__ __forceinline__ void fwd_run(V (&acc)[kBlock], const Src& src, int s,
   if (i0 < taps) fwd_step<kUnit, kGuard>(acc, a, b, src, i0 + C, s, v + i0, m_hi);
 }
 
+// fwd_step for two tap rows on the same samples: a[r] += lo . w[r + i0 ..],
+// d[r] += hi . w[r + i0 ..].
+template <bool kUnit, bool kGuard, typename V, int kBlock, typename Src>
+__device__ __forceinline__ void fwd_pair_step(V (&a)[kBlock], V (&d)[kBlock],
+                                              V (&fresh)[kBlock - 1],
+                                              const V (&old)[kBlock - 1], const Src& src,
+                                              int m0, int s, const V* lo, const V* hi,
+                                              int m_hi) {
+  constexpr int C = kBlock - 1;
+#pragma unroll
+  for (int e = 0; e < C; ++e) {
+    fresh[e] = !kGuard || m0 + e < m_hi ? run_sample<kUnit>(src, m0 + e, s) : V(0);
+  }
+  V tl[C], th[C];
+  load_taps(lo, tl);
+  load_taps(hi, th);
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+#pragma unroll
+    for (int r = 0; r < kBlock; ++r) {
+      const int e = r + t;
+      const V v = e < C ? old[e] : fresh[e - C];
+      a[r] = fma_of(tl[t], v, a[r]);
+      d[r] = fma_of(th[t], v, d[r]);
+    }
+  }
+}
+
+// fwd_run of the lo and the hi taps over the same samples, each sample
+// loaded once for both sums.
+template <bool kUnit, bool kGuard, typename V, int kBlock, typename Src>
+__device__ __forceinline__ void fwd_pair_run(V (&a)[kBlock], V (&d)[kBlock], const Src& src,
+                                             int s, const V* lo, const V* hi, int taps,
+                                             int m_hi) {
+  constexpr int C = kBlock - 1;
+  V u[C], v[C];
+#pragma unroll
+  for (int e = 0; e < C; ++e) {
+    v[e] = !kGuard || e < m_hi ? run_sample<kUnit>(src, e, s) : V(0);
+  }
+  int i0 = 0;
+  for (; i0 + 2 * C <= taps; i0 += 2 * C) {
+    fwd_pair_step<kUnit, kGuard>(a, d, u, v, src, i0 + C, s, lo + i0, hi + i0, m_hi);
+    fwd_pair_step<kUnit, kGuard>(a, d, v, u, src, i0 + 2 * C, s, lo + i0 + C, hi + i0 + C,
+                                 m_hi);
+  }
+  if (i0 < taps) {
+    fwd_pair_step<kUnit, kGuard>(a, d, u, v, src, i0 + C, s, lo + i0, hi + i0, m_hi);
+  }
+}
+
 // A synthesis level's sum of c_j (lo taps) and d_j (hi taps) into the
 // thread's outputs.
 template <bool kUnit, bool kGuard, typename V, int kBlock, typename SrcC, typename SrcD>

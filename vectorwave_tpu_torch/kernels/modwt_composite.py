@@ -110,14 +110,17 @@ EXACT_TILE = 2048
 #: synthesis at 4096 1.26x faster than at 2048.
 DENOISE_LAUNCH_TILE = 2048
 EXACT_SYNTHESIS_LAUNCH_TILE = 4096
-#: The gates' symmetric tile (both directions; the adjoint launches at it)
-#: and the preferred tiles of the symmetric synthesis's forward launch and of
-#: the exact analysis's window launches.  Measured (tools/ab_port_kernels.py
-#: symsyn stiles exactana etiles, config #2 on an H100): the symmetric
-#: synthesis at 4096 1.21x faster than at 2048 and 3% faster than at 8192,
+#: The gates' symmetric tile (both directions) and the preferred tiles of
+#: the symmetric synthesis's forward and adjoint launches and of the exact
+#: analysis's window launches.  Measured (tools/ab_port_kernels.py symsyn
+#: stiles symadj adjtiles exactana etiles, config #2 on an H100): the
+#: symmetric synthesis at 4096 1.21x faster than at 2048 and 3% faster than
+#: at 8192; its adjoint at 2048 / 3072 / 4096 / 8192 0.2187 / 0.1819 /
+#: 0.1566 / 0.1562 ms (db4 J=6), sym8 J=8 0.4938 / 0.4530 / 0.3940 / 0.3276;
 #: the exact analysis at 4096 1.11x faster than at 2048.
 SYMMETRIC_TILE = 2048
 SYMMETRIC_LAUNCH_TILE = 4096
+SYMMETRIC_ADJOINT_LAUNCH_TILE = 8192
 EXACT_ANALYSIS_LAUNCH_TILE = 4096
 #: Ints per level of a symmetric plan (``kPlanStride`` in the CUDA source).
 PLAN_STRIDE = 8
@@ -305,10 +308,10 @@ def symmetric_plan(taps: int, ops: tuple, tile: int, adjoint: bool):
 
 def symmetric_shared_bytes(taps: int, ops: tuple, tile: int, adjoint: bool) -> int:
     """The room the gates ask of a symmetric block: taps + three rows of the
-    widest window (two in adjoint mode, the adjoint kernel's own layout).
-    The forward kernel's layout and launch tile are the library's
-    (``vw_modwt_symmetric_synthesis_tile``); it launches every shape this
-    rule admits, which the card's tests hold."""
+    widest window (two in adjoint mode).  The kernels' layouts and launch
+    tiles are the library's (``vw_modwt_symmetric_synthesis_tile``,
+    ``vw_modwt_symmetric_adjoint_tile``); they launch every shape this rule
+    admits, which the card's tests hold."""
     width = symmetric_plan(taps, ops, tile, adjoint)[1]
     return 4 * (2 * taps + (2 if adjoint else 3) * width)
 
@@ -484,16 +487,24 @@ def symmetric_synthesis_plain(planes, head, tail, levels, filters, ops) -> torch
     return out.to(planes[0].dtype)
 
 
-def symmetric_adjoint_plain(c, levels, filters, ops) -> tuple[torch.Tensor, ...]:
+def _interior(c: torch.Tensor, span_l: int, span_r: int) -> torch.Tensor:
+    """c with its first span_l and last span_r samples zeroed."""
+    n = c.shape[-1]
+    idx = torch.arange(n, device=c.device)
+    return c * ((idx >= span_l) & (idx < n - span_r))
+
+
+def symmetric_adjoint_plain(c, levels, filters, ops, span_l: int = 0,
+                            span_r: int = 0) -> tuple[torch.Tensor, ...]:
     """Plain version of :func:`symmetric_adjoint`, the transpose of the body
     of :func:`symmetric_synthesis_plain`:
-    ``grad_p[q] = sum_tau f'_p[tau] c[q - tau + G]``, c zero outside [0, n),
-    summed in float64."""
+    ``grad_p[q] = sum_tau f'_p[tau] c[q - tau + G]``, c zero outside its
+    interior [span_l, n - span_r), summed in float64."""
     dense, g, _ = _dense_plane_filters(filters, ops)
     cd = torch.float64
     n = c.shape[-1]
     pad = max(len(f) for f in dense) + g
-    padded = torch.nn.functional.pad(c.to(cd), (pad, pad))
+    padded = torch.nn.functional.pad(_interior(c, span_l, span_r).to(cd), (pad, pad))
     grads = []
     for f in dense:
         acc = torch.zeros_like(padded[..., :n])
@@ -933,26 +944,38 @@ def symmetric_synthesis(planes, head, tail, levels, filters, ops) -> torch.Tenso
     return out
 
 
-def symmetric_adjoint(c, levels, filters, ops) -> tuple[torch.Tensor, ...]:
+def symmetric_adjoint(c, levels, filters, ops, span_l: int = 0,
+                      span_r: int = 0) -> tuple[torch.Tensor, ...]:
     """[B, N] -> J+1 planes: the transpose of :func:`symmetric_synthesis`'s
-    body (no splice), the gradient of the body with respect to the planes."""
+    body (no splice), the gradient of the body with respect to the planes;
+    ``c`` is read as zero outside its interior [span_l, n - span_r), the
+    outputs the body gives (the kernel reads it so, with no mask pass)."""
     if c.device.type == "cpu":
-        return symmetric_adjoint_plain(c, levels, filters, ops)
+        return symmetric_adjoint_plain(c, levels, filters, ops, span_l, span_r)
     _check_operand(c, "c")
     code = _check_dtype(c, "c")
     taps = _check_symmetric(levels, filters, ops)
-    tile = _symmetric_launch_tile(taps, tuple(ops), True)
-    plan, width = symmetric_plan(taps, tuple(ops), tile, True)
+    b, n = c.shape
+    if span_l < 0 or span_r < 0 or span_l + span_r > n:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "the interior spans must be non-negative and fit the row",
+            context={"span_l": span_l, "span_r": span_r, "n": n},
+        )
+    _symmetric_launch_tile(taps, tuple(ops), True)  # the gate: raises where none fits
     lib = library()
+    tile = lib.vw_modwt_symmetric_adjoint_tile(taps, levels, n, SYMMETRIC_ADJOINT_LAUNCH_TILE)
+    if not tile:
+        raise _too_large(taps, levels)
+    plan, width = symmetric_plan(taps, tuple(ops), tile, True)
     outs = [torch.empty_like(c) for _ in range(levels + 1)]
     out_ptrs = (ctypes.c_void_p * (levels + 1))(*[o.data_ptr() for o in outs])
     tap_t = _device_taps(tuple(filters[0]) + tuple(filters[1]), c.device.index)
     plan_t = _device_taps(plan, c.device.index, torch.int32)
-    b, n = c.shape
     with torch.cuda.device(c.device):
         err = lib.vw_modwt_symmetric_synthesis(
             out_ptrs, c.data_ptr(), None, None, tap_t.data_ptr(), plan_t.data_ptr(),
-            b, n, levels, taps, tile, width, 0, 0, 1, code, _stream(c.device),
+            b, n, levels, taps, tile, width, span_l, span_r, 1, code, _stream(c.device),
         )
     _raise_on_error(err, "modwt_symmetric_adjoint")
     LAUNCHES["modwt_symmetric_adjoint"] += 1

@@ -27,9 +27,9 @@ S`` (S = (L-1)(2^J-1), the cascade span) equal the zero-boundary transform,
 so the analysis backward is the synthesis kernel in zero mode on the
 cotangent masked to ``p >= S``, plus the VJP of the plain symmetric cascade
 on the first S samples, recomputed in the backward; the synthesis backward
-is the symmetric kernel's adjoint mode on the cotangent masked to the
-interior, plus the head and tail slabs, which autograd carries on through
-the plain head and tail inverses.
+is the symmetric kernel's adjoint mode on the cotangent's interior (the
+kernel reads it as zero outside, with no mask pass), plus the head and tail
+slabs, which autograd carries on through the plain head and tail inverses.
 
 The JAX package's long-filter body path (``_symsyn_core``), which exists
 because its splice slab holds at most 8 rows, has no counterpart: every
@@ -240,10 +240,8 @@ class _SymmetricSynthesis(torch.autograd.Function):
     def backward(ctx, cot):
         span_l, span_r = ctx.spans
         n = cot.shape[-1]
-        idx = torch.arange(n, device=cot.device)
-        interior = (idx >= span_l) & (idx < n - span_r)
         grads = modwt_composite.symmetric_adjoint(
-            (cot * interior).contiguous(), ctx.levels, ctx.filters, ctx.ops
+            cot.contiguous(), ctx.levels, ctx.filters, ctx.ops, span_l, span_r
         )
         ghead = cot[..., :span_l].to(ctx.dtypes[0])
         gtail = cot[..., n - span_r :].to(ctx.dtypes[1])
