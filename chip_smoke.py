@@ -51,6 +51,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    (30 planes) and 5 (62 planes), the depth-4 tree at 64x16384 (a ragged
    last tile) and in bfloat16, the DTCWT's composed planes (both trees, 5
    levels), and the identity <A x, y> = <x, A^T y> for each edge; the
+   CWT's kernel-direct tier: the bank analysis on the tier's dense taps
+   (morl, ascending scales to h = 2048) against its plain version at
+   1x2^20, 128x65536, a ragged 3x5000, 2x300 (the span past the row) and
+   mexh, the whole tier under ``backend='kernel'`` against the FFT path (past
+   the row: the float64 periodic correlation) within 2e-5 of the largest
+   coefficient, and its gradient (one bank synthesis launch on the dense
+   taps) against autograd through the plain version; the
    streaming modes: the analysis kernel's external edge (alone and with the
    head splice) and the denoise kernel's stream mode (none, soft, hard) at
    db4 J=6 128x65536 and 128x8192 (the streaming path's blocks) with a
@@ -107,7 +114,19 @@ Phases, in order; any failure raises and the exit code is not 0:
    whole-tree route, the per-stage route and under the default backend
    against the plain route; ``denoise_packet`` depth 4 and ``dtcwt_denoise``
    at 8x16384 against their plain routes; a small input against the float64
-   plain cascade on the CPU; then the streaming path, db4 J=6, 128 streams x
+   plain cascade on the CPU; then the CWT path, each public call with its
+   own reset and reading of the counters: ``cwt`` -> ``icwt`` morl periodic
+   at config #5's single-card shape (one 2^20-sample row, 64 scales
+   geomspace(2, 4096)) and at 128x65536 with 32 scales geomspace(2, 64),
+   ``auto`` splitting the scales between the kernel-direct tier (one bank
+   analysis launch a chunk) and the FFT path, against the plain route; the
+   equalized ``icwt`` of two in-band tones (float64 normalised RMSE <= 1e-8,
+   the float32 figure printed); the gradient through ``cwt`` (one bank
+   synthesis launch a chunk); ``modwt_based_icwt`` at 128x65536 (its first
+   call calibrates on the card; every call one cascade synthesis launch);
+   the zero-boundary rows at 8192 and 32768 samples, cmor and
+   ``analytic=True`` on the FFT path, each also on 2x4096 against float64
+   on the CPU; then the streaming path, db4 J=6, 128 streams x
    8 blocks x 8192 float32, each block with its own reset and reading of the
    counters: ``StreamingTransform`` with the zero, symmetric and periodic
    boundaries (one analysis launch a block, the symmetric first block's with
@@ -157,7 +176,15 @@ Phases, in order; any failure raises and the exit code is not 0:
    (library call: ``F.conv1d`` of the composite filters on ``[plane |
    halo]``) and the exact pair's halos (the fp64 convolution) at 128x65536
    with a halo of the span, and the tiled round trip over 4 and 8 shards and
-   the tiled exact round trip beside the untiled round trip.
+   the tiled exact round trip beside the untiled round trip; the CWT
+   path's calls (config #5 and 128x65536 under ``auto``, the plain route and
+   ``backend='kernel'``, ``icwt``, ``modwt_based_icwt``, the zero-boundary,
+   cmor and analytic rows), the FFT path beside ``bench_full.py``'s floor
+   model, the gate sweep (the tier's and the FFT path's ms a scale at h = 8
+   ... 2048, at 1x2^20 and 128x65536, from which
+   ``cwt.AUTO_KERNEL_DIRECT_MAX_HALF`` is set) and the bank pair on the
+   tier's dense taps (config #5 under ``kernel`` and ``auto``, 128x65536)
+   beside their bound and ``F.conv1d`` with the scales as output channels.
 
 The last two lines are a JSON object with one entry per kernel and the
 device line ``{"ok": true, "device": {...}}``.
@@ -172,6 +199,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -314,6 +342,22 @@ STREAM_B, STREAM_NBLK, STREAM_BLK = 128, 8, 8192
 SLIDE_BUFFER, INGEST_LEVELS = 512, 4
 #: the tiled path: virtual shards of the main path's signals on one card
 TILED_SHARDS = (4, 8)
+#: the CWT path: config #5's single-card shape (bench_full.py:206-209: morl,
+#: 64 scales geomspace(2, 4096), one 2^20-sample float32 signal, periodic) and
+#: the main path's batch with the TPU bench's 32 scales geomspace(2, 64)
+#: (bench_full.py:138-145, whose 8192- and 32768-sample rows run the zero
+#: boundary)
+CWT_WAVELET, CFG5_N = "morl", 1 << 20
+CFG5_SCALES = tuple(np.geomspace(2.0, 4096.0, 64).tolist())
+MAIN_SCALES = tuple(np.geomspace(2.0, 64.0, 32).tolist())
+#: the kernel-direct tier against its plain version and the FFT path, of the
+#: largest coefficient (the JAX package's bound, tests/test_cwt_kernel_direct.py)
+TOL_CWT = 2e-5
+#: the equalized icwt's normalised RMSE on in-band tones in float64 (the JAX
+#: package's bound, tests/test_cwt.py)
+ICWT_NRMSE_F64 = 1e-8
+#: the gate sweep's half-supports (morl: h = 4 s)
+CWT_GATE_HALVES = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
 class SmokeFailure(RuntimeError):
@@ -769,6 +813,413 @@ def bank_timing(dev, gen):
                 t_ms = median_ms(fn, 2, 10)
             print(f"  {label} 8x16384, {route} route: {t_ms:.4f} ms", flush=True)
     return ms_of, bound, cases
+
+
+class backend:
+    """Run the public entry points under one backend (``kernel``: the CWT's
+    kernel-direct tier to h = 2048; ``torch``: the plain route), then back to
+    ``auto``."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        import vectorwave_tpu_torch as vt
+
+        vt.set_backend(self.name)
+
+    def __exit__(self, *exc):
+        import vectorwave_tpu_torch as vt
+
+        vt.set_backend("auto")
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in float64 (complex128 for complex)."""
+    dt = torch.complex128 if want.is_complex() else torch.float64
+    return ((got.to(dt) - want.to(dt)).abs().max() / want.to(dt).abs().max()).item()
+
+
+def cwt_scales(count, lo, hi):
+    return tuple(np.geomspace(lo, hi, count).tolist())
+
+
+def tier_bank_calls(x, scales, name=None):
+    """The kernel-direct tier's bank calls for ``scales`` on ``[B, N]`` ``x``,
+    one a chunk: (x rolled by -maxhalf, the chunk's dense taps)."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.transforms import cwt as tc
+
+    w = vt.wavelet(name or CWT_WAVELET)
+    return [(torch.roll(x, -maxhalf, dims=-1), dense)
+            for maxhalf, dense in tc._kernel_direct_chunks(w, tuple(scales))]
+
+
+def cwt_kernels_against_plain(dev, gen, worst):
+    """Phase 2 for the CWT's kernel-direct tier: the bank analysis with the
+    tier's dense taps against its plain version, the whole tier against the
+    FFT path, and its gradient (the bank synthesis with dense taps) against
+    autograd through the plain version."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import modwt_bank as mb
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.transforms import cwt as tc
+
+    # (label, wavelet, batch, n, scales); morl's scales ascend to h = 2048 (s = 512)
+    cases = [
+        ("config #5's row, h 8-2048", CWT_WAVELET, 1, CFG5_N, cwt_scales(24, 2.0, 512.0)),
+        ("the main batch, h 8-2048", CWT_WAVELET, BATCH, N, cwt_scales(12, 2.0, 512.0)),
+        ("ragged", CWT_WAVELET, 3, 5000, cwt_scales(8, 2.0, 256.0)),
+        ("a span past N, h 16-2048", CWT_WAVELET, 2, 300, (4.0, 100.0, 512.0)),
+        ("mexh", "mexh", 4, 65536, cwt_scales(8, 1.0, 128.0)),
+    ]
+    for label, name, b, n, scales in cases:
+        x = torch.randn(b, n, device=dev, generator=gen)
+        tag = f"{label}, {name} {b}x{n}, {len(scales)} scales"
+        w = vt.wavelet(name)
+        for xr, dense in tier_bank_calls(x, scales, name):
+            before = mc.LAUNCHES["modwt_bank_analysis"]
+            got = mb.bank_analysis(xr, dense, True)
+            want = mb.bank_analysis_plain(xr, dense, True)
+            torch.cuda.synchronize()
+            check(mc.LAUNCHES["modwt_bank_analysis"] - before == 1,
+                  f"{tag}: one bank analysis launch a chunk")
+            top = max(p.abs().max().item() for p in want)
+            err = max(max_err(g, p) for g, p in zip(got, want))
+            worst["modwt_bank_analysis"] = max(worst["modwt_bank_analysis"], err)
+            check(err <= TOL_CWT * top, f"modwt_bank_analysis on the tier's dense taps, {tag}:"
+                                        f" max |kernel - plain| {err:.3e} <= "
+                                        f"{TOL_CWT * top:.3e}")
+            del got, want
+        with backend("kernel"):
+            tier = vt.cwt(x, scales, name, boundary="periodic").coeffs
+        if 2 * tc._half_support(max(scales), w.bandwidth) + 1 <= n:
+            with backend("torch"):
+                ref = vt.cwt(x, scales, name, boundary="periodic").coeffs
+            what = "the FFT path"
+        else:
+            # past N the FFT path's bank keeps one sample a slot: hold the tier
+            # to the periodic correlation in float64 (the bank's plain version)
+            ref = torch.stack([p for xr, dense in tier_bank_calls(x.double(), scales, name)
+                               for p in mb.bank_analysis_plain(xr, dense, True)], -2)
+            what = "the float64 periodic correlation"
+        err = rel_err(tier, ref)
+        check(tier.shape == (b, len(scales), n) and err <= TOL_CWT,
+              f"cwt kernel-direct tier, {tag}: vs {what} {err:.3e} <= {TOL_CWT:.0e} of max")
+        del tier, ref
+    # the gradient: the tier's backward is the bank synthesis with the same
+    # dense taps, one launch a chunk
+    b, n, scales = 4, 65536, cwt_scales(12, 2.0, 512.0)
+    x = torch.randn(b, n, device=dev, generator=gen).requires_grad_(True)
+    wts = torch.randn(b, len(scales), n, device=dev, generator=gen)
+    with backend("kernel"):
+        before = mc.LAUNCHES["modwt_bank_synthesis"]
+        (g_tier,) = torch.autograd.grad((vt.cwt(x, scales, CWT_WAVELET,
+                                                boundary="periodic").coeffs * wts).sum(), x)
+        torch.cuda.synchronize()
+        syn = mc.LAUNCHES["modwt_bank_synthesis"] - before
+    planes = [p for xr, dense in tier_bank_calls(x, scales)
+              for p in mb.bank_analysis_plain(xr, dense, True)]
+    (g_plain,) = torch.autograd.grad((torch.stack(planes, -2) * wts).sum(), x)
+    err = rel_err(g_tier, g_plain)
+    check(syn == 1 and err <= TOL_CWT,
+          f"d/dx through the tier, {b}x{n}, {len(scales)} scales: {syn} bank synthesis "
+          f"launch, vs autograd through the plain version {err:.3e} <= {TOL_CWT:.0e} of max")
+
+
+def two_tone(n, dtype, dev):
+    """Two tones inside both grids' bands (periods 8 and 32: scales 7.6 and
+    30.6 for morl)."""
+    t = torch.arange(n, device=dev, dtype=torch.float64)
+    return (torch.sin(2 * math.pi * t / 8) + 0.5 * torch.sin(2 * math.pi * t / 32)).to(dtype)
+
+
+def cwt_path(dev, gen):
+    """Phase 3 for the CWT: the public entry points at config #5's
+    single-card shape and the main path's batch, each call with its own reset
+    and reading of the counters, against the plain route (``torch``).
+    Returns the launches, summed over the calls."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+    from vectorwave_tpu_torch.transforms import cwt as tc
+
+    total = {}
+
+    def counted(label, expect, fn):
+        """``expect``: the exact launches (a dict), or the kernels that each
+        launch at least once, and no other (a set)."""
+        mc.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in mc.LAUNCHES.items() if v}
+        check(got == expect if isinstance(expect, dict) else set(got) == expect,
+              f"{label}: launches {got}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    w = vt.wavelet(CWT_WAVELET)
+
+    def tier_launches(scales):
+        """Bank launches ``auto`` makes for these periodic float32 scales."""
+        k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32)
+        return len(tc._kernel_direct_chunks(w, scales[:k])) if k else 0
+
+    rows = []
+    for label, b, n, scales in (
+        ("config #5 (one 2^20 row, 64 scales 2-4096)", 1, CFG5_N, CFG5_SCALES),
+        (f"the main batch {BATCH}x{N} (32 scales 2-64)", BATCH, N, MAIN_SCALES),
+    ):
+        x = torch.randn(b, n, device=dev, generator=gen)
+        x = x[0] if b == 1 else x
+        k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32)
+        print(f"  cwt {label}: {k} scales on the kernel-direct tier (h <= "
+              f"{tc.AUTO_KERNEL_DIRECT_MAX_HALF}), {len(scales) - k} on the FFT path",
+              flush=True)
+        check(k > 0, f"cwt {label}: auto sends scales to the tier")
+        res = counted(f"cwt {label}, auto", {"modwt_bank_analysis": tier_launches(scales)},
+                      lambda: vt.cwt(x, scales, CWT_WAVELET, boundary="periodic"))
+        with backend("torch"):
+            ref = counted(f"cwt {label}, the plain route", {},
+                          lambda: vt.cwt(x, scales, CWT_WAVELET, boundary="periodic"))
+        err = rel_err(res.coeffs, ref.coeffs)
+        check(res.coeffs.shape == x.shape[:-1] + (len(scales), n) and err <= TOL_CWT
+              and bool(torch.isfinite(res.coeffs).all()),
+              f"cwt {label}: auto vs the plain route {err:.3e} <= {TOL_CWT:.0e} of max")
+        y = counted(f"icwt {label}", {}, lambda: vt.icwt(res, CWT_WAVELET))
+        err = rel_err(y, vt.icwt(ref, CWT_WAVELET))
+        check(y.shape == x.shape and err <= TOL_CWT,
+              f"icwt {label}: vs the plain route's {err:.3e} <= {TOL_CWT:.0e} of max")
+        rows.append((label, x, scales, res))
+        del ref, y
+        # the equalized inverse inside the band: a two-tone signal
+        for dtype in (torch.float64, torch.float32):
+            xt = two_tone(n, dtype, dev).expand(x.shape).contiguous()
+            yt = vt.icwt(vt.cwt(xt, scales, CWT_WAVELET, boundary="periodic"), CWT_WAVELET)
+            nrmse = ((yt.double() - xt.double()).pow(2).mean().sqrt()
+                     / xt.double().std()).item()
+            if dtype == torch.float64:
+                check(nrmse <= ICWT_NRMSE_F64,
+                      f"cwt -> icwt {label}, two tones, float64 (the FFT path): normalised "
+                      f"RMSE {nrmse:.3e} <= {ICWT_NRMSE_F64:.0e}")
+            else:
+                check(math.isfinite(nrmse), f"cwt -> icwt {label}, two tones, float32 "
+                                            f"(auto): normalised RMSE {nrmse:.6e}")
+            del xt, yt
+
+    # the gradient through the public call: the tier's backward on the card
+    # (of a weighted sum: the plain sum's gradient is the wavelets' zero mean)
+    x, scales = rows[1][1], rows[1][2]
+    xg = x.detach().clone().requires_grad_(True)
+    wts = torch.randn(x.shape[:-1] + (len(scales), x.shape[-1]), device=dev, generator=gen)
+
+    def grad():
+        return torch.autograd.grad(
+            (vt.cwt(xg, scales, CWT_WAVELET, boundary="periodic").coeffs * wts).sum(), xg)[0]
+
+    g = counted("d/dx of a weighted sum of cwt's coefficients, the main batch, auto",
+                {"modwt_bank_analysis": tier_launches(scales),
+                 "modwt_bank_synthesis": tier_launches(scales)}, grad)
+    with backend("torch"):
+        g_ref = grad()
+    err = rel_err(g, g_ref)
+    check(err <= TOL_CWT, f"d/dx through cwt vs the plain route: {err:.3e} <= "
+                          f"{TOL_CWT:.0e} of max")
+    del xg, wts, g, g_ref
+
+    # modwt_based_icwt on the main batch: the first call calibrates (cwt and
+    # modwt_multilevel on the card, cached), every call synthesises
+    label, x, scales, res = rows[1]
+    counted(f"modwt_based_icwt {label}, the first call (calibrates)",
+            {"modwt_bank_analysis", "modwt_analysis", "modwt_synthesis"},
+            lambda: vt.modwt_based_icwt(res, CWT_WAVELET))
+    y = counted(f"modwt_based_icwt {label}", {"modwt_synthesis": 1},
+                lambda: vt.modwt_based_icwt(res, CWT_WAVELET))
+    with backend("torch"):
+        y_ref = vt.modwt_based_icwt(res, CWT_WAVELET)
+    err = rel_err(y, y_ref)
+    check(y.shape == x.shape and bool(torch.isfinite(y).all()) and err <= TOL_CWT,
+          f"modwt_based_icwt {label}: vs the plain route {err:.3e} <= {TOL_CWT:.0e} of max")
+    del rows, res, y, y_ref
+
+    # the TPU bench's zero-boundary rows, a complex wavelet and the analytic
+    # signal: the FFT path, no kernel; a small input also against float64 on
+    # the CPU
+    small = torch.randn(2, 4096, device=dev, generator=gen)
+    for label, b, n, kw in (
+        ("zero boundary, 1x8192", 1, 8192, {}),
+        ("zero boundary, 1x32768", 1, 32768, {}),
+        ("cmor, periodic, 8x65536", 8, 65536, {"wavelet": "cmor", "boundary": "periodic"}),
+        ("morl analytic, zero boundary, 8x65536", 8, 65536, {"analytic": True}),
+    ):
+        x = torch.randn(b, n, device=dev, generator=gen)
+        kw = {"wavelet": CWT_WAVELET, **kw}
+        res = counted(f"cwt {label}, 32 scales 2-64", {},
+                      lambda: vt.cwt(x, MAIN_SCALES, **kw))
+        with backend("torch"):
+            ref = vt.cwt(x, MAIN_SCALES, **kw)
+        got_s = vt.cwt(small, MAIN_SCALES, **kw).coeffs
+        want_s = vt.cwt(small.cpu().double(), MAIN_SCALES, **kw).coeffs
+        err_s = rel_err(got_s.cpu().to(want_s.dtype), want_s)
+        check(res.coeffs.shape == (b, len(MAIN_SCALES), n)
+              and bool(torch.isfinite(res.coeffs).all())
+              and res.coeffs.is_complex() == ("cmor" in label or "analytic" in label)
+              and rel_err(res.coeffs, ref.coeffs) <= TOL_CWT and err_s <= TOL_CWT,
+              f"cwt {label}: vs the plain route {rel_err(res.coeffs, ref.coeffs):.3e}, 2x4096 "
+              f"against float64 on the CPU {err_s:.3e}, each <= {TOL_CWT:.0e} of max")
+        del res, ref
+    print(f"  launches during the CWT path: {total}", flush=True)
+    for k in BANK_PATH:
+        check(total.get(k, 0) > 0, f"{k} launched {total.get(k, 0)} times on the CWT path")
+    return total
+
+
+def cwt_timing(dev, gen):
+    """Phase 4 for the CWT: the public calls of phase 3, the FFT path against
+    its floor, the gate sweep (the tier's and the FFT path's ms a scale at
+    h = 8 ... 2048, at 1 x 2^20 and 128 x 65536) and the bank pair on the
+    tier's dense taps beside its bound and ``F.conv1d``.  Returns {kernel:
+    [cases]}."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.kernels import modwt_bank as mb
+    from vectorwave_tpu_torch.transforms import cwt as tc
+
+    w = vt.wavelet(CWT_WAVELET)
+    cases = {k: [] for k in BANK_PATH}
+    x5 = torch.randn(CFG5_N, device=dev, generator=gen)
+    xb = torch.randn(BATCH, N, device=dev, generator=gen)
+    res5 = vt.cwt(x5, CFG5_SCALES, CWT_WAVELET, boundary="periodic")
+    resb = vt.cwt(xb, MAIN_SCALES, CWT_WAVELET, boundary="periodic")
+    x8k = torch.randn(8192, device=dev, generator=gen)
+    x32k = torch.randn(32768, device=dev, generator=gen)
+    x8 = torch.randn(8, 65536, device=dev, generator=gen)
+
+    def under(name, fn):
+        def run():
+            with backend(name):
+                return fn()
+        return run
+
+    def cfg5(**kw):
+        return vt.cwt(x5, CFG5_SCALES, CWT_WAVELET, boundary="periodic", **kw)
+
+    def main_batch(**kw):
+        return vt.cwt(xb, MAIN_SCALES, CWT_WAVELET, boundary="periodic", **kw)
+
+    for label, count, fn in (
+        ("cwt config #5 (2^20, 64 scales 2-4096, periodic), auto", CFG5_N, cfg5),
+        ("cwt config #5, the plain route (every scale on the FFT path)", CFG5_N,
+         under("torch", cfg5)),
+        ("cwt config #5, backend kernel (the tier to h = 2048)", CFG5_N, under("kernel", cfg5)),
+        ("icwt config #5", CFG5_N, lambda: vt.icwt(res5, CWT_WAVELET)),
+        ("cwt -> icwt config #5, auto", CFG5_N, lambda: vt.icwt(cfg5(), CWT_WAVELET)),
+        (f"cwt {BATCH}x{N} (32 scales 2-64, periodic), auto", BATCH * N, main_batch),
+        (f"cwt {BATCH}x{N}, the plain route", BATCH * N, under("torch", main_batch)),
+        (f"icwt {BATCH}x{N}", BATCH * N, lambda: vt.icwt(resb, CWT_WAVELET)),
+        (f"cwt -> icwt {BATCH}x{N}, auto", BATCH * N,
+         lambda: vt.icwt(main_batch(), CWT_WAVELET)),
+        (f"modwt_based_icwt {BATCH}x{N}", BATCH * N,
+         lambda: vt.modwt_based_icwt(resb, CWT_WAVELET)),
+        ("cwt zero boundary 1x8192, 32 scales 2-64", 8192,
+         lambda: vt.cwt(x8k, MAIN_SCALES, CWT_WAVELET)),
+        ("cwt zero boundary 1x32768, 32 scales 2-64", 32768,
+         lambda: vt.cwt(x32k, MAIN_SCALES, CWT_WAVELET)),
+        ("cwt cmor periodic 8x65536, 32 scales 2-64", 8 * 65536,
+         lambda: vt.cwt(x8, MAIN_SCALES, "cmor", boundary="periodic")),
+        ("cwt morl analytic zero 8x65536, 32 scales 2-64", 8 * 65536,
+         lambda: vt.cwt(x8, MAIN_SCALES, CWT_WAVELET, analytic=True)),
+    ):
+        t_ms = median_ms(fn, 2, 10)
+        print(f"  {label}: {t_ms:.4f} ms ({count / t_ms / 1e3:.1f} Msamples/s)", flush=True)
+    del res5, resb
+    # the FFT path against bench_full.py's floor model: per scale, the
+    # half-spectrum read and the row written, at the card's memory rate
+    for label, x, scales in (("config #5", x5, CFG5_SCALES), (f"{BATCH}x{N}", xb, MAIN_SCALES)):
+        n, rows = x.shape[-1], x.numel() // x.shape[-1]
+        floor = len(scales) * rows * ((n // 2 + 1) * 8 + n * 4) / HBM_BPS * 1e3
+        with backend("torch"):
+            t_ms = median_ms(lambda: vt.cwt(x, scales, CWT_WAVELET, boundary="periodic"), 2, 10)
+        print(f"  the FFT path, {label}, every scale: {t_ms:.4f} ms, {t_ms / len(scales):.4f} "
+              f"ms a scale; floor {floor:.4f} ms ({t_ms / floor:.1f}x above it)", flush=True)
+
+    # the gate sweep: 16 scales of one half-support h through each route
+    planes = 16
+    sweep = {}
+    for b, n in ((1, CFG5_N), (BATCH, N)):
+        x = torch.randn(b, n, device=dev, generator=gen)
+        for h in CWT_GATE_HALVES:
+            scales = (h / 4.0,) * planes
+            check(tc._half_support(scales[0], w.bandwidth) == h, f"morl at s = {h / 4} has h {h}")
+            with backend("kernel"):
+                t_tier = median_ms(lambda: vt.cwt(x, scales, CWT_WAVELET,
+                                                  boundary="periodic"), 2, 10) / planes
+            with backend("torch"):
+                t_fft = median_ms(lambda: vt.cwt(x, scales, CWT_WAVELET,
+                                                 boundary="periodic"), 2, 10) / planes
+            sweep[(b, n, h)] = (t_tier, t_fft)
+            print(f"  gate sweep {b}x{n} h={h}: tier {t_tier:.4f} ms a scale, the FFT path "
+                  f"{t_fft:.4f} ms a scale ({'tier' if t_tier < t_fft else 'FFT'} faster)",
+                  flush=True)
+        del x
+    faster = [h for h in CWT_GATE_HALVES
+              if all(sweep[(b, n, h)][0] < sweep[(b, n, h)][1]
+                     for b, n in ((1, CFG5_N), (BATCH, N)))]
+    print(f"  gate sweep: the tier is faster at both shapes for h in {faster}; "
+          f"AUTO_KERNEL_DIRECT_MAX_HALF = {tc.AUTO_KERNEL_DIRECT_MAX_HALF}", flush=True)
+
+    # the bank pair on the tier's dense taps: config #5's tier under
+    # backend kernel (h 8-2048) and under auto, and the main batch's
+    def tier_scales(scales, cap):
+        return tuple(s for s in scales if tc._half_support(s, w.bandwidth) <= cap)
+
+    for label, x, scales in (
+        ("cwt config #5, backend kernel (h 8-2048)", x5[None],
+         tier_scales(CFG5_SCALES, tc.KERNEL_DIRECT_MAX_HALF)),
+        ("cwt config #5, auto", x5[None],
+         tier_scales(CFG5_SCALES, tc.AUTO_KERNEL_DIRECT_MAX_HALF)),
+        (f"cwt {BATCH}x{N}, auto", xb, tier_scales(MAIN_SCALES, tc.AUTO_KERNEL_DIRECT_MAX_HALF)),
+    ):
+        ((xr, dense),) = tier_bank_calls(x, scales)
+        taps = mb.bank_taps(dense)
+        rows, n = xr.shape
+        planes_out = mb.bank_analysis(xr, dense, True)
+        stacked = torch.stack(planes_out, dim=1)
+        bank = torch.tensor(dense, device=dev, dtype=torch.float32)
+        w_rev = bank.flip(-1)[:, None].contiguous()
+        calls = {
+            "modwt_bank_analysis": (
+                lambda: mb.bank_analysis(xr, dense, True),
+                lambda: mb.bank_analysis_plain(xr, dense, True),
+                lambda: F.conv1d(F.pad(xr[:, None], (taps.span, 0), mode="circular"), w_rev)),
+            "modwt_bank_synthesis": (
+                lambda: mb.bank_synthesis(planes_out, dense, True),
+                lambda: mb.bank_synthesis_plain(planes_out, dense, True),
+                lambda: F.conv1d(F.pad(stacked, (0, taps.span), mode="circular"), bank[None])),
+        }
+        lib_err = max(rel_err(calls["modwt_bank_analysis"][2]()[:, -1],
+                              calls["modwt_bank_analysis"][0]()[-1]),
+                      rel_err(calls["modwt_bank_synthesis"][2]()[:, 0],
+                              calls["modwt_bank_synthesis"][0]()))
+        check(lib_err <= 1e-4, f"{label}: F.conv1d computes the bank kernels' function on "
+                               f"the dense taps ({lib_err:.3e} of max)")
+        samples = rows * n
+        t_bytes = samples * 4 * (1 + taps.planes) / HBM_BPS * 1e3
+        t_ops = samples * taps.nonzeros * 2 / FP32_FLOPS * 1e3
+        by = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        for kname, (kernel, plain, library_call) in calls.items():
+            times = (median_ms(kernel, 2, 10), median_ms(plain, 1, 3),
+                     median_ms(library_call, 1, 5))
+            cases[kname].append({
+                "case": f"{label} {rows}x{n}, {taps.planes} planes, {taps.nonzeros} taps",
+                "ms": times[0], "plain_ms": times[1], "library_ms": times[2],
+                "bound_ms": by[0], "bound_by": by[1]})
+            print(f"  {kname} {label} {rows}x{n} ({taps.planes} planes, {taps.nonzeros} "
+                  f"dense taps): kernel {times[0]:.4f} ms "
+                  f"({2e-9 * samples * taps.nonzeros / times[0]:.2f} TFLOP/s), plain "
+                  f"{times[1]:.4f} ms, library {times[2]:.4f} ms, bound {by[0]:.4f} ms "
+                  f"({by[1]}; {100 * by[0] / times[0]:.1f}% of it)", flush=True)
+        del planes_out, stacked, calls
+    return cases
 
 
 def stream_kernels_against_plain(dev, gen, worst, worst_bf16):
@@ -1819,6 +2270,7 @@ def main() -> int:
         del xi, planes
 
     bank_kernels_against_plain(dev, gen, worst, worst_bf16)
+    cwt_kernels_against_plain(dev, gen, worst)
     stream_kernels_against_plain(dev, gen, worst, worst_bf16)
     halo_kernels_against_plain(dev, gen, worst, worst_bf16)
 
@@ -2131,6 +2583,10 @@ def main() -> int:
           "float32", flush=True)
     launches.update(packet_path(dev, gen))
 
+    print(f"  the CWT path, config #5 (1x{CFG5_N}) and {BATCH}x{N} float32", flush=True)
+    for name, count in cwt_path(dev, gen).items():
+        launches[name] = launches.get(name, 0) + count
+
     print(f"  the streaming path, {STREAM_B} streams x {STREAM_NBLK} blocks x {STREAM_BLK} "
           "float32", flush=True)
     launches.update(streaming_path(dev, gen))
@@ -2375,6 +2831,8 @@ def main() -> int:
               flush=True)
 
     bank_ms, bank_bound, bank_cases = bank_timing(dev, gen)
+    for name, rows in cwt_timing(dev, gen).items():
+        bank_cases[name] += rows
     bank_cases["modwt_symmetric_synthesis"] = [sym8_row]
     ms_of.update(bank_ms)
     bound.update(bank_bound)

@@ -23,7 +23,10 @@ plain route 2e-5 and 3e-5; the analysis kernel's external edge and the
 denoise kernel's stream mode against their plain versions 2e-5 (one
 bfloat16 ulp in bfloat16), the streaming tier's block outputs against the
 whole-signal plain cascade 2e-5, and the multiblock denoise against its
-single steps bit for bit.
+single steps bit for bit; the CWT's kernel-direct tier (the bank kernels on
+dense taps) against the bank's plain version, the FFT path and the float64
+periodic correlation 2e-5 of the largest coefficient, the JAX package's
+bound for its tier.
 """
 
 import pytest
@@ -1164,3 +1167,118 @@ def test_tiled_gates_on_the_card(cuda):
     mc.reset_launches()
     par.modwt_multilevel_tiled(x, "db4", levels=3, mesh=mesh, boundary="zero")
     assert mc.LAUNCHES["modwt_analysis"] == 1
+
+
+# --- the CWT's kernel-direct tier on the bank analysis kernel ----------------------
+
+
+def _under(backend, fn):
+    vt.set_backend(backend)
+    try:
+        return fn()
+    finally:
+        vt.set_backend("auto")
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+#: (batch, n, scales): morl to h = 2048 (s = 512) on one long row and a batch,
+#: a ragged row, a row shorter than the span, and mexh
+CWT_CASES = [(1, 1 << 16, "morl", (2.0, 8.0, 32.0, 128.0, 512.0)),
+             (8, 8192, "morl", (2.0, 3.0, 5.0, 9.0, 17.0, 33.0, 65.0)),
+             (3, 5000, "morl", (2.0, 16.0, 256.0)),
+             (2, 300, "morl", (4.0, 100.0, 512.0)),
+             (4, 8192, "mexh", (1.0, 2.0, 5.0, 9.0))]
+
+
+@pytest.mark.parametrize("b,n,name,scales", CWT_CASES)
+def test_cwt_tier_matches_plain_and_the_fft_path(cuda, b, n, name, scales):
+    """The bank kernel on the tier's dense taps against its plain version,
+    and the whole tier against the FFT path (past N: against the periodic
+    correlation in float64), within 2e-5 of the largest coefficient."""
+    from vectorwave_tpu_torch.kernels import modwt_bank as mb
+    from vectorwave_tpu_torch.transforms import cwt as tc
+
+    x = _input(cuda, b, n, torch.float32, seed=30)
+    w = vt.wavelet(name)
+    chunks = tc._kernel_direct_chunks(w, scales)
+    want_rows = []
+    for maxhalf, dense in chunks:
+        xr = torch.roll(x, -maxhalf, dims=-1)
+        got = mb.bank_analysis(xr, dense, True)
+        want = mb.bank_analysis_plain(xr, dense, True)
+        # of the chunk's largest output: a long wavelet wrapped many times
+        # round a short row nearly cancels, so one plane's own scale is tiny
+        top = max(float(p.abs().max()) for p in want)
+        assert _err(got, want) <= TOL_F32 * top
+        want_rows += mb.bank_analysis_plain(torch.roll(x.double(), -maxhalf, dims=-1), dense,
+                                            True)
+    mc.reset_launches()
+    tier = _under("kernel", lambda: vt.cwt(x, scales, name, boundary="periodic")).coeffs
+    torch.cuda.synchronize()
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_bank_analysis": len(chunks)}
+    assert tier.shape == (b, len(scales), n) and tier.device == x.device
+    if 2 * tc._half_support(max(scales), w.bandwidth) + 1 <= n:
+        fft = _under("torch", lambda: vt.cwt(x, scales, name, boundary="periodic")).coeffs
+        assert _rel(tier, fft) <= TOL_F32
+    assert _rel(tier, torch.stack(want_rows, -2)) <= TOL_F32
+
+
+def test_cwt_tier_gradient_is_one_bank_synthesis_launch(cuda):
+    from vectorwave_tpu_torch.kernels import modwt_bank as mb
+    from vectorwave_tpu_torch.transforms import cwt as tc
+
+    scales = (2.0, 8.0, 32.0, 128.0, 512.0)
+    x = _input(cuda, 2, 1 << 15, torch.float32, seed=31).requires_grad_(True)
+    wts = _input(cuda, 2 * len(scales), 1 << 15, torch.float32, seed=32).reshape(
+        2, len(scales), -1)
+    mc.reset_launches()
+    (g,) = _under("kernel", lambda: torch.autograd.grad(
+        (vt.cwt(x, scales, "morl", boundary="periodic").coeffs * wts).sum(), x))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
+        "modwt_bank_analysis": 1, "modwt_bank_synthesis": 1}
+    ((maxhalf, dense),) = tc._kernel_direct_chunks(vt.wavelet("morl"), scales)
+    planes = mb.bank_analysis_plain(torch.roll(x, -maxhalf, dims=-1), dense, True)
+    (want,) = torch.autograd.grad((torch.stack(planes, -2) * wts).sum(), x)
+    assert _rel(g, want) <= TOL_F32
+
+
+def test_cwt_auto_routing_on_both_sides_of_the_gate(cuda):
+    """``auto`` sends the scales up to AUTO_KERNEL_DIRECT_MAX_HALF to one bank
+    launch and the rest to the FFT path; float64, the zero boundary, a
+    complex wavelet and descending scales take no launch."""
+    from vectorwave_tpu_torch.transforms import cwt as tc
+
+    cap = tc.AUTO_KERNEL_DIRECT_MAX_HALF
+    at, past = cap / 4.0, cap / 4.0 + 0.25  # morl: h = ceil(4 s)
+    x = _input(cuda, 2, 1 << 14, torch.float32, seed=33)
+    for scales, launches in (((2.0, at), 1), ((2.0, at, past), 1), ((past, 2 * past), 0)):
+        mc.reset_launches()
+        got = vt.cwt(x, scales, "morl", boundary="periodic").coeffs
+        torch.cuda.synchronize()
+        assert mc.LAUNCHES["modwt_bank_analysis"] == launches, scales
+        want = _under("torch", lambda: vt.cwt(x, scales, "morl", boundary="periodic")).coeffs
+        assert _rel(got, want) <= TOL_F32
+    for call in (lambda: vt.cwt(x.double(), (2.0, at), "morl", boundary="periodic"),
+                 lambda: vt.cwt(x, (2.0, at), "morl"),
+                 lambda: vt.cwt(x, (2.0, at), "cmor", boundary="periodic"),
+                 lambda: vt.cwt(x, (2.0, at), "morl", boundary="periodic", analytic=True),
+                 lambda: vt.cwt(x, (at, 2.0), "morl", boundary="periodic")):
+        mc.reset_launches()
+        call()
+        torch.cuda.synchronize()
+        assert not any(mc.LAUNCHES.values())
+
+
+def test_cwt_kernel_backend_raises_where_the_window_does_not_fit(cuda, monkeypatch):
+    """With the cap lifted past what a window holds, ``kernel`` raises on the
+    card; it does not fall back to the FFT path."""
+    from vectorwave_tpu_torch.transforms import cwt as tc
+
+    monkeypatch.setattr(tc, "KERNEL_DIRECT_MAX_HALF", 1 << 16)
+    x = _input(cuda, 1, 4096, torch.float32, seed=34)
+    with pytest.raises(InvalidArgumentError, match="shared memory"):
+        _under("kernel", lambda: vt.cwt(x, (2.0, 15000.0), "morl", boundary="periodic"))

@@ -301,7 +301,7 @@ def test_error_paths():
     with pytest.raises(InvalidArgumentError):
         vt.best_basis(tree, cost="nope")
     with pytest.raises(InvalidArgumentError):
-        vt.modwpt(x, "morl", 2)  # a continuous name: not yet ported
+        vt.modwpt(x, "morl", 2)  # a continuous wavelet: packets need a discrete one
 
 
 def test_packet_tree_from_arrays_checks_shapes_and_the_device():

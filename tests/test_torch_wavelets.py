@@ -78,8 +78,10 @@ def test_qshift_filters_match_jax():
 
 
 def test_available_wavelets_are_the_ported_families():
-    assert vt.available_wavelets() == sorted(PORTED + FAMILIES)
-    assert set(vt.available_wavelets()) <= set(vw.available_wavelets())
+    continuous = [n for n in vw.available_wavelets()
+                  if isinstance(vw.wavelet(n), vw.ContinuousWavelet)]
+    assert vt.available_wavelets() == sorted(PORTED + FAMILIES + continuous)
+    assert vt.available_wavelets() == vw.available_wavelets()
 
 
 def _names(values):
@@ -102,7 +104,8 @@ def test_registry_queries_match_jax_over_the_discrete_names():
             assert vt.is_compatible(name, t) == vw.is_compatible(
                 name, vw.TransformType(t.value))
     assert [t.value for t in vt.TransformType] == [t.value for t in vw.TransformType]
-    assert vt.Wavelet is vt.DiscreteWavelet
+    assert vt.Wavelet == vt.DiscreteWavelet | vt.ContinuousWavelet
+    assert vw.Wavelet == vw.DiscreteWavelet | vw.ContinuousWavelet
 
 
 def test_register_wavelet_and_alias():
@@ -124,10 +127,16 @@ def test_register_wavelet_and_alias():
 
 @pytest.mark.parametrize("name", ["gaus2", "cgau3", "shan", "fbsp", "morse",
                                   "morl", "cmor", "mexh", "paul4", "dog"])
-def test_unported_families_raise(name):
-    vw.wavelet(name)  # registered in the JAX package
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        vt.wavelet(name)
+def test_continuous_families_match_jax(name):
+    ours, ref = vt.wavelet(name), vw.wavelet(name)
+    assert isinstance(ours, vt.ContinuousWavelet)
+    assert (ours.name, ours.family, ours.center_frequency, ours.bandwidth, ours.is_complex,
+            ours.wavelet_type.value) == (ref.name, ref.family, ref.center_frequency,
+                                         ref.bandwidth, ref.is_complex, ref.wavelet_type.value)
+    t = np.linspace(-8, 8, 513)
+    np.testing.assert_allclose(ours.psi(t), ref.psi(t), rtol=0, atol=1e-14)
+    assert _names(vt.supported_transforms(name)) == _names(vw.supported_transforms(name))
+    assert vt.recommended_transform(name).value == vw.recommended_transform(name).value
 
 
 def test_unknown_wavelet_raises_with_suggestions():

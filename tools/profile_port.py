@@ -34,7 +34,12 @@ step a block and ``streaming_denoise_blocks_kernel`` with the 8 blocks in
 one launch, and the tiled tier at the main-path shape over 4 and 8 virtual
 shards of the card: ``modwt_multilevel_tiled`` -> ``imodwt_multilevel_tiled``
 (one external-halo launch each way), the exact tiled round trip and the
-symmetric tiled round trip (the plain route).  For the streaming and tiled
+symmetric tiled round trip (the plain route), and the CWT (morl, periodic)
+at config #5's single row (2^20 samples, 64 scales 2-4096) and at 128 x
+65536 with 32 scales 2-64: ``cwt`` under ``auto`` (the kernel-direct tier on
+the bank kernel for the small scales, the FFT path for the rest) and on the
+plain route, ``cwt`` -> ``icwt`` and ``modwt_based_icwt`` (the argument
+``"cwt morl"`` selects them).  For the streaming and tiled
 rows it also prints the host side: the self CPU time of the traced ops per
 call and the ops that take the most (the trace's own cost included).  Exits
 non-zero without a CUDA device.
@@ -56,6 +61,7 @@ REPS = 10
 
 
 def main() -> int:
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -184,6 +190,24 @@ def main() -> int:
         lambda mesh=mesh: par.imodwt_multilevel_tiled(par.modwt_multilevel_tiled(
             x, "db4", levels=6, mesh=mesh, boundary="symmetric"), "db4", mesh=mesh,
             boundary="symmetric"))
+    # the CWT (morl, periodic): config #5's single row (2^20 samples, 64
+    # scales 2-4096) and the main batch with 32 scales 2-64, under auto (the
+    # kernel-direct tier and the FFT path) and on the plain route
+    x5 = torch.randn(1 << 20, device=dev, generator=gen)
+    cfg5 = tuple(np.geomspace(2.0, 4096.0, 64).tolist())
+    main = tuple(np.geomspace(2.0, 64.0, 32).tolist())
+    res_main = vt.cwt(x, main, "morl", boundary="periodic")
+    for label, xc, scales in (("config #5 1x1048576, 64 scales", x5, cfg5),
+                              ("128x65536, 32 scales", x, main)):
+        for backend in ("auto", "torch"):
+            calls[f"cwt morl periodic {label}, backend {backend}"] = under(
+                backend, lambda xc=xc, scales=scales: vt.cwt(xc, scales, "morl",
+                                                             boundary="periodic"))
+        calls[f"cwt -> icwt morl periodic {label}, backend auto"] = (
+            lambda xc=xc, scales=scales: vt.icwt(vt.cwt(xc, scales, "morl",
+                                                        boundary="periodic"), "morl"))
+    calls["modwt_based_icwt morl 128x65536, 32 scales"] = (
+        lambda: vt.modwt_based_icwt(res_main, "morl"))
     words = sys.argv[1:]
     if words:
         calls = {k: v for k, v in calls.items() if any(word in k for word in words)}

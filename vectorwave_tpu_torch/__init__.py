@@ -2,7 +2,10 @@
 
 What is ported: every discrete wavelet family (haar, db, sym, coif, the
 biorthogonal and reverse biorthogonal splines, discrete Meyer,
-Battle-Lemarie) with the registry's queries, single- and multi-level MODWT with periodic, zero and symmetric boundaries, the SWT
+Battle-Lemarie) and every continuous one with the registry's queries, the
+continuous wavelet transform (``cwt`` with its kernel-direct tier on the
+filter-bank kernel, ``icwt``, band reconstruction, ``modwt_based_icwt``, the
+scale tools and selectors), single- and multi-level MODWT with periodic, zero and symmetric boundaries, the SWT
 facade, the decimated DWT, padding strategies, single- and multi-level
 denoising (the fused denoise differentiable on the card), the exact
 precision tier (double-float planes, round trips within 1e-10), the 2-D
@@ -83,6 +86,26 @@ from .ops.thresholds import (
 )
 from .padding import STRATEGIES as PADDING_STRATEGIES
 from .padding import adaptive_strategy, pad_signal
+from .transforms.cwt import (
+    CWTConfig,
+    CWTResult,
+    ScaleSelectionConfig,
+    cwt,
+    estimate_scale_count,
+    frequency_range_of_scales,
+    frequency_to_scale,
+    icwt,
+    reconstruct_band,
+    reconstruct_frequency_band,
+    scale_to_frequency,
+    scales_dyadic,
+    scales_linear,
+    scales_log,
+    select_scales_adaptive,
+    select_scales_optimal,
+    select_scales_signal_adaptive,
+)
+from .transforms.cwt_modwt_inverse import modwt_based_icwt
 from .transforms.dtcwt import (
     DTCWTResult,
     coefficient_delay,
@@ -137,7 +160,13 @@ from .transforms.twodim import (
     wavedec2,
     waverec2,
 )
-from .wavelets.base import DiscreteWavelet, TransformType, Wavelet, WaveletType
+from .wavelets.base import (
+    ContinuousWavelet,
+    DiscreteWavelet,
+    TransformType,
+    Wavelet,
+    WaveletType,
+)
 from .wavelets.registry import (
     as_wavelet,
     available_wavelets,
@@ -153,6 +182,9 @@ from .wavelets.registry import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "CWTConfig",
+    "CWTResult",
+    "ContinuousWavelet",
     "DTCWTResult",
     "DWT2Result",
     "DWTResult",
@@ -171,6 +203,7 @@ __all__ = [
     "PADDING_STRATEGIES",
     "SWT2Result",
     "SWTResult",
+    "ScaleSelectionConfig",
     "TransformType",
     "VectorWaveError",
     "WavedecResult",
@@ -189,6 +222,7 @@ __all__ = [
     "coefficient_delay",
     "config",
     "convert",
+    "cwt",
     "denoise",
     "denoise2",
     "denoise_fixed",
@@ -200,10 +234,13 @@ __all__ = [
     "dwt",
     "dwt2",
     "errors",
+    "estimate_scale_count",
     "extract_level",
     "extract_level2",
     "fdr_threshold",
     "frequency_order",
+    "frequency_range_of_scales",
+    "frequency_to_scale",
     "fused_analysis",
     "fused_denoise_multilevel",
     "fused_synthesis",
@@ -211,6 +248,7 @@ __all__ = [
     "get_fused_precision",
     "get_sigma_estimator",
     "hard_threshold",
+    "icwt",
     "idtcwt",
     "idwt",
     "idwt2",
@@ -235,6 +273,7 @@ __all__ = [
     "modwt",
     "modwt2",
     "modwt2_multilevel",
+    "modwt_based_icwt",
     "modwt_multilevel",
     "modwt_multilevel_exact",
     "modwt_roundtrip_exact",
@@ -246,9 +285,18 @@ __all__ = [
     "parallel",
     "pad_signal",
     "recommended_transform",
+    "reconstruct_band",
     "reconstruct_basis",
+    "reconstruct_frequency_band",
     "register_wavelet",
     "resolve_tolerance",
+    "scale_to_frequency",
+    "scales_dyadic",
+    "scales_linear",
+    "scales_log",
+    "select_scales_adaptive",
+    "select_scales_optimal",
+    "select_scales_signal_adaptive",
     "select_threshold",
     "set_backend",
     "set_fused_precision",

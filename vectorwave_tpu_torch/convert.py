@@ -3,8 +3,8 @@
 The two packages share no code, so these helpers take plain numpy arrays:
 a filter bank exported from a ``vectorwave_tpu`` wavelet, a threshold
 array, the planes of an exact-tier result, the bands of a 2-D MODWT
-result, the levels of a packet tree, the coefficients of a DTCWT result or
-one of the four streaming states becomes the port's object (a stream
+result, the levels of a packet tree, the coefficients of a DTCWT or a CWT
+result or one of the four streaming states becomes the port's object (a stream
 checkpointed in JAX resumes in the port).
 The parity tests use them so that both packages filter with identical taps
 and each package's inverse can read the other's planes.
@@ -187,6 +187,33 @@ def dtcwt_result_from_arrays(highpasses, lowpass_a, lowpass_b, device="cuda"):
         tuple(torch.from_numpy(z).to(dev) for z in highs),
         torch.from_numpy(low_a).to(dev), torch.from_numpy(low_b).to(dev),
     )
+
+
+def cwt_result_from_arrays(coeffs, scales, boundary="zero", device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.CWTResult` from the ``[..., S, N]``
+    coefficients of a CWT result as an array (real or complex, for example
+    the fields of a ``vectorwave_tpu`` ``CWTResult``), its scales and its
+    boundary.  The dtype is kept; the tensor goes to ``device`` (default:
+    the card; pass ``device="cpu"`` for the CPU).  Without a card the default
+    raises."""
+    from .transforms.cwt import CWTResult, validate_scales
+
+    dev = _device(device)
+    arr = np.array(coeffs)
+    scales = validate_scales(scales)
+    if arr.ndim < 2 or arr.shape[-2] != len(scales):
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "coefficients must be [..., S, N] with one row per scale",
+            context={"shape": arr.shape, "scales": len(scales)},
+        )
+    if boundary not in ("zero", "periodic"):
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            f"Unknown CWT boundary {boundary!r}",
+            suggestions=("Use 'zero' or 'periodic'",),
+        )
+    return CWTResult(torch.from_numpy(arr).to(dev), scales, boundary)
 
 
 # --- streaming states -----------------------------------------------------------

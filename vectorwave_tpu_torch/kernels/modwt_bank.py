@@ -281,7 +281,9 @@ def synthesis_stages(span: int) -> int:
     return 2 if synthesis_shared_bytes(span, 2) <= SHARED_LIMIT else 1
 
 
-def _span_fits(span: int) -> bool:
+def span_fits(span: int) -> bool:
+    """Whether both kernels' windows of :data:`TILE` + ``span`` samples fit
+    one block's shared memory (the synthesis with one buffer)."""
     return (analysis_shared_bytes(span) <= SHARED_LIMIT
             and synthesis_shared_bytes(span, 1) <= SHARED_LIMIT)
 
@@ -290,7 +292,7 @@ def bank_fits(dense) -> bool:
     """Whether the kernels serve this bank: at most :data:`MAX_PLANES`
     planes and windows that fit one block's shared memory."""
     taps = bank_taps(dense)
-    return taps.planes <= MAX_PLANES and _span_fits(taps.span)
+    return taps.planes <= MAX_PLANES and span_fits(taps.span)
 
 
 def plane_groups(blocks: int, planes: int, sms: int) -> int:
@@ -332,7 +334,7 @@ def _launch_plan(taps: BankTaps) -> None:
             ErrorCode.VAL_TOO_LARGE,
             f"one bank launch serves at most {MAX_PLANES} planes, got {taps.planes}",
         )
-    if not _span_fits(taps.span):
+    if not span_fits(taps.span):
         raise InvalidArgumentError(
             ErrorCode.VAL_TOO_LARGE,
             "The bank's window does not fit the kernel's shared memory",

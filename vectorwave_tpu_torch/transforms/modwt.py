@@ -44,7 +44,8 @@ def _resolve_discrete(wavelet) -> DiscreteWavelet:
     if not isinstance(w, DiscreteWavelet):
         raise InvalidArgumentError(
             ErrorCode.CFG_UNSUPPORTED_TRANSFORM,
-            f"{w!r} is not a discrete wavelet; MODWT requires one",
+            f"Wavelet {w.name!r} is continuous; MODWT requires a discrete wavelet",
+            suggestions=("Use cwt() for continuous wavelets",),
         )
     return w
 

@@ -1,9 +1,10 @@
-"""Discrete wavelet type.
+"""Wavelet types: discrete and continuous.
 
 Counterpart of ``vectorwave_tpu/wavelets/base.py``: wavelets are frozen
-dataclasses holding plain float64 numpy filter arrays.  Filters are host
-constants; the transforms turn them into Python floats or small tensors on
-the input's device when they run.
+dataclasses.  A discrete wavelet holds plain float64 numpy filter arrays;
+a continuous one its mother function, evaluated on numpy time grids.
+Both are host constants; the transforms turn them into Python floats or
+small tensors on the input's device when they run.
 
 Conventions (identical to the JAX package, so coefficients agree):
 
@@ -13,9 +14,6 @@ Conventions (identical to the JAX package, so coefficients agree):
 * Orthogonal wavelets: reconstruction filters equal decomposition filters;
   the synthesis convolution uses adjoint ``(t+l)`` indexing.
 * Biorthogonal: ``dec_hi = qmf_alt(rec_lo)``, ``rec_hi = qmf_alt(dec_lo)``.
-
-The continuous wavelets (``ContinuousWavelet``) are not ported yet, so
-:data:`Wavelet` names the discrete type alone.
 """
 
 from __future__ import annotations
@@ -23,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
+from typing import Callable
 
 import numpy as np
 
@@ -30,6 +29,8 @@ import numpy as np
 class WaveletType(enum.Enum):
     ORTHOGONAL = "orthogonal"
     BIORTHOGONAL = "biorthogonal"
+    CONTINUOUS = "continuous"
+    COMPLEX_CONTINUOUS = "complex_continuous"
 
 
 class TransformType(enum.Enum):
@@ -172,6 +173,28 @@ def biorthogonal_wavelet(
     )
 
 
-#: Every wavelet type of the port; the continuous wavelets join it when the
-#: CWT is ported.
-Wavelet = DiscreteWavelet
+@dataclasses.dataclass(frozen=True)
+class ContinuousWavelet:
+    """A continuous wavelet defined by its (possibly complex) mother function.
+
+    ``psi`` evaluates the mother wavelet on a numpy array of time points and
+    returns float64 or complex128 values; ``center_frequency`` and
+    ``bandwidth`` drive scale <-> frequency conversion and CWT support sizing.
+    """
+
+    name: str
+    family: str
+    psi: Callable[[np.ndarray], np.ndarray]
+    center_frequency: float
+    bandwidth: float
+    is_complex: bool = False
+    description: str = ""
+
+    @property
+    def wavelet_type(self) -> WaveletType:
+        if self.is_complex:
+            return WaveletType.COMPLEX_CONTINUOUS
+        return WaveletType.CONTINUOUS
+
+
+Wavelet = DiscreteWavelet | ContinuousWavelet

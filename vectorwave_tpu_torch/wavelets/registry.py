@@ -2,35 +2,25 @@
 
 Counterpart of ``vectorwave_tpu/wavelets/registry.py``: a plain dict of lazy
 factories keyed by lowercase string names (PyWavelets-compatible), with
-results memoized.  Every discrete family is registered: haar (alias db1),
+results memoized.  Every family is registered: haar (alias db1),
 db2-db38, sym2-sym20, coif1-coif17, the biorthogonal and reverse
-biorthogonal splines, the discrete Meyer and Battle-Lemarie wavelets.
-Further factories register through :func:`register_wavelet`.  The JAX
-package's continuous wavelets raise
-:class:`~vectorwave_tpu_torch.errors.InvalidArgumentError` saying that they
-are not yet ported.
+biorthogonal splines, the discrete Meyer and Battle-Lemarie wavelets, and
+the continuous wavelets of :mod:`.continuous`.  Further factories register
+through :func:`register_wavelet`.
 """
 
 from __future__ import annotations
 
 import functools
-import re
 from typing import Callable
 
 from ..errors import ErrorCode, InvalidArgumentError
 from . import biorthogonal as bior
-from . import coiflets, fourier_families, orthogonal
-from .base import DiscreteWavelet, TransformType, Wavelet, WaveletType
+from . import coiflets, continuous, fourier_families, orthogonal
+from .base import ContinuousWavelet, DiscreteWavelet, TransformType, Wavelet, WaveletType
 
 _FACTORIES: dict[str, Callable[[], Wavelet]] = {}
 _ALIASES: dict[str, str] = {}
-
-#: Registered in the JAX package, not yet ported: the continuous wavelets.
-_NOT_YET_PORTED = re.compile(
-    r"(cgau\d+|gaus\d+|dog\d*|paul\d*|herm\d+|mexh|mexh_matlab|mexican_hat"
-    r"|ricker|gaussian|morl|morlet|cmor|shan|cshan|cshanb|shangabor|fbsp"
-    r"|meyr|morse)"
-)
 
 
 def register_wavelet(name: str, factory: Callable[[], Wavelet]) -> None:
@@ -62,6 +52,7 @@ def _register_builtins() -> None:
         _FACTORIES[f"blem{order}"] = functools.partial(
             fourier_families.battle_lemarie, order
         )
+    continuous.register_continuous(_FACTORIES.__setitem__, _ALIASES.__setitem__)
 
 
 _register_builtins()
@@ -75,14 +66,6 @@ def wavelet(name: str) -> Wavelet:
     factory = _FACTORIES.get(key)
     if factory is not None:
         return factory()
-    if _NOT_YET_PORTED.fullmatch(key):
-        raise InvalidArgumentError(
-            ErrorCode.CFG_UNSUPPORTED_WAVELET,
-            f"Wavelet family of {name!r} is not yet ported to vectorwave_tpu_torch",
-            context={"requested": name},
-            suggestions=("The discrete families are ported; the continuous "
-                         "wavelets are not",),
-        )
     close = [n for n in sorted(_FACTORIES) if n[:2] == key[:2]][:8]
     raise InvalidArgumentError(
         ErrorCode.CFG_UNSUPPORTED_WAVELET,
@@ -97,13 +80,13 @@ def wavelet(name: str) -> Wavelet:
 
 def as_wavelet(spec: str | Wavelet) -> Wavelet:
     """Accept either a wavelet object or a registry name."""
-    if isinstance(spec, DiscreteWavelet):
+    if isinstance(spec, (DiscreteWavelet, ContinuousWavelet)):
         return spec
     return wavelet(spec)
 
 
 def available_wavelets() -> list[str]:
-    """All registered (ported) wavelet names, sorted."""
+    """All registered wavelet names, sorted."""
     return sorted(set(_FACTORIES) | set(_ALIASES))
 
 
@@ -134,9 +117,10 @@ def wavelets_in_family(family: str) -> list[str]:
 
 def supported_transforms(name: str | Wavelet) -> tuple[TransformType, ...]:
     """Transform-compatibility matrix: a discrete wavelet serves the MODWT
-    and the SWT.  (The CWT's row arrives with the continuous wavelets.)"""
-    as_wavelet(name)
-    return (TransformType.MODWT, TransformType.SWT)
+    and the SWT, a continuous one the CWT."""
+    if isinstance(as_wavelet(name), DiscreteWavelet):
+        return (TransformType.MODWT, TransformType.SWT)
+    return (TransformType.CWT,)
 
 
 def is_compatible(name: str | Wavelet, transform: TransformType) -> bool:
@@ -145,6 +129,8 @@ def is_compatible(name: str | Wavelet, transform: TransformType) -> bool:
 
 
 def recommended_transform(name: str | Wavelet) -> TransformType:
-    """Best default transform for a wavelet: the MODWT for a discrete one."""
-    as_wavelet(name)
-    return TransformType.MODWT
+    """Best default transform for a wavelet: the MODWT for a discrete one,
+    the CWT for a continuous one."""
+    if isinstance(as_wavelet(name), DiscreteWavelet):
+        return TransformType.MODWT
+    return TransformType.CWT
