@@ -118,15 +118,35 @@ Phases, in order; any failure raises and the exit code is not 0:
    own reset and reading of the counters: ``cwt`` -> ``icwt`` morl periodic
    at config #5's single-card shape (one 2^20-sample row, 64 scales
    geomspace(2, 4096)) and at 128x65536 with 32 scales geomspace(2, 64),
-   ``auto`` splitting the scales between the kernel-direct tier (one bank
-   analysis launch a chunk) and the FFT path, against the plain route; the
-   equalized ``icwt`` of two in-band tones (float64 normalised RMSE <= 1e-8,
-   the float32 figure printed); the gradient through ``cwt`` (one bank
-   synthesis launch a chunk); ``modwt_based_icwt`` at 128x65536 (its first
+   ``auto`` taking the kernel-direct tier for a whole call (one bank
+   analysis launch, its output seen as [B, S, N]) or the FFT path, against
+   the plain route; the equalized ``icwt`` of two in-band tones (float64
+   normalised RMSE <= 1e-8, the float32 figure printed); the gradient
+   through ``cwt``; 16 scales within the cap at 128x65536 on the tier under
+   ``auto`` (one bank launch, no copy; its gradient one bank synthesis
+   launch); ``modwt_based_icwt`` at 128x65536 (its first
    call calibrates on the card; every call one cascade synthesis launch);
    the zero-boundary rows at 8192 and 32768 samples, cmor and
    ``analytic=True`` on the FFT path, each also on 2x4096 against float64
-   on the CPU; then the streaming path, db4 J=6, 128 streams x
+   on the CPU; then the tiled CWT: ``cwt_tiled`` at config #5 over 4 and 8
+   virtual shards of the card, zero and periodic, and ``cwt_tiled_2d`` on a
+   2x4 host x chip mesh of the card, each within 2e-5 of the largest
+   coefficient of the single-card ``cwt`` (no kernel launch); then what is
+   built on the CWT, each call with its own reset and reading of the
+   counters: ``wavelet_coherence`` (32 scales x 32768; 2048 samples against
+   float64 on the CPU), ``extract_ridge`` (32 x 65536, the blocked Viterbi;
+   on a 4096 cut the path's score against the CPU float64 Viterbi's),
+   ``synchrosqueeze`` -> ``isst`` (32 x 16384: the scatter-add against the
+   masked sum per bin, two in-band tones recovered), ``significant_power``
+   (levels against float64 on the CPU) and ``coherence_significance`` (64
+   surrogates, repeatable) at 32 x 32768, ``matching_pursuit`` (8 x 16384,
+   mexh, 16 scales, 32 steps: planted atoms found), ``wavelet_sharpe_ratio``
+   at 1x10240 and 512x4096 (one fused denoise launch, against the plain
+   route), ``analyze_market`` on 10240 prices (one fused denoise launch),
+   ``analyze_volatility``, ``crash_asymmetry`` and
+   ``calculate_wavelet_indicators`` (one analysis launch) against float64 on
+   the CPU, and ``analyze_ticks_incremental`` over 4096 ticks (the Haar
+   detail against its closed form); then the streaming path, db4 J=6, 128 streams x
    8 blocks x 8192 float32, each block with its own reset and reading of the
    counters: ``StreamingTransform`` with the zero, symmetric and periodic
    boundaries (one analysis launch a block, the symmetric first block's with
@@ -180,11 +200,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    path's calls (config #5 and 128x65536 under ``auto``, the plain route and
    ``backend='kernel'``, ``icwt``, ``modwt_based_icwt``, the zero-boundary,
    cmor and analytic rows), the FFT path beside ``bench_full.py``'s floor
-   model, the gate sweep (the tier's and the FFT path's ms a scale at h = 8
-   ... 2048, at 1x2^20 and 128x65536, from which
-   ``cwt.AUTO_KERNEL_DIRECT_MAX_HALF`` is set) and the bank pair on the
-   tier's dense taps (config #5 under ``kernel`` and ``auto``, 128x65536)
-   beside their bound and ``F.conv1d`` with the scales as output channels.
+   model, ``auto`` against the plain route at config #5 and 128x65536 in
+   three interleaved runs each (``auto`` at most 3% slower), the gate
+   sweep on whole calls (16 scales with h from cap / 8 to each candidate
+   cap 8 ... 512, the tier against the plain route five times in turns at
+   1x2^20 and 128x65536, from which ``cwt.AUTO_KERNEL_DIRECT_MAX_HALF`` is
+   set)
+   and the bank pair on the tier's dense taps (config #5 under ``kernel``,
+   config #5's scales and 16 scales at 128x65536 to the cap) beside their
+   bound and ``F.conv1d`` with the scales as output channels; the tiled
+   CWT's and the paths built on the CWT's calls of phase 3.
 
 The last two lines are a JSON object with one entry per kernel and the
 device line ``{"ok": true, "device": {...}}``.
@@ -356,8 +381,33 @@ TOL_CWT = 2e-5
 #: the equalized icwt's normalised RMSE on in-band tones in float64 (the JAX
 #: package's bound, tests/test_cwt.py)
 ICWT_NRMSE_F64 = 1e-8
-#: the gate sweep's half-supports (morl: h = 4 s)
-CWT_GATE_HALVES = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+#: what is built on the CWT, float32 on the card against float64 on the CPU
+#: (a small input): coherence and the volatility and indicator series are
+#: ratios of float32 FFT sums, a few float32 ulps apart, of their largest value
+TOL_XWT = 1e-4
+#: the ridge's path score, relative: the card's float32 Viterbi against the
+#: CPU's float64 one on the same field
+TOL_RIDGE = 1e-5
+#: the significance levels are computed in float64 on the card
+TOL_LEVELS = 1e-10
+#: Sharpe ratios and crash asymmetry of the kernel route against the plain
+#: route, relative (a mean over a std of outputs 2e-5 apart)
+TOL_SHARPE = 1e-4
+#: isst of two in-band tones away from the edges, beyond icwt's error on the
+#: same CWT (the JAX package's bound, tests/test_sst.py)
+SST_OVER_ICWT = 0.02
+#: wavelet coherence, float32 on the card against float64 on the CPU, of its
+#: largest value (1): a ratio of smoothed powers, whose float32 rounding grows
+#: where the powers are small (9e-5 at 2048 samples on the CPU)
+TOL_COH = 1e-3
+#: the gate sweep's candidate caps on the half-support (morl: h = 4 s)
+CWT_GATE_CAPS = (8, 16, 32, 64, 128, 256, 512)
+#: how much slower than the plain route ``auto``'s cwt may be at config #5
+#: and the main batch (timing noise between two runs of one route)
+AUTO_SLOWER = 0.03
+AUTO_PAIRS = 10
+#: runs of each route at each candidate cap of the gate sweep
+SWEEP_RUNS = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -965,6 +1015,13 @@ def cwt_path(dev, gen):
         k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32)
         return len(tc._kernel_direct_chunks(w, scales[:k])) if k else 0
 
+    def tier_expect(scales, backward=False):
+        n = tier_launches(scales)
+        if not n:
+            return {}
+        return ({"modwt_bank_analysis": n, "modwt_bank_synthesis": n} if backward
+                else {"modwt_bank_analysis": n})
+
     rows = []
     for label, b, n, scales in (
         ("config #5 (one 2^20 row, 64 scales 2-4096)", 1, CFG5_N, CFG5_SCALES),
@@ -973,11 +1030,11 @@ def cwt_path(dev, gen):
         x = torch.randn(b, n, device=dev, generator=gen)
         x = x[0] if b == 1 else x
         k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32)
-        print(f"  cwt {label}: {k} scales on the kernel-direct tier (h <= "
-              f"{tc.AUTO_KERNEL_DIRECT_MAX_HALF}), {len(scales) - k} on the FFT path",
-              flush=True)
-        check(k > 0, f"cwt {label}: auto sends scales to the tier")
-        res = counted(f"cwt {label}, auto", {"modwt_bank_analysis": tier_launches(scales)},
+        print(f"  cwt {label}: auto takes "
+              f"{'the kernel-direct tier' if k else 'the FFT path'} (every scale to h = "
+              f"{tc.AUTO_KERNEL_DIRECT_MAX_HALF} in one bank call, or none)", flush=True)
+        check(k in (0, len(scales)), f"cwt {label}: auto takes the tier whole or not at all")
+        res = counted(f"cwt {label}, auto", tier_expect(scales),
                       lambda: vt.cwt(x, scales, CWT_WAVELET, boundary="periodic"))
         with backend("torch"):
             ref = counted(f"cwt {label}, the plain route", {},
@@ -1018,8 +1075,7 @@ def cwt_path(dev, gen):
             (vt.cwt(xg, scales, CWT_WAVELET, boundary="periodic").coeffs * wts).sum(), xg)[0]
 
     g = counted("d/dx of a weighted sum of cwt's coefficients, the main batch, auto",
-                {"modwt_bank_analysis": tier_launches(scales),
-                 "modwt_bank_synthesis": tier_launches(scales)}, grad)
+                tier_expect(scales, backward=True), grad)
     with backend("torch"):
         g_ref = grad()
     err = rel_err(g, g_ref)
@@ -1027,11 +1083,43 @@ def cwt_path(dev, gen):
                           f"{TOL_CWT:.0e} of max")
     del xg, wts, g, g_ref
 
+    # auto on the tier: 16 scales whose h all stay within the cap, at the
+    # main batch; the result is the bank's [S, B, N] allocation seen as
+    # [B, S, N] (no copy), and its gradient one bank synthesis launch
+    cap = tc.AUTO_KERNEL_DIRECT_MAX_HALF
+    scales = cwt_scales(16, cap / 32.0, cap / 4.0)
+    res = counted(f"cwt the main batch, 16 scales to h = {cap}, auto (the tier)",
+                  {"modwt_bank_analysis": 1},
+                  lambda: vt.cwt(x, scales, CWT_WAVELET, boundary="periodic"))
+    check(res.coeffs.stride() == (N, BATCH * N, 1),
+          f"the tier's result is the bank's allocation seen as [B, S, N]: strides "
+          f"{res.coeffs.stride()}")
+    with backend("torch"):
+        ref = vt.cwt(x, scales, CWT_WAVELET, boundary="periodic")
+    err = rel_err(res.coeffs, ref.coeffs)
+    check(err <= TOL_CWT, f"cwt on the tier under auto vs the plain route {err:.3e} <= "
+                          f"{TOL_CWT:.0e} of max")
+    xg = x.detach().clone().requires_grad_(True)
+    wts = torch.randn(BATCH, len(scales), N, device=dev, generator=gen)
+    g = counted("d/dx through cwt on the tier under auto",
+                {"modwt_bank_analysis": 1, "modwt_bank_synthesis": 1},
+                lambda: torch.autograd.grad((vt.cwt(xg, scales, CWT_WAVELET,
+                                                    boundary="periodic").coeffs * wts).sum(),
+                                            xg)[0])
+    with backend("torch"):
+        (g_ref,) = torch.autograd.grad((vt.cwt(xg, scales, CWT_WAVELET,
+                                               boundary="periodic").coeffs * wts).sum(), xg)
+    err = rel_err(g, g_ref)
+    check(err <= TOL_CWT, f"d/dx through cwt on the tier vs the plain route {err:.3e} <= "
+                          f"{TOL_CWT:.0e} of max")
+    del res, ref, xg, wts, g, g_ref
+
     # modwt_based_icwt on the main batch: the first call calibrates (cwt and
     # modwt_multilevel on the card, cached), every call synthesises
     label, x, scales, res = rows[1]
     counted(f"modwt_based_icwt {label}, the first call (calibrates)",
-            {"modwt_bank_analysis", "modwt_analysis", "modwt_synthesis"},
+            {"modwt_analysis", "modwt_synthesis"}
+            | ({"modwt_bank_analysis"} if tier_launches(scales) else set()),
             lambda: vt.modwt_based_icwt(res, CWT_WAVELET))
     y = counted(f"modwt_based_icwt {label}", {"modwt_synthesis": 1},
                 lambda: vt.modwt_based_icwt(res, CWT_WAVELET))
@@ -1076,10 +1164,10 @@ def cwt_path(dev, gen):
 
 def cwt_timing(dev, gen):
     """Phase 4 for the CWT: the public calls of phase 3, the FFT path against
-    its floor, the gate sweep (the tier's and the FFT path's ms a scale at
-    h = 8 ... 2048, at 1 x 2^20 and 128 x 65536) and the bank pair on the
-    tier's dense taps beside its bound and ``F.conv1d``.  Returns {kernel:
-    [cases]}."""
+    its floor, ``auto`` against the plain route, the gate sweep on whole
+    calls (16 scales to each candidate cap, at 1 x 2^20 and 128 x 65536) and
+    the bank pair on the tier's dense taps beside its bound and
+    ``F.conv1d``.  Returns {kernel: [cases]}."""
     import vectorwave_tpu_torch as vt
     from vectorwave_tpu_torch.kernels import modwt_bank as mb
     from vectorwave_tpu_torch.transforms import cwt as tc
@@ -1142,42 +1230,63 @@ def cwt_timing(dev, gen):
         print(f"  the FFT path, {label}, every scale: {t_ms:.4f} ms, {t_ms / len(scales):.4f} "
               f"ms a scale; floor {floor:.4f} ms ({t_ms / floor:.1f}x above it)", flush=True)
 
-    # the gate sweep: 16 scales of one half-support h through each route
+    # the gate sweep, on whole cwt calls: 16 scales whose h all stay at or
+    # below each candidate cap (geomspace(cap / 32, cap / 4): h from cap / 8
+    # to cap), the tier (one bank call, as auto takes it) against the plain
+    # route, SWEEP_RUNS runs each at both shapes in turns (the tier first,
+    # then the plain route first), after one untimed run of each route at
+    # the shape
     planes = 16
-    sweep = {}
+    wins = {}
     for b, n in ((1, CFG5_N), (BATCH, N)):
         x = torch.randn(b, n, device=dev, generator=gen)
-        for h in CWT_GATE_HALVES:
-            scales = (h / 4.0,) * planes
-            check(tc._half_support(scales[0], w.bandwidth) == h, f"morl at s = {h / 4} has h {h}")
-            with backend("kernel"):
-                t_tier = median_ms(lambda: vt.cwt(x, scales, CWT_WAVELET,
-                                                  boundary="periodic"), 2, 10) / planes
-            with backend("torch"):
-                t_fft = median_ms(lambda: vt.cwt(x, scales, CWT_WAVELET,
-                                                 boundary="periodic"), 2, 10) / planes
-            sweep[(b, n, h)] = (t_tier, t_fft)
-            print(f"  gate sweep {b}x{n} h={h}: tier {t_tier:.4f} ms a scale, the FFT path "
-                  f"{t_fft:.4f} ms a scale ({'tier' if t_tier < t_fft else 'FFT'} faster)",
+        for cap in CWT_GATE_CAPS:
+            scales = cwt_scales(planes, cap / 32.0, cap / 4.0)
+            check(max(tc._half_support(sc, w.bandwidth) for sc in scales) == cap,
+                  f"the sweep's scales for cap {cap} reach h = {cap}")
+            tier = under("kernel", lambda: vt.cwt(x, scales, CWT_WAVELET, boundary="periodic"))
+            fft = under("torch", lambda: vt.cwt(x, scales, CWT_WAVELET, boundary="periodic"))
+            if cap == CWT_GATE_CAPS[0]:
+                median_ms(tier, 2, 10)
+                median_ms(fft, 2, 10)
+            runs = []
+            for r in range(SWEEP_RUNS):
+                if r % 2 == 0:
+                    t_tier = median_ms(tier, 2, 10)
+                    t_fft = median_ms(fft, 2, 10)
+                else:
+                    t_fft = median_ms(fft, 2, 10)
+                    t_tier = median_ms(tier, 2, 10)
+                runs.append((t_tier, t_fft))
+            wins[(b, n, cap)] = all(t < f for t, f in runs)
+            print(f"  gate sweep {b}x{n}, 16 scales to h = {cap}: tier "
+                  f"{[round(t, 4) for t, _ in runs]} ms, the plain route "
+                  f"{[round(f, 4) for _, f in runs]} ms "
+                  f"({'tier' if wins[(b, n, cap)] else 'not the tier'} in every run)",
                   flush=True)
         del x
-    faster = [h for h in CWT_GATE_HALVES
-              if all(sweep[(b, n, h)][0] < sweep[(b, n, h)][1]
-                     for b, n in ((1, CFG5_N), (BATCH, N)))]
-    print(f"  gate sweep: the tier is faster at both shapes for h in {faster}; "
-          f"AUTO_KERNEL_DIRECT_MAX_HALF = {tc.AUTO_KERNEL_DIRECT_MAX_HALF}", flush=True)
+    derived = 0
+    for cap in CWT_GATE_CAPS:
+        if not all(wins[(b, n, cap)] for b, n in ((1, CFG5_N), (BATCH, N))):
+            break
+        derived = cap
+    print(f"  gate sweep: the tier wins every run at both shapes up to h = {derived} "
+          f"(0: nowhere); AUTO_KERNEL_DIRECT_MAX_HALF = {tc.AUTO_KERNEL_DIRECT_MAX_HALF}",
+          flush=True)
 
     # the bank pair on the tier's dense taps: config #5's tier under
     # backend kernel (h 8-2048) and under auto, and the main batch's
     def tier_scales(scales, cap):
         return tuple(s for s in scales if tc._half_support(s, w.bandwidth) <= cap)
 
+    cap = tc.AUTO_KERNEL_DIRECT_MAX_HALF
     for label, x, scales in (
         ("cwt config #5, backend kernel (h 8-2048)", x5[None],
          tier_scales(CFG5_SCALES, tc.KERNEL_DIRECT_MAX_HALF)),
-        ("cwt config #5, auto", x5[None],
-         tier_scales(CFG5_SCALES, tc.AUTO_KERNEL_DIRECT_MAX_HALF)),
-        (f"cwt {BATCH}x{N}, auto", xb, tier_scales(MAIN_SCALES, tc.AUTO_KERNEL_DIRECT_MAX_HALF)),
+        (f"config #5's scales to the auto cap h = {cap}", x5[None],
+         tier_scales(CFG5_SCALES, cap)),
+        (f"cwt {BATCH}x{N}, 16 scales to the auto cap h = {cap}", xb,
+         cwt_scales(16, cap / 32.0, cap / 4.0)),
     ):
         ((xr, dense),) = tier_bank_calls(x, scales)
         taps = mb.bank_taps(dense)
@@ -1219,7 +1328,358 @@ def cwt_timing(dev, gen):
                   f"{times[1]:.4f} ms, library {times[2]:.4f} ms, bound {by[0]:.4f} ms "
                   f"({by[1]}; {100 * by[0] / times[0]:.1f}% of it)", flush=True)
         del planes_out, stacked, calls
+    # auto against the plain route in whole calls at config #5 and the main
+    # batch: ten pairs of runs (each the median of 20 calls from an idle
+    # card), alternating which route runs first; auto must be no slower
+    # than the plain route by more than AUTO_SLOWER in the median run.  The
+    # host's time to enqueue a call (no synchronise, median of 50) is
+    # printed beside it.
+    for label, fn in (("config #5", cfg5), (f"{BATCH}x{N}, 32 scales 2-64", main_batch)):
+        t_auto, t_plain = [], []
+        for r in range(AUTO_PAIRS):
+            pair = [(t_auto, fn), (t_plain, under("torch", fn))]
+            for times, f in (pair if r % 2 == 0 else pair[::-1]):
+                times.append(median_ms(f, 2, 20))
+        enqueue = []
+        for f in (fn, under("torch", fn)):
+            us = []
+            for _ in range(50):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f()
+                us.append((time.perf_counter() - t0) * 1e6)
+            enqueue.append(sorted(us)[25])
+        torch.cuda.synchronize()
+        a, p = float(np.median(t_auto)), float(np.median(t_plain))
+        check(a <= (1 + AUTO_SLOWER) * p,
+              f"cwt {label}: auto {a:.4f} ms against the plain route {p:.4f} ms "
+              f"({100 * (a / p - 1):+.1f}%, at most {100 * AUTO_SLOWER:+.0f}%; auto faster in "
+              f"{sum(x < y for x, y in zip(t_auto, t_plain))} of {AUTO_PAIRS} pairs; runs "
+              f"auto {[round(t, 4) for t in t_auto]}, plain {[round(t, 4) for t in t_plain]}; "
+              f"host enqueue {enqueue[0]:.1f} / {enqueue[1]:.1f} us)")
     return cases
+
+
+def counted_launches(label, expect, fn, total):
+    """Run ``fn`` with the launch counters set to 0 just before and read
+    just after; ``expect``: the exact launches (a dict), or the kernels each
+    launching at least once, and no other (a set).  Adds them to ``total``."""
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+
+    mc.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in mc.LAUNCHES.items() if v}
+    check(got == expect if isinstance(expect, dict) else set(got) == expect,
+          f"{label}: launches {got}")
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return out
+
+
+def cwt_tiled_path(dev, gen):
+    """Phase 3 for the tiled CWT: config #5 (one 2^20-sample row, morl, 64
+    log scales 2-4096) over 4 and 8 virtual shards of the card, zero and
+    periodic, and ``cwt_tiled_2d`` on a 2 x 4 host x chip mesh of the card,
+    each against the single-card ``cwt`` within TOL_CWT of the largest
+    coefficient.  The FFT path on the tiles: no kernel launch."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import parallel as par
+
+    total = {}
+    x = torch.randn(CFG5_N, device=dev, generator=gen)
+    for boundary in ("zero", "periodic"):
+        ref = vt.cwt(x, CFG5_SCALES, CWT_WAVELET, boundary=boundary).coeffs
+        for shards in TILED_SHARDS:
+            mesh = par.make_mesh({"signal": shards}, devices=[dev] * shards)
+            got = counted_launches(
+                f"cwt_tiled config #5, {shards} shards, {boundary}", {},
+                lambda: par.cwt_tiled(x, CFG5_SCALES, CWT_WAVELET, mesh=mesh,
+                                      boundary=boundary), total).coeffs
+            err = rel_err(got, ref)
+            check(got.shape == ref.shape and bool(torch.isfinite(got).all())
+                  and err <= TOL_CWT,
+                  f"cwt_tiled config #5 over {shards} virtual shards, {boundary}: vs the "
+                  f"single-card cwt {err:.3e} <= {TOL_CWT:.0e} of max")
+            del got
+        if boundary == "zero":
+            hosts = par.make_multihost_mesh(n_hosts=2, chips_per_host=4, devices=[dev] * 8)
+            got = counted_launches(
+                "cwt_tiled_2d config #5, 2x4 host x chip", {},
+                lambda: par.cwt_tiled_2d(x, CFG5_SCALES, CWT_WAVELET, mesh=hosts), total).coeffs
+            err = rel_err(got, ref)
+            check(got.shape == ref.shape and err <= TOL_CWT,
+                  f"cwt_tiled_2d config #5 on a 2x4 mesh of the card: vs the single-card cwt "
+                  f"{err:.3e} <= {TOL_CWT:.0e} of max")
+            del got
+        del ref
+    return total
+
+
+class float64_default:
+    """Host prices become float64 tensors inside (the port's finance
+    functions take the default dtype), as a float64 reference needs."""
+
+    def __enter__(self):
+        self.old = torch.get_default_dtype()
+        torch.set_default_dtype(torch.float64)
+
+    def __exit__(self, *exc):
+        torch.set_default_dtype(self.old)
+
+
+def small_cpu(t):
+    """A card tensor as the float64 CPU input of the plain reference."""
+    return t.detach().cpu().double()
+
+
+def cwt_analysis_path(dev, gen):
+    """Phase 3 for what is built on the CWT, each call with its own reset and
+    reading of the counters: the TPU bench's shapes for coherence, the ridge
+    and the SST, the significance tests, matching pursuit and the finance
+    analyzers, each held to a reference (a small input against float64 on
+    the CPU, the plain route, or a closed form).  Returns the launches."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import finance as fin
+    from vectorwave_tpu_torch.transforms import sst as tsst
+    from vectorwave_tpu_torch.transforms.cwt import _log_weights
+
+    total = {}
+    s32 = cwt_scales(32, 2.0, 64.0)
+    t = torch.arange(65536, device=dev, dtype=torch.float32)
+    tone = torch.sin(2 * math.pi * 0.05 * t)
+    noise = torch.randn(4, 65536, device=dev, generator=gen)
+    x, y = tone + 0.3 * noise[0], torch.roll(tone, 7) + 0.3 * noise[1]
+
+    # wavelet_coherence, 32 scales x 32768
+    xs, ys = x[:32768].contiguous(), y[:32768].contiguous()
+    coh = counted_launches("wavelet_coherence 32 scales x 32768", {},
+                           lambda: vt.wavelet_coherence(xs, ys, s32, CWT_WAVELET), total)
+    c = coh.coherence
+    small = vt.wavelet_coherence(xs[:2048], ys[:2048], s32, CWT_WAVELET).coherence
+    want = vt.wavelet_coherence(small_cpu(xs[:2048]), small_cpu(ys[:2048]), s32,
+                                CWT_WAVELET).coherence
+    err = rel_err(small.cpu(), want)
+    check(c.shape == (32, 32768) and bool(((c >= 0) & (c <= 1)).all()) and err <= TOL_COH,
+          f"wavelet_coherence: in [0, 1]; 2048 samples against float64 on the CPU {err:.3e} "
+          f"<= {TOL_COH:.0e} of max")
+    del coh, c
+
+    # extract_ridge, 32 scales x 65536 (the blocked Viterbi); the reference:
+    # the path's score under the card's own float32 field, against the CPU
+    # float64 Viterbi's on a 4096-sample cut
+    res = vt.cwt(x, s32, CWT_WAVELET, analytic=True)
+    ridge = counted_launches("extract_ridge 32 scales x 65536", {},
+                             lambda: vt.extract_ridge(res), total)
+    check(ridge.indices.shape == (65536,) and ridge.indices.dtype == torch.int32
+          and bool(torch.isfinite(ridge.amplitude).all()),
+          "extract_ridge: int32 indices and finite amplitudes, one a sample")
+    cut = vt.CWTResult(res.coeffs[:, :4096].contiguous(), res.scales, res.boundary)
+    got = vt.extract_ridge(cut).indices.long().cpu()
+    obs = torch.log(torch.clamp_min(cut.coeffs.abs(), 1e-30)).double().cpu()
+    want = vt.extract_ridge(vt.CWTResult(cut.coeffs.cpu().to(torch.complex128), cut.scales,
+                                         cut.boundary)).indices.long()
+    log_s = torch.log2(torch.tensor(s32, dtype=torch.float64))
+    pen = 2.0 * (log_s[:, None] - log_s[None, :]) ** 2
+
+    def score(idx):
+        return float(obs.T.gather(1, idx[:, None]).sum() - pen[idx[:-1], idx[1:]].sum())
+
+    gap = abs(score(got) - score(want)) / abs(score(want))
+    check(gap <= TOL_RIDGE, f"extract_ridge on 32x4096: the card's path scores "
+                            f"{score(got):.6f}, the CPU float64 Viterbi's {score(want):.6f} "
+                            f"({gap:.2e} <= {TOL_RIDGE:.0e} apart)")
+    del res, ridge, cut
+
+    # synchrosqueeze -> isst, 32 scales x 16384: the scatter against the
+    # masked sum per bin on the card, and the in-band two tones recovered
+    x16 = (torch.sin(2 * math.pi * 0.04 * t[:16384])
+           + 0.8 * torch.sin(2 * math.pi * 0.06 * t[:16384]))
+    sst = counted_launches("synchrosqueeze 32 scales x 16384", {},
+                           lambda: vt.synchrosqueeze(x16, s32, CWT_WAVELET), total)
+    y16 = counted_launches("isst 32 bins x 16384", {}, lambda: vt.isst(sst, CWT_WAVELET), total)
+    r = vt.cwt(x16, s32, CWT_WAVELET, analytic=True)
+    inner = slice(x16.shape[-1] // 16, -x16.shape[-1] // 16)
+    err_sst = (y16 - x16)[inner].abs().max().item()
+    err_icwt = (vt.icwt(r, CWT_WAVELET) - x16)[inner].abs().max().item()
+    inst = vt.instantaneous_frequency(r)
+    f_grid = vt.wavelet(CWT_WAVELET).center_frequency / np.asarray(s32)
+    f_lo, f_hi = float(f_grid.min()), float(f_grid.max())
+    idx = tsst._bin_indices(r.coeffs, inst, f_lo, math.log(f_hi / f_lo) / 31, 32, 0.0)
+    contrib = r.coeffs * torch.as_tensor(_log_weights(s32), device=dev,
+                                         dtype=torch.float32)[:, None]
+    masked = torch.stack([torch.where(idx == b, contrib, 0).sum(-2) for b in range(32)], -2)
+    err = rel_err(tsst._squeeze(contrib, idx, 32), masked)
+    check(sst.coeffs.shape == (32, 16384) and err <= TOL_F32
+          and err_sst <= err_icwt + SST_OVER_ICWT,
+          f"synchrosqueeze: the scatter-add against the masked sum per bin {err:.3e} <= "
+          f"{TOL_F32:.0e} of max; isst of two in-band tones off by {err_sst:.3e} inside the "
+          f"edges, icwt {err_icwt:.3e} (at most {SST_OVER_ICWT} more)")
+    del sst, r, inst, idx, contrib, masked
+
+    # the significance tests, 32 scales x 32768 (64 surrogates)
+    res = vt.cwt(xs, s32, CWT_WAVELET, analytic=True)
+    sig = counted_launches("significant_power 32 scales x 32768", {},
+                           lambda: vt.significant_power(res, xs, CWT_WAVELET), total)
+    a = vt.ar1_coefficient(xs).item()
+    v = xs.var(correction=0).item()  # float32, as significant_power takes it
+    want = vt.significance_levels(s32, CWT_WAVELET, n=32768, lag1=a, variance=v, device="cpu")
+    err = rel_err(sig.levels.cpu(), want)
+    check(sig.mask.shape == (32, 32768) and sig.mask.dtype == torch.bool
+          and err <= TOL_LEVELS,
+          f"significant_power: levels against float64 on the CPU {err:.3e} <= "
+          f"{TOL_LEVELS:.0e}; {int(sig.mask.sum())} significant coefficients")
+    lev = counted_launches("coherence_significance 64 surrogates, 32 scales x 32768", {},
+                           lambda: vt.coherence_significance(xs, ys, s32, CWT_WAVELET,
+                                                             n_surrogates=64), total)
+    again = vt.coherence_significance(xs, ys, s32, CWT_WAVELET, n_surrogates=64)
+    above = int((vt.wavelet_coherence(xs, ys, s32, CWT_WAVELET).mean_coherence() > lev).sum())
+    check(lev.shape == (32,) and bool(((lev > 0) & (lev <= 1)).all())
+          and torch.equal(lev, again),
+          f"coherence_significance: 32 levels in (0, 1], repeatable; the pair's mean "
+          f"coherence above its level at {above} of 32 scales")
+    del res, sig, lev, again
+
+    # matching_pursuit 8 x 16384, mexh, 16 scales 2-64, 32 steps: two atoms
+    # planted in each row under noise are found first, with their amplitudes
+    s16 = cwt_scales(16, 2.0, 64.0)
+    from vectorwave_tpu_torch.transforms.cwt import _sample_bank
+
+    rows = _sample_bank(vt.wavelet("mexh"), s16, 16384)[0].real
+    atoms = rows / np.linalg.norm(rows, axis=-1, keepdims=True)
+    planted = np.zeros((8, 16384))
+    for i in range(8):
+        planted[i] += 5.0 * np.roll(atoms[3], 1000 + 1500 * i)
+        planted[i] -= 4.0 * np.roll(atoms[10], 9000 + 700 * i)
+    xm = (torch.as_tensor(planted, dtype=torch.float32, device=dev)
+          + 0.01 * torch.randn(8, 16384, device=dev, generator=gen))
+    mp = counted_launches("matching_pursuit 8x16384, 16 scales, 32 steps", {},
+                          lambda: vt.matching_pursuit(xm, s16, "mexh", steps=32), total)
+    found = all({(3, (1000 + 1500 * i) % 16384), (10, (9000 + 700 * i) % 16384)}
+                == {(int(mp.scale_indices[i, k]), int(mp.shifts[i, k])) for k in (0, 1)}
+                for i in range(8))
+    amps = mp.coeffs[:, :2].abs().sort(dim=-1).values
+    decreasing = bool((mp.energies[:, 1:] <= mp.energies[:, :-1] * (1 + 1e-6)).all())
+    split = max_err(mp.approx + mp.residual, xm)
+    check(found and max_err(amps, torch.tensor([4.0, 5.0], device=dev).expand(8, 2)) <= 0.05
+          and decreasing and split <= TOL_F32,
+          f"matching_pursuit: both planted atoms first in every row, amplitudes "
+          f"{amps[0].tolist()}, energies non-increasing, approx + residual - x {split:.2e}")
+    del mp
+
+    # the finance analyzers on the card (float32, the default dtype)
+    rets = 0.01 * torch.randn(1, 10240, device=dev, generator=gen) + 0.0005
+    rets512 = 0.01 * torch.randn(512, 4096, device=dev, generator=gen) + 0.0005
+    for label, r_in in (("1x10240", rets), ("512x4096", rets512)):
+        got = counted_launches(f"wavelet_sharpe_ratio {label}", {"modwt_denoise"},
+                               lambda: fin.wavelet_sharpe_ratio(r_in), total)
+        with backend("torch"):
+            ref = fin.wavelet_sharpe_ratio(r_in)
+        err = rel_err(got, ref)
+        check(got.shape == r_in.shape[:1] and err <= TOL_SHARPE,
+              f"wavelet_sharpe_ratio {label} (the fused denoise) vs the plain route "
+              f"{err:.3e} <= {TOL_SHARPE:.0e}")
+    prices = 100.0 * torch.exp(torch.cumsum(rets[0], 0))
+    prices[7000:7002] *= 0.85  # a crash
+    mkt = counted_launches("analyze_market 10240 prices", {"modwt_denoise"},
+                           lambda: fin.analyze_market(prices), total)
+    p_np = prices.double().cpu().numpy()
+    dd = float(np.max((np.maximum.accumulate(p_np) - p_np) / np.maximum.accumulate(p_np)))
+    check(bool(mkt.regime_map) and math.isfinite(mkt.current_risk_level)
+          and abs(mkt.max_drawdown - dd) <= 1e-12 and any(a.time_index in (6999, 7000)
+                                                          for a in mkt.anomalies),
+          f"analyze_market: {len(mkt.regime_map)} windows, {len(mkt.regime_changes)} regime "
+          f"changes, {len(mkt.anomalies)} anomalies (the crash among them), max drawdown "
+          f"{mkt.max_drawdown:.4f}")
+    vol = fin.analyze_volatility(prices)
+    with float64_default():
+        want = fin.analyze_volatility(prices.double().cpu())
+    err = np.abs(vol.instantaneous_volatility - want.instantaneous_volatility).max() / np.abs(
+        want.instantaneous_volatility).max()
+    check(err <= TOL_XWT, f"analyze_volatility's instantaneous volatility against float64 on "
+                          f"the CPU {err:.3e} <= {TOL_XWT:.0e} of max")
+    # one level: under the kernels' two-level floor, the plain cascade
+    asym = counted_launches("crash_asymmetry haar J=1 symmetric 8x10240", {},
+                            lambda: fin.crash_asymmetry(prices.expand(8, -1).contiguous()),
+                            total)
+    err = rel_err(asym.cpu(), fin.crash_asymmetry(prices.double().cpu().expand(8, -1)))
+    check(err <= TOL_XWT, f"crash_asymmetry against float64 on the CPU {err:.3e} <= "
+                          f"{TOL_XWT:.0e}")
+    ind = counted_launches("calculate_wavelet_indicators sym8 10240", {"modwt_analysis"},
+                           lambda: fin.calculate_wavelet_indicators(prices), total)
+    with float64_default():
+        want = fin.calculate_wavelet_indicators(prices.double().cpu())
+    err = max(np.abs(a - b).max() / np.abs(b).max()
+              for a, b in zip(ind[:1] + ind[3:], want[:1] + want[3:]))
+    check(err <= TOL_XWT, f"calculate_wavelet_indicators (trend, support) against float64 "
+                          f"on the CPU {err:.3e} <= {TOL_XWT:.0e} of max")
+    ticks = prices[:4096].contiguous()
+    m = counted_launches("analyze_ticks_incremental 4096 ticks", {},
+                         lambda: fin.analyze_ticks_incremental(ticks), total)
+    haar = (ticks[1:] - ticks[:-1]) * 0.5
+    err = max_err(m.haar_detail[1:], haar)
+    check(m.crash_score.shape == (4096,) and bool(torch.isfinite(m.crash_score[32:]).all())
+          and err <= 1e-5 and m.haar_detail[0].item() == 0.0,
+          f"analyze_ticks_incremental: the Haar detail against its closed form {err:.2e}; "
+          f"{int(m.crash_detected.sum())} crash ticks, max drawdown "
+          f"{m.base.max_drawdown[-1].item():.4f}")
+    print(f"  launches on the paths built on the CWT: {total}", flush=True)
+    return total
+
+
+def cwt_analysis_timing(dev, gen):
+    """Phase 4 for the tiled CWT and what is built on the CWT: each call of
+    phase 3 timed with CUDA events (the tick stream, a Python loop of about
+    50 launches a tick, with fewer runs)."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import finance as fin
+    from vectorwave_tpu_torch import parallel as par
+
+    x5 = torch.randn(CFG5_N, device=dev, generator=gen)
+    s32, s16 = cwt_scales(32, 2.0, 64.0), cwt_scales(16, 2.0, 64.0)
+    x = torch.randn(8, 65536, device=dev, generator=gen)
+    xs, ys = x[0, :32768].contiguous(), x[1, :32768].contiguous()
+    res_a = vt.cwt(x[2], s32, CWT_WAVELET, analytic=True)
+    res32 = vt.cwt(xs, s32, CWT_WAVELET, analytic=True)
+    rets = 0.01 * torch.randn(1, 10240, device=dev, generator=gen)
+    rets512 = 0.01 * torch.randn(512, 4096, device=dev, generator=gen)
+    prices = 100.0 * torch.exp(torch.cumsum(rets[0], 0))
+    rows = []
+    for shards in TILED_SHARDS:
+        mesh = par.make_mesh({"signal": shards}, devices=[dev] * shards)
+        for boundary in ("zero", "periodic"):
+            rows.append((f"cwt_tiled config #5, {shards} shards, {boundary}", CFG5_N,
+                         lambda mesh=mesh, boundary=boundary: par.cwt_tiled(
+                             x5, CFG5_SCALES, CWT_WAVELET, mesh=mesh, boundary=boundary), 10))
+    for boundary in ("zero", "periodic"):
+        rows.append((f"cwt config #5 single card, {boundary}", CFG5_N,
+                     lambda boundary=boundary: vt.cwt(x5, CFG5_SCALES, CWT_WAVELET,
+                                                      boundary=boundary), 10))
+    hosts = par.make_multihost_mesh(n_hosts=2, chips_per_host=4, devices=[dev] * 8)
+    rows += [
+        ("cwt_tiled_2d config #5, 2x4 host x chip", CFG5_N,
+         lambda: par.cwt_tiled_2d(x5, CFG5_SCALES, CWT_WAVELET, mesh=hosts), 10),
+        ("wavelet_coherence 32 scales x 32768", 32768,
+         lambda: vt.wavelet_coherence(xs, ys, s32, CWT_WAVELET), 10),
+        ("extract_ridge 32 scales x 65536", 65536, lambda: vt.extract_ridge(res_a), 5),
+        ("synchrosqueeze -> isst 32 scales x 16384", 16384,
+         lambda: vt.isst(vt.synchrosqueeze(x[3, :16384], s32, CWT_WAVELET), CWT_WAVELET), 10),
+        ("significant_power 32 scales x 32768", 32768,
+         lambda: vt.significant_power(res32, xs, CWT_WAVELET), 10),
+        ("coherence_significance 64 surrogates, 32 scales x 32768", 32768,
+         lambda: vt.coherence_significance(xs, ys, s32, CWT_WAVELET, n_surrogates=64), 5),
+        ("matching_pursuit mexh 8x16384, 16 scales, 32 steps", 8 * 16384,
+         lambda: vt.matching_pursuit(x[:, :16384], s16, "mexh", steps=32), 5),
+        ("wavelet_sharpe_ratio 1x10240", 10240, lambda: fin.wavelet_sharpe_ratio(rets), 10),
+        ("wavelet_sharpe_ratio 512x4096", 512 * 4096,
+         lambda: fin.wavelet_sharpe_ratio(rets512), 10),
+        ("analyze_market 10240 prices", 10240, lambda: fin.analyze_market(prices), 5),
+        ("analyze_ticks_incremental 4096 ticks", 4096,
+         lambda: fin.analyze_ticks_incremental(prices[:4096]), 2),
+    ]
+    for label, count, fn, reps in rows:
+        t_ms = median_ms(fn, 1, reps)
+        print(f"  {label}: {t_ms:.4f} ms ({count / t_ms / 1e3:.2f} Msamples/s)", flush=True)
 
 
 def stream_kernels_against_plain(dev, gen, worst, worst_bf16):
@@ -2587,6 +3047,15 @@ def main() -> int:
     for name, count in cwt_path(dev, gen).items():
         launches[name] = launches.get(name, 0) + count
 
+    print(f"  the tiled CWT, config #5 over {' and '.join(map(str, TILED_SHARDS))} virtual "
+          "shards and a 2x4 mesh", flush=True)
+    for name, count in cwt_tiled_path(dev, gen).items():
+        launches[name] = launches.get(name, 0) + count
+    print("  what is built on the CWT: coherence, ridge, SST, significance, matching "
+          "pursuit, finance", flush=True)
+    for name, count in cwt_analysis_path(dev, gen).items():
+        launches[name] = launches.get(name, 0) + count
+
     print(f"  the streaming path, {STREAM_B} streams x {STREAM_NBLK} blocks x {STREAM_BLK} "
           "float32", flush=True)
     launches.update(streaming_path(dev, gen))
@@ -2833,6 +3302,7 @@ def main() -> int:
     bank_ms, bank_bound, bank_cases = bank_timing(dev, gen)
     for name, rows in cwt_timing(dev, gen).items():
         bank_cases[name] += rows
+    cwt_analysis_timing(dev, gen)
     bank_cases["modwt_symmetric_synthesis"] = [sym8_row]
     ms_of.update(bank_ms)
     bound.update(bank_bound)

@@ -1247,19 +1247,29 @@ def test_cwt_tier_gradient_is_one_bank_synthesis_launch(cuda):
 
 
 def test_cwt_auto_routing_on_both_sides_of_the_gate(cuda):
-    """``auto`` sends the scales up to AUTO_KERNEL_DIRECT_MAX_HALF to one bank
-    launch and the rest to the FFT path; float64, the zero boundary, a
-    complex wavelet and descending scales take no launch."""
+    """``auto`` sends a call to one bank launch when every scale is within
+    AUTO_KERNEL_DIRECT_MAX_HALF and they make one chunk, its result the
+    bank's allocation seen as [B, S, N]; a scale past the cap, or more
+    planes than one launch takes, send the whole call to the FFT path;
+    float64, the zero boundary, a complex wavelet and descending scales take
+    no launch."""
+    from vectorwave_tpu_torch.kernels import modwt_bank as mb
     from vectorwave_tpu_torch.transforms import cwt as tc
 
     cap = tc.AUTO_KERNEL_DIRECT_MAX_HALF
     at, past = cap / 4.0, cap / 4.0 + 0.25  # morl: h = ceil(4 s)
+    many = tuple(torch.logspace(-2, 0, mb.MAX_PLANES + 1, base=at).tolist())
     x = _input(cuda, 2, 1 << 14, torch.float32, seed=33)
-    for scales, launches in (((2.0, at), 1), ((2.0, at, past), 1), ((past, 2 * past), 0)):
+    for scales, launches in (((2.0, at), 1), ((2.0, at, past), 0), ((past, 2 * past), 0),
+                             (many[1:], 1), (many, 0)):
         mc.reset_launches()
         got = vt.cwt(x, scales, "morl", boundary="periodic").coeffs
         torch.cuda.synchronize()
         assert mc.LAUNCHES["modwt_bank_analysis"] == launches, scales
+        if launches:  # no copy: the planes of the one bank launch, time innermost
+            assert got.stride() == (1 << 14, 2 << 14, 1)
+        else:
+            assert got.is_contiguous()
         want = _under("torch", lambda: vt.cwt(x, scales, "morl", boundary="periodic")).coeffs
         assert _rel(got, want) <= TOL_F32
     for call in (lambda: vt.cwt(x.double(), (2.0, at), "morl", boundary="periodic"),
@@ -1282,3 +1292,100 @@ def test_cwt_kernel_backend_raises_where_the_window_does_not_fit(cuda, monkeypat
     x = _input(cuda, 1, 4096, torch.float32, seed=34)
     with pytest.raises(InvalidArgumentError, match="shared memory"):
         _under("kernel", lambda: vt.cwt(x, (2.0, 15000.0), "morl", boundary="periodic"))
+
+
+def test_cwt_auto_tier_result_is_a_view_with_a_gradient(cuda):
+    """Under auto with every scale within the cap, the result is the bank
+    launch's own tensor (``movedim``), and d/dx through it is one bank
+    synthesis launch, equal to the plain route's gradient."""
+    from vectorwave_tpu_torch.kernels import modwt_bank as mb
+    from vectorwave_tpu_torch.transforms import cwt as tc
+
+    cap = tc.AUTO_KERNEL_DIRECT_MAX_HALF
+    scales = tuple(torch.logspace(-3, 0, 12, base=2).mul(cap / 4.0).tolist())
+    x = _input(cuda, 3, 8192, torch.float32, seed=35).requires_grad_(True)
+    wts = _input(cuda, 3 * 12, 8192, torch.float32, seed=36).reshape(3, 12, 8192)
+    seen = []
+    real = mb.bank_analysis_stacked
+
+    def spy(*a):
+        seen.append(real(*a))
+        return seen[-1]
+
+    mb.bank_analysis_stacked = spy
+    try:
+        mc.reset_launches()
+        c = vt.cwt(x, scales, "morl", boundary="periodic").coeffs
+        (g,) = torch.autograd.grad((c * wts).sum(), x)
+        torch.cuda.synchronize()
+    finally:
+        mb.bank_analysis_stacked = real
+    assert c.data_ptr() == seen[0].data_ptr() and c.shape == (3, 12, 8192)
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
+        "modwt_bank_analysis": 1, "modwt_bank_synthesis": 1}
+    (want,) = _under("torch", lambda: torch.autograd.grad(
+        (vt.cwt(x, scales, "morl", boundary="periodic").coeffs * wts).sum(), x))
+    assert _rel(g, want) <= TOL_F32
+
+
+@pytest.mark.parametrize("shards,boundary", [(4, "zero"), (8, "periodic"), (8, "zero")])
+def test_cwt_tiled_matches_the_single_card_cwt(cuda, shards, boundary):
+    """Config #5's scales (64, 2-4096) on 2^18 samples over virtual shards of
+    the card, float32, within 2e-5 of the largest coefficient of the
+    single-card cwt; and the 2 x 4 host x chip layout."""
+    from vectorwave_tpu_torch import parallel as par
+
+    x = _input(cuda, 1, 1 << 18, torch.float32, seed=37)[0]
+    scales = tuple(torch.logspace(1, 12, 64, base=2).tolist())
+    want = vt.cwt(x, scales, "morl", boundary=boundary).coeffs
+    mesh = par.make_mesh({"signal": shards}, devices=[cuda] * shards)
+    mc.reset_launches()
+    got = par.cwt_tiled(x, scales, "morl", mesh=mesh, boundary=boundary).coeffs
+    torch.cuda.synchronize()
+    assert not any(mc.LAUNCHES.values())
+    assert got.device == x.device and _rel(got, want) <= TOL_F32
+    hosts = par.make_multihost_mesh(n_hosts=2, chips_per_host=4, devices=[cuda] * 8)
+    got = par.cwt_tiled_2d(x, scales, "morl", mesh=hosts, boundary=boundary).coeffs
+    assert _rel(got, want) <= TOL_F32
+
+
+def test_sst_scatter_matches_the_masked_sum(cuda):
+    """The SST's one scatter-add (atomic adds in any order) against the JAX
+    package's form, one masked sum a bin, within 2e-5 of the largest bin."""
+    from vectorwave_tpu_torch.transforms import sst as tsst
+
+    g = torch.Generator(device=cuda).manual_seed(38)
+    contrib = torch.complex(torch.randn(4, 32, 16384, device=cuda, generator=g),
+                            torch.randn(4, 32, 16384, device=cuda, generator=g))
+    idx = torch.randint(0, 33, (4, 32, 16384), device=cuda, generator=g)
+    got = tsst._squeeze(contrib, idx, 32)
+    want = torch.stack([torch.where(idx == b, contrib, 0).sum(-2) for b in range(32)], -2)
+    assert _rel(got, want) <= TOL_F32
+    x = torch.sin(torch.arange(16384, device=cuda) * 0.25)
+    res = vt.synchrosqueeze(x, tuple(torch.logspace(1, 6, 32, base=2).tolist()), "morl")
+    assert res.coeffs.device == x.device and res.coeffs.shape == (32, 16384)
+
+
+def test_host_inputs_take_the_card_by_default():
+    """Functions that build tensors from host values default to the card and
+    raise without one; with a card the tensors land there."""
+    import numpy as np
+
+    from vectorwave_tpu_torch import finance as fin
+
+    prices = 100.0 * np.exp(np.cumsum(np.full(64, 0.001)))
+    calls = (lambda: fin.analyze_volatility(prices),
+             lambda: fin.incremental_init(),
+             lambda: vt.cone_of_influence(64),
+             lambda: vt.significance_levels((2.0, 4.0), n=64, lag1=0.1),
+             lambda: vt.convert.sst_result_from_arrays(np.zeros((2, 8), np.complex64),
+                                                       [0.1, 0.2], (2.0, 4.0)))
+    for call in calls:
+        if torch.cuda.is_available():
+            call()
+        else:
+            with pytest.raises(InvalidArgumentError, match="no CUDA device"):
+                call()
+    if torch.cuda.is_available():
+        assert fin.incremental_init().count.device.type == "cuda"
+        assert vt.cone_of_influence(64).device.type == "cuda"

@@ -131,8 +131,9 @@ def test_hybrid_split_lines_up_the_rows(kernel_backend, jax_pallas, scales, n_sm
 
 def test_split_conditions_and_the_two_caps(monkeypatch):
     """``torch`` never takes the tier; ``kernel`` to h = 2048 on any device;
-    ``auto`` only on a card the kernels are built for, to
-    AUTO_KERNEL_DIRECT_MAX_HALF; a periodic boundary and float32 only."""
+    ``auto`` only on a card the kernels are built for, and only when every
+    scale is within AUTO_KERNEL_DIRECT_MAX_HALF and they make one bank call;
+    a periodic boundary and float32 only."""
     w = vt.wavelet("morl")
     cpu, card = torch.device("cpu"), torch.device("cuda")
     cap = tcwt.AUTO_KERNEL_DIRECT_MAX_HALF
@@ -151,8 +152,13 @@ def test_split_conditions_and_the_two_caps(monkeypatch):
         assert split(cpu, w, (2.0, at), "periodic", torch.float64) == 0
         vt.set_backend("auto")
         monkeypatch.setattr(modwt_fused, "kernel_available", lambda: True)
-        assert split(card, w, (2.0, at, past, top), "periodic", torch.float32) == 2
+        assert split(card, w, (2.0, at), "periodic", torch.float32) == 2
+        assert split(card, w, (2.0, at, past, top), "periodic", torch.float32) == 0
         assert split(card, w, (past,), "periodic", torch.float32) == 0
+        # every scale within the cap, but more than one bank call's planes
+        many = tuple(np.geomspace(1.0, at, mb.MAX_PLANES + 1).tolist())
+        assert split(card, w, many[:-1], "periodic", torch.float32) == mb.MAX_PLANES
+        assert split(card, w, many, "periodic", torch.float32) == 0
         assert split(cpu, w, (2.0, at), "periodic", torch.float32) == 0
         assert split(card, w, (2.0, at), "periodic", torch.float64) == 0
         monkeypatch.setattr(modwt_fused, "kernel_available", lambda: False)
@@ -201,8 +207,8 @@ def test_chunks_hold_the_planes_and_the_window(monkeypatch):
 
 def test_tier_calls_the_bank_once_a_chunk_on_x_rolled_once(kernel_backend, monkeypatch):
     calls = []
-    real = mb.bank_analysis
-    monkeypatch.setattr(mb, "bank_analysis",
+    real = mb.bank_analysis_stacked
+    monkeypatch.setattr(mb, "bank_analysis_stacked",
                         lambda x, dense, per: (calls.append((len(dense), per)),
                                                real(x, dense, per))[1])
     x = torch.from_numpy(_x((2, 700), seed=3))
@@ -236,3 +242,25 @@ def test_kernel_backend_takes_no_launch_on_the_cpu(kernel_backend):
     before = dict(mc.LAUNCHES)
     vt.cwt(torch.from_numpy(_x((1, 512))), (2.0, 4.0), "morl", boundary="periodic")
     assert mc.LAUNCHES == before
+
+
+@pytest.mark.parametrize("scales,stacked", [
+    ((2.0, 4.0, 8.0), True),            # every scale in one bank call
+    ((2.0, 4.0, 2048.0), False),        # the hybrid joins FFT rows
+])
+def test_tier_result_is_the_bank_allocation_seen_as_b_s_n(kernel_backend, monkeypatch,
+                                                           scales, stacked):
+    """One chunk and no FFT rows: the result is a ``[B, S, N]`` view of the
+    bank's ``[S, B, N]`` output, not a copy; gradients reach x through it."""
+    outs = []
+    real = mb.bank_analysis_stacked
+    monkeypatch.setattr(mb, "bank_analysis_stacked",
+                        lambda *a: outs.append(real(*a)) or outs[-1])
+    x = torch.from_numpy(_x((3, 1024), seed=6)).requires_grad_(True)
+    c = vt.cwt(x, scales, "morl", boundary="periodic").coeffs
+    assert c.shape == (3, len(scales), 1024)
+    assert (c.data_ptr() == outs[0].data_ptr()) == stacked
+    if stacked:
+        assert c.stride() == (1024, 3 * 1024, 1)
+    (g,) = torch.autograd.grad(c.pow(2).sum(), x)
+    assert g.shape == x.shape and bool(torch.isfinite(g).all())

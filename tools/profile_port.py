@@ -39,7 +39,16 @@ at config #5's single row (2^20 samples, 64 scales 2-4096) and at 128 x
 65536 with 32 scales 2-64: ``cwt`` under ``auto`` (the kernel-direct tier on
 the bank kernel for the small scales, the FFT path for the rest) and on the
 plain route, ``cwt`` -> ``icwt`` and ``modwt_based_icwt`` (the argument
-``"cwt morl"`` selects them).  For the streaming and tiled
+``"cwt morl"`` selects them), and what is built on the CWT: ``cwt_tiled`` at
+config #5 over 4 and 8 virtual shards (zero and periodic) and
+``cwt_tiled_2d`` on a 2 x 4 host x chip mesh of the card,
+``wavelet_coherence`` (32 scales x 32768), ``extract_ridge`` (32 scales x
+65536, the blocked Viterbi), ``synchrosqueeze`` -> ``isst`` (32 scales x
+16384), ``significant_power`` and ``coherence_significance`` (64
+surrogates, 32 scales x 32768), ``matching_pursuit`` (8 x 16384, mexh, 16
+scales, 32 steps), ``wavelet_sharpe_ratio`` (1 x 10240 and 512 x 4096),
+``analyze_market`` (10240 prices) and ``analyze_ticks_incremental`` (512
+ticks; a call is about 25000 launches).  For the streaming and tiled
 rows it also prints the host side: the self CPU time of the traced ops per
 call and the ops that take the most (the trace's own cost included).  Exits
 non-zero without a CUDA device.
@@ -208,6 +217,45 @@ def main() -> int:
                                                         boundary="periodic"), "morl"))
     calls["modwt_based_icwt morl 128x65536, 32 scales"] = (
         lambda: vt.modwt_based_icwt(res_main, "morl"))
+    # what is built on the CWT
+    for shards in (4, 8):
+        mesh = par.make_mesh({"signal": shards}, devices=[dev] * shards)
+        for boundary in ("zero", "periodic"):
+            calls[f"cwt_tiled morl config #5 1x1048576, 64 scales, {shards} shards, "
+                  f"{boundary}"] = (lambda mesh=mesh, boundary=boundary: par.cwt_tiled(
+                      x5, cfg5, "morl", mesh=mesh, boundary=boundary))
+    hosts = par.make_multihost_mesh(n_hosts=2, chips_per_host=4, devices=[dev] * 8)
+    calls["cwt_tiled_2d morl config #5 1x1048576, 64 scales, 2x4 host x chip"] = (
+        lambda: par.cwt_tiled_2d(x5, cfg5, "morl", mesh=hosts))
+    s32 = tuple(np.geomspace(2.0, 64.0, 32).tolist())
+    x32k, y32k = x[0, :32768].contiguous(), x[1, :32768].contiguous()
+    calls["wavelet_coherence morl 32 scales x 32768"] = (
+        lambda: vt.wavelet_coherence(x32k, y32k, s32, "morl"))
+    ridge_in = vt.cwt(x[0], s32, "morl", analytic=True)
+    calls["extract_ridge 32 scales x 65536 (blocked Viterbi)"] = (
+        lambda: vt.extract_ridge(ridge_in))
+    x16 = x[2, :16384].contiguous()
+    calls["synchrosqueeze -> isst morl 32 scales x 16384"] = (
+        lambda: vt.isst(vt.synchrosqueeze(x16, s32, "morl"), "morl"))
+    res32 = vt.cwt(x32k, s32, "morl", analytic=True)
+    calls["significant_power morl 32 scales x 32768"] = (
+        lambda: vt.significant_power(res32, x32k, "morl"))
+    calls["coherence_significance morl 64 surrogates, 32 scales x 32768"] = (
+        lambda: vt.coherence_significance(x32k, y32k, s32, "morl", n_surrogates=64))
+    s16 = tuple(np.geomspace(2.0, 64.0, 16).tolist())
+    x8mp = x[:8, :16384].contiguous()
+    calls["matching_pursuit mexh 8x16384, 16 scales, 32 steps"] = (
+        lambda: vt.matching_pursuit(x8mp, s16, "mexh", steps=32))
+    rets = 0.01 * torch.randn(1, 10240, device=dev, generator=gen)
+    rets512 = 0.01 * x[:, :16384].reshape(512, 4096)
+    calls["wavelet_sharpe_ratio db4 1x10240"] = lambda: vt.finance.wavelet_sharpe_ratio(rets)
+    calls["wavelet_sharpe_ratio db4 512x4096"] = lambda: vt.finance.wavelet_sharpe_ratio(
+        rets512)
+    prices = 100.0 * torch.exp(torch.cumsum(rets[0], 0))
+    calls["analyze_market 10240 prices"] = lambda: vt.finance.analyze_market(prices)
+    ticks = prices[:512].contiguous()
+    calls["analyze_ticks_incremental 512 ticks"] = (
+        lambda: vt.finance.analyze_ticks_incremental(ticks))
     words = sys.argv[1:]
     if words:
         calls = {k: v for k, v in calls.items() if any(word in k for word in words)}

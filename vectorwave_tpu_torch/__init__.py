@@ -22,7 +22,11 @@ an external left halo, synthesis with an external right halo, fused
 denoise with a stream mode, the symmetric synthesis with its adjoint, the
 2-D analysis and synthesis levels and the general filter bank's analysis
 and synthesis, in fp32; exact analysis and synthesis with their halos in
-fp64) with their plain PyTorch versions.
+fp64) with their plain PyTorch versions.  On top of the CWT: the
+tiled CWT (``parallel.cwt_tiled``, ``cwt_tiled_2d``), cross-wavelet
+analysis (coherence, phase synchronization, ridges), significance tests,
+synchrosqueezing, matching pursuit (``optimize``) and the financial
+analyzers (``finance``).
 
 The package imports ``torch``, ``numpy`` and ``mpmath`` and never JAX or
 ``vectorwave_tpu``.  Inputs and outputs are ``[..., N]`` tensors; the device
@@ -30,7 +34,7 @@ is the input's (``[..., H, W]`` for the 2-D family).  Only what is ported
 is exported.
 """
 
-from . import config, convert, errors, kernels, native, parallel, streaming
+from . import config, convert, errors, finance, kernels, native, optimize, parallel, streaming
 from .config import (
     get_backend,
     get_fused_precision,
@@ -106,6 +110,26 @@ from .transforms.cwt import (
     select_scales_signal_adaptive,
 )
 from .transforms.cwt_modwt_inverse import modwt_based_icwt
+from .optimize import MPResult, matching_pursuit
+from .transforms.significance import (
+    SignificanceResult,
+    ar1_coefficient,
+    coherence_significance,
+    cone_of_influence,
+    phase_randomized_surrogates,
+    significance_levels,
+    significant_power,
+)
+from .transforms.sst import SSTResult, dominant_frequencies, extract_mode, isst, synchrosqueeze
+from .transforms.xwt import (
+    CoherenceResult,
+    RidgeResult,
+    cross_wavelet,
+    extract_ridge,
+    instantaneous_frequency,
+    phase_synchronization,
+    wavelet_coherence,
+)
 from .transforms.dtcwt import (
     DTCWTResult,
     coefficient_delay,
@@ -184,6 +208,7 @@ __version__ = "0.1.0"
 __all__ = [
     "CWTConfig",
     "CWTResult",
+    "CoherenceResult",
     "ContinuousWavelet",
     "DTCWTResult",
     "DWT2Result",
@@ -198,12 +223,16 @@ __all__ = [
     "MAX_DECOMPOSITION_LEVELS",
     "MODWT2Result",
     "MODWTResult",
+    "MPResult",
     "MultiLevelMODWT2Result",
     "MultiLevelMODWTResult",
     "PADDING_STRATEGIES",
+    "RidgeResult",
+    "SSTResult",
     "SWT2Result",
     "SWTResult",
     "ScaleSelectionConfig",
+    "SignificanceResult",
     "TransformType",
     "VectorWaveError",
     "WavedecResult",
@@ -214,20 +243,25 @@ __all__ = [
     "adaptive_strategy",
     "apply_threshold",
     "apply_universal_threshold",
+    "ar1_coefficient",
     "as_wavelet",
     "available_wavelets",
     "basis_coefficients",
     "bayes_threshold",
     "best_basis",
     "coefficient_delay",
+    "coherence_significance",
+    "cone_of_influence",
     "config",
     "convert",
+    "cross_wavelet",
     "cwt",
     "denoise",
     "denoise2",
     "denoise_fixed",
     "denoise_multilevel",
     "denoise_packet",
+    "dominant_frequencies",
     "dtcwt",
     "dtcwt_denoise",
     "dtcwt_max_levels",
@@ -237,7 +271,10 @@ __all__ = [
     "estimate_scale_count",
     "extract_level",
     "extract_level2",
+    "extract_mode",
+    "extract_ridge",
     "fdr_threshold",
+    "finance",
     "frequency_order",
     "frequency_range_of_scales",
     "frequency_to_scale",
@@ -258,13 +295,16 @@ __all__ = [
     "imodwt2_multilevel",
     "imodwt_multilevel",
     "imodwt_multilevel_exact",
+    "instantaneous_frequency",
     "is_compatible",
+    "isst",
     "iswt",
     "iswt2",
     "iwpt",
     "kernel_available",
     "kernels",
     "mad_sigma",
+    "matching_pursuit",
     "max_dwt_levels",
     "max_levels",
     "median_magnitude",
@@ -282,8 +322,10 @@ __all__ = [
     "mra2",
     "native",
     "packet_frequency_bands",
-    "parallel",
     "pad_signal",
+    "parallel",
+    "phase_randomized_surrogates",
+    "phase_synchronization",
     "recommended_transform",
     "reconstruct_band",
     "reconstruct_basis",
@@ -301,20 +343,24 @@ __all__ = [
     "set_backend",
     "set_fused_precision",
     "set_sigma_estimator",
+    "significance_levels",
+    "significant_power",
     "soft_threshold",
-    "supported_transforms",
     "streaming",
+    "supported_transforms",
     "sure_threshold",
     "swt",
     "swt2",
     "swt2_denoise",
     "swt_denoise",
+    "synchrosqueeze",
     "threshold_coeffs",
     "threshold_level",
     "universal_threshold",
     "wavedec",
     "wavedec2",
     "wavelet",
+    "wavelet_coherence",
     "wavelets_in_family",
     "wavelets_of_type",
     "waverec",

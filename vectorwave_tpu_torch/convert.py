@@ -3,9 +3,10 @@
 The two packages share no code, so these helpers take plain numpy arrays:
 a filter bank exported from a ``vectorwave_tpu`` wavelet, a threshold
 array, the planes of an exact-tier result, the bands of a 2-D MODWT
-result, the levels of a packet tree, the coefficients of a DTCWT or a CWT
-result or one of the four streaming states becomes the port's object (a stream
-checkpointed in JAX resumes in the port).
+result, the levels of a packet tree, the coefficients of a DTCWT, a CWT or
+a synchrosqueezed result, one of the four streaming states or one of the
+two incremental tick states becomes the port's object (a stream or a tick
+stream checkpointed in JAX resumes in the port).
 The parity tests use them so that both packages filter with identical taps
 and each package's inverse can read the other's planes.
 """
@@ -216,6 +217,34 @@ def cwt_result_from_arrays(coeffs, scales, boundary="zero", device="cuda"):
     return CWTResult(torch.from_numpy(arr).to(dev), scales, boundary)
 
 
+def sst_result_from_arrays(coeffs, freqs, scales, boundary="zero", device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.SSTResult` from the ``[..., B, N]``
+    complex coefficients of a synchrosqueezed result as an array, its bin
+    frequencies, the scales and boundary of its CWT (for example the fields
+    of a ``vectorwave_tpu`` ``SSTResult``), on ``device`` (default: the
+    card; pass ``device="cpu"`` for the CPU).  Without a card the default
+    raises."""
+    from .transforms.cwt import validate_scales
+    from .transforms.sst import SSTResult
+
+    dev = _device(device)
+    arr = np.array(coeffs)
+    freqs = np.array(freqs, dtype=np.float64).reshape(-1)
+    if arr.ndim < 2 or arr.shape[-2] != freqs.size:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "coefficients must be [..., B, N] with one row per frequency bin",
+            context={"shape": arr.shape, "bins": freqs.size},
+        )
+    if boundary not in ("zero", "periodic"):
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            f"Unknown CWT boundary {boundary!r}",
+            suggestions=("Use 'zero' or 'periodic'",),
+        )
+    return SSTResult(torch.from_numpy(arr).to(dev), freqs, validate_scales(scales), boundary)
+
+
 # --- streaming states -----------------------------------------------------------
 
 
@@ -283,4 +312,47 @@ def kernel_streaming_denoiser_state_from_arrays(history, noise_window, window_po
     return KernelStreamingDenoiserState(
         _state_tensor(history, dev), _state_tensor(noise_window, dev),
         _count(window_pos), _count(window_fill),
+    )
+
+
+# --- incremental tick states -------------------------------------------------------
+
+
+def incremental_state_from_arrays(count, last_price, mean_return, var_return, ewma_vol_fast,
+                                  ewma_vol_slow, peak_price, max_drawdown, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.finance.IncrementalState` from the
+    scalar fields of a ``vectorwave_tpu`` ``IncrementalState`` as arrays, in
+    field order, on ``device`` (default: the card; pass ``device="cpu"`` for
+    the CPU).  The dtype is kept."""
+    from .finance.incremental import IncrementalState
+
+    dev = _device(device)
+    fields = (count, last_price, mean_return, var_return, ewma_vol_fast, ewma_vol_slow,
+              peak_price, max_drawdown)
+    if any(np.shape(a) != () for a in fields):
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE, "every incremental state field is a scalar",
+            context={"shapes": [np.shape(a) for a in fields]},
+        )
+    return IncrementalState(*(_state_tensor(a, dev) for a in fields))
+
+
+def incremental_wavelet_state_from_arrays(base, ret_window, ema12, ema26, ema50, wavelet_vol,
+                                          max_crash_score, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.finance.IncrementalWaveletState` from
+    the fields of a ``vectorwave_tpu`` ``IncrementalWaveletState``: ``base``
+    the eight fields of its ``IncrementalState`` in order, the ``[K]``
+    return window and the scalars, on ``device`` (default: the card)."""
+    from .finance.incremental import IncrementalWaveletState
+
+    dev = _device(device)
+    window = np.array(ret_window)
+    if window.ndim != 1:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE, "the return window is one [K] vector",
+            context={"shape": window.shape},
+        )
+    return IncrementalWaveletState(
+        incremental_state_from_arrays(*base, device=dev), _state_tensor(window, dev),
+        *(_state_tensor(a, dev) for a in (ema12, ema26, ema50, wavelet_vol, max_crash_score)),
     )

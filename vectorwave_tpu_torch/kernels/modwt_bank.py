@@ -8,7 +8,8 @@ pair (``run_analysis_composite(..., planes_override=)`` and
 
 * :func:`bank_analysis`: plane p is x filtered with backward reads by its
   own dense tap vector, ``out_p[t] = sum_tau f_p[tau] x[t - tau]``, with a
-  periodic or zero left edge;
+  periodic or zero left edge; :func:`bank_analysis_stacked` returns the
+  planes as the one ``[P, B, N]`` tensor the launch writes;
 * :func:`bank_synthesis`: the adjoint, with forward reads,
   ``out[t] = sum_p sum_tau f_p[tau] c_p[t + tau]``, periodic or zero right
   edge.
@@ -370,8 +371,8 @@ def _launch_analysis(x: torch.Tensor, taps: BankTaps, periodic: bool):
     b, n = x.shape
     lib = library()
     # one allocation for all planes (a launch of a tree makes 30 or 62)
-    outs = torch.empty((taps.planes, b, n), dtype=x.dtype, device=x.device).unbind(0)
-    out_ptrs = (ctypes.c_void_p * taps.planes)(*[o.data_ptr() for o in outs])
+    stacked = torch.empty((taps.planes, b, n), dtype=x.dtype, device=x.device)
+    out_ptrs = (ctypes.c_void_p * taps.planes)(*[o.data_ptr() for o in stacked.unbind(0)])
     plane_runs, shifts, _, run_table, values = runs_pointers(runs, x.device)
     p = taps.planes
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -385,7 +386,7 @@ def _launch_analysis(x: torch.Tensor, taps: BankTaps, periodic: bool):
         )
     _raise_on_error(err, "modwt_bank_analysis")
     LAUNCHES["modwt_bank_analysis"] += 1
-    return outs
+    return stacked
 
 
 def _launch_synthesis(planes, taps: BankTaps, periodic: bool) -> torch.Tensor:
@@ -413,6 +414,12 @@ def _launch_synthesis(planes, taps: BankTaps, periodic: bool) -> torch.Tensor:
 def _analysis(x, dense, periodic):
     if x.device.type == "cpu":
         return bank_analysis_plain(x, dense, periodic)
+    return _launch_analysis(x, bank_taps(dense), periodic).unbind(0)
+
+
+def _analysis_stacked(x, dense, periodic):
+    if x.device.type == "cpu":
+        return torch.stack(bank_analysis_plain(x, dense, periodic))
     return _launch_analysis(x, bank_taps(dense), periodic)
 
 
@@ -434,6 +441,17 @@ class _BankAnalysis(torch.autograd.Function):
         return _synthesis(planes, ctx.dense, ctx.periodic), None, None
 
 
+class _BankAnalysisStacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dense, periodic):
+        ctx.dense, ctx.periodic = dense, periodic
+        return _analysis_stacked(x, dense, periodic)
+
+    @staticmethod
+    def backward(ctx, cot):
+        return _synthesis(cot.contiguous().unbind(0), ctx.dense, ctx.periodic), None, None
+
+
 class _BankSynthesis(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dense, periodic, *planes):
@@ -451,6 +469,13 @@ def bank_analysis(x: torch.Tensor, dense, periodic: bool) -> tuple[torch.Tensor,
     Differentiable: the backward is one :func:`bank_synthesis` pass with the
     same taps."""
     return _BankAnalysis.apply(x, dense, bool(periodic))
+
+
+def bank_analysis_stacked(x: torch.Tensor, dense, periodic: bool) -> torch.Tensor:
+    """:func:`bank_analysis` as one ``[P, B, N]`` tensor: on the card the
+    launch's own allocation of every plane, handed back without a copy.
+    Differentiable the same way."""
+    return _BankAnalysisStacked.apply(x, dense, bool(periodic))
 
 
 def bank_synthesis(planes, dense, periodic: bool) -> torch.Tensor:

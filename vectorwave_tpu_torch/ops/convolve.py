@@ -211,3 +211,10 @@ def atrous_analysis_pair(
         approx = a if approx is None else approx + a
         detail = d if detail is None else detail + d
     return approx, detail
+
+
+def host_complex(t: torch.Tensor) -> np.ndarray:
+    """A tensor from any device as a host ndarray: complex128 for complex
+    tensors, float64 for real ones (the JAX package's ``host_complex``)."""
+    t = t.detach().cpu()
+    return t.to(torch.complex128).numpy() if t.is_complex() else t.to(torch.float64).numpy()

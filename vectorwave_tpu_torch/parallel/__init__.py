@@ -3,8 +3,8 @@
 Counterpart of ``vectorwave_tpu/parallel``: batch sharding
 (:mod:`.batch`), long-signal tiling with halo exchange (:mod:`.tiled`, with
 its exact tier), 2-D row tiling (:mod:`.tiled2d`) and the host x chip
-layout (:mod:`.multihost`), all in one process (:mod:`.mesh`).  The tiled
-CWT (``cwt_tiled``, ``cwt_tiled_2d``) waits for the port of the CWT.
+layout (:mod:`.multihost`) and the tiled CWT with two-sided support halos
+(:mod:`.cwt_tiled`), all in one process (:mod:`.mesh`).
 """
 
 from .mesh import Mesh, default_mesh, make_mesh
@@ -17,6 +17,7 @@ from .tiled import (
     tiled_roundtrip_check,
 )
 from .tiled2d import imodwt2_multilevel_tiled, modwt2_multilevel_tiled
+from .cwt_tiled import cwt_tiled, cwt_tiled_2d
 from .multihost import (
     CommunicationReport,
     communication_report,
@@ -38,6 +39,8 @@ __all__ = [
     "modwt_multilevel_tiled_exact",
     "imodwt_multilevel_tiled_exact",
     "tiled_roundtrip_check",
+    "cwt_tiled",
+    "cwt_tiled_2d",
     "make_multihost_mesh",
     "modwt_multilevel_multihost",
     "imodwt_multilevel_multihost",

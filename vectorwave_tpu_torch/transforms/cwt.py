@@ -16,11 +16,14 @@ float64, any other in float32.
   cast once to the compute dtype.
 * The direct path is one ``F.conv1d`` with the scales as output channels and
   zero padding (on the card it follows ``torch.backends.cudnn.allow_tf32``).
-* The kernel-direct tier serves the leading small-support scales of a
-  periodic float32 CWT of a real wavelet through the filter-bank kernel
-  (:func:`~vectorwave_tpu_torch.kernels.modwt_bank.bank_analysis`):
+* The kernel-direct tier serves small-support scales of a periodic
+  float32 CWT of a real wavelet through the filter-bank kernel
+  (:func:`~vectorwave_tpu_torch.kernels.modwt_bank.bank_analysis_stacked`):
   ``out[t] = sum_k x[t + k] psi(k/s)/sqrt(s)``, the periodic FFT path's
-  function computed directly (:func:`_kernel_direct_split`).
+  function computed directly (:func:`_kernel_direct_split`).  Under
+  ``auto`` it takes a call whole or not at all, and its result is the
+  bank's own ``[S, B, N]`` allocation seen as ``[B, S, N]``, not a copy;
+  ``backend='kernel'`` joins its leading scales to FFT rows.
 * :func:`icwt` is the log-scale single-sum reconstruction (Torrence & Compo
   eq. 11), equalized by the scale grid's aggregate frequency response or
   divided by a constant calibrated on the host.
@@ -288,7 +291,7 @@ def cwt(
         return CWTResult(_real_fft_rows(xr, w, scales, fft_size, n, complex_dtype),
                          scales, boundary)
     x2 = xr.reshape(-1, n).contiguous()
-    parts = [row.unsqueeze(-2) for row in _cwt_kernel_direct(x2, w, scales[:n_small])]
+    parts = _cwt_kernel_direct(x2, w, scales[:n_small])
     if n_small < len(scales):
         parts.append(_real_fft_rows(x2, w, scales[n_small:], fft_size, n, complex_dtype))
     out = torch.cat(parts, dim=-2) if len(parts) > 1 else parts[0]
@@ -307,13 +310,15 @@ def _real_fft_rows(x, w, scales_sub, fft_size: int, n: int, complex_dtype):
 #: largest half-support ``backend='kernel'`` sends through the kernel-direct
 #: tier (the JAX package's cap; span 2 * half + 1 <= 4097 taps)
 KERNEL_DIRECT_MAX_HALF = 2048
-#: largest half-support ``auto`` sends through the tier on the card.  Dense
-#: taps cost 2h + 1 FMAs a sample a scale, the FFT path's batched ``irfft``
-#: a few passes over the scale's spectrum whatever h is; on an H100 the tier
-#: measured faster up to this h at both 1 x 2^20 and 128 x 65536 samples in
-#: every run of the gate sweep (PERF.md, section 6), and level with the FFT
-#: path at h = 64.
-AUTO_KERNEL_DIRECT_MAX_HALF = 32
+#: largest half-support ``auto`` sends through the tier on the card, for a
+#: call whose scales all stay within it.  Dense taps cost 2h + 1 FMAs a
+#: sample a scale, the FFT path's batched ``irfft`` a few passes over the
+#: scale's spectrum whatever h is; on an H100 whole ``cwt`` calls of 16
+#: scales with h up to this cap ran faster on the tier than on the FFT path
+#: at both 1 x 2^20 and 128 x 65536 samples in every run of three calls'
+#: gate sweeps; at 128 the tier lost one run of nine (a tie), at 256 most
+#: (PERF.md, section 6).
+AUTO_KERNEL_DIRECT_MAX_HALF = 64
 
 
 def _kernel_direct_split(device: torch.device, w: ContinuousWavelet, scales,
@@ -322,28 +327,42 @@ def _kernel_direct_split(device: torch.device, w: ContinuousWavelet, scales,
 
     ``torch`` never takes it; ``kernel`` takes it up to
     :data:`KERNEL_DIRECT_MAX_HALF` (a CPU tensor runs the bank's plain
-    version); ``auto`` only for a CUDA tensor on a card the kernels are built
-    for, up to :data:`AUTO_KERNEL_DIRECT_MAX_HALF`.  Either needs a periodic
-    boundary, float32 compute and ascending scales (the split takes a
-    leading run); any N and batch are served, the span past N included.
+    version) and the FFT path the rest; ``auto`` only for a CUDA tensor on
+    a card the kernels are built for, and only when every scale is at most
+    :data:`AUTO_KERNEL_DIRECT_MAX_HALF` and they make one bank call, so that
+    the result is that call's allocation and no rows are joined.  Either
+    needs a periodic boundary, float32 compute and ascending scales (the
+    split takes a leading run); any N and batch are served, the span past N
+    included.
     """
     from ..kernels.modwt_fused import kernel_available
 
     backend = get_backend()
-    if backend == "torch":
+    if backend == "torch" or boundary != "periodic" or real_dtype != torch.float32:
         return 0
-    if backend == "auto" and not (device.type == "cuda" and kernel_available()):
+    whole = backend == "auto"
+    n_small = _tier_scales(w, tuple(scales),
+                           AUTO_KERNEL_DIRECT_MAX_HALF if whole else KERNEL_DIRECT_MAX_HALF, whole)
+    if whole and n_small and not (device.type == "cuda" and kernel_available()):
         return 0
-    if boundary != "periodic" or real_dtype != torch.float32:
-        return 0
+    return n_small
+
+
+@functools.lru_cache(maxsize=64)
+def _tier_scales(w: ContinuousWavelet, scales: tuple[float, ...], cap: int, whole: bool) -> int:
+    """The leading ascending scales within ``cap``; with ``whole``, all of
+    them in one chunk or none.  Cached: it runs before the call's first
+    launch, and computed afresh it left ``auto`` 3-7% behind the plain
+    route at config #5 on an H100 (PERF.md, section 6)."""
     if list(scales) != sorted(scales):
         return 0
-    cap = KERNEL_DIRECT_MAX_HALF if backend == "kernel" else AUTO_KERNEL_DIRECT_MAX_HALF
     n_small = 0
     for s in scales:
         if _half_support(s, w.bandwidth) > cap:
             break
         n_small += 1
+    if whole and (n_small < len(scales) or len(_kernel_direct_chunks(w, scales)) > 1):
+        return 0
     return n_small
 
 
@@ -381,17 +400,17 @@ def _kernel_direct_chunks(w: ContinuousWavelet, scales: tuple[float, ...]):
 
 def _cwt_kernel_direct(x2: torch.Tensor, w: ContinuousWavelet, scales_sub) -> list:
     """Real-wavelet periodic CWT rows of ``[B, N]`` float32 ``x2`` through
-    the filter-bank kernel, one ``[B, N]`` row a scale.
+    the filter-bank kernel: one ``[B, P, N]`` view of the bank's ``[P, B,
+    N]`` output a chunk of P scales.
 
     Each chunk is one backward-read bank call with the reversed,
     maxhalf-rebased taps on x rolled by ``-maxhalf``, which restores the
     two-sided correlation ``out[t] = sum_k x[t+k] psi(k/s)/sqrt(s)`` (one
     roll of x instead of one of each output row; the bank wraps modulo N,
     so any span is served)."""
-    rows = []
-    for maxhalf, dense in _kernel_direct_chunks(w, tuple(scales_sub)):
-        rows.extend(modwt_bank.bank_analysis(torch.roll(x2, -maxhalf, dims=-1), dense, True))
-    return rows
+    return [modwt_bank.bank_analysis_stacked(torch.roll(x2, -maxhalf, dims=-1), dense,
+                                             True).movedim(0, -2)
+            for maxhalf, dense in _kernel_direct_chunks(w, tuple(scales_sub))]
 
 
 def _cwt_direct(
