@@ -408,6 +408,21 @@ AUTO_SLOWER = 0.03
 AUTO_PAIRS = 10
 #: runs of each route at each candidate cap of the gate sweep
 SWEEP_RUNS = 5
+#: the default-depth MODWT calls (no levels: max_levels stops at 9) and db4
+#: J=10, which the gate refused while it asked for the fused denoise's room
+DEFAULT_DEPTH_CASES = (("db4", None), ("sym8", None), ("db4", 10))
+#: the TPU bench's long row (BENCH_BEYOND.json: wavelet_variance and
+#: multifractal_spectrum at 1M samples) and the variance step's position
+LONG_N, VAR_STEP = 1 << 20, 40000
+#: the analysis modules on the card against the plain route or float64 on the
+#: CPU: float32 sums of up to 65536 terms, relative to the value
+TOL_VAR = 1e-4
+EWT_BOUNDS = (0.05, 0.15, 0.35)
+#: cwt2's grid: scales 2.5-30 (the in-band round trip's of tests/test_cwt2.py)
+#: and 8 angles over [0, pi)
+CWT2_SCALES_256 = tuple(np.geomspace(2.5, 30.0, 8).tolist())
+CWT2_SCALES_1K = tuple(np.geomspace(2.5, 30.0, 16).tolist())
+CWT2_ANGLES = tuple(np.linspace(0.0, math.pi, 8, endpoint=False).tolist())
 
 
 class SmokeFailure(RuntimeError):
@@ -2304,11 +2319,360 @@ def tiled_timing(dev, gen):
     return ms_of, bound
 
 
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of ``fn`` ending in a synchronise: what a
+    caller waits for a host-bound call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bandlimited_image(shape, lo, hi, seed):
+    """A zero-mean image whose radial frequencies lie in (lo, hi)
+    cycles/sample, made on the host from a seed (float32)."""
+    rng = np.random.default_rng(seed)
+    img = rng.standard_normal(shape)
+    ky, kx = np.meshgrid(np.fft.fftfreq(shape[-2]), np.fft.fftfreq(shape[-1]), indexing="ij")
+    r = np.hypot(ky, kx)
+    img = np.real(np.fft.ifft2(np.fft.fft2(img) * ((r > lo) & (r < hi))))
+    return (img - img.mean(axis=(-2, -1), keepdims=True)).astype(np.float32)
+
+
+def per_level_rel(got, want) -> float:
+    """The largest relative difference of one level's estimate."""
+    return ((got.double() - want.double()).abs() / want.double().abs()).max().item()
+
+
+def analysis_inputs(dev, gen):
+    """The inputs of the default-depth and analysis paths, made on the card
+    from the seed (the 2-D images and the multifractal walk on the host)."""
+    x = torch.randn(BATCH, N, device=dev, generator=gen)
+    y = 0.6 * x + 0.8 * torch.randn(BATCH, N, device=dev, generator=gen)
+    t = torch.arange(N, device=dev, dtype=torch.float32)
+    tones = (torch.sin(2 * math.pi * 0.03 * t) + 0.8 * torch.sin(2 * math.pi * 0.11 * t)
+             + 0.6 * torch.sin(2 * math.pi * 0.3 * t))
+    walk = np.cumsum(np.random.default_rng(SEED).standard_normal(LONG_N)).astype(np.float32)
+    return {
+        "x": x, "y": y,
+        "long": torch.randn(LONG_N, device=dev, generator=gen),
+        "stepped": torch.cat([torch.cat([x[:1, :VAR_STEP], 3.0 * x[:1, VAR_STEP:]], -1), x[1:]]),
+        "tones": (tones + 0.05 * torch.randn(BATCH, N, device=dev, generator=gen)).contiguous(),
+        "walk": torch.from_numpy(walk).to(dev),
+        "ints": torch.randint(-(1 << 15), 1 << 15, (BATCH, N), device=dev, generator=gen,
+                              dtype=torch.int32),
+        "scat": torch.randn(8, 16384, device=dev, generator=gen),
+        "img256": torch.from_numpy(bandlimited_image((256, 256), 0.03, 0.3, 1)).to(dev),
+        "img1k": torch.from_numpy(bandlimited_image((1, 1024, 1024), 0.03, 0.3, 2)).to(dev),
+        "img128": torch.randn(1, 128, 128, device=dev, generator=gen),
+    }
+
+
+def analysis_path(dev, gen):
+    """Phase 3 for the default-depth MODWT, the 1-D analysis modules and the
+    2-D CWT, each call with its own reset and reading of the counters: the
+    default-depth round trip (db4 and sym8 with no ``levels``, J = 9, and db4
+    J = 10) at 128x65536, one analysis and one synthesis launch, against the
+    plain route; the variance family (one analysis launch a transform) and
+    ``hurst_exponent`` against the plain route; the variance stream on the
+    kernel step (one external-edge launch a block) against the whole
+    signal's variance; ``variance_change_test``, ``multifractal_spectrum``,
+    the lifting round trips, the EWT, 1-D scattering, ``cwt2`` -> ``icwt2``
+    and 2-D scattering (no launch) against float64 on the CPU at a cut of
+    the same call or an identity.  Returns the launches, the stream's
+    counted as the external edge's."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import streaming as st
+
+    t0 = time.perf_counter()
+    total = {}
+    data = analysis_inputs(dev, gen)
+    x, y = data["x"], data["y"]
+    def planes(r):
+        return (*r.details, r.approx)
+
+    for name, levels in DEFAULT_DEPTH_CASES:
+        label = f"{name} {'no levels' if levels is None else f'J={levels}'} {BATCH}x{N}"
+        res = counted_launches(f"modwt_multilevel {label}", {"modwt_analysis": 1},
+                               lambda: vt.modwt_multilevel(x, name, levels=levels), total)
+        back = counted_launches(f"imodwt_multilevel {label}", {"modwt_synthesis": 1},
+                                lambda: vt.imodwt_multilevel(res, name), total)
+        with backend("torch"):
+            ref = vt.modwt_multilevel(x, name, levels=levels)
+            back_ref = vt.imodwt_multilevel(ref, name)
+        err = max(max_err(g, r) for g, r in zip(planes(res), planes(ref)))
+        check(res.levels == (levels or 9) and err <= TOL_F32
+              and max_err(back, back_ref) <= TOL_F32,
+              f"default-depth route {label} (J={res.levels}) vs the plain route: planes "
+              f"{err:.3e}, inverse {max_err(back, back_ref):.3e} <= {TOL_F32:.0e}")
+        del res, back, ref, back_ref
+
+    def against_plain(label, expect, call):
+        got = counted_launches(label, expect, call, total)
+        with backend("torch"):
+            want = call()
+        return got, want
+
+    for label, signal, levels in ((f"{BATCH}x{N} no levels", x, None),
+                                  (f"1x{LONG_N} J=6", data["long"], 6)):
+        got, want = against_plain(f"wavelet_variance {label}", {"modwt_analysis": 1},
+                                  lambda: vt.wavelet_variance(signal, WAVELET, levels))
+        err = per_level_rel(got.variance, want.variance)
+        check(got.n_levels == (levels or 9) and err <= TOL_VAR
+              and bool((got.ci_low <= got.variance).all()),
+              f"wavelet_variance {label} (J={got.n_levels}) vs the plain route: {err:.3e} "
+              f"<= {TOL_VAR:.0e} per level")
+    cov, cov_ref = against_plain("wavelet_covariance", {"modwt_analysis": 2},
+                                 lambda: vt.wavelet_covariance(x, y, WAVELET)[0])
+    rho, rho_ref = against_plain("wavelet_correlation", {"modwt_analysis": 4},
+                                 lambda: vt.wavelet_correlation(x, y, WAVELET)[0])
+    one = counted_launches("wavelet_correlation of x with x", {"modwt_analysis": 4},
+                           lambda: vt.wavelet_correlation(x, x, WAVELET)[0], total)
+    err = max(per_level_rel(cov, cov_ref), per_level_rel(rho, rho_ref))
+    check(err <= TOL_VAR and (one - 1).abs().max().item() <= 1e-5,
+          f"covariance and correlation {BATCH}x{N} vs the plain route {err:.3e} <= "
+          f"{TOL_VAR:.0e}; correlation of x with x within {(one - 1).abs().max().item():.2e} "
+          "of 1")
+    walk = torch.cumsum(x, dim=-1)
+    for model, signal, lo in (("fgn", x, 1), ("fbm", walk, 3)):
+        got, want = against_plain(f"hurst_exponent {model}", {"modwt_analysis": 1},
+                                  lambda: vt.hurst_exponent(signal, WAVELET, model=model,
+                                                            min_level=lo))
+        h = got.hurst.mean().item()
+        err = (got.hurst - want.hurst).abs().max().item()
+        check(abs(h - 0.5) <= 0.05 and err <= TOL_VAR,
+              f"hurst_exponent {model} {BATCH}x{N}: mean H {h:.4f} (0.5 +- 0.05), vs the "
+              f"plain route {err:.3e} <= {TOL_VAR:.0e}")
+    del walk
+
+    # the variance stream: 8 blocks of 8192 through the kernel-tier step
+    streams = x.reshape(STREAM_B, STREAM_NBLK, STREAM_BLK).transpose(0, 1).contiguous()
+    state = st.kernel_streaming_init(WAVELET, LEVELS, batch_shape=(STREAM_B,), device=dev)
+    acc = vt.variance_stream_init(WAVELET, LEVELS, batch_shape=(STREAM_B,), device=dev)
+    stream_launches = {}
+    for i, blk in enumerate(streams):
+        state, res = counted_launches(f"modwt_stream_block_kernel block {i}",
+                                      {"modwt_analysis": 1}, lambda: st.modwt_stream_block_kernel(
+                                          state, blk, WAVELET, levels=LEVELS),
+                                      stream_launches)
+        acc = vt.variance_stream_update(acc, res.details, WAVELET)
+    total["modwt_analysis_external"] = stream_launches.get("modwt_analysis", 0)
+    whole = counted_launches("wavelet_variance of the whole streams", {"modwt_analysis": 1},
+                             lambda: vt.wavelet_variance(x, WAVELET, LEVELS), total)
+    err = per_level_rel(vt.variance_stream_result(acc).variance, whole.variance)
+    check(acc.position == N and total["modwt_analysis_external"] == STREAM_NBLK
+          and err <= TOL_VAR,
+          f"variance stream {STREAM_B} x {STREAM_NBLK} x {STREAM_BLK}: "
+          f"{total['modwt_analysis_external']} launches, vs wavelet_variance of the whole "
+          f"{err:.3e} <= {TOL_VAR:.0e}")
+    del streams, state, acc, res
+
+    for level in (1, 4):
+        got = counted_launches(f"variance_change_test level {level}", {},
+                               lambda: vt.variance_change_test(data["stepped"], WAVELET,
+                                                               level=level), total)
+        ref = vt.variance_change_test(small_cpu(data["stepped"][1:2]), WAVELET, level=level)
+        err = abs(got.statistic[1].item() - ref.statistic[0].item()) / ref.statistic[0].item()
+        where = int(got.location[0])
+        check(bool(got.reject[0]) and abs(where - VAR_STEP) <= 1024 and err <= TOL_VAR,
+              f"variance_change_test level {level}: the stepped row rejected at {where} "
+              f"(step at {VAR_STEP}); a constant row's statistic vs float64 on the CPU "
+              f"{err:.3e} <= {TOL_VAR:.0e}")
+
+    walk = data["walk"]
+    got = counted_launches(f"multifractal_spectrum 1x{LONG_N}", {},
+                           lambda: vt.multifractal_spectrum(walk, "db3"), total)
+    check(all(bool(torch.isfinite(getattr(got, f)).all()) for f in ("zeta", "h", "D")),
+          f"multifractal_spectrum 1x{LONG_N}: finite")
+    cut = walk[: 1 << 16]
+    got = vt.multifractal_spectrum(cut, "db3")
+    ref = vt.multifractal_spectrum(small_cpu(cut), "db3")
+    err = max((getattr(got, f).cpu().double() - getattr(ref, f)).abs().max().item()
+              for f in ("zeta", "h", "D", "c1", "c2"))
+    check(err <= TOL_VAR, f"multifractal_spectrum 2^16 cut vs float64 on the CPU: {err:.3e} "
+                          f"<= {TOL_VAR:.0e}")
+
+    dec = counted_launches("lifting_wavedec cdf97 J=6", {},
+                           lambda: vt.lifting_wavedec(x, "cdf97", levels=LEVELS), total)
+    back = vt.lifting_waverec(dec, "cdf97")
+    rmse = ((back - x).pow(2).mean().sqrt() / x.abs().max()).item()
+    fcut = x[:2, :4096]
+    fgot = vt.lifting_wavedec(fcut, "cdf97", levels=LEVELS)
+    fref = vt.lifting_wavedec(small_cpu(fcut), "cdf97", levels=LEVELS)
+    fpairs = list(zip((*fgot.details, fgot.approx), (*fref.details, fref.approx)))
+    ferr = (max((g.cpu().double() - r).abs().max().item() for g, r in fpairs)
+            / max(r.abs().max().item() for _, r in fpairs))
+    ints = data["ints"]
+    idec = counted_launches("lifting_wavedec_int legall53 J=6", {},
+                            lambda: vt.lifting_wavedec_int(ints, "legall53", levels=LEVELS),
+                            total)
+    small = ints[:2, :4096]
+    same = all(torch.equal(g.cpu(), r) for g, r in zip(
+        *(lambda a, b: ((*a.details, a.approx), (*b.details, b.approx)))(
+            vt.lifting_wavedec_int(small, "legall53", levels=LEVELS),
+            vt.lifting_wavedec_int(small.cpu(), "legall53", levels=LEVELS))))
+    check(rmse <= RT_RMSE and ferr <= TOL_VAR and same
+          and torch.equal(vt.lifting_waverec_int(idec, "legall53"), ints),
+          f"lifting cdf97 J=6 {BATCH}x{N}: round trip RMSE {rmse:.3e} <= {RT_RMSE:.0e} of max, "
+          f"its forward vs float64 on the CPU on 2x4096 {ferr:.3e} <= {TOL_VAR:.0e} of max; "
+          "int32 legall53 round trip equal, and its forward equal to the CPU's on 2x4096")
+    del dec, back, idec
+
+    x16 = data["tones"][:1, :16384].contiguous()
+    modes = counted_launches("ewt 1x16384, 4 bands", {},
+                             lambda: vt.ewt(x16, EWT_BOUNDS), total)
+    err16 = (vt.iewt(modes, EWT_BOUNDS) - x16).abs().max().item() / x16.abs().max().item()
+    tones = data["tones"]
+    bounds = counted_launches(f"ewt_boundaries {BATCH}x{N}", {},
+                              lambda: vt.ewt_boundaries(tones, 3), total)
+    ref_bounds = vt.ewt_boundaries(tones.cpu().double(), 3)
+    modes = vt.ewt(tones, bounds)
+    err = (vt.iewt(modes, bounds) - tones).abs().max().item() / tones.abs().max().item()
+    analytic = counted_launches(f"ewt_hilbert {BATCH}x{N}", {},
+                                lambda: vt.ewt_hilbert(tones, bounds), total)
+    err_h = (analytic.real - modes).abs().max().item() / modes.abs().max().item()
+    check(max(err16, err, err_h) <= 1e-5 and len(bounds) == 2
+          and all(abs(a - b) <= 1.0 / N for a, b in zip(bounds, ref_bounds))
+          and 0.03 < bounds[0] < 0.11 < bounds[1] < 0.3,
+          f"EWT: 1x16384 round trip {err16:.2e}, {BATCH}x{N} round trip {err:.2e}, hilbert "
+          f"{err_h:.2e} <= 1e-5 of max; boundaries {bounds} (CPU float64 {ref_bounds})")
+    del modes, analytic
+
+    scat = data["scat"]
+    got = counted_launches("scattering1d 8x16384 J=6 Q=8", {},
+                           lambda: vt.scattering1d(scat, J=6, Q=8), total)
+    ref = vt.scattering1d(small_cpu(scat[:2]), J=6, Q=8)
+    err = max(rel_err(getattr(got, f)[:2].cpu(), getattr(ref, f)) for f in ("s0", "s1", "s2"))
+    check(got.pairs == ref.pairs and err <= TOL_VAR,
+          f"scattering1d 8x16384 order 2 ({len(got.xi1)} + {len(got.pairs)} paths) vs float64 "
+          f"on the CPU: {err:.3e} <= {TOL_VAR:.0e} of max")
+
+    for key, scales in (("img256", CWT2_SCALES_256), ("img1k", CWT2_SCALES_1K)):
+        img = data[key]
+        shape = "x".join(map(str, img.shape))
+        res = counted_launches(f"cwt2 {shape}, {len(scales)} x {len(CWT2_ANGLES)}", {},
+                               lambda: vt.cwt2(img, scales, "morl2", angles=CWT2_ANGLES), total)
+        rec = counted_launches(f"icwt2 {shape}", {}, lambda: vt.icwt2(res, "morl2"), total)
+        err = (rec - img).abs().max().item() / img.abs().max().item()
+        check(res.coeffs.shape == img.shape[:-2] + (len(scales), len(CWT2_ANGLES)) + img.shape[-2:]
+              and res.coeffs.dtype == torch.complex64 and err <= 1e-5,
+              f"cwt2 -> icwt2 {shape}, {len(scales)} scales x {len(CWT2_ANGLES)} angles: "
+              f"in-band round trip {err:.3e} <= 1e-5 of max")
+        if key == "img256":
+            ref = vt.cwt2(small_cpu(img[:64, :64]), scales, "morl2", angles=CWT2_ANGLES)
+            got = vt.cwt2(img[:64, :64].contiguous(), scales, "morl2", angles=CWT2_ANGLES)
+            err = rel_err(got.coeffs.cpu(), ref.coeffs)
+            check(err <= TOL_VAR, f"cwt2 64x64 cut vs float64 on the CPU: {err:.3e} <= "
+                                  f"{TOL_VAR:.0e} of max")
+        del res, rec
+    img = data["img128"]
+    got = counted_launches("scattering2d 128x128 J=3 L=6", {},
+                           lambda: vt.scattering2d(img, J=3, L=6), total)
+    ref = vt.scattering2d(small_cpu(img), J=3, L=6)
+    err = max(rel_err(getattr(got, f).cpu(), getattr(ref, f)) for f in ("s0", "s1", "s2"))
+    check(err <= TOL_VAR, f"scattering2d 128x128 order 2 ({len(got.pairs)} pairs) vs float64 on "
+                          f"the CPU: {err:.3e} <= {TOL_VAR:.0e} of max")
+    print(f"  launches during the analysis path: {total}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return total
+
+
+def analysis_timing(dev, gen):
+    """Phase 4 for the default-depth MODWT and the analysis paths: each call
+    of phase 3 timed with CUDA events and on the host clock, and the
+    default-depth round trip on the plain route, the route the gate took
+    before it asked for the pair's room alone."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import streaming as st
+
+    t0 = time.perf_counter()
+    data = analysis_inputs(dev, gen)
+    x, y = data["x"], data["y"]
+    walk = torch.cumsum(x, dim=-1)
+    streams = x.reshape(STREAM_B, STREAM_NBLK, STREAM_BLK).transpose(0, 1).contiguous()
+
+    def round_trip(name, levels, route):
+        def run():
+            with backend(route):
+                return vt.imodwt_multilevel(vt.modwt_multilevel(x, name, levels=levels), name)
+        return run
+
+    def variance_stream():
+        state = st.kernel_streaming_init(WAVELET, LEVELS, batch_shape=(STREAM_B,), device=dev)
+        acc = vt.variance_stream_init(WAVELET, LEVELS, batch_shape=(STREAM_B,), device=dev)
+        for blk in streams:
+            state, res = st.modwt_stream_block_kernel(state, blk, WAVELET, levels=LEVELS)
+            acc = vt.variance_stream_update(acc, res.details, WAVELET)
+        return vt.variance_stream_result(acc)
+
+    res256 = vt.cwt2(data["img256"], CWT2_SCALES_256, "morl2", angles=CWT2_ANGLES)
+    res1k = vt.cwt2(data["img1k"], CWT2_SCALES_1K, "morl2", angles=CWT2_ANGLES)
+    bounds = vt.ewt_boundaries(data["tones"], 3)
+    x16 = data["tones"][:1, :16384].contiguous()
+    rows = []
+    for name, levels in DEFAULT_DEPTH_CASES:
+        label = f"{name} {'no levels' if levels is None else f'J={levels}'}"
+        for route in ("auto", "torch"):
+            rows.append((f"modwt_multilevel -> imodwt_multilevel {label} {BATCH}x{N}, "
+                         f"{'kernel' if route == 'auto' else 'plain'} route",
+                         round_trip(name, levels, route), 20))
+    rows += [
+        (f"wavelet_variance {BATCH}x{N} no levels (J=9)",
+         lambda: vt.wavelet_variance(x, WAVELET), 20),
+        (f"wavelet_variance 1x{LONG_N} J=6", lambda: vt.wavelet_variance(data["long"], WAVELET, 6),
+         20),
+        (f"wavelet_covariance {BATCH}x{N}", lambda: vt.wavelet_covariance(x, y, WAVELET), 20),
+        (f"wavelet_correlation {BATCH}x{N}", lambda: vt.wavelet_correlation(x, y, WAVELET), 20),
+        (f"hurst_exponent fgn {BATCH}x{N}", lambda: vt.hurst_exponent(x, WAVELET), 20),
+        (f"hurst_exponent fbm {BATCH}x{N}",
+         lambda: vt.hurst_exponent(walk, WAVELET, model="fbm", min_level=3), 20),
+        (f"variance stream {STREAM_B} x {STREAM_NBLK} x {STREAM_BLK} J=6", variance_stream, 10),
+        (f"variance_change_test level 1 {BATCH}x{N}",
+         lambda: vt.variance_change_test(data["stepped"], WAVELET, level=1), 20),
+        (f"variance_change_test level 4 {BATCH}x{N}",
+         lambda: vt.variance_change_test(data["stepped"], WAVELET, level=4), 20),
+        (f"multifractal_spectrum db3 1x{LONG_N}",
+         lambda: vt.multifractal_spectrum(data["walk"], "db3"), 10),
+        (f"lifting_wavedec -> lifting_waverec cdf97 J=6 {BATCH}x{N}",
+         lambda: vt.lifting_waverec(vt.lifting_wavedec(x, "cdf97", levels=LEVELS), "cdf97"), 20),
+        (f"lifting_wavedec_int -> waverec_int legall53 J=6 {BATCH}x{N}",
+         lambda: vt.lifting_waverec_int(vt.lifting_wavedec_int(data["ints"], "legall53",
+                                                               levels=LEVELS), "legall53"), 20),
+        ("ewt -> iewt 1x16384, 4 bands", lambda: vt.iewt(vt.ewt(x16, EWT_BOUNDS), EWT_BOUNDS), 20),
+        (f"ewt -> iewt {BATCH}x{N}, 3 bands",
+         lambda: vt.iewt(vt.ewt(data["tones"], bounds), bounds), 20),
+        (f"ewt_boundaries {BATCH}x{N}, 3 bands", lambda: vt.ewt_boundaries(data["tones"], 3), 1),
+        (f"ewt_hilbert {BATCH}x{N}, 3 bands", lambda: vt.ewt_hilbert(data["tones"], bounds), 20),
+        ("scattering1d order 2 8x16384 J=6 Q=8", lambda: vt.scattering1d(data["scat"]), 20),
+        ("cwt2 256x256, 8 scales x 8 angles",
+         lambda: vt.cwt2(data["img256"], CWT2_SCALES_256, "morl2", angles=CWT2_ANGLES), 20),
+        ("icwt2 256x256, 8 scales x 8 angles", lambda: vt.icwt2(res256, "morl2"), 20),
+        ("cwt2 1x1024x1024, 16 scales x 8 angles",
+         lambda: vt.cwt2(data["img1k"], CWT2_SCALES_1K, "morl2", angles=CWT2_ANGLES), 10),
+        ("icwt2 1x1024x1024, 16 scales x 8 angles", lambda: vt.icwt2(res1k, "morl2"), 10),
+        ("scattering2d order 2 128x128 J=3 L=6",
+         lambda: vt.scattering2d(data["img128"], J=3, L=6), 20),
+    ]
+    for label, fn, reps in rows:  # a host-bound row timed once takes one warm-up
+        t_ms = median_ms(fn, min(3, reps), reps)
+        w_ms = wall_ms(fn, min(reps, 5))
+        print(f"  {label}: {t_ms:.4f} ms (wall {w_ms:.4f} ms)", flush=True)
+    del res256, res1k
+    print(f"  the analysis rows took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a "
               "CUDA device", file=sys.stderr)
         return 1
+    run_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import vectorwave_tpu_torch as vt
     from vectorwave_tpu_torch.denoise.denoiser import _fused_sigma
@@ -3064,6 +3428,10 @@ def main() -> int:
           "virtual shards", flush=True)
     for name, count in tiled_path(dev, gen).items():
         launches[name] = launches.get(name, 0) + count
+    print(f"  the default-depth MODWT and the analysis modules, {BATCH}x{N}, 1x{LONG_N} "
+          "and the 2-D CWT", flush=True)
+    for name, count in analysis_path(dev, gen).items():
+        launches[name] = launches.get(name, 0) + count
 
     print("phase 4: timing (CUDA events, 3 warm-ups, median of 20)", flush=True)
     print(smi, flush=True)
@@ -3312,6 +3680,8 @@ def main() -> int:
     tiled_ms, tiled_bound = tiled_timing(dev, gen)
     ms_of.update(tiled_ms)
     bound.update(tiled_bound)
+    analysis_timing(dev, gen)
+    print(f"  the run so far: {time.perf_counter() - run_start:.1f} s", flush=True)
 
     report = {"kernels": [
         {

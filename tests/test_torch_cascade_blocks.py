@@ -342,8 +342,9 @@ def _old_tile(bytes_fn, taps, levels, preferred=2048):
 def test_the_gates_send_the_kernels_every_shape_they_sent_before(levels):
     """For every filter length 1-128 the analysis tile, the mirror's and the
     synthesis tile are the first design's rules halving from the preferred
-    tile, so each exists where it did at 2048, and kernels_fit is what it
-    was."""
+    tile, so each exists where it did at 2048, and kernels_fit is the first
+    design's pair rule at 2048: the analysis and the synthesis, without the
+    denoise kernel's room (the denoise routes ask for theirs)."""
     for taps in range(1, 129):
         old_a = _old_tile(_old_analysis_bytes, taps, levels, mc.ANALYSIS_TILE)
         assert mc.analysis_tile(taps, levels) == old_a
@@ -359,20 +360,20 @@ def test_the_gates_send_the_kernels_every_shape_they_sent_before(levels):
                                 mc.SYNTHESIS_TILE) == old_s
         assert (old_s is None) == (_old_tile(_old_synthesis_bytes, taps, levels) is None)
         old_fit = max(_old_analysis_bytes(taps, levels, 2048),
-                      _old_synthesis_bytes(taps, levels, 2048),
-                      mc.denoise_shared_bytes(taps, levels)) <= mc.SHARED_LIMIT
+                      _old_synthesis_bytes(taps, levels, 2048)) <= mc.SHARED_LIMIT
         assert mc.kernels_fit(taps, levels) == old_fit
 
 
 @pytest.mark.parametrize("name,levels,fit,mirror_tile", [
     ("db4", 6, True, 4096), ("sym8", 4, True, 4096), ("db36", 8, False, 9088),
-    ("haar", 10, True, 4096), ("db4", 10, False, 4096)])
+    ("haar", 10, True, 4096), ("db4", 10, True, 4096)])
 def test_the_main_path_shapes_reach_the_kernels(name, levels, fit, mirror_tile):
     """db4 J=6 (config #2), sym8 J=4, db36 J=8 (mirror tile 9088 < span),
-    haar and db4 at J=10: the streaming tier's gate (the analysis tile) and
-    the symmetric route's (the mirror tile and the synthesis) send them all;
-    multilevel's and the tiled tier's (kernels_fit, which also asks for the
-    denoise kernel's room) all but db36 J=8 and db4 J=10."""
+    haar and db4 at J=10 (db4's default depth at N >= 3585): the streaming
+    tier's gate (the analysis tile) and the symmetric route's (the mirror
+    tile and the synthesis) send them all; multilevel's and the tiled
+    tier's (kernels_fit, the cascade pair at a tile of 2048) all but db36
+    J=8, whose synthesis needs a smaller tile."""
     taps = vt.wavelet(name).filter_length
     assert mc.kernels_fit(taps, levels) == fit
     assert mc.analysis_tile(taps, levels) == mc.ANALYSIS_TILE
@@ -398,3 +399,101 @@ def test_routing_gates_on_both_sides(taps, levels, analysis, synthesis):
         assert not mc.kernels_fit(taps, levels)
     if taps == 56:
         assert mc.analysis_tile(taps, levels) == 512
+
+
+@pytest.mark.parametrize("name,levels,n,kernel", [
+    ("db4", 10, 65536, True), ("sym8", 9, 65536, True), ("sym8", 10, 65536, True),
+    ("db4", 10, 8192, True), ("db28", 9, 65536, False), ("db38", 9, 65536, False),
+    ("db38", 10, 131072, False), ("db4", 10, 4095, False), ("db4", 6, 4095, False)])
+def test_default_depth_gate_on_both_sides(monkeypatch, name, levels, n, kernel):
+    """The 1-D MODWT routes ask for the cascade pair's room and no other
+    kernel's, in both directions: db4 J=10 (the default depth at N >= 3585)
+    and sym8 J=9 and J=10 reach the kernels, on a faked card; L=56 J=9 (the
+    synthesis does not fit), L=76 J=9 and J=10 and any N < 4096 stay on the
+    plain cascade.  The tiled tier's gate reads the same rule."""
+    from types import SimpleNamespace
+
+    from vectorwave_tpu_torch import parallel as tp
+    from vectorwave_tpu_torch.kernels import modwt_fused
+    from vectorwave_tpu_torch.parallel import tiled as tt
+    from vectorwave_tpu_torch.transforms import multilevel as ml
+
+    monkeypatch.setattr(modwt_fused, "kernel_available", lambda: True)
+    w = vt.wavelet(name)
+    card = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32, shape=(2, n))
+    for synthesis in (False, True):
+        for boundary in ("periodic", "zero"):
+            assert ml._kernel_eligible(card, w, levels, boundary, synthesis) == kernel
+    assert mc.kernels_fit(w.filter_length, levels) == (kernel or n < 4096)
+    cards = tp.make_mesh({"signal": 4}, devices=[torch.device("cuda")] * 4)
+    tiles = tt._tiles(cards, "signal", None, (2, 4 * n), -1)
+    route = tt._resolve_tiled_backend("auto", "periodic", tiles, torch.float32,
+                                      w.filter_length, levels)
+    assert route == ("kernel" if mc.kernels_fit(w.filter_length, levels) else "torch")
+    cpu = SimpleNamespace(device=torch.device("cpu"), dtype=torch.float32, shape=(2, n))
+    assert not ml._kernel_eligible(cpu, w, levels, "periodic")
+
+
+@pytest.mark.parametrize("name,levels,depth", [("db4", None, 9), ("sym8", None, 9),
+                                               ("db4", 10, 10)])
+def test_default_depth_call_takes_the_pair_route_on_the_cpu(name, levels, depth):
+    """With no ``levels`` the depth is ``max_levels``, which stops at 9 (the
+    reference's loop stops one short of its cap of 10): db4 and sym8 at
+    8192 samples, and db4 J=10 asked for.  Forced onto the kernel tier (the
+    pair's plain versions on a CPU tensor) each equals the plain cascade,
+    and so does its inverse."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 8192)))
+    got = vt.modwt_multilevel(x, name, levels=levels, backend="kernel")
+    want = vt.modwt_multilevel(x, name, levels=levels, backend="torch")
+    assert got.levels == want.levels == depth
+    for g, r in zip((*got.details, got.approx), (*want.details, want.approx)):
+        assert (g - r).abs().max().item() <= 1e-12
+    y = vt.imodwt_multilevel(got, name, backend="kernel")
+    assert (y - vt.imodwt_multilevel(want, name, backend="torch")).abs().max().item() <= 1e-12
+    assert (y - x).abs().max().item() <= 1e-10
+
+
+@pytest.mark.parametrize("name,levels,boundary,fused", [
+    ("sym8", None, "periodic", False), ("sym8", None, "zero", False),
+    ("db4", 10, "periodic", False), ("db4", 10, "zero", False),
+    ("db4", 6, "periodic", True), ("db9", 8, "zero", True)])
+def test_denoise_asks_for_its_own_room(monkeypatch, name, levels, boundary, fused):
+    """The fused denoise route asks for the cascade pair's gate and the
+    denoise kernel's own room (``denoise_tile``), the rule its wrapper
+    raises by: sym8 at its default depth (J=9) and db4 J=10, where the
+    denoise block fits no tile, take the 3-call path on the pair; db4 J=6
+    and db9 J=8 (a tile of 512) the fused kernel.  Forced onto the kernel
+    tier (the plain versions on a CPU tensor), each equals the plain
+    route's denoise within 2e-5 (the same float32 arithmetic in another
+    order)."""
+    from vectorwave_tpu_torch import config
+    from vectorwave_tpu_torch.denoise import denoiser
+    from vectorwave_tpu_torch.kernels import modwt_fused
+
+    taps = vt.wavelet(name).filter_length
+    depth = levels or 9
+    assert (mc.denoise_tile(taps, depth) is not None) == fused
+    assert mc.kernels_fit(taps, depth)
+    calls = {"denoise": 0, "analysis": 0, "synthesis": 0}
+
+    def spy(key, fn):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(denoiser, "fused_denoise_multilevel",
+                        spy("denoise", denoiser.fused_denoise_multilevel))
+    monkeypatch.setattr(modwt_fused, "fused_analysis",
+                        spy("analysis", modwt_fused.fused_analysis))
+    monkeypatch.setattr(modwt_fused, "fused_synthesis",
+                        spy("synthesis", modwt_fused.fused_synthesis))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 8192)).astype(np.float32))
+    want = vt.denoise_multilevel(x, name, levels=levels, boundary=boundary)
+    assert calls == {"denoise": 0, "analysis": 0, "synthesis": 0}
+    monkeypatch.setattr(config, "_backend", "kernel")
+    got = vt.denoise_multilevel(x, name, levels=levels, boundary=boundary)
+    assert calls == ({"denoise": 1, "analysis": 0, "synthesis": 0} if fused
+                     else {"denoise": 0, "analysis": 1, "synthesis": 1})
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 2e-5

@@ -1389,3 +1389,92 @@ def test_host_inputs_take_the_card_by_default():
     if torch.cuda.is_available():
         assert fin.incremental_init().count.device.type == "cuda"
         assert vt.cone_of_influence(64).device.type == "cuda"
+
+
+# --- the default depth and the 1-D analysis modules -----------------------------------
+
+
+@pytest.mark.parametrize("name,levels,depth", [("db4", None, 9), ("sym8", None, 9),
+                                               ("db4", 10, 10)])
+def test_default_depth_takes_the_cascade_pair(cuda, name, levels, depth):
+    """With no ``levels`` (max_levels stops at 9) and at db4 J=10 the gate
+    asks for the pair's room alone: one analysis launch and one synthesis
+    launch, both against the plain route 2e-5."""
+    x = _input(cuda, 4, 16384, torch.float32)
+    mc.reset_launches()
+    res = vt.modwt_multilevel(x, name, levels=levels)
+    torch.cuda.synchronize()
+    assert res.levels == depth and mc.LAUNCHES["modwt_analysis"] == 1
+    y = vt.imodwt_multilevel(res, name)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["modwt_synthesis"] == 1
+    ref = vt.modwt_multilevel(x, name, levels=levels, backend="torch")
+    assert _err((*res.details, res.approx), (*ref.details, ref.approx)) <= TOL_F32
+    assert _err((y,), (vt.imodwt_multilevel(ref, name, backend="torch"),)) <= TOL_F32
+
+
+@pytest.mark.parametrize("name,levels,boundary,route", [
+    ("sym8", None, "periodic", "pair"), ("sym8", None, "zero", "pair"),
+    ("db4", 10, "periodic", "pair"), ("db9", 8, "zero", "denoise")])
+def test_denoise_multilevel_takes_the_kernels_its_room_admits(cuda, name, levels, boundary,
+                                                              route):
+    """sym8 at its default depth (J=9) and db4 J=10, where no denoise block
+    fits, take the 3-call path on the cascade pair (one analysis and one
+    synthesis launch); db9 J=8 fits a tile of 512 and takes the fused
+    kernel.  Each against the plain route 2e-5 (16384 samples: both take
+    the full-sample sigma)."""
+    x = _input(cuda, 4, 16384, torch.float32, seed=5)
+    mc.reset_launches()
+    got = vt.denoise_multilevel(x, name, levels=levels, boundary=boundary)
+    torch.cuda.synchronize()
+    want = {"pair": (1, 1, 0), "denoise": (0, 0, 1)}[route]
+    assert (mc.LAUNCHES["modwt_analysis"], mc.LAUNCHES["modwt_synthesis"],
+            mc.LAUNCHES["modwt_denoise"]) == want
+    ref = _plain(lambda: vt.denoise_multilevel(x, name, levels=levels, boundary=boundary))
+    assert _err((got,), (ref,)) <= TOL_F32
+
+
+def _plain(fn):
+    vt.set_backend("torch")
+    try:
+        return fn()
+    finally:
+        vt.set_backend("auto")
+
+
+def test_variance_family_matches_the_plain_route(cuda):
+    """One analysis launch a transform (the correlation's four); each level's
+    estimate within 1e-4 of the plain route's, relative."""
+    x = _input(cuda, 4, 16384, torch.float32, seed=1)
+    y = 0.6 * x + 0.8 * _input(cuda, 4, 16384, torch.float32, seed=2)
+    for call, launches in (
+        (lambda: vt.wavelet_variance(x, "db4").variance, 1),
+        (lambda: vt.wavelet_covariance(x, y, "db4")[0], 2),
+        (lambda: vt.wavelet_correlation(x, y, "db4")[0], 4),
+        (lambda: vt.hurst_exponent(x, "db4").variance, 1),
+    ):
+        mc.reset_launches()
+        got = call()
+        torch.cuda.synchronize()
+        assert mc.LAUNCHES["modwt_analysis"] == launches
+        assert _rel(got, _plain(call)) <= 1e-4
+    h = vt.hurst_exponent(x, "db4").hurst
+    assert float((h - _plain(lambda: vt.hurst_exponent(x, "db4").hurst)).abs().max()) <= 1e-4
+
+
+def test_variance_stream_on_the_kernel_step_equals_the_whole_signal(cuda):
+    """The kernel-tier stream step, one external-edge launch a block, folded
+    into the accumulator gives the whole signal's variance within 1e-4."""
+    from vectorwave_tpu_torch import streaming as st
+
+    x = _input(cuda, 8, 8 * 2048, torch.float32, seed=3)
+    state = st.kernel_streaming_init("db4", 6, batch_shape=(8,))
+    acc = vt.variance_stream_init("db4", 6, batch_shape=(8,))
+    mc.reset_launches()
+    for blk in x.reshape(8, 8, 2048).unbind(1):
+        state, res = st.modwt_stream_block_kernel(state, blk.contiguous(), "db4", levels=6)
+        acc = vt.variance_stream_update(acc, res.details, "db4")
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["modwt_analysis"] == 8 and acc.position == 8 * 2048
+    out = vt.variance_stream_result(acc)
+    assert _rel(out.variance, _plain(lambda: vt.wavelet_variance(x, "db4", 6).variance)) <= 1e-4

@@ -176,6 +176,8 @@ def test_shared_memory_budget_and_tiles():
     assert mc.denoise_shared_bytes(8, 6) > 48 * 1024  # needs the opt-in
     assert mc.analysis_shared_bytes(8, 6) <= 48 * 1024
     assert not mc.kernels_fit(76, 10)  # db38 J=10: halo of 76725 samples
+    # sym8 J=9, the default depth: the pair fits, the denoise asks for its own room
+    assert mc.kernels_fit(16, 9) and mc.denoise_shared_bytes(16, 9) > mc.SHARED_LIMIT
     assert mc._tile(mc.analysis_shared_bytes, 8, 6, 2048) == 2048
     assert mc._tile(mc.denoise_shared_bytes, 18, 8, 1024) == 512  # db9 J=8
     with pytest.raises(InvalidArgumentError):

@@ -524,6 +524,8 @@ def test_auto_routes_by_the_mesh_devices(monkeypatch):
     assert route(cards) == route(cards, "zero") == route(cards, dtype=torch.bfloat16) == "kernel"
     assert route(cards, "symmetric") == route(cards, dtype=torch.float64) == "torch"
     assert not mc.kernels_fit(76, 10) and route(cards, taps=76, levels=10) == "torch"
+    # sym8 J=9: the pair fits, whatever the fused denoise would ask
+    assert route(cards, taps=16, levels=9) == route(cards, taps=8, levels=10) == "kernel"
     assert route(cpus) == "torch"
     monkeypatch.setattr(modwt_fused, "kernel_available", lambda: False)
     assert route(cards) == "torch"

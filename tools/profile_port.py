@@ -48,7 +48,15 @@ config #5 over 4 and 8 virtual shards (zero and periodic) and
 surrogates, 32 scales x 32768), ``matching_pursuit`` (8 x 16384, mexh, 16
 scales, 32 steps), ``wavelet_sharpe_ratio`` (1 x 10240 and 512 x 4096),
 ``analyze_market`` (10240 prices) and ``analyze_ticks_incremental`` (512
-ticks; a call is about 25000 launches).  For the streaming and tiled
+ticks; a call is about 25000 launches), the default-depth round trip
+(db4 and sym8 with no ``levels``, J = 9, and db4 J=10, 128 x 65536), and the
+1-D analysis modules and the 2-D CWT (the argument ``analysis`` selects
+them): ``wavelet_variance`` (128 x 65536 default depth, 1 x 2^20 J=6),
+``wavelet_correlation``, ``hurst_exponent``, the variance stream on the
+kernel step (128 streams x 8 x 8192), ``variance_change_test``,
+``multifractal_spectrum`` (2^20), the lifting round trips, the EWT,
+``scattering1d`` (8 x 16384), ``cwt2`` -> ``icwt2`` (256 x 256 and 1 x 1024
+x 1024) and ``scattering2d`` (128 x 128).  For the streaming and tiled
 rows it also prints the host side: the self CPU time of the traced ops per
 call and the ops that take the most (the trace's own cost included).  Exits
 non-zero without a CUDA device.
@@ -256,6 +264,60 @@ def main() -> int:
     ticks = prices[:512].contiguous()
     calls["analyze_ticks_incremental 512 ticks"] = (
         lambda: vt.finance.analyze_ticks_incremental(ticks))
+    # the default-depth MODWT (no levels: J = 9) and db4 J=10, and the 1-D
+    # analysis modules and the 2-D CWT at the phase-3 shapes of chip_smoke.py
+    for name, levels in (("db4", None), ("sym8", None), ("db4", 10)):
+        depth = "no levels" if levels is None else f"J={levels}"
+        calls[f"default depth {name} {depth} round trip 128x65536"] = (
+            lambda name=name, levels=levels: vt.imodwt_multilevel(
+                vt.modwt_multilevel(x, name, levels=levels), name))
+    y = 0.6 * x + 0.8 * torch.randn(128, 65536, device=dev, generator=gen)
+    x1m = torch.randn(1 << 20, device=dev, generator=gen)
+    calls["analysis wavelet_variance db4 128x65536 no levels"] = (
+        lambda: vt.wavelet_variance(x, "db4"))
+    calls["analysis wavelet_variance db4 J=6 1x1048576"] = (
+        lambda: vt.wavelet_variance(x1m, "db4", 6))
+    calls["analysis wavelet_correlation db4 128x65536"] = (
+        lambda: vt.wavelet_correlation(x, y, "db4"))
+    calls["analysis hurst_exponent fgn db4 128x65536"] = lambda: vt.hurst_exponent(x, "db4")
+
+    def variance_stream():
+        state = st.kernel_streaming_init("db4", 6, batch_shape=(128,))
+        acc = vt.variance_stream_init("db4", 6, batch_shape=(128,))
+        for blk in blocks:
+            state, res = st.modwt_stream_block_kernel(state, blk, "db4", levels=6)
+            acc = vt.variance_stream_update(acc, res.details, "db4")
+        return vt.variance_stream_result(acc)
+
+    calls[f"analysis variance stream {stream}"] = variance_stream
+    calls["analysis variance_change_test db4 level 1 128x65536"] = (
+        lambda: vt.variance_change_test(x, "db4", level=1))
+    walk = torch.cumsum(x1m, 0)
+    calls["analysis multifractal_spectrum db3 1x1048576"] = (
+        lambda: vt.multifractal_spectrum(walk, "db3"))
+    calls["analysis lifting cdf97 J=6 round trip 128x65536"] = (
+        lambda: vt.lifting_waverec(vt.lifting_wavedec(x, "cdf97", levels=6), "cdf97"))
+    ints = torch.randint(-(1 << 15), 1 << 15, (128, 65536), device=dev, generator=gen,
+                         dtype=torch.int32)
+    calls["analysis lifting_int legall53 J=6 round trip 128x65536"] = (
+        lambda: vt.lifting_waverec_int(vt.lifting_wavedec_int(ints, "legall53", levels=6),
+                                       "legall53"))
+    bounds = (0.05, 0.15, 0.35)
+    calls["analysis ewt -> iewt 4 bands 1x16384"] = (
+        lambda: vt.iewt(vt.ewt(x16k, bounds), bounds))
+    calls["analysis ewt -> iewt 4 bands 128x65536"] = lambda: vt.iewt(vt.ewt(x, bounds), bounds)
+    calls["analysis ewt_boundaries 3 bands 128x65536"] = lambda: vt.ewt_boundaries(x, 3)
+    calls["analysis scattering1d order 2 8x16384 J=6 Q=8"] = (
+        lambda: vt.scattering1d(x[:8, :16384].contiguous()))
+    angles = tuple(np.linspace(0.0, np.pi, 8, endpoint=False).tolist())
+    img256, img1k = img[0, :256, :256].contiguous(), img[:1, :1024, :1024].contiguous()
+    for label, im, count in (("256x256", img256, 8), ("1x1024x1024", img1k, 16)):
+        scales2 = tuple(np.geomspace(2.5, 30.0, count).tolist())
+        calls[f"analysis cwt2 -> icwt2 morl2 {label}, {count} scales x 8 angles"] = (
+            lambda im=im, scales2=scales2: vt.icwt2(vt.cwt2(im, scales2, "morl2",
+                                                            angles=angles), "morl2"))
+    calls["analysis scattering2d order 2 128x128 J=3 L=6"] = (
+        lambda: vt.scattering2d(img[:1, :128, :128].contiguous(), J=3, L=6))
     words = sys.argv[1:]
     if words:
         calls = {k: v for k, v in calls.items() if any(word in k for word in words)}

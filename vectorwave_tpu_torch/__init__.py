@@ -26,7 +26,12 @@ fp64) with their plain PyTorch versions.  On top of the CWT: the
 tiled CWT (``parallel.cwt_tiled``, ``cwt_tiled_2d``), cross-wavelet
 analysis (coherence, phase synchronization, ridges), significance tests,
 synchrosqueezing, matching pursuit (``optimize``) and the financial
-analyzers (``finance``).
+analyzers (``finance``).  The 1-D analysis modules: the wavelet variance,
+covariance and correlation with the online variance stream, long memory
+(Hurst exponent, variance change test), multifractal leaders, the lifting
+DWT with its lossless integer mode, the empirical wavelet transform and the
+1-D scattering network; and the 2-D CWT (``cwt2``, ``icwt2``) with 2-D
+scattering.
 
 The package imports ``torch``, ``numpy`` and ``mpmath`` and never JAX or
 ``vectorwave_tpu``.  Inputs and outputs are ``[..., N]`` tensors; the device
@@ -109,7 +114,56 @@ from .transforms.cwt import (
     select_scales_optimal,
     select_scales_signal_adaptive,
 )
+from .transforms.cwt2 import (
+    ContinuousWavelet2D,
+    CWT2Result,
+    cwt2,
+    gaussian2,
+    icwt2,
+    mexican_hat2,
+    morlet2,
+    scale_to_frequency2,
+    scales_for_frequencies2,
+)
 from .transforms.cwt_modwt_inverse import modwt_based_icwt
+from .transforms.ewt import ewt, ewt_boundaries, ewt_hilbert, iewt
+from .transforms.lifting import (
+    LIFTING_SCHEMES,
+    LiftingScheme,
+    LiftingStep,
+    get_lifting_scheme,
+    lifting_dwt,
+    lifting_dwt_int,
+    lifting_idwt,
+    lifting_idwt_int,
+    lifting_wavedec,
+    lifting_wavedec_int,
+    lifting_waverec,
+    lifting_waverec_int,
+)
+from .transforms.longmemory import (
+    HurstResult,
+    VarianceChangeResult,
+    hurst_exponent,
+    variance_change_test,
+)
+from .transforms.multifractal import (
+    MultifractalResult,
+    multifractal_spectrum,
+    wavelet_leaders,
+)
+from .transforms.scattering import ScatteringResult, scattering1d, scattering_filterbank
+from .transforms.scattering2d import Scattering2DResult, scattering2d
+from .transforms.variance import (
+    VarianceStreamState,
+    WaveletVarianceResult,
+    variance_stream_init,
+    variance_stream_result,
+    variance_stream_update,
+    wavelet_correlation,
+    wavelet_covariance,
+    wavelet_variance,
+)
 from .optimize import MPResult, matching_pursuit
 from .transforms.significance import (
     SignificanceResult,
@@ -206,39 +260,51 @@ from .wavelets.registry import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "CWT2Result",
     "CWTConfig",
     "CWTResult",
     "CoherenceResult",
     "ContinuousWavelet",
+    "ContinuousWavelet2D",
     "DTCWTResult",
     "DWT2Result",
     "DWTResult",
     "DiscreteWavelet",
     "ErrorCode",
     "ExactMODWTResult",
+    "HurstResult",
     "InvalidArgumentError",
     "InvalidConfigurationError",
     "InvalidSignalError",
     "InvalidStateError",
+    "LIFTING_SCHEMES",
+    "LiftingScheme",
+    "LiftingStep",
     "MAX_DECOMPOSITION_LEVELS",
     "MODWT2Result",
     "MODWTResult",
     "MPResult",
     "MultiLevelMODWT2Result",
     "MultiLevelMODWTResult",
+    "MultifractalResult",
     "PADDING_STRATEGIES",
     "RidgeResult",
     "SSTResult",
     "SWT2Result",
     "SWTResult",
     "ScaleSelectionConfig",
+    "Scattering2DResult",
+    "ScatteringResult",
     "SignificanceResult",
     "TransformType",
+    "VarianceChangeResult",
+    "VarianceStreamState",
     "VectorWaveError",
     "WavedecResult",
     "Wavelet",
     "WaveletPacketTree",
     "WaveletType",
+    "WaveletVarianceResult",
     "__version__",
     "adaptive_strategy",
     "apply_threshold",
@@ -256,6 +322,7 @@ __all__ = [
     "convert",
     "cross_wavelet",
     "cwt",
+    "cwt2",
     "denoise",
     "denoise2",
     "denoise_fixed",
@@ -269,6 +336,9 @@ __all__ = [
     "dwt2",
     "errors",
     "estimate_scale_count",
+    "ewt",
+    "ewt_boundaries",
+    "ewt_hilbert",
     "extract_level",
     "extract_level2",
     "extract_mode",
@@ -281,14 +351,19 @@ __all__ = [
     "fused_analysis",
     "fused_denoise_multilevel",
     "fused_synthesis",
+    "gaussian2",
     "get_backend",
     "get_fused_precision",
+    "get_lifting_scheme",
     "get_sigma_estimator",
     "hard_threshold",
+    "hurst_exponent",
     "icwt",
+    "icwt2",
     "idtcwt",
     "idwt",
     "idwt2",
+    "iewt",
     "imodwpt",
     "imodwt",
     "imodwt2",
@@ -303,11 +378,20 @@ __all__ = [
     "iwpt",
     "kernel_available",
     "kernels",
+    "lifting_dwt",
+    "lifting_dwt_int",
+    "lifting_idwt",
+    "lifting_idwt_int",
+    "lifting_wavedec",
+    "lifting_wavedec_int",
+    "lifting_waverec",
+    "lifting_waverec_int",
     "mad_sigma",
     "matching_pursuit",
     "max_dwt_levels",
     "max_levels",
     "median_magnitude",
+    "mexican_hat2",
     "minimax_threshold",
     "modwpt",
     "modwt",
@@ -318,8 +402,10 @@ __all__ = [
     "modwt_multilevel_exact",
     "modwt_roundtrip_exact",
     "modwt_roundtrip_fused",
+    "morlet2",
     "mra",
     "mra2",
+    "multifractal_spectrum",
     "native",
     "packet_frequency_bands",
     "pad_signal",
@@ -333,9 +419,14 @@ __all__ = [
     "register_wavelet",
     "resolve_tolerance",
     "scale_to_frequency",
+    "scale_to_frequency2",
     "scales_dyadic",
+    "scales_for_frequencies2",
     "scales_linear",
     "scales_log",
+    "scattering1d",
+    "scattering2d",
+    "scattering_filterbank",
     "select_scales_adaptive",
     "select_scales_optimal",
     "select_scales_signal_adaptive",
@@ -357,10 +448,18 @@ __all__ = [
     "threshold_coeffs",
     "threshold_level",
     "universal_threshold",
+    "variance_change_test",
+    "variance_stream_init",
+    "variance_stream_result",
+    "variance_stream_update",
     "wavedec",
     "wavedec2",
     "wavelet",
     "wavelet_coherence",
+    "wavelet_correlation",
+    "wavelet_covariance",
+    "wavelet_leaders",
+    "wavelet_variance",
     "wavelets_in_family",
     "wavelets_of_type",
     "waverec",

@@ -4,8 +4,9 @@ The two packages share no code, so these helpers take plain numpy arrays:
 a filter bank exported from a ``vectorwave_tpu`` wavelet, a threshold
 array, the planes of an exact-tier result, the bands of a 2-D MODWT
 result, the levels of a packet tree, the coefficients of a DTCWT, a CWT or
-a synchrosqueezed result, one of the four streaming states or one of the
-two incremental tick states becomes the port's object (a stream or a tick
+a synchrosqueezed result, one of the four streaming states, the wavelet
+variance stream's state or one of the two incremental tick states becomes
+the port's object (a stream or a tick
 stream checkpointed in JAX resumes in the port).
 The parity tests use them so that both packages filter with identical taps
 and each package's inverse can read the other's planes.
@@ -313,6 +314,26 @@ def kernel_streaming_denoiser_state_from_arrays(history, noise_window, window_po
         _state_tensor(history, dev), _state_tensor(noise_window, dev),
         _count(window_pos), _count(window_fill),
     )
+
+
+def variance_stream_state_from_arrays(sumsq, counts, position, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.VarianceStreamState` from the fields
+    of a ``vectorwave_tpu`` ``VarianceStreamState`` as arrays: the
+    ``[..., J]`` sums of squares (dtype kept), the ``[J]`` per-level counts
+    and the position, on ``device`` (default: the card; pass
+    ``device="cpu"`` for the CPU).  The counters become host numbers."""
+    from .transforms.variance import VarianceStreamState
+
+    dev = _device(device)
+    sums = np.array(sumsq)
+    per_level = np.array(counts, dtype=np.int64)
+    if per_level.ndim != 1 or sums.ndim < 1 or sums.shape[-1] != per_level.shape[0]:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "sumsq needs a trailing level axis as long as counts",
+            context={"sumsq": sums.shape, "counts": per_level.shape},
+        )
+    return VarianceStreamState(_state_tensor(sums, dev), per_level, _count(position))
 
 
 # --- incremental tick states -------------------------------------------------------

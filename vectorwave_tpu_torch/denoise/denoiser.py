@@ -19,6 +19,7 @@ import torch
 
 from ..config import get_sigma_estimator
 from ..errors import ErrorCode, InvalidArgumentError
+from ..kernels.modwt_composite import denoise_tile
 from ..kernels.modwt_fused import _INV_SQRT2, fused_denoise_multilevel
 from ..ops.thresholds import (
     apply_threshold,
@@ -138,8 +139,10 @@ def denoise_multilevel(
 
 
 def _try_fused_denoise(x, wavelet, levels, method, mode, boundary, precision=None):
-    """Route sigma-only denoise rules through the one-pass fused kernel;
-    None = take the 3-call path."""
+    """Route sigma-only denoise rules through the one-pass fused kernel
+    where the cascade pair's gate and the denoise kernel's own room
+    (``modwt_composite.denoise_tile``) both admit the call; None = take the
+    3-call path."""
     if method not in ("universal", "minimax") or mode not in ("soft", "hard"):
         return None
     if boundary.lower().startswith("sym"):
@@ -152,6 +155,8 @@ def _try_fused_denoise(x, wavelet, levels, method, mode, boundary, precision=Non
         return None
     if not _resolve_backend(None, lambda: _kernel_eligible(x, w, levels, boundary)):
         return None
+    if denoise_tile(w.filter_length, levels) is None:
+        return None  # the denoise block does not fit: the cascade pair serves it
     sigma = _fused_sigma(x, w, boundary)  # [..., 1]
     rule = universal_threshold if method == "universal" else minimax_threshold
     ths = torch.cat(

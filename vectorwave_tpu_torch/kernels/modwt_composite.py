@@ -324,14 +324,14 @@ def symmetric_tile(taps: int, ops: tuple, adjoint: bool) -> int | None:
 
 
 def kernels_fit(taps: int, levels: int) -> bool:
-    """Whether all three kernels fit one block's shared memory (the H100
-    counterpart of the JAX router's halo/VMEM check): the analysis and the
-    synthesis at a tile of 2048, the cascade pair's first tile, the denoise
-    at its own."""
+    """Whether the cascade pair fits one block's shared memory at a tile of
+    2048, its first tile (the H100 counterpart of the JAX router's halo
+    check): the analysis and the synthesis, each the other's backward, so a
+    route of either direction asks for both.  The fused denoise asks for its
+    own room (:func:`denoise_tile`)."""
     return max(
         analysis_shared_bytes(taps, levels, 2048),
         synthesis_shared_bytes(taps, levels, 2048),
-        denoise_shared_bytes(taps, levels),
     ) <= SHARED_LIMIT
 
 

@@ -203,7 +203,9 @@ def _kernel_eligible(x: torch.Tensor, w: DiscreteWavelet, levels: int,
     """Whether the CUDA kernel tier serves this call: a CUDA tensor on a
     Hopper card, float32/bfloat16, >= 2 levels, N >= 4096 and windows that
     fit (the JAX router's rule, plus the kernels' shared-memory budget).
-    Periodic and zero boundaries need a halo of at most N; symmetric ones
+    Periodic and zero boundaries need a halo of at most N and the room of
+    the cascade pair, whose kernels are each other's backward
+    (``modwt_composite.kernels_fit``); symmetric ones
     the gate of its direction (``synthesis``), ``modwt_symmetric.route_fits``.
     The 4096-sample floor was tuned on a TPU and is kept until a GPU
     measurement re-derives it."""
