@@ -209,7 +209,31 @@ Phases, in order; any failure raises and the exit code is not 0:
    and the bank pair on the tier's dense taps (config #5 under ``kernel``,
    config #5's scales and 16 scales at 128x65536 to the cap) beside their
    bound and ``F.conv1d`` with the scales as output channels; the tiled
-   CWT's and the paths built on the CWT's calls of phase 3.
+   CWT's and the paths built on the CWT's calls of phase 3; the
+   default-depth, analysis, optimisation and 2-D tree calls of phase 3
+   (CUDA events and the host clock, with each call's launches).
+
+Phase 3 ends with the default-depth MODWT and the 1-D analysis modules
+(``analysis_path``), then the sparse solvers, the deconvolutions, the block
+denoise, the decimated 2-D trees and the infrastructure
+(``optimize_path``): ``inpaint`` db8 J=8 on 1x2^20 with 30% missing and 200
+FISTA steps, ``bpdn`` db4 at 128x65536 (100 steps) and ``sparse_recover``
+with a circular blur on 8x65536 (100 steps), each one cascade synthesis and
+one cascade analysis launch a step beside the first analysis and the final
+synthesis, against the same solve on the plain route; ``deconvolve`` sym8 at
+128x65536 (31-tap blur, the cascade pair once each way) and ``deconvolve2``
+sym8 at 8x2048x2048 (one 2-D launch a level each way and one for the noise
+probe), in soft mode against the plain route; ``denoise_block`` db4 at
+128x65536 (one launch each way) against the plain route; ``wpt2`` ->
+``iwpt2``, ``best_basis_denoise2`` and ``denoise_packet2`` (256x256 and
+8x2048x2048), ``dtcwt2`` -> ``idtcwt2`` (512x512 and 8x2048x2048) and
+``dtcwt2_denoise``, with no launch, against an identity, a noise reduction
+or float64 on the CPU at a 64x64 cut; ``inpaint2`` db4 J=4 on 1x512x512 (80
+steps; its launches printed: the 2-D pair for the probe, the first analysis
+and the last synthesis, each step's gradient on the plain 2-D cascade);
+``cost_model.calibrate()`` on the card with the estimate before and after
+(its store in a temporary directory), ``get_performance_info()``, a
+``throughput_meter`` around a round trip and a ``profiler_trace``.
 
 The last two lines are a JSON object with one entry per kernel and the
 device line ``{"ok": true, "device": {...}}``.
@@ -423,6 +447,25 @@ EWT_BOUNDS = (0.05, 0.15, 0.35)
 CWT2_SCALES_256 = tuple(np.geomspace(2.5, 30.0, 8).tolist())
 CWT2_SCALES_1K = tuple(np.geomspace(2.5, 30.0, 16).tolist())
 CWT2_ANGLES = tuple(np.linspace(0.0, math.pi, 8, endpoint=False).tolist())
+#: the sparse solvers, the deconvolutions and the 2-D trees: the TPU bench's
+#: inpaint row (tools/perf_beyond2.py:168-181: db8, 2^20 samples, 30% missing,
+#: 200 steps), the main path's batch for bpdn, the deconvolution and the
+#: block denoise, a 31-tap blur, 8x65536 for sparse_recover and the 2-D
+#: inpaint of tests/test_sparse.py at 512x512
+OPT_LONG, OPT_MISSING, OPT_STEPS = 1 << 20, 0.3, 200
+OPT_BPDN_STEPS, OPT_BLUR_TAPS = 100, 31
+OPT_2D_LEVELS, OPT_2D_STEPS = 4, 80
+#: a FISTA solve on the kernels against the same solve on the plain route,
+#: of the largest value: both run K steps of a nonexpansive float32 iteration
+#: whose gradient differs between the routes by float32 rounding (2e-5 a
+#: pass); momentum may amplify it a few times over the steps
+TOL_FISTA_CARD = 1e-4
+#: a one-pass pipeline (deconvolution in soft mode) on the kernels against
+#: the plain route, of the largest value
+TOL_F32_REL = 2e-5
+#: block shrinkage's factor is 1 - c / S_b, S_b a float32 sum over a window:
+#: the routes' planes 2e-5 apart move it by a few float32 ulps of S_b
+TOL_BLOCK_CARD = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -2667,6 +2710,341 @@ def analysis_timing(dev, gen):
     print(f"  the analysis rows took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def blur_spectrum(n, taps, width, dev):
+    """The rfft of a centred Gaussian blur of ``taps`` taps (peak at index 0),
+    for a circular blur of rows of ``n``."""
+    t = np.arange(taps) - taps // 2
+    k = np.exp(-0.5 * (t / width) ** 2)
+    k = np.fft.ifftshift(k / k.sum())
+    return k, torch.from_numpy(np.fft.rfft(k, n=n).astype(np.complex64)).to(dev)
+
+
+def piecewise_smooth(shape, seed):
+    """Rows of a few sines with a step: sparse in a wavelet frame."""
+    rng = np.random.default_rng(seed)
+    n = shape[-1]
+    t = np.arange(n) / n
+    rows = []
+    for _ in range(int(np.prod(shape[:-1]))):
+        f = rng.uniform(2, 40, 3)
+        row = sum(np.sin(2 * np.pi * fi * t + rng.uniform(0, 6)) for fi in f)
+        row[int(rng.uniform(0.2, 0.8) * n):] += rng.uniform(-1, 1)
+        rows.append(row)
+    return np.asarray(rows, dtype=np.float32).reshape(shape)
+
+
+def texture(shape, seed):
+    """A zero-mean oriented weave (the JAX packet2 tests' texture) on
+    ``[..., H, W]``, of a period of 16 pixels or more."""
+    yy, xx = np.mgrid[0:shape[-2], 0:shape[-1]]
+    rng = np.random.default_rng(seed)
+    kx, ky = rng.integers(3, shape[-1] // 16, 2)
+    img = np.sin(2 * np.pi * (kx * xx / shape[-1] + ky * yy / shape[-2]))
+    return np.broadcast_to(img, shape).astype(np.float32)
+
+
+def optimize_inputs(dev, gen):
+    """The inputs of the sparse solvers, the deconvolutions, the block
+    denoise and the decimated 2-D trees: made on the card from the seed, or
+    on the host from it for the structured signals and images."""
+    clean = torch.from_numpy(piecewise_smooth((1, OPT_LONG), 1)).to(dev)
+    mask = (torch.rand(1, OPT_LONG, device=dev, generator=gen) >= OPT_MISSING).float()
+    x = torch.from_numpy(piecewise_smooth((BATCH, N), 2)).to(dev)
+    kernel, spec = blur_spectrum(N, OPT_BLUR_TAPS, 4.0, dev)
+    cs_true = torch.from_numpy(piecewise_smooth((8, N), 3)).to(dev)
+    g = np.exp(-0.5 * ((np.arange(7) - 3) / 1.5) ** 2)
+    psf = np.outer(g, g) / np.outer(g, g).sum()  # a 7x7 PSF, peak at (3, 3)
+    img = torch.from_numpy(texture(IMG, 4)).to(dev)
+    psf_full = np.zeros(IMG[1:], np.float32)
+    psf_full[:7, :7] = psf
+    blurred2 = torch.fft.irfft2(torch.fft.rfft2(img) * torch.fft.rfft2(
+        torch.from_numpy(psf_full).to(dev)), s=IMG[1:])
+    tex256 = torch.from_numpy(texture((256, 256), 5)).to(dev)
+    yy, xx = np.meshgrid(np.linspace(0, 1, 512), np.linspace(0, 1, 512), indexing="ij")
+    smooth = (np.sin(2 * np.pi * 2 * xx) * np.cos(2 * np.pi * yy)
+              + 0.5 * np.sin(2 * np.pi * (xx + yy)))[None].astype(np.float32)
+    return {
+        "clean": clean, "mask": mask, "observed": torch.where(mask > 0, clean, torch.nan),
+        "x": x, "noisy": x + 0.3 * torch.randn(BATCH, N, device=dev, generator=gen),
+        "blur_kernel": kernel, "blur": spec,
+        "blurred": (torch.fft.irfft(torch.fft.rfft(x) * spec, n=N)
+                    + 0.05 * torch.randn(BATCH, N, device=dev, generator=gen)),
+        "cs_true": cs_true,
+        "cs_meas": (torch.fft.irfft(torch.fft.rfft(cs_true) * spec, n=N)
+                    + 0.01 * torch.randn(8, N, device=dev, generator=gen)),
+        "psf": psf, "img": img,
+        "blurred2": blurred2 + 0.05 * torch.randn(IMG, device=dev, generator=gen),
+        "noisy_img": img + 0.4 * torch.randn(IMG, device=dev, generator=gen),
+        "tex256": tex256,
+        "noisy256": tex256 + 0.4 * torch.randn(256, 256, device=dev, generator=gen),
+        "smooth": torch.from_numpy(smooth).to(dev),
+        "mask2": (torch.rand(1, 512, 512, device=dev, generator=gen) > 0.3).float(),
+        "img512": torch.from_numpy(texture((512, 512), 6)).to(dev),
+    }
+
+
+def optimize_calls(data):
+    """The slice's public calls as (label, the call) pairs, in the order of
+    phase 3, each at the shape it is driven at."""
+    import vectorwave_tpu_torch as vt
+
+    spec = data["blur"]
+
+    def blur(v):
+        return torch.fft.irfft(torch.fft.rfft(v) * spec, n=N)
+
+    img = data["img"]
+    return {
+        "inpaint": lambda: vt.inpaint(data["observed"], data["mask"], "db8", steps=OPT_STEPS),
+        "bpdn": lambda: vt.bpdn(data["noisy"], WAVELET, steps=OPT_BPDN_STEPS).signal,
+        "sparse_recover": lambda: vt.sparse_recover(
+            data["cs_meas"], blur, WAVELET, signal_shape=(8, N), lam=1e-3, lam_init=0.1,
+            steps=OPT_BPDN_STEPS).signal,
+        "deconvolve": lambda: vt.deconvolve(data["blurred"], data["blur_kernel"], "sym8"),
+        "deconvolve2": lambda: vt.deconvolve2(data["blurred2"], data["psf"], "sym8"),
+        "denoise_block": lambda: vt.denoise_block(data["noisy"], WAVELET),
+        "wpt2": lambda: vt.iwpt2(vt.wpt2(img, "sym8", 3), "sym8"),
+        "best_basis_denoise2 256": lambda: vt.best_basis_denoise2(
+            data["noisy256"], "sym8", 3, threshold=1.2, cost="risk", cost_threshold=1.2,
+            mode="hard"),
+        "best_basis_denoise2": lambda: vt.best_basis_denoise2(
+            data["noisy_img"], "sym8", 3, threshold=1.2, cost="risk", cost_threshold=1.2,
+            mode="hard"),
+        "denoise_packet2 256": lambda: vt.denoise_packet2(data["noisy256"], "sym8", 3),
+        "denoise_packet2": lambda: vt.denoise_packet2(data["noisy_img"], "sym8", 3),
+        "dtcwt2 512": lambda: vt.idtcwt2(vt.dtcwt2(data["img512"], levels=4)),
+        "dtcwt2": lambda: vt.idtcwt2(vt.dtcwt2(img, levels=4)),
+        "dtcwt2_denoise": lambda: vt.dtcwt2_denoise(data["noisy_img"], levels=4),
+        "inpaint2": lambda: vt.inpaint2(data["smooth"] * data["mask2"], data["mask2"], "db4",
+                                        levels=OPT_2D_LEVELS, steps=OPT_2D_STEPS),
+    }
+
+
+def optimize_path(dev, gen):
+    """Phase 3 for the sparse solvers, the deconvolutions, the block denoise,
+    the decimated 2-D trees and the infrastructure, each call with its own
+    reset and reading of the counters.  The solvers take one cascade
+    synthesis and one cascade analysis launch a FISTA step, the first
+    analysis and the final synthesis beside them; the deconvolutions the
+    cascade pair (1-D, 4 levels) or the 2-D pair (one launch a level each
+    way and one for the 2-D noise probe); the block denoise one launch each
+    way; the trees none.  Each is held against the plain route on the card
+    (the deconvolutions in soft mode, whose output moves continuously with
+    the coefficients), float64 on the CPU at a cut, or an identity.  Returns
+    the launches."""
+    import tempfile
+
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import cost_model, observability
+
+    t0 = time.perf_counter()
+    total = {}
+    data = optimize_inputs(dev, gen)
+    calls = optimize_calls(data)
+    two = {"modwt_analysis": OPT_BPDN_STEPS + 1, "modwt_synthesis": OPT_BPDN_STEPS + 1}
+    for name, expect, label in (
+        ("inpaint", {"modwt_analysis": OPT_STEPS + 1, "modwt_synthesis": OPT_STEPS + 1},
+         f"inpaint db8 J=8 1x{OPT_LONG}, {OPT_MISSING:.0%} missing, {OPT_STEPS} steps"),
+        ("bpdn", two, f"bpdn db4 J=8 {BATCH}x{N}, {OPT_BPDN_STEPS} steps"),
+        ("sparse_recover", two, f"sparse_recover db4 J=8, circular blur, 8x{N}, "
+                                f"{OPT_BPDN_STEPS} steps"),
+    ):
+        got = counted_launches(label, expect, calls[name], total)
+        with backend("torch"):
+            want = calls[name]()
+        err = rel_err(got, want)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all())
+              and err <= TOL_FISTA_CARD,
+              f"{label} vs the plain route: {err:.3e} <= {TOL_FISTA_CARD:.0e} of max")
+        if name == "inpaint":
+            miss = data["mask"] == 0
+            fill = ((got - data["clean"])[miss].pow(2).mean().sqrt()
+                    / data["clean"].std()).item()
+            check(fill <= 0.1 and torch.equal(got[~miss], data["clean"][~miss]),
+                  f"{label}: missing samples restored to {fill:.3e} <= 0.1 of the std; "
+                  "observed samples kept")
+        del got, want
+
+    x = data["x"]
+    got = counted_launches(f"deconvolve sym8 J=4 {BATCH}x{N}, {OPT_BLUR_TAPS}-tap blur",
+                           {"modwt_analysis": 1, "modwt_synthesis": 1}, calls["deconvolve"], total)
+    err_in = (data["blurred"] - x).pow(2).mean().sqrt().item()
+    err_out = (got.signal - x).pow(2).mean().sqrt().item()
+    soft = lambda: vt.deconvolve(data["blurred"], data["blur_kernel"], "sym8",  # noqa: E731
+                                 mode="soft").signal
+    got_soft = counted_launches("deconvolve soft", {"modwt_analysis": 1, "modwt_synthesis": 1},
+                                soft, total)
+    with backend("torch"):
+        want_soft = soft()
+    err = rel_err(got_soft, want_soft)
+    check(err_out < err_in and err <= TOL_F32_REL,
+          f"deconvolve {BATCH}x{N}: RMSE {err_in:.4f} -> {err_out:.4f}; soft vs the plain route "
+          f"{err:.3e} <= {TOL_F32_REL:.0e} of max")
+    del got, got_soft, want_soft
+
+    levels2 = 3  # deconvolve2's default depth
+    expect2 = {"modwt2_analysis": levels2 + 1, "modwt2_synthesis": levels2}
+    got = counted_launches(f"deconvolve2 sym8 J={levels2} {'x'.join(map(str, IMG))}", expect2,
+                           calls["deconvolve2"], total)
+    img = data["img"]
+    err_in = (data["blurred2"] - img).pow(2).mean().sqrt().item()
+    err_out = (got.signal - img).pow(2).mean().sqrt().item()
+    soft2 = lambda: vt.deconvolve2(data["blurred2"], data["psf"], "sym8",  # noqa: E731
+                                   mode="soft").signal
+    got_soft = counted_launches("deconvolve2 soft", expect2, soft2, total)
+    with backend("torch"):
+        want_soft = soft2()
+    err = rel_err(got_soft, want_soft)
+    check(err_out < err_in and err <= TOL_F32_REL,
+          f"deconvolve2 {'x'.join(map(str, IMG))}: RMSE {err_in:.4f} -> {err_out:.4f}; soft vs "
+          f"the plain route {err:.3e} <= {TOL_F32_REL:.0e} of max")
+    del got, got_soft, want_soft
+
+    got = counted_launches(f"denoise_block db4 no levels (J=9) {BATCH}x{N}",
+                           {"modwt_analysis": 1, "modwt_synthesis": 1}, calls["denoise_block"],
+                           total)
+    with backend("torch"):
+        want = calls["denoise_block"]()
+    err = rel_err(got, want)
+    snr_in = (x.pow(2).sum() / (data["noisy"] - x).pow(2).sum()).log10().item() * 10
+    snr_out = (x.pow(2).sum() / (got - x).pow(2).sum()).log10().item() * 10
+    check(err <= TOL_BLOCK_CARD and snr_out > snr_in + 3,
+          f"denoise_block {BATCH}x{N}: SNR {snr_in:.2f} -> {snr_out:.2f} dB; vs the plain route "
+          f"{err:.3e} <= {TOL_BLOCK_CARD:.0e} of max")
+    del got, want
+
+    # the decimated 2-D trees: no kernel route
+    shape = "x".join(map(str, IMG))
+    rec = counted_launches(f"wpt2 -> iwpt2 sym8 depth 3 {shape}", {}, calls["wpt2"], total)
+    err = rel_err(rec, img)
+    cut = data["noisy_img"][0, :64, :64]
+    tree = vt.wpt2(cut.contiguous(), "sym8", 3)
+    ref = vt.wpt2(small_cpu(cut), "sym8", 3)
+    err_cut = max(rel_err(g.cpu(), r) for g, r in zip(tree.levels, ref.levels))
+    check(err <= 1e-5 and err_cut <= 1e-5,
+          f"wpt2 -> iwpt2 {shape}: round trip {err:.3e} <= 1e-5 of max; the 64x64 cut's tree vs "
+          f"float64 on the CPU {err_cut:.3e} <= 1e-5")
+    for label, key, clean in (("256x256", " 256", data["tex256"]), (shape, "", img)):
+        noisy = data["noisy256"] if key else data["noisy_img"]
+        mse_in = (noisy - clean).pow(2).mean().item()
+        for fn in ("best_basis_denoise2", "denoise_packet2"):
+            got = counted_launches(f"{fn} sym8 depth 3 {label}", {}, calls[fn + key], total)
+            mse = (got - clean).pow(2).mean().item()
+            check(bool(torch.isfinite(got).all()) and mse < 0.6 * mse_in,
+                  f"{fn} {label}: MSE {mse_in:.4f} -> {mse:.4f} (< 0.6x)")
+            del got
+    for label, key, src in (("512x512", " 512", data["img512"]), (shape, "", img)):
+        rec = counted_launches(f"dtcwt2 -> idtcwt2 4 levels {label}", {}, calls["dtcwt2" + key],
+                               total)
+        err = (rec - src).abs().max().item()
+        check(err <= 2e-5, f"dtcwt2 -> idtcwt2 {label}: round trip {err:.3e} <= 2e-5")
+    res = vt.dtcwt2(cut.contiguous(), levels=3)
+    ref = vt.dtcwt2(small_cpu(cut), levels=3)
+    err_cut = max(rel_err(g.cpu(), r) for g, r in zip(res.highpasses, ref.highpasses))
+    check(res.highpasses[0].dtype == torch.complex64 and err_cut <= 1e-5,
+          f"dtcwt2 64x64 cut vs float64 on the CPU: {err_cut:.3e} <= 1e-5 of max")
+    got = counted_launches(f"dtcwt2_denoise 4 levels {shape}", {}, calls["dtcwt2_denoise"], total)
+    mse_in = (data["noisy_img"] - img).pow(2).mean().item()
+    mse = (got - img).pow(2).mean().item()
+    check(bool(torch.isfinite(got).all()) and mse < 0.5 * mse_in,
+          f"dtcwt2_denoise {shape}: MSE {mse_in:.4f} -> {mse:.4f} (< 0.5x)")
+    del got, rec, res
+
+    # inpaint2: the 2-D pair for the probe, the first analysis and the last
+    # synthesis; every step's gradient on the plain 2-D cascade
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+
+    mc.reset_launches()
+    got = calls["inpaint2"]()
+    torch.cuda.synchronize()
+    seen = {k: v for k, v in mc.LAUNCHES.items() if v}
+    for k, v in seen.items():
+        total[k] = total.get(k, 0) + v
+    miss = data["mask2"] == 0
+    fill = ((got - data["smooth"])[miss].pow(2).mean().sqrt() / data["smooth"].std()).item()
+    check(seen == {"modwt2_analysis": OPT_2D_LEVELS + 1, "modwt2_synthesis": OPT_2D_LEVELS}
+          and fill <= 0.1,
+          f"inpaint2 db4 J={OPT_2D_LEVELS} 1x512x512, {OPT_2D_STEPS} steps: launches {seen} (its "
+          f"gradient on the plain 2-D cascade); missing pixels restored to {fill:.3e} <= 0.1")
+    del got
+
+    # the infrastructure
+    with tempfile.TemporaryDirectory() as tmp:
+        old = os.environ.get("VECTORWAVE_TPU_TORCH_CACHE")
+        os.environ["VECTORWAVE_TPU_TORCH_CACHE"] = tmp
+        try:
+            before = cost_model.estimate_processing_time(N, levels=LEVELS, batch=BATCH)
+            rate = cost_model.calibrate()
+            after = cost_model.estimate_processing_time(N, levels=LEVELS, batch=BATCH)
+            stored = json.loads(open(os.path.join(tmp, "performance.json")).read())
+        finally:
+            if old is None:
+                os.environ.pop("VECTORWAVE_TPU_TORCH_CACHE")
+            else:
+                os.environ["VECTORWAVE_TPU_TORCH_CACHE"] = old
+        key = f"cuda:{torch.cuda.get_device_name(0)}"
+        check(not before.calibrated and after.calibrated and key in stored and rate > 0,
+              f"cost_model.calibrate() on the card: {rate:.6e} samples/s (db4 J=6 float32 round "
+              f"trip, 8x16384 and 8x65536), kept as {key!r}; the {BATCH}x{N} estimate "
+              f"{before.estimated_seconds * 1e3:.4f} ms (default) -> "
+              f"{after.estimated_seconds * 1e3:.4f} ms (calibrated)")
+        info = vt.get_performance_info()
+        check(info.platform == "cuda" and info.cuda_kernels and info.device_count >= 1,
+              f"get_performance_info(): {info.description}")
+        observability.stats.reset()
+        with observability.throughput_meter("round trip", BATCH * N):
+            vt.imodwt_multilevel(vt.modwt_multilevel(x, WAVELET, levels=LEVELS), WAVELET)
+        secs = observability.stats.get("round trip.seconds")
+        check(secs > 0, f"throughput_meter around one {BATCH}x{N} round trip: "
+                        f"{BATCH * N / secs / 1e6:.1f} Msamples/s (host clock, synchronised)")
+        with observability.profiler_trace(os.path.join(tmp, "trace")) as log_dir:
+            vt.imodwt_multilevel(vt.modwt_multilevel(x, WAVELET, levels=LEVELS), WAVELET)
+        files = os.listdir(log_dir)
+        size = sum(os.path.getsize(os.path.join(log_dir, f)) for f in files)
+        check(len(files) == 1 and size > 0, f"profiler_trace: {files} ({size} bytes)")
+    print(f"  launches during the optimisation and 2-D tree path: {total}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
+def optimize_timing(dev, gen):
+    """Phase 4 for this slice's calls: CUDA events and the host clock from
+    the same runs (3 warm-ups and 20 runs; 5 runs for a call over 100 ms, 3
+    over a second, after the first), medians, and each call's kernel
+    launches from its first run."""
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+
+    t0 = time.perf_counter()
+    data = optimize_inputs(dev, gen)
+    for label, fn in optimize_calls(data).items():
+        torch.cuda.synchronize()
+        mc.reset_launches()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        once = (time.perf_counter() - start) * 1e3
+        launches = sum(mc.LAUNCHES.values())
+        warm, reps = (0, 3) if once > 1000 else (0, 5) if once > 100 else (3, 20)
+        for _ in range(warm):
+            fn()
+        dev_ms, host_ms = [], []
+        for _ in range(reps):
+            begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            begin.record()
+            fn()
+            end.record()
+            end.synchronize()
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            dev_ms.append(begin.elapsed_time(end))
+        dev_ms.sort()
+        host_ms.sort()
+        print(f"  {label}: {dev_ms[reps // 2]:.4f} ms (wall {host_ms[reps // 2]:.4f} ms, first "
+              f"call {once:.4f} ms, {launches} kernel launches)", flush=True)
+    print(f"  the optimisation and 2-D tree rows took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a "
@@ -3432,6 +3810,10 @@ def main() -> int:
           "and the 2-D CWT", flush=True)
     for name, count in analysis_path(dev, gen).items():
         launches[name] = launches.get(name, 0) + count
+    print(f"  the sparse solvers, the deconvolutions, the block denoise and the decimated 2-D "
+          f"trees, 1x{OPT_LONG}, {BATCH}x{N} and {'x'.join(map(str, IMG))}", flush=True)
+    for name, count in optimize_path(dev, gen).items():
+        launches[name] = launches.get(name, 0) + count
 
     print("phase 4: timing (CUDA events, 3 warm-ups, median of 20)", flush=True)
     print(smi, flush=True)
@@ -3681,6 +4063,7 @@ def main() -> int:
     ms_of.update(tiled_ms)
     bound.update(tiled_bound)
     analysis_timing(dev, gen)
+    optimize_timing(dev, gen)
     print(f"  the run so far: {time.perf_counter() - run_start:.1f} s", flush=True)
 
     report = {"kernels": [

@@ -1478,3 +1478,63 @@ def test_variance_stream_on_the_kernel_step_equals_the_whole_signal(cuda):
     assert mc.LAUNCHES["modwt_analysis"] == 8 and acc.position == 8 * 2048
     out = vt.variance_stream_result(acc)
     assert _rel(out.variance, _plain(lambda: vt.wavelet_variance(x, "db4", 6).variance)) <= 1e-4
+
+
+def test_inpaint_takes_one_synthesis_and_one_analysis_launch_a_step(cuda):
+    """Each FISTA step's gradient is autograd through the cascade synthesis
+    kernel, whose backward is the analysis kernel: one launch of each a
+    step, beside the first analysis and the final synthesis (the noise
+    probe, one level, takes the plain route).  Against the same solve on the
+    plain route within 1e-4 of the largest value."""
+    steps = 30
+    t = torch.arange(16384, device=cuda, dtype=torch.float32) / 16384
+    clean = (torch.sin(2 * torch.pi * 5 * t) + 0.5 * torch.sin(2 * torch.pi * 13 * t))[None]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    mask = (torch.rand(1, 16384, device=cuda, generator=g) > 0.3).float()
+
+    def call():
+        return vt.inpaint(torch.where(mask > 0, clean, torch.nan), mask, "db8", steps=steps)
+
+    mc.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["modwt_analysis"] == steps + 1
+    assert mc.LAUNCHES["modwt_synthesis"] == steps + 1
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, _plain(call)) <= 1e-4
+
+
+def test_deconvolve2_takes_the_2d_pair(cuda):
+    """sym8 at its default 3 levels: one 2-D analysis launch a level and one
+    for the one-level noise probe, one 2-D synthesis launch a level; in soft
+    mode against the plain route within 2e-5 of the largest value."""
+    yy, xx = torch.meshgrid(torch.arange(512.0, device=cuda), torch.arange(512.0, device=cuda),
+                            indexing="ij")
+    clean = torch.sin(2 * torch.pi * (5 * xx + 3 * yy) / 512).expand(2, 512, 512)
+    psf = torch.ones(5, 5).numpy() / 25.0
+    spec = torch.fft.rfft2(torch.nn.functional.pad(torch.ones(5, 5, device=cuda) / 25.0,
+                                                   (0, 507, 0, 507)))
+    img = (torch.fft.irfft2(torch.fft.rfft2(clean) * spec, s=(512, 512))
+           + 0.05 * _input(cuda, 2, 512 * 512, torch.float32, seed=6).reshape(2, 512, 512))
+    mc.reset_launches()
+    res = vt.deconvolve2(img, psf, "sym8")
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["modwt2_analysis"] == 4 and mc.LAUNCHES["modwt2_synthesis"] == 3
+    assert res.signal.dtype == torch.float32 and bool(torch.isfinite(res.signal).all())
+    soft = vt.deconvolve2(img, psf, "sym8", mode="soft").signal
+    assert _rel(soft, _plain(lambda: vt.deconvolve2(img, psf, "sym8", mode="soft").signal)) <= 2e-5
+
+
+def test_calibrate_keeps_a_cuda_key(cuda, tmp_path, monkeypatch):
+    """The calibration store is the port's own, keyed by the card's name."""
+    import json
+
+    from vectorwave_tpu_torch import cost_model
+
+    monkeypatch.setenv("VECTORWAVE_TPU_TORCH_CACHE", str(tmp_path))
+    assert not cost_model.estimate_processing_time(65536).calibrated
+    rate = cost_model.calibrate(sizes=(16384,), batch=4)
+    store = json.loads((tmp_path / "performance.json").read_text())
+    key = f"cuda:{torch.cuda.get_device_name(0)}"
+    assert rate > 0 and store[key]["samples_per_second"] == rate
+    assert cost_model.estimate_processing_time(65536).calibrated

@@ -56,8 +56,11 @@ them): ``wavelet_variance`` (128 x 65536 default depth, 1 x 2^20 J=6),
 kernel step (128 streams x 8 x 8192), ``variance_change_test``,
 ``multifractal_spectrum`` (2^20), the lifting round trips, the EWT,
 ``scattering1d`` (8 x 16384), ``cwt2`` -> ``icwt2`` (256 x 256 and 1 x 1024
-x 1024) and ``scattering2d`` (128 x 128).  For the streaming and tiled
-rows it also prints the host side: the self CPU time of the traced ops per
+x 1024) and ``scattering2d`` (128 x 128), and the sparse solvers, the
+deconvolutions, the block denoise and the decimated 2-D trees at
+``chip_smoke.py``'s shapes (the argument ``optimize`` selects them; one
+warm-up and 3 calls each, since ``inpaint2`` takes 2.5 s).  For the
+streaming, tiled and optimisation rows it also prints the host side: the self CPU time of the traced ops per
 call and the ops that take the most (the trace's own cost included).  Exits
 non-zero without a CUDA device.
 
@@ -318,47 +321,53 @@ def main() -> int:
                                                             angles=angles), "morl2"))
     calls["analysis scattering2d order 2 128x128 J=3 L=6"] = (
         lambda: vt.scattering2d(img[:1, :128, :128].contiguous(), J=3, L=6))
+    import chip_smoke
+
+    for label, fn in chip_smoke.optimize_calls(chip_smoke.optimize_inputs(dev, gen)).items():
+        calls[f"optimize {label}"] = fn
     words = sys.argv[1:]
     if words:
         calls = {k: v for k, v in calls.items() if any(word in k for word in words)}
     for label, fn in calls.items():
-        for _ in range(3):
+        # the optimisation rows run up to 2.5 s a call: one warm-up, 3 calls
+        warm, reps = (1, 3) if label.startswith("optimize") else (3, REPS)
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / REPS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(REPS):
+            for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3 / REPS
+            traced_ms = (time.perf_counter() - t0) * 1e3 / reps
         # device-side events only: the CPU op that launched a kernel reports
         # the same time as its own device time
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / REPS
-        launches = sum(e.count for e in kernels) / REPS
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+        launches = sum(e.count for e in kernels) / reps
         print(f"{label}: wall {wall_ms:.4f} ms, device {device_ms:.4f} ms, "
               f"busy {100 * device_ms / wall_ms:.1f}%, {launches:.0f} kernel launches per call")
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-            print(f"    {e.self_device_time_total / 1e3 / REPS:8.4f} ms "
-                  f"x{e.count // REPS:<3d} {e.key[:90]}")
-        if "stream" in label or "tiled" in label:
+            print(f"    {e.self_device_time_total / 1e3 / reps:8.4f} ms "
+                  f"x{e.count // reps:<3d} {e.key[:90]}")
+        if "stream" in label or "tiled" in label or label.startswith("optimize"):
             # where the host time goes: the self CPU time of the traced ops
             # (aten ops, CUDA runtime calls) per call, and what is left of
             # the traced wall time, the Python between them
             ops = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
-            op_ms = sum(e.self_cpu_time_total for e in ops) / 1e3 / REPS
-            print(f"    host: {op_ms:.4f} ms self CPU in {sum(e.count for e in ops) / REPS:.0f} "
+            op_ms = sum(e.self_cpu_time_total for e in ops) / 1e3 / reps
+            print(f"    host: {op_ms:.4f} ms self CPU in {sum(e.count for e in ops) / reps:.0f} "
                   f"traced ops per call (traced wall {traced_ms:.4f} ms)")
             for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]:
-                print(f"    {e.self_cpu_time_total / 1e3 / REPS:8.4f} ms host "
-                      f"x{e.count // REPS:<4d} {e.key[:80]}")
+                print(f"    {e.self_cpu_time_total / 1e3 / reps:8.4f} ms host "
+                      f"x{e.count // reps:<4d} {e.key[:80]}")
     return 0
 
 

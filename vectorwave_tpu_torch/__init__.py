@@ -31,7 +31,13 @@ covariance and correlation with the online variance stream, long memory
 (Hurst exponent, variance change test), multifractal leaders, the lifting
 DWT with its lossless integer mode, the empirical wavelet transform and the
 1-D scattering network; and the 2-D CWT (``cwt2``, ``icwt2``) with 2-D
-scattering.
+scattering.  The decimated 2-D trees (the packet quadtree with its best
+basis and denoisers, the 2-D dual tree with bivariate shrinkage), the
+sparse solvers (FISTA, basis-pursuit denoising, inpainting, compressed
+sensing) and ForWaRD deconvolution (``optimize``), block shrinkage, and the
+infrastructure: the cost model (``cost_model``), logging and profiling
+(``observability``), ``TransformConfig``, ``enable_compilation_cache`` and
+``get_performance_info``.
 
 The package imports ``torch``, ``numpy`` and ``mpmath`` and never JAX or
 ``vectorwave_tpu``.  Inputs and outputs are ``[..., N]`` tensors; the device
@@ -39,8 +45,22 @@ is the input's (``[..., H, W]`` for the 2-D family).  Only what is ported
 is exported.
 """
 
-from . import config, convert, errors, finance, kernels, native, optimize, parallel, streaming
+from . import (
+    config,
+    convert,
+    cost_model,
+    errors,
+    finance,
+    kernels,
+    native,
+    observability,
+    optimize,
+    parallel,
+    streaming,
+)
 from .config import (
+    TransformConfig,
+    enable_compilation_cache,
     get_backend,
     get_fused_precision,
     get_sigma_estimator,
@@ -48,9 +68,15 @@ from .config import (
     set_fused_precision,
     set_sigma_estimator,
 )
-from .denoise.denoiser import denoise, denoise_fixed, denoise_multilevel, threshold_coeffs
-from .denoise.dtcwt_shrink import dtcwt_denoise
-from .denoise.packet import denoise_packet
+from .denoise.denoiser import (
+    denoise,
+    denoise_block,
+    denoise_fixed,
+    denoise_multilevel,
+    threshold_coeffs,
+)
+from .denoise.dtcwt_shrink import dtcwt2_denoise, dtcwt_denoise
+from .denoise.packet import denoise_packet, denoise_packet2
 from .errors import (
     ErrorCode,
     InvalidArgumentError,
@@ -80,9 +106,12 @@ from .ops.dwt import (
     wavedec,
     waverec,
 )
+from .ops.facade import PerformanceInfo, get_performance_info
 from .ops.thresholds import (
+    BLOCK_LAMBDA,
     apply_threshold,
     bayes_threshold,
+    block_shrink,
     fdr_threshold,
     hard_threshold,
     mad_sigma,
@@ -164,7 +193,19 @@ from .transforms.variance import (
     wavelet_covariance,
     wavelet_variance,
 )
-from .optimize import MPResult, matching_pursuit
+from .optimize import (
+    DeconvolutionResult,
+    MPResult,
+    SparseRecovery,
+    bpdn,
+    deconvolve,
+    deconvolve2,
+    fista,
+    inpaint,
+    inpaint2,
+    matching_pursuit,
+    sparse_recover,
+)
 from .transforms.significance import (
     SignificanceResult,
     ar1_coefficient,
@@ -191,6 +232,7 @@ from .transforms.dtcwt import (
     dtcwt_max_levels,
     idtcwt,
 )
+from .transforms.dtcwt2 import DTCWT2Result, dtcwt2, idtcwt2
 from .transforms.modwt import MODWTResult, imodwt, modwt
 from .transforms.multilevel import (
     MAX_DECOMPOSITION_LEVELS,
@@ -212,6 +254,16 @@ from .transforms.packets import (
     packet_frequency_bands,
     reconstruct_basis,
     wpt,
+)
+from .transforms.packets2d import (
+    WaveletPacket2DTree,
+    basis_coefficients2,
+    best_basis2,
+    best_basis_denoise2,
+    iwpt2,
+    packet_frequency_bands2,
+    reconstruct_basis2,
+    wpt2,
 )
 from .transforms.swt2 import SWT2Result, extract_level2, iswt2, mra2, swt2, swt2_denoise
 from .transforms.swt import (
@@ -260,15 +312,18 @@ from .wavelets.registry import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "BLOCK_LAMBDA",
     "CWT2Result",
     "CWTConfig",
     "CWTResult",
     "CoherenceResult",
     "ContinuousWavelet",
     "ContinuousWavelet2D",
+    "DTCWT2Result",
     "DTCWTResult",
     "DWT2Result",
     "DWTResult",
+    "DeconvolutionResult",
     "DiscreteWavelet",
     "ErrorCode",
     "ExactMODWTResult",
@@ -288,6 +343,7 @@ __all__ = [
     "MultiLevelMODWTResult",
     "MultifractalResult",
     "PADDING_STRATEGIES",
+    "PerformanceInfo",
     "RidgeResult",
     "SSTResult",
     "SWT2Result",
@@ -296,12 +352,15 @@ __all__ = [
     "Scattering2DResult",
     "ScatteringResult",
     "SignificanceResult",
+    "SparseRecovery",
+    "TransformConfig",
     "TransformType",
     "VarianceChangeResult",
     "VarianceStreamState",
     "VectorWaveError",
     "WavedecResult",
     "Wavelet",
+    "WaveletPacket2DTree",
     "WaveletPacketTree",
     "WaveletType",
     "WaveletVarianceResult",
@@ -313,27 +372,40 @@ __all__ = [
     "as_wavelet",
     "available_wavelets",
     "basis_coefficients",
+    "basis_coefficients2",
     "bayes_threshold",
     "best_basis",
+    "best_basis2",
+    "best_basis_denoise2",
+    "block_shrink",
+    "bpdn",
     "coefficient_delay",
     "coherence_significance",
     "cone_of_influence",
     "config",
     "convert",
+    "cost_model",
     "cross_wavelet",
     "cwt",
     "cwt2",
+    "deconvolve",
+    "deconvolve2",
     "denoise",
     "denoise2",
+    "denoise_block",
     "denoise_fixed",
     "denoise_multilevel",
     "denoise_packet",
+    "denoise_packet2",
     "dominant_frequencies",
     "dtcwt",
+    "dtcwt2",
+    "dtcwt2_denoise",
     "dtcwt_denoise",
     "dtcwt_max_levels",
     "dwt",
     "dwt2",
+    "enable_compilation_cache",
     "errors",
     "estimate_scale_count",
     "ewt",
@@ -345,6 +417,7 @@ __all__ = [
     "extract_ridge",
     "fdr_threshold",
     "finance",
+    "fista",
     "frequency_order",
     "frequency_range_of_scales",
     "frequency_to_scale",
@@ -355,12 +428,14 @@ __all__ = [
     "get_backend",
     "get_fused_precision",
     "get_lifting_scheme",
+    "get_performance_info",
     "get_sigma_estimator",
     "hard_threshold",
     "hurst_exponent",
     "icwt",
     "icwt2",
     "idtcwt",
+    "idtcwt2",
     "idwt",
     "idwt2",
     "iewt",
@@ -370,12 +445,15 @@ __all__ = [
     "imodwt2_multilevel",
     "imodwt_multilevel",
     "imodwt_multilevel_exact",
+    "inpaint",
+    "inpaint2",
     "instantaneous_frequency",
     "is_compatible",
     "isst",
     "iswt",
     "iswt2",
     "iwpt",
+    "iwpt2",
     "kernel_available",
     "kernels",
     "lifting_dwt",
@@ -407,7 +485,9 @@ __all__ = [
     "mra2",
     "multifractal_spectrum",
     "native",
+    "observability",
     "packet_frequency_bands",
+    "packet_frequency_bands2",
     "pad_signal",
     "parallel",
     "phase_randomized_surrogates",
@@ -415,6 +495,7 @@ __all__ = [
     "recommended_transform",
     "reconstruct_band",
     "reconstruct_basis",
+    "reconstruct_basis2",
     "reconstruct_frequency_band",
     "register_wavelet",
     "resolve_tolerance",
@@ -437,6 +518,7 @@ __all__ = [
     "significance_levels",
     "significant_power",
     "soft_threshold",
+    "sparse_recover",
     "streaming",
     "supported_transforms",
     "sure_threshold",
@@ -465,4 +547,5 @@ __all__ = [
     "waverec",
     "waverec2",
     "wpt",
+    "wpt2",
 ]

@@ -2,7 +2,8 @@
 
 Counterpart of ``vectorwave_tpu/config.py``: module-level knobs for the
 compute backend, the precision tier of the kernel tier and the MAD-sigma
-estimator of the fused denoise router.
+estimator of the fused denoise router; the cache directories; and
+:class:`TransformConfig`, a bundle of transform options.
 
 Backends are ``auto`` (the hand-written CUDA kernels on an eligible CUDA
 tensor, plain PyTorch otherwise), ``torch`` (always the plain PyTorch path)
@@ -13,6 +14,7 @@ accepted as aliases of ``torch`` and ``kernel``.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 from .errors import ErrorCode, InvalidConfigurationError
@@ -99,3 +101,45 @@ def cache_root() -> str:
         "VECTORWAVE_TPU_TORCH_CACHE",
         os.path.join(os.path.expanduser("~"), ".cache", "vectorwave_tpu_torch"),
     )
+
+
+def enable_compilation_cache(path: str | None = None) -> str:
+    """Keep the kernels' builds in a persistent directory.
+
+    The port's counterpart of the JAX package's XLA compilation cache: the
+    CUDA kernel library (``kernels/_build.py``) and the native ring
+    (``native/``) are built at first use; this points both builds at
+    ``path``, or at ``<cache_root()>/cuda``, so that later processes load
+    them instead of compiling.  It applies to builds not yet loaded in this
+    process.  Without the call they build into the package's own ``_build``
+    directories.  Returns the directory used.
+    """
+    import pathlib
+
+    from . import native
+    from .kernels import _build
+
+    target = pathlib.Path(path if path is not None else os.path.join(cache_root(), "cuda"))
+    target.mkdir(parents=True, exist_ok=True)
+    _build.BUILD_DIR = target
+    native.BUILD_DIR = target
+    return str(target)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformConfig:
+    """Bundle of transform options.
+
+    ``boundary``: periodic / zero / symmetric.
+    ``backend``: auto / torch / kernel (``jnp`` and ``pallas`` are taken as
+    their aliases and stored as ``torch`` and ``kernel``).
+    ``max_decomposition_levels``: safety cap (the multi-level transform
+    itself caps at 10).
+    """
+
+    boundary: str = "periodic"
+    backend: str = "auto"
+    max_decomposition_levels: int = 20
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "backend", normalize_backend(self.backend))

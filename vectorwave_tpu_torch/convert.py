@@ -2,9 +2,9 @@
 
 The two packages share no code, so these helpers take plain numpy arrays:
 a filter bank exported from a ``vectorwave_tpu`` wavelet, a threshold
-array, the planes of an exact-tier result, the bands of a 2-D MODWT
-result, the levels of a packet tree, the coefficients of a DTCWT, a CWT or
-a synchrosqueezed result, one of the four streaming states, the wavelet
+array, the planes of an exact-tier result or of a multi-level MODWT result,
+the bands of a 2-D MODWT result, the levels of a packet tree or quadtree,
+the coefficients of a DTCWT (1-D or 2-D), a CWT or a synchrosqueezed result, one of the four streaming states, the wavelet
 variance stream's state or one of the two incremental tick states becomes
 the port's object (a stream or a tick
 stream checkpointed in JAX resumes in the port).
@@ -140,6 +140,78 @@ def modwt2_result_from_arrays(details, approx, device="cuda"):
     return MultiLevelMODWT2Result(
         tuple(tuple(tensor(p) for p in trip) for trip in details), tensor(approx)
     )
+
+
+def multilevel_result_from_arrays(details, approx, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.MultiLevelMODWTResult` from the planes
+    of a 1-D multi-level MODWT result as arrays (for example the fields of a
+    ``vectorwave_tpu`` ``MultiLevelMODWTResult``, or a ``SparseRecovery``'s
+    ``coeffs``): ``details`` finest first, ``approx`` the final
+    approximation, all of one shape.  The dtype is kept; the tensors go to
+    ``device`` (default: the card; pass ``device="cpu"`` for the CPU).
+    Without a card the default raises."""
+    from .transforms.multilevel import MultiLevelMODWTResult
+
+    dev = _device(device)
+    planes = [np.array(a) for a in (*details, approx)]
+    if len(planes) < 2 or len({p.shape for p in planes}) != 1:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "a multi-level result needs at least one detail plane, all planes of one shape",
+            context={"shapes": [p.shape for p in planes]},
+        )
+    tensors = [torch.from_numpy(p).to(dev) for p in planes]
+    return MultiLevelMODWTResult(tuple(tensors[:-1]), tensors[-1])
+
+
+def packet2_tree_from_arrays(levels, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.WaveletPacket2DTree` from the
+    per-depth node arrays of a 2-D packet quadtree (for example the
+    ``levels`` of a ``vectorwave_tpu`` ``WaveletPacket2DTree``):
+    ``levels[j]`` is ``[..., 4^j, H_j, W_j]``.  The dtype is kept; the
+    tensors go to ``device`` (default: the card; pass ``device="cpu"`` for
+    the CPU).  Without a card the default raises."""
+    from .transforms.packets2d import WaveletPacket2DTree
+
+    dev = _device(device)
+    arrays = [np.array(a) for a in levels]
+    if not arrays or any(a.ndim < 3 or a.shape[-3] != (1 << (2 * j))
+                         or a.shape[:-3] != arrays[0].shape[:-3]
+                         for j, a in enumerate(arrays)):
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "levels[j] must be [..., 4^j, H_j, W_j] with the same leading axes",
+            context={"shapes": [a.shape for a in arrays]},
+        )
+    return WaveletPacket2DTree(tuple(torch.from_numpy(a).to(dev) for a in arrays))
+
+
+def dtcwt2_result_from_arrays(highpasses, lowpasses, device="cuda"):
+    """A :class:`~vectorwave_tpu_torch.DTCWT2Result` from the complex
+    ``[..., 6, H_j, W_j]`` highpasses (finest first) and the real
+    ``[..., 4, h, w]`` lowpasses of a 2-D DTCWT result as arrays (for
+    example the fields of a ``vectorwave_tpu`` ``DTCWT2Result``).  The dtypes
+    are kept; the tensors go to ``device`` (default: the card; pass
+    ``device="cpu"`` for the CPU).  Without a card the default raises."""
+    from .transforms.dtcwt2 import DTCWT2Result
+
+    dev = _device(device)
+    highs = [np.array(z) for z in highpasses]
+    lows = np.array(lowpasses)
+    halving = all(a.shape[-2:] == (2 * b.shape[-2], 2 * b.shape[-1])
+                  for a, b in zip(highs, highs[1:]))
+    if (not highs or not all(np.iscomplexobj(z) and z.ndim >= 3 and z.shape[-3] == 6
+                             for z in highs)
+            or not halving or lows.ndim < 3 or lows.shape[-3] != 4
+            or lows.shape[-2:] != highs[-1].shape[-2:]):
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            "highpasses must be complex [..., 6, H_j, W_j], halving level by level, and "
+            "the lowpasses [..., 4, h, w] of the coarsest highpass's size",
+            context={"highpasses": [z.shape for z in highs], "lowpasses": lows.shape},
+        )
+    return DTCWT2Result(tuple(torch.from_numpy(z).to(dev) for z in highs),
+                        torch.from_numpy(lows).to(dev))
 
 
 def packet_tree_from_arrays(levels, device="cuda"):

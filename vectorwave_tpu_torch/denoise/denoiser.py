@@ -1,10 +1,10 @@
 """MODWT-based wavelet denoising.
 
-Counterpart of ``vectorwave_tpu/denoise/denoiser.py`` (without the block
-shrinkage): single-level :func:`denoise` and :func:`denoise_fixed`, and the
-multi-level :func:`denoise_multilevel`: sigma from the MAD of the finest
-detail, a level-dependent threshold rule, shrinkage of the detail planes,
-reconstruction.  For the sigma-only rules
+Counterpart of ``vectorwave_tpu/denoise/denoiser.py``: single-level
+:func:`denoise` and :func:`denoise_fixed`, and the multi-level
+:func:`denoise_multilevel` and :func:`denoise_block`: sigma from the MAD of
+the finest detail, a level-dependent threshold rule (or NeighBlock block
+shrinkage), shrinkage of the detail planes, reconstruction.  For the sigma-only rules
 (universal, minimax) on an eligible CUDA tensor the whole pipeline is one
 launch of the fused denoise kernel, and the coefficient planes never reach
 device memory.
@@ -23,6 +23,7 @@ from ..kernels.modwt_composite import denoise_tile
 from ..kernels.modwt_fused import _INV_SQRT2, fused_denoise_multilevel
 from ..ops.thresholds import (
     apply_threshold,
+    block_shrink,
     mad_sigma,
     minimax_threshold,
     select_threshold,
@@ -237,3 +238,30 @@ def _fused_sigma(x, w, boundary):
         part_own = (part_own + torch.where(mask, 0.0, view) * tap).to(torch.float32)
     d1 = part_before + part_own
     return mad_sigma(d1.reshape(-1, n_sub * _SIGMA_ROW)).reshape(lead + (1,))
+
+
+def denoise_block(
+    x: torch.Tensor,
+    wavelet,
+    *,
+    levels: int | None = None,
+    boundary: str = "periodic",
+    block_size: int | None = None,
+) -> torch.Tensor:
+    """Multi-level NeighBlock denoise.
+
+    Like :func:`denoise_multilevel`, but each detail level is shrunk in
+    blocks with :func:`~vectorwave_tpu_torch.ops.thresholds.block_shrink`: a
+    strong neighbour rescues weak coefficients inside a feature.  The
+    per-level noise floor follows the same ``sigma / sqrt(2^j)`` MODWT
+    scaling as :func:`threshold_coeffs`.  On an eligible CUDA tensor the
+    transform pair is one analysis and one synthesis kernel launch.
+    """
+    res = modwt_multilevel(x, wavelet, levels=levels, boundary=boundary)
+    sigma = mad_sigma(res.details[0])
+    new_details = []
+    for level, detail in enumerate(res.details, start=1):
+        level_sigma = sigma / math.sqrt(2.0**level)
+        new_details.append(block_shrink(detail, level_sigma, block_size=block_size))
+    denoised = MultiLevelMODWTResult(tuple(new_details), res.approx)
+    return imodwt_multilevel(denoised, wavelet, boundary=boundary)

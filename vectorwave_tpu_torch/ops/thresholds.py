@@ -1,20 +1,25 @@
 """Thresholding and noise-estimation primitives in plain PyTorch.
 
 Counterpart of ``vectorwave_tpu/ops/thresholds.py``: soft/hard shrinkage,
-the MAD noise estimate and the universal, SURE, minimax, Bayes and FDR
-threshold rules, all vectorized along the last axis.
+the MAD noise estimate, the universal, SURE, minimax, Bayes and FDR
+threshold rules and NeighBlock block shrinkage, all vectorized along the
+last axis.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..errors import ErrorCode, InvalidArgumentError
 
 #: MAD -> sigma scale for Gaussian noise
 MAD_SCALE = 0.6745
+
+#: Cai-Silverman block-shrinkage risk constant (the root of L - log L = 3)
+BLOCK_LAMBDA = 4.50524
 
 
 def soft_threshold(coeffs: torch.Tensor, threshold) -> torch.Tensor:
@@ -136,6 +141,51 @@ def fdr_threshold(coeffs: torch.Tensor, sigma, q: float = 0.05) -> torch.Tensor:
                                 keepdim=True)
     t_found = torch.gather(s, -1, last)
     return torch.where(found, t_found, s[..., :1])
+
+
+def block_shrink(
+    coeffs: torch.Tensor,
+    sigma,
+    *,
+    block_size: int | None = None,
+    lam: float = BLOCK_LAMBDA,
+) -> torch.Tensor:
+    """NeighBlock James-Stein block shrinkage (Cai-Silverman 2001).
+
+    Coefficients are shrunk in blocks of ``L0 = floor(log n / 2)`` using the
+    energy ``S_b`` of an extended window (``L1 = floor(L0/2)`` extra
+    samples each side),
+
+        c_b <- c_b * max(0, 1 - lam * L * sigma^2 / S_b),
+
+    so a strong neighbour rescues a weak coefficient inside a feature and
+    isolated noise blocks are zeroed wholesale.  Windows are clamped at the
+    edges (``L`` is the actual window length per block).  The window
+    energies are differences of one prefix sum along the last axis, as in
+    the JAX package: in float32 they cancel on long rows (the difference of
+    two sums of order n), so a float32 shrink strays from a float64 one by
+    about 1e-5 of the largest coefficient at n = 1024 and 2e-5 at 4096, as
+    the JAX package's float32 shrink does.
+    """
+    n = coeffs.shape[-1]
+    if block_size is None:
+        block_size = max(1, int(math.log(max(n, 2)) / 2.0))
+    l0 = max(1, int(block_size))
+    l1 = max(1, l0 // 2)
+    nb = -(-n // l0)
+    starts = np.clip(np.arange(nb) * l0 - l1, 0, n)
+    ends = np.clip(np.arange(nb) * l0 + l0 + l1, 0, n)
+    c2 = coeffs * coeffs
+    csum = torch.cat([coeffs.new_zeros(coeffs.shape[:-1] + (1,)), torch.cumsum(c2, dim=-1)],
+                     dim=-1)
+    dev = coeffs.device
+    energy = (csum[..., torch.from_numpy(ends).to(dev)]
+              - csum[..., torch.from_numpy(starts).to(dev)])  # [..., nb]
+    win_len = torch.from_numpy(ends - starts).to(device=dev, dtype=coeffs.dtype)
+    sigma = torch.as_tensor(sigma, device=dev)
+    factor = torch.clamp(1.0 - lam * win_len * sigma * sigma / (energy + 1e-30), min=0.0)
+    idx_map = np.minimum(np.arange(n) // l0, nb - 1)
+    return coeffs * factor[..., torch.from_numpy(idx_map).to(dev)]
 
 
 def select_threshold(coeffs: torch.Tensor, sigma, method: str):
