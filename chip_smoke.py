@@ -172,7 +172,23 @@ Phases, in order; any failure raises and the exit code is not 0:
    mesh; ``modwt2_multilevel_tiled`` -> ``imodwt2_multilevel_tiled`` db4 J=4
    at 8x2048x2048 over 4 row shards (the plain route) within 5e-5 of
    ``modwt2_multilevel``; the symmetric tiled round trip at 8x65536 (the
-   plain route) against the untiled plain path;
+   plain route) against the untiled plain path; then the multi-process run
+   of the host x chip layout: two ranks on this card over Gloo (children
+   that re-run this script with ``--rank-worker``, a ``file://`` store in a
+   temporary directory), each a row of four virtual shards of the card
+   (``make_multihost_mesh(devices=[cuda:0] * 4)``, a ``{"host": 2, "chip":
+   4}`` mesh) and rows 64r .. 64r+63 of a seeded 128x65536 batch, periodic,
+   zero and symmetric, each direction with its own reset and reading of the
+   counters in the rank (one external-edge analysis and one external-halo
+   synthesis launch for periodic and zero, none for symmetric), every plane
+   and the inverse of the same planes within 2e-5 of the one-process plain
+   cascade, the periodic round trip's RMSE <= 3e-7, and no
+   ``torch.distributed`` call during the transforms (the module's functions
+   wrapped with counters after the mesh's one ``all_gather_object``); then
+   an NCCL world of one, whose ``make_multihost_mesh()`` is ``{"host": 1,
+   "chip": 1}`` and whose round trip equals the one-process facade bit for
+   bit; a rank that fails, prints no result or runs past 120 s fails the
+   phase, with its stderr's tail;
 4. timing with CUDA events (3 warm-ups, median of 20 runs) of each kernel
    beside its plain version and one PyTorch library call that computes the
    same function (``F.conv1d`` with the composite filters; not for the
@@ -211,7 +227,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    bound and ``F.conv1d`` with the scales as output channels; the tiled
    CWT's and the paths built on the CWT's calls of phase 3; the
    default-depth, analysis, optimisation and 2-D tree calls of phase 3
-   (CUDA events and the host clock, with each call's launches).
+   (CUDA events and the host clock, with each call's launches); each rank's
+   round trip of its 64 rows, alone on the card and with both ranks at once,
+   and the NCCL world of one's (CUDA events in the rank, during phase 3),
+   beside the one-process 2x4 mesh's and the untiled round trip at
+   128x65536 and 64x65536.
 
 Phase 3 ends with the default-depth MODWT and the 1-D analysis modules
 (``analysis_path``), then the sparse solvers, the deconvolutions, the block
@@ -391,6 +411,21 @@ STREAM_B, STREAM_NBLK, STREAM_BLK = 128, 8, 8192
 SLIDE_BUFFER, INGEST_LEVELS = 512, 4
 #: the tiled path: virtual shards of the main path's signals on one card
 TILED_SHARDS = (4, 8)
+#: the multi-process run of the host x chip layout: MP_RANKS ranks on this
+#: card over Gloo (NCCL takes one rank a card), each a row of MP_CHIPS
+#: virtual shards and BATCH // MP_RANKS rows of the seeded global batch; a
+#: child past MP_TIMEOUT seconds is killed and fails the phase
+MP_RANKS, MP_CHIPS, MP_TIMEOUT, MP_SEED = 2, 4, 120, SEED + 19
+MP_BOUNDARIES = ("periodic", "zero", "symmetric")
+RANK_WORKER = "--rank-worker"
+#: torch.distributed's functions that talk to another rank
+COLLECTIVES = (
+    "all_gather", "all_gather_into_tensor", "all_gather_object", "all_reduce", "all_to_all",
+    "all_to_all_single", "barrier", "batch_isend_irecv", "broadcast", "broadcast_object_list",
+    "gather", "gather_object", "irecv", "isend", "monitored_barrier", "recv",
+    "recv_object_list", "reduce", "reduce_scatter", "reduce_scatter_tensor", "scatter",
+    "scatter_object_list", "send", "send_object_list",
+)
 #: the CWT path: config #5's single-card shape (bench_full.py:206-209: morl,
 #: 64 scales geomspace(2, 4096), one 2^20-sample float32 signal, periodic) and
 #: the main path's batch with the TPU bench's 32 scales geomspace(2, 64)
@@ -2362,6 +2397,242 @@ def tiled_timing(dev, gen):
     return ms_of, bound
 
 
+def count_collectives(dist) -> dict:
+    """Wrap every function of ``COLLECTIVES`` with a counter; returns the
+    live ``{name: calls}``."""
+    calls: dict = {}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name in COLLECTIVES:
+        if hasattr(dist, name):
+            setattr(dist, name, counted(name, getattr(dist, name)))
+    return calls
+
+
+def rank_worker(argv) -> int:
+    """One rank of the multi-process block (``chip_smoke.py --rank-worker
+    BACKEND RANK WORLD STORE``): ``gloo`` ranks run the host x chip layout
+    on their rows, ``nccl`` is the world of one.  Prints one ``RESULT`` line;
+    any failed check raises."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    backend, rank, world, store = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import parallel as par
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    def launched(fn):
+        mc.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in mc.LAUNCHES.items() if v}
+
+    def round_trip(mesh, x, boundary="periodic"):
+        res = par.modwt_multilevel_multihost(x, WAVELET, levels=LEVELS, mesh=mesh,
+                                             boundary=boundary)
+        return res, par.imodwt_multilevel_multihost(res, WAVELET, mesh=mesh, boundary=boundary)
+
+    gen = torch.Generator(device=dev).manual_seed(MP_SEED)
+    x = torch.randn(BATCH, N, device=dev, generator=gen)
+    timeout = datetime.timedelta(seconds=MP_TIMEOUT)
+    out = {"rank": rank, "backend": backend}
+    if backend == "nccl":
+        # the one-process facade first, with no process group
+        one = par.make_multihost_mesh(1, 1, devices=[dev])
+        (want, y_want), _ = launched(lambda: round_trip(one, x))
+        dist.init_process_group("nccl", init_method=f"file://{store}", world_size=1, rank=0,
+                                timeout=timeout)
+        try:
+            mesh = par.make_multihost_mesh()
+            check(mesh.shape == {"host": 1, "chip": 1} and mesh.process_count == 1,
+                  f"NCCL world of one: make_multihost_mesh() is {mesh.shape}")
+            res, fwd = launched(lambda: par.modwt_multilevel_multihost(x, WAVELET, levels=LEVELS,
+                                                                       mesh=mesh))
+            y, inv = launched(lambda: par.imodwt_multilevel_multihost(res, WAVELET, mesh=mesh))
+            same = all(torch.equal(a, b) for a, b in zip((*res.details, res.approx, y),
+                                                       (*want.details, want.approx, y_want)))
+            check(same and fwd == {"modwt_analysis": 1} and inv == {"modwt_synthesis": 1},
+                  f"NCCL world of one: the round trip equals the one-process facade bit for "
+                  f"bit; launches {fwd}, {inv}")
+            live = torch.ones(1, device=dev)
+            dist.all_reduce(live)
+            check(live.item() == 1.0, "NCCL world of one: all_reduce on the card")
+            out["round_trip_ms"] = median_ms(lambda: round_trip(mesh, x))
+        finally:
+            dist.destroy_process_group()
+        print("RESULT " + json.dumps(out), flush=True)
+        return 0
+
+    rows = BATCH // world
+    x = x[rank * rows:(rank + 1) * rows].contiguous()
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                            timeout=timeout)
+    try:
+        calls = count_collectives(dist)
+        mesh = par.make_multihost_mesh(devices=[dev] * MP_CHIPS)
+        check(mesh.shape == {"host": world, "chip": MP_CHIPS} and mesh.process_count == world
+              and calls == {"all_gather_object": 1},
+              f"rank {rank}: make_multihost_mesh is {mesh.shape}, its collectives {calls}")
+        at_build = dict(calls)
+        totals = {}
+        for boundary in MP_BOUNDARIES:
+            label = f"rank {rank}, rows {rank * rows}-{(rank + 1) * rows - 1}, {boundary}"
+            kernel = boundary != "symmetric"
+            res, fwd = launched(lambda: par.modwt_multilevel_multihost(
+                x, WAVELET, levels=LEVELS, mesh=mesh, boundary=boundary))
+            y, inv = launched(lambda: par.imodwt_multilevel_multihost(
+                res, WAVELET, mesh=mesh, boundary=boundary))
+            check(fwd == ({"modwt_analysis": 1} if kernel else {})
+                  and inv == ({"modwt_synthesis": 1} if kernel else {}),
+                  f"{label}: launches {fwd} forward, {inv} inverse")
+            for k, v in (*fwd.items(), *inv.items()):
+                totals[k] = totals.get(k, 0) + v
+            ref = vt.modwt_multilevel(x, WAVELET, levels=LEVELS, boundary=boundary,
+                                      backend="torch")
+            err = max(max_err(a, b) for a, b in zip((*res.details, res.approx),
+                                                    (*ref.details, ref.approx)))
+            syn_err = max_err(y, vt.imodwt_multilevel(res, WAVELET, boundary=boundary,
+                                                      backend="torch"))
+            rmse = (y - x).pow(2).mean().sqrt().item()
+            check(err <= TOL_F32 and syn_err <= TOL_F32
+                  and (rmse <= RT_RMSE or boundary != "periodic"),
+                  f"{label} vs the one-process plain cascade: every plane {err:.3e}, the "
+                  f"inverse of the same planes {syn_err:.3e} <= {TOL_F32:.0e}; round trip "
+                  f"rmse {rmse:.3e}" + (f" <= {RT_RMSE:.0e}" if boundary == "periodic" else ""))
+        check(calls == at_build, f"rank {rank}: no torch.distributed call during the "
+                                 f"transforms ({calls})")
+        out["launches"] = totals
+        # the round trip alone on the card (each rank in turn), then both at once
+        alone = None
+        for turn in range(world):
+            dist.barrier()
+            if turn == rank:
+                alone = median_ms(lambda: round_trip(mesh, x))
+        dist.barrier()
+        out["round_trip_ms_alone"] = alone
+        out["round_trip_ms"] = median_ms(lambda: round_trip(mesh, x))
+    finally:
+        dist.destroy_process_group()
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def run_ranks(backend: str, world: int) -> list:
+    """Start ``world`` rank workers on one ``file://`` store in a temporary
+    directory, wait at most ``MP_TIMEOUT`` s for all of them (killing every
+    one past it), echo their output and return their results in rank order.
+    A rank that fails, hangs or prints no result fails the phase, with its
+    stderr's tail."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks") as tmp:
+        procs, logs = [], []
+        for rank in range(world):
+            logs.append((os.path.join(tmp, f"rank{rank}.out"),
+                         os.path.join(tmp, f"rank{rank}.err")))
+            with open(logs[-1][0], "w") as fo, open(logs[-1][1], "w") as fe:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), RANK_WORKER, backend, str(rank),
+                     str(world), os.path.join(tmp, "store")], stdout=fo, stderr=fe))
+        deadline = time.monotonic() + MP_TIMEOUT
+        hung = []
+        for rank, proc in enumerate(procs):
+            try:
+                proc.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                hung.append(rank)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        results, faults = [], []
+        for rank, (proc, (out, err)) in enumerate(zip(procs, logs)):
+            with open(out) as fo, open(err) as fe:
+                lines, tail = fo.read().splitlines(), fe.read()[-3000:]
+            for line in lines:
+                if not line.startswith("RESULT "):
+                    print(f"  [{backend} rank {rank}] {line.strip()}", flush=True)
+            found = [json.loads(ln[len("RESULT "):]) for ln in lines if ln.startswith("RESULT ")]
+            if rank in hung or proc.returncode != 0 or len(found) != 1:
+                print(f"  [{backend} rank {rank}] stderr:\n{tail}", file=sys.stderr, flush=True)
+                hang = f"hung past {MP_TIMEOUT} s, killed; " if rank in hung else ""
+                faults.append(f"rank {rank}: {hang}exit code {proc.returncode}, "
+                              f"{len(found)} results")
+            else:
+                results.append(found[0])
+    check(not faults, f"{backend} ranks: " + ("; ".join(faults) if faults else
+                                              f"{world} of {world} returned their results"))
+    return results
+
+
+def multiprocess_path():
+    """Phase 3 for the multi-process run of the host x chip layout: two
+    ranks on this card over Gloo (each its own 64 rows over a row of four
+    virtual shards, every boundary, the launches and the collectives counted
+    in the rank), then the NCCL world of one.  Returns (the rows' launches,
+    the ranks' results)."""
+    t0 = time.perf_counter()
+    ranks = run_ranks("gloo", MP_RANKS)
+    world_of_one = run_ranks("nccl", 1)
+    total = {"modwt_analysis_external": 0, "modwt_synthesis_external": 0}
+    for res in ranks:
+        total["modwt_analysis_external"] += res["launches"].get("modwt_analysis", 0)
+        total["modwt_synthesis_external"] += res["launches"].get("modwt_synthesis", 0)
+    check(total == {"modwt_analysis_external": 2 * MP_RANKS,
+                    "modwt_synthesis_external": 2 * MP_RANKS},
+          f"the ranks' launches on the multi-process path: {total}")
+    print(f"  the multi-process block took {time.perf_counter() - t0:.1f} s", flush=True)
+    return total, {"gloo": ranks, "nccl": world_of_one}
+
+
+def multiprocess_timing(dev, gen, smi, ranks):
+    """Phase 4 for the multi-process block: each rank's round trip of its 64
+    rows (alone on the card, and with both ranks at once; CUDA events in the
+    rank, measured in phase 3), the NCCL world of one's round trip, and in
+    this process the one-process 2x4 mesh and the untiled round trip at
+    128x65536 and 64x65536."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import parallel as par
+
+    rows = BATCH // MP_RANKS
+    for res in ranks["gloo"]:
+        print(f"  rank {res['rank']} of {MP_RANKS} (Gloo), {rows}x{N} over {MP_CHIPS} virtual "
+              f"shards: round trip {res['round_trip_ms']:.4f} ms with both ranks at once, "
+              f"{res['round_trip_ms_alone']:.4f} ms alone ({smi})", flush=True)
+    (one,) = ranks["nccl"]
+    print(f"  NCCL world of one, {BATCH}x{N} on make_multihost_mesh() (1x1): round trip "
+          f"{one['round_trip_ms']:.4f} ms ({smi})", flush=True)
+    hosts = par.make_multihost_mesh(2, 4, devices=[dev] * 8)
+    x = torch.randn(BATCH, N, device=dev, generator=gen)
+    for b in (BATCH, rows):
+        xb = x[:b].contiguous()
+        for label, fn in (
+            ("modwt_multilevel_multihost + imodwt_multilevel_multihost, one process 2x4",
+             lambda: par.imodwt_multilevel_multihost(par.modwt_multilevel_multihost(
+                 xb, WAVELET, levels=LEVELS, mesh=hosts), WAVELET, mesh=hosts)),
+            ("modwt_multilevel + imodwt_multilevel (untiled)",
+             lambda: vt.imodwt_multilevel(vt.modwt_multilevel(xb, WAVELET, levels=LEVELS),
+                                          WAVELET)),
+        ):
+            t_ms = median_ms(fn)
+            print(f"  {label}, {b}x{N}: {t_ms:.4f} ms ({t_ms / b * 1e3:.3f} µs a row; {smi})",
+                  flush=True)
+
+
 def wall_ms(fn, reps: int = 5) -> float:
     """Median host-clock time of ``fn`` ending in a synchronise: what a
     caller waits for a host-bound call."""
@@ -3806,6 +4077,12 @@ def main() -> int:
           "virtual shards", flush=True)
     for name, count in tiled_path(dev, gen).items():
         launches[name] = launches.get(name, 0) + count
+    print(f"  the multi-process run: {MP_RANKS} ranks on this card over Gloo, "
+          f"{BATCH // MP_RANKS}x{N} a rank over {MP_CHIPS} virtual shards; an NCCL world of one",
+          flush=True)
+    mp_launches, mp_ranks = multiprocess_path()
+    for name, count in mp_launches.items():
+        launches[name] = launches.get(name, 0) + count
     print(f"  the default-depth MODWT and the analysis modules, {BATCH}x{N}, 1x{LONG_N} "
           "and the 2-D CWT", flush=True)
     for name, count in analysis_path(dev, gen).items():
@@ -4062,6 +4339,7 @@ def main() -> int:
     tiled_ms, tiled_bound = tiled_timing(dev, gen)
     ms_of.update(tiled_ms)
     bound.update(tiled_bound)
+    multiprocess_timing(dev, gen, smi, mp_ranks)
     analysis_timing(dev, gen)
     optimize_timing(dev, gen)
     print(f"  the run so far: {time.perf_counter() - run_start:.1f} s", flush=True)
@@ -4096,4 +4374,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [RANK_WORKER]:
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

@@ -14,13 +14,14 @@ import torch
 
 from ..errors import ErrorCode, InvalidArgumentError
 from ..transforms.multilevel import MultiLevelMODWTResult, modwt_multilevel
-from .mesh import Mesh
+from .mesh import Mesh, _check_one_process
 from .tiled import _tiles
 
 
 def _batch_tiles(x: torch.Tensor, mesh: Mesh, axis: str):
     """The tiling of ``x[None]``: its leading (batch) axis split over
     ``mesh[axis]``, as a signal axis is by :mod:`.tiled`."""
+    _check_one_process(mesh)
     size = mesh.axis_size(axis)
     if x.dim() < 1 or x.shape[0] % size != 0:
         raise InvalidArgumentError(

@@ -37,7 +37,7 @@ from ..transforms.cwt import (
     _resolve_continuous,
     validate_scales,
 )
-from .mesh import Mesh
+from .mesh import Mesh, _check_one_process
 from .tiled import _gather_halo, _ring_perms
 
 
@@ -130,6 +130,7 @@ def _tiled(x2: torch.Tensor, w, scales: tuple, groups: list, chips: list, axis: 
 def _axis_devices(mesh: Mesh, fixed: dict) -> list:
     """The devices along the one axis not in ``fixed`` (``{axis: index}``
     for every other axis)."""
+    _check_one_process(mesh)
     names = mesh.axis_names
     free = [a for a in names if a not in fixed]
     (axis,) = free

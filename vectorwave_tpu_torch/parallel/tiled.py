@@ -55,7 +55,7 @@ from ..transforms.multilevel import (
     _symmetric_alignment,
     _tau_j,
 )
-from .mesh import Mesh
+from .mesh import Mesh, _check_one_process
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -222,6 +222,7 @@ def _tiles(mesh: Mesh, axis: str, batch_axis: str | None, shape, dim: int) -> _T
     """The tiling of a tensor of ``shape`` split along ``dim`` (negative)
     over ``axis``, and its first dimension over ``batch_axis``:
     ``_tile_spec``'s layout.  The dimensions before ``dim`` are the rows."""
+    _check_one_process(mesh)
     size = mesh.axis_size(axis)
     n = shape[dim]
     if n % size != 0:
@@ -523,6 +524,7 @@ def tiled_roundtrip_check(
 ) -> float:
     """Round-trip a random signal through the tiled transform on the mesh's
     first device; returns the max abs error against the input."""
+    _check_one_process(mesh)
     home = mesh.devices.flat[0]
     x = torch.as_tensor(np.random.default_rng(seed).standard_normal(n), dtype=dtype,
                         device=home)
