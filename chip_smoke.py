@@ -10,7 +10,10 @@ Phases, in order; any failure raises and the exit code is not 0:
 0. device: print ``nvidia-smi``'s name and power limit; stop if
    ``torch.cuda.is_available()`` is false;
 1. build: compile the CUDA kernels from ``vectorwave_tpu_torch/kernels/csrc``
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together), and start a child process
+   that generates every registered wavelet's filters into the port's
+   on-disk cache (a one-time cost of about two minutes of host numpy, which
+   would otherwise fall on phase 5's registry examples);
 2. kernels against their plain PyTorch versions on the card (db4, 6 levels):
    analysis, synthesis and denoise (none/soft/hard) at 128x65536 periodic,
    3x5000 zero and 2x300 periodic in float32, and once in bfloat16; the
@@ -88,10 +91,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    J=6 symmetric round trip at 128x65536 (exactly one mirror-mode analysis
    and one symmetric synthesis launch, and no zero-mode analysis launch in
    the whole symmetric path) against the plain cascade on the card,
-   ``swt_denoise`` sym8 J=4 soft universal at 128x65536 and 1x16384 against
-   the plain path, the symmetric gradients of both directions against plain
+   ``swt_denoise`` sym8 J=4 soft universal at 128x65536 (both kernels) and
+   1x16384 (the mirror analysis alone: a symmetric synthesis of fewer than
+   2^23 samples is plain) against the plain path, the symmetric gradients of both directions against plain
    autograd (their backward launches the synthesis kernel and the adjoint),
-   and a short input against the float64 plain cascade on the CPU; then the
+   and a short input against the float64 plain cascade on the CPU; then,
+   outside that count, the synthesis kernel forced at 1x16384 against the
+   plain synthesis; then the
    gradient of the fused denoise (db4 J=6 soft at 128x65536, in x and in
    the thresholds) against plain autograd, with its own reset and reading of
    the counters (two analysis launches and one synthesis launch), and
@@ -154,9 +160,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    own for periodic), ``streaming_denoise_block_kernel`` (one denoise launch a block)
    against its plain version, ``streaming_denoise_blocks_kernel`` with the 8
    blocks (one launch, equal bit for bit to the 8 single steps),
-   ``StreamingDenoiser`` under auto, ``SlidingStreamingTransform`` (512) and
-   ``StreamIngest`` (512-tick frames, hop 407, on the C++ ring) against the
-   direct transform, with no launch; then the tiled path, every mesh
+   ``StreamingDenoiser`` under auto, ``SlidingStreamingTransform`` (512, one
+   level, with no launch) and ``StreamIngest`` (512-tick frames, hop 407, on
+   the C++ ring, 4 levels: one cascade analysis launch a drain) against the
+   direct transform; then the tiled path, every mesh
    virtual shards on this card, each public call with its own reset and
    reading of the counters: ``modwt_multilevel_tiled`` ->
    ``imodwt_multilevel_tiled`` db4 J=6 at 128x65536 over 4 and 8 shards
@@ -233,6 +240,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    beside the one-process 2x4 mesh's and the untiled round trip at
    128x65536 and 64x65536.
 
+5. the examples: every ``examples/torch/*.py`` on the card in this process
+   (``runpy``, ``sys.argv = [name]``; ``multihost_demo`` in its
+   single-process form), each with the launch counters set to 0 just before
+   and read just after, printed as ``example <name>: <s> s, launches
+   {...}``.  The 37 with a recording of their JAX counterpart
+   (``tests/torch_examples_expected/``) are held to it by
+   ``tools/example_figures.py``; the parallel tier's three print parity
+   figures, held to float32's 1e-5.  An example that raises, a figure that
+   misses, or an example of :data:`EXAMPLE_KERNELS` that launches none of a
+   kernel named there fails the phase.  Its launches join the kernels' line.
+
 Phase 3 ends with the default-depth MODWT and the 1-D analysis modules
 (``analysis_path``), then the sparse solvers, the deconvolutions, the block
 denoise, the decimated 2-D trees and the infrastructure
@@ -261,6 +279,7 @@ device line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
@@ -1946,13 +1965,19 @@ def streaming_path(dev, gen):
           f"StreamIngest hop {ingest.step} on the {ingest.ring.backend} ring")
     ticks = stream.cpu().numpy()
     ingest.push(ticks)
-    out, _ = counted("StreamIngest.drain (plain path)", {}, ingest.drain)
-    ref = st.SlidingStreamingTransform(WAVELET, buffer_size=SLIDE_BUFFER,
-                                       levels=INGEST_LEVELS).process(stream)
-    err = max(max_err(out.approx[i], r.approx) for i, r in enumerate(ref))
-    check(out.approx.shape[0] == len(ref) and out.approx.device == dev and err == 0.0,
+    out, _ = counted("StreamIngest.drain (its windows of 512 on the cascade kernel)",
+                     {"modwt_analysis": 1}, ingest.drain)
+    vt.set_backend("torch")
+    try:
+        ref = st.SlidingStreamingTransform(WAVELET, buffer_size=SLIDE_BUFFER,
+                                           levels=INGEST_LEVELS).process(stream)
+    finally:
+        vt.set_backend("auto")
+    err = max(max_err(a[i], b) for i, r in enumerate(ref)
+              for a, b in zip((*out.details, out.approx), (*r.details, r.approx)))
+    check(out.approx.shape[0] == len(ref) and out.approx.device == dev and err <= TOL_F32,
           f"StreamIngest: {out.approx.shape[0]} windows on {out.approx.device} vs the "
-          f"sliding transform {err:.3e}")
+          f"plain sliding transform {err:.3e} <= {TOL_F32:.0e}")
     print(f"  launches during the streaming path: {total}", flush=True)
     for k, v in total.items():
         check(v > 0, f"{k} launched {v} times")
@@ -3316,6 +3341,99 @@ def optimize_timing(dev, gen):
     print(f"  the optimisation and 2-D tree rows took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+#: the kernels each example launches on the card at its own sizes; phase 5
+#: fails if one of them is not launched
+EXAMPLE_KERNELS = {
+    "basic_transforms": ("modwt_analysis", "modwt_synthesis"),
+    "denoising_demo": ("modwt_denoise",),
+    "fused_denoise_demo": ("modwt_denoise", "modwt_analysis", "modwt_synthesis"),
+    "swt_demo": ("modwt_analysis", "modwt_synthesis"),
+    "swt_best_practices": ("modwt_analysis", "modwt_synthesis"),
+    "dwt_and_kernels_demo": ("modwt_analysis", "modwt_synthesis"),
+    "tolerance_routing_demo": ("modwt_exact_analysis", "modwt_exact_synthesis"),
+    "extended_symlets_demo": ("modwt_analysis", "modwt_synthesis", "modwt_denoise"),
+    "wavelet_selection_guide": ("modwt_analysis", "modwt_denoise"),
+    "image_processing_2d": ("modwt2_analysis", "modwt2_synthesis"),
+    "wavelet_packets_demo": ("modwt_bank_analysis", "modwt_bank_synthesis"),
+    "dtcwt_demo": ("modwt_bank_analysis", "modwt_bank_synthesis"),
+    "deconvolution_demo": ("modwt_analysis", "modwt_synthesis", "modwt2_analysis",
+                           "modwt2_synthesis"),
+    "sparse_recovery_demo": ("modwt_analysis", "modwt_synthesis"),
+    "wavelet_variance_demo": ("modwt_analysis",),
+    "streaming_demo": ("modwt_analysis", "modwt_denoise"),
+    "checkpoint_resume_demo": ("modwt_analysis",),
+    "memory_and_flush_demo": ("modwt_analysis",),
+    "native_ingest_demo": ("modwt_analysis",),
+    "calibration_demo": ("modwt_analysis", "modwt_synthesis"),
+    "financial_demo": ("modwt_denoise",),
+    "portfolio_risk": ("modwt_analysis",),
+    "realtime_market_monitor": ("modwt_analysis",),
+    "trading_signals": ("modwt_analysis",),
+    "parallel_denoising": ("modwt_denoise",),
+}
+#: the parallel tier's examples, which print parity figures instead of
+#: following a recording (``tests/test_torch_examples.py``'s check)
+PARITY_EXAMPLES = ("multihost_demo", "distributed_demo", "parallel_denoising")
+TOL_EXAMPLE_PARITY = 1e-5
+
+
+def warm_filters() -> subprocess.Popen:
+    """Generate every registered wavelet's filters in a child process, into
+    the port's on-disk cache, while the parent builds and runs the earlier
+    phases."""
+    code = ("import vectorwave_tpu_torch as vt\n"
+            "for name in vt.available_wavelets():\n"
+            "    vt.wavelet(name)\n")
+    return subprocess.Popen([sys.executable, "-c", code],
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def examples_path(total: dict) -> None:
+    """Phase 5: every ``examples/torch/*.py`` on the card, each against the
+    recording of its JAX counterpart, with its launches (added to
+    ``total``)."""
+    import re
+    import tempfile
+
+    from tools.example_figures import EXAMPLES, run_and_compare, run_counted
+    from vectorwave_tpu_torch import cost_model
+
+    parity = re.compile(r"(?:single-device|round trip|vs one call)[^:]*:? ([0-9.]+e[+-][0-9]+)")
+    times = {}
+    real_store = cost_model._store_path
+    with tempfile.TemporaryDirectory(prefix="vw_examples_") as store:
+        cost_model._store_path = lambda: os.path.join(store, "performance.json")
+        try:
+            for path in sorted(EXAMPLES.glob("*.py")):
+                name = path.stem
+                t0 = time.perf_counter()
+                if name in PARITY_EXAMPLES:
+                    out, got = run_counted(name, ())
+                else:
+                    problems, got = run_and_compare(name, ())
+                times[name] = time.perf_counter() - t0
+                print(f"example {name}: {times[name]:.2f} s, launches {got}", flush=True)
+                if name in PARITY_EXAMPLES:
+                    figures = [float(f) for f in parity.findall(out)]
+                    check(bool(figures) and max(figures) <= TOL_EXAMPLE_PARITY,
+                          f"{name}: parity figures {figures} <= {TOL_EXAMPLE_PARITY:.0e}")
+                else:
+                    check(not problems, f"{name} against its JAX recording"
+                          + "".join(f"\n      {p}" for p in problems))
+                named = EXAMPLE_KERNELS.get(name, ())
+                missing = [k for k in named if not got.get(k)]
+                check(not missing, f"{name} launches {', '.join(named) or 'no named kernel'}"
+                      + (f" (not {missing})" if missing else ""))
+                for k, v in got.items():
+                    total[k] = total.get(k, 0) + v
+        finally:
+            cost_model._store_path = real_store
+    slowest = sorted(times, key=times.get, reverse=True)[:3]
+    print(f"  the {len(times)} examples took {sum(times.values()):.1f} s; slowest "
+          + ", ".join(f"{n} {times[n]:.2f} s" for n in slowest), flush=True)
+    check(len(times) == 40, f"{len(times)} examples of examples/torch ran")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a "
@@ -3345,6 +3463,8 @@ def main() -> int:
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
 
     print("phase 1: build", flush=True)
+    filters = warm_filters()
+    atexit.register(lambda: filters.poll() is None and filters.kill())
     t0 = time.perf_counter()
     lib = _build.library()
     print(f"  built {os.path.basename(lib._name)} from "
@@ -3878,9 +3998,15 @@ def main() -> int:
     check(err <= TOL_F32, f"symmetric analysis vs plain cascade: {err:.3e}")
     check(max_err(y, y_ref) <= TOL_F32,
           f"symmetric synthesis vs plain cascade: {max_err(y, y_ref):.3e}")
-    for b, n in ((BATCH, N), (1, 16384)):
+    # 128x65536 is 2^23 samples: both kernels; a row of 16384 takes the
+    # mirror analysis and the plain synthesis (SYMMETRIC_SYNTHESIS_MIN_SAMPLES)
+    for b, n, expect in ((BATCH, N, rt_launches), (1, 16384, {"modwt_mxu_analysis": 1})):
         xs = noisy[:b, :n].contiguous()
+        before = dict(mc.LAUNCHES)
         got = vt.swt_denoise(xs, "sym8", levels=4, boundary="symmetric")
+        torch.cuda.synchronize()
+        seen = {k: v - before[k] for k, v in mc.LAUNCHES.items() if v - before[k]}
+        check(seen == expect, f"swt_denoise sym8 J=4 symmetric {b}x{n} launches {seen}")
         vt.set_backend("torch")
         try:
             want = vt.swt_denoise(xs, "sym8", levels=4, boundary="symmetric")
@@ -3935,6 +4061,19 @@ def main() -> int:
           "symmetric path (its analysis is the mirror mode)")
     for name in SYMMETRIC_PATH:
         launches[name] += sym_launches[name]
+    # the synthesis kernel at the 1x16384 shape that auto gives the plain
+    # route, forced, against the plain synthesis (not counted above)
+    xs = noisy[:1, :16384].contiguous()
+    planes16 = vt.modwt_multilevel(xs, "sym8", levels=4, boundary="symmetric",
+                                   backend="torch")
+    mc.reset_launches()
+    y_got = vt.imodwt_multilevel(planes16, "sym8", boundary="symmetric", backend="kernel")
+    torch.cuda.synchronize()
+    forced = mc.LAUNCHES["modwt_symmetric_synthesis"]
+    y_ref = vt.imodwt_multilevel(planes16, "sym8", boundary="symmetric", backend="torch")
+    check(forced == 1 and max_err(y_got, y_ref) <= TOL_F32,
+          f"symmetric synthesis kernel sym8 J=4 1x16384 (forced, {forced} launch) vs plain "
+          f"synthesis: {max_err(y_got, y_ref):.3e} <= {TOL_F32:.0e}")
 
     print(f"  the fused denoise's gradient, {BATCH}x{N} float32", flush=True)
     th = gap_thresholds(mc._analysis_cascade(noisy, LEVELS, fd, True), LEVELS)
@@ -4311,7 +4450,7 @@ def main() -> int:
             noisy, WAVELET, levels=LEVELS, method="universal", mode="soft"), samples),
         (f"swt_denoise sym8 J=4 symmetric {BATCH}x{N}", lambda: vt.swt_denoise(
             noisy, "sym8", levels=4, boundary="symmetric"), samples),
-        ("swt_denoise sym8 J=4 symmetric 1x16384", lambda: vt.swt_denoise(
+        ("swt_denoise sym8 J=4 symmetric 1x16384 (plain synthesis)", lambda: vt.swt_denoise(
             noisy_16k, "sym8", levels=4, boundary="symmetric"), 16384),
         ("fused_denoise_multilevel soft, backward alone", lambda: torch.autograd.grad(
             y_fused, xg, weights[0], retain_graph=True), samples),
@@ -4343,6 +4482,16 @@ def main() -> int:
     analysis_timing(dev, gen)
     optimize_timing(dev, gen)
     print(f"  the run so far: {time.perf_counter() - run_start:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    check(filters.wait(timeout=900) == 0, "the filters' child process generated every "
+          f"registered wavelet (waited {time.perf_counter() - t0:.1f} s for it)")
+    print("phase 5: the examples on the card, against the JAX examples' recordings",
+          flush=True)
+    t0 = time.perf_counter()
+    examples_path(launches)
+    print(f"  phase 5 took {time.perf_counter() - t0:.1f} s; the run so far: "
+          f"{time.perf_counter() - run_start:.1f} s", flush=True)
 
     report = {"kernels": [
         {

@@ -404,13 +404,16 @@ def test_routing_gates_on_both_sides(taps, levels, analysis, synthesis):
 @pytest.mark.parametrize("name,levels,n,kernel", [
     ("db4", 10, 65536, True), ("sym8", 9, 65536, True), ("sym8", 10, 65536, True),
     ("db4", 10, 8192, True), ("db28", 9, 65536, False), ("db38", 9, 65536, False),
-    ("db38", 10, 131072, False), ("db4", 10, 4095, False), ("db4", 6, 4095, False)])
+    ("db38", 10, 131072, False), ("db4", 10, 4095, False), ("db4", 6, 4095, True),
+    ("db4", 6, 511, False)])
 def test_default_depth_gate_on_both_sides(monkeypatch, name, levels, n, kernel):
     """The 1-D MODWT routes ask for the cascade pair's room and no other
     kernel's, in both directions: db4 J=10 (the default depth at N >= 3585)
     and sym8 J=9 and J=10 reach the kernels, on a faked card; L=56 J=9 (the
-    synthesis does not fit), L=76 J=9 and J=10 and any N < 4096 stay on the
-    plain cascade.  The tiled tier's gate reads the same rule."""
+    synthesis does not fit), L=76 J=9 and J=10 stay on the plain cascade, as
+    does any N whose halo (rounded up to 128) outgrows it: db4 J=10 at 4095
+    and db4 J=6 at 511, where db4 J=6 at 4095 reaches the kernels.  The
+    tiled tier's gate reads the same rule."""
     from types import SimpleNamespace
 
     from vectorwave_tpu_torch import parallel as tp
@@ -424,7 +427,9 @@ def test_default_depth_gate_on_both_sides(monkeypatch, name, levels, n, kernel):
     for synthesis in (False, True):
         for boundary in ("periodic", "zero"):
             assert ml._kernel_eligible(card, w, levels, boundary, synthesis) == kernel
-    assert mc.kernels_fit(w.filter_length, levels) == (kernel or n < 4096)
+    halo = -(-modwt_fused.total_halo(w.filter_length, levels) // 128) * 128
+    short = n < ml.KERNEL_MIN_N or halo > n
+    assert mc.kernels_fit(w.filter_length, levels) == (kernel or short)
     cards = tp.make_mesh({"signal": 4}, devices=[torch.device("cuda")] * 4)
     tiles = tt._tiles(cards, "signal", None, (2, 4 * n), -1)
     route = tt._resolve_tiled_backend("auto", "periodic", tiles, torch.float32,

@@ -144,8 +144,9 @@ def test_public_entry_points_launch_the_kernels(cuda):
 
 
 def test_short_signals_and_float64_stay_on_the_plain_path(cuda):
+    """db4 J=6's halo, 441 samples, rounded up to 128, is longer than 511."""
     mc.reset_launches()
-    vt.modwt_multilevel(_input(cuda, 2, 2048, torch.float32), "db4", levels=6)
+    vt.modwt_multilevel(_input(cuda, 2, 511, torch.float32), "db4", levels=6)
     vt.modwt_multilevel(_input(cuda, 2, 8192, torch.float64), "db4", levels=6)
     assert mc.LAUNCHES["modwt_analysis"] == 0
 
@@ -363,18 +364,23 @@ def test_symmetric_adjoint_matches_plain(cuda, name, levels, b, n, dtype, interi
 
 
 def test_symmetric_public_path_launches_the_kernels(cuda):
-    x = _input(cuda, 4, 8192, torch.float32, seed=12)
+    """A call of SYMMETRIC_SYNTHESIS_MIN_SAMPLES samples (1024 x 8192) takes
+    both kernels; its first rows are held to the float64 CPU cascade."""
+    from vectorwave_tpu_torch.transforms.multilevel import SYMMETRIC_SYNTHESIS_MIN_SAMPLES
+
+    x = _input(cuda, SYMMETRIC_SYNTHESIS_MIN_SAMPLES // 8192, 8192, torch.float32, seed=12)
     mc.reset_launches()
     res = vt.modwt_multilevel(x, "db4", levels=LEVELS, boundary="symmetric")
     y = vt.imodwt_multilevel(res, "db4", boundary="symmetric")
     torch.cuda.synchronize()
     assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
         "modwt_mxu_analysis": 1, "modwt_symmetric_synthesis": 1}
-    ref = vt.modwt_multilevel(x.cpu().double(), "db4", levels=LEVELS, boundary="symmetric")
+    ref = vt.modwt_multilevel(x[:4].cpu().double(), "db4", levels=LEVELS,
+                              boundary="symmetric")
     y_ref = vt.imodwt_multilevel(ref, "db4", boundary="symmetric")
-    assert _err((*res.details, res.approx), tuple(p.to(cuda) for p in (*ref.details,
-                                                                      ref.approx))) <= TOL_F32
-    assert _err((y,), (y_ref.to(cuda),)) <= TOL_F32
+    assert _err(tuple(p[:4] for p in (*res.details, res.approx)),
+                tuple(p.to(cuda) for p in (*ref.details, ref.approx))) <= TOL_F32
+    assert _err((y[:4],), (y_ref.to(cuda),)) <= TOL_F32
     den = vt.swt_denoise(x, "sym8", levels=4, boundary="symmetric")
     assert den.shape == x.shape and bool(torch.isfinite(den).all())
     assert mc.LAUNCHES["modwt_symmetric_synthesis"] == 2
@@ -1538,3 +1544,80 @@ def test_calibrate_keeps_a_cuda_key(cuda, tmp_path, monkeypatch):
     key = f"cuda:{torch.cuda.get_device_name(0)}"
     assert rate > 0 and store[key]["samples_per_second"] == rate
     assert cost_model.estimate_processing_time(65536).calibrated
+
+
+@pytest.mark.parametrize("name,levels", [("db4", 2), ("db4", 6), ("sym8", 4)])
+def test_the_kernel_floor_on_the_card(cuda, name, levels):
+    """At the gate's floor (multilevel.KERNEL_MIN_N, or the halo's length
+    where it is longer) the round trip is the cascade pair, two launches;
+    one sample shorter it is the plain cascade, none."""
+    from vectorwave_tpu_torch.kernels.modwt_fused import total_halo
+    from vectorwave_tpu_torch.transforms import multilevel as ml
+
+    w = vt.wavelet(name)
+    floor = max(ml.KERNEL_MIN_N, -(-total_halo(w.filter_length, levels) // 128) * 128)
+    for n, want in ((floor, {"modwt_analysis": 1, "modwt_synthesis": 1}), (floor - 1, {})):
+        x = torch.randn(4, n, device=cuda)
+        mc.reset_launches()
+        y = vt.imodwt_multilevel(vt.modwt_multilevel(x, name, levels=levels), name)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in mc.LAUNCHES.items() if v} == want, n
+        assert float((y - x).abs().max()) <= TOL_F32
+
+
+def test_symmetric_synthesis_floor_on_the_card(cuda):
+    """The symmetric synthesis kernel serves calls of at least
+    SYMMETRIC_SYNTHESIS_MIN_SAMPLES samples; the analysis's mirror kernel
+    serves both sides."""
+    from vectorwave_tpu_torch.transforms import multilevel as ml
+
+    n = 65536
+    rows = ml.SYMMETRIC_SYNTHESIS_MIN_SAMPLES // n
+    for batch, want in ((rows, {"modwt_mxu_analysis": 1, "modwt_symmetric_synthesis": 1}),
+                        (rows - 1, {"modwt_mxu_analysis": 1})):
+        x = torch.randn(batch, n, device=cuda)
+        mc.reset_launches()
+        y = vt.imodwt_multilevel(vt.modwt_multilevel(x, "db4", levels=LEVELS,
+                                                     boundary="symmetric"),
+                                 "db4", boundary="symmetric")
+        torch.cuda.synchronize()
+        assert {k: v for k, v in mc.LAUNCHES.items() if v} == want, batch
+        assert bool(torch.isfinite(y).all())
+
+
+def test_fft_route_on_both_sides_of_the_thresholds(cuda, monkeypatch):
+    """The plain periodic cascade of a CUDA tensor takes the FFT from
+    CUDA_FFT_MIN_TAPS taps and CUDA_FFT_MIN_SIGNAL samples, and agrees with
+    the rolled CPU route either way."""
+    from vectorwave_tpu_torch.ops import facade
+    from vectorwave_tpu_torch.transforms import multilevel as ml
+
+    calls = []
+    real = ml.fft_analysis_pair
+    monkeypatch.setattr(ml, "fft_analysis_pair",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    taps, n = facade.CUDA_FFT_MIN_TAPS, facade.CUDA_FFT_MIN_SIGNAL
+    for name, length, fft in ((f"db{taps // 2}", n, True), (f"db{taps // 2 - 1}", n, False),
+                              (f"db{taps // 2}", n - 1, False)):
+        x = torch.randn(2, length, device=cuda, dtype=torch.float64)  # the plain route
+        calls.clear()
+        got = vt.modwt_multilevel(x, name, levels=2)
+        want = vt.modwt_multilevel(x.cpu(), name, levels=2)
+        assert bool(calls) == fft, (name, length)
+        for g, w in zip((*got.details, got.approx), (*want.details, want.approx)):
+            assert float((g.cpu() - w).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("taps,spacing,n", [(8, 16, 256), (40, 512, 1 << 20), (76, 512, 1000)])
+def test_filter_spectrum_on_the_card_matches_the_cpu(cuda, taps, spacing, n):
+    """A spectrum made on the card (taps strided into zeros, or wrapped on
+    the host where the filter outgrows n) equals the CPU one within 1e-12,
+    in the cache for its device alone."""
+    from vectorwave_tpu_torch.ops import convolve
+
+    f = tuple(torch.randn(taps, dtype=torch.float64).tolist())
+    got = convolve._filter_spectrum(f, spacing, n, torch.complex128, cuda)
+    want = convolve._filter_spectrum(f, spacing, n, torch.complex128, torch.device("cpu"))
+    assert got.device.type == "cuda" and want.device.type == "cpu"
+    assert float((got.cpu() - want).abs().max()) <= 1e-12
+    assert convolve._filter_spectrum(f, spacing, n, torch.complex128, cuda) is got

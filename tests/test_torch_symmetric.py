@@ -400,8 +400,13 @@ def test_router_admits_symmetric_boundaries(monkeypatch):
     try:
         vt.set_backend("kernel")  # the gates alone, whatever the device
         assert multilevel._kernel_eligible(x, w, 6, "symmetric")
-        assert multilevel._kernel_eligible(x, w, 6, "symmetric", synthesis=True)
-        assert not multilevel._kernel_eligible(torch.zeros(2, 4095), w, 6, "symmetric")
+        # the synthesis kernel wants a call of SYMMETRIC_SYNTHESIS_MIN_SAMPLES
+        rows = multilevel.SYMMETRIC_SYNTHESIS_MIN_SAMPLES // x.shape[-1]
+        assert multilevel._kernel_eligible(x[:1].expand(rows, -1), w, 6, "symmetric",
+                                           synthesis=True)
+        assert not multilevel._kernel_eligible(x, w, 6, "symmetric", synthesis=True)
+        assert not multilevel._kernel_eligible(
+            torch.zeros(2, multilevel.KERNEL_MIN_N - 1), w, 6, "symmetric")
         assert not multilevel._kernel_eligible(torch.zeros(2, 1 << 18), vt.wavelet("db38"),
                                                9, "symmetric", synthesis=True)
         assert not multilevel._kernel_eligible(x.double(), w, 6, "symmetric")

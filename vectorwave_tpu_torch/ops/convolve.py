@@ -25,6 +25,7 @@ offsets.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from collections.abc import Sequence
 
 import numpy as np
@@ -66,17 +67,43 @@ def _deltas(n_taps: int, spacing: int, sign: int, offset: int) -> list[int]:
     return [offset + sign * spacing * k for k in range(n_taps)]
 
 
-def _wrapped_spectrum(filt, spacing: int, n: int) -> np.ndarray:
-    """rfft of the upsampled filter wrapped circularly into length n (f64)."""
-    filt_np = np.asarray(filt, dtype=np.float64)
-    length = (len(filt_np) - 1) * spacing + 1
-    h_up = np.zeros(length)
-    h_up[::spacing] = filt_np
-    h_pad = np.zeros(n)
-    for start in range(0, length, n):
-        chunk = h_up[start : start + n]
-        h_pad[: len(chunk)] += chunk
-    return np.fft.rfft(h_pad)
+#: Device memory the filter spectra of the FFT route may hold at once.
+SPECTRUM_CACHE_BYTES = 64 << 20
+_SPECTRA: OrderedDict = OrderedDict()
+_TAPS: dict = {}
+
+
+def _filter_spectrum(taps: tuple, spacing: int, n: int, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """The spectrum of the filter upsampled by ``spacing`` and wrapped into
+    length n, made on ``device``: the taps (copied there once per filter)
+    strided into zeros, then an FFT of n.  A filter longer than n, which
+    wraps onto itself, is wrapped on the host.  The least recently used
+    spectra go once the cache holds more than :data:`SPECTRUM_CACHE_BYTES`."""
+    key = (taps, spacing, n, dtype, device)
+    spec = _SPECTRA.get(key)
+    if spec is not None:
+        _SPECTRA.move_to_end(key)
+        return spec
+    span = (len(taps) - 1) * spacing + 1
+    if span <= n:
+        base = _TAPS.get((taps, device))
+        if base is None:
+            base = _TAPS[(taps, device)] = torch.tensor(taps, dtype=torch.float64,
+                                                        device=device)
+        h = torch.zeros(n, dtype=torch.float64, device=device)
+        h[:span:spacing] = base
+    else:
+        wrapped = np.zeros(n)
+        np.add.at(wrapped, np.arange(len(taps)) * spacing % n, np.asarray(taps))
+        h = torch.from_numpy(wrapped).to(device)
+    spec = torch.fft.rfft(h).to(dtype)
+    _SPECTRA[key] = spec
+    held = sum(s.numel() * s.element_size() for s in _SPECTRA.values())
+    while held > SPECTRUM_CACHE_BYTES and len(_SPECTRA) > 1:
+        _, old = _SPECTRA.popitem(last=False)
+        held -= old.numel() * old.element_size()
+    return spec
 
 
 def _fft_dtype(x: torch.Tensor) -> torch.dtype:
@@ -92,8 +119,8 @@ def fft_analysis_pair(
     spec_x = torch.fft.rfft(x.to(_fft_dtype(x)), dim=-1)
 
     def spec_of(filt):
-        h = _wrapped_spectrum(filt, spacing, n)
-        return torch.as_tensor(h, device=x.device).to(spec_x.dtype)
+        taps = tuple(np.asarray(filt, dtype=np.float64).tolist())
+        return _filter_spectrum(taps, spacing, n, spec_x.dtype, x.device)
 
     approx = torch.fft.irfft(spec_x * spec_of(low), n=n, dim=-1)
     detail = torch.fft.irfft(spec_x * spec_of(high), n=n, dim=-1)

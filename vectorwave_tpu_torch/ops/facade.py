@@ -2,10 +2,11 @@
 report.
 
 Counterpart of ``should_use_fft`` and ``get_performance_info`` in
-``vectorwave_tpu/ops/facade.py``.  The FFT thresholds are the JAX package's:
-the rolled form never touches the à trous zeros, so only the base tap count
-matters.  They were measured on a TPU and stay until a measurement on the
-GPU moves them.
+``vectorwave_tpu/ops/facade.py``.  The rolled form never touches the à
+trous zeros, so only the base tap count and the signal length matter.  CPU
+tensors keep the JAX package's thresholds, so that the CPU parity tests
+compare the same route; CUDA tensors take the crossover measured on the
+card (``tools/sweep_gates.py fft``).
 """
 
 from __future__ import annotations
@@ -15,12 +16,31 @@ import platform
 
 import torch
 
+#: the JAX package's thresholds, for CPU tensors
 FFT_MIN_SIGNAL = 1024
 FFT_MIN_TAPS = 64
+#: CUDA tensors.  ``tools/sweep_gates.py fft`` on an NVIDIA H100 80GB HBM3
+#: at 700.00 W: with each filter's spectrum computed once
+#: (``convolve._filter_spectrum``), the FFT pair beats the rolled one in all
+#: 312 swept cases, from db4's 8 taps and N = 256 (the smallest swept) to
+#: db38's 76 taps and N = 2^20, batch 1 and 128, float32 and float64, by
+#: 1.32x at the least (0.13-11.95 ms against 0.37-278.85 ms); the two differ
+#: by at most 3.3e-6 in float32 and 6.2e-15 in float64.  On a first call
+#: (``tools/sweep_gates.py fft_cold``, every spectrum made on the card) the
+#: pair still won all 84 cases from 8 taps and 256 samples to 2^20 (0.20-0.87
+#: ms against 0.30-21.95 ms), and J = 10 cascades 19 of 20 (db4 at 1 x 2^20
+#: float32 lost, 4.79 against 4.72 ms) and all 4 runs of two wavelets at two
+#: sizes that overflow the spectra's cache (9.15-19.52 ms against
+#: 27.01-84.77 ms).
+CUDA_FFT_MIN_SIGNAL = 256
+CUDA_FFT_MIN_TAPS = 8
 
 
-def should_use_fft(signal_length: int, base_filter_length: int) -> bool:
-    """Whether the periodic MODWT convolution takes the FFT path."""
+def should_use_fft(signal_length: int, base_filter_length: int, device=None) -> bool:
+    """Whether the periodic MODWT convolution takes the FFT path, for a
+    tensor on ``device`` (default the CPU: the JAX package's thresholds)."""
+    if device is not None and torch.device(device).type == "cuda":
+        return base_filter_length >= CUDA_FFT_MIN_TAPS and signal_length >= CUDA_FFT_MIN_SIGNAL
     return base_filter_length >= FFT_MIN_TAPS and signal_length >= FFT_MIN_SIGNAL
 
 

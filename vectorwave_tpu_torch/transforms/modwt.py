@@ -72,7 +72,7 @@ def modwt(x: torch.Tensor, wavelet, *, boundary: str = "periodic") -> MODWTResul
     low = w.dec_lo * _INV_SQRT2
     high = w.dec_hi * _INV_SQRT2
     if boundary.lower().startswith("per") and should_use_fft(
-        x.shape[-1], w.filter_length
+        x.shape[-1], w.filter_length, x.device
     ):
         return MODWTResult(*fft_analysis_pair(x, low, high, spacing=1))
     approx, detail = atrous_analysis_pair(x, low, high, spacing=1, boundary=boundary)

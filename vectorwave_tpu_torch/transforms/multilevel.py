@@ -6,13 +6,15 @@ and synthesis use the level-j à trous filter (the base filter at stride
 never materialized.
 
 Routing: on an eligible CUDA tensor (float32 or bfloat16, at least 2
-levels and 4096 samples, windows that fit) the whole cascade is one launch
-of a hand-written CUDA kernel (:mod:`..kernels`); everything else runs the
-plain PyTorch cascade below.  Periodic and zero boundaries need a halo that
-fits; a symmetric boundary runs the zero-boundary analysis kernel with its
-head spliced in, and the symmetric synthesis kernel with its head and tail
-spliced in, so it needs the analysis span within the signal and splice
-windows that do not overlap (:mod:`..kernels.modwt_symmetric`).
+levels and :data:`KERNEL_MIN_N` samples, windows that fit) the whole
+cascade is one launch of a hand-written CUDA kernel (:mod:`..kernels`);
+everything else runs the plain PyTorch cascade below.  Periodic and zero
+boundaries need a halo that fits; a symmetric boundary runs the
+zero-boundary analysis kernel with its head spliced in, and the symmetric
+synthesis kernel with its head and tail spliced in, so it needs the
+analysis span within the signal and splice windows that do not overlap
+(:mod:`..kernels.modwt_symmetric`), and its synthesis a call of
+:data:`SYMMETRIC_SYNTHESIS_MIN_SAMPLES` samples.
 ``backend='torch'`` forces the plain path, ``backend='kernel'`` the kernel
 tier (whose wrappers run their plain versions on CPU tensors).
 
@@ -46,6 +48,30 @@ _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 #: Hard cap on decomposition depth.
 MAX_DECOMPOSITION_LEVELS = 10
+
+#: The shortest signal the cascade kernels serve under ``auto`` (the JAX
+#: router's floor, 4096, was tuned on a TPU).  ``tools/sweep_gates.py`` on an
+#: NVIDIA H100 80GB HBM3 at 700.00 W: the kernel pair (2 launches) beats the
+#: plain cascade (108-524 launches) at every swept N from 128 to 8192 that
+#: its halo admits, batch 1 and 128, db4 J=2/4/6 and sym8 J=4, periodic and
+#: zero: 0.24-0.66 ms against 1.29-11.75 ms.  So do the fused denoise
+#: (0.64-2.72 ms against 1.87-14.66 ms) and the symmetric analysis's mirror
+#: kernel (0.19-0.82 ms against 1.09-26.36 ms, N to 131072).  Nothing shorter
+#: than 128 was swept.  It binds the symmetric route alone: the periodic and
+#: zero halo rule (the halo rounded up to 128, at most N) admits nothing
+#: shorter anyway.
+KERNEL_MIN_N = 128
+#: The symmetric synthesis kernel's floor, on the samples of a call (batch
+#: times N): its head and tail windows run on the plain inverse, 197-787
+#: launches whatever the size, so at batch 1 it loses to the plain synthesis
+#: (98-393 launches) at every swept N to 131072 (3.43-14.46 ms against
+#: 1.12-7.42 ms), and it wins in every swept case from 128 x 65536 samples
+#: on (3.10-13.41 ms against 6.33-50.21 ms; the same sweep).  The samples,
+#: not N, decide: ``tools/sweep_gates.py samples`` (same card) at batch 1,
+#: 8, 32 and 128, each at 2^20 ... 2^24 samples, found the kernel winning
+#: all 32 cases from 2^23 samples (2.70-12.77 ms against 6.27-49.77 ms), 10
+#: of 16 at 2^22 and none of 32 below, at every batch alike.
+SYMMETRIC_SYNTHESIS_MIN_SAMPLES = 1 << 23
 
 
 class MultiLevelMODWTResult(NamedTuple):
@@ -201,14 +227,13 @@ def _resolve_backend(backend: str | None, eligible) -> bool:
 def _kernel_eligible(x: torch.Tensor, w: DiscreteWavelet, levels: int,
                      boundary: str, synthesis: bool = False) -> bool:
     """Whether the CUDA kernel tier serves this call: a CUDA tensor on a
-    Hopper card, float32/bfloat16, >= 2 levels, N >= 4096 and windows that
-    fit (the JAX router's rule, plus the kernels' shared-memory budget).
-    Periodic and zero boundaries need a halo of at most N and the room of
-    the cascade pair, whose kernels are each other's backward
+    Hopper card, float32/bfloat16, >= 2 levels, N >= :data:`KERNEL_MIN_N`
+    (and :data:`SYMMETRIC_SYNTHESIS_MIN_SAMPLES` samples for a symmetric
+    synthesis) and windows that fit (the kernels' shared-memory
+    budget).  Periodic and zero boundaries need a halo of at most N and the
+    room of the cascade pair, whose kernels are each other's backward
     (``modwt_composite.kernels_fit``); symmetric ones
-    the gate of its direction (``synthesis``), ``modwt_symmetric.route_fits``.
-    The 4096-sample floor was tuned on a TPU and is kept until a GPU
-    measurement re-derives it."""
+    the gate of its direction (``synthesis``), ``modwt_symmetric.route_fits``."""
     from ..kernels.modwt_composite import kernels_fit
     from ..kernels.modwt_fused import kernel_available, total_halo
 
@@ -225,9 +250,11 @@ def _kernel_eligible(x: torch.Tensor, w: DiscreteWavelet, levels: int,
     if levels < 2:
         return False
     n = x.shape[-1]
-    if n < 4096:
+    if n < KERNEL_MIN_N:
         return False
     if b.startswith("sym"):
+        if synthesis and math.prod(x.shape) < SYMMETRIC_SYNTHESIS_MIN_SAMPLES:
+            return False
         from ..kernels.modwt_symmetric import route_fits
 
         return route_fits(w, levels, n, synthesis)
@@ -306,7 +333,8 @@ def modwt_multilevel(
 
     low = w.dec_lo * _INV_SQRT2
     high = w.dec_hi * _INV_SQRT2
-    use_fft = boundary.lower().startswith("per") and should_use_fft(n, w.filter_length)
+    use_fft = boundary.lower().startswith("per") and should_use_fft(
+        n, w.filter_length, x.device)
     details = []
     current = x
     for level in range(1, levels + 1):
