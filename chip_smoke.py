@@ -191,8 +191,20 @@ Phases, in order; any failure raises and the exit code is not 0:
    and the inverse of the same planes within 2e-5 of the one-process plain
    cascade, the periodic round trip's RMSE <= 3e-7, and no
    ``torch.distributed`` call during the transforms (the module's functions
-   wrapped with counters after the mesh's one ``all_gather_object``); then
-   an NCCL world of one, whose ``make_multihost_mesh()`` is ``{"host": 1,
+   wrapped with counters after the mesh's one ``all_gather_object``); then,
+   in the same ranks, the signal axis across them: ``make_mesh({"signal":
+   8}, devices=[cuda:0] * 4)``, each rank all 128 rows and its 32768
+   samples (``local_index``), config #2 periodic, zero and symmetric through
+   ``modwt_multilevel_tiled`` -> ``imodwt_multilevel_tiled`` (one
+   external-edge analysis and one external-halo synthesis launch a rank for
+   periodic and zero, none for symmetric; every plane and the inverse within
+   2e-5 of the one-process plain cascade, the periodic RMSE <= 3e-7), the
+   tiled exact round trip (one launch each way, RMSE of hi + lo <= 1e-10)
+   and ``cwt_tiled`` at config #5 (within 2e-5 of the largest coefficient of
+   the one-card ``cwt``), each transform's ``batch_isend_irecv`` calls and
+   bytes held to the halo arithmetic and to the exchange module's count, the
+   halos staged through pinned host memory (Gloo); then an NCCL world of
+   one, whose ``make_multihost_mesh()`` is ``{"host": 1,
    "chip": 1}`` and whose round trip equals the one-process facade bit for
    bit; a rank that fails, prints no result or runs past 120 s fails the
    phase, with its stderr's tail;
@@ -2424,12 +2436,19 @@ def tiled_timing(dev, gen):
 
 def count_collectives(dist) -> dict:
     """Wrap every function of ``COLLECTIVES`` with a counter; returns the
-    live ``{name: calls}``."""
+    live ``{name: calls}``, with the bytes that ``batch_isend_irecv`` sends
+    under ``"sent_bytes"``."""
+    from torch.distributed import distributed_c10d as c10d
+
     calls: dict = {}
 
     def counted(name, fn):
         def call(*args, **kwargs):
             calls[name] = calls.get(name, 0) + 1
+            if name == "batch_isend_irecv":
+                calls["sent_bytes"] = calls.get("sent_bytes", 0) + sum(
+                    op.tensor.numel() * op.tensor.element_size() for op in args[0]
+                    if op.op is c10d.isend)
             return fn(*args, **kwargs)
         return call
 
@@ -2485,6 +2504,9 @@ def rank_worker(argv) -> int:
             mesh = par.make_multihost_mesh()
             check(mesh.shape == {"host": 1, "chip": 1} and mesh.process_count == 1,
                   f"NCCL world of one: make_multihost_mesh() is {mesh.shape}")
+            line = par.make_mesh(devices=[dev])
+            check(line.is_local and line.shape == {"data": 1},
+                  f"NCCL world of one: make_mesh is the one-process mesh {line.shape}")
             res, fwd = launched(lambda: par.modwt_multilevel_multihost(x, WAVELET, levels=LEVELS,
                                                                        mesh=mesh))
             y, inv = launched(lambda: par.imodwt_multilevel_multihost(res, WAVELET, mesh=mesh))
@@ -2503,7 +2525,7 @@ def rank_worker(argv) -> int:
         return 0
 
     rows = BATCH // world
-    x = x[rank * rows:(rank + 1) * rows].contiguous()
+    x_full, x = x, x[rank * rows:(rank + 1) * rows].contiguous()
     dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank,
                             timeout=timeout)
     try:
@@ -2550,10 +2572,133 @@ def rank_worker(argv) -> int:
         dist.barrier()
         out["round_trip_ms_alone"] = alone
         out["round_trip_ms"] = median_ms(lambda: round_trip(mesh, x))
+        out.update(signal_across_ranks(rank, world, dev, x_full, calls, launched))
     finally:
         dist.destroy_process_group()
     print("RESULT " + json.dumps(out), flush=True)
     return 0
+
+
+def signal_across_ranks(rank, world, dev, x_full, calls, launched) -> dict:
+    """The signal axis across the ranks (in a Gloo rank of
+    :func:`rank_worker`): a ``{"signal": 8}`` mesh of both ranks' four
+    virtual shards of the card, each rank holding all 128 rows and its half
+    of the samples.  Config #2 periodic, zero and symmetric, the tiled exact
+    round trip and the tiled CWT at config #5, each with its launches and
+    its exchanges (``batch_isend_irecv`` calls and bytes sent, held to the
+    halo arithmetic and to the exchange module's own count); then the round
+    trip timed with both ranks at once (every call exchanges) and, each rank
+    in turn, its own block on a one-process mesh of its four shards."""
+    import torch.distributed as dist
+
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch import parallel as par
+    from vectorwave_tpu_torch.parallel import exchange
+
+    sig = par.make_mesh({"signal": world * MP_CHIPS}, devices=[dev] * MP_CHIPS)
+    check(sig.shape == {"signal": world * MP_CHIPS} and not sig.is_local
+          and sig.local_devices == [dev] * MP_CHIPS,
+          f"rank {rank}: make_mesh across the ranks is {sig.shape}, "
+          f"{len(sig.local_devices)} cells this rank's")
+    block = par.local_index(sig, x_full.shape, axis="signal")
+    cols = block[-1]
+    head, tail = cols.start == 0, cols.stop == N
+    xb = x_full[block].contiguous()
+    out = {"signal_columns": [cols.start, cols.stop], "exchanges": {}}
+    launches: dict = {}
+    span = (vt.wavelet(WAVELET).filter_length - 1) * ((1 << LEVELS) - 1)
+    halo_bytes = BATCH * span * 4
+
+    def exchanged(label, expect, fn):
+        before = dict(calls)
+        exchange.reset_traffic()
+        res, got = launched(fn)
+        moved = {k: v - before.get(k, 0) for k, v in calls.items() if v != before.get(k, 0)}
+        sent = moved.get("sent_bytes", 0)
+        out["exchanges"][label] = [moved.get("batch_isend_irecv", 0), sent]
+        same = (exchange.TRAFFIC["calls"] == moved.get("batch_isend_irecv", 0)
+                and exchange.TRAFFIC["bytes"] == sent
+                and set(moved) <= {"batch_isend_irecv", "sent_bytes"})
+        want = expect if expect is None else tuple(expect)
+        check(same and (want is None or (moved.get("batch_isend_irecv", 0), sent) == want),
+              f"rank {rank}, {label}: {moved.get('batch_isend_irecv', 0)} batch_isend_irecv "
+              f"calls, {sent} bytes sent (the exchange module counts "
+              f"{exchange.TRAFFIC['calls']}, {exchange.TRAFFIC['bytes']}"
+              + ("" if want is None else f"; the halo arithmetic {want}") + ")")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return res, got
+
+    label = f"rank {rank}, {BATCH}x{cols.start}-{cols.stop - 1} of a {{'signal': 8}} mesh"
+    for boundary in MP_BOUNDARIES:
+        kernel = boundary != "symmetric"
+        # the halo arithmetic: one cumulative left halo of the span forward,
+        # the J + 1 planes' right halos in one exchange inverse (the kernel
+        # route); the plain symmetric route a left halo a level forward
+        fwd_bytes = 0 if boundary != "periodic" and tail else halo_bytes
+        inv_bytes = 0 if boundary == "zero" and head else (LEVELS + 1) * halo_bytes
+        res, fwd = exchanged(f"{boundary} forward", (LEVELS if not kernel else 1, fwd_bytes),
+                             lambda: par.modwt_multilevel_tiled(
+                                 xb, WAVELET, levels=LEVELS, mesh=sig, boundary=boundary))
+        y, inv = exchanged(f"{boundary} inverse", (1, inv_bytes) if kernel else None,
+                           lambda: par.imodwt_multilevel_tiled(res, WAVELET, mesh=sig,
+                                                               boundary=boundary))
+        check(fwd == ({"modwt_analysis": 1} if kernel else {})
+              and inv == ({"modwt_synthesis": 1} if kernel else {}),
+              f"{label}, {boundary}: launches {fwd} forward, {inv} inverse")
+        ref = vt.modwt_multilevel(x_full, WAVELET, levels=LEVELS, boundary=boundary,
+                                  backend="torch")
+        err = max(max_err(a, b[block]) for a, b in zip((*res.details, res.approx),
+                                                       (*ref.details, ref.approx)))
+        syn_err = max_err(y, vt.imodwt_multilevel(ref, WAVELET, boundary=boundary,
+                                                  backend="torch")[block])
+        rmse = (y - xb).pow(2).mean().sqrt().item()
+        check(err <= TOL_F32 and syn_err <= TOL_F32
+              and (rmse <= RT_RMSE or boundary != "periodic"),
+              f"{label}, {boundary} vs the one-process plain cascade: every plane {err:.3e}, "
+              f"the inverse {syn_err:.3e} <= {TOL_F32:.0e}; round trip rmse {rmse:.3e}"
+              + (f" <= {RT_RMSE:.0e}" if boundary == "periodic" else ""))
+        del ref, res, y
+    pairs, ex_fwd = exchanged("exact forward", (1, halo_bytes), lambda:
+                              par.modwt_multilevel_tiled_exact(xb, WAVELET, levels=LEVELS,
+                                                               mesh=sig))
+    (hi, lo), ex_inv = exchanged("exact inverse", (1, 2 * (LEVELS + 1) * halo_bytes), lambda:
+                                 par.imodwt_multilevel_tiled_exact(*pairs, WAVELET, mesh=sig))
+    rmse = (hi.double() + lo.double() - xb.double()).pow(2).mean().sqrt().item()
+    check(ex_fwd == {"modwt_exact_analysis": 1} and ex_inv == {"modwt_exact_synthesis": 1}
+          and rmse <= EXACT_RMSE,
+          f"{label}, the tiled exact round trip: launches {ex_fwd}, {ex_inv}; rmse of hi + lo "
+          f"{rmse:.3e} <= {EXACT_RMSE:.0e}")
+    del pairs, hi, lo
+    x5 = torch.randn(1, CFG5_N, device=dev, generator=torch.Generator(device=dev).manual_seed(
+        MP_SEED + 1))
+    blk5 = par.local_index(sig, x5.shape, axis="signal")
+    for boundary in ("zero", "periodic"):
+        got, _ = exchanged(f"cwt_tiled config #5 {boundary}", None, lambda: par.cwt_tiled(
+            x5[blk5], CFG5_SCALES, CWT_WAVELET, mesh=sig, boundary=boundary))
+        want = vt.cwt(x5, CFG5_SCALES, CWT_WAVELET, boundary=boundary).coeffs
+        err = max_err(got.coeffs, want[..., blk5[-1]]) / want.abs().max().item()
+        check(err <= TOL_CWT, f"rank {rank}, cwt_tiled config #5 {boundary}, samples "
+                              f"{blk5[-1].start}-{blk5[-1].stop - 1} over 8 shards of two "
+                              f"ranks vs the one-card cwt: {err:.3e} of the largest "
+                              f"coefficient <= {TOL_CWT:.0e}")
+        del got, want
+    out["signal_launches"] = launches
+    own = par.Mesh([dev] * MP_CHIPS, ("signal",))
+
+    def round_trip(mesh):
+        return par.imodwt_multilevel_tiled(par.modwt_multilevel_tiled(
+            xb, WAVELET, levels=LEVELS, mesh=mesh), WAVELET, mesh=mesh)
+
+    alone = None
+    for turn in range(world):
+        dist.barrier()
+        if turn == rank:
+            alone = median_ms(lambda: round_trip(own))
+    dist.barrier()
+    out["signal_round_trip_ms"] = median_ms(lambda: round_trip(sig))
+    out["signal_own_block_ms_alone"] = alone
+    return out
 
 
 def run_ranks(backend: str, world: int) -> list:
@@ -2605,21 +2750,35 @@ def run_ranks(backend: str, world: int) -> list:
 
 
 def multiprocess_path():
-    """Phase 3 for the multi-process run of the host x chip layout: two
-    ranks on this card over Gloo (each its own 64 rows over a row of four
-    virtual shards, every boundary, the launches and the collectives counted
-    in the rank), then the NCCL world of one.  Returns (the rows' launches,
-    the ranks' results)."""
+    """Phase 3 for the multi-process run: two ranks on this card over Gloo
+    (each its own 64 rows over a row of four virtual shards of the host x
+    chip layout, then all the rows and its half of the samples of the
+    signal axis across the ranks; every boundary, the launches, the
+    collectives and the exchanges counted in the rank), then the NCCL world
+    of one.  Returns (the rows' launches, the ranks' results)."""
     t0 = time.perf_counter()
     ranks = run_ranks("gloo", MP_RANKS)
     world_of_one = run_ranks("nccl", 1)
-    total = {"modwt_analysis_external": 0, "modwt_synthesis_external": 0}
+    rows = {"modwt_analysis": "modwt_analysis_external",
+            "modwt_synthesis": "modwt_synthesis_external",
+            "modwt_exact_analysis": "modwt_exact_analysis_halo",
+            "modwt_exact_synthesis": "modwt_exact_synthesis_halo"}
+    total = dict.fromkeys(rows.values(), 0)
     for res in ranks:
-        total["modwt_analysis_external"] += res["launches"].get("modwt_analysis", 0)
-        total["modwt_synthesis_external"] += res["launches"].get("modwt_synthesis", 0)
-    check(total == {"modwt_analysis_external": 2 * MP_RANKS,
-                    "modwt_synthesis_external": 2 * MP_RANKS},
+        for got in (res["launches"], res["signal_launches"]):
+            for k, v in got.items():
+                total[rows[k]] += v
+    # a rank: periodic and zero on the host x chip row and on the signal
+    # mesh, one launch each way; the exact round trip on the signal mesh
+    check(total == {"modwt_analysis_external": 4 * MP_RANKS,
+                    "modwt_synthesis_external": 4 * MP_RANKS,
+                    "modwt_exact_analysis_halo": MP_RANKS,
+                    "modwt_exact_synthesis_halo": MP_RANKS},
           f"the ranks' launches on the multi-process path: {total}")
+    for res in ranks:
+        print(f"  rank {res['rank']}, samples {res['signal_columns'][0]}-"
+              f"{res['signal_columns'][1] - 1}: exchanges (batch_isend_irecv calls, bytes "
+              f"sent) {res['exchanges']}", flush=True)
     print(f"  the multi-process block took {time.perf_counter() - t0:.1f} s", flush=True)
     return total, {"gloo": ranks, "nccl": world_of_one}
 
@@ -2627,9 +2786,11 @@ def multiprocess_path():
 def multiprocess_timing(dev, gen, smi, ranks):
     """Phase 4 for the multi-process block: each rank's round trip of its 64
     rows (alone on the card, and with both ranks at once; CUDA events in the
-    rank, measured in phase 3), the NCCL world of one's round trip, and in
-    this process the one-process 2x4 mesh and the untiled round trip at
-    128x65536 and 64x65536."""
+    rank, measured in phase 3), each rank's round trip of its half of the
+    samples across the ranks (both at once) and of the same block on its own
+    four shards (alone), the NCCL world of one's round trip, and in this
+    process the one-process 8-shard mesh, the 2x4 mesh and the untiled round
+    trip at 128x65536 and 64x65536."""
     import vectorwave_tpu_torch as vt
     from vectorwave_tpu_torch import parallel as par
 
@@ -2638,11 +2799,24 @@ def multiprocess_timing(dev, gen, smi, ranks):
         print(f"  rank {res['rank']} of {MP_RANKS} (Gloo), {rows}x{N} over {MP_CHIPS} virtual "
               f"shards: round trip {res['round_trip_ms']:.4f} ms with both ranks at once, "
               f"{res['round_trip_ms_alone']:.4f} ms alone ({smi})", flush=True)
+    for res in ranks["gloo"]:
+        print(f"  rank {res['rank']} of {MP_RANKS} (Gloo), {BATCH}x{N // MP_RANKS} of a "
+              f"{{'signal': {MP_RANKS * MP_CHIPS}}} mesh across the ranks: round trip "
+              f"{res['signal_round_trip_ms']:.4f} ms with both ranks at once (the halos "
+              f"staged through host memory); its block on a one-process mesh of its "
+              f"{MP_CHIPS} shards, alone: {res['signal_own_block_ms_alone']:.4f} ms ({smi})",
+              flush=True)
     (one,) = ranks["nccl"]
     print(f"  NCCL world of one, {BATCH}x{N} on make_multihost_mesh() (1x1): round trip "
           f"{one['round_trip_ms']:.4f} ms ({smi})", flush=True)
-    hosts = par.make_multihost_mesh(2, 4, devices=[dev] * 8)
+    shards = MP_RANKS * MP_CHIPS
+    eight = par.make_mesh({"signal": shards}, devices=[dev] * shards)
     x = torch.randn(BATCH, N, device=dev, generator=gen)
+    t_ms = median_ms(lambda: par.imodwt_multilevel_tiled(par.modwt_multilevel_tiled(
+        x, WAVELET, levels=LEVELS, mesh=eight), WAVELET, mesh=eight))
+    print(f"  modwt_multilevel_tiled + imodwt_multilevel_tiled, one process {shards} shards, "
+          f"{BATCH}x{N}: {t_ms:.4f} ms ({smi})", flush=True)
+    hosts = par.make_multihost_mesh(2, 4, devices=[dev] * 8)
     for b in (BATCH, rows):
         xb = x[:b].contiguous()
         for label, fn in (

@@ -12,8 +12,12 @@ the host.  Three ways to run it:
 Under ``torchrun`` every process is one host: ``make_multihost_mesh`` gives
 each rank one row of the mesh (here 4 shards of its own device; by default
 its current card), each rank passes its own batch rows and gets its own rows
-back, and no ``torch.distributed`` call runs during the transform.  Without
-``--cpu`` each rank takes the card ``LOCAL_RANK`` and NCCL, one card a rank.
+back, and no ``torch.distributed`` call runs during the transform.  Then one
+signal is tiled across every rank's shards (``make_mesh`` gathers the
+ranks' devices): each rank passes its samples (``local_index``) and gets its
+block of the CWT back, the halos crossing ranks over ``torch.distributed``.
+Without ``--cpu`` each rank takes the card ``LOCAL_RANK`` and NCCL, one card
+a rank.
 """
 
 import argparse
@@ -32,6 +36,7 @@ from vectorwave_tpu_torch.parallel import (
     cwt_tiled,
     cwt_tiled_2d,
     imodwt_multilevel_multihost,
+    local_index,
     make_mesh,
     make_multihost_mesh,
     modwt_multilevel_multihost,
@@ -97,13 +102,16 @@ def one_rank(dev: torch.device, cpu: bool) -> None:
             print(f"ICI halo bytes/chip: {rep.ici_bytes_per_chip}  "
                   f"DCN bytes/host: {rep.dcn_bytes_per_host}")
 
-        # the other facades run inside one process: give them this rank's row
-        row = make_mesh({"chip": len(mesh.local_devices)}, devices=mesh.local_devices)
+        # one signal across every rank's shards: each rank passes its samples
+        line = make_mesh({"signal": world * CHIPS}, devices=[dev] * CHIPS)
+        sig = torch.as_tensor(rng.standard_normal(N), dtype=torch.float32, device=dev)
+        mine = local_index(line, sig.shape, axis="signal")
         scales = vt.scales_log(2.0, 32.0, 16)
-        spec = cwt_tiled(x[0], scales, "morl", mesh=row, axis="chip")
-        ref = vt.cwt(x[0], scales, "morl", boundary="zero")
-        print(f"rank {rank}: tiled CWT over its row vs single-device: "
-              f"{(spec.coeffs - ref.coeffs).abs().max():.2e}", flush=True)
+        spec = cwt_tiled(sig[mine], scales, "morl", mesh=line)
+        ref = vt.cwt(sig, scales, "morl", boundary="zero").coeffs[..., mine[-1]]
+        print(f"rank {rank}: tiled CWT of samples {mine[-1].start}-{mine[-1].stop - 1} "
+              f"across the ranks vs single-device: {(spec.coeffs - ref).abs().max():.2e}",
+              flush=True)
     finally:
         dist.destroy_process_group()
 

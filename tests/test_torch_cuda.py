@@ -143,6 +143,40 @@ def test_public_entry_points_launch_the_kernels(cuda):
     assert d.shape == x.shape and bool(torch.isfinite(d).all())
 
 
+@pytest.mark.parametrize("inference_first", [True, False])
+def test_fft_route_spectra_serve_inference_and_autograd(cuda, inference_first):
+    """The plain periodic route of a CUDA tensor takes the FFT from 8 taps
+    and 256 samples; its spectra, kept on the card, are built with inference
+    mode off, so a gradient after an inference-mode call (and before one)
+    equals the CPU's float64 gradient within 2e-5."""
+    from vectorwave_tpu_torch.ops import convolve
+
+    convolve._SPECTRA.clear()
+    convolve._TAPS.clear()
+    x0 = _input(cuda, 2, 1024, torch.float32, seed=5)
+    w = torch.randn(3, 2, 1024, generator=torch.Generator().manual_seed(6), dtype=torch.float64)
+
+    def grad(x):
+        x = x.detach().requires_grad_(True)
+        res = vt.modwt_multilevel(x, "db4", levels=2, backend="torch")
+        (torch.stack([*res.details, res.approx]).double() * w.to(x.device)).sum().backward()
+        return x.grad
+
+    def inferred():
+        with torch.inference_mode():
+            vt.modwt_multilevel(x0, "db4", levels=2, backend="torch")
+
+    if inference_first:
+        inferred()
+    got = grad(x0)
+    if not inference_first:
+        inferred()
+        assert torch.equal(grad(x0), got)
+    want = grad(x0.cpu().double())
+    assert all(not s.is_inference() for s in convolve._SPECTRA.values())
+    assert float((got.cpu().double() - want).abs().max()) <= TOL_F32
+
+
 def test_short_signals_and_float64_stay_on_the_plain_path(cuda):
     """db4 J=6's halo, 441 samples, rounded up to 128, is longer than 511."""
     mc.reset_launches()

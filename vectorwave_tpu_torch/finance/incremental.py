@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..convert import _device
+from ..ops.constants import kept
 
 
 class IncrementalState(NamedTuple):
@@ -145,6 +146,7 @@ def _paul_crash_kernel(k: int, order: int = 4) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
+@kept
 def _kernel_tensor(k: int, order: int, dtype: torch.dtype, device: torch.device):
     return torch.as_tensor(_paul_crash_kernel(k, order), dtype=dtype, device=device)
 

@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ..errors import ErrorCode, InvalidArgumentError
+from ..ops.constants import kept
 from ._build import library
 from .modwt_composite import (
     LAUNCHES,
@@ -345,6 +346,7 @@ def _launch_plan(taps: BankTaps) -> None:
 
 
 @functools.lru_cache(maxsize=128)
+@kept
 def _device_runs(runs: BankRuns, device_index: int):
     """(int32 [plane_runs | shifts | spans | runs], float32 values) on the card."""
     dev = f"cuda:{device_index}"

@@ -74,6 +74,7 @@ import numpy as np
 import torch
 
 from ..errors import ErrorCode, InvalidArgumentError
+from ..ops.constants import kept
 from ..ops.convolve import atrous_analysis_pair, atrous_convolve
 from ._build import library
 
@@ -654,6 +655,7 @@ def _check_levels(levels: int) -> None:
 
 
 @functools.lru_cache(maxsize=64)
+@kept
 def _device_taps(taps: tuple, device_index: int,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return torch.tensor(taps, dtype=dtype, device=f"cuda:{device_index}")

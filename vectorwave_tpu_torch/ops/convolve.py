@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..errors import ErrorCode, InvalidArgumentError
+from .constants import kept
 
 _VALID_BOUNDARIES = ("periodic", "zero", "symmetric")
 
@@ -85,6 +86,17 @@ def _filter_spectrum(taps: tuple, spacing: int, n: int, dtype: torch.dtype,
     if spec is not None:
         _SPECTRA.move_to_end(key)
         return spec
+    spec = _SPECTRA[key] = _build_spectrum(taps, spacing, n, dtype, device)
+    held = sum(s.numel() * s.element_size() for s in _SPECTRA.values())
+    while held > SPECTRUM_CACHE_BYTES and len(_SPECTRA) > 1:
+        _, old = _SPECTRA.popitem(last=False)
+        held -= old.numel() * old.element_size()
+    return spec
+
+
+@kept
+def _build_spectrum(taps: tuple, spacing: int, n: int, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
     span = (len(taps) - 1) * spacing + 1
     if span <= n:
         base = _TAPS.get((taps, device))
@@ -97,13 +109,7 @@ def _filter_spectrum(taps: tuple, spacing: int, n: int, dtype: torch.dtype,
         wrapped = np.zeros(n)
         np.add.at(wrapped, np.arange(len(taps)) * spacing % n, np.asarray(taps))
         h = torch.from_numpy(wrapped).to(device)
-    spec = torch.fft.rfft(h).to(dtype)
-    _SPECTRA[key] = spec
-    held = sum(s.numel() * s.element_size() for s in _SPECTRA.values())
-    while held > SPECTRUM_CACHE_BYTES and len(_SPECTRA) > 1:
-        _, old = _SPECTRA.popitem(last=False)
-        held -= old.numel() * old.element_size()
-    return spec
+    return torch.fft.rfft(h).to(dtype)
 
 
 def _fft_dtype(x: torch.Tensor) -> torch.dtype:

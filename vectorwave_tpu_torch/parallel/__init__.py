@@ -2,12 +2,16 @@
 
 Counterpart of ``vectorwave_tpu/parallel``: batch sharding
 (:mod:`.batch`), long-signal tiling with halo exchange (:mod:`.tiled`, with
-its exact tier), 2-D row tiling (:mod:`.tiled2d`) and the host x chip
-layout (:mod:`.multihost`) and the tiled CWT with two-sided support halos
-(:mod:`.cwt_tiled`), all in one process (:mod:`.mesh`).
+its exact tier), 2-D row tiling (:mod:`.tiled2d`), the host x chip layout
+(:mod:`.multihost`) and the tiled CWT with two-sided support halos
+(:mod:`.cwt_tiled`), over a mesh of one process's devices or of every rank
+of a ``torch.distributed`` world (:mod:`.mesh`): each rank passes the block
+of the input its cells hold (:func:`local_index`) and gets its block of the
+output back, the halos that cross ranks travelling over
+``torch.distributed`` (:mod:`.exchange`).
 """
 
-from .mesh import Mesh, default_mesh, make_mesh
+from .mesh import Mesh, default_mesh, local_index, make_mesh
 from .batch import shard_batch, modwt_multilevel_sharded_batch
 from .tiled import (
     imodwt_multilevel_tiled,
@@ -30,6 +34,7 @@ __all__ = [
     "Mesh",
     "make_mesh",
     "default_mesh",
+    "local_index",
     "shard_batch",
     "modwt_multilevel_sharded_batch",
     "modwt_multilevel_tiled",

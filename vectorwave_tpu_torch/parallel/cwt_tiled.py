@@ -15,12 +15,18 @@ keeps the ring's wrap link.  So the result equals the single-device
 extended tile and is approximate near tile edges (about 1e-4; use a
 complex wavelet, such as ``cmor``, for exact tiled analytic coefficients).
 
-In one process the shards are the ``[B, T, n_loc]`` view of the signal and
-the exchange is :func:`.tiled._gather_halo`, hop by hop where the halo
-outgrows a shard.  The shards of one device are computed together, one
-FFT product for all of them; their ``[R, S, fft_size]`` tiles land in the
-``[..., S, N]`` result in one copy that cuts the halos and puts time back
-in order.
+The shards are the ``[B, T, n_loc]`` view of the signal and the exchange
+is :func:`.tiled._gather_halo`, hop by hop where the halo outgrows a shard.
+The shards of one device are computed together, one FFT product for all of
+them; their ``[R, S, fft_size]`` tiles land in the ``[..., S, N]`` result
+in one copy that cuts the halos and puts time back in order.
+
+On a mesh that spans ranks each rank passes the samples its cells hold and
+gets its block of the coefficients back: ``cwt_tiled`` its columns of every
+scale, ``cwt_tiled_2d`` its scale groups' rows over its columns.  Halos
+whose source is another rank's shard travel over ``torch.distributed``
+(:mod:`.exchange`); a ``scale_axis`` that spans the ranks over a
+``signal_axis`` within each (config #5's multi-host layout) sends nothing.
 """
 
 from __future__ import annotations
@@ -37,8 +43,8 @@ from ..transforms.cwt import (
     _resolve_continuous,
     validate_scales,
 )
-from .mesh import Mesh, _check_one_process
-from .tiled import _gather_halo, _ring_perms
+from .mesh import Mesh, rank_box
+from .tiled import _gather_halo, _ring_perms, _tiles
 
 
 def _check_tiling(n: int, size: int, halo: int) -> None:
@@ -58,14 +64,15 @@ def _check_tiling(n: int, size: int, halo: int) -> None:
         )
 
 
-def _extended_tiles(x2: torch.Tensor, size: int, halo: int, axis: str, mesh: Mesh,
+def _extended_tiles(x2: torch.Tensor, tiles, halo: int, axis: str, mesh: Mesh,
                     wrap: bool) -> torch.Tensor:
-    """``[B, N]`` -> ``[B, T, halo + n_loc + halo]``: each shard between the
-    halos its ring neighbours send (zeros past the ends without ``wrap``)."""
-    shards = x2.reshape(x2.shape[0], size, -1)
+    """``[B, T n_loc]`` -> ``[B, T, halo + n_loc + halo]``: each shard between
+    the halos its ring neighbours send (zeros past the ends without
+    ``wrap``)."""
+    shards = tiles.shards(x2)
     from_left, from_right = _ring_perms(axis, mesh, wrap)
-    left = _gather_halo(shards, halo, from_left, "left")
-    right = _gather_halo(shards, halo, from_right, "right")
+    left = _gather_halo(shards, halo, from_left, "left", tiles.ring)
+    right = _gather_halo(shards, halo, from_right, "right", tiles.ring)
     return torch.cat([left, shards, right], dim=2)
 
 
@@ -95,50 +102,46 @@ def _runs(devices: list) -> list[tuple[int, int]]:
     return runs
 
 
-def _tiled(x2: torch.Tensor, w, scales: tuple, groups: list, chips: list, axis: str,
-           mesh: Mesh, boundary: str, analytic: bool) -> torch.Tensor:
-    """The tiled CWT of ``[B, N]`` rows: ``groups`` are ``(first, end)``
-    scale ranges, ``chips[g]`` the devices of group g's T shards.  Returns
-    ``[B, S, N]`` on the device of ``x2``."""
-    n, size = x2.shape[-1], len(chips[0])
+def _tiled(x2: torch.Tensor, w, scales: tuple, groups: list, tiles, axis: str, mesh: Mesh,
+           boundary: str, analytic: bool) -> torch.Tensor:
+    """The tiled CWT of this rank's ``[R, T n_loc]`` rows: the rows of the
+    tiling's row group g (of ``tiles.ring.rows`` rows) take the scales
+    ``groups[g]``, a ``(first, end)`` range, on the devices of its row of
+    cells.  Returns ``[tiles.ring.rows, S, T n_loc]``, the groups' scales in
+    turn, on the device of ``x2``."""
     halo = max(_half_support(s, w.bandwidth) for s in scales)
-    _check_tiling(n, size, halo)
-    n_loc = n // size
+    n_loc = tiles.n_loc
     fft_size = _next_pow2(n_loc + 4 * halo)
     real_dtype = torch.float64 if x2.dtype == torch.float64 else torch.float32
     complex_dtype = torch.complex128 if real_dtype == torch.float64 else torch.complex64
     is_complex = _is_complex(w)
     complex_out = is_complex or analytic
-    ext = _extended_tiles(x2.to(real_dtype), size, halo, axis, mesh,
+    ext = _extended_tiles(x2.to(real_dtype), tiles, halo, axis, mesh,
                           boundary.lower().startswith("per"))
-    b = x2.shape[0]
-    out = torch.empty((b, len(scales), n), device=x2.device,
+    b, t = tiles.ring.rows, tiles.T
+    count = sum(s1 - s0 for s0, s1 in groups)
+    out = torch.empty((b, count, t * n_loc), device=x2.device,
                       dtype=complex_dtype if complex_out else real_dtype)
-    out4 = out.view(b, len(scales), size, n_loc)
-    for (s0, s1), devices in zip(groups, chips):
+    out4 = out.view(b, count, t, n_loc)
+    o0 = 0
+    for g, ((s0, s1), devices) in enumerate(zip(groups, tiles.cells)):
         for q0, q1 in _runs(devices):
             dev = devices[q0]
             bank = _bank_spectrum(w, scales, fft_size, not complex_out, complex_dtype, dev)
-            rows = ext[:, q0:q1].to(dev).reshape(b * (q1 - q0), -1)
+            rows = ext[g * b:(g + 1) * b, q0:q1].to(dev).reshape(b * (q1 - q0), -1)
             tile = _tile_cwt(rows, bank[s0:s1], fft_size, halo, n_loc, complex_out,
                              analytic and not is_complex)
-            out4[:, s0:s1, q0:q1].copy_(
+            out4[:, o0:o0 + s1 - s0, q0:q1].copy_(
                 tile.view(b, q1 - q0, s1 - s0, n_loc).transpose(1, 2))
+        o0 += s1 - s0
     return out
 
 
-def _axis_devices(mesh: Mesh, fixed: dict) -> list:
-    """The devices along the one axis not in ``fixed`` (``{axis: index}``
-    for every other axis)."""
-    _check_one_process(mesh)
-    names = mesh.axis_names
-    free = [a for a in names if a not in fixed]
-    (axis,) = free
-    devices = []
-    for i in range(mesh.axis_size(axis)):
-        idx = tuple(i if a == axis else fixed[a] for a in names)
-        devices.append(mesh.devices[idx])
-    return devices
+def _global_length(mesh: Mesh, box_axes: tuple, axis: str, n_local: int) -> int:
+    """The split axis's global length from this rank's ``n_local`` samples
+    (its cells' share of ``mesh[axis]``); validates the rank's box."""
+    box = rank_box(mesh, box_axes)
+    return n_local * mesh.axis_size(axis) // len(box.ranges[box.axes.index(axis)])
 
 
 def cwt_tiled(
@@ -160,16 +163,20 @@ def cwt_tiled(
     Hilbert transform is computed per extended tile and is approximate near
     tile boundaries (~1e-4 relative; use a complex wavelet, e.g. ``cmor``,
     for exact distributed analytic coefficients).  Mesh axes other than
-    ``axis`` hold replicas; the first computes.
+    ``axis`` hold replicas; the first computes.  On a mesh that spans ranks
+    ``x`` holds this rank's samples, ``[..., N_local]``, and the result is
+    ``[..., S, N_local]``.
     """
     w = _resolve_continuous(wavelet)
     scales = validate_scales(scales)
-    mesh.axis_size(axis)  # an axis the mesh lacks raises
-    devices = _axis_devices(mesh, {a: 0 for a in mesh.axis_names if a != axis})
-    n = x.shape[-1]
-    x2 = x.reshape(-1, n).to(devices[0])
-    out = _tiled(x2, w, scales, [(0, len(scales))], [devices], axis, mesh, boundary, analytic)
-    return CWTResult(out.reshape(x.shape[:-1] + (len(scales), n)), scales, boundary)
+    n_local = x.shape[-1]
+    n = _global_length(mesh, (axis,), axis, n_local)
+    _check_tiling(n, mesh.axis_size(axis),
+                  max(_half_support(s, w.bandwidth) for s in scales))
+    tiles = _tiles(mesh, axis, None, tuple(x.shape), -1)
+    x2 = x.reshape(-1, n_local).to(tiles.home)
+    out = _tiled(x2, w, scales, [(0, len(scales))], tiles, axis, mesh, boundary, analytic)
+    return CWTResult(out.reshape(x.shape[:-1] + (len(scales), n_local)), scales, boundary)
 
 
 def cwt_tiled_2d(
@@ -191,7 +198,10 @@ def cwt_tiled_2d(
     Each scale group convolves the extended tiles of its row of the mesh
     against its own rows of the one cached bank spectrum.  Returns ``[S,
     N]`` on the device of the mesh's first shard; equals the single-device
-    ``cwt(x, scales, w, boundary=...)`` to float precision.
+    ``cwt(x, scales, w, boundary=...)`` to float precision.  On a mesh that
+    spans ranks ``x`` holds this rank's samples and the result is its scale
+    groups' rows over them (:func:`.mesh.local_index` with ``batch_axis=
+    scale_axis``).
     """
     w = _resolve_continuous(wavelet)
     scales = validate_scales(scales)
@@ -201,9 +211,10 @@ def cwt_tiled_2d(
             f"cwt_tiled_2d expects a 1-D signal, got shape {tuple(x.shape)}",
             suggestions=("vmap over leading axes for batches",),
         )
-    n = x.shape[-1]
+    n_local = x.shape[-1]
     chips = mesh.axis_size(signal_axis)
     hosts = mesh.axis_size(scale_axis)
+    n = _global_length(mesh, (scale_axis, signal_axis), signal_axis, n_local)
     if n % chips != 0:
         raise InvalidArgumentError(
             ErrorCode.DIST_TILE_TOO_SMALL,
@@ -217,10 +228,12 @@ def cwt_tiled_2d(
             f"'{scale_axis}' shards",
             suggestions=("Pad the scale list to a multiple of the host count",),
         )
-    others = {a: 0 for a in mesh.axis_names if a not in (signal_axis, scale_axis)}
+    _check_tiling(n, chips, max(_half_support(s, w.bandwidth) for s in scales))
     per = len(scales) // hosts
-    groups = [(h * per, (h + 1) * per) for h in range(hosts)]
-    chip_devices = [_axis_devices(mesh, {**others, scale_axis: h}) for h in range(hosts)]
-    x2 = x.reshape(1, n).to(chip_devices[0][0])
-    out = _tiled(x2, w, scales, groups, chip_devices, signal_axis, mesh, boundary, False)
+    groups = rank_box(mesh, (scale_axis, signal_axis)).ranges[0]
+    # one row of the signal per scale group of this rank: the ring's rows
+    tiles = _tiles(mesh, signal_axis, scale_axis, (len(groups), n_local), -1)
+    x2 = x.reshape(1, n_local).to(tiles.home).expand(len(groups), n_local)
+    out = _tiled(x2, w, scales, [(h * per, (h + 1) * per) for h in groups], tiles,
+                 signal_axis, mesh, boundary, False)
     return CWTResult(out[0], scales, boundary)

@@ -15,11 +15,14 @@ transform, the batch.
   group, or a world of one) the device list is split contiguously into
   hosts.
 * :func:`modwt_multilevel_multihost` / :func:`imodwt_multilevel_multihost`
-  split the batch over ``"host"`` and tile the signal over ``"chip"``.  In
-  a world of several ranks each rank passes its own batch rows and gets its
-  own rows back (the counterpart of the global array's addressable
-  shards); it tiles them over its own row, so no ``torch.distributed``
-  call runs during a transform.
+  split the batch over ``"host"`` and tile the signal over ``"chip"``: the
+  tiled engine (:mod:`.tiled`) on the whole mesh with ``batch_axis="host"``,
+  in one process and across ranks alike.  In a world of several ranks each
+  rank passes its own batch rows and gets its own rows back (the
+  counterpart of the global array's addressable shards, the rule every
+  facade follows, :mod:`.mesh`); since the ``"chip"`` axis lies within a
+  rank, no ``torch.distributed`` call runs during a transform, and a
+  hand-built mesh of several ranks serves with no process group.
 * :func:`communication_report` is the analytic communication model: the
   bytes each chip receives per transform.
 """
@@ -35,21 +38,11 @@ import torch
 from ..errors import ErrorCode, InvalidArgumentError
 from ..transforms.modwt import _resolve_discrete
 from ..transforms.multilevel import MultiLevelMODWTResult
-from .mesh import Mesh, RemoteDevice, visible_devices
-from .tiled import imodwt_multilevel_tiled, modwt_multilevel_tiled
+from .mesh import Mesh, _cells, _gather_rows, _world, visible_devices
+from .tiled import _analysis, _synthesis
 
 HOST_AXIS = "host"
 CHIP_AXIS = "chip"
-
-
-def _world() -> tuple[int, int] | None:
-    """``(rank, world size)`` of an initialised ``torch.distributed`` world
-    of several ranks, else None."""
-    import torch.distributed as dist
-
-    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() < 2:
-        return None
-    return dist.get_rank(), dist.get_world_size()
 
 
 def make_multihost_mesh(
@@ -92,57 +85,31 @@ def _rows_by_rank(n_hosts, chips_per_host, devices, rank: int, size: int) -> Mes
     one ``all_gather_object`` before any check, and every check reads what
     was gathered, so the ranks raise together and none waits in a
     collective."""
-    import torch.distributed as dist
-
-    try:
-        row = ([torch.device("cuda", torch.cuda.current_device())] if devices is None
-               else [torch.device(d) for d in devices])
-        mine = [str(d) for d in row]
-    except (RuntimeError, TypeError, AssertionError) as exc:  # no card; a bad name
-        mine = f"{type(exc).__name__}: {exc}"
-    gathered: list = [None] * size
-    dist.all_gather_object(gathered, mine)
-    faults = {r: g for r, g in enumerate(gathered) if isinstance(g, str)}
-    if faults:
-        raise InvalidArgumentError(
-            ErrorCode.DIST_BAD_MESH,
-            f"Ranks {sorted(faults)} could not name their devices: {faults}",
-            suggestions=("Pass devices= on every rank, or give each rank its card "
-                         "with torch.cuda.set_device",),
-        )
-    counts = {r: len(g) for r, g in enumerate(gathered)}
-    if len(set(counts.values())) != 1 or counts[rank] == 0:
-        raise InvalidArgumentError(
-            ErrorCode.DIST_BAD_MESH,
-            f"Uneven devices per rank: {counts}",
-            suggestions=("Pass an explicit, balanced device list on every rank",),
-        )
+    rows = _gather_rows(devices, lambda: [torch.device("cuda", torch.cuda.current_device())],
+                        rank, size)
+    chips = len(rows[rank])
     if n_hosts is not None and n_hosts != size:
         raise InvalidArgumentError(
             ErrorCode.DIST_BAD_MESH,
             f"n_hosts={n_hosts} but {size} ranks are attached",
             suggestions=("Omit n_hosts to use the world size",),
         )
-    if chips_per_host is not None and chips_per_host != counts[rank]:
+    if chips_per_host is not None and chips_per_host != chips:
         raise InvalidArgumentError(
             ErrorCode.DIST_BAD_MESH,
-            f"chips_per_host={chips_per_host} but each rank's row holds {counts[rank]} "
-            "devices",
+            f"chips_per_host={chips_per_host} but each rank's row holds {chips} devices",
             suggestions=("Omit chips_per_host, or pass that many devices= on every rank",),
         )
-    grid = np.empty((size, counts[rank]), dtype=object)
-    for r, names in enumerate(gathered):
-        for c, name in enumerate(names):
-            grid[r, c] = torch.device(name) if r == rank else RemoteDevice(r, torch.device(name))
-    return Mesh(grid, axis_names=(HOST_AXIS, CHIP_AXIS), rank=rank)
+    grid = np.empty(size * chips, dtype=object)
+    grid[:] = _cells(rows, rank)
+    return Mesh(grid.reshape(size, chips), axis_names=(HOST_AXIS, CHIP_AXIS), rank=rank)
 
 
 def _place(x, mesh: Mesh) -> torch.Tensor:
     """Check a ``[batch, N]`` block for the host x chip layout: the batch
     splits over hosts, the signal over chips.  In one process ``x`` is the
     whole batch, a multiple of the host count; across ranks it is this
-    rank's rows (the global batch is its rows times the world size), moved
-    to the row's first device."""
+    rank's rows (the global batch is its rows times the world size)."""
     x = torch.as_tensor(x)
     if x.dim() != 2:
         raise InvalidArgumentError(
@@ -150,8 +117,8 @@ def _place(x, mesh: Mesh) -> torch.Tensor:
             f"multihost facade expects [batch, n], got shape {tuple(x.shape)}",
             suggestions=("Reshape leading axes into one batch axis",),
         )
-    if mesh.process_count > 1:
-        return x.to(mesh.local_devices[0])
+    if not mesh.is_local:
+        return x
     n_hosts = mesh.axis_size(HOST_AXIS)
     if x.shape[0] % n_hosts != 0:
         raise InvalidArgumentError(
@@ -160,16 +127,6 @@ def _place(x, mesh: Mesh) -> torch.Tensor:
             suggestions=("Pad the batch to a multiple of the host count",),
         )
     return x
-
-
-def _layout(mesh: Mesh) -> dict:
-    """The tiled engine's mesh and axes for a multihost call: across ranks
-    this rank's row alone (its rows tiled over ``"chip"``, no batch axis),
-    in one process the whole mesh with the batch over ``"host"``."""
-    if mesh.process_count > 1:
-        return {"mesh": Mesh(mesh.local_devices, axis_names=(CHIP_AXIS,)),
-                "axis": CHIP_AXIS, "batch_axis": None}
-    return {"mesh": mesh, "axis": CHIP_AXIS, "batch_axis": HOST_AXIS}
 
 
 def modwt_multilevel_multihost(
@@ -187,10 +144,8 @@ def modwt_multilevel_multihost(
     tiled over ``"chip"`` with halo exchange (:func:`.tiled.modwt_multilevel_tiled`,
     whose kernel route makes one analysis launch per device).  Across ranks
     ``x`` is this rank's rows, and so is the result."""
-    return modwt_multilevel_tiled(
-        _place(x, mesh), wavelet, levels=levels, boundary=boundary, backend=backend,
-        precision=precision, **_layout(mesh),
-    )
+    return _analysis(_place(x, mesh), wavelet, levels, mesh, CHIP_AXIS, boundary, HOST_AXIS,
+                     backend, precision, world=False)
 
 
 def imodwt_multilevel_multihost(
@@ -204,10 +159,8 @@ def imodwt_multilevel_multihost(
 ) -> torch.Tensor:
     """Inverse of :func:`modwt_multilevel_multihost` (across ranks, of this
     rank's rows)."""
-    return imodwt_multilevel_tiled(
-        result, wavelet, boundary=boundary, backend=backend, precision=precision,
-        **_layout(mesh),
-    )
+    return _synthesis(result, wavelet, mesh, CHIP_AXIS, boundary, HOST_AXIS, backend,
+                      precision, world=False)
 
 
 class CommunicationReport(NamedTuple):

@@ -10,15 +10,23 @@ the edge shards' own data; halos wider than one shard are gathered hop by
 hop, and the symmetric levels whose halo outgrows a shard gather the whole
 signal (the JAX package's ``all_gather``).
 
-In one process the shards are the ``[B, T, n_loc]`` view of the global
-signal, and the exchange is slicing, a roll along the shard axis
-(:func:`_ppermute`, the counterpart of ``jax.lax.ppermute``) and
-``torch.cat``; ``Tensor.to`` takes each device its shards and halos where
-the mesh spans several devices.  All shards on one device are computed
-together: one call, one kernel launch on the kernel route, for their
-``[B·T, n_loc]`` rows with a ``[B·T, H]`` halo, the counterpart of
-``shard_map``.  Results come back as ordinary global tensors on the device
-of the mesh's first shard.
+The shards are the ``[B, T, n_loc]`` view of the signal, and the exchange
+is slicing, a roll along the shard axis (:func:`.exchange.ppermute`, the
+counterpart of ``jax.lax.ppermute``) and ``torch.cat``; ``Tensor.to`` takes
+each device its shards and halos where the mesh spans several devices.  All
+shards on one device are computed together: one call, one kernel launch on
+the kernel route, for their ``[B·T, n_loc]`` rows with a ``[B·T, H]`` halo,
+the counterpart of ``shard_map``.  In one process the results come back as
+ordinary global tensors on the device of the mesh's first shard.
+
+On a mesh that spans the ranks of a ``torch.distributed`` world
+(:mod:`.mesh`) each rank passes the block of the input that its cells hold,
+``[B_local, T_local n_loc]``, computes its own shards and gets back its
+block of every output; the halos whose source is another rank's shard
+travel over ``torch.distributed`` (:mod:`.exchange`), and where the JAX
+package gathers the whole axis (the symmetric levels whose halo outgrows a
+shard, the exact tier's multi-wrap periodic span) each rank gathers its
+rows' whole axis, runs the single-device op and keeps its own columns.
 
 Routes (``backend``): ``'torch'`` (alias ``'jnp'``) is the plain cascade
 for every boundary; ``'kernel'`` (alias ``'pallas'``) serves periodic and
@@ -55,7 +63,8 @@ from ..transforms.multilevel import (
     _symmetric_alignment,
     _tau_j,
 )
-from .mesh import Mesh, _check_one_process
+from . import exchange
+from .mesh import Mesh, local_index, rank_box
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -77,36 +86,34 @@ def _ring_perms(axis: str, mesh: Mesh, wrap: bool):
 
 
 def _ppermute(blocks: torch.Tensor, perm) -> torch.Tensor:
-    """Shard ``d`` receives block ``s`` for each ``(s, d)`` in ``perm``; a
-    shard with no source receives zeros.  ``blocks`` is ``[B, T, ...]``, the
-    T shards along dim 1; ``perm`` is a ring shift (:func:`_ring_perms`),
-    so the exchange is one roll, written as a ``torch.cat`` of the two
-    halves (one copy, from a strided view too)."""
-    if not perm:
-        return torch.zeros_like(blocks)
-    size = blocks.shape[1]
-    (shift,) = {(d - s) % size for s, d in perm}
-    if shift == 0:  # one shard, its own neighbour
-        return blocks
-    out = torch.cat([blocks.narrow(1, size - shift, shift),
-                     blocks.narrow(1, 0, size - shift)], dim=1)
-    for missing in set(range(size)) - {d for _, d in perm}:
-        out.narrow(1, missing, 1).zero_()
-    return out
+    """The exchange within this process, the counterpart of
+    ``jax.lax.ppermute``: :func:`.exchange.roll`."""
+    return exchange.roll(blocks, perm)
 
 
-def _gather_halo(shards: torch.Tensor, halo_len: int, perm, side: str) -> torch.Tensor:
+def _hop(blocks: torch.Tensor, perm, ring: exchange.Ring | None) -> torch.Tensor:
+    """One step round the ring: :func:`_ppermute` where this process holds
+    the whole axis, else :func:`.exchange.ppermute` across ranks."""
+    if ring is None or ring.whole:
+        return _ppermute(blocks, perm)
+    return exchange.ppermute(blocks, perm, ring)
+
+
+def _gather_halo(shards: torch.Tensor, halo_len: int, perm, side: str,
+                 ring: exchange.Ring | None = None) -> torch.Tensor:
     """Fetch ``halo_len`` samples adjacent to each shard of ``shards``
     (``[B, T, n_loc, ...]``: T shards along dim 1, their samples along dim
     2) from its ring neighbours, hop by hop for halos wider than one shard.
     For the shallow case only the needed ``halo_len`` samples move; a wide
     halo moves whole shards a hop; on a ring with the wrap link a halo
-    longer than the signal keeps wrapping.  Returns ``[B, T, halo_len,
-    ...]``."""
-    return _gather_halos((shards,), halo_len, perm, side)[0]
+    longer than the signal keeps wrapping.  ``ring`` is this rank's place
+    on the axis (:attr:`_Tiles.ring`; None: the whole axis, in this
+    process).  Returns ``[B, T, halo_len, ...]``."""
+    return _gather_halos((shards,), halo_len, perm, side, ring)[0]
 
 
-def _gather_halos(shards: tuple, halo_len: int, perm, side: str) -> tuple:
+def _gather_halos(shards: tuple, halo_len: int, perm, side: str,
+                  ring: exchange.Ring | None = None) -> tuple:
     """:func:`_gather_halo` for several tensors of one shape at once (the
     planes of a synthesis): what they send is stacked along dim 0 and goes
     round the ring in one exchange, the counterpart of the JAX package's
@@ -119,13 +126,13 @@ def _gather_halos(shards: tuple, halo_len: int, perm, side: str) -> tuple:
 
     if halo_len <= n_loc:
         start = n_loc - halo_len if side == "left" else 0
-        out = _ppermute(stacked([s.narrow(2, start, halo_len) for s in shards]), perm)
+        out = _hop(stacked([s.narrow(2, start, halo_len) for s in shards]), perm, ring)
         return out.split(b)
     hops = -(-halo_len // n_loc)
     blocks = []
     carried = stacked(list(shards))
     for _ in range(hops):
-        carried = _ppermute(carried, perm)
+        carried = _hop(carried, perm, ring)
         blocks.append(carried)
     if side == "left":  # blocks[0] = left neighbour, blocks[1] = left-left, ...
         ext = torch.cat(blocks[::-1], dim=2)
@@ -157,16 +164,19 @@ def _with_shard(halos: torch.Tensor, index: int, block: torch.Tensor) -> torch.T
 
 
 class _Tiles(NamedTuple):
-    """How a ``[B, N, *rest]`` block lies on the mesh: P groups of B/P rows
-    (over ``batch_axis``) times T shards of ``n_loc`` along dim 1 (over
-    ``axis``).  ``cells[p][t]`` is the device of shard (p, t); mesh axes
-    other than those two hold replicas, and the first replica computes.
-    The global tensors live on :attr:`home`, where the halos are exchanged
-    on the ``[B, T, n_loc, *rest]`` view (:meth:`shards`)."""
+    """How this rank's ``[B, N, *rest]`` block lies on the mesh: P groups of
+    B/P rows (over ``batch_axis``) times T shards of ``n_loc`` along dim 1
+    (over ``axis``).  ``cells[p][t]`` is the device of shard (p, t); mesh
+    axes other than those two hold replicas, and the first replica computes.
+    In one process the block is the global tensor; across ranks it is the
+    rank's box of the grid (:attr:`ring` places it).  The block's tensors
+    live on :attr:`home`, where the halos are exchanged on the ``[B, T,
+    n_loc, *rest]`` view (:meth:`shards`)."""
 
     cells: list
     rows: int
     n_loc: int
+    ring: exchange.Ring
 
     @property
     def P(self) -> int:  # noqa: N802
@@ -180,21 +190,52 @@ class _Tiles(NamedTuple):
     def home(self) -> torch.device:
         return self.cells[0][0]
 
+    @property
+    def n(self) -> int:
+        """The global length of the split axis."""
+        return self.n_loc * self.ring.size
+
+    @property
+    def head(self) -> bool:
+        """Whether this rank holds the global first shard."""
+        return self.ring.first == 0
+
+    @property
+    def tail(self) -> bool:
+        """Whether this rank holds the global last shard."""
+        return self.ring.first + self.ring.count == self.ring.size
+
     def shards(self, g: torch.Tensor) -> torch.Tensor:
-        """A global ``[B, N, *rest]`` tensor as ``[B, T, n_loc, *rest]``."""
+        """A ``[B, T n_loc, *rest]`` block as ``[B, T, n_loc, *rest]``."""
         return g.reshape(self.rows, self.T, self.n_loc, *g.shape[2:])
+
+    def gather_axis(self, g: torch.Tensor) -> torch.Tensor:
+        """The whole split axis of this rank's rows, ``[B, N, *rest]``: the
+        block itself in one process, else every rank's shards of its rows
+        (the JAX package's tiled ``all_gather``)."""
+        if self.ring.whole:
+            return g
+        return exchange.all_gather(self.shards(g), self.ring).reshape(
+            self.rows, self.n, *g.shape[2:])
+
+    def own(self, g: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of a ``[B, N, *rest]`` tensor of the whole
+        axis (:meth:`gather_axis`'s inverse)."""
+        if self.ring.whole:
+            return g
+        return g.narrow(1, self.ring.first * self.n_loc, self.T * self.n_loc)
 
     def compute(self, globals_: tuple, halos: tuple, fn: Callable) -> tuple:
         """Shard-local ``fn(rows, halos)`` once per device, for all of its
         shards together: ``rows`` one ``[R, n_loc, *rest]`` tensor per
-        global input, ``halos`` one ``[R, H, *rest]`` tensor per
+        block input, ``halos`` one ``[R, H, *rest]`` tensor per
         ``[B, T, H, *rest]`` halo input; ``fn`` returns ``[R, n_loc, *rest]``
-        outputs, which come back as global tensors on :attr:`home`."""
+        outputs, which come back as blocks on :attr:`home`."""
         b, t, n_loc = self.rows, self.T, self.n_loc
         rest = tuple(globals_[0].shape[2:])
         if all(d == self.home for row in self.cells for d in row):
-            # one device: the (row, shard) order is a reshape of the global
-            # tensors, so no contiguous shard is copied in or out
+            # one device: the (row, shard) order is a reshape of the blocks,
+            # so no contiguous shard is copied in or out
             outs = fn(tuple(g.reshape(b * t, n_loc, *rest).contiguous() for g in globals_),
                       tuple(h.reshape(b * t, -1, *rest).contiguous() for h in halos))
             return tuple(o.reshape(b, t * n_loc, *rest) for o in outs)
@@ -218,21 +259,15 @@ class _Tiles(NamedTuple):
             for k in range(len(results[0][0])))
 
 
-def _tiles(mesh: Mesh, axis: str, batch_axis: str | None, shape, dim: int) -> _Tiles:
-    """The tiling of a tensor of ``shape`` split along ``dim`` (negative)
-    over ``axis``, and its first dimension over ``batch_axis``:
-    ``_tile_spec``'s layout.  The dimensions before ``dim`` are the rows."""
-    _check_one_process(mesh)
-    size = mesh.axis_size(axis)
-    n = shape[dim]
-    if n % size != 0:
-        raise InvalidArgumentError(
-            ErrorCode.DIST_TILE_TOO_SMALL,
-            f"Length {n} of the split axis must divide evenly across {size} shards",
-            suggestions=("Pad the signal to a multiple of the mesh axis size",),
-        )
+def _tiles(mesh: Mesh, axis: str, batch_axis: str | None, shape, dim: int, *,
+           world: bool = True) -> _Tiles:
+    """The tiling of this rank's block of ``shape``, split along ``dim``
+    (negative) over ``axis`` and along its first dimension over
+    ``batch_axis``: ``_tile_spec``'s layout.  The dimensions before ``dim``
+    are the rows.  ``world=False`` serves a layout whose split axis never
+    crosses ranks (the multihost facades), which needs no process group."""
+    mesh.axis_size(axis)  # an axis the mesh lacks raises
     lead = len(shape) + dim  # dimensions before the split one
-    groups = 1
     if batch_axis is not None:
         if lead < 1:
             raise InvalidArgumentError(
@@ -245,13 +280,21 @@ def _tiles(mesh: Mesh, axis: str, batch_axis: str | None, shape, dim: int) -> _T
                 ErrorCode.DIST_BAD_MESH,
                 f"batch_axis and axis are both {axis!r}",
             )
-        groups = mesh.axis_size(batch_axis)
-        if shape[0] % groups != 0:
-            raise InvalidArgumentError(
-                ErrorCode.VAL_INVALID_SHAPE,
-                f"batch {shape[0]} not divisible by {groups} shards of {batch_axis!r}",
-                suggestions=("Pad the batch to a multiple of the mesh axis size",),
-            )
+    box = rank_box(mesh, (batch_axis, axis), world=world)
+    groups, shards = (box.ranges if batch_axis is not None else (range(1), box.ranges[0]))
+    n = shape[dim]
+    if n % len(shards) != 0:
+        raise InvalidArgumentError(
+            ErrorCode.DIST_TILE_TOO_SMALL,
+            f"Length {n} of the split axis must divide evenly across {len(shards)} shards",
+            suggestions=("Pad the signal to a multiple of the mesh axis size",),
+        )
+    if batch_axis is not None and shape[0] % len(groups) != 0:
+        raise InvalidArgumentError(
+            ErrorCode.VAL_INVALID_SHAPE,
+            f"batch {shape[0]} not divisible by {len(groups)} shards of {batch_axis!r}",
+            suggestions=("Pad the batch to a multiple of the mesh axis size",),
+        )
     names = mesh.axis_names
 
     def device(p, t):
@@ -262,8 +305,11 @@ def _tiles(mesh: Mesh, axis: str, batch_axis: str | None, shape, dim: int) -> _T
         return mesh.devices[tuple(idx)]
 
     rows = math.prod(shape[:lead])
-    return _Tiles([[device(p, t) for t in range(size)] for p in range(groups)], rows,
-                  n // size)
+    owners = box.owners if batch_axis is not None else box.owners[None]
+    ring = exchange.Ring(mesh.axis_size(axis), shards.start, len(shards), tuple(groups),
+                         rows // len(groups), owners, mesh.rank)
+    return _Tiles([[device(p, t) for t in shards] for p in groups], rows, n // len(shards),
+                  ring)
 
 
 def _flat(x: torch.Tensor, tiles: _Tiles) -> torch.Tensor:
@@ -328,15 +374,23 @@ def modwt_multilevel_tiled(
     cumulative halo of ``(L0-1)(2^J-1)`` samples.  ``precision`` names a
     tier of the kernel tier, as in the JAX signature: it is validated on
     every route and changes nothing, since every tier runs the fp32 kernel.
+    On a mesh that spans ranks ``x`` is this rank's block
+    (:func:`.mesh.local_index`) and so is each plane of the result.
     """
+    return _analysis(x, wavelet, levels, mesh, axis, boundary, batch_axis, backend, precision)
+
+
+def _analysis(x, wavelet, levels, mesh, axis, boundary, batch_axis, backend, precision, *,
+              world: bool = True) -> MultiLevelMODWTResult:
+    """:func:`modwt_multilevel_tiled`; ``world`` as :func:`_tiles` takes it."""
     from ..kernels.modwt_fused import _check_precision
 
     _check_precision(precision)
     w = _resolve_discrete(wavelet)
     boundary_l = boundary.lower()
-    tiles = _tiles(mesh, axis, batch_axis, tuple(x.shape), -1)
+    tiles = _tiles(mesh, axis, batch_axis, tuple(x.shape), -1, world=world)
     n = x.shape[-1]
-    _check_level_fits(w, levels, n)
+    _check_level_fits(w, levels, tiles.n)
     wrap = boundary_l.startswith("per")
     from_left, _ = _ring_perms(axis, mesh, wrap)
     resolved = _resolve_tiled_backend(backend, boundary_l, tiles, x.dtype,
@@ -355,7 +409,7 @@ def modwt_multilevel_tiled(
         # local cascade zero-extended on [halo | x]; the periodic wrap and
         # the global zero edge both ride the hop chain
         span = (w.filter_length - 1) * ((1 << levels) - 1)
-        halos = _gather_halo(tiles.shards(x2), span, from_left, "left")
+        halos = _gather_halo(tiles.shards(x2), span, from_left, "left", tiles.ring)
         if resolved == "kernel":
             from ..kernels import modwt_composite as mc
             from ..kernels.modwt_fused import _kernel_filters
@@ -383,14 +437,17 @@ def modwt_multilevel_tiled(
         if halo_len > tiles.n_loc:
             # deep-halo symmetric: the mirror of the global head spans several
             # shards, so the shards are gathered and the single-device op runs
-            # on the whole signal (cheap by definition in that regime)
-            cur, detail = atrous_analysis_pair(cur, low, high, spacing=spacing,
-                                               boundary="symmetric")
-            details.append(detail)
+            # on the whole signal (cheap by definition in that regime); across
+            # ranks each rank gathers its rows and keeps its own columns
+            a, d = atrous_analysis_pair(tiles.gather_axis(cur), low, high, spacing=spacing,
+                                        boundary="symmetric")
+            cur = tiles.own(a)
+            details.append(tiles.own(d))
             continue
         shards = tiles.shards(cur)
-        halos = _with_shard(_gather_halo(shards, halo_len, from_left, "left"), 0,
-                            _mirror_tail(shards[:, 0], halo_len))
+        halos = _gather_halo(shards, halo_len, from_left, "left", tiles.ring)
+        if tiles.head:
+            halos = _with_shard(halos, 0, _mirror_tail(shards[:, 0], halo_len))
 
         def level_pair(rows, hal, spacing=spacing, halo_len=halo_len):
             a, d = atrous_analysis_pair(torch.cat([hal[0], rows[0]], dim=-1), low, high,
@@ -422,8 +479,16 @@ def imodwt_multilevel_tiled(
     ``t + sign*2^(j-1)*l + offset`` with per-level tau offsets, so it needs
     TWO-SIDED halos; the global mirror only affects the first and last
     shard, whose halos are rebuilt from their own edge data.  When a halo
-    exceeds the shard width the level gathers the whole signal.
+    exceeds the shard width the level gathers the whole signal.  On a mesh
+    that spans ranks the planes are this rank's blocks, and so is the
+    result.
     """
+    return _synthesis(result, wavelet, mesh, axis, boundary, batch_axis, backend, precision)
+
+
+def _synthesis(result, wavelet, mesh, axis, boundary, batch_axis, backend, precision, *,
+               world: bool = True) -> torch.Tensor:
+    """:func:`imodwt_multilevel_tiled`; ``world`` as :func:`_tiles` takes it."""
     from ..kernels.modwt_fused import _check_precision
 
     _check_precision(precision)
@@ -431,7 +496,7 @@ def imodwt_multilevel_tiled(
     boundary_l = boundary.lower()
     levels = result.levels
     approx = result.approx
-    tiles = _tiles(mesh, axis, batch_axis, tuple(approx.shape), -1)
+    tiles = _tiles(mesh, axis, batch_axis, tuple(approx.shape), -1, world=world)
     wrap = boundary_l.startswith("per")
     resolved = _resolve_tiled_backend(backend, boundary_l, tiles, approx.dtype,
                                       w.filter_length, levels)
@@ -440,6 +505,7 @@ def imodwt_multilevel_tiled(
     planes = [_flat(p, tiles) for p in (*result.details, approx)]
     low = w.rec_lo * _INV_SQRT2
     high = w.rec_hi * _INV_SQRT2
+    ring = tiles.ring
 
     if resolved == "kernel":
         from ..kernels import modwt_composite as mc
@@ -448,7 +514,7 @@ def imodwt_multilevel_tiled(
         filters = _kernel_filters(w, synthesis=True)
         span = (w.filter_length - 1) * ((1 << levels) - 1)
         halos = _gather_halos(tuple(tiles.shards(p) for p in planes), span, from_right,
-                              "right")
+                              "right", ring)
         (out,) = tiles.compute(tuple(planes), halos, lambda rows, hal: (mc.synthesis(
             rows, levels, filters, False, halo=hal),))
         return out.reshape(lead + (n,))
@@ -460,18 +526,23 @@ def imodwt_multilevel_tiled(
         lh = max(0, -min(deltas))
         rh = max(0, max(deltas))
         if lh > tiles.n_loc or rh > tiles.n_loc:
-            return atrous_convolve(plane, filt, spacing=spacing, boundary="symmetric",
-                                   sign=sign, offset=offset)
+            return tiles.own(atrous_convolve(tiles.gather_axis(plane), filt, spacing=spacing,
+                                             boundary="symmetric", sign=sign, offset=offset))
         shards = tiles.shards(plane)
         halos = []
         if lh:
             # global head mirror: position -p-1 (p in 1..lh) -> plane[p-1]
-            halos.append(_with_shard(_gather_halo(shards, lh, from_left, "left"), 0,
-                                     torch.flip(shards[:, 0, :lh], dims=(-1,))))
+            left = _gather_halo(shards, lh, from_left, "left", ring)
+            if tiles.head:
+                left = _with_shard(left, 0, torch.flip(shards[:, 0, :lh], dims=(-1,)))
+            halos.append(left)
         if rh:
             # global tail mirror: position N+q -> plane[n_loc-1-q]
-            halos.append(_with_shard(_gather_halo(shards, rh, from_right, "right"),
-                                     tiles.T - 1, torch.flip(shards[:, -1, -rh:], dims=(-1,))))
+            right = _gather_halo(shards, rh, from_right, "right", ring)
+            if tiles.tail:
+                right = _with_shard(right, tiles.T - 1,
+                                    torch.flip(shards[:, -1, -rh:], dims=(-1,)))
+            halos.append(right)
 
         def conv(rows, hal):
             pieces = ([hal[0]] if lh else []) + [rows[0]] + ([hal[-1]] if rh else [])
@@ -499,7 +570,7 @@ def imodwt_multilevel_tiled(
             continue
         halo_len = effective_length(w.filter_length, level) - 1
         halos = _gather_halos((tiles.shards(cur), tiles.shards(detail)), halo_len,
-                              from_right, "right")
+                              from_right, "right", ring)
 
         def level_synthesis(rows, hal, spacing=spacing):
             ext_c = torch.cat([rows[0], hal[0]], dim=-1)
@@ -523,15 +594,20 @@ def tiled_roundtrip_check(
     seed: int = 0,
 ) -> float:
     """Round-trip a random signal through the tiled transform on the mesh's
-    first device; returns the max abs error against the input."""
-    _check_one_process(mesh)
-    home = mesh.devices.flat[0]
+    first device of this rank; returns the max abs error against the input.
+    On a mesh that spans ranks each rank round-trips its block of the one
+    seeded signal, and the result is the largest error over all ranks (one
+    ``all_reduce``)."""
+    home = mesh.local_devices[0]
     x = torch.as_tensor(np.random.default_rng(seed).standard_normal(n), dtype=dtype,
-                        device=home)
+                        device=home)[local_index(mesh, (n,), axis=axis)]
     res = modwt_multilevel_tiled(x, wavelet, levels=levels, mesh=mesh, axis=axis,
                                  boundary="periodic")
     xr = imodwt_multilevel_tiled(res, wavelet, mesh=mesh, axis=axis, boundary="periodic")
-    return float((xr - x).abs().max())
+    err = (xr - x).abs().max()
+    if not mesh.is_local:
+        err = exchange.all_reduce_max(err)
+    return float(err)
 
 
 # ---------------------------------------------------------------------------
@@ -555,8 +631,9 @@ def modwt_multilevel_tiled_exact(
     profile: str = "balanced",
 ):
     """Sharded exact analysis: ``(details pairs tuple, approx pair)``, each
-    plane a float32 ``(hi, lo)`` pair shaped like the input.  ``profile``
-    is validated and changes nothing (``kernels.modwt_exact``)."""
+    plane a float32 ``(hi, lo)`` pair shaped like the input (across ranks,
+    like this rank's block).  ``profile`` is validated and changes nothing
+    (``kernels.modwt_exact``)."""
     from ..kernels.modwt_exact import _resolve_profile, analysis_exact
     from ..kernels.modwt_fused import _kernel_filters
 
@@ -575,14 +652,15 @@ def modwt_multilevel_tiled_exact(
     from_left, _ = _ring_perms(axis, mesh, wrap)
     lead, n = tuple(x.shape[:-1]), x.shape[-1]
     x2 = _flat(x, tiles).to(torch.float32)
-    if wrap and span >= n:
+    if wrap and span >= tiles.n:
         # the periodic extension wraps more than once: gather the whole
         # signal and run the single-device exact transform (cheap by
-        # definition in that regime)
-        flat = tuple(t for pair in analysis_exact(x2, levels, filters, True, profile=profile)
-                     for t in pair)
+        # definition in that regime); across ranks each keeps its columns
+        flat = tuple(tiles.own(t) for pair in analysis_exact(
+            tiles.gather_axis(x2), levels, filters, True, profile=profile) for t in pair)
     else:
-        halos = _gather_halo(tiles.shards(x2), min(span, n), from_left, "left")
+        halos = _gather_halo(tiles.shards(x2), min(span, tiles.n), from_left, "left",
+                             tiles.ring)
         flat = tiles.compute((x2,), (halos,), lambda rows, hal: tuple(
             t for pair in analysis_exact(rows[0], levels, filters, False, halo=hal[0],
                                          profile=profile) for t in pair))
@@ -603,8 +681,9 @@ def imodwt_multilevel_tiled_exact(
     profile: str = "balanced",
 ):
     """Sharded exact synthesis from double-float plane pairs: returns the
-    reconstructed ``(hi, lo)`` pair (combine in float64 to evaluate).  A
-    boundary other than periodic takes zero edges, as in JAX."""
+    reconstructed ``(hi, lo)`` pair (combine in float64 to evaluate; across
+    ranks, this rank's block).  A boundary other than periodic takes zero
+    edges, as in JAX."""
     from ..kernels.modwt_exact import _resolve_profile, synthesis_exact
     from ..kernels.modwt_fused import _kernel_filters
 
@@ -622,13 +701,14 @@ def imodwt_multilevel_tiled_exact(
     def pairs_of(ts):
         return tuple((ts[2 * i], ts[2 * i + 1]) for i in range(levels + 1))
 
-    if wrap and span >= n:
+    if wrap and span >= tiles.n:
         # multi-wrap periodic extension: gather every plane pair and run the
         # single-device exact synthesis
-        hi, lo = synthesis_exact(pairs_of(flat), levels, filters, True, profile=profile)
+        hi, lo = map(tiles.own, synthesis_exact(pairs_of([tiles.gather_axis(t) for t in flat]),
+                                                levels, filters, True, profile=profile))
     else:
-        halos = _gather_halos(tuple(tiles.shards(t) for t in flat), min(span, n),
-                              from_right, "right")
+        halos = _gather_halos(tuple(tiles.shards(t) for t in flat), min(span, tiles.n),
+                              from_right, "right", tiles.ring)
         hi, lo = tiles.compute(tuple(flat), halos, lambda rows, hal: synthesis_exact(
             pairs_of(rows), levels, filters, False, halo=pairs_of(hal), profile=profile))
     return hi.reshape(lead + (n,)), lo.reshape(lead + (n,))

@@ -14,10 +14,15 @@ backward (analysis) or forward (synthesis) at most the cumulative span
 
 PERIODIC keeps the ring's wrap link, ZERO drops it.  SYMMETRIC mirrors the
 global image head and foot, which span shards at depth, and a periodic span
-of at least H wraps more than once: both gather the image (the single-device
-transform on the mesh's first device).  The shard functions are plain
-PyTorch, as the JAX package's are jnp; all shards on one device run as one
-call (:mod:`.tiled`).
+of at least H wraps more than once: both gather the image's H (the
+single-device transform on the mesh's first device; across ranks each rank
+gathers its images' rows, the JAX package's ``all_gather`` of H, and keeps
+its own).  The shard functions are plain PyTorch, as the JAX package's are
+jnp; all shards on one device run as one call (:mod:`.tiled`).  On a mesh
+that spans ranks each rank passes the rows of H its cells hold (and its
+images, with ``batch_axis``) and gets the same block of every plane back;
+the slabs that cross ranks travel over ``torch.distributed``
+(:mod:`.exchange`).
 """
 
 from __future__ import annotations
@@ -76,7 +81,7 @@ def modwt2_multilevel_tiled(
     w = _resolve_discrete(wavelet)
     boundary_l = boundary.lower()
     tiles = _tiles(mesh, axis, batch_axis, tuple(x.shape), -2)
-    h = x.shape[-2]
+    h = tiles.n
     _check_level_fits(w, levels, min(h, x.shape[-1]))
     low = w.dec_lo * _INV_SQRT2
     high = w.dec_hi * _INV_SQRT2
@@ -85,13 +90,18 @@ def modwt2_multilevel_tiled(
     w_boundary = "periodic" if wrap else "zero"
     shape = tuple(x.shape)
 
+    x3 = x.reshape(tiles.rows, x.shape[-2], x.shape[-1]).to(tiles.home)
     if boundary_l.startswith("sym") or (wrap and span >= h):
-        return modwt2_multilevel(x.to(tiles.home), w, levels=levels, boundary=boundary_l)
+        if tiles.ring.whole:
+            return modwt2_multilevel(x.to(tiles.home), w, levels=levels, boundary=boundary_l)
+        full = modwt2_multilevel(tiles.gather_axis(x3), w, levels=levels, boundary=boundary_l)
+        details = tuple(tuple(tiles.own(p).reshape(shape) for p in trip)
+                        for trip in full.details)
+        return MultiLevelMODWT2Result(details, tiles.own(full.approx).reshape(shape))
 
     from_left, _ = _ring_perms(axis, mesh, wrap)
-    x3 = x.reshape(tiles.rows, h, x.shape[-1]).to(tiles.home)
     eff = min(span, h)
-    halos = _gather_halo(tiles.shards(x3), eff, from_left, "left")
+    halos = _gather_halo(tiles.shards(x3), eff, from_left, "left", tiles.ring)
     n_loc = tiles.n_loc
 
     def cascade(rows, hal):
@@ -127,8 +137,8 @@ def imodwt2_multilevel_tiled(
     boundary_l = boundary.lower()
     levels = result.levels
     shape = tuple(result.approx.shape)
-    h = shape[-2]
     tiles = _tiles(mesh, axis, batch_axis, shape, -2)
+    h = tiles.n
     low = w.rec_lo * _INV_SQRT2
     high = w.rec_hi * _INV_SQRT2
     span = (w.filter_length - 1) * ((1 << levels) - 1)
@@ -138,15 +148,25 @@ def imodwt2_multilevel_tiled(
     if boundary_l.startswith("sym") or (wrap and span >= h):
         # see the analysis gather-path note on multi-wrap periodic spans
         home = tiles.home
-        return imodwt2_multilevel(MultiLevelMODWT2Result(
-            tuple(tuple(p.to(home) for p in trip) for trip in result.details),
-            result.approx.to(home)), w, boundary=boundary_l)
+        if tiles.ring.whole:
+            return imodwt2_multilevel(MultiLevelMODWT2Result(
+                tuple(tuple(p.to(home) for p in trip) for trip in result.details),
+                result.approx.to(home)), w, boundary=boundary_l)
+
+        def whole(p):
+            return tiles.gather_axis(p.reshape(tiles.rows, shape[-2], shape[-1]).to(home))
+
+        full = imodwt2_multilevel(MultiLevelMODWT2Result(
+            tuple(tuple(whole(p) for p in trip) for trip in result.details),
+            whole(result.approx)), w, boundary=boundary_l)
+        return tiles.own(full).reshape(shape)
 
     _, from_right = _ring_perms(axis, mesh, wrap)
-    planes = [p.reshape(tiles.rows, h, shape[-1]).to(tiles.home)
+    planes = [p.reshape(tiles.rows, shape[-2], shape[-1]).to(tiles.home)
               for p in (*(q for trip in result.details for q in trip), result.approx)]
     eff = min(span, h)
-    halos = _gather_halos(tuple(tiles.shards(p) for p in planes), eff, from_right, "right")
+    halos = _gather_halos(tuple(tiles.shards(p) for p in planes), eff, from_right, "right",
+                          tiles.ring)
     n_loc = tiles.n_loc
 
     def cascade(rows, hal):

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from ..config import get_backend
 from ..errors import ErrorCode, InvalidArgumentError, InvalidSignalError
 from ..kernels import modwt_bank
+from ..ops.constants import kept
 from ..wavelets.base import ContinuousWavelet
 from ..wavelets.registry import as_wavelet
 
@@ -160,6 +161,7 @@ _BAKED_BANK_MAX_FFT = 1 << 16
 
 
 @functools.lru_cache(maxsize=8)
+@kept
 def _bank_spectrum(w: ContinuousWavelet, scales: tuple[float, ...], fft_size: int,
                    real: bool, complex_dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
@@ -532,6 +534,7 @@ def _aggregate_response(
 
 
 @functools.lru_cache(maxsize=16)
+@kept
 def _equalizer(w: ContinuousWavelet, scales: tuple[float, ...], n: int, boundary: str,
                complex_dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """1 / G on the rfft bins where |G| is above 5% of its peak, 0 elsewhere."""

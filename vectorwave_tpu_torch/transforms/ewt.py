@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..errors import ErrorCode, InvalidArgumentError, InvalidSignalError
+from ..ops.constants import kept
 
 __all__ = ["ewt_boundaries", "ewt", "iewt", "ewt_hilbert", "ewt_filterbank"]
 
@@ -151,6 +152,7 @@ def _resolve_bank(n: int, boundaries, dtype, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
+@kept
 def _tuple_bank(n: int, boundaries: tuple[float, ...], dtype, device) -> torch.Tensor:
     """The float64-built bank of a boundary tuple in ``dtype`` on
     ``device``, kept per length, tuple, dtype and device (the JAX package

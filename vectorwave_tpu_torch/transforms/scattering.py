@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..errors import ErrorCode, InvalidArgumentError, InvalidSignalError
+from ..ops.constants import kept
 
 __all__ = ["ScatteringResult", "scattering1d", "scattering_filterbank"]
 
@@ -160,6 +161,7 @@ def scattering1d(
 
 
 @functools.lru_cache(maxsize=16)
+@kept
 def _device_bank(n, J, Q, Q2, real_dtype, cdtype, device):
     """The filters of one signal length on ``device``, built once: the
     lowpass ``[n//2 + 1]``, the first-order bank ``[n1, n]``, the centre

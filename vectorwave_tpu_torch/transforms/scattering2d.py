@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..errors import ErrorCode, InvalidArgumentError, InvalidSignalError
+from ..ops.constants import kept
 from .cwt2 import _bank, _freq_grids, morlet2
 from .scattering import _dtypes
 
@@ -122,6 +123,7 @@ def scattering2d(
 
 
 @functools.lru_cache(maxsize=16)
+@kept
 def _device_bank(h, w, J, L, aniso, real_dtype, cdtype, device):
     """The filters of one image size on ``device``, built once: the oriented
     Morlet bank ``[J*L, h, w]``, the Gaussian lowpass at ``2^J`` on the
