@@ -74,6 +74,20 @@ Phases, in order; any failure raises and the exit code is not 0:
    with a short halo, 2x300 (shorter than the span), the exact pair on a
    split plan (sym8 J=10, two launches on [halo | x]) and the synthesis in
    bfloat16;
+2b. the MODWT core's mirrored test cases (``tools/mirror_cases.py``): the
+   kernel-reaching cases of the JAX package's ``test_pallas_kernels.py``,
+   ``test_fused_denoise.py``, ``test_fused_roundtrip.py``,
+   ``test_tolerance_routing.py``, the property sweep's 24 MODWT
+   configurations and the symmetric interior NRMSE guard at N = 257, at
+   those tests' shapes and seeds, each through the public entry points
+   under ``auto`` and under ``backend='kernel'`` and held against the plain
+   route on the card (2e-5 in float32; 1e-13 on the exact tier's hi + lo,
+   its round trip within 1e-10 RMSE; the NRMSE within 10% of the committed
+   baseline); each direction's launches held to the gate
+   (``multilevel._kernel_eligible``), and ``backend='kernel'`` refusing
+   exactly where the kernels cannot serve; one line a case, the launches by
+   kernel and a summary line of the cases by route and the worst error
+   against each bound;
 3. the main path through the public entry points at 128x65536 float32:
    ``modwt_multilevel`` -> ``imodwt_multilevel`` at every precision tier,
    ``modwt_roundtrip_fused`` and ``denoise_multilevel``, with the launch
@@ -3562,6 +3576,44 @@ def warm_filters() -> subprocess.Popen:
                             cwd=os.path.dirname(os.path.abspath(__file__)))
 
 
+def mirror_cases_path(dev) -> None:
+    """Phase 2b: the kernel-reaching cases of the MODWT core's test mirrors
+    (``tools/mirror_cases.py``) at the JAX tests' own shapes, each through
+    the public entry points under ``auto`` and under ``backend='kernel'``,
+    held against the plain route on the card; the route of each direction
+    held to the gate, and ``kernel``'s refusals to where the kernels cannot
+    serve.  Prints a line a case, the launches by kernel and one summary
+    line; any fault fails the phase."""
+    from tools import mirror_cases
+    from vectorwave_tpu_torch.kernels import modwt_composite as mc
+
+    print("phase 2b: the MODWT core's mirrored test cases on the card, under auto and "
+          "backend='kernel', against the plain route", flush=True)
+    t0 = time.perf_counter()
+    mc.reset_launches()
+    outcomes = []
+    for case in mirror_cases.cases():
+        out = mirror_cases.run_case(case, dev)
+        outcomes.append(out)
+        routes = ", ".join(f"{k} {v}" for k, v in out.routes.items())
+        worst = max((e / b for _, e, b in out.errors), default=0.0)
+        print(f"  {'ok  ' if out.ok else 'FAIL'} mirror {case.label}: {routes}; "
+              f"worst error / bound {worst:.3f}"
+              + ("" if out.ok else f"; {'; '.join(out.faults)}"), flush=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: v for k, v in mc.LAUNCHES.items() if v}
+    s = mirror_cases.summary(outcomes)
+    print(f"  mirror launches {json.dumps(launched)}", flush=True)
+    print(f"  mirror summary: {s['cases']} cases, {s['auto_kernel']} on a kernel and "
+          f"{s['auto_plain']} on the plain route under auto, {s['kernel_only']} through a "
+          f"kernel entry point alone, {s['kernel_refused']} refused under backend='kernel'; "
+          "worst error against each bound "
+          + ", ".join(f"{e:.3e} <= {b}" for b, e in s["worst"].items())
+          + f"; {seconds:.1f} s", flush=True)
+    check(s["faults"] == 0, f"mirror cases: {s['faults']} faults in {s['cases']} cases")
+
+
 def examples_path(total: dict) -> None:
     """Phase 5: every ``examples/torch/*.py`` on the card, each against the
     recording of its JAX counterpart, with its launches (added to
@@ -4040,6 +4092,7 @@ def main() -> int:
     cwt_kernels_against_plain(dev, gen, worst)
     stream_kernels_against_plain(dev, gen, worst, worst_bf16)
     halo_kernels_against_plain(dev, gen, worst, worst_bf16)
+    mirror_cases_path(dev)
 
     print(f"phase 3: main path through the public entry points, "
           f"{BATCH}x{N} float32", flush=True)

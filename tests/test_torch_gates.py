@@ -12,10 +12,12 @@ CPU tensors, which asks the gates alone.
 
 Golden oracle: on both sides of the floor the port's plain float64
 ``modwt_multilevel`` equals ``tests/golden.py`` (the numpy port of the
-reference's ScalarOps) within 1e-12, and ``imodwt_multilevel`` of the
-golden planes gives the signal back within 1e-12 (periodic) or equals the
-JAX package's inverse of them within 1e-12 (symmetric, which the reference
-does not invert exactly).
+reference's ScalarOps) within 1e-12, for the wavelets and boundaries of the
+oracle's own callers; ``imodwt_multilevel`` of the golden planes gives the
+signal back within 1e-12 (periodic) or equals the JAX package's inverse of
+them within 1e-12 (zero and symmetric, which the reference does not invert
+exactly); at one level ``modwt`` and ``imodwt`` equal the oracle's
+single-level pair within 1e-12.
 """
 
 from types import SimpleNamespace
@@ -33,7 +35,7 @@ from vectorwave_tpu_torch.kernels import modwt_fused
 from vectorwave_tpu_torch.ops import convolve, facade
 from vectorwave_tpu_torch.transforms import multilevel as ml
 
-from .golden import modwt_multilevel_golden
+from .golden import imodwt_golden, modwt_golden, modwt_multilevel_golden
 
 CASES = [("db4", 6), ("sym8", 4), ("db4", 2)]
 TOL_GOLDEN = 1e-12
@@ -208,9 +210,13 @@ def test_filter_spectra_cache_holds_its_byte_bound(monkeypatch):
     assert sum(s.numel() * s.element_size() for s in convolve._SPECTRA.values()) <= 3 * one
 
 
-@pytest.mark.parametrize("boundary", ["periodic", "symmetric"])
-@pytest.mark.parametrize("name,levels", [("db4", 3), ("sym8", 2)])
+@pytest.mark.parametrize("boundary", ["periodic", "symmetric", "zero"])
+@pytest.mark.parametrize("name,levels", [("db4", 3), ("sym8", 2), ("haar", 1), ("db4", 1)])
 def test_plain_cascade_matches_the_golden_oracle_across_the_floor(name, levels, boundary):
+    """The golden oracle's own callers' wavelets and boundaries: haar and db4
+    single-level forward and inverse (``tests/test_modwt.py``), db4 J=3
+    (``tests/test_multilevel.py``), and sym8 J=2, each on both sides of the
+    floor."""
     w = vt.wavelet(name)
     floor = floor_of(name, levels, boundary, False)
     rng = np.random.default_rng(20)
@@ -221,12 +227,21 @@ def test_plain_cascade_matches_the_golden_oracle_across_the_floor(name, levels, 
         g_details, g_approx = modwt_multilevel_golden(x, w, levels, boundary)
         for got, want in zip((*res.details, res.approx), (*g_details, g_approx)):
             assert np.abs(got.numpy() - want).max() <= TOL_GOLDEN, n
+        if levels == 1:  # the single-level pair against its own oracle
+            one = vt.modwt(torch.as_tensor(x), name, boundary=boundary)
+            g_a, g_d = modwt_golden(x, w, boundary)
+            assert np.abs(one.approx.numpy() - g_a).max() <= TOL_GOLDEN, n
+            assert np.abs(one.detail.numpy() - g_d).max() <= TOL_GOLDEN, n
+            back = vt.imodwt(one._replace(approx=torch.as_tensor(g_a),
+                                          detail=torch.as_tensor(g_d)), name,
+                             boundary=boundary).numpy()
+            assert np.abs(back - imodwt_golden(g_a, g_d, w, boundary)).max() <= TOL_GOLDEN, n
         golden = res._replace(details=tuple(torch.as_tensor(d) for d in g_details),
                               approx=torch.as_tensor(g_approx))
         back = vt.imodwt_multilevel(golden, name, boundary=boundary).numpy()
         if boundary == "periodic":  # the periodic MODWT inverts exactly
             want = x
-        else:  # the symmetric inverse is the reference's, not an exact one
+        else:  # the zero and symmetric inverses are the reference's, not exact ones
             want = np.asarray(vw.imodwt_multilevel(vw.MultiLevelMODWTResult(
                 tuple(jnp.asarray(d) for d in g_details), jnp.asarray(g_approx)),
                 name, boundary=boundary, backend="jnp"))

@@ -16,6 +16,7 @@ FILES = sorted([*(ROOT / "vectorwave_tpu_torch").rglob("*.py"),
                 *(ROOT / "examples" / "torch").glob("*.py"),
                 ROOT / "chip_smoke.py",
                 ROOT / "tools" / "example_figures.py",
+                ROOT / "tools" / "mirror_cases.py",
                 ROOT / "tools" / "sweep_gates.py",
                 ROOT / "tools" / "record_jax_examples.py"])
 FORBIDDEN = ("jax", "jaxlib", "orbax", "vectorwave_tpu")
