@@ -1658,18 +1658,21 @@ def test_filter_spectrum_on_the_card_matches_the_cpu(cuda, taps, spacing, n):
     assert convolve._filter_spectrum(f, spacing, n, torch.complex128, cuda) is got
 
 
-# --- the MODWT core's mirrored test cases (tools/mirror_cases.py) ----------------------
+# --- the mirrored test cases (tools/mirror_cases.py) ------------------------------------
 
 
-@pytest.mark.parametrize("label", [c.label for c in mirror_cases.cases()])
+@pytest.mark.parametrize("label", [c.label for c in mirror_cases.cases()]
+                         + [c.label for c in mirror_cases.family_cases()])
 def test_mirror_case_on_the_card(cuda, label):
-    """Each kernel-reaching case of the MODWT core's test mirrors, at the JAX
-    tests' shapes: under ``auto`` and under ``backend='kernel'`` against the
-    plain route on the card (2e-5 in float32; 1e-13 on the exact tier's
-    hi + lo, its round trip within 1e-10 RMSE; the symmetric interior NRMSE
-    within 10% of the committed baseline), each direction's launches where
-    the gate says, and ``kernel`` refusing only where the kernels cannot
-    serve."""
-    case = next(c for c in mirror_cases.cases() if c.label == label)
+    """Each kernel-reaching case of the test mirrors (the MODWT core's, then
+    the other kernel families'), at the JAX tests' shapes: under ``auto``
+    and under ``backend='kernel'`` against the plain route on the card (2e-5
+    in float32; 1e-13 on the exact tier's hi + lo, its round trip within
+    1e-10 RMSE; the symmetric interior NRMSE within 10% of the committed
+    baseline; the other families at the JAX tests' float32 bounds), each
+    direction's launches where its router says, and ``kernel`` refusing only
+    where the kernels cannot serve."""
+    case = next(c for c in mirror_cases.cases() + mirror_cases.family_cases()
+                if c.label == label)
     out = mirror_cases.run_case(case, cuda)
     assert out.ok, out.faults

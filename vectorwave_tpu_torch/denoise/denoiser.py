@@ -33,7 +33,6 @@ from ..transforms.modwt import MODWTResult, _resolve_discrete, imodwt, modwt
 from ..transforms.multilevel import (
     MultiLevelMODWTResult,
     _kernel_eligible,
-    _resolve_backend,
     _resolve_tier,
     imodwt_multilevel,
     max_levels,
@@ -139,37 +138,44 @@ def denoise_multilevel(
     return imodwt_multilevel(denoised, wavelet, boundary=boundary, precision=tier)
 
 
-def _try_fused_denoise(x, wavelet, levels, method, mode, boundary, precision=None):
-    """Route sigma-only denoise rules through the one-pass fused kernel
-    where the cascade pair's gate and the denoise kernel's own room
-    (``modwt_composite.denoise_tile``) both admit the call; None = take the
-    3-call path."""
-    if method not in ("universal", "minimax") or mode not in ("soft", "hard"):
-        return None
-    if boundary.lower().startswith("sym"):
-        return None  # no fused symmetric denoise: the 3-call path runs the kernels
-    w = _resolve_discrete(wavelet)
-    n = x.shape[-1]
-    if levels is None:
-        levels = max_levels(n, w)
-    if levels < 2:
-        return None
-    if not _resolve_backend(None, lambda: _kernel_eligible(x, w, levels, boundary)):
-        return None
-    if denoise_tile(w.filter_length, levels) is None:
-        return None  # the denoise block does not fit: the cascade pair serves it
+def fused_denoise_serves(x, w, levels: int, method: str, mode: str, boundary: str) -> bool:
+    """Whether :func:`denoise_multilevel` takes the one-pass fused kernel for
+    this call: a sigma-only rule (universal, minimax) in soft or hard mode,
+    a periodic or zero boundary, two levels or more, the cascade pair's gate
+    under the configured backend (``_kernel_eligible``) and the denoise
+    kernel's own room (``modwt_composite.denoise_tile``)."""
+    return (method in ("universal", "minimax") and mode in ("soft", "hard")
+            and not boundary.lower().startswith("sym") and levels >= 2
+            and _kernel_eligible(x, w, levels, boundary)
+            and denoise_tile(w.filter_length, levels) is not None)
+
+
+def fused_denoise_thresholds(x, w, levels: int, method: str, boundary: str) -> torch.Tensor:
+    """The fused route's per-level thresholds, ``[..., levels]`` float32:
+    sigma from :func:`_fused_sigma`, scaled by ``1/sqrt(2^j)`` at level j,
+    through the method's rule."""
     sigma = _fused_sigma(x, w, boundary)  # [..., 1]
     rule = universal_threshold if method == "universal" else minimax_threshold
-    ths = torch.cat(
+    return torch.cat(
         [
-            rule(n, sigma / math.sqrt(2.0**level)).to(torch.float32)
+            rule(x.shape[-1], sigma / math.sqrt(2.0**level)).to(torch.float32)
             for level in range(1, levels + 1)
         ],
         dim=-1,
-    )  # [..., levels]
+    )
+
+
+def _try_fused_denoise(x, wavelet, levels, method, mode, boundary, precision=None):
+    """The fused denoise where :func:`fused_denoise_serves` admits the call;
+    None = take the 3-call path."""
+    w = _resolve_discrete(wavelet)
+    if levels is None:
+        levels = max_levels(x.shape[-1], w)
+    if not fused_denoise_serves(x, w, levels, method, mode, boundary):
+        return None
     return fused_denoise_multilevel(
-        x, w, levels=levels, thresholds=ths, boundary=boundary, mode=mode,
-        precision=precision,
+        x, w, levels=levels, thresholds=fused_denoise_thresholds(x, w, levels, method, boundary),
+        boundary=boundary, mode=mode, precision=precision,
     )
 
 

@@ -209,18 +209,29 @@ def _use_whole_tree(route: str, samples: int, dense) -> bool:
             or samples * modwt_bank.bank_taps(dense).nonzeros <= AUTO_WHOLE_TREE_MAX_WORK)
 
 
+def _whole_tree_bank(like: torch.Tensor, samples: int, wavelet, levels: int, scale: float):
+    """Both trees' bank ``(dense, phases)`` where one bank call takes the
+    whole dual tree (the route of ``like``'s dtype and device, the work of
+    ``samples`` samples, a bank that fits), else None."""
+    route = _dtcwt_route(like)
+    if route is None:
+        return None
+    dense, phases = _dual_tree_bank(wavelet, levels, scale)
+    if not (_use_whole_tree(route, samples, dense) and _bank_serves(like, dense, route)):
+        return None
+    return dense, phases
+
+
 def _dtcwt_kernel_analysis(x: torch.Tensor, wavelet, levels: int):
     """Both trees' full decomposition in one bank call (the two trees share
     the input, so their composed planes concatenate into one multi-output
     bank), or None when this route does not serve the call."""
     lead, n = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, n).contiguous()
-    route = _dtcwt_route(x2)
-    if route is None:
+    bank = _whole_tree_bank(x2, x2.numel(), wavelet, levels, 1.0)
+    if bank is None:
         return None
-    dense, phases = _dual_tree_bank(wavelet, levels)
-    if not (_use_whole_tree(route, x2.numel(), dense) and _bank_serves(x2, dense, route)):
-        return None
+    dense, phases = bank
     y = modwt_bank.bank_analysis(x2, dense, True)
     outs = [
         torch.roll(y_p, -(shift % n), dims=-1)[..., :: 1 << level].reshape(
@@ -242,13 +253,10 @@ def _dtcwt_kernel_synthesis(result: DTCWTResult, wavelet):
     low = result.lowpass_a
     lead = low.shape[:-1]
     n = result.highpasses[0].shape[-1] * 2
-    route = _dtcwt_route(low)
-    if route is None:
+    bank = _whole_tree_bank(low, n * math.prod(lead), wavelet, levels, 0.5)
+    if bank is None:
         return None
-    dense, phases = _dual_tree_bank(wavelet, levels, 0.5)
-    samples = n * math.prod(lead)
-    if not (_use_whole_tree(route, samples, dense) and _bank_serves(low, dense, route)):
-        return None
+    dense, phases = bank
     coeffs = [_SQRT2 * z.real for z in result.highpasses] + [result.lowpass_a]
     coeffs += [-_SQRT2 * z.imag for z in result.highpasses] + [result.lowpass_b]
     stuffed = []

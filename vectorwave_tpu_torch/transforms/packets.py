@@ -287,15 +287,23 @@ def _use_tree(levels: int, route: str, samples: int, w) -> bool:
     return samples * taps <= AUTO_TREE_MAX_WORK
 
 
+def _tree_bank(like: torch.Tensor, samples: int, w, levels: int, boundary: str, dec: bool):
+    """The whole tree's dense taps where one bank call takes the tree (the
+    route of ``like``'s dtype and device, the depth and the work of
+    ``samples`` samples, a bank that fits), else None."""
+    route = _bank_route(like, boundary)
+    if route is None or not _use_tree(levels, route, samples, w):
+        return None
+    dense = _tree_dense(w, levels, dec)
+    return dense if _bank_serves(like, dense, route) else None
+
+
 def _modwpt_tree_kernel(x2: torch.Tensor, w, levels: int, boundary: str):
     """The whole packet tree as one bank call: every node of every level is
     a composed à trous filter applied directly to x.  Returns per-level
     output lists, or None when this route does not serve the call."""
-    route = _bank_route(x2, boundary)
-    if route is None or not _use_tree(levels, route, x2.numel(), w):
-        return None
-    dense = _tree_dense(w, levels, dec=True)
-    if not _bank_serves(x2, dense, route):
+    dense = _tree_bank(x2, x2.numel(), w, levels, boundary, dec=True)
+    if dense is None:
         return None
     outs = modwt_bank.bank_analysis(x2, dense, boundary.lower().startswith("per"))
     levels_out = []
@@ -305,22 +313,6 @@ def _modwpt_tree_kernel(x2: torch.Tensor, w, levels: int, boundary: str):
         levels_out.append(list(outs[off : off + cnt]))
         off += cnt
     return levels_out
-
-
-def _imodwpt_tree_kernel(leaves2, w, boundary: str):
-    """Leaves -> signal in one synthesis bank call with the composed
-    reconstruction filters (the exact adjoint of the composed analysis).
-    ``leaves2``: list of 2^J tensors [B, N].  Returns [B, N] or None."""
-    depth = int(round(math.log2(len(leaves2))))
-    route = _bank_route(leaves2[0], boundary)
-    if route is None or not _use_tree(depth, route, leaves2[0].numel(), w):
-        return None
-    dense = _tree_dense(w, depth, dec=False)
-    if not _bank_serves(leaves2[0], dense, route):
-        return None
-    return modwt_bank.bank_synthesis(
-        tuple(leaves2), dense, boundary.lower().startswith("per")
-    )
 
 
 @functools.lru_cache(maxsize=128)
@@ -336,16 +328,25 @@ def _pair_dense(low, high, spacing: int):
     )
 
 
-def _pair_analysis_kernel(flat, low, high, spacing: int, boundary: str):
-    """One batched à trous analysis pair [B, N] -> (lo, hi) through the
-    bank kernel (the two upsampled filters as its planes; a packet level is
-    2^(j-1) independent pairs riding the batch axis).  Returns None when the
-    bank does not serve the call."""
+def _pair_bank(flat: torch.Tensor, low, high, spacing: int, boundary: str):
+    """The dense taps of one à trous pair where the bank takes it (``kernel``
+    always, ``auto`` where the bank fits), else None."""
     route = _bank_route(flat, boundary)
     if route is None:
         return None
     dense = _pair_dense(low, high, spacing)
     if route == "auto" and not _bank_serves(flat, dense, route):
+        return None
+    return dense
+
+
+def _pair_analysis_kernel(flat, low, high, spacing: int, boundary: str):
+    """One batched à trous analysis pair [B, N] -> (lo, hi) through the
+    bank kernel (the two upsampled filters as its planes; a packet level is
+    2^(j-1) independent pairs riding the batch axis).  Returns None when the
+    bank does not serve the call."""
+    dense = _pair_bank(flat, low, high, spacing, boundary)
+    if dense is None:
         return None
     outs = modwt_bank.bank_analysis(flat, dense, boundary.lower().startswith("per"))
     return outs[0], outs[1]
@@ -353,11 +354,8 @@ def _pair_analysis_kernel(flat, low, high, spacing: int, boundary: str):
 
 def _pair_synthesis_kernel(lo, hi, low, high, spacing: int, boundary: str):
     """Adjoint stage: lo*low + hi*high with forward reads, through the bank."""
-    route = _bank_route(lo, boundary)
-    if route is None:
-        return None
-    dense = _pair_dense(low, high, spacing)
-    if route == "auto" and not _bank_serves(lo, dense, route):
+    dense = _pair_bank(lo, low, high, spacing, boundary)
+    if dense is None:
         return None
     return modwt_bank.bank_synthesis((lo, hi), dense, boundary.lower().startswith("per"))
 
@@ -445,12 +443,12 @@ def imodwpt(
         )
     n = nodes.shape[-1]
     lead = nodes.shape[:-2]
-    route = _bank_route(nodes, boundary)
-    if route is not None and _use_tree(depth, route, n * math.prod(lead), w):
+    dense = _tree_bank(nodes, n * math.prod(lead), w, depth, boundary, dec=False)
+    if dense is not None:
         leaves2 = [nodes[..., i, :].reshape(-1, n).contiguous() for i in range(1 << depth)]
-        whole = _imodwpt_tree_kernel(leaves2, w, boundary)
-        if whole is not None:
-            return whole.reshape(lead + (n,))
+        whole = modwt_bank.bank_synthesis(tuple(leaves2), dense,
+                                          boundary.lower().startswith("per"))
+        return whole.reshape(lead + (n,))
     for j in range(depth, 0, -1):
         nodes = _imodwpt_pair(nodes, w, 1 << (j - 1), boundary)
     return nodes[..., 0, :]
