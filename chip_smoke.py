@@ -10,10 +10,9 @@ Phases, in order; any failure raises and the exit code is not 0:
 0. device: print ``nvidia-smi``'s name and power limit; stop if
    ``torch.cuda.is_available()`` is false;
 1. build: compile the CUDA kernels from ``vectorwave_tpu_torch/kernels/csrc``
-   (one nvcc per source, all started together), and start a child process
-   that generates every registered wavelet's filters into the port's
-   on-disk cache (a one-time cost of about two minutes of host numpy, which
-   would otherwise fall on phase 5's registry examples);
+   (one nvcc per source, all started together); every registered wavelet's
+   filters ship in the package (``wavelets/_filter_table.py``), so none is
+   generated at run time;
 2. kernels against their plain PyTorch versions on the card (db4, 6 levels):
    analysis, synthesis and denoise (none/soft/hard) at 128x65536 periodic,
    3x5000 zero and 2x300 periodic in float32, and once in bfloat16; the
@@ -104,6 +103,26 @@ Phases, in order; any failure raises and the exit code is not 0:
    the largest entry); each direction's launches held to its family's
    router (by count where it fixes one), and ``backend='kernel'`` refusing
    exactly where the kernels' windows cannot serve; printed as phase 2b's;
+2d. the streaming and parallel tiers' mirrored test cases
+   (``tools/mirror_cases.tier_cases``): the kernel-reaching cases of the
+   JAX package's ``test_streaming.py``, ``test_streaming_denoise_kernel.py``,
+   ``test_sliding.py``, ``test_native_ingest.py``, ``test_parallel.py``,
+   ``test_tiled2d.py`` and ``test_tiled_exact.py`` at those tests' shapes
+   and seeds (float32), each through the public entry points under ``auto``
+   and under ``backend='kernel'``: block streams (one external-edge
+   analysis launch a block where ``stream.use_stream_kernel`` routes it)
+   held to the whole-signal plain transform, the streaming denoiser's
+   kernel tier (one stream-mode denoise launch a step, one a multi-block
+   call) held to its plain versions (a class to the plain tier, 5e-5), the
+   sliding window and the ingest (a cascade launch a window or a drain,
+   ``_kernel_eligible``), the tiled pair on virtual shards of the card (one
+   external-halo launch each way where ``tiled._resolve_tiled_backend``
+   takes the kernel route; ``kernel`` refuses the symmetric boundary by
+   design) held to the plain route and to one device, the sharded exact
+   tier (its launch plan's count each way; hi + lo within 1e-13, round trip
+   within 1e-10 RMSE) and the 2-D tiling's gathered image (``levels``
+   launches each way where ``modwt2_kernel_eligible`` admits it); printed
+   as phase 2b's;
 3. the main path through the public entry points at 128x65536 float32:
    ``modwt_multilevel`` -> ``imodwt_multilevel`` at every precision tier,
    ``modwt_roundtrip_fused`` and ``denoise_multilevel``, with the launch
@@ -315,13 +334,13 @@ and the last synthesis, each step's gradient on the plain 2-D cascade);
 (its store in a temporary directory), ``get_performance_info()``, a
 ``throughput_meter`` around a round trip and a ``profiler_trace``.
 
-The last two lines are a JSON object with one entry per kernel and the
-device line ``{"ok": true, "device": {...}}``.
+The last two lines are a JSON object with one entry per kernel (beside
+the contract's keys, ``mirror_launches``: its launches in phases 2b, 2c
+and 2d) and the device line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
-import atexit
 import json
 import math
 import os
@@ -412,8 +431,8 @@ KERNELS = {
         "vectorwave_tpu_torch/kernels/csrc/modwt_bank_synthesis.cu",
         "vectorwave_tpu/kernels/modwt_mxu.py:910",
     ),
-    # the streaming modes: rows of their own, counted under the kernels'
-    # own entries (modwt_analysis, modwt_denoise) on the streaming path
+    # the streaming modes: rows of their own, each counted under its own
+    # entry of the launch counters
     "modwt_analysis_external": (
         "vectorwave_tpu_torch/kernels/csrc/modwt_analysis.cu",
         "vectorwave_tpu/kernels/modwt_mxu.py:688",
@@ -422,8 +441,8 @@ KERNELS = {
         "vectorwave_tpu_torch/kernels/csrc/modwt_denoise.cu",
         "vectorwave_tpu/kernels/modwt_mxu.py:1338",
     ),
-    # the tiled tier's external halos: rows of their own, counted under the
-    # kernels' own entries (modwt_synthesis, modwt_exact_*) on the tiled path
+    # the tiled tier's external halos: rows of their own, each counted under
+    # its own entry of the launch counters
     "modwt_synthesis_external": (
         "vectorwave_tpu_torch/kernels/csrc/modwt_synthesis.cu",
         "vectorwave_tpu/kernels/modwt_mxu.py:910",
@@ -437,6 +456,13 @@ KERNELS = {
         "vectorwave_tpu/kernels/modwt_exact.py:386",
     ),
 }
+#: each mode's row and the kernel it launches (``modwt_composite.LAUNCHES``
+#: counts a mode's launches under the mode's own entry)
+MODE_OF = {"modwt_analysis_external": "modwt_analysis",
+           "modwt_synthesis_external": "modwt_synthesis",
+           "modwt_denoise_stream": "modwt_denoise",
+           "modwt_exact_analysis_halo": "modwt_exact_analysis",
+           "modwt_exact_synthesis_halo": "modwt_exact_synthesis"}
 MAIN_PATH = ("modwt_analysis", "modwt_synthesis", "modwt_denoise")
 EXACT_PATH = ("modwt_exact_analysis", "modwt_exact_synthesis")
 SYMMETRIC_PATH = ("modwt_mxu_analysis", "modwt_symmetric_synthesis",
@@ -1905,8 +1931,8 @@ def stream_kernels_against_plain(dev, gen, worst, worst_bf16):
 def streaming_path(dev, gen):
     """Phase 3 for the streaming tier at full width, each public call with its
     own reset and reading of the counters.  Returns the streaming rows'
-    launches: the external edge's (modwt_analysis on the zero and symmetric
-    streams) and the stream mode's (modwt_denoise)."""
+    launches: the external edge's (the zero and symmetric streams) and the
+    stream mode's, each counted under its own mode."""
     import vectorwave_tpu_torch as vt
     from vectorwave_tpu_torch import native
     from vectorwave_tpu_torch import streaming as st
@@ -1934,12 +1960,12 @@ def streaming_path(dev, gen):
                                   batch_shape=(STREAM_B,))
         check(t.backend == "kernel", f"StreamingTransform {boundary}: the kernel tier")
         outs = []
+        row = "modwt_analysis" if boundary == "periodic" else "modwt_analysis_external"
         for i in range(STREAM_NBLK):
-            res, got = counted(f"StreamingTransform {boundary} block {i}",
-                               {"modwt_analysis": 1}, lambda: t.process(blocks[i]))
+            res, got = counted(f"StreamingTransform {boundary} block {i}", {row: 1},
+                               lambda: t.process(blocks[i]))
             outs.append(res)
-            if boundary != "periodic":
-                total["modwt_analysis_external"] += got.get("modwt_analysis", 0)
+            total["modwt_analysis_external"] += got.get("modwt_analysis_external", 0)
         if boundary == "periodic":
             err = max(max_err(g, r) for i, o in enumerate(outs) for g, r in zip(
                 planes(o), planes(vt.modwt_multilevel(blocks[i], WAVELET, levels=LEVELS,
@@ -1963,10 +1989,10 @@ def streaming_path(dev, gen):
     state, plain_state, outs, plain = state0, state0, [], []
     for i in range(STREAM_NBLK):
         (state, out), got = counted(
-            f"streaming_denoise_block_kernel block {i}", {"modwt_denoise": 1},
+            f"streaming_denoise_block_kernel block {i}", {"modwt_denoise_stream": 1},
             lambda: st.streaming_denoise_block_kernel(state, nblocks[i], WAVELET,
                                                       levels=LEVELS))
-        total["modwt_denoise_stream"] += got.get("modwt_denoise", 0)
+        total["modwt_denoise_stream"] += got["modwt_denoise_stream"]
         outs.append(out)
         plain_state, p_out = st.streaming_denoise_block_kernel(
             plain_state, nblocks[i], WAVELET, levels=LEVELS, backend="torch")
@@ -1979,9 +2005,9 @@ def streaming_path(dev, gen):
     check(den.shape == noisy.shape and bool(torch.isfinite(den).all()),
           f"streaming denoise output finite, shape {tuple(den.shape)}")
     (m_state, m_out), got = counted(
-        f"streaming_denoise_blocks_kernel K={STREAM_NBLK}", {"modwt_denoise": 1},
+        f"streaming_denoise_blocks_kernel K={STREAM_NBLK}", {"modwt_denoise_stream": 1},
         lambda: st.streaming_denoise_blocks_kernel(state0, nblocks, WAVELET, levels=LEVELS))
-    total["modwt_denoise_stream"] += got.get("modwt_denoise", 0)
+    total["modwt_denoise_stream"] += got["modwt_denoise_stream"]
     gap = max_err(m_out, torch.stack(outs))
     check(torch.equal(m_out, torch.stack(outs)) and torch.equal(m_state.history, state.history)
           and torch.equal(m_state.noise_window, state.noise_window),
@@ -1989,7 +2015,7 @@ def streaming_path(dev, gen):
           f"(max gap {gap:.3e})")
     d = st.StreamingDenoiser(WAVELET, implementation="quality")
     check(d.backend == "kernel", "StreamingDenoiser under auto: the kernel tier")
-    y, _ = counted("StreamingDenoiser.denoise 8192", {"modwt_denoise": 1},
+    y, _ = counted("StreamingDenoiser.denoise 8192", {"modwt_denoise_stream": 1},
                    lambda: d.denoise(noisy[0, :STREAM_BLK]))
     check(y.shape == (STREAM_BLK,) and y.device == dev, "StreamingDenoiser output on the card")
     del outs, plain, m_out
@@ -2216,16 +2242,23 @@ def halo_kernels_against_plain(dev, gen, worst, worst_bf16):
         y_got = mc.exact_synthesis(pairs, levels, fr, False, halo=halo_pairs)
         y_want = mc.exact_synthesis_plain(pairs, levels, fr, False, halo=halo_pairs)
         torch.cuda.synchronize()
-        launched = {k: mc.LAUNCHES[k] - before[k] for k in EXACT_PATH}
-        for kname, err, count in (
+        launched = {k: mc.LAUNCHES[k] - before[k] for k in mc.LAUNCHES}
+        # a plan of one window launch reads the halo through the load rule and
+        # counts under the halo's entry; a split plan runs on the extended
+        # rows and counts under the kernel's own
+        for kname, err, shared in (
                 ("modwt_exact_analysis_halo", pair_err(got, want),
-                 launched["modwt_exact_analysis"]),
+                 mc.exact_analysis_shared_bytes),
                 ("modwt_exact_synthesis_halo", pair_err((y_got,), (y_want,)),
-                 launched["modwt_exact_synthesis"])):
+                 mc.exact_synthesis_shared_bytes)):
             worst[kname] = max(worst[kname], err)
-            check(err <= TOL_EXACT and count == len(plan),
+            own = mc.exact_launches(shared, wh.filter_length, levels)
+            counted_as, other = ((kname, kname[:-5]) if mc._one_window(own)
+                                 else (kname[:-5], kname))
+            count = launched[counted_as]
+            check(err <= TOL_EXACT and count == len(own) and launched[other] == 0,
                   f"{kname} {tag} ({how}): max |kernel - plain| {err:.3e} <= "
-                  f"{TOL_EXACT:.0e}, {count} launches")
+                  f"{TOL_EXACT:.0e}, {count} launches under {counted_as}")
         del x, planes, halo, pairs, halo_pairs, got, want
 
 
@@ -2239,10 +2272,6 @@ def tiled_path(dev, gen):
 
     total = {"modwt_analysis_external": 0, "modwt_synthesis_external": 0,
              "modwt_exact_analysis_halo": 0, "modwt_exact_synthesis_halo": 0}
-    rows = {"modwt_analysis": "modwt_analysis_external",
-            "modwt_synthesis": "modwt_synthesis_external",
-            "modwt_exact_analysis": "modwt_exact_analysis_halo",
-            "modwt_exact_synthesis": "modwt_exact_synthesis_halo"}
 
     def counted(label, expect, fn):
         mc.reset_launches()
@@ -2251,8 +2280,8 @@ def tiled_path(dev, gen):
         got = {k: v for k, v in mc.LAUNCHES.items() if v}
         check(got == expect, f"{label}: launches {got}")
         for k, v in got.items():
-            if k in rows:
-                total[rows[k]] += v
+            if k in total:
+                total[k] += v
         return out
 
     def planes(res):
@@ -2270,9 +2299,9 @@ def tiled_path(dev, gen):
     for shards in TILED_SHARDS:
         mesh = virtual({"signal": shards})
         label = f"{shards} shards, {BATCH}x{N} db4 J={LEVELS}"
-        res = counted(f"modwt_multilevel_tiled {label}", {"modwt_analysis": 1},
+        res = counted(f"modwt_multilevel_tiled {label}", {"modwt_analysis_external": 1},
                       lambda: par.modwt_multilevel_tiled(x, WAVELET, levels=LEVELS, mesh=mesh))
-        y = counted(f"imodwt_multilevel_tiled {label}", {"modwt_synthesis": 1},
+        y = counted(f"imodwt_multilevel_tiled {label}", {"modwt_synthesis_external": 1},
                     lambda: par.imodwt_multilevel_tiled(res, WAVELET, mesh=mesh))
         err = max(max_err(a, b) for a, b in zip(planes(res), planes(untiled)))
         syn_err = max_err(y, vt.imodwt_multilevel(res, WAVELET, backend="torch"))
@@ -2281,11 +2310,12 @@ def tiled_path(dev, gen):
               f"tiled {label} vs the untiled plain cascade: every plane {err:.3e}, the "
               f"inverse of the same planes {syn_err:.3e} <= {TOL_F32:.0e}; round trip "
               f"rmse {rmse:.3e} <= {RT_RMSE:.0e}")
-        pairs = counted(f"modwt_multilevel_tiled_exact {label}", {"modwt_exact_analysis": 1},
+        pairs = counted(f"modwt_multilevel_tiled_exact {label}",
+                        {"modwt_exact_analysis_halo": 1},
                         lambda: par.modwt_multilevel_tiled_exact(x, WAVELET, levels=LEVELS,
                                                                  mesh=mesh))
         hi, lo = counted(f"imodwt_multilevel_tiled_exact {label}",
-                         {"modwt_exact_synthesis": 1},
+                         {"modwt_exact_synthesis_halo": 1},
                          lambda: par.imodwt_multilevel_tiled_exact(*pairs, WAVELET, mesh=mesh))
         combined = [p[0].double() + p[1].double() for p in (*pairs[0], pairs[1])]
         ana_err = max(max_err(a, b) for a, b in zip(combined, planes(oracle)))
@@ -2307,9 +2337,9 @@ def tiled_path(dev, gen):
         xs = torch.randn(b, n, device=dev, generator=gen)
         span = (vt.wavelet(name).filter_length - 1) * ((1 << levels) - 1)
         label = f"{name} J={levels} {b}x{n} over {shards} shards (span {span})"
-        res = counted(f"modwt_multilevel_tiled {label}", {"modwt_analysis": 1},
+        res = counted(f"modwt_multilevel_tiled {label}", {"modwt_analysis_external": 1},
                       lambda: par.modwt_multilevel_tiled(xs, name, levels=levels, mesh=mesh))
-        y = counted(f"imodwt_multilevel_tiled {label}", {"modwt_synthesis": 1},
+        y = counted(f"imodwt_multilevel_tiled {label}", {"modwt_synthesis_external": 1},
                     lambda: par.imodwt_multilevel_tiled(res, name, mesh=mesh))
         ref = vt.modwt_multilevel(xs, name, levels=levels, backend="torch")
         err = max(max_err(a, r) for a, r in zip(planes(res), planes(ref)))
@@ -2331,9 +2361,11 @@ def tiled_path(dev, gen):
           f"cascade within {err:.3e} <= {TOL_F32:.0e}")
 
     hosts = par.make_multihost_mesh(2, 4, devices=[dev] * 8)
-    res = counted(f"modwt_multilevel_multihost 2x4, {BATCH}x{N}", {"modwt_analysis": 1},
+    res = counted(f"modwt_multilevel_multihost 2x4, {BATCH}x{N}",
+                  {"modwt_analysis_external": 1},
                   lambda: par.modwt_multilevel_multihost(x, WAVELET, levels=LEVELS, mesh=hosts))
-    y = counted(f"imodwt_multilevel_multihost 2x4, {BATCH}x{N}", {"modwt_synthesis": 1},
+    y = counted(f"imodwt_multilevel_multihost 2x4, {BATCH}x{N}",
+                {"modwt_synthesis_external": 1},
                 lambda: par.imodwt_multilevel_multihost(res, WAVELET, mesh=hosts))
     ref = vt.modwt_multilevel(x, WAVELET, levels=LEVELS, backend="torch")
     err = max(max_err(a, r) for a, r in zip(planes(res), planes(ref)))
@@ -2546,7 +2578,8 @@ def rank_worker(argv) -> int:
             y, inv = launched(lambda: par.imodwt_multilevel_multihost(res, WAVELET, mesh=mesh))
             same = all(torch.equal(a, b) for a, b in zip((*res.details, res.approx, y),
                                                        (*want.details, want.approx, y_want)))
-            check(same and fwd == {"modwt_analysis": 1} and inv == {"modwt_synthesis": 1},
+            check(same and fwd == {"modwt_analysis_external": 1}
+                  and inv == {"modwt_synthesis_external": 1},
                   f"NCCL world of one: the round trip equals the one-process facade bit for "
                   f"bit; launches {fwd}, {inv}")
             live = torch.ones(1, device=dev)
@@ -2577,8 +2610,8 @@ def rank_worker(argv) -> int:
                 x, WAVELET, levels=LEVELS, mesh=mesh, boundary=boundary))
             y, inv = launched(lambda: par.imodwt_multilevel_multihost(
                 res, WAVELET, mesh=mesh, boundary=boundary))
-            check(fwd == ({"modwt_analysis": 1} if kernel else {})
-                  and inv == ({"modwt_synthesis": 1} if kernel else {}),
+            check(fwd == ({"modwt_analysis_external": 1} if kernel else {})
+                  and inv == ({"modwt_synthesis_external": 1} if kernel else {}),
                   f"{label}: launches {fwd} forward, {inv} inverse")
             for k, v in (*fwd.items(), *inv.items()):
                 totals[k] = totals.get(k, 0) + v
@@ -2677,8 +2710,8 @@ def signal_across_ranks(rank, world, dev, x_full, calls, launched) -> dict:
         y, inv = exchanged(f"{boundary} inverse", (1, inv_bytes) if kernel else None,
                            lambda: par.imodwt_multilevel_tiled(res, WAVELET, mesh=sig,
                                                                boundary=boundary))
-        check(fwd == ({"modwt_analysis": 1} if kernel else {})
-              and inv == ({"modwt_synthesis": 1} if kernel else {}),
+        check(fwd == ({"modwt_analysis_external": 1} if kernel else {})
+              and inv == ({"modwt_synthesis_external": 1} if kernel else {}),
               f"{label}, {boundary}: launches {fwd} forward, {inv} inverse")
         ref = vt.modwt_multilevel(x_full, WAVELET, levels=LEVELS, boundary=boundary,
                                   backend="torch")
@@ -2699,8 +2732,8 @@ def signal_across_ranks(rank, world, dev, x_full, calls, launched) -> dict:
     (hi, lo), ex_inv = exchanged("exact inverse", (1, 2 * (LEVELS + 1) * halo_bytes), lambda:
                                  par.imodwt_multilevel_tiled_exact(*pairs, WAVELET, mesh=sig))
     rmse = (hi.double() + lo.double() - xb.double()).pow(2).mean().sqrt().item()
-    check(ex_fwd == {"modwt_exact_analysis": 1} and ex_inv == {"modwt_exact_synthesis": 1}
-          and rmse <= EXACT_RMSE,
+    check(ex_fwd == {"modwt_exact_analysis_halo": 1}
+          and ex_inv == {"modwt_exact_synthesis_halo": 1} and rmse <= EXACT_RMSE,
           f"{label}, the tiled exact round trip: launches {ex_fwd}, {ex_inv}; rmse of hi + lo "
           f"{rmse:.3e} <= {EXACT_RMSE:.0e}")
     del pairs, hi, lo
@@ -2793,15 +2826,11 @@ def multiprocess_path():
     t0 = time.perf_counter()
     ranks = run_ranks("gloo", MP_RANKS)
     world_of_one = run_ranks("nccl", 1)
-    rows = {"modwt_analysis": "modwt_analysis_external",
-            "modwt_synthesis": "modwt_synthesis_external",
-            "modwt_exact_analysis": "modwt_exact_analysis_halo",
-            "modwt_exact_synthesis": "modwt_exact_synthesis_halo"}
-    total = dict.fromkeys(rows.values(), 0)
+    total = {}
     for res in ranks:
         for got in (res["launches"], res["signal_launches"]):
             for k, v in got.items():
-                total[rows[k]] += v
+                total[k] = total.get(k, 0) + v
     # a rank: periodic and zero on the host x chip row and on the signal
     # mesh, one launch each way; the exact round trip on the signal mesh
     check(total == {"modwt_analysis_external": 4 * MP_RANKS,
@@ -3005,11 +3034,12 @@ def analysis_path(dev, gen):
     stream_launches = {}
     for i, blk in enumerate(streams):
         state, res = counted_launches(f"modwt_stream_block_kernel block {i}",
-                                      {"modwt_analysis": 1}, lambda: st.modwt_stream_block_kernel(
+                                      {"modwt_analysis_external": 1},
+                                      lambda: st.modwt_stream_block_kernel(
                                           state, blk, WAVELET, levels=LEVELS),
                                       stream_launches)
         acc = vt.variance_stream_update(acc, res.details, WAVELET)
-    total["modwt_analysis_external"] = stream_launches.get("modwt_analysis", 0)
+    total["modwt_analysis_external"] = stream_launches.get("modwt_analysis_external", 0)
     whole = counted_launches("wavelet_variance of the whole streams", {"modwt_analysis": 1},
                              lambda: vt.wavelet_variance(x, WAVELET, LEVELS), total)
     err = per_level_rel(vt.variance_stream_result(acc).variance, whole.variance)
@@ -3585,18 +3615,7 @@ PARITY_EXAMPLES = ("multihost_demo", "distributed_demo", "parallel_denoising")
 TOL_EXAMPLE_PARITY = 1e-5
 
 
-def warm_filters() -> subprocess.Popen:
-    """Generate every registered wavelet's filters in a child process, into
-    the port's on-disk cache, while the parent builds and runs the earlier
-    phases."""
-    code = ("import vectorwave_tpu_torch as vt\n"
-            "for name in vt.available_wavelets():\n"
-            "    vt.wavelet(name)\n")
-    return subprocess.Popen([sys.executable, "-c", code],
-                            cwd=os.path.dirname(os.path.abspath(__file__)))
-
-
-def mirror_cases_path(dev, phase: str, family: str, cases) -> None:
+def mirror_cases_path(dev, phase: str, family: str, cases) -> dict:
     """Phase 2b (2c): the kernel-reaching cases of the MODWT core's (the
     other kernel families') test mirrors (``tools/mirror_cases.py``) at the
     JAX tests' own shapes, each through the public entry points under
@@ -3604,7 +3623,8 @@ def mirror_cases_path(dev, phase: str, family: str, cases) -> None:
     the card; the route of each direction held to the gate, and
     ``kernel``'s refusals to where the kernels cannot serve.  Prints a line
     a case, the launches by kernel and one summary line; any fault fails the
-    phase."""
+    phase.  Phase 2d runs the streaming and parallel tiers' cases the same
+    way.  Returns the phase's launches by kernel."""
     from tools import mirror_cases
     from vectorwave_tpu_torch.kernels import modwt_composite as mc
 
@@ -3628,11 +3648,13 @@ def mirror_cases_path(dev, phase: str, family: str, cases) -> None:
     print(f"  mirror launches {json.dumps(launched)}", flush=True)
     print(f"  mirror summary: {s['cases']} cases, {s['auto_kernel']} on a kernel and "
           f"{s['auto_plain']} on the plain route under auto, {s['kernel_only']} through a "
-          f"kernel entry point alone, {s['kernel_refused']} refused under backend='kernel'; "
+          f"kernel entry point alone, {s['kernel_refused']} refused under backend='kernel' "
+          f"({s['refused_by_design']} with a refusal by design); "
           "worst error against each bound "
           + ", ".join(f"{e:.3e} <= {b}" for b, e in s["worst"].items())
           + f"; {seconds:.1f} s", flush=True)
     check(s["faults"] == 0, f"mirror cases: {s['faults']} faults in {s['cases']} cases")
+    return launched
 
 
 def examples_path(total: dict) -> None:
@@ -3668,7 +3690,8 @@ def examples_path(total: dict) -> None:
                     check(not problems, f"{name} against its JAX recording"
                           + "".join(f"\n      {p}" for p in problems))
                 named = EXAMPLE_KERNELS.get(name, ())
-                missing = [k for k in named if not got.get(k)]
+                ran = {MODE_OF.get(k, k) for k in got}
+                missing = [k for k in named if k not in ran]
                 check(not missing, f"{name} launches {', '.join(named) or 'no named kernel'}"
                       + (f" (not {missing})" if missing else ""))
                 for k, v in got.items():
@@ -3711,8 +3734,6 @@ def main() -> int:
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
 
     print("phase 1: build", flush=True)
-    filters = warm_filters()
-    atexit.register(lambda: filters.poll() is None and filters.kill())
     t0 = time.perf_counter()
     lib = _build.library()
     print(f"  built {os.path.basename(lib._name)} from "
@@ -4114,8 +4135,12 @@ def main() -> int:
     cwt_kernels_against_plain(dev, gen, worst)
     stream_kernels_against_plain(dev, gen, worst, worst_bf16)
     halo_kernels_against_plain(dev, gen, worst, worst_bf16)
-    mirror_cases_path(dev, "2b", "the MODWT core's", mirror_cases.cases())
-    mirror_cases_path(dev, "2c", "the other kernel families'", mirror_cases.family_cases())
+    mirror_launches = {
+        phase: mirror_cases_path(dev, phase, family, cases)
+        for phase, family, cases in (
+            ("2b", "the MODWT core's", mirror_cases.cases()),
+            ("2c", "the other kernel families'", mirror_cases.family_cases()),
+            ("2d", "the streaming and parallel tiers'", mirror_cases.tier_cases()))}
 
     print(f"phase 3: main path through the public entry points, "
           f"{BATCH}x{N} float32", flush=True)
@@ -4733,9 +4758,6 @@ def main() -> int:
     optimize_timing(dev, gen)
     print(f"  the run so far: {time.perf_counter() - run_start:.1f} s", flush=True)
 
-    t0 = time.perf_counter()
-    check(filters.wait(timeout=900) == 0, "the filters' child process generated every "
-          f"registered wavelet (waited {time.perf_counter() - t0:.1f} s for it)")
     print("phase 5: the examples on the card, against the JAX examples' recordings",
           flush=True)
     t0 = time.perf_counter()
@@ -4750,6 +4772,7 @@ def main() -> int:
             "source": source,
             "replaces": replaces,
             "launches": launches[name],
+            "mirror_launches": {p: got.get(name, 0) for p, got in mirror_launches.items()},
             "max_abs_err": worst[name],
             **({"max_abs_err_bf16": worst_bf16[name]} if name in BF16_ROWS else {}),
             "ms": ms_of[name][0],

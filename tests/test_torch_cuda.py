@@ -1019,12 +1019,13 @@ def test_streaming_paths_launch_one_kernel_per_block(cuda):
         t = st.StreamingTransform("db4", levels=LEVELS, boundary=boundary,
                                   batch_shape=(4,))
         assert t.backend == "kernel"
+        mode = "modwt_analysis" if boundary == "periodic" else "modwt_analysis_external"
         outs = []
         for i in range(4):
             mc.reset_launches()
             outs.append(t.process(blocks[i]))
             torch.cuda.synchronize()
-            assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_analysis": 1}
+            assert {k: v for k, v in mc.LAUNCHES.items() if v} == {mode: 1}
         if boundary != "periodic":
             got = torch.cat([o.approx for o in outs], -1)
             assert float((got - whole[boundary].approx).abs().max()) <= TOL_F32
@@ -1035,11 +1036,11 @@ def test_streaming_paths_launch_one_kernel_per_block(cuda):
         st_s, o = st.streaming_denoise_block_kernel(st_s, blocks[i], "db4", levels=LEVELS)
         outs.append(o)
         torch.cuda.synchronize()
-        assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_denoise": 1}
+        assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_denoise_stream": 1}
     mc.reset_launches()
     st_m, out_m = st.streaming_denoise_blocks_kernel(state, blocks, "db4", levels=LEVELS)
     torch.cuda.synchronize()
-    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_denoise": 1}
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_denoise_stream": 1}
     assert torch.equal(torch.stack(outs), out_m)
     assert torch.equal(st_s.noise_window, st_m.noise_window)
     _, o_p = st.streaming_denoise_block_kernel(state, blocks[0], "db4", levels=LEVELS,
@@ -1078,7 +1079,7 @@ def test_streaming_gates_on_the_card(cuda):
                                      boundary="symmetric")
     mc.reset_launches()
     st.modwt_stream_block_kernel(sym, x[:, :441], "db4", levels=LEVELS, boundary="symmetric")
-    assert mc.LAUNCHES["modwt_analysis"] == 1
+    assert mc.LAUNCHES["modwt_analysis_external"] == 1
 
 
 # --- the tiled tier: the synthesis's and the exact pair's external halos -------------
@@ -1140,8 +1141,14 @@ def test_exact_halos_match_plain(cuda, name, levels, b, n, h, with_lo, launches)
     torch.cuda.synchronize()
     assert _pair_err(got, want) <= 1e-13
     assert _pair_err((y,), (y_want,)) <= 1e-13
-    for k in ("modwt_exact_analysis", "modwt_exact_synthesis"):
-        assert mc.LAUNCHES[k] - before[k] == launches
+    # one window launch reads the halo through the load rule and counts under
+    # the halo's entry; a split plan counts as the kernel's plain launches
+    for k, shared in (("modwt_exact_analysis", mc.exact_analysis_shared_bytes),
+                      ("modwt_exact_synthesis", mc.exact_synthesis_shared_bytes)):
+        one = mc._one_window(mc.exact_launches(shared, w.filter_length, levels))
+        own, other = (f"{k}_halo", k) if one else (k, f"{k}_halo")
+        assert mc.LAUNCHES[own] - before[own] == launches
+        assert mc.LAUNCHES[other] == before[other]
 
 
 def test_halo_wrappers_refuse_what_the_kernels_do_not_take(cuda, filters):
@@ -1163,7 +1170,7 @@ def test_halo_wrappers_refuse_what_the_kernels_do_not_take(cuda, filters):
         mc.exact_synthesis(pairs, 3, fr, True, halo=tuple((h, h) for h in halo))
     mc.reset_launches()
     mc.synthesis(planes, 3, fr, False, halo=halo)
-    assert mc.LAUNCHES["modwt_synthesis"] == 1
+    assert mc.LAUNCHES["modwt_synthesis_external"] == 1
 
 
 @pytest.mark.parametrize("shards", [4, 8, 64])  # 64: a hop chain of two shards
@@ -1176,8 +1183,8 @@ def test_tiled_round_trip_launches_once_each_way_for_all_shards(cuda, shards):
     res = par.modwt_multilevel_tiled(x, "db4", levels=LEVELS, mesh=mesh)
     y = par.imodwt_multilevel_tiled(res, "db4", mesh=mesh)
     torch.cuda.synchronize()
-    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_analysis": 1,
-                                                            "modwt_synthesis": 1}
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_analysis_external": 1,
+                                                            "modwt_synthesis_external": 1}
     ref = vt.modwt_multilevel(x, "db4", levels=LEVELS, backend="torch")
     assert _err((*res.details, res.approx), (*ref.details, ref.approx)) <= TOL_F32
     assert float((y - x).pow(2).mean().sqrt()) <= 3e-7
@@ -1185,8 +1192,8 @@ def test_tiled_round_trip_launches_once_each_way_for_all_shards(cuda, shards):
     d, a = par.modwt_multilevel_tiled_exact(x, "db4", levels=LEVELS, mesh=mesh)
     hi, lo = par.imodwt_multilevel_tiled_exact(d, a, "db4", mesh=mesh)
     torch.cuda.synchronize()
-    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_exact_analysis": 1,
-                                                            "modwt_exact_synthesis": 1}
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_exact_analysis_halo": 1,
+                                                            "modwt_exact_synthesis_halo": 1}
     assert float((hi.double() + lo.double() - x.double()).pow(2).mean().sqrt()) <= 1e-10
 
 
@@ -1207,7 +1214,7 @@ def test_tiled_gates_on_the_card(cuda):
                                        backend="kernel")
     mc.reset_launches()
     par.modwt_multilevel_tiled(x, "db4", levels=3, mesh=mesh, boundary="zero")
-    assert mc.LAUNCHES["modwt_analysis"] == 1
+    assert mc.LAUNCHES["modwt_analysis_external"] == 1
 
 
 # --- the CWT's kernel-direct tier on the bank analysis kernel ----------------------
@@ -1516,7 +1523,7 @@ def test_variance_stream_on_the_kernel_step_equals_the_whole_signal(cuda):
         state, res = st.modwt_stream_block_kernel(state, blk.contiguous(), "db4", levels=6)
         acc = vt.variance_stream_update(acc, res.details, "db4")
     torch.cuda.synchronize()
-    assert mc.LAUNCHES["modwt_analysis"] == 8 and acc.position == 8 * 2048
+    assert mc.LAUNCHES["modwt_analysis_external"] == 8 and acc.position == 8 * 2048
     out = vt.variance_stream_result(acc)
     assert _rel(out.variance, _plain(lambda: vt.wavelet_variance(x, "db4", 6).variance)) <= 1e-4
 
@@ -1662,17 +1669,19 @@ def test_filter_spectrum_on_the_card_matches_the_cpu(cuda, taps, spacing, n):
 
 
 @pytest.mark.parametrize("label", [c.label for c in mirror_cases.cases()]
-                         + [c.label for c in mirror_cases.family_cases()])
+                         + [c.label for c in mirror_cases.family_cases()]
+                         + [c.label for c in mirror_cases.tier_cases()])
 def test_mirror_case_on_the_card(cuda, label):
-    """Each kernel-reaching case of the test mirrors (the MODWT core's, then
-    the other kernel families'), at the JAX tests' shapes: under ``auto``
-    and under ``backend='kernel'`` against the plain route on the card (2e-5
+    """Each kernel-reaching case of the test mirrors (the MODWT core's, the
+    other kernel families', then the streaming and parallel tiers'), at the
+    JAX tests' shapes: under ``auto`` and under ``backend='kernel'``
+    against the plain route on the card (2e-5
     in float32; 1e-13 on the exact tier's hi + lo, its round trip within
     1e-10 RMSE; the symmetric interior NRMSE within 10% of the committed
     baseline; the other families at the JAX tests' float32 bounds), each
     direction's launches where its router says, and ``kernel`` refusing only
     where the kernels cannot serve."""
     case = next(c for c in mirror_cases.cases() + mirror_cases.family_cases()
-                if c.label == label)
+                + mirror_cases.tier_cases() if c.label == label)
     out = mirror_cases.run_case(case, cuda)
     assert out.ok, out.faults

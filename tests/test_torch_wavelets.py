@@ -340,11 +340,15 @@ def test_unknown_wavelet_raises_with_suggestions():
 
 
 def test_filter_cache_is_the_ports_own():
+    """The port's filters ship in its own table (no disk cache), and its
+    cache root lies apart from the JAX package's filter cache."""
     assert "vectorwave_tpu_torch" in cache_root()
     from vectorwave_tpu.wavelets._cache import _cache_dir as jax_cache_dir
-    from vectorwave_tpu_torch.wavelets._cache import _cache_dir
+    from vectorwave_tpu_torch.wavelets._cache import table_filter
 
-    assert os.path.realpath(_cache_dir()) != os.path.realpath(jax_cache_dir())
+    root, jax_dir = os.path.realpath(cache_root()), os.path.realpath(jax_cache_dir())
+    assert jax_dir != root and not jax_dir.startswith(root + os.sep)
+    np.testing.assert_array_equal(table_filter("db4"), vt.wavelet("db4").dec_lo)
 
 
 def test_wavelet_from_arrays_carries_jax_filters():

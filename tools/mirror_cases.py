@@ -44,6 +44,22 @@ kernel; where the mirror holds an entry point of these families that the
 JAX tests feed float64 alone (the SWT, the denoisers, the packet tools),
 the case casts the JAX test's input to float32, as the sweep's cases do.
 
+:func:`tier_cases` are the streaming and parallel tiers' cases, from
+``tests/test_torch_streaming_mirror.py`` and
+``tests/test_torch_parallel_mirror.py``: block streams and the streaming
+denoiser on their kernel tiers, the sliding window and the ingest, the
+tiled pair, the host x chip facades, the batch facade, the sharded exact
+tier and the 2-D tiling's gathered image.  ``chip_smoke.py`` runs them in
+its phase 2d, the same way, each direction's launches held to the tier's
+own router by count (``stream.use_stream_kernel`` and ``resolve_tier`` a
+block or a step; ``tiled._resolve_tiled_backend``, one launch a device;
+the exact launch plan, ``exact_launches``; ``modwt2_kernel_eligible`` for
+the gathered image; ``_kernel_eligible`` a window or a drain).  The tiled
+kernel route refuses the symmetric boundary on every device by design;
+that refusal is held to its error code.  A streaming denoiser class is
+held to the plain tier within the JAX tests' bound between the tiers,
+5e-5.
+
 Bounds (PERF.md section 2): a float32 kernel against the float32 plain route
 2e-5 max abs (fp32 in another summation order, values of order 1; the plain
 periodic route of a CUDA tensor may take the FFT, which differs by 3.3e-6);
@@ -69,7 +85,7 @@ import torch
 
 import vectorwave_tpu_torch as vt
 from vectorwave_tpu_torch.denoise import denoiser
-from vectorwave_tpu_torch.errors import InvalidArgumentError
+from vectorwave_tpu_torch.errors import ErrorCode, InvalidArgumentError
 from vectorwave_tpu_torch.kernels import modwt2 as k2
 from vectorwave_tpu_torch.kernels import modwt_bank as mb
 from vectorwave_tpu_torch.kernels import modwt_composite as mc
@@ -86,6 +102,9 @@ TOL_2D_ROUND_TRIP = 5e-5
 TOL_SYMMETRIC = 5e-6
 TOL_GRAD = 5e-6
 TOL_EXACT = 1e-13
+#: the streaming denoiser's kernel tier against its plain tier (the JAX
+#: package's own bound between them, tests/test_streaming_denoise_kernel.py)
+TOL_STREAM_TIERS = 5e-5
 EXACT_RT_RMSE = 1e-10
 NRMSE_HEADROOM = 1.10
 BASELINES = pathlib.Path(__file__).resolve().parent.parent / "tests" / "baselines" / \
@@ -95,9 +114,12 @@ BASELINES = pathlib.Path(__file__).resolve().parent.parent / "tests" / "baseline
 SWEEP_WAVELETS = ("haar", "db2", "db4", "db7", "sym5", "coif2", "bior2.4", "rbio3.1")
 SWEEP_BOUNDARIES = ("periodic", "zero", "symmetric")
 
-ANALYSIS = ("modwt_analysis", "modwt_mxu_analysis", "modwt_exact_analysis")
-SYNTHESIS = ("modwt_synthesis", "modwt_symmetric_synthesis", "modwt_exact_synthesis")
-DENOISE = ("modwt_denoise",)
+#: each direction's launch counters, the halo modes' own entries among them
+ANALYSIS = ("modwt_analysis", "modwt_mxu_analysis", "modwt_exact_analysis",
+            "modwt_analysis_external", "modwt_exact_analysis_halo")
+SYNTHESIS = ("modwt_synthesis", "modwt_symmetric_synthesis", "modwt_exact_synthesis",
+             "modwt_synthesis_external", "modwt_exact_synthesis_halo")
+DENOISE = ("modwt_denoise", "modwt_denoise_stream")
 BANK_ANALYSIS = ("modwt_bank_analysis",)
 BANK_SYNTHESIS = ("modwt_bank_synthesis",)
 ANALYSIS_2D = ("modwt2_analysis",)
@@ -577,6 +599,11 @@ def _named_signal(name: str) -> np.ndarray:
         return clean + 0.5 * rng.standard_normal((64, 64))
     if name == "image_batch":  # test_twodim.py::test_modwt2_multilevel_roundtrip_and_batch
         return np.stack([image(seed=s) for s in range(3)])
+    if name == "denoiser_noisy":  # test_streaming.py::test_streaming_denoiser_reduces_noise
+        return composite_sin(2048) + np.random.default_rng(0).normal(0, 1.0, 2048)
+    if name == "denoiser_sine":  # test_streaming_denoise_kernel.py::..._class_kernel_backend
+        clean = np.sin(np.linspace(0, 16 * np.pi, 2048))
+        return clean + 0.4 * np.random.default_rng(3).standard_normal(2048)
     raise ValueError(f"unknown signal {name!r}")
 
 
@@ -606,6 +633,15 @@ def _family_input(case: "Case") -> np.ndarray:
         return clean + noise * np.random.default_rng(seed).standard_normal(case.shape)
     if kind == "signal":
         return _named_signal(case.data[1])
+    if kind == "rows":  # composite_sin rows of the given seeds
+        _, noise, seeds = case.data
+        return np.stack([composite_sin(case.shape[-1], seed=s, noise_std=noise)
+                         for s in seeds])
+    if kind == "blocks":  # k successive draws of one generator, one block each
+        _, seed, k = case.data
+        rng = np.random.default_rng(seed)
+        block = case.shape[:-1] + (case.shape[-1] // k,)
+        return np.concatenate([rng.standard_normal(block) for _ in range(k)], axis=-1)
     raise ValueError(f"unknown input {case.data!r}")
 
 
@@ -634,10 +670,17 @@ def dual_tree_stages_only():
         dt._dtcwt_kernel_analysis, dt._dtcwt_kernel_synthesis = saved
 
 
-def _counted(fn, names):
+def _counted(fn, names, out=None, label="", mode=None):
+    """``fn``'s result and its launches under ``names``; where ``mode`` (a
+    counter among ``names``) is given, a launch counted under another of
+    ``names`` is a fault of ``out``'s, recorded under ``label``."""
     before = dict(mc.LAUNCHES)
     result = fn()
-    return result, _launched(before, names)
+    n = _launched(before, names)
+    if mode is not None and _launched(before, (mode,)) != n:
+        out.faults.append(f"{label}: {n - _launched(before, (mode,))} of {n} launches "
+                          f"outside {mode}")
+    return result, n
 
 
 def _relative(got, want) -> float:
@@ -646,7 +689,7 @@ def _relative(got, want) -> float:
 
 
 def _through(out, direction, fn, names, auto_launches, serves, kernel_launches, plain, bound,
-             on_card, err=_err):
+             on_card, err=_err, refused_by_design=None, mode=None):
     """One direction of a call under ``auto``, then under ``kernel``, held
     against the plain route's result (the thunk ``plain``) within
     ``bound``.  The router's expectations are thunks, asked under the
@@ -655,22 +698,40 @@ def _through(out, direction, fn, names, auto_launches, serves, kernel_launches, 
     call on this device) and ``kernel_launches``.  A CPU tensor's ``auto``
     route is the plain one (it launches nothing, which ``Outcome.route``
     holds), so there its result stands for the plain route's and the
-    ``kernel`` leg, the kernels' plain versions, is held to it.  Returns the
-    output under ``auto``."""
+    ``kernel`` leg, the kernels' plain versions, is held to it.  Where the
+    entry point refuses ``kernel`` by design on every device,
+    ``refused_by_design`` is ``(why, error code)``, and the ``kernel`` leg
+    must raise that code.  ``mode``, a counter among ``names``: the mode
+    every launch of the direction must take (an external halo, the stream
+    mode), held by its own counter.  Returns the output under ``auto``."""
     with using_backend("auto"):
         expected = auto_launches()
-        got, n = _counted(fn, names)
+        got, n = _counted(fn, names, out, f"auto {direction}", mode)
     out.route("auto", direction, n, expected, on_card)
     want = plain() if on_card else got
     out.bound(f"auto {direction}", err(got, want), bound)
     auto_got = got
+    if refused_by_design is not None:
+        why, code = refused_by_design
+        with using_backend("kernel"):
+            try:
+                fn()
+            except InvalidArgumentError as exc:
+                if exc.code is not code:
+                    out.faults.append(f"kernel {direction}: raised {exc.code.value}, not "
+                                      f"{code.value} ({why})")
+                out.routes[f"kernel {direction}"] = f"raised ({why})"
+            else:
+                out.faults.append(f"kernel {direction}: served a call refused by design "
+                                  f"({why})")
+        return auto_got
     with using_backend("kernel"):
         can = serves()
         if expected and on_card and not can:
             out.faults.append(f"kernel {direction}: the gate admits a call the kernels "
                               "cannot serve")
         try:
-            got, n = _counted(fn, names)
+            got, n = _counted(fn, names, out, f"kernel {direction}", mode)
         except InvalidArgumentError:
             out.refused("kernel", direction, can, on_card)
             return auto_got
@@ -1172,11 +1233,12 @@ def _denoise_method(case, x, w, out, on_card) -> None:
 
 
 def _batch_facade(case, x, w, out, on_card) -> None:
-    """BASELINE config #4: ``modwt_multilevel_sharded_batch`` on a one-device
-    mesh, whose rows route as ``modwt_multilevel`` does."""
+    """``modwt_multilevel_sharded_batch`` over the ``data`` axis of the
+    case's mesh (BASELINE config #4: a one-device mesh), whose rows on one
+    device route as one ``modwt_multilevel`` call."""
     from vectorwave_tpu_torch import parallel
 
-    mesh = parallel.make_mesh({"data": 1}, devices=[x.device])
+    mesh = _mesh(case, x.device)
     levels, b = case.levels, case.boundary
 
     def fn():
@@ -1404,7 +1466,550 @@ def family_cases() -> list[Case]:
 
     out.append(Case("config #4 batch facade db4 J=4 256x16384", "batch",
                     "test_baseline_configs.py::test_config4_batch_256x16k_sharded", "db4", 4,
-                    (256, 16384), data=("normal", 1)))
+                    (256, 16384), data=("normal", 1), options=(("mesh", (("data", 1),)),)))
+    return out
+
+
+# -- the streaming and parallel tiers (phase 2d) ----------------------------------------
+
+
+def _joined(results) -> tuple:
+    """A stream's block results, each plane concatenated along time."""
+    return tuple(torch.cat(ps, dim=-1) for ps in zip(*(_planes(r) for r in results)))
+
+
+def _blocks(x: torch.Tensor, size: int) -> list:
+    return [x[..., s:s + size] for s in range(0, x.shape[-1], size)]
+
+
+def stream_launches(blocks, w, levels: int, backend: str, kernel_fn: str = "analysis") -> int:
+    """The launches of a kernel-tier stream's blocks under ``backend``: one
+    a block that ``stream.use_stream_kernel`` sends to the kernel, whose
+    window must fit (``analysis_tile`` or ``denoise_tile``)."""
+    from vectorwave_tpu_torch.streaming import stream
+
+    tile = mc.analysis_tile if kernel_fn == "analysis" else mc.denoise_tile
+    fits = tile(w.filter_length, levels) is not None
+    return sum(stream.use_stream_kernel(b.reshape(-1, b.shape[-1]), backend, fits)
+               for b in blocks)
+
+
+def _stream(case, x, w, out, on_card) -> None:
+    """Block streaming on the kernel tier: ``modwt_stream_block_kernel``
+    steps (``entry='step'``) or a ``StreamingTransform`` (``'class'``),
+    with a flush where the JAX test flushes; one analysis launch a block
+    where ``use_stream_kernel`` routes it (a class first by
+    ``resolve_tier``).  Held to the whole-signal plain transform (periodic:
+    each block's own)."""
+    from vectorwave_tpu_torch import streaming as st
+    from vectorwave_tpu_torch.streaming import stream
+
+    levels, b = case.levels, case.boundary
+    entry = case.option("entry", "step")
+    blocks = _blocks(x, case.option("block"))
+    batch = tuple(x.shape[:-1])
+    tail = st.suggest_flush_tail_length(w, levels) if case.option("flush") else 0
+    fed = blocks + ([torch.zeros(batch + (tail,), dtype=x.dtype, device=x.device)]
+                    if tail else [])
+
+    def fn():
+        backend = vt.get_backend()
+        if entry == "class":
+            t = st.StreamingTransform(w, levels=levels, boundary=b, batch_shape=batch,
+                                      dtype=x.dtype, backend=backend, device=x.device)
+            res = [t.process(blk) for blk in blocks] + ([t.flush()] if tail else [])
+            return _joined(res)
+        state = st.kernel_streaming_init(w, levels, batch_shape=batch, dtype=x.dtype,
+                                         device=x.device)
+        res = []
+        for blk in fed:
+            state, r = st.modwt_stream_block_kernel(state, blk, w, levels=levels, boundary=b)
+            res.append(r)
+        return _joined(res)
+
+    def launches():
+        backend = vt.get_backend()
+        if entry == "class" and not stream.resolve_tier(backend, x.device, x.dtype)[0]:
+            return 0
+        return stream_launches(fed, w, levels, backend)
+
+    def serves():
+        span = mc.composite_halo_samples(w.filter_length, levels)
+        first_ok = b != "symmetric" or blocks[0].shape[-1] >= span
+        return x.device.type == "cpu" or (
+            mc.analysis_tile(w.filter_length, levels) is not None and first_ok)
+
+    def plain():
+        if b == "periodic":
+            return _joined([vt.modwt_multilevel(blk, w, levels=levels, boundary=b,
+                                                backend="torch") for blk in fed])
+        return _planes(vt.modwt_multilevel(torch.cat(fed, dim=-1), w, levels=levels,
+                                           boundary=b, backend="torch"))
+
+    # a zero or symmetric block reads the carry through the external edge
+    mode = "modwt_analysis" if b == "periodic" else "modwt_analysis_external"
+    _through(out, "analysis", fn, ANALYSIS, launches, serves, launches, plain, TOL_F32,
+             on_card, mode=mode)
+
+
+def _stream_denoise(case, x, w, out, on_card) -> None:
+    """The streaming denoiser's kernel tier: ``streaming_denoise_block_kernel``
+    steps (``entry='step'``), one ``streaming_denoise_blocks_kernel`` call on
+    blocks along the first axis (``'blocks'``), or a ``StreamingDenoiser``
+    (``'class'``); one stream-mode denoise launch a step where
+    ``use_stream_kernel`` routes it (the multi-block call one launch for all
+    its blocks when they are at least the span long).  Steps are held to
+    the same call's plain versions (the thresholds are the same numbers); a
+    class to the plain tier under ``backend='torch'`` (its block inverse
+    would take the synthesis kernel under ``auto``), within the JAX tests'
+    bound between the two tiers (``TOL_STREAM_TIERS``)."""
+    from vectorwave_tpu_torch import streaming as st
+    from vectorwave_tpu_torch.streaming import stream
+
+    levels, entry = case.levels, case.option("entry", "step")
+    kw = dict(threshold_mode=case.option("mode", "soft"),
+              noise_estimation=case.option("estimation", "mad"))
+    if case.option("sigma") is not None:
+        kw["fixed_sigma"] = case.option("sigma")
+    if entry == "blocks":
+        blocks = list(x)
+        batch = tuple(x.shape[1:-1])
+    else:
+        blocks = _blocks(x, case.option("block"))
+        batch = tuple(x.shape[:-1])
+
+    def fn():
+        backend = vt.get_backend()
+        if entry == "class":
+            den = st.StreamingDenoiser(w, implementation=case.option("implementation"),
+                                       backend=backend, device=x.device)
+            return torch.cat([den.denoise(blk) for blk in blocks], dim=-1)
+        state = st.kernel_streaming_denoiser_init(w, levels=levels, batch_shape=batch,
+                                                  device=x.device)
+        if entry == "blocks":
+            return st.streaming_denoise_blocks_kernel(state, x, w, levels=levels, **kw)[1]
+        outs = []
+        for blk in blocks:
+            state, o = st.streaming_denoise_block_kernel(state, blk, w, levels=levels, **kw)
+            outs.append(o)
+        return torch.cat(outs, dim=-1)
+
+    def launches():
+        backend = vt.get_backend()
+        if entry == "class":
+            tier, backend = stream.resolve_tier(backend, x.device, x.dtype,
+                                                x.dtype == torch.float32)
+            if not tier:
+                return 0
+        n = stream_launches(blocks, w, levels, backend, "denoise")
+        span = st.kernel_history_length(w, levels)
+        if entry == "blocks" and n and len(blocks) > 1 and blocks[0].shape[-1] >= span:
+            return 1
+        return n
+
+    def serves():
+        return x.device.type == "cpu" or mc.denoise_tile(w.filter_length, levels) is not None
+
+    def plain():
+        if entry != "class":
+            return _plain(fn)
+        # the plain tier's block inverse routes by the configured backend
+        with using_backend("torch"):
+            den = st.StreamingDenoiser(w, implementation=case.option("implementation"),
+                                       backend="torch", device=x.device)
+            return torch.cat([den.denoise(blk) for blk in blocks], dim=-1)
+
+    _through(out, "denoise", fn, DENOISE, launches, serves, launches, plain,
+             TOL_STREAM_TIERS if entry == "class" else TOL_F32, on_card,
+             mode="modwt_denoise_stream")
+
+
+def _mesh(case, device):
+    from vectorwave_tpu_torch import parallel
+
+    axes = dict(case.option("mesh"))
+    return parallel.make_mesh(axes, devices=[device] * math.prod(axes.values()))
+
+
+def _tiled(case, x, w, out, on_card) -> None:
+    """``modwt_multilevel_tiled`` / ``imodwt_multilevel_tiled`` on a mesh of
+    virtual shards of one device, or the host x chip facades
+    (``facade='multihost'``): one external-halo launch each way where
+    ``tiled._resolve_tiled_backend`` takes the kernel route (all shards of a
+    device are one call), none on the plain route; ``kernel`` refuses the
+    symmetric boundary.  Held to the plain route, and (the JAX tests'
+    property) to the single-device transform and its inverse."""
+    from vectorwave_tpu_torch import parallel
+    from vectorwave_tpu_torch.parallel import tiled
+
+    levels, b = case.levels, case.boundary
+    if case.option("facade") == "multihost":
+        mesh = parallel.make_multihost_mesh(n_hosts=2, chips_per_host=4,
+                                            devices=[x.device] * 8)
+        axis, batch_axis, world = "chip", "host", False
+
+        def analysis(backend):
+            return parallel.modwt_multilevel_multihost(x, w, levels=levels, mesh=mesh,
+                                                       boundary=b, backend=backend)
+
+        def synthesis(res, backend):
+            return parallel.imodwt_multilevel_multihost(res, w, mesh=mesh, boundary=b,
+                                                        backend=backend)
+    else:
+        mesh = _mesh(case, x.device)
+        axis, batch_axis, world = "signal", case.option("batch_axis"), True
+        kw = dict(mesh=mesh, axis=axis, boundary=b, batch_axis=batch_axis)
+
+        def analysis(backend):
+            return parallel.modwt_multilevel_tiled(x, w, levels=levels, backend=backend, **kw)
+
+        def synthesis(res, backend):
+            return parallel.imodwt_multilevel_tiled(res, w, backend=backend, **kw)
+
+    def route():
+        tiles = tiled._tiles(mesh, axis, batch_axis, tuple(x.shape), -1, world=world)
+        return 1 if tiled._resolve_tiled_backend("auto", b, tiles, x.dtype, w.filter_length,
+                                                 levels) == "kernel" else 0
+
+    def serves():
+        return x.device.type == "cpu" or kernel_serves(x, w, levels, b, False)
+
+    def result(planes):
+        return vt.MultiLevelMODWTResult(tuple(planes[:levels]), planes[levels])
+
+    plain = None
+    if on_card:
+        plain = analysis("torch")
+    design = None
+    if b == "symmetric":
+        design = ("the tiled kernel route serves periodic and zero",
+                  ErrorCode.CFG_UNSUPPORTED_BOUNDARY)
+    res = _through(out, "analysis", lambda: _planes(analysis(vt.get_backend())), ANALYSIS,
+                   route, serves, lambda: 1, lambda: _planes(plain), TOL_F32, on_card,
+                   refused_by_design=design, mode="modwt_analysis_external")
+    if plain is None:
+        plain = result(res)
+    y = _through(out, "synthesis", lambda: synthesis(plain, vt.get_backend()), SYNTHESIS,
+                 route, serves, lambda: 1, lambda: synthesis(plain, "torch"), TOL_F32,
+                 on_card, refused_by_design=design, mode="modwt_synthesis_external")
+    single = vt.modwt_multilevel(x, w, levels=levels, boundary=b, backend="torch")
+    out.bound("auto planes against one device", _err(res, _planes(single)), TOL_F32)
+    out.bound("auto inverse against one device",
+              _err(y, vt.imodwt_multilevel(plain, w, boundary=b, backend="torch")), TOL_F32)
+    if b == "periodic":
+        out.bound("periodic round trip", _err(y, x), TOL_F32)
+
+
+def _tiled_exact(case, x, w, out, on_card) -> None:
+    """The sharded exact tier on eight virtual shards of one device: the
+    exact pair's launches each way, as many as its launch plan has
+    (``exact_launches``; the tier takes no backend, so ``auto`` and
+    ``kernel`` run alike), each in the mode the tier takes: the halo's
+    load rule for a plan of one window, the plain launches for a split plan
+    or where a periodic span of at least the signal gathers it; hi +
+    lo held to the plain float64 cascade within 1e-13, the round trip (the
+    zero edge's interior) within 1e-10 RMSE of x."""
+    from vectorwave_tpu_torch import parallel
+    from vectorwave_tpu_torch.parallel import tiled
+
+    levels, b = case.levels, case.boundary
+    mesh = _mesh(case, x.device)
+    want = _planes(vt.modwt_multilevel(x.double(), w, levels=levels, boundary=b,
+                                       backend="torch"))
+    span = (w.filter_length - 1) * ((1 << levels) - 1)
+    gathered = b == "periodic" and span >= tiled._tiles(mesh, "signal", None,
+                                                       tuple(x.shape), -1).n
+    plans = []
+    for shared, key in ((mc.exact_analysis_shared_bytes, "modwt_exact_analysis"),
+                        (mc.exact_synthesis_shared_bytes, "modwt_exact_synthesis")):
+        plan = mc.exact_launches(shared, w.filter_length, levels)
+        halo = not gathered and mc._one_window(plan)
+        plans.append((len(plan), (key, f"{key}_halo"), f"{key}_halo" if halo else key))
+    for backend in ("auto", "kernel"):
+        with using_backend(backend):
+            count, names, mode = plans[0]
+            (details, approx), n = _counted(lambda: parallel.modwt_multilevel_tiled_exact(
+                x, w, levels=levels, mesh=mesh, boundary=b), names, out,
+                f"{backend} analysis", mode)
+            out.route(backend, "analysis", n, count, on_card)
+            out.bound(f"{backend} hi + lo", _err([h.double() + lo.double() for h, lo in
+                                                  (*details, approx)], want), TOL_EXACT)
+            count, names, mode = plans[1]
+            (hi, lo), n = _counted(lambda: parallel.imodwt_multilevel_tiled_exact(
+                details, approx, w, mesh=mesh, boundary=b), names, out,
+                f"{backend} synthesis", mode)
+            out.route(backend, "synthesis", n, count, on_card)
+        cut = 0 if b == "periodic" else (w.filter_length - 1) * ((1 << levels) - 1)
+        err = (hi.double() + lo.double() - x.double())[..., cut:x.shape[-1] - cut]
+        out.bound(f"{backend} round trip rmse", float(err.pow(2).mean().sqrt()),
+                  EXACT_RT_RMSE)
+
+
+def _tiled2d(case, x, w, out, on_card) -> None:
+    """``modwt2_multilevel_tiled`` / ``imodwt2_multilevel_tiled`` along H on
+    virtual shards of one device.  The symmetric edge and a periodic span of
+    at least H take the whole image (``tiled2d.py``'s gather path), which
+    routes as ``modwt2_multilevel`` does: ``levels`` launches each way
+    where ``modwt2_kernel_eligible`` admits it, ``kernel`` refused where
+    ``kernel_refusal`` says; the slab path is plain PyTorch."""
+    from vectorwave_tpu_torch import parallel
+
+    levels, b = case.levels, case.boundary
+    mesh = _mesh(case, x.device)
+    kw = dict(mesh=mesh, boundary=b, batch_axis=case.option("batch_axis"))
+    span = (w.filter_length - 1) * ((1 << levels) - 1)
+    whole = b == "symmetric" or (b == "periodic" and span >= x.shape[-2])
+
+    def launches():
+        return levels if whole and k2.modwt2_kernel_eligible(x, w, levels, b) else 0
+
+    def serves():
+        return x.device.type == "cpu" or not whole or k2.kernel_refusal(x, w, levels, b) is None
+
+    def forced():
+        return levels if whole else 0
+
+    def analysis():
+        return _planes2(parallel.modwt2_multilevel_tiled(x, w, levels=levels, **kw))
+
+    def result(planes):
+        details = tuple(tuple(planes[3 * j:3 * j + 3]) for j in range(levels))
+        return vt.MultiLevelMODWT2Result(details, planes[-1])
+
+    plain = result(_plain(analysis)) if on_card else None
+    res = _through(out, "analysis", analysis, ANALYSIS_2D, launches, serves, forced,
+                   lambda: _planes2(plain), TOL_F32, on_card)
+    if plain is None:
+        plain = result(res)
+
+    def synthesis():
+        return parallel.imodwt2_multilevel_tiled(plain, w, **kw)
+
+    y = _through(out, "synthesis", synthesis, SYNTHESIS_2D, launches, serves, forced,
+                 lambda: _plain(synthesis), TOL_2D_ROUND_TRIP, on_card)
+    single = vt.modwt2_multilevel(x, w, levels=levels, boundary=b, backend="torch")
+    out.bound("auto levels against one device", _err(res, _planes2(single)), TOL_F32)
+    if b == "periodic":
+        out.bound("periodic round trip", _err(y, x), TOL_2D_ROUND_TRIP)
+
+
+def _window(case, x, w, out, on_card) -> None:
+    """The window transforms: a ``SlidingStreamingTransform`` fed the whole
+    stream then flushed (``entry='sliding'``), or a ``StreamIngest`` fed the
+    JAX test's random chunks and drained after each (``'ingest'``); each
+    window (each drain, its windows batched) is one ``modwt_multilevel``
+    call, routed by ``_kernel_eligible``."""
+    from vectorwave_tpu_torch import streaming as st
+
+    levels, b = case.levels, case.boundary
+    size, entry = case.option("buffer"), case.option("entry")
+    channels = x.shape[-1] if entry == "ingest" and x.dim() == 2 else 1
+    step = st.step_size(size, w, levels=levels)
+    host = x.cpu().numpy()
+    chunks = [len(host)]
+    if case.option("chunks_seed") is not None:  # the JAX test's push sizes
+        rng = np.random.default_rng(case.option("chunks_seed"))
+        rng.standard_normal(len(host))
+        chunks, i = [], 0
+        while i < len(host):
+            n = int(rng.integers(1, 300))
+            chunks.append(min(n, len(host) - i))
+            i += n
+
+    def fn():
+        if entry == "sliding":
+            t = st.SlidingStreamingTransform(w, buffer_size=size, levels=levels, boundary=b,
+                                             dtype=x.dtype, device=x.device)
+            res = t.process(x)
+            tail = t.flush()
+            res += [tail] if tail is not None else []
+            return tuple(torch.stack(ps) for ps in zip(*(_planes(r) for r in res)))
+        ing = st.StreamIngest(w, buffer_size=size, levels=levels, boundary=b,
+                              channels=channels, capacity=2 * len(host), device=x.device)
+        outs, i = [], 0
+        for n in chunks:
+            ing.push(host[i:i + n])
+            i += n
+            got = ing.drain()
+            if got is not None:
+                outs.append(got)
+        return tuple(torch.cat(ps) for ps in zip(*(_planes(r) for r in outs)))
+
+    def calls():
+        if entry == "sliding":  # the windows the stream fills, and the flush's
+            return 1 + (len(host) - size) // step + bool((len(host) - size) % step)
+        count, fed, done = 0, 0, 0
+        for n in chunks:
+            fed += n
+            ready = 0 if fed < size else 1 + (fed - size) // step
+            count += ready > done
+            done = ready
+        return count
+
+    like = torch.zeros((1, channels, size) if channels > 1 else (1, size), dtype=x.dtype,
+                       device=x.device)
+
+    def launches():
+        return calls() if ml._kernel_eligible(like, w, levels, b) else 0
+
+    _through(out, "analysis", fn, ANALYSIS, launches,
+             lambda: kernel_serves(like, w, levels, b, False), calls, lambda: _plain(fn),
+             TOL_F32, on_card)
+
+
+def tier_cases() -> list[Case]:
+    """Phase 2d's cases: every kernel-reaching case of the streaming and
+    parallel tiers' mirrors (``tests/test_torch_streaming_mirror.py``,
+    ``tests/test_torch_parallel_mirror.py``), at the JAX tests' shapes and
+    seeds (float64 inputs cast to float32)."""
+    out = []
+    sm = "test_streaming.py"
+    for name, levels in (("haar", 3), ("db4", 3), ("sym8", 2)):
+        for block in (64, 100, 256):
+            out.append(Case(f"stream zero {name} J={levels} 512 blocks {block}", "stream",
+                            f"{sm}::test_streaming_matches_whole_signal_zero_boundary", name,
+                            levels, (512,), "zero", ("composite", 0.3),
+                            options=(("block", block),)))
+    out.append(Case("stream symmetric db4 J=3 512 blocks 128", "stream",
+                    f"{sm}::test_streaming_symmetric_matches_whole_signal_interior", "db4", 3,
+                    (512,), "symmetric", ("composite", 0.2), options=(("block", 128),)))
+    out.append(Case("stream periodic db4 J=2 256 blocks 128", "stream",
+                    f"{sm}::test_streaming_periodic_is_per_block", "db4", 2, (256,),
+                    "periodic", ("composite", 0.0), options=(("block", 128),)))
+    out.append(Case("stream flush db4 J=2 128", "stream", f"{sm}::test_flush_drains_history",
+                    "db4", 2, (128,), "zero", ("composite", 0.0),
+                    options=(("block", 128), ("flush", True))))
+    out.append(Case("stream batched db4 J=2 3x128", "stream", f"{sm}::test_streaming_batched",
+                    "db4", 2, (3, 128), "zero", ("rows", 0.1, (0, 1, 2)),
+                    options=(("block", 128),)))
+    out.append(Case("StreamingTransform db4 J=3 512 blocks 128", "stream",
+                    f"{sm}::test_streaming_transform_class", "db4", 3, (512,), "zero",
+                    ("composite", 0.2),
+                    options=(("block", 128), ("entry", "class"), ("flush", True))))
+    out.append(Case("StreamingDenoiser quality db4 2048 blocks 256", "stream_denoise",
+                    f"{sm}::test_streaming_denoiser_reduces_noise", "db4", 4, (2048,),
+                    data=("signal", "denoiser_noisy"),
+                    options=(("block", 256), ("entry", "class"),
+                             ("implementation", "quality"))))
+    out.append(Case("stream denoise fixed sigma haar J=1 128", "stream_denoise",
+                    f"{sm}::test_streaming_denoiser_fixed_sigma", "haar", 1, (128,),
+                    data=("composite", 0.5),
+                    options=(("block", 128), ("estimation", "fixed"), ("sigma", 0.5))))
+
+    sk = "test_streaming_denoise_kernel.py"
+    for batch, nblk, levels, mode in (((3,), 2048, 4, "soft"), ((), 1024, 3, "hard"),
+                                      ((2,), 512, 2, "soft")):
+        shape = batch + (3 * nblk,)
+        out.append(Case(f"stream denoise db4 J={levels} {mode} "
+                        f"{'x'.join(map(str, batch + (nblk,)))} x3 blocks", "stream_denoise",
+                        f"{sk}::test_kernel_streaming_denoiser_matches_jnp", "db4", levels,
+                        shape, data=("blocks", 0, 3),
+                        options=(("block", nblk), ("mode", mode))))
+    out.append(Case("stream denoise db4 J=2 200 x2 blocks", "stream_denoise",
+                    f"{sk}::test_kernel_streaming_denoiser_fallback_shape", "db4", 2, (400,),
+                    data=("blocks", 1, 2), options=(("block", 200),)))
+    for est, sigma in (("std", None), ("fixed", 0.5)):
+        out.append(Case(f"stream denoise {est} sym4 J=3 2x1024", "stream_denoise",
+                        f"{sk}::test_kernel_streaming_denoiser_estimators", "sym4", 3,
+                        (2, 1024), data=("normal", 2),
+                        options=(("block", 1024), ("estimation", est), ("sigma", sigma))))
+    out.append(Case("StreamingDenoiser kernel backend db4 2048 blocks 512", "stream_denoise",
+                    f"{sk}::test_streaming_denoiser_class_kernel_backend", "db4", 4, (2048,),
+                    data=("signal", "denoiser_sine"),
+                    options=(("block", 512), ("entry", "class"),
+                             ("implementation", "quality"))))
+    for name, levels, nblk in (("sym8", 5, 4096), ("coif3", 3, 1536), ("db2", 6, 8192)):
+        out.append(Case(f"stream denoise family {name} J={levels} 2x{nblk} x4 blocks",
+                        "stream_denoise",
+                        f"{sk}::test_kernel_streaming_denoiser_family_sweep", name, levels,
+                        (2, 4 * nblk), data=("blocks", 7, 4), options=(("block", nblk),)))
+    out.append(Case("stream denoise blocks db4 J=3 4x2x1024", "stream_denoise",
+                    f"{sk}::test_kernel_streaming_denoiser_scan_compatible", "db4", 3,
+                    (4, 2, 1024), data=("normal", 11), options=(("entry", "blocks"),)))
+
+    sl = "test_sliding.py"
+    out.append(Case("sliding symmetric db4 J=3 400 buffer 256", "window",
+                    f"{sl}::test_multilevel_window_and_flush", "db4", 3, (400,), "symmetric",
+                    ("composite", 0.0), options=(("entry", "sliding"), ("buffer", 256))))
+    ni = "test_native_ingest.py"
+    out.append(Case("StreamIngest db4 J=3 4096 buffer 256", "window",
+                    f"{ni}::test_stream_ingest_matches_sliding_transform", "db4", 3, (4096,),
+                    data=("normal", 0),
+                    options=(("entry", "ingest"), ("buffer", 256), ("chunks_seed", 0))))
+    out.append(Case("StreamIngest db2 J=2 1024x4 buffer 128", "window",
+                    f"{ni}::test_stream_ingest_multichannel", "db2", 2, (1024, 4),
+                    data=("normal", 5), options=(("entry", "ingest"), ("buffer", 128))))
+
+    pl = "test_parallel.py"
+    signal8 = (("mesh", (("signal", 8),)),)
+    grid = (("mesh", (("data", 2), ("signal", 4))),)
+    for b in ("periodic", "zero", "symmetric"):
+        out.append(Case(f"tiled {b} db4 J=4 1024 on 8", "tiled",
+                        f"{pl}::test_tiled_forward_equals_single_device", "db4", 4, (1024,), b,
+                        ("composite", 0.3), options=signal8))
+    out.append(Case("tiled periodic sym8 J=2 1024 on 8", "tiled",
+                    f"{pl}::test_tiled_roundtrip_periodic_exact", "sym8", 2, (1024,),
+                    data=("composite", 0.2), options=signal8))
+    out.append(Case("tiled zero db4 J=3 512 on 8", "tiled",
+                    f"{pl}::test_tiled_inverse_matches_single_device_zero", "db4", 3, (512,),
+                    "zero", ("composite", 0.2), options=signal8))
+    for name, levels in (("db4", 3), ("sym8", 1), ("haar", 4)):
+        out.append(Case(f"tiled symmetric {name} J={levels} 512 on 8", "tiled",
+                        f"{pl}::test_tiled_symmetric_inverse_matches_single_device", name,
+                        levels, (512,), "symmetric", ("composite", 0.2), options=signal8))
+    for levels in (5, 6):
+        out.append(Case(f"tiled symmetric deep halo db4 J={levels} 512 on 8", "tiled",
+                        f"{pl}::test_tiled_symmetric_deep_halo_matches_single_device", "db4",
+                        levels, (512,), "symmetric", ("composite", 0.3), options=signal8))
+    out.append(Case("tiled multi-hop db8 J=4 256 on 8", "tiled", f"{pl}::test_multihop_halo",
+                    "db8", 4, (256,), data=("composite", 0.1), options=signal8))
+    out.append(Case("tiled db4 J=3 4x512 on 2x4", "tiled", f"{pl}::test_batched_tiled_2d_mesh",
+                    "db4", 3, (4, 512), data=("rows", 0.1, (0, 1, 2, 3)), options=grid))
+    for b in ("periodic", "zero", "symmetric"):
+        out.append(Case(f"multihost {b} db4 J=3 4x512 on 2x4", "tiled",
+                        f"{pl}::test_multihost_mesh_and_parity", "db4", 3, (4, 512), b,
+                        ("rows", 0.2, (0, 1, 2, 3)), options=(("facade", "multihost"),)))
+    out.append(Case("multihost haar J=2 4x512 on 2x4", "tiled",
+                    f"{pl}::test_multihost_batch_stays_sharded", "haar", 2, (4, 512),
+                    data=("rows", 0.0, (0, 1, 2, 3)), options=(("facade", "multihost"),)))
+    for b in ("periodic", "zero"):
+        out.append(Case(f"tiled kernel route {b} db4 J=3 2048 on 8", "tiled",
+                        f"{pl}::test_tiled_pallas_matches_fused_kernel", "db4", 3, (2048,), b,
+                        ("composite", 0.3), options=signal8))
+    out.append(Case("tiled kernel route db8 J=4 4x512 on 2x4 (batch axis)", "tiled",
+                    f"{pl}::test_tiled_pallas_deep_halo_and_batch", "db8", 4, (4, 512),
+                    data=("normal", 5), options=grid + (("batch_axis", "data"),)))
+    out.append(Case("sharded batch db4 J=3 4x256 on 2x4", "batch",
+                    f"{pl}::test_sharded_batch_facade", "db4", 3, (4, 256),
+                    data=("rows", 0.0, (0, 1, 2, 3)), options=grid))
+
+    t2 = "test_tiled2d.py"
+    rows4 = (("mesh", (("rows", 4),)),)
+    for name, levels in (("db4", 3), ("haar", 4)):
+        out.append(Case(f"tiled 2-D symmetric {name} J={levels} 2x128x96 on 4", "tiled2d",
+                        f"{t2}::test_tiled2d_analysis_matches_single_device", name, levels,
+                        (2, 128, 96), "symmetric", ("normal", 0), options=rows4))
+    out.append(Case("tiled 2-D symmetric db4 J=3 128x96 on 4", "tiled2d",
+                    f"{t2}::test_tiled2d_roundtrip_matches_single_device", "db4", 3, (128, 96),
+                    "symmetric", ("normal", 1), options=rows4))
+    out.append(Case("tiled 2-D multi-wrap periodic db4 J=4 64x128 on 4", "tiled2d",
+                    f"{t2}::test_tiled2d_periodic_multiwrap_span", "db4", 4, (64, 128),
+                    data=("normal", 4), options=rows4))
+
+    te = "test_tiled_exact.py"
+    for label, test, name, levels, n, b, seed in (
+            ("db4 J=4 8192", "test_tiled_exact_roundtrip_below_1e10", "db4", 4, 8192,
+             "periodic", 0),
+            ("sym8 J=3 4096", "test_tiled_exact_matches_f64_oracle", "sym8", 3, 4096,
+             "periodic", 1),
+            ("zero db4 J=3 4096", "test_tiled_exact_zero_boundary", "db4", 3, 4096, "zero", 2),
+            ("multi-wrap db8 J=6 1024", "test_tiled_exact_multi_wrap_periodic", "db8", 6, 1024,
+             "periodic", 4)):
+        out.append(Case(f"tiled exact {label} on 8", "tiled_exact", f"{te}::{test}", name,
+                        levels, (n,), b, ("normal", seed), options=signal8))
+    out.append(Case("exact symmetric analysis db4 J=3 2x2048", "exact",
+                    f"{te}::test_exact_symmetric_analysis_matches_f64", "db4", 3, (2, 2048),
+                    "symmetric", ("normal", 3), options=(("precision", "exact"),)))
     return out
 
 
@@ -1414,7 +2019,9 @@ RUNNERS = {"pair": _pair, "exact": _exact, "denoise": _denoise, "roundtrip": _ro
            "dual_tree_denoise": _dual_tree_denoise, "cwt": _cwt, "twod": _twod,
            "twod_denoise": _twod_denoise, "fused_symmetric": _fused_symmetric,
            "symmetric_gradient": _symmetric_gradient, "denoise_method": _denoise_method,
-           "batch": _batch_facade}
+           "batch": _batch_facade, "stream": _stream, "stream_denoise": _stream_denoise,
+           "window": _window, "tiled": _tiled, "tiled_exact": _tiled_exact,
+           "tiled2d": _tiled2d}
 
 
 def run_case(case: Case, device) -> Outcome:
@@ -1442,16 +2049,27 @@ def family_labels(family: str) -> list[str]:
     return [c.label for c in family_cases() if c.kind in FAMILY_KINDS[family]]
 
 
+#: phase 2d's cases by the mirror file that holds them
+TIER_KINDS = {"streaming": ("stream", "stream_denoise", "window"),
+              "parallel": ("tiled", "batch", "tiled2d", "tiled_exact", "exact")}
+
+
+def tier_labels(tier: str) -> list[str]:
+    """The labels of ``tier``'s phase 2d cases (a key of :data:`TIER_KINDS`)."""
+    return [c.label for c in tier_cases() if c.kind in TIER_KINDS[tier]]
+
+
 def cpu_problems(label: str) -> list[str]:
-    """Run the phase 2c case ``label`` on CPU tensors and return what is
-    wrong: its faults, any route that is not the plain one (a CPU tensor
+    """Run the phase 2c or 2d case ``label`` on CPU tensors and return what
+    is wrong: its faults, any route that is not the plain one (a CPU tensor
     launches nothing and ``backend='kernel'`` refuses nothing), and any
     launch counted."""
-    case = next(c for c in family_cases() if c.label == label)
+    case = next(c for c in family_cases() + tier_cases() if c.label == label)
     before = dict(mc.LAUNCHES)
     out = run_case(case, "cpu")
     problems = list(out.faults)
-    problems += [f"{k}: {v}" for k, v in out.routes.items() if v != "plain"]
+    problems += [f"{k}: {v}" for k, v in out.routes.items()
+                 if v != "plain" and not v.startswith("raised (")]
     if mc.LAUNCHES != before:
         problems.append("a launch was counted")
     return problems
@@ -1459,7 +2077,8 @@ def cpu_problems(label: str) -> list[str]:
 
 def summary(outcomes: list[Outcome]) -> dict:
     """Cases, cases on a kernel and on the plain route under ``auto``,
-    refusals under ``kernel``, and the worst error against each bound."""
+    refusals under ``kernel`` (and refusals by design, which the runner
+    names), and the worst error against each bound."""
     auto = [o for o in outcomes if any(k.startswith("auto") for k in o.routes)]
     on_kernel = sum(any(v.startswith("kernel") for k, v in o.routes.items()
                         if k.startswith("auto")) for o in auto)
@@ -1473,6 +2092,8 @@ def summary(outcomes: list[Outcome]) -> dict:
         "auto_plain": len(auto) - on_kernel,
         "kernel_only": len(outcomes) - len(auto),
         "kernel_refused": sum(any(v == "raised" for v in o.routes.values()) for o in outcomes),
+        "refused_by_design": sum(any(v.startswith("raised (") for v in o.routes.values())
+                                 for o in outcomes),
         "worst": {f"{b:g}": e for b, e in sorted(worst.items())},
         "faults": sum(len(o.faults) for o in outcomes),
     }

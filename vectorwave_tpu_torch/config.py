@@ -92,11 +92,10 @@ def get_sigma_estimator() -> str:
 
 
 def cache_root() -> str:
-    """Root directory of the port's on-disk caches (generated filters):
-    ``$VECTORWAVE_TPU_TORCH_CACHE`` or ``~/.cache/vectorwave_tpu_torch``.
-
-    It is not the JAX package's cache, so a parity test of the two packages'
-    filters compares two independent generations."""
+    """Root directory of the port's on-disk caches (the kernels' builds,
+    the cost model's store): ``$VECTORWAVE_TPU_TORCH_CACHE`` or
+    ``~/.cache/vectorwave_tpu_torch``.  It is not the JAX package's cache;
+    the port's filters ship in ``wavelets/_filter_table.py``."""
     return os.environ.get(
         "VECTORWAVE_TPU_TORCH_CACHE",
         os.path.join(os.path.expanduser("~"), ".cache", "vectorwave_tpu_torch"),

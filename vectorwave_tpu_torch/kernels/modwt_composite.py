@@ -36,8 +36,9 @@ package's ``run_analysis_composite(halo=)`` and
 ``run_denoise_composite_stream``): the row is extended by the halo on the
 left, zeros before it, and zeros past N.  Their plain versions are the
 zero-boundary cascade of ``[halo | x]`` sliced back to N (the denoise's
-synthesis then block-local with zero coefficients past N).  Both modes count
-under the kernel's own entry of :data:`LAUNCHES`.
+synthesis then block-local with zero coefficients past N).  Each mode counts
+under its own entry of :data:`LAUNCHES` (``modwt_analysis_external``,
+``modwt_denoise_stream``), as do the halos below.
 
 :func:`synthesis` takes an external right ``halo``, one ``[B, H]`` tensor
 per plane holding the samples just right of the plane's end (the JAX
@@ -78,16 +79,24 @@ from ..ops.constants import kept
 from ..ops.convolve import atrous_analysis_pair, atrous_convolve
 from ._build import library
 
-#: Kernel launches since the last :func:`reset_launches`, by kernel.  The
-#: cascade wrappers of :mod:`.modwt_cascade` launch the analysis and
-#: synthesis kernels too, and count under ``modwt_mxu_*``; the bank kernels
-#: of :mod:`.modwt_bank` count under ``modwt_bank_*``.
+#: Kernel launches since the last :func:`reset_launches`, by kernel and
+#: mode.  The cascade wrappers of :mod:`.modwt_cascade` launch the analysis
+#: and synthesis kernels too, and count under ``modwt_mxu_*``; the bank
+#: kernels of :mod:`.modwt_bank` count under ``modwt_bank_*``.  A launch that
+#: reads a neighbour's samples counts under its mode's own entry, not its
+#: kernel's: the analysis's external left edge and the synthesis's external
+#: right halo (``*_external``), the denoise's stream mode
+#: (``modwt_denoise_stream``), the exact pair's halos (``*_halo``; a split
+#: plan runs on the extended rows and counts as the plain launches).
 LAUNCHES = {"modwt_analysis": 0, "modwt_synthesis": 0, "modwt_denoise": 0,
             "modwt_exact_analysis": 0, "modwt_exact_synthesis": 0,
             "modwt_symmetric_synthesis": 0, "modwt_symmetric_adjoint": 0,
             "modwt2_analysis": 0, "modwt2_synthesis": 0,
             "modwt_mxu_analysis": 0, "modwt_mxu_synthesis": 0,
-            "modwt_bank_analysis": 0, "modwt_bank_synthesis": 0}
+            "modwt_bank_analysis": 0, "modwt_bank_synthesis": 0,
+            "modwt_analysis_external": 0, "modwt_synthesis_external": 0,
+            "modwt_denoise_stream": 0, "modwt_exact_analysis_halo": 0,
+            "modwt_exact_synthesis_halo": 0}
 
 #: Outputs per block, per kernel (the denoise kernel holds J planes of its
 #: tile in shared memory, so its tile is smaller).  The cascade pair's, the
@@ -690,8 +699,10 @@ def analysis(x, levels, filters, periodic, head=None, halo=None
 def launch_analysis(x, levels, filters, edge, counter, head=None, halo=None):
     """Launch the analysis kernel on a CUDA ``x`` with left edge ``edge``
     (:data:`EDGES`) at the library's tile for :data:`ANALYSIS_TILE`, adding one to
-    ``LAUNCHES[counter]``; the mirror edge takes N >= :func:`mirror_reach`,
-    the external edge (and only it) a ``[B, H]`` ``halo`` of x's dtype."""
+    ``LAUNCHES[counter]`` (the external edge's to
+    ``LAUNCHES["modwt_analysis_external"]``); the mirror edge takes
+    N >= :func:`mirror_reach`, the external edge (and only it) a ``[B, H]``
+    ``halo`` of x's dtype."""
     _check_operand(x, "x")
     code = _check_dtype(x, "x")
     _check_levels(levels)
@@ -740,7 +751,7 @@ def launch_analysis(x, levels, filters, edge, counter, head=None, halo=None):
             taps, tile, EDGES[edge], code, _stream(x.device),
         )
     _raise_on_error(err, counter)
-    LAUNCHES[counter] += 1
+    LAUNCHES["modwt_analysis_external" if halo is not None else counter] += 1
     return tuple(outs)
 
 
@@ -773,7 +784,8 @@ def synthesis(planes, levels, filters, periodic, halo=None) -> torch.Tensor:
 def launch_synthesis(planes, levels, filters, periodic, counter, halo=None):
     """Launch the synthesis kernel on CUDA planes, adding one to
     ``LAUNCHES[counter]``; ``halo``, one ``[B, H]`` tensor per plane, is the
-    external right edge."""
+    external right edge (its launches count under
+    ``LAUNCHES["modwt_synthesis_external"]``)."""
     if len(planes) != levels + 1:
         raise InvalidArgumentError(
             ErrorCode.VAL_INVALID_SHAPE,
@@ -804,7 +816,7 @@ def launch_synthesis(planes, levels, filters, periodic, counter, halo=None):
             levels, taps, tile, int(periodic), code, _stream(first.device),
         )
     _raise_on_error(err, counter)
-    LAUNCHES[counter] += 1
+    LAUNCHES["modwt_synthesis_external" if halo is not None else counter] += 1
     return out
 
 
@@ -863,7 +875,7 @@ def denoise(x, thresholds, levels, filters_dec, filters_rec, periodic, mode,
             tile, int(periodic), _MODES[mode], code, _stream(x.device),
         )
     _raise_on_error(err, "modwt_denoise")
-    LAUNCHES["modwt_denoise"] += 1
+    LAUNCHES["modwt_denoise_stream" if halo is not None else "modwt_denoise"] += 1
     return out
 
 
@@ -1101,7 +1113,8 @@ def exact_analysis(x, x_lo, levels, filters, periodic, first_level=1, halo=None)
                 _stream(x.device),
             )
         _raise_on_error(err, "modwt_exact_analysis")
-        LAUNCHES["modwt_exact_analysis"] += 1
+        LAUNCHES["modwt_exact_analysis_halo" if halo is not None
+                 else "modwt_exact_analysis"] += 1
         pairs += [(outs[2 * i], outs[2 * i + 1]) for i in range(count)]
         cur_hi, cur_lo = outs[2 * count], outs[2 * count + 1]
     return tuple(pairs) + ((cur_hi, cur_lo),)
@@ -1164,6 +1177,7 @@ def exact_synthesis(pairs, levels, filters, periodic, first_level=1, halo=None):
                 int(direct), _stream(first_hi.device),
             )
         _raise_on_error(err, "modwt_exact_synthesis")
-        LAUNCHES["modwt_exact_synthesis"] += 1
+        LAUNCHES["modwt_exact_synthesis_halo" if halo is not None
+                 else "modwt_exact_synthesis"] += 1
         cur = (out_hi, out_lo)
     return cur

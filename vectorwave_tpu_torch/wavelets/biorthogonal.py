@@ -115,46 +115,47 @@ def biorthogonal_filters(nr: int, nd: int) -> tuple[np.ndarray, np.ndarray]:
     if (nr, nd) not in _VARIANTS:
         raise ValueError(f"Unsupported biorthogonal variant bior{nr}.{nd}")
 
-    def generate() -> np.ndarray:
-        big_l = (nr + nd) // 2
-        groups = _halfband_roots(big_l)
-        n_rec_groups = _VARIANTS[(nr, nd)]
-        rec_groups = groups[:n_rec_groups]
-        dec_groups = groups[n_rec_groups:]
-        dec_lo = _lowpass(nd, dec_groups)
-        rec_lo = _lowpass(nr, rec_groups)
-        # Equalize lengths with centered zero padding (both filters are
-        # symmetric and share length parity), so the alternating-sign QMF
-        # construction produces phase-aligned high-pass filters — this is
-        # exactly why the published tables carry leading/trailing zeros.
-        diff = len(dec_lo) - len(rec_lo)
-        half = abs(diff) // 2
-        if diff > 0:
-            rec_lo = np.concatenate([np.zeros(half), rec_lo, np.zeros(abs(diff) - half)])
-        elif diff < 0:
-            dec_lo = np.concatenate([np.zeros(half), dec_lo, np.zeros(abs(diff) - half)])
-        # Resolve any residual one-sample polyphase delay by a tiny search.
-        best = None
-        for pad_dec in range(2):
-            for pad_rec in range(2):
-                cand_dec = np.concatenate([np.zeros(pad_dec), dec_lo, np.zeros(pad_rec)])
-                cand_rec = np.concatenate([np.zeros(pad_rec), rec_lo, np.zeros(pad_dec)])
-                err = _roundtrip_error(cand_dec, cand_rec)
-                if best is None or err < best[0]:
-                    best = (err, cand_dec, cand_rec)
-        err, dec_best, rec_best = best
-        if err > 1e-10:
-            raise AssertionError(
-                f"bior{nr}.{nd} alignment search failed (best error {err:.2e})"
-            )
-        # pack both into one array for the cache: [len_dec, dec..., rec...]
-        return np.concatenate([[len(dec_best)], dec_best, rec_best])
-
     from ._cache import cached_filter
 
-    packed = cached_filter(f"bior{nr}.{nd}", generate)
+    packed = cached_filter(f"bior{nr}.{nd}", lambda: _biorthogonal_packed_uncached(nr, nd))
     split = int(packed[0])
     return packed[1 : 1 + split], packed[1 + split :]
+
+
+def _biorthogonal_packed_uncached(nr: int, nd: int) -> np.ndarray:
+    big_l = (nr + nd) // 2
+    groups = _halfband_roots(big_l)
+    n_rec_groups = _VARIANTS[(nr, nd)]
+    rec_groups = groups[:n_rec_groups]
+    dec_groups = groups[n_rec_groups:]
+    dec_lo = _lowpass(nd, dec_groups)
+    rec_lo = _lowpass(nr, rec_groups)
+    # Equalize lengths with centered zero padding (both filters are
+    # symmetric and share length parity), so the alternating-sign QMF
+    # construction produces phase-aligned high-pass filters — this is
+    # exactly why the published tables carry leading/trailing zeros.
+    diff = len(dec_lo) - len(rec_lo)
+    half = abs(diff) // 2
+    if diff > 0:
+        rec_lo = np.concatenate([np.zeros(half), rec_lo, np.zeros(abs(diff) - half)])
+    elif diff < 0:
+        dec_lo = np.concatenate([np.zeros(half), dec_lo, np.zeros(abs(diff) - half)])
+    # Resolve any residual one-sample polyphase delay by a tiny search.
+    best = None
+    for pad_dec in range(2):
+        for pad_rec in range(2):
+            cand_dec = np.concatenate([np.zeros(pad_dec), dec_lo, np.zeros(pad_rec)])
+            cand_rec = np.concatenate([np.zeros(pad_rec), rec_lo, np.zeros(pad_dec)])
+            err = _roundtrip_error(cand_dec, cand_rec)
+            if best is None or err < best[0]:
+                best = (err, cand_dec, cand_rec)
+    err, dec_best, rec_best = best
+    if err > 1e-10:
+        raise AssertionError(
+            f"bior{nr}.{nd} alignment search failed (best error {err:.2e})"
+        )
+    # pack both into one array for the table: [len_dec, dec..., rec...]
+    return np.concatenate([[len(dec_best)], dec_best, rec_best])
 
 
 def biorthogonal(nr: int, nd: int) -> DiscreteWavelet:

@@ -146,18 +146,19 @@ def coiflet_filter(order: int) -> np.ndarray:
     if order < 1 or order > MAX_ORDER:
         raise ValueError(f"Coiflet order must be in [1, {MAX_ORDER}], got {order}")
 
-    def generate() -> np.ndarray:
-        seed = np.asarray(SEEDS[order], dtype=np.float64)
-        n = np.arange(len(seed))
-        tau = round(float((n * seed).sum()) / _SQRT2)
-        h = _refine_f64(seed, order, tau)
-        if _max_scaled_residual(h, order, tau) > 1e-13:
-            h = _refine_mp(h, order, tau)
-        return h
-
     from ._cache import cached_filter
 
-    return cached_filter(f"coif{order}", generate)
+    return cached_filter(f"coif{order}", lambda: _coiflet_filter_uncached(order))
+
+
+def _coiflet_filter_uncached(order: int) -> np.ndarray:
+    seed = np.asarray(SEEDS[order], dtype=np.float64)
+    n = np.arange(len(seed))
+    tau = round(float((n * seed).sum()) / _SQRT2)
+    h = _refine_f64(seed, order, tau)
+    if _max_scaled_residual(h, order, tau) > 1e-13:
+        h = _refine_mp(h, order, tau)
+    return h
 
 
 def coiflet(order: int) -> DiscreteWavelet:

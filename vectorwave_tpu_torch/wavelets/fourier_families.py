@@ -51,20 +51,20 @@ def dmey_filter(length: int = 62) -> np.ndarray:
     H(omega) = sqrt(2) Phi(2 omega) on [-pi, pi] (since Phi(omega) = 1 on the
     support of Phi(2 omega)); inverse DFT and symmetric truncation.
     """
-
-    def generate() -> np.ndarray:
-        m = _GRID
-        omega = 2 * np.pi * np.fft.fftfreq(m)
-        spectrum = _SQRT2 * _meyer_phi_hat(2 * omega)
-        taps = np.real(np.fft.ifft(spectrum))
-        half = length // 2
-        centered = np.roll(taps, half)[:length]
-        centered *= _SQRT2 / centered.sum()
-        return centered
-
     from ._cache import cached_filter
 
-    return cached_filter(f"dmey{length}", generate)
+    return cached_filter(f"dmey{length}", lambda: _dmey_filter_uncached(length))
+
+
+def _dmey_filter_uncached(length: int) -> np.ndarray:
+    m = _GRID
+    omega = 2 * np.pi * np.fft.fftfreq(m)
+    spectrum = _SQRT2 * _meyer_phi_hat(2 * omega)
+    taps = np.real(np.fft.ifft(spectrum))
+    half = length // 2
+    centered = np.roll(taps, half)[:length]
+    centered *= _SQRT2 / centered.sum()
+    return centered
 
 
 def _bspline_integer_samples(p: int) -> list[Fraction]:
@@ -111,31 +111,33 @@ def battle_lemarie_filter(order: int, length: int | None = None) -> np.ndarray:
     if length is None:
         length = 4 * (order + 1)
 
-    def generate() -> np.ndarray:
-        m = _GRID
-        omega = 2 * np.pi * np.fft.fftfreq(m)
-        a_w = _spline_autocorr_spectrum(order, omega)
-        a_2w = _spline_autocorr_spectrum(order, 2 * omega)
-        ratio = np.cos(omega / 2.0) ** (order + 1) * np.sqrt(a_w / a_2w)
-        if order % 2 == 0:  # even-order spline: half-sample phase
-            spectrum = _SQRT2 * ratio * np.exp(-1j * omega / 2.0)
-        else:
-            spectrum = _SQRT2 * ratio.astype(np.complex128)
-        taps = np.real(np.fft.ifft(spectrum))
-        # choose the length-tap window capturing maximal energy (the filter has
-        # two-sided exponentially decaying tails; a centered-by-index window is
-        # slightly suboptimal for even orders)
-        rolled = np.roll(taps, m // 2)
-        energy = rolled**2
-        windows = np.convolve(energy, np.ones(length), mode="valid")
-        start = int(np.argmax(windows))
-        centered = rolled[start : start + length]
-        centered *= _SQRT2 / centered.sum()
-        return centered
-
     from ._cache import cached_filter
 
-    return cached_filter(f"blem{order}_{length}", generate)
+    return cached_filter(f"blem{order}_{length}",
+                         lambda: _battle_lemarie_filter_uncached(order, length))
+
+
+def _battle_lemarie_filter_uncached(order: int, length: int) -> np.ndarray:
+    m = _GRID
+    omega = 2 * np.pi * np.fft.fftfreq(m)
+    a_w = _spline_autocorr_spectrum(order, omega)
+    a_2w = _spline_autocorr_spectrum(order, 2 * omega)
+    ratio = np.cos(omega / 2.0) ** (order + 1) * np.sqrt(a_w / a_2w)
+    if order % 2 == 0:  # even-order spline: half-sample phase
+        spectrum = _SQRT2 * ratio * np.exp(-1j * omega / 2.0)
+    else:
+        spectrum = _SQRT2 * ratio.astype(np.complex128)
+    taps = np.real(np.fft.ifft(spectrum))
+    # choose the length-tap window capturing maximal energy (the filter has
+    # two-sided exponentially decaying tails; a centered-by-index window is
+    # slightly suboptimal for even orders)
+    rolled = np.roll(taps, m // 2)
+    energy = rolled**2
+    windows = np.convolve(energy, np.ones(length), mode="valid")
+    start = int(np.argmax(windows))
+    centered = rolled[start : start + length]
+    centered *= _SQRT2 / centered.sum()
+    return centered
 
 
 def discrete_meyer() -> DiscreteWavelet:

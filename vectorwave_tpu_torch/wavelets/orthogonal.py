@@ -131,15 +131,16 @@ def daubechies_filter(p: int) -> np.ndarray:
     if p == 1:
         return np.array([1.0 / _SQRT2, 1.0 / _SQRT2])
 
-    def generate() -> np.ndarray:
-        with mp.workdps(_MP_DPS):
-            y_roots = _halfband_y_roots(p)
-            z_roots = [_z_root_pair(y)[0] for y in y_roots]  # all inside: minimum phase
-            return _build_filter(p, z_roots)
-
     from ._cache import cached_filter
 
-    return cached_filter(f"db{p}", generate)
+    return cached_filter(f"db{p}", lambda: _daubechies_filter_uncached(p))
+
+
+def _daubechies_filter_uncached(p: int) -> np.ndarray:
+    with mp.workdps(_MP_DPS):
+        y_roots = _halfband_y_roots(p)
+        z_roots = [_z_root_pair(y)[0] for y in y_roots]  # all inside: minimum phase
+        return _build_filter(p, z_roots)
 
 
 def _phase_nonlinearity(h: np.ndarray) -> float:
