@@ -56,9 +56,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    CWT's kernel-direct tier: the bank analysis on the tier's dense taps
    (morl, ascending scales to h = 2048) against its plain version at
    1x2^20, 128x65536, a ragged 3x5000, 2x300 (the span past the row) and
-   mexh, the whole tier under ``backend='kernel'`` against the FFT path (past
-   the row: the float64 periodic correlation) within 2e-5 of the largest
-   coefficient, and its gradient (one bank synthesis launch on the dense
+   mexh, ``cwt`` under ``backend='kernel'`` (the tier up to the first
+   support that wraps past the row, the FFT path beyond) against the FFT
+   path within 2e-5 of the largest coefficient, and its gradient (one bank synthesis launch on the dense
    taps) against autograd through the plain version; the
    streaming modes: the analysis kernel's external edge (alone and with the
    head splice) and the denoise kernel's stream mode (none, soft, hard) at
@@ -123,6 +123,23 @@ Phases, in order; any failure raises and the exit code is not 0:
    within 1e-10 RMSE) and the 2-D tiling's gathered image (``levels``
    launches each way where ``modwt2_kernel_eligible`` admits it); printed
    as phase 2b's;
+2e. the CWT family's mirrored test cases (``tools/mirror_cases.analysis_cases``):
+   the kernel-reaching cases of the JAX package's ``test_cwt.py``,
+   ``test_variance_xwt.py`` and ``test_finance.py`` at those tests' shapes
+   and seeds (float32), each through the public entry points under
+   ``auto`` and under ``backend='kernel'``: ``cwt`` of a real wavelet,
+   periodic, 60 scales 2-256 on 1024 samples, then ``icwt`` or a band
+   reconstruction (under ``auto`` the FFT path, no launch; under
+   ``kernel`` one bank analysis launch for the 51 leading scales whose
+   support fits in N, the FFT path for the 9 that wrap past it), the
+   wavelet variance, covariance and correlation (one cascade analysis
+   launch a transform), the variance stream on the kernel step (one
+   external-edge launch a block), ``wavelet_sharpe_ratio`` and
+   ``analyze_market`` (one fused denoise launch) and
+   ``calculate_wavelet_indicators`` (one cascade analysis launch; its
+   momentum within 5e-5), each launch held to its router's count and mode
+   and each output to the plain route within 2e-5 of its largest value;
+   printed as phase 2b's;
 3. the main path through the public entry points at 128x65536 float32:
    ``modwt_multilevel`` -> ``imodwt_multilevel`` at every precision tier,
    ``modwt_roundtrip_fused`` and ``denoise_multilevel``, with the launch
@@ -335,8 +352,8 @@ and the last synthesis, each step's gradient on the plain 2-D cascade);
 ``throughput_meter`` around a round trip and a ``profiler_trace``.
 
 The last two lines are a JSON object with one entry per kernel (beside
-the contract's keys, ``mirror_launches``: its launches in phases 2b, 2c
-and 2d) and the device line ``{"ok": true, "device": {...}}``.
+the contract's keys, ``mirror_launches``: its launches in phases 2b, 2c,
+2d and 2e) and the device line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1121,21 +1138,16 @@ def cwt_kernels_against_plain(dev, gen, worst):
                                         f" max |kernel - plain| {err:.3e} <= "
                                         f"{TOL_CWT * top:.3e}")
             del got, want
+        # the tier stops at the first support that wraps past N, so every
+        # row under kernel is the FFT path's
         with backend("kernel"):
             tier = vt.cwt(x, scales, name, boundary="periodic").coeffs
-        if 2 * tc._half_support(max(scales), w.bandwidth) + 1 <= n:
-            with backend("torch"):
-                ref = vt.cwt(x, scales, name, boundary="periodic").coeffs
-            what = "the FFT path"
-        else:
-            # past N the FFT path's bank keeps one sample a slot: hold the tier
-            # to the periodic correlation in float64 (the bank's plain version)
-            ref = torch.stack([p for xr, dense in tier_bank_calls(x.double(), scales, name)
-                               for p in mb.bank_analysis_plain(xr, dense, True)], -2)
-            what = "the float64 periodic correlation"
+        with backend("torch"):
+            ref = vt.cwt(x, scales, name, boundary="periodic").coeffs
         err = rel_err(tier, ref)
         check(tier.shape == (b, len(scales), n) and err <= TOL_CWT,
-              f"cwt kernel-direct tier, {tag}: vs {what} {err:.3e} <= {TOL_CWT:.0e} of max")
+              f"cwt kernel-direct tier, {tag}: vs the FFT path {err:.3e} <= {TOL_CWT:.0e} "
+              "of max")
         del tier, ref
     # the gradient: the tier's backward is the bank synthesis with the same
     # dense taps, one launch a chunk
@@ -1190,17 +1202,18 @@ def cwt_path(dev, gen):
 
     w = vt.wavelet(CWT_WAVELET)
 
-    def tier_launches(scales):
-        """Bank launches ``auto`` makes for these periodic float32 scales."""
-        k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32)
+    def tier_launches(scales, n):
+        """Bank launches ``auto`` makes for these periodic float32 scales on
+        ``n`` samples."""
+        k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32, n)
         return len(tc._kernel_direct_chunks(w, scales[:k])) if k else 0
 
-    def tier_expect(scales, backward=False):
-        n = tier_launches(scales)
-        if not n:
+    def tier_expect(scales, n, backward=False):
+        count = tier_launches(scales, n)
+        if not count:
             return {}
-        return ({"modwt_bank_analysis": n, "modwt_bank_synthesis": n} if backward
-                else {"modwt_bank_analysis": n})
+        return ({"modwt_bank_analysis": count, "modwt_bank_synthesis": count} if backward
+                else {"modwt_bank_analysis": count})
 
     rows = []
     for label, b, n, scales in (
@@ -1209,12 +1222,12 @@ def cwt_path(dev, gen):
     ):
         x = torch.randn(b, n, device=dev, generator=gen)
         x = x[0] if b == 1 else x
-        k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32)
+        k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32, n)
         print(f"  cwt {label}: auto takes "
               f"{'the kernel-direct tier' if k else 'the FFT path'} (every scale to h = "
               f"{tc.AUTO_KERNEL_DIRECT_MAX_HALF} in one bank call, or none)", flush=True)
         check(k in (0, len(scales)), f"cwt {label}: auto takes the tier whole or not at all")
-        res = counted(f"cwt {label}, auto", tier_expect(scales),
+        res = counted(f"cwt {label}, auto", tier_expect(scales, n),
                       lambda: vt.cwt(x, scales, CWT_WAVELET, boundary="periodic"))
         with backend("torch"):
             ref = counted(f"cwt {label}, the plain route", {},
@@ -1255,7 +1268,7 @@ def cwt_path(dev, gen):
             (vt.cwt(xg, scales, CWT_WAVELET, boundary="periodic").coeffs * wts).sum(), xg)[0]
 
     g = counted("d/dx of a weighted sum of cwt's coefficients, the main batch, auto",
-                tier_expect(scales, backward=True), grad)
+                tier_expect(scales, N, backward=True), grad)
     with backend("torch"):
         g_ref = grad()
     err = rel_err(g, g_ref)
@@ -1299,7 +1312,7 @@ def cwt_path(dev, gen):
     label, x, scales, res = rows[1]
     counted(f"modwt_based_icwt {label}, the first call (calibrates)",
             {"modwt_analysis", "modwt_synthesis"}
-            | ({"modwt_bank_analysis"} if tier_launches(scales) else set()),
+            | ({"modwt_bank_analysis"} if tier_launches(scales, N) else set()),
             lambda: vt.modwt_based_icwt(res, CWT_WAVELET))
     y = counted(f"modwt_based_icwt {label}", {"modwt_synthesis": 1},
                 lambda: vt.modwt_based_icwt(res, CWT_WAVELET))
@@ -3624,7 +3637,8 @@ def mirror_cases_path(dev, phase: str, family: str, cases) -> dict:
     ``kernel``'s refusals to where the kernels cannot serve.  Prints a line
     a case, the launches by kernel and one summary line; any fault fails the
     phase.  Phase 2d runs the streaming and parallel tiers' cases the same
-    way.  Returns the phase's launches by kernel."""
+    way, and phase 2e the CWT family's.  Returns the phase's launches by
+    kernel."""
     from tools import mirror_cases
     from vectorwave_tpu_torch.kernels import modwt_composite as mc
 
@@ -4140,7 +4154,8 @@ def main() -> int:
         for phase, family, cases in (
             ("2b", "the MODWT core's", mirror_cases.cases()),
             ("2c", "the other kernel families'", mirror_cases.family_cases()),
-            ("2d", "the streaming and parallel tiers'", mirror_cases.tier_cases()))}
+            ("2d", "the streaming and parallel tiers'", mirror_cases.tier_cases()),
+            ("2e", "the CWT family's", mirror_cases.analysis_cases()))}
 
     print(f"phase 3: main path through the public entry points, "
           f"{BATCH}x{N} float32", flush=True)

@@ -1244,8 +1244,10 @@ CWT_CASES = [(1, 1 << 16, "morl", (2.0, 8.0, 32.0, 128.0, 512.0)),
 @pytest.mark.parametrize("b,n,name,scales", CWT_CASES)
 def test_cwt_tier_matches_plain_and_the_fft_path(cuda, b, n, name, scales):
     """The bank kernel on the tier's dense taps against its plain version,
-    and the whole tier against the FFT path (past N: against the periodic
-    correlation in float64), within 2e-5 of the largest coefficient."""
+    the tier on every scale against the periodic correlation in float64
+    (past N too), and ``cwt`` under ``kernel``, whose tier stops at the
+    first support that wraps past N, against the FFT path, within 2e-5 of
+    the largest coefficient."""
     from vectorwave_tpu_torch.kernels import modwt_bank as mb
     from vectorwave_tpu_torch.transforms import cwt as tc
 
@@ -1263,15 +1265,18 @@ def test_cwt_tier_matches_plain_and_the_fft_path(cuda, b, n, name, scales):
         assert _err(got, want) <= TOL_F32 * top
         want_rows += mb.bank_analysis_plain(torch.roll(x.double(), -maxhalf, dims=-1), dense,
                                             True)
+    direct = torch.cat(tc._cwt_kernel_direct(x, w, scales), dim=-2)
+    assert _rel(direct, torch.stack(want_rows, -2)) <= TOL_F32
+    n_small = _under("kernel", lambda: tc._kernel_direct_split(x.device, w, scales, "periodic",
+                                                               torch.float32, n))
     mc.reset_launches()
     tier = _under("kernel", lambda: vt.cwt(x, scales, name, boundary="periodic")).coeffs
     torch.cuda.synchronize()
-    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {"modwt_bank_analysis": len(chunks)}
+    assert {k: v for k, v in mc.LAUNCHES.items() if v} == {
+        "modwt_bank_analysis": len(tc._kernel_direct_chunks(w, scales[:n_small]))}
     assert tier.shape == (b, len(scales), n) and tier.device == x.device
-    if 2 * tc._half_support(max(scales), w.bandwidth) + 1 <= n:
-        fft = _under("torch", lambda: vt.cwt(x, scales, name, boundary="periodic")).coeffs
-        assert _rel(tier, fft) <= TOL_F32
-    assert _rel(tier, torch.stack(want_rows, -2)) <= TOL_F32
+    fft = _under("torch", lambda: vt.cwt(x, scales, name, boundary="periodic")).coeffs
+    assert _rel(tier, fft) <= TOL_F32
 
 
 def test_cwt_tier_gradient_is_one_bank_synthesis_launch(cuda):
@@ -1333,11 +1338,12 @@ def test_cwt_auto_routing_on_both_sides_of_the_gate(cuda):
 
 def test_cwt_kernel_backend_raises_where_the_window_does_not_fit(cuda, monkeypatch):
     """With the cap lifted past what a window holds, ``kernel`` raises on the
-    card; it does not fall back to the FFT path."""
+    card; it does not fall back to the FFT path (the row is long enough for
+    the support of 2 * 60000 + 1 taps, which the tier takes only within N)."""
     from vectorwave_tpu_torch.transforms import cwt as tc
 
     monkeypatch.setattr(tc, "KERNEL_DIRECT_MAX_HALF", 1 << 16)
-    x = _input(cuda, 1, 4096, torch.float32, seed=34)
+    x = _input(cuda, 1, 1 << 17, torch.float32, seed=34)
     with pytest.raises(InvalidArgumentError, match="shared memory"):
         _under("kernel", lambda: vt.cwt(x, (2.0, 15000.0), "morl", boundary="periodic"))
 
@@ -1670,10 +1676,12 @@ def test_filter_spectrum_on_the_card_matches_the_cpu(cuda, taps, spacing, n):
 
 @pytest.mark.parametrize("label", [c.label for c in mirror_cases.cases()]
                          + [c.label for c in mirror_cases.family_cases()]
-                         + [c.label for c in mirror_cases.tier_cases()])
+                         + [c.label for c in mirror_cases.tier_cases()]
+                         + [c.label for c in mirror_cases.analysis_cases()])
 def test_mirror_case_on_the_card(cuda, label):
     """Each kernel-reaching case of the test mirrors (the MODWT core's, the
-    other kernel families', then the streaming and parallel tiers'), at the
+    other kernel families', the streaming and parallel tiers', then the CWT
+    family's), at the
     JAX tests' shapes: under ``auto`` and under ``backend='kernel'``
     against the plain route on the card (2e-5
     in float32; 1e-13 on the exact tier's hi + lo, its round trip within
@@ -1682,6 +1690,7 @@ def test_mirror_case_on_the_card(cuda, label):
     direction's launches where its router says, and ``kernel`` refusing only
     where the kernels cannot serve."""
     case = next(c for c in mirror_cases.cases() + mirror_cases.family_cases()
-                + mirror_cases.tier_cases() if c.label == label)
+                + mirror_cases.tier_cases() + mirror_cases.analysis_cases()
+                if c.label == label)
     out = mirror_cases.run_case(case, cuda)
     assert out.ok, out.faults

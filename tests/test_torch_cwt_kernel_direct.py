@@ -86,22 +86,27 @@ def test_tier_matches_the_jax_pallas_tier_and_the_fft_path(kernel_backend, jax_p
     x = _x(shape)
     want = jcwt._cwt_kernel_direct(jnp.asarray(x), jcwt._resolve_continuous(name), scales,
                                    jnp.float32)
+    tier = torch.cat(tcwt._cwt_kernel_direct(torch.from_numpy(x), vt.wavelet(name), scales),
+                     dim=-2)
+    assert _err(tier, want) <= TOL
     res = vt.cwt(torch.from_numpy(x), scales, name, boundary="periodic")
     assert res.coeffs.dtype == torch.float32 and res.coeffs.shape == shape[:1] + (
         len(scales), shape[1])
-    assert _err(res.coeffs, want) <= TOL
-    if 2 * tcwt._half_support(max(scales), 1.0) + 1 <= shape[1]:
-        # (past N the FFT path's bank keeps one sample a slot: see below)
-        assert _err(res.coeffs, _fft_path(x, scales, name).numpy()) <= TOL
+    # past N the tier stops: those rows are the FFT path's (see below)
+    assert _err(res.coeffs, _fft_path(x, scales, name).numpy()) <= TOL
 
 
 def test_span_past_n_is_the_periodic_correlation(kernel_backend):
-    """The bank wraps modulo N as often as the span needs, so a span longer
-    than the row still gives out[t] = sum_k x[(t + k) mod N] c_k."""
+    """The bank wraps modulo N as often as the span needs, so the tier on a
+    span longer than the row still gives out[t] = sum_k x[(t + k) mod N]
+    c_k; ``cwt`` sends no such scale to it, since the FFT path's bank keeps
+    one sample a slot there."""
     x = _x((2, 300), seed=1)
     scales = (40.0, 64.0, 100.0)
-    got = vt.cwt(torch.from_numpy(x), scales, "morl", boundary="periodic").coeffs
     w = vt.wavelet("morl")
+    assert tcwt._kernel_direct_split(torch.device("cpu"), w, scales, "periodic",
+                                     torch.float32, 300) == 0
+    got = torch.cat(tcwt._cwt_kernel_direct(torch.from_numpy(x), w, scales), dim=-2)
     want = np.zeros((2, len(scales), 300))
     for i, s in enumerate(scales):
         h = tcwt._half_support(s, w.bandwidth)
@@ -112,17 +117,18 @@ def test_span_past_n_is_the_periodic_correlation(kernel_backend):
     assert _err(got, want) <= TOL
 
 
-@pytest.mark.parametrize("scales,n_small", [
-    ((4.0, 16.0, 2048.0), 2),           # the last past the cap of 2048
-    ((64.0, 8.0, 2.0), 0),              # descending: the FFT path keeps them all
-    ((2.0, 8.0, 4.0, 16.0), 0),         # unsorted
-    ((4.0, 512.0, 513.0), 2),           # 512 is h = 2048 exactly, 513 past it
+@pytest.mark.parametrize("scales,n_small,n", [
+    ((4.0, 16.0, 2048.0), 2, 4096),     # the last past the cap of 2048
+    ((64.0, 8.0, 2.0), 0, 4096),        # descending: the FFT path keeps them all
+    ((2.0, 8.0, 4.0, 16.0), 0, 4096),   # unsorted
+    ((4.0, 512.0, 513.0), 2, 8192),     # 512 is h = 2048 exactly, 513 past it
+    ((4.0, 512.0, 513.0), 1, 4096),     # 512's span of 4097 wraps past N
 ])
-def test_hybrid_split_lines_up_the_rows(kernel_backend, jax_pallas, scales, n_small):
+def test_hybrid_split_lines_up_the_rows(kernel_backend, jax_pallas, scales, n_small, n):
     w = vt.wavelet("morl")
     assert tcwt._kernel_direct_split(torch.device("cpu"), w, scales, "periodic",
-                                     torch.float32) == n_small
-    x = _x((1, 4096), seed=2)
+                                     torch.float32, n) == n_small
+    x = _x((1, n), seed=2)
     got = vt.cwt(torch.from_numpy(x), scales, "morl", boundary="periodic").coeffs
     vw.set_backend("jnp")
     want = vw.cwt(jnp.asarray(x), scales, "morl", boundary="periodic").coeffs
@@ -133,7 +139,7 @@ def test_split_conditions_and_the_two_caps(monkeypatch):
     """``torch`` never takes the tier; ``kernel`` to h = 2048 on any device;
     ``auto`` only on a card the kernels are built for, and only when every
     scale is within AUTO_KERNEL_DIRECT_MAX_HALF and they make one bank call;
-    a periodic boundary and float32 only."""
+    a periodic boundary, float32 and supports that fit in N only."""
     w = vt.wavelet("morl")
     cpu, card = torch.device("cpu"), torch.device("cuda")
     cap = tcwt.AUTO_KERNEL_DIRECT_MAX_HALF
@@ -142,17 +148,25 @@ def test_split_conditions_and_the_two_caps(monkeypatch):
     at, past = cap / 4.0, cap / 4.0 + 0.25
     assert tcwt._half_support(at, 1.0) == cap and tcwt._half_support(past, 1.0) == cap + 1
     top, over = 512.0, 512.25
-    split = tcwt._kernel_direct_split
+    n = 1 << 20
+
+    def split(*args):
+        return tcwt._kernel_direct_split(*args, n)
+
     try:
         vt.set_backend("kernel")
         for dev in (cpu, card):
             assert split(dev, w, (2.0, at, past, top, over), "periodic", torch.float32) == 4
+            assert tcwt._kernel_direct_split(dev, w, (2.0, at, past, top, over), "periodic",
+                                             torch.float32, 2 * cap + 1) == 2
         assert split(cpu, w, (2.0, at), "zero", torch.float32) == 0
         assert split(cpu, w, (2.0, at), "symmetric", torch.float32) == 0
         assert split(cpu, w, (2.0, at), "periodic", torch.float64) == 0
         vt.set_backend("auto")
         monkeypatch.setattr(modwt_fused, "kernel_available", lambda: True)
         assert split(card, w, (2.0, at), "periodic", torch.float32) == 2
+        assert tcwt._kernel_direct_split(card, w, (2.0, at), "periodic", torch.float32,
+                                         2 * cap) == 0
         assert split(card, w, (2.0, at, past, top), "periodic", torch.float32) == 0
         assert split(card, w, (past,), "periodic", torch.float32) == 0
         # every scale within the cap, but more than one bank call's planes

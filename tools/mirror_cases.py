@@ -60,6 +60,22 @@ that refusal is held to its error code.  A streaming denoiser class is
 held to the plain tier within the JAX tests' bound between the tiers,
 5e-5.
 
+:func:`analysis_cases` are the CWT family's cases, from
+``tests/test_torch_cwt_mirror.py`` and ``tests/test_torch_analysis_mirror.py``:
+the CWT's periodic inverses (``icwt``, the band reconstructions) on a real
+wavelet, the wavelet variance, covariance and correlation, the variance
+stream on the kernel-tier step, and the financial analyzers that reach a
+kernel (the Sharpe ratio and the market view through the fused denoise, the
+indicators through the cascade).  ``chip_smoke.py`` runs them in its phase
+2e, the same way, each direction's launches held to the router by count
+(``cwt._kernel_direct_split`` and ``_kernel_direct_chunks``; one cascade
+analysis a transform by ``_kernel_eligible``; ``stream.use_stream_kernel``
+a block; ``denoiser.fused_denoise_serves``) and to its mode.  Under
+``auto`` the CWT's 60 scales pass ``AUTO_KERNEL_DIRECT_MAX_HALF`` and take
+the FFT path, so that side launches nothing; ``kernel`` sends the leading
+51, whose support fits in N, to the bank, and the 9 that wrap past N to
+the FFT path.
+
 Bounds (PERF.md section 2): a float32 kernel against the float32 plain route
 2e-5 max abs (fp32 in another summation order, values of order 1; the plain
 periodic route of a CUDA tensor may take the FFT, which differs by 3.3e-6);
@@ -105,6 +121,10 @@ TOL_EXACT = 1e-13
 #: the streaming denoiser's kernel tier against its plain tier (the JAX
 #: package's own bound between them, tests/test_streaming_denoise_kernel.py)
 TOL_STREAM_TIERS = 5e-5
+#: ``calculate_wavelet_indicators``' momentum (``np.gradient`` of a float32
+#: approximation of prices near 100) between two float32 routes: each route
+#: alone is 1.6e-5 of its largest value off float64 at the JAX test's draw
+TOL_MOMENTUM = 5e-5
 EXACT_RT_RMSE = 1e-10
 NRMSE_HEADROOM = 1.10
 BASELINES = pathlib.Path(__file__).resolve().parent.parent / "tests" / "baselines" / \
@@ -642,7 +662,30 @@ def _family_input(case: "Case") -> np.ndarray:
         rng = np.random.default_rng(seed)
         block = case.shape[:-1] + (case.shape[-1] // k,)
         return np.concatenate([rng.standard_normal(block) for _ in range(k)], axis=-1)
+    if kind == "two_tone":  # tests/test_cwt.py::_two_tone
+        t = np.arange(case.shape[-1])
+        return np.sin(2 * np.pi * t / 32) + 0.5 * np.sin(2 * np.pi * t / 128)
+    if kind == "scaled":  # a seeded draw times a factor
+        _, seed, factor = case.data
+        return np.random.default_rng(seed).standard_normal(case.shape) * factor
+    if kind == "prices":  # tests/test_finance.py::_price_series
+        _, seed, crash_at = case.data
+        return price_series(case.shape[-1], seed, crash_at)
+    if kind == "sharpe_returns":  # tests/test_finance.py::test_wavelet_sharpe_denoises
+        n = case.shape[-1]
+        rng = np.random.default_rng(2)
+        return 0.001 + 0.002 * np.sin(np.arange(n) / 64) + rng.normal(0, 0.02, n)
     raise ValueError(f"unknown input {case.data!r}")
+
+
+def price_series(n: int, seed: int, crash_at: int | None = None) -> np.ndarray:
+    """``tests/test_finance.py::_price_series``: a seeded log-normal walk
+    from 100, with a two-day crash at ``crash_at``."""
+    rets = np.random.default_rng(seed).normal(0.0005, 0.01, n)
+    if crash_at is not None:
+        rets[crash_at] = -0.12
+        rets[crash_at + 1] = -0.06
+    return 100.0 * np.exp(np.cumsum(rets))
 
 
 @contextlib.contextmanager
@@ -961,22 +1004,22 @@ def _dual_tree_denoise(case, x, w, out, on_card) -> None:
              lambda: _plain(fn), TOL_DUAL_TREE, on_card)
 
 
-def cwt_launches(device, scales) -> int:
-    """The bank launches of a periodic float32 ``cwt`` under the current
-    backend: one a chunk of the leading scales ``_kernel_direct_split``
-    gives the kernel-direct tier."""
-    w = cwt_mod._resolve_continuous("morl")
-    n_small = cwt_mod._kernel_direct_split(device, w, tuple(scales), "periodic",
-                                           torch.float32)
+def cwt_launches(x, scales, wavelet: str = "morl") -> int:
+    """The bank launches of a periodic float32 ``cwt`` of ``x`` under the
+    current backend: one a chunk of the leading scales
+    ``_kernel_direct_split`` gives the kernel-direct tier."""
+    w = cwt_mod._resolve_continuous(wavelet)
+    n_small = cwt_mod._kernel_direct_split(x.device, w, tuple(scales), "periodic",
+                                           torch.float32, x.shape[-1])
     return len(cwt_mod._kernel_direct_chunks(w, tuple(scales[:n_small]))) if n_small else 0
 
 
-def cwt_serves(device, scales) -> bool:
-    if torch.device(device).type == "cpu":
+def cwt_serves(x, scales, wavelet: str = "morl") -> bool:
+    if x.device.type == "cpu":
         return True
-    w = cwt_mod._resolve_continuous("morl")
-    n_small = cwt_mod._kernel_direct_split(device, w, tuple(scales), "periodic",
-                                           torch.float32)
+    w = cwt_mod._resolve_continuous(wavelet)
+    n_small = cwt_mod._kernel_direct_split(x.device, w, tuple(scales), "periodic",
+                                           torch.float32, x.shape[-1])
     return not n_small or all(mb.bank_fits(dense)
                for _, dense in cwt_mod._kernel_direct_chunks(w, tuple(scales[:n_small])))
 
@@ -993,8 +1036,8 @@ def _cwt(case, x, w, out, on_card) -> None:
     def err(g, v):
         return _err(g, v) if absolute else _relative(g, v)
 
-    _through(out, "coefficients", fn, BANK_ANALYSIS, lambda: cwt_launches(x.device, scales),
-             lambda: cwt_serves(x.device, scales), lambda: cwt_launches(x.device, scales),
+    _through(out, "coefficients", fn, BANK_ANALYSIS, lambda: cwt_launches(x, scales),
+             lambda: cwt_serves(x, scales), lambda: cwt_launches(x, scales),
              lambda: _plain(fn), absolute or TOL_F32, on_card, err=err)
 
 
@@ -2013,6 +2056,266 @@ def tier_cases() -> list[Case]:
     return out
 
 
+# -- the CWT family: the CWT's inverses, the wavelet variance and its stream,
+#    the financial analyzers ----------------------------------------------------------
+
+
+def _relative_each(got, want) -> float:
+    """The largest error of each output over that output's largest value."""
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    if len(got) != len(want):
+        return math.inf
+    return max(_relative(g, v) for g, v in zip(got, want))
+
+
+def _cwt_inverse(case, x, w, out, on_card) -> None:
+    """``cwt`` of a real wavelet with a periodic boundary, then ``icwt``
+    (``entry='icwt'``), ``reconstruct_band`` (``'band'``, the JAX test's
+    band around the 32-sample tone) or ``reconstruct_frequency_band``
+    (``'frequency band'``): the bank launches of the coefficients
+    (``cwt_launches``: under ``auto`` none past ``AUTO_KERNEL_DIRECT_MAX_HALF``,
+    under ``kernel`` one a chunk of the leading scales whose support fits
+    in N).  The coefficients and the reconstruction are held to the FFT
+    path within 2e-5 of each one's largest value."""
+    name, scales, entry = case.wavelet, case.option("scales"), case.option("entry")
+    fc = cwt_mod._resolve_continuous(name).center_frequency
+
+    def rebuild(res):
+        if entry == "icwt":
+            return vt.icwt(res, name)
+        if entry == "band":
+            return vt.reconstruct_band(res, name, fc * 16, fc * 64)
+        return vt.reconstruct_frequency_band(res, name, 1 / 48, 1 / 22)
+
+    def fn():
+        res = vt.cwt(x, scales, name, boundary="periodic")
+        return res.coeffs, rebuild(res)
+
+    def launches():
+        return cwt_launches(x, scales, name)
+
+    _through(out, entry, fn, BANK_ANALYSIS, launches, lambda: cwt_serves(x, scales, name),
+             launches, lambda: _plain(fn), TOL_F32, on_card, err=_relative_each)
+
+
+#: each statistic's transforms: one periodic ``modwt_multilevel`` a series
+#: (the correlation's covariance takes two, each variance one more)
+VARIANCE_TRANSFORMS = {"variance": 1, "covariance": 2, "correlation": 4}
+
+
+def _variance(case, x, w, out, on_card) -> None:
+    """``wavelet_variance`` (``entry='variance'``, its estimate and
+    interval), ``wavelet_covariance`` or ``wavelet_correlation`` of the
+    case's two rows, or of x with itself (``pair='same'``) or with -x
+    (``'opposite'``): one periodic cascade analysis launch a transform
+    (:data:`VARIANCE_TRANSFORMS`) where ``_kernel_eligible`` admits the
+    series; held to the plain route within 2e-5 of each output's largest
+    value."""
+    levels, entry = case.levels, case.option("entry", "variance")
+    unbiased, pair = case.option("unbiased", True), case.option("pair")
+    if entry == "variance":
+        a, b = x, None
+    elif pair == "same":
+        a, b = x, x
+    elif pair == "opposite":
+        a, b = x, -x
+    else:
+        a, b = x[0], x[1]
+    transforms = VARIANCE_TRANSFORMS[entry]
+
+    def fn():
+        if entry == "variance":
+            r = vt.wavelet_variance(a, w, levels, unbiased=unbiased)
+            return r.variance, r.ci_low, r.ci_high
+        call = vt.wavelet_covariance if entry == "covariance" else vt.wavelet_correlation
+        return call(a, b, w, levels, unbiased=unbiased)[0]
+
+    _through(out, entry, fn, ANALYSIS,
+             lambda: transforms * ml._kernel_eligible(a, w, levels, "periodic"),
+             lambda: kernel_serves(a, w, levels, "periodic", False), lambda: transforms,
+             lambda: _plain(fn), TOL_F32, on_card, err=_relative_each, mode="modwt_analysis")
+
+
+def _variance_stream(case, x, w, out, on_card) -> None:
+    """The variance stream on the kernel-tier step: zero-boundary blocks
+    through ``modwt_stream_block_kernel``, each folded by
+    ``variance_stream_update``; one external-edge analysis launch a block
+    where ``stream.use_stream_kernel`` routes it.  The estimate and its
+    interval held to the same stream on the plain versions within 2e-5 of
+    each one's largest value, and (the JAX test's guarantee) the estimate
+    under ``auto`` to the plain route's whole-signal ``wavelet_variance``."""
+    from vectorwave_tpu_torch import streaming as st
+
+    levels = case.levels
+    blocks = _blocks(x, case.option("block"))
+    batch = tuple(x.shape[:-1])
+
+    def fn():
+        state = st.kernel_streaming_init(w, levels, batch_shape=batch, dtype=x.dtype,
+                                         device=x.device)
+        acc = vt.variance_stream_init(w, levels, batch_shape=batch, dtype=x.dtype,
+                                      device=x.device)
+        for blk in blocks:
+            state, res = st.modwt_stream_block_kernel(state, blk, w, levels=levels,
+                                                      boundary="zero")
+            acc = vt.variance_stream_update(acc, res.details, w)
+        r = vt.variance_stream_result(acc)
+        return r.variance, r.ci_low, r.ci_high
+
+    def launches():
+        return stream_launches(blocks, w, levels, vt.get_backend())
+
+    def serves():
+        return x.device.type == "cpu" or mc.analysis_tile(w.filter_length, levels) is not None
+
+    got = _through(out, "variance stream", fn, ANALYSIS, launches, serves, launches,
+                   lambda: _plain(fn), TOL_F32, on_card, err=_relative_each,
+                   mode="modwt_analysis_external")
+    whole = _plain(lambda: vt.wavelet_variance(x, w, levels).variance)
+    out.bound("auto stream against the whole signal", _relative(got[0], whole), TOL_F32)
+
+
+def _tensors(*values) -> tuple:
+    return tuple(torch.as_tensor(np.asarray(v, dtype=np.float64)) for v in values)
+
+
+def _finance(case, x, w, out, on_card) -> None:
+    """The financial analyzers built on a MODWT, on float32 prices (or
+    returns) on the case's device: ``wavelet_sharpe_ratio`` and
+    ``analyze_market`` (the fused denoise, one launch where
+    ``denoiser.fused_denoise_serves`` takes the call) and
+    ``calculate_wavelet_indicators`` (sym8 to J=5 periodic, one cascade
+    analysis launch).  Each side's count is the router's own decision under
+    that backend.  Held to the plain route within 2e-5 of each output's
+    largest value: the Sharpe ratio, the indicators (the momentum within
+    :data:`TOL_MOMENTUM`), and the market view's figures, its regimes and
+    anomalies equal."""
+    from vectorwave_tpu_torch import finance as fin
+
+    entry, n = case.option("entry"), x.shape[-1]
+    err = _relative_each
+    if entry in ("sharpe", "market"):
+        name = "db4"
+        levels = (max(1, min(4, vt.max_levels(n, name))) if entry == "sharpe"
+                  else max(1, min(3, vt.max_levels(n, name))))
+        wd = vt.wavelet(name)
+        probe = x if entry == "sharpe" else x.to(torch.get_default_dtype())
+        names, mode = DENOISE + ANALYSIS + SYNTHESIS, "modwt_denoise"
+
+        def launches():
+            return int(denoiser.fused_denoise_serves(probe, wd, levels, "universal", "soft",
+                                                     "periodic"))
+
+        def serves():
+            return x.device.type == "cpu" or mc.denoise_tile(wd.filter_length,
+                                                            levels) is not None
+    else:
+        wd, levels = vt.wavelet("sym8"), max(2, min(5, vt.max_levels(n, "sym8")))
+        names, mode = ANALYSIS, "modwt_analysis"
+
+        def launches():
+            return int(ml._kernel_eligible(x, wd, levels, "periodic"))
+
+        def serves():
+            return kernel_serves(x, wd, levels, "periodic", False)
+
+    if entry == "sharpe":
+        def fn():
+            return fin.wavelet_sharpe_ratio(x)
+    elif entry == "indicators":
+        def fn():
+            ind = fin.calculate_wavelet_indicators(x)
+            return _tensors(ind.trend_strength, ind.volatility_index, ind.support_resistance,
+                            ind.momentum)
+
+        def err(g, v):
+            """In units of the case's bound: the momentum's error is scaled
+            by TOL_F32 / TOL_MOMENTUM."""
+            if len(g) != len(v):
+                return math.inf
+            return max(_relative_each(g[:3], v[:3]),
+                       _relative(g[3], v[3]) * TOL_F32 / TOL_MOMENTUM)
+    else:
+        def fn():
+            m = fin.analyze_market(x)
+            regimes = [(k, list(type(v)).index(v)) for k, v in sorted(m.regime_map.items())]
+            return _tensors([m.current_risk_level, m.max_drawdown], regimes,
+                            list(m.regime_changes), [a.time_index for a in m.anomalies])
+
+        def err(g, v):
+            if any(a.shape != b.shape or not torch.equal(a, b) for a, b in zip(g[1:], v[1:])):
+                return math.inf
+            return _relative(g[0], v[0])
+
+    _through(out, entry, fn, names, launches, serves, launches, lambda: _plain(fn),
+             TOL_F32, on_card, err=err, mode=mode)
+
+
+def analysis_cases() -> list[Case]:
+    """Phase 2e's cases: every kernel-reaching case of the CWT family's
+    mirrors (``tests/test_torch_cwt_mirror.py``,
+    ``tests/test_torch_analysis_mirror.py``), at the JAX tests' shapes and
+    seeds (float64 inputs cast to float32): the CWT's periodic inverses of
+    ``tests/test_cwt.py``, the wavelet variance, covariance, correlation and
+    variance stream of ``tests/test_variance_xwt.py`` and the analyzers of
+    ``tests/test_finance.py`` that reach a kernel.  The coherence, the
+    ridge, the significance tests, ``cwt2``, the SST, matching pursuit, the
+    crash asymmetry (haar J=1, below the cascade kernels' two-level floor
+    under either backend) and the tick stream take the FFT path or host
+    code on the card and reach none."""
+    out = []
+    cw = "test_cwt.py"
+    scales60 = (("scales", cwt_mod.scales_log(2, 256, 60)),)
+    for name in ("morl", "mexh"):
+        out.append(Case(f"cwt {name} periodic 1024, 60 scales, icwt", "cwt_inverse",
+                        f"{cw}::test_icwt_periodic_near_exact", name, 0, (1024,),
+                        data=("two_tone",), options=scales60 + (("entry", "icwt"),)))
+    out.append(Case("cwt morl periodic 1024, 60 scales, reconstruct_band", "cwt_inverse",
+                    f"{cw}::test_band_reconstruction_separates_components", "morl", 0,
+                    (1024,), data=("two_tone",), options=scales60 + (("entry", "band"),)))
+    out.append(Case("cwt morl periodic 1024, 60 scales, reconstruct_frequency_band",
+                    "cwt_inverse", f"{cw}::test_reconstruct_frequency_band", "morl", 0,
+                    (1024,), data=("two_tone",),
+                    options=scales60 + (("entry", "frequency band"),)))
+
+    vx = "test_variance_xwt.py"
+    out.append(Case("wavelet_variance db4 J=6 65536", "variance",
+                    f"{vx}::test_white_noise_variance_halves_per_level", "db4", 6, (1 << 16,),
+                    data=("scaled", 0, 2.0)))
+    out.append(Case("wavelet_variance biased sym5 J=5 4096", "variance",
+                    f"{vx}::test_biased_estimator_energy_identity", "sym5", 5, (4096,),
+                    data=("normal", 1), options=(("unbiased", False),)))
+    for pair, other in (("same", "x"), ("opposite", "-x")):
+        out.append(Case(f"wavelet_correlation db4 J=4 4096, x with {other}", "variance",
+                        f"{vx}::test_correlation_identical_and_opposite", "db4", 4,
+                        (4096,), data=("normal", 3),
+                        options=(("entry", "correlation"), ("pair", pair))))
+    out.append(Case("wavelet_covariance db4 J=4 2x16384", "variance",
+                    f"{vx}::test_covariance_of_independent_series_is_small", "db4", 4,
+                    (2, 1 << 14), data=("normal", 4), options=(("entry", "covariance"),)))
+    out.append(Case("wavelet_variance db4 J=4 3x4096", "variance",
+                    f"{vx}::test_variance_batch_and_jit", "db4", 4, (3, 4096),
+                    data=("normal", 5)))
+    out.append(Case("variance stream db4 J=4 1024 blocks 128", "variance_stream",
+                    f"{vx}::test_variance_stream_matches_whole_signal", "db4", 4, (1024,),
+                    data=("normal", 7), options=(("block", 128),)))
+    out.append(Case("variance stream haar J=3 3x512 blocks 64", "variance_stream",
+                    f"{vx}::test_variance_stream_batched_and_jittable", "haar", 3, (3, 512),
+                    data=("normal", 8), options=(("block", 64),)))
+
+    fi = "test_finance.py"
+    out.append(Case("wavelet_sharpe_ratio db4 J=4 2048", "finance",
+                    f"{fi}::test_wavelet_sharpe_denoises", "db4", 4, (2048,),
+                    data=("sharpe_returns",), options=(("entry", "sharpe"),)))
+    out.append(Case("analyze_market db4 J=3 1024", "finance", f"{fi}::test_analyze_market",
+                    "db4", 3, (1024,), data=("prices", 6, 700), options=(("entry", "market"),)))
+    out.append(Case("calculate_wavelet_indicators sym8 J=5 512", "finance",
+                    f"{fi}::test_wavelet_indicators", "sym8", 5, (512,),
+                    data=("prices", 8, None), options=(("entry", "indicators"),)))
+    return out
+
+
 RUNNERS = {"pair": _pair, "exact": _exact, "denoise": _denoise, "roundtrip": _roundtrip,
            "nrmse": _nrmse, "packets": _packets, "packet_tools": _packet_tools,
            "dual_tree": _dual_tree,
@@ -2021,7 +2324,8 @@ RUNNERS = {"pair": _pair, "exact": _exact, "denoise": _denoise, "roundtrip": _ro
            "symmetric_gradient": _symmetric_gradient, "denoise_method": _denoise_method,
            "batch": _batch_facade, "stream": _stream, "stream_denoise": _stream_denoise,
            "window": _window, "tiled": _tiled, "tiled_exact": _tiled_exact,
-           "tiled2d": _tiled2d}
+           "tiled2d": _tiled2d, "cwt_inverse": _cwt_inverse, "variance": _variance,
+           "variance_stream": _variance_stream, "finance": _finance}
 
 
 def run_case(case: Case, device) -> Outcome:
@@ -2059,12 +2363,23 @@ def tier_labels(tier: str) -> list[str]:
     return [c.label for c in tier_cases() if c.kind in TIER_KINDS[tier]]
 
 
+#: phase 2e's cases by the mirror file that holds them
+ANALYSIS_KINDS = {"cwt": ("cwt_inverse",),
+                  "analysis": ("variance", "variance_stream", "finance")}
+
+
+def analysis_labels(group: str) -> list[str]:
+    """The labels of ``group``'s phase 2e cases (a key of :data:`ANALYSIS_KINDS`)."""
+    return [c.label for c in analysis_cases() if c.kind in ANALYSIS_KINDS[group]]
+
+
 def cpu_problems(label: str) -> list[str]:
-    """Run the phase 2c or 2d case ``label`` on CPU tensors and return what
-    is wrong: its faults, any route that is not the plain one (a CPU tensor
-    launches nothing and ``backend='kernel'`` refuses nothing), and any
-    launch counted."""
-    case = next(c for c in family_cases() + tier_cases() if c.label == label)
+    """Run the phase 2c, 2d or 2e case ``label`` on CPU tensors and return
+    what is wrong: its faults, any route that is not the plain one (a CPU
+    tensor launches nothing and ``backend='kernel'`` refuses nothing), and
+    any launch counted."""
+    case = next(c for c in family_cases() + tier_cases() + analysis_cases()
+                if c.label == label)
     before = dict(mc.LAUNCHES)
     out = run_case(case, "cpu")
     problems = list(out.faults)

@@ -20,7 +20,8 @@ float64, any other in float32.
   float32 CWT of a real wavelet through the filter-bank kernel
   (:func:`~vectorwave_tpu_torch.kernels.modwt_bank.bank_analysis_stacked`):
   ``out[t] = sum_k x[t + k] psi(k/s)/sqrt(s)``, the periodic FFT path's
-  function computed directly (:func:`_kernel_direct_split`).  Under
+  function computed directly, for the scales whose support fits in N
+  (:func:`_kernel_direct_split`).  Under
   ``auto`` it takes a call whole or not at all, and its result is the
   bank's own ``[S, B, N]`` allocation seen as ``[B, S, N]``, not a copy;
   ``backend='kernel'`` joins its leading scales to FFT rows.
@@ -288,7 +289,7 @@ def cwt(
         out = torch.fft.ifft(spec_x[..., None, :] * bank_spec, dim=-1)[..., :n]
         return CWTResult(out, scales, boundary)
 
-    n_small = _kernel_direct_split(x.device, w, scales, boundary, real_dtype)
+    n_small = _kernel_direct_split(x.device, w, scales, boundary, real_dtype, n)
     if not n_small:
         return CWTResult(_real_fft_rows(xr, w, scales, fft_size, n, complex_dtype),
                          scales, boundary)
@@ -324,7 +325,7 @@ AUTO_KERNEL_DIRECT_MAX_HALF = 64
 
 
 def _kernel_direct_split(device: torch.device, w: ContinuousWavelet, scales,
-                         boundary: str, real_dtype: torch.dtype) -> int:
+                         boundary: str, real_dtype: torch.dtype, n: int) -> int:
     """How many LEADING scales the kernel-direct tier serves (0 = none).
 
     ``torch`` never takes it; ``kernel`` takes it up to
@@ -334,8 +335,10 @@ def _kernel_direct_split(device: torch.device, w: ContinuousWavelet, scales,
     :data:`AUTO_KERNEL_DIRECT_MAX_HALF` and they make one bank call, so that
     the result is that call's allocation and no rows are joined.  Either
     needs a periodic boundary, float32 compute and ascending scales (the
-    split takes a leading run); any N and batch are served, the span past N
-    included.
+    split takes a leading run), and stops at the first scale whose support
+    wraps past the ``n`` samples (2 half + 1 > n): there the tier would sum
+    the wrapped taps, while the FFT path's bank keeps one a slot, as the
+    JAX package samples it, so both routes compute one function.
     """
     from ..kernels.modwt_fused import kernel_available
 
@@ -344,23 +347,27 @@ def _kernel_direct_split(device: torch.device, w: ContinuousWavelet, scales,
         return 0
     whole = backend == "auto"
     n_small = _tier_scales(w, tuple(scales),
-                           AUTO_KERNEL_DIRECT_MAX_HALF if whole else KERNEL_DIRECT_MAX_HALF, whole)
+                           AUTO_KERNEL_DIRECT_MAX_HALF if whole else KERNEL_DIRECT_MAX_HALF,
+                           whole, n)
     if whole and n_small and not (device.type == "cuda" and kernel_available()):
         return 0
     return n_small
 
 
 @functools.lru_cache(maxsize=64)
-def _tier_scales(w: ContinuousWavelet, scales: tuple[float, ...], cap: int, whole: bool) -> int:
-    """The leading ascending scales within ``cap``; with ``whole``, all of
-    them in one chunk or none.  Cached: it runs before the call's first
-    launch, and computed afresh it left ``auto`` 3-7% behind the plain
-    route at config #5 on an H100 (PERF.md, section 6)."""
+def _tier_scales(w: ContinuousWavelet, scales: tuple[float, ...], cap: int, whole: bool,
+                 n: int) -> int:
+    """The leading ascending scales within ``cap`` whose support fits in
+    ``n`` samples; with ``whole``, all of them in one chunk or none.
+    Cached: it runs before the call's first launch, and computed afresh it
+    left ``auto`` 3-7% behind the plain route at config #5 on an H100
+    (PERF.md, section 6)."""
     if list(scales) != sorted(scales):
         return 0
     n_small = 0
     for s in scales:
-        if _half_support(s, w.bandwidth) > cap:
+        half = _half_support(s, w.bandwidth)
+        if half > cap or 2 * half + 1 > n:
             break
         n_small += 1
     if whole and (n_small < len(scales) or len(_kernel_direct_chunks(w, scales)) > 1):
