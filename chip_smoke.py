@@ -56,8 +56,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    CWT's kernel-direct tier: the bank analysis on the tier's dense taps
    (morl, ascending scales to h = 2048) against its plain version at
    1x2^20, 128x65536, a ragged 3x5000, 2x300 (the span past the row) and
-   mexh, ``cwt`` under ``backend='kernel'`` (the tier up to the first
-   support that wraps past the row, the FFT path beyond) against the FFT
+   mexh, ``cwt`` under ``backend='kernel'`` (the tier on every scale to
+   h = 2048, supports that wrap past the row included) against the FFT
    path within 2e-5 of the largest coefficient, and its gradient (one bank synthesis launch on the dense
    taps) against autograd through the plain version; the
    streaming modes: the analysis kernel's external edge (alone and with the
@@ -130,8 +130,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    ``auto`` and under ``backend='kernel'``: ``cwt`` of a real wavelet,
    periodic, 60 scales 2-256 on 1024 samples, then ``icwt`` or a band
    reconstruction (under ``auto`` the FFT path, no launch; under
-   ``kernel`` one bank analysis launch for the 51 leading scales whose
-   support fits in N, the FFT path for the 9 that wrap past it), the
+   ``kernel`` the bank analysis on all 60 scales, the 9 whose support
+   wraps past N among them, one launch a chunk), the
    wavelet variance, covariance and correlation (one cascade analysis
    launch a transform), the variance stream on the kernel step (one
    external-edge launch a block), ``wavelet_sharpe_ratio`` and
@@ -140,6 +140,18 @@ Phases, in order; any failure raises and the exit code is not 0:
    momentum within 5e-5), each launch held to its router's count and mode
    and each output to the plain route within 2e-5 of its largest value;
    printed as phase 2b's;
+2f. the 1-D analysis modules' mirrored test cases
+   (``tools/mirror_cases.decimated_cases``): the kernel-reaching cases of
+   the JAX package's ``test_longmemory.py`` and ``test_block_fdr.py`` at
+   those tests' shapes and seeds (float32), each through the public entry
+   points under ``auto`` and under ``backend='kernel'``:
+   ``hurst_exponent`` (one cascade analysis launch, through the wavelet
+   variance), ``denoise_block`` (one cascade analysis and one synthesis
+   launch, held within 1e-4 of its largest value), ``denoise_multilevel``
+   with the universal rule (one fused denoise launch) and with FDR (one
+   cascade analysis and one synthesis launch, held on its own
+   thresholds), each launch held to its router's count; printed as phase
+   2b's;
 3. the main path through the public entry points at 128x65536 float32:
    ``modwt_multilevel`` -> ``imodwt_multilevel`` at every precision tier,
    ``modwt_roundtrip_fused`` and ``denoise_multilevel``, with the launch
@@ -353,7 +365,7 @@ and the last synthesis, each step's gradient on the plain 2-D cascade);
 
 The last two lines are a JSON object with one entry per kernel (beside
 the contract's keys, ``mirror_launches``: its launches in phases 2b, 2c,
-2d and 2e) and the device line ``{"ok": true, "device": {...}}``.
+2d, 2e and 2f) and the device line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1138,8 +1150,8 @@ def cwt_kernels_against_plain(dev, gen, worst):
                                         f" max |kernel - plain| {err:.3e} <= "
                                         f"{TOL_CWT * top:.3e}")
             del got, want
-        # the tier stops at the first support that wraps past N, so every
-        # row under kernel is the FFT path's
+        # every row under kernel is the FFT path's, past N too: both sum
+        # the taps that wrap onto one slot
         with backend("kernel"):
             tier = vt.cwt(x, scales, name, boundary="periodic").coeffs
         with backend("torch"):
@@ -1202,14 +1214,13 @@ def cwt_path(dev, gen):
 
     w = vt.wavelet(CWT_WAVELET)
 
-    def tier_launches(scales, n):
-        """Bank launches ``auto`` makes for these periodic float32 scales on
-        ``n`` samples."""
-        k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32, n)
+    def tier_launches(scales):
+        """Bank launches ``auto`` makes for these periodic float32 scales."""
+        k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32)
         return len(tc._kernel_direct_chunks(w, scales[:k])) if k else 0
 
-    def tier_expect(scales, n, backward=False):
-        count = tier_launches(scales, n)
+    def tier_expect(scales, backward=False):
+        count = tier_launches(scales)
         if not count:
             return {}
         return ({"modwt_bank_analysis": count, "modwt_bank_synthesis": count} if backward
@@ -1222,12 +1233,12 @@ def cwt_path(dev, gen):
     ):
         x = torch.randn(b, n, device=dev, generator=gen)
         x = x[0] if b == 1 else x
-        k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32, n)
+        k = tc._kernel_direct_split(dev, w, scales, "periodic", torch.float32)
         print(f"  cwt {label}: auto takes "
               f"{'the kernel-direct tier' if k else 'the FFT path'} (every scale to h = "
               f"{tc.AUTO_KERNEL_DIRECT_MAX_HALF} in one bank call, or none)", flush=True)
         check(k in (0, len(scales)), f"cwt {label}: auto takes the tier whole or not at all")
-        res = counted(f"cwt {label}, auto", tier_expect(scales, n),
+        res = counted(f"cwt {label}, auto", tier_expect(scales),
                       lambda: vt.cwt(x, scales, CWT_WAVELET, boundary="periodic"))
         with backend("torch"):
             ref = counted(f"cwt {label}, the plain route", {},
@@ -1268,7 +1279,7 @@ def cwt_path(dev, gen):
             (vt.cwt(xg, scales, CWT_WAVELET, boundary="periodic").coeffs * wts).sum(), xg)[0]
 
     g = counted("d/dx of a weighted sum of cwt's coefficients, the main batch, auto",
-                tier_expect(scales, N, backward=True), grad)
+                tier_expect(scales, backward=True), grad)
     with backend("torch"):
         g_ref = grad()
     err = rel_err(g, g_ref)
@@ -1312,7 +1323,7 @@ def cwt_path(dev, gen):
     label, x, scales, res = rows[1]
     counted(f"modwt_based_icwt {label}, the first call (calibrates)",
             {"modwt_analysis", "modwt_synthesis"}
-            | ({"modwt_bank_analysis"} if tier_launches(scales, N) else set()),
+            | ({"modwt_bank_analysis"} if tier_launches(scales) else set()),
             lambda: vt.modwt_based_icwt(res, CWT_WAVELET))
     y = counted(f"modwt_based_icwt {label}", {"modwt_synthesis": 1},
                 lambda: vt.modwt_based_icwt(res, CWT_WAVELET))
@@ -3637,8 +3648,8 @@ def mirror_cases_path(dev, phase: str, family: str, cases) -> dict:
     ``kernel``'s refusals to where the kernels cannot serve.  Prints a line
     a case, the launches by kernel and one summary line; any fault fails the
     phase.  Phase 2d runs the streaming and parallel tiers' cases the same
-    way, and phase 2e the CWT family's.  Returns the phase's launches by
-    kernel."""
+    way, phase 2e the CWT family's and phase 2f the 1-D analysis modules'.
+    Returns the phase's launches by kernel."""
     from tools import mirror_cases
     from vectorwave_tpu_torch.kernels import modwt_composite as mc
 
@@ -4155,7 +4166,8 @@ def main() -> int:
             ("2b", "the MODWT core's", mirror_cases.cases()),
             ("2c", "the other kernel families'", mirror_cases.family_cases()),
             ("2d", "the streaming and parallel tiers'", mirror_cases.tier_cases()),
-            ("2e", "the CWT family's", mirror_cases.analysis_cases()))}
+            ("2e", "the CWT family's", mirror_cases.analysis_cases()),
+            ("2f", "the 1-D analysis modules'", mirror_cases.decimated_cases()))}
 
     print(f"phase 3: main path through the public entry points, "
           f"{BATCH}x{N} float32", flush=True)

@@ -707,7 +707,7 @@ def test_hybrid_matches_fft_path(jax_refs, kernel_backend, bank_calls):
     scales = tuple(np.geomspace(2.0, 64.0, 8).tolist())
     w = tcwt._resolve_continuous("morl")
     assert tcwt._kernel_direct_split(torch.device("cpu"), w, scales, "periodic",
-                                     torch.float32, x.shape[-1]) == 8
+                                     torch.float32) == 8
     got = vt.cwt(_t(x), scales, "morl", boundary="periodic")
     assert [c[0] for c in bank_calls] == ["bank_analysis_stacked"]
     assert _rel(got.coeffs, _cwt_ref(jax_refs, x, scales)) <= 2e-5
@@ -724,7 +724,7 @@ def test_hybrid_split_mixed_scales(jax_refs, kernel_backend):
     scales = (4.0, 16.0, float(big_scale))
     x = _x32(16384, 1)
     assert tcwt._kernel_direct_split(torch.device("cpu"), w, scales, "periodic",
-                                     torch.float32, x.shape[-1]) == 2
+                                     torch.float32) == 2
     assert _jax_pallas(lambda: jcwt._kernel_direct_split(jnp.asarray(x), jw, scales,
                                                          "periodic", jnp.float32)) == 2
     assert tcwt._half_support(scales[2], w.bandwidth) > tcwt.KERNEL_DIRECT_MAX_HALF
@@ -764,7 +764,7 @@ def test_single_row_over_budget_stands_down(jax_refs, kernel_backend, bank_calls
         jnp.float32)) == 0
     w = tcwt._resolve_continuous("morl")
     assert tcwt._kernel_direct_split(torch.device("cpu"), w, scales, "periodic",
-                                     torch.float32, x.shape[-1]) == 2
+                                     torch.float32) == 2
     got = vt.cwt(_t(x), scales, "morl", boundary="periodic")
     assert [c[0] for c in bank_calls] == ["bank_analysis_stacked"]
     assert _maxdiff(got.coeffs, _cwt_ref(jax_refs, x, scales)) <= 2e-5
@@ -777,7 +777,7 @@ def test_unsorted_scales_keep_fft_path(jax_refs, kernel_backend, bank_calls):
     scales = (64.0, 8.0, 2.0)
     w = tcwt._resolve_continuous("morl")
     assert tcwt._kernel_direct_split(torch.device("cpu"), w, scales, "periodic",
-                                     torch.float32, x.shape[-1]) == 0
+                                     torch.float32) == 0
     assert _jax_pallas(lambda: jcwt._kernel_direct_split(
         jnp.asarray(x), jcwt._resolve_continuous("morl"), scales, "periodic",
         jnp.float32)) == 0

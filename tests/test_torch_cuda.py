@@ -1268,7 +1268,7 @@ def test_cwt_tier_matches_plain_and_the_fft_path(cuda, b, n, name, scales):
     direct = torch.cat(tc._cwt_kernel_direct(x, w, scales), dim=-2)
     assert _rel(direct, torch.stack(want_rows, -2)) <= TOL_F32
     n_small = _under("kernel", lambda: tc._kernel_direct_split(x.device, w, scales, "periodic",
-                                                               torch.float32, n))
+                                                               torch.float32))
     mc.reset_launches()
     tier = _under("kernel", lambda: vt.cwt(x, scales, name, boundary="periodic")).coeffs
     torch.cuda.synchronize()
@@ -1671,17 +1671,35 @@ def test_filter_spectrum_on_the_card_matches_the_cpu(cuda, taps, spacing, n):
     assert convolve._filter_spectrum(f, spacing, n, torch.complex128, cuda) is got
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1023, 1024])
+def test_median_gradient_on_ties_matches_the_cpu(cuda, dtype, n):
+    """``median_magnitude``'s gradient on the card, on integer values (exact
+    ties at the median), equals the CPU's: each middle statistic's share
+    spread over its ties, rounded to float32 as the JAX rule rounds it."""
+    v = torch.randint(-6, 7, (3, n), generator=torch.Generator().manual_seed(n)).to(dtype)
+    w = torch.randn(3, 1, dtype=dtype, generator=torch.Generator().manual_seed(1))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        t = v.to(dev).requires_grad_(True)
+        (g,) = torch.autograd.grad((vt.mad_sigma(t) * w.to(dev)).sum(), t)
+        grads.append(g.cpu())
+    assert bool((grads[0] == grads[1]).all())
+    assert int((grads[1] != 0).sum(dim=-1).min()) > 2  # the ties share it
+
+
 # --- the mirrored test cases (tools/mirror_cases.py) ------------------------------------
 
 
 @pytest.mark.parametrize("label", [c.label for c in mirror_cases.cases()]
                          + [c.label for c in mirror_cases.family_cases()]
                          + [c.label for c in mirror_cases.tier_cases()]
-                         + [c.label for c in mirror_cases.analysis_cases()])
+                         + [c.label for c in mirror_cases.analysis_cases()]
+                         + [c.label for c in mirror_cases.decimated_cases()])
 def test_mirror_case_on_the_card(cuda, label):
     """Each kernel-reaching case of the test mirrors (the MODWT core's, the
-    other kernel families', the streaming and parallel tiers', then the CWT
-    family's), at the
+    other kernel families', the streaming and parallel tiers', the CWT
+    family's, then the 1-D analysis modules'), at the
     JAX tests' shapes: under ``auto`` and under ``backend='kernel'``
     against the plain route on the card (2e-5
     in float32; 1e-13 on the exact tier's hi + lo, its round trip within
@@ -1691,6 +1709,6 @@ def test_mirror_case_on_the_card(cuda, label):
     where the kernels cannot serve."""
     case = next(c for c in mirror_cases.cases() + mirror_cases.family_cases()
                 + mirror_cases.tier_cases() + mirror_cases.analysis_cases()
-                if c.label == label)
+                + mirror_cases.decimated_cases() if c.label == label)
     out = mirror_cases.run_case(case, cuda)
     assert out.ok, out.faults

@@ -24,6 +24,8 @@ from vectorwave_tpu_torch.kernels import modwt_bank as mb
 from vectorwave_tpu_torch.kernels import modwt_fused
 from vectorwave_tpu_torch.transforms import cwt as tcwt
 
+from . import cwt_periodic
+
 torch.set_num_threads(1)
 
 TOL = 2e-5
@@ -92,29 +94,32 @@ def test_tier_matches_the_jax_pallas_tier_and_the_fft_path(kernel_backend, jax_p
     res = vt.cwt(torch.from_numpy(x), scales, name, boundary="periodic")
     assert res.coeffs.dtype == torch.float32 and res.coeffs.shape == shape[:1] + (
         len(scales), shape[1])
-    # past N the tier stops: those rows are the FFT path's (see below)
+    # past N too: both routes sum the taps that wrap onto one slot
     assert _err(res.coeffs, _fft_path(x, scales, name).numpy()) <= TOL
+
+
+def _correlation(x, scales) -> np.ndarray:
+    """The morl rows ``[..., S, N]`` of the periodic correlation, float64."""
+    return np.stack([cwt_periodic.periodic_correlation(x, "morl", s) for s in scales], -2)
 
 
 def test_span_past_n_is_the_periodic_correlation(kernel_backend):
     """The bank wraps modulo N as often as the span needs, so the tier on a
-    span longer than the row still gives out[t] = sum_k x[(t + k) mod N]
-    c_k; ``cwt`` sends no such scale to it, since the FFT path's bank keeps
-    one sample a slot there."""
+    span longer than the row gives out[t] = sum_k x[(t + k) mod N] c_k;
+    ``cwt`` sends these scales to it, and the FFT path's bank sums the
+    wrapped taps too, so both routes give the correlation."""
     x = _x((2, 300), seed=1)
     scales = (40.0, 64.0, 100.0)
     w = vt.wavelet("morl")
+    assert all(2 * tcwt._half_support(s, w.bandwidth) + 1 > 300 for s in scales)
     assert tcwt._kernel_direct_split(torch.device("cpu"), w, scales, "periodic",
-                                     torch.float32, 300) == 0
+                                     torch.float32) == 3
+    want = _correlation(x, scales)
     got = torch.cat(tcwt._cwt_kernel_direct(torch.from_numpy(x), w, scales), dim=-2)
-    want = np.zeros((2, len(scales), 300))
-    for i, s in enumerate(scales):
-        h = tcwt._half_support(s, w.bandwidth)
-        assert 2 * h + 1 > 300
-        k = np.arange(-h, h + 1)
-        for kk, c in zip(k, w.psi(k / s).real / np.sqrt(s)):
-            want[:, i] += c * np.roll(x.astype(np.float64), -kk, axis=-1)
     assert _err(got, want) <= TOL
+    assert _err(vt.cwt(torch.from_numpy(x), scales, "morl", boundary="periodic").coeffs,
+                want) <= TOL
+    assert _err(_fft_path(x, scales), want) <= TOL
 
 
 @pytest.mark.parametrize("scales,n_small,n", [
@@ -122,16 +127,22 @@ def test_span_past_n_is_the_periodic_correlation(kernel_backend):
     ((64.0, 8.0, 2.0), 0, 4096),        # descending: the FFT path keeps them all
     ((2.0, 8.0, 4.0, 16.0), 0, 4096),   # unsorted
     ((4.0, 512.0, 513.0), 2, 8192),     # 512 is h = 2048 exactly, 513 past it
-    ((4.0, 512.0, 513.0), 1, 4096),     # 512's span of 4097 wraps past N
+    ((4.0, 512.0, 513.0), 2, 4096),     # 512's span of 4097 wraps past N: the tier's
 ])
 def test_hybrid_split_lines_up_the_rows(kernel_backend, jax_pallas, scales, n_small, n):
+    """The rows whose support fits in N against the JAX jnp path's, those
+    that wrap past it (past the FFT size's N, JAX's bank keeps one tap a
+    slot) against the periodic correlation."""
     w = vt.wavelet("morl")
     assert tcwt._kernel_direct_split(torch.device("cpu"), w, scales, "periodic",
-                                     torch.float32, n) == n_small
+                                     torch.float32) == n_small
     x = _x((1, n), seed=2)
     got = vt.cwt(torch.from_numpy(x), scales, "morl", boundary="periodic").coeffs
     vw.set_backend("jnp")
-    want = vw.cwt(jnp.asarray(x), scales, "morl", boundary="periodic").coeffs
+    want = np.array(vw.cwt(jnp.asarray(x), scales, "morl", boundary="periodic").coeffs,
+                    np.float64)
+    for i in (i for i, s in enumerate(scales) if cwt_periodic.wraps("morl", s, n)):
+        want[..., i, :] = cwt_periodic.periodic_correlation(x, "morl", scales[i])
     assert _err(got, want) <= TOL
 
 
@@ -139,7 +150,8 @@ def test_split_conditions_and_the_two_caps(monkeypatch):
     """``torch`` never takes the tier; ``kernel`` to h = 2048 on any device;
     ``auto`` only on a card the kernels are built for, and only when every
     scale is within AUTO_KERNEL_DIRECT_MAX_HALF and they make one bank call;
-    a periodic boundary, float32 and supports that fit in N only."""
+    a periodic boundary and float32 only; a support longer than the row is
+    no bar."""
     w = vt.wavelet("morl")
     cpu, card = torch.device("cpu"), torch.device("cuda")
     cap = tcwt.AUTO_KERNEL_DIRECT_MAX_HALF
@@ -148,25 +160,17 @@ def test_split_conditions_and_the_two_caps(monkeypatch):
     at, past = cap / 4.0, cap / 4.0 + 0.25
     assert tcwt._half_support(at, 1.0) == cap and tcwt._half_support(past, 1.0) == cap + 1
     top, over = 512.0, 512.25
-    n = 1 << 20
-
-    def split(*args):
-        return tcwt._kernel_direct_split(*args, n)
-
+    split = tcwt._kernel_direct_split
     try:
         vt.set_backend("kernel")
         for dev in (cpu, card):
             assert split(dev, w, (2.0, at, past, top, over), "periodic", torch.float32) == 4
-            assert tcwt._kernel_direct_split(dev, w, (2.0, at, past, top, over), "periodic",
-                                             torch.float32, 2 * cap + 1) == 2
         assert split(cpu, w, (2.0, at), "zero", torch.float32) == 0
         assert split(cpu, w, (2.0, at), "symmetric", torch.float32) == 0
         assert split(cpu, w, (2.0, at), "periodic", torch.float64) == 0
         vt.set_backend("auto")
         monkeypatch.setattr(modwt_fused, "kernel_available", lambda: True)
         assert split(card, w, (2.0, at), "periodic", torch.float32) == 2
-        assert tcwt._kernel_direct_split(card, w, (2.0, at), "periodic", torch.float32,
-                                         2 * cap) == 0
         assert split(card, w, (2.0, at, past, top), "periodic", torch.float32) == 0
         assert split(card, w, (past,), "periodic", torch.float32) == 0
         # every scale within the cap, but more than one bank call's planes
@@ -234,16 +238,24 @@ def test_tier_calls_the_bank_once_a_chunk_on_x_rolled_once(kernel_backend, monke
 @pytest.mark.parametrize("scales", [(2.0, 5.0, 12.0), (4.0, 16.0, 2048.0)])
 def test_gradient_matches_jax_grad(kernel_backend, scales):
     """d/dx of a weighted sum of the coefficients: on the tier the bank's
-    backward (its synthesis with the same taps), on the FFT rows autograd."""
-    x = _x((2, 4096), seed=4)
-    wts = np.random.default_rng(5).standard_normal((2, len(scales), 4096))
+    backward (its synthesis with the same taps), on the FFT rows autograd.
+    A row whose support wraps past N (scale 2048's 16385 taps on 4096
+    samples) is the periodic correlation, whose adjoint is
+    ``sum_k c_k w[(m - k) mod N]``; the other rows' gradient is JAX's."""
+    n = 4096
+    x = _x((2, n), seed=4)
+    wts = np.random.default_rng(5).standard_normal((2, len(scales), n))
+    wraps = [cwt_periodic.wraps("morl", s, n) for s in scales]
+    fits = np.array([0.0 if wrap else 1.0 for wrap in wraps])[:, None]
     vw.set_backend("jnp")
     try:
-        want = jax.grad(lambda v: jnp.sum(wts * vw.cwt(v, scales, "morl",
-                                                       boundary="periodic").coeffs))(
-            jnp.asarray(x, jnp.float64))
+        want = np.asarray(jax.grad(lambda v: jnp.sum(
+            wts * fits * vw.cwt(v, scales, "morl", boundary="periodic").coeffs))(
+            jnp.asarray(x, jnp.float64)))
     finally:
         vw.set_backend("auto")
+    for i in (i for i, wrap in enumerate(wraps) if wrap):
+        want = want + (wts[:, i] @ cwt_periodic.correlation_matrix("morl", scales[i], n)).real
     xt = torch.from_numpy(x).requires_grad_(True)
     c = vt.cwt(xt, scales, "morl", boundary="periodic").coeffs
     (got,) = torch.autograd.grad((torch.from_numpy(wts).float() * c).sum(), xt)

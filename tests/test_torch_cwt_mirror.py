@@ -43,6 +43,8 @@ from vectorwave_tpu_torch.transforms import cwt as tcwt
 from vectorwave_tpu_torch.transforms import xwt as txwt
 from vectorwave_tpu_torch.transforms.cwt2 import _l2_norm
 
+from . import cwt_periodic
+
 torch.set_num_threads(1)
 
 ANCHOR = 1e-10
@@ -86,8 +88,8 @@ def anchor_cwt():
     """JAX's periodic morl CWT and its equalized inverse at
     test_icwt_periodic_near_exact's draw (the two tones, 60 scales 2-256),
     on its 51 scales whose support fits in the 1024 samples: past N JAX's
-    bank keeps one sample a slot (``vectorwave_tpu/transforms/cwt.py:122``)
-    (ANCHOR_CWT)."""
+    bank keeps one sample a slot (``vectorwave_tpu/transforms/cwt.py:122``),
+    where the port sums them (ANCHOR_CWT)."""
     x = _two_tone()
     scales = _fitting(vw.scales_log(2, 256, 60), 1024)
     res = vw.cwt(jnp.asarray(x), scales, "morl", boundary="periodic")
@@ -95,12 +97,20 @@ def anchor_cwt():
 
 
 def test_anchor_cwt_and_icwt_match_jax(anchor_cwt):
+    """All 60 rows against the periodic correlation at 1e-12 of the largest
+    coefficient, and the 51 within N against JAX's (past N JAX's bank keeps
+    one tap a slot)."""
     x, scales, coeffs, inverse = anchor_cwt
     assert len(scales) == 51
-    assert _fitting(vt.scales_log(2, 256, 60), 1024) == tuple(scales)
+    grid = vt.scales_log(2, 256, 60)
+    assert _fitting(grid, 1024) == tuple(scales) == tuple(grid[:51])
     res = vt.cwt(_t(x), scales, "morl", boundary="periodic")
     assert _rel(res.coeffs, coeffs) <= ANCHOR
     assert _rel(vt.icwt(res, "morl"), inverse) <= ANCHOR
+    whole = vt.cwt(_t(x), grid, "morl", boundary="periodic").coeffs
+    assert _rel(whole[:51], coeffs) <= ANCHOR
+    assert _rel(whole, np.stack([cwt_periodic.periodic_correlation(x, "morl", s)
+                                 for s in grid])) <= 1e-12
 
 
 @pytest.fixture(scope="module")
@@ -258,44 +268,50 @@ def test_reconstruct_frequency_band():
 
 
 @pytest.mark.parametrize("name", ["morl", "mexh"])
-def test_kernel_tier_stops_where_the_support_wraps_past_n(name):
+def test_kernel_tier_takes_the_supports_that_wrap_past_n(name):
     """test_icwt_periodic_near_exact under ``backend='kernel'``: the tier
-    takes the 51 leading scales whose support fits in N and the FFT path
-    the 9 that wrap past it (2h + 1 > 1024), where the tier would sum the
-    wrapped taps and the FFT path's bank keeps one a slot (0.168 of the
-    largest coefficient apart, and an ``icwt`` NRMSE of 8e-3).  So every row
-    is the FFT path's and the round trip is near exact in float32 (on the
-    CPU the bank's plain version)."""
+    takes all 60 scales, the 9 whose support wraps past N (2h + 1 > 1024)
+    among them, and sums their wrapped taps as the FFT path's bank does, so
+    every row is the FFT path's within 2e-5 of the largest coefficient and
+    the round trip is near exact in float32 (on the CPU the bank's plain
+    version)."""
     x = _t(_two_tone(), torch.float32)
     scales = vt.scales_log(2, 256, 60)
     w = vt.wavelet(name)
+    assert len(_fitting(scales, 1024, name)) == 51
     fft = vt.cwt(x, scales, name, boundary="periodic").coeffs
     with mirror_cases.using_backend("kernel"):
-        n_small = tcwt._kernel_direct_split(x.device, w, scales, "periodic", torch.float32,
-                                            1024)
+        n_small = tcwt._kernel_direct_split(x.device, w, scales, "periodic", torch.float32)
         tier = vt.cwt(x, scales, name, boundary="periodic")
-    assert n_small == len(_fitting(scales, 1024, name)) == 51
+    assert n_small == 60
     assert float((tier.coeffs - fft).abs().max()) <= 2e-5 * float(fft.abs().max())
     xr = vt.icwt(tier, name).double()
     assert float((xr - x.double()).pow(2).mean().sqrt() / x.double().std()) < 1e-6
 
 
-def test_auto_tier_on_the_card_stops_where_the_support_wraps_past_n(monkeypatch):
-    """``auto`` on a card takes a call whole only where every support also
-    fits in N: morl scales 2-16 (h 8-64, within the auto cap) go to the tier
-    on 129 samples and to the FFT path on 128, the span of 129 taps wrapping
-    past N there."""
+@pytest.mark.parametrize("n", [128, 129])
+def test_auto_tier_on_the_card_takes_short_rows_whole(monkeypatch, n):
+    """``auto`` on a card takes morl scales 2-16 (h 8-64, within the auto
+    cap) whole on 129 samples, where every support fits, and on 128, where
+    scale 16's span of 129 taps wraps: the tier and the FFT path both give
+    the periodic correlation there (the tier's plain version on the CPU,
+    under ``kernel``, within 2e-5 of the FFT path's largest coefficient)."""
     from vectorwave_tpu_torch.kernels import modwt_fused
 
-    monkeypatch.setattr(modwt_fused, "kernel_available", lambda: True)
-    w, card = vt.wavelet("morl"), torch.device("cuda")
+    w = vt.wavelet("morl")
     scales = (2.0, 4.0, 8.0, 16.0)
     assert 2 * tcwt._half_support(16.0, w.bandwidth) + 1 == 129
-    split = tcwt._kernel_direct_split
-    assert split(card, w, scales, "periodic", torch.float32, 129) == 4
-    assert split(card, w, scales, "periodic", torch.float32, 128) == 0
+    with monkeypatch.context() as m:
+        m.setattr(modwt_fused, "kernel_available", lambda: True)
+        assert tcwt._kernel_direct_split(torch.device("cuda"), w, scales, "periodic",
+                                         torch.float32) == 4
+    x = _t(np.random.default_rng(n).standard_normal((2, n)), torch.float32)
+    fft = vt.cwt(x, scales, "morl", boundary="periodic").coeffs
     with mirror_cases.using_backend("kernel"):
-        assert split(card, w, scales, "periodic", torch.float32, 128) == 3
+        tier = vt.cwt(x, scales, "morl", boundary="periodic").coeffs
+    assert float((tier - fft).abs().max()) <= 2e-5 * float(fft.abs().max())
+    past = cwt_periodic.periodic_correlation(_np(x), "morl", 16.0)
+    assert _rel(fft[:, 3], past) <= 2e-6
 
 
 def test_scale_tools():

@@ -61,6 +61,53 @@ def test_median_magnitude_averages_the_middle_pair_in_float32():
     assert float(vt.median_magnitude(v[:, :3])) == 2.0
 
 
+def _jax_and_port_grad(fn_jax, fn_port, v):
+    want = np.asarray(jax.grad(lambda a: jnp.sum(fn_jax(a)))(jnp.asarray(v)))
+    t = torch.from_numpy(np.array(v)).requires_grad_(True)
+    (got,) = torch.autograd.grad(fn_port(t).sum(), t)
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("v", [
+    [[3.0, -1.0, 1.0, 1.0, 5.0, -1.0, 7.0]],        # odd count, four ties at the median
+    [[3.0, -1.0, 1.0, 2.0, 5.0, -2.0, 7.0, 2.0]],   # even count, ties at both middles
+    [[0.5, -0.5, 0.5, 2.0], [1.0, -3.0, 3.0, 3.0]],  # rows: a tie across the pair
+], ids=["odd", "even", "rows"])
+def test_median_magnitude_gradient_matches_jax_on_ties(v):
+    """The JAX rule: each middle order statistic's subgradient is shared by
+    every position whose float32 |v| equals it (the toy case: -1.4826 / 4
+    on each of the four tied entries), and the middles are averaged; the
+    second derivative is zero."""
+    got, want = _jax_and_port_grad(jth.mad_sigma, vt.mad_sigma, v)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * np.abs(want).max())
+    if len(v) == 1 and len(v[0]) == 7:
+        assert (np.abs(want[0, [1, 2, 3, 5]]) == np.abs(want).max()).all()
+        np.testing.assert_allclose(np.abs(want).max(), 1 / (4 * 0.6745), rtol=1e-6)
+    t = torch.tensor(v, dtype=torch.float64, requires_grad=True)
+    (g,) = torch.autograd.grad(vt.median_magnitude(t).sum(), t, create_graph=True)
+    (gg,) = torch.autograd.grad((g * torch.arange(g.numel()).reshape(g.shape)).sum(), t,
+                                allow_unused=True, materialize_grads=True)
+    assert not gg.any()
+
+
+@pytest.mark.parametrize("wavelet", ["haar", "db4"], ids=["ties", "no_ties"])
+def test_denoise_gradient_on_a_quantized_walk_matches_jax_grad(wavelet):
+    """d/dx sum(denoise_multilevel(x, levels=4)^2) on a random walk in
+    quarter ticks, as prices come: with haar 154 level-1 coefficients tie at
+    the median of |d1| (a gradient through the sort put the whole
+    subgradient on one of them, 9.5 times JAX's largest entry off); with db4
+    none does.  Float64 on the CPU, within 1e-10 of JAX's largest entry."""
+    x = np.round(4 * np.cumsum(np.random.default_rng(0).standard_normal((1, 1024)),
+                               axis=-1)) / 4
+    d1 = np.abs(np.asarray(vw.modwt(jnp.asarray(x), wavelet).detail)).astype(np.float32)
+    ties = int((d1 == np.sort(d1[0])[511]).sum())
+    assert (ties == 154) if wavelet == "haar" else (ties == 1)
+    got, want = _jax_and_port_grad(lambda a: vw.denoise_multilevel(a, wavelet, levels=4) ** 2,
+                                   lambda a: vt.denoise_multilevel(a, wavelet, levels=4) ** 2,
+                                   x)
+    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("method", ["universal", "minimax", "sure", "bayes", "fdr"])
 def test_threshold_rules_match_jax(method):
     d = _x((2, 777), seed=11) * 0.7

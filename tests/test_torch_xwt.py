@@ -31,6 +31,8 @@ from vectorwave_tpu_torch.errors import InvalidArgumentError
 from vectorwave_tpu_torch.transforms import significance as ts
 from vectorwave_tpu_torch.transforms import xwt as tx
 
+from . import cwt_periodic
+
 torch.set_num_threads(1)
 
 TOL = 1e-12
@@ -146,6 +148,19 @@ def test_viterbi_scores_on_random_fields(n):
         assert np.abs(_path_score(obs, pen, got) - best).max() <= 1e-10 * np.abs(best).max()
 
 
+def _periodic_red_noise_response(scales, name: str, n: int, lag1: float) -> np.ndarray:
+    """``mean_f(P(f) |A(f) C_s(f)|^2)`` per scale in numpy: P the AR(1)
+    spectrum, A the analytic signal's weights, C_s the spectrum of the JAX
+    wavelet's real taps summed modulo ``n`` (the periodic bank, however often
+    a support wraps).  The significance level is this times a chi-square
+    factor that does not depend on the scale."""
+    f = np.fft.fftfreq(n)
+    psd = (1 - lag1**2) / (1 + lag1**2 - 2 * lag1 * np.cos(2 * np.pi * f))
+    analytic = np.where(f > 0, 2.0, np.where(f == 0, 1.0, 0.0))
+    return np.array([np.mean(psd * np.abs(analytic * np.fft.fft(
+        cwt_periodic.folded_taps(name, s, n))) ** 2) for s in scales])
+
+
 def test_significance_levels_and_significant_power():
     x, _ = _pair(seed=3, noise=1.0)
     red = np.zeros(N)
@@ -161,8 +176,16 @@ def test_significance_levels_and_significant_power():
                                      variance=_t([1.0, 2.0]), analytic=analytic,
                                      confidence=0.9)
         assert _rel(got, want) <= TOL
-    assert _rel(vt.significance_levels(SCALES, "mexh", n=256, lag1=0.3, device="cpu"),
-                vw.significance_levels(SCALES, "mexh", n=256, lag1=0.3)) <= TOL
+    # on 256 samples mexh's largest supports wrap past N: there the port's
+    # bank is the periodic correlation's (JAX's keeps one tap a slot), so
+    # those scales are held to that bank's own response, the rest to JAX
+    got = vt.significance_levels(SCALES, "mexh", n=256, lag1=0.3, device="cpu").numpy()
+    want = np.asarray(vw.significance_levels(SCALES, "mexh", n=256, lag1=0.3))
+    response = _periodic_red_noise_response(SCALES, "mexh", 256, 0.3)
+    fits = np.array([not cwt_periodic.wraps("mexh", s, 256) for s in SCALES])
+    assert 0 < fits.sum() < len(SCALES)
+    assert _rel(got[fits], want[fits]) <= TOL
+    assert _rel(got, response * (want[0] / response[0])) <= TOL
     assert _rel(vt.ar1_coefficient(_t(xb)), vw.ar1_coefficient(jnp.asarray(xb))) <= TOL
     for analytic in (True, False):
         r_want = vw.cwt(jnp.asarray(xb), SCALES, "morl", analytic=analytic)

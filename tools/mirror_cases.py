@@ -72,9 +72,19 @@ indicators through the cascade).  ``chip_smoke.py`` runs them in its phase
 analysis a transform by ``_kernel_eligible``; ``stream.use_stream_kernel``
 a block; ``denoiser.fused_denoise_serves``) and to its mode.  Under
 ``auto`` the CWT's 60 scales pass ``AUTO_KERNEL_DIRECT_MAX_HALF`` and take
-the FFT path, so that side launches nothing; ``kernel`` sends the leading
-51, whose support fits in N, to the bank, and the 9 that wrap past N to
-the FFT path.
+the FFT path, so that side launches nothing; ``kernel`` sends all 60 to
+the bank, the 9 whose support wraps past N among them (the bank and the
+FFT path both sum the wrapped taps).
+
+:func:`decimated_cases` are the 1-D analysis modules' cases, from
+``tests/test_torch_decimated_mirror.py``: ``hurst_exponent`` (one cascade
+analysis, through the wavelet variance), ``denoise_block`` (the cascade
+pair around a plain block shrinkage) and ``denoise_multilevel`` (the fused
+denoise for the universal rule, the cascade pair for FDR).
+``chip_smoke.py`` runs them in its phase 2f, the same way, each
+direction's launches held to ``_kernel_eligible`` or
+``denoiser.fused_denoise_serves`` by count.  The block denoise is held to
+the plain route within 1e-4 of its largest value (:data:`TOL_BLOCK`).
 
 Bounds (PERF.md section 2): a float32 kernel against the float32 plain route
 2e-5 max abs (fp32 in another summation order, values of order 1; the plain
@@ -671,11 +681,30 @@ def _family_input(case: "Case") -> np.ndarray:
     if kind == "prices":  # tests/test_finance.py::_price_series
         _, seed, crash_at = case.data
         return price_series(case.shape[-1], seed, crash_at)
+    if kind == "walk":  # tests/test_longmemory.py: a cumulative sum of a seeded draw
+        return np.cumsum(np.random.default_rng(case.data[1]).standard_normal(case.shape),
+                         axis=-1)
+    if kind == "fgn":  # tests/test_longmemory.py::_fgn
+        _, hurst, seed = case.data
+        return fgn(hurst, case.shape[-1], seed)
     if kind == "sharpe_returns":  # tests/test_finance.py::test_wavelet_sharpe_denoises
         n = case.shape[-1]
         rng = np.random.default_rng(2)
         return 0.001 + 0.002 * np.sin(np.arange(n) / 64) + rng.normal(0, 0.02, n)
     raise ValueError(f"unknown input {case.data!r}")
+
+
+def fgn(hurst: float, n: int, seed: int) -> np.ndarray:
+    """``tests/test_longmemory.py::_fgn``: spectrally synthesized fractional
+    Gaussian noise, unit variance."""
+    rng = np.random.default_rng(seed)
+    freqs = np.fft.rfftfreq(n)
+    amp = np.zeros_like(freqs)
+    amp[1:] = freqs[1:] ** (-(2.0 * hurst - 1.0) / 2.0)
+    spec = amp * np.exp(2j * np.pi * rng.random(freqs.shape))
+    spec[0] = 0.0
+    x = np.fft.irfft(spec, n=n)
+    return x / x.std()
 
 
 def price_series(n: int, seed: int, crash_at: int | None = None) -> np.ndarray:
@@ -1010,7 +1039,7 @@ def cwt_launches(x, scales, wavelet: str = "morl") -> int:
     ``_kernel_direct_split`` gives the kernel-direct tier."""
     w = cwt_mod._resolve_continuous(wavelet)
     n_small = cwt_mod._kernel_direct_split(x.device, w, tuple(scales), "periodic",
-                                           torch.float32, x.shape[-1])
+                                           torch.float32)
     return len(cwt_mod._kernel_direct_chunks(w, tuple(scales[:n_small]))) if n_small else 0
 
 
@@ -1019,7 +1048,7 @@ def cwt_serves(x, scales, wavelet: str = "morl") -> bool:
         return True
     w = cwt_mod._resolve_continuous(wavelet)
     n_small = cwt_mod._kernel_direct_split(x.device, w, tuple(scales), "periodic",
-                                           torch.float32, x.shape[-1])
+                                           torch.float32)
     return not n_small or all(mb.bank_fits(dense)
                for _, dense in cwt_mod._kernel_direct_chunks(w, tuple(scales[:n_small])))
 
@@ -1219,11 +1248,11 @@ def _denoise_method(case, x, w, out, on_card) -> None:
     the fused denoise kernel where ``denoiser.fused_denoise_serves`` takes
     the call, else the analysis and synthesis where ``_kernel_eligible``
     admits each.  A soft rule whose threshold is a smooth function of the
-    planes is held to the plain route (2e-5); SURE's threshold is an arg min
-    and a hard cut can flip, so those are held to the plain route on the
-    route's own thresholds (:func:`_route_thresholds_held`, 2e-5), and to
-    the JAX test's own check, a lower error against the clean signal than
-    the noisy input's."""
+    planes is held to the plain route (2e-5); SURE's threshold is an arg min,
+    FDR's a step-up search, and a hard cut can flip, so those are held to the
+    plain route on the route's own thresholds (:func:`_route_thresholds_held`,
+    2e-5), and, on a composite signal with noise, to the JAX test's own
+    check, a lower error against the clean signal than the noisy input's."""
     levels, b = case.levels, case.boundary
     method, mode = case.option("method", "universal"), case.option("mode", "soft")
     swt = case.option("entry") == "swt_denoise"
@@ -1246,10 +1275,12 @@ def _denoise_method(case, x, w, out, on_card) -> None:
                 "analysis": not fused and kernel_serves(x, w, levels, b, False),
                 "synthesis": not fused and kernel_serves(x, w, levels, b, True)}
 
-    smooth = mode == "soft" and method != "sure"
+    smooth = mode == "soft" and method not in ("sure", "fdr")
     want = _plain(fn) if smooth else None
-    clean = torch.from_numpy(composite_sin(x.shape[-1])).to(x.device)
-    noisy_mse = float(((x.double() - clean) ** 2).mean())
+    clean = None
+    if case.data[0] == "noisy":
+        clean = torch.from_numpy(composite_sin(x.shape[-1])).to(x.device)
+        noisy_mse = float(((x.double() - clean) ** 2).mean())
     for backend in ("auto", "kernel"):
         with using_backend(backend):
             expected = routes(backend)
@@ -1270,7 +1301,7 @@ def _denoise_method(case, x, w, out, on_card) -> None:
                                        got, backend, out)
         if smooth:
             out.bound(f"{backend} denoise", _err(got, want), TOL_F32)
-        else:
+        elif clean is not None:
             mse = float(((got.double() - clean) ** 2).mean())
             out.bound(f"{backend} denoised error / noisy error", mse / noisy_mse, 1.0)
 
@@ -2316,6 +2347,101 @@ def analysis_cases() -> list[Case]:
     return out
 
 
+#: the block denoise's bound against the plain route, of its largest value
+#: (PERF.md section 2): its window energies are differences of one float32
+#: prefix sum, which cancel, so a plane's last bits move a block's factor
+TOL_BLOCK = 1e-4
+
+
+def _hurst(case, x, w, out, on_card) -> None:
+    """``hurst_exponent`` (its model and level window from the case): one
+    ``wavelet_variance``, so one periodic cascade analysis launch where
+    ``_kernel_eligible`` admits the series; the estimate and the per-level
+    variances held to the plain route within 2e-5 of each one's largest
+    value."""
+    levels = case.levels
+    kw = dict(model=case.option("model", "fgn"), min_level=case.option("min_level", 1),
+              max_level=case.option("max_level"))
+
+    def fn():
+        r = vt.hurst_exponent(x, w, levels, **kw)
+        return r.hurst, r.variance
+
+    _through(out, "hurst", fn, ANALYSIS,
+             lambda: int(ml._kernel_eligible(x, w, levels, "periodic")),
+             lambda: kernel_serves(x, w, levels, "periodic", False), lambda: 1,
+             lambda: _plain(fn), TOL_F32, on_card, err=_relative_each, mode="modwt_analysis")
+
+
+def _block_denoise(case, x, w, out, on_card) -> None:
+    """``denoise_block``: one periodic cascade analysis and one synthesis
+    launch where ``_kernel_eligible`` admits each direction, the block
+    shrinkage between them plain; held to the plain route within
+    :data:`TOL_BLOCK` of the output's largest value."""
+    levels = case.levels
+
+    def fn():
+        return vt.denoise_block(x, w, levels=levels)
+
+    def launches():
+        return (int(ml._kernel_eligible(x, w, levels, "periodic"))
+                + int(ml._kernel_eligible(x, w, levels, "periodic", True)))
+
+    def serves():
+        return (kernel_serves(x, w, levels, "periodic", False)
+                and kernel_serves(x, w, levels, "periodic", True))
+
+    _through(out, "denoise_block", fn, ANALYSIS + SYNTHESIS, launches, serves, lambda: 2,
+             lambda: _plain(fn), TOL_BLOCK, on_card, err=_relative)
+
+
+def decimated_cases() -> list[Case]:
+    """Phase 2f's cases: every kernel-reaching case of the 1-D analysis
+    modules' mirrors (``tests/test_torch_decimated_mirror.py``,
+    ``tests/test_torch_spectral_mirror.py``), at the JAX tests' shapes and
+    seeds (float64 inputs cast to float32): ``hurst_exponent`` of
+    ``tests/test_longmemory.py`` (a wavelet variance, so one cascade
+    analysis), and ``denoise_block`` and ``denoise_multilevel`` (universal
+    and FDR) of ``tests/test_block_fdr.py``.  The DWT's rolls (``wavedec``,
+    so ``multifractal_spectrum`` and ``variance_change_test``), lifting,
+    the FFT banks of the EWT and the scattering networks, ``block_shrink``
+    and ``fdr_threshold`` reach no kernel on the card."""
+    out = []
+    lm = "test_longmemory.py"
+    big = (1 << 15,)
+    out.append(Case("hurst_exponent db4 J=8 32768, white noise", "hurst",
+                    f"{lm}::test_hurst_white_noise_is_half", "db4", 8, big, data=("normal", 0)))
+    out.append(Case("hurst_exponent db4 J=8 32768, random walk, fbm from level 3", "hurst",
+                    f"{lm}::test_hurst_random_walk_is_half_fbm", "db4", 8, big,
+                    data=("walk", 1), options=(("model", "fbm"), ("min_level", 3))))
+    for h in (0.65, 0.85):
+        out.append(Case(f"hurst_exponent db4 J=8 32768, fgn H {h}", "hurst",
+                        f"{lm}::test_hurst_recovers_synthesized_fgn", "db4", 8, big,
+                        data=("fgn", h, int(h * 100))))
+    out.append(Case("hurst_exponent haar J=6 4x4096", "hurst",
+                    f"{lm}::test_hurst_batched_and_jittable", "haar", 6, (4, 4096),
+                    data=("normal", 3)))
+    out.append(Case("hurst_exponent db4 J=6 8192, levels 2-5", "hurst",
+                    f"{lm}::test_hurst_level_window_and_validation", "db4", 6, (8192,),
+                    data=("normal", 4), options=(("min_level", 2), ("max_level", 5))))
+
+    bf = "test_block_fdr.py"
+    out.append(Case("denoise_multilevel db4 J=3 fdr 3x512", "denoise_method",
+                    f"{bf}::test_fdr_batch_shapes_and_dispatch", "db4", 3, (3, 512),
+                    data=("normal", 2), options=(("method", "fdr"),)))
+    for n in (1000, 1024):
+        out.append(Case(f"denoise_block sym8 J=5 {n}", "block_denoise",
+                        f"{bf}::test_denoise_block_beats_universal_on_doppler", "sym8", 5,
+                        (n,), data=("doppler", 5, 0.3)))
+        out.append(Case(f"denoise_multilevel sym8 J=5 universal soft {n}", "denoise_method",
+                        f"{bf}::test_denoise_block_beats_universal_on_doppler", "sym8", 5,
+                        (n,), data=("doppler", 5, 0.3)))
+    out.append(Case("denoise_block db4 J=4 2x512", "block_denoise",
+                    f"{bf}::test_denoise_block_batched", "db4", 4, (2, 512),
+                    data=("doppler", 6, 0.25)))
+    return out
+
+
 RUNNERS = {"pair": _pair, "exact": _exact, "denoise": _denoise, "roundtrip": _roundtrip,
            "nrmse": _nrmse, "packets": _packets, "packet_tools": _packet_tools,
            "dual_tree": _dual_tree,
@@ -2325,7 +2451,8 @@ RUNNERS = {"pair": _pair, "exact": _exact, "denoise": _denoise, "roundtrip": _ro
            "batch": _batch_facade, "stream": _stream, "stream_denoise": _stream_denoise,
            "window": _window, "tiled": _tiled, "tiled_exact": _tiled_exact,
            "tiled2d": _tiled2d, "cwt_inverse": _cwt_inverse, "variance": _variance,
-           "variance_stream": _variance_stream, "finance": _finance}
+           "variance_stream": _variance_stream, "finance": _finance, "hurst": _hurst,
+           "block_denoise": _block_denoise}
 
 
 def run_case(case: Case, device) -> Outcome:
@@ -2373,13 +2500,23 @@ def analysis_labels(group: str) -> list[str]:
     return [c.label for c in analysis_cases() if c.kind in ANALYSIS_KINDS[group]]
 
 
+#: phase 2f's cases by the mirror file that holds them (the spectral
+#: mirror's EWT and scattering networks reach no kernel)
+DECIMATED_KINDS = {"decimated": ("hurst", "denoise_method", "block_denoise")}
+
+
+def decimated_labels(group: str) -> list[str]:
+    """The labels of ``group``'s phase 2f cases (a key of :data:`DECIMATED_KINDS`)."""
+    return [c.label for c in decimated_cases() if c.kind in DECIMATED_KINDS[group]]
+
+
 def cpu_problems(label: str) -> list[str]:
-    """Run the phase 2c, 2d or 2e case ``label`` on CPU tensors and return
-    what is wrong: its faults, any route that is not the plain one (a CPU
-    tensor launches nothing and ``backend='kernel'`` refuses nothing), and
-    any launch counted."""
+    """Run the phase 2c, 2d, 2e or 2f case ``label`` on CPU tensors and
+    return what is wrong: its faults, any route that is not the plain one (a
+    CPU tensor launches nothing and ``backend='kernel'`` refuses nothing),
+    and any launch counted."""
     case = next(c for c in family_cases() + tier_cases() + analysis_cases()
-                if c.label == label)
+                + decimated_cases() if c.label == label)
     before = dict(mc.LAUNCHES)
     out = run_case(case, "cpu")
     problems = list(out.faults)

@@ -45,23 +45,49 @@ def apply_threshold(coeffs: torch.Tensor, threshold, mode: str = "soft") -> torc
     )
 
 
+class _MedianMagnitude(torch.autograd.Function):
+    """The median of ``|v|`` with the JAX package's derivative: for each
+    middle order statistic the subgradient is shared equally by every
+    position whose float32 magnitude equals it, and the middle statistics
+    are averaged.  Each statistic's share is rounded to float32 before it
+    is cast back to ``v``'s dtype, as the JAX rule's float32 tangent
+    rounds it.  The backward is tensor ops on constants of ``v``, so a
+    second derivative is zero, as JAX's is."""
+
+    @staticmethod
+    def forward(ctx, v):
+        n = v.shape[-1]
+        ordered = torch.sort(v.abs().to(torch.float32), dim=-1).values
+        vals = ordered[..., (n - 1) // 2 : n // 2 + 1]  # the middle one or two
+        ctx.save_for_backward(v, vals)
+        mid = vals if vals.shape[-1] == 1 else (vals[..., :1] + vals[..., 1:]) / 2
+        return mid.to(v.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        v, vals = ctx.saved_tensors
+        mag = v.abs().to(torch.float32)
+        sign = torch.sign(v)
+        share = grad / vals.shape[-1]
+        total = 0
+        for r in range(vals.shape[-1]):
+            mask = (mag == vals[..., r : r + 1]).to(torch.float32)
+            weight = mask / mask.sum(dim=-1, keepdim=True).clamp(min=1.0)
+            total = total + (weight * sign * share).to(torch.float32).to(v.dtype)
+        return total
+
+
 def median_magnitude(v: torch.Tensor) -> torch.Tensor:
     """Median of ``|v|`` along the last axis, with a trailing singleton axis.
 
     The JAX package's semantics, for every input dtype: ``|v|`` is taken in
     float32, the two middle order statistics of an even count are averaged
     in float32, and the result is cast back to ``v``'s dtype.  (``torch.median``
-    would return the lower middle value instead.)  Differentiable through
-    the sort: the gradient reaches the element(s) at the middle rank(s).
+    would return the lower middle value instead.)  Its gradient is the JAX
+    package's custom derivative: each middle order statistic's subgradient
+    is averaged over every position that attains it, so ties share it.
     """
-    mag = v.abs().to(torch.float32)
-    n = mag.shape[-1]
-    ordered = torch.sort(mag, dim=-1).values
-    if n % 2 == 0:
-        mid = (ordered[..., n // 2 - 1 : n // 2] + ordered[..., n // 2 : n // 2 + 1]) / 2
-    else:
-        mid = ordered[..., n // 2 : n // 2 + 1]
-    return mid.to(v.dtype)
+    return _MedianMagnitude.apply(v)
 
 
 def mad_sigma(detail: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,8 @@ float64, any other in float32.
   (the analytic signal: positive frequencies doubled, negative ones zeroed).
   The zero boundary convolves linearly at ``nextpow2(N + support - 1)`` with
   each scaled wavelet wrapped circularly around index 0; the periodic one
-  circularly at N.  The bank's spectrum is computed once per (wavelet,
+  circularly at N, the taps of a support longer than N summed where they
+  wrap onto one slot.  The bank's spectrum is computed once per (wavelet,
   scales, FFT size, dtype, device) and kept: in float64 on the host up to
   ``_BAKED_BANK_MAX_FFT``, above it on the device from the compact taps,
   cast once to the compute dtype.
@@ -19,9 +20,8 @@ float64, any other in float32.
 * The kernel-direct tier serves small-support scales of a periodic
   float32 CWT of a real wavelet through the filter-bank kernel
   (:func:`~vectorwave_tpu_torch.kernels.modwt_bank.bank_analysis_stacked`):
-  ``out[t] = sum_k x[t + k] psi(k/s)/sqrt(s)``, the periodic FFT path's
-  function computed directly, for the scales whose support fits in N
-  (:func:`_kernel_direct_split`).  Under
+  ``out[t] = sum_k x[(t + k) mod N] psi(k/s)/sqrt(s)``, the periodic FFT
+  path's function computed directly (:func:`_kernel_direct_split`).  Under
   ``auto`` it takes a call whole or not at all, and its result is the
   bank's own ``[S, B, N]`` allocation seen as ``[B, S, N]``, not a copy;
   ``backend='kernel'`` joins its leading scales to FFT rows.
@@ -129,20 +129,21 @@ def _is_complex(w: ContinuousWavelet) -> bool:
 def _sample_bank(
     w: ContinuousWavelet, scales: Sequence[float], fft_size: int
 ) -> tuple[np.ndarray, bool]:
-    """Sample psi(k/s)/sqrt(s) for each scale, wrapped circularly at 0."""
+    """Sample psi(k/s)/sqrt(s) for each scale, wrapped circularly at 0:
+    where the support wraps past ``fft_size`` the taps that share a slot
+    are summed, so a periodic row is the periodic correlation.  (The JAX
+    package's ``_sample_bank`` keeps one tap a slot there.)"""
     bank = np.zeros((len(scales), fft_size), dtype=np.complex128)
     for row, scale in enumerate(scales):
-        half = _half_support(scale, w.bandwidth)
-        k = np.arange(-half, half + 1)
-        vals = np.asarray(w.psi(k / scale)) / math.sqrt(scale)
-        bank[row, k % fft_size] += vals
+        idx, vals = _row_taps(w, scale, fft_size)
+        bank[row, idx] = vals
     return bank, _is_complex(w)
 
 
 def _row_taps(w: ContinuousWavelet, scale: float, fft_size: int):
     """The slots one row of :func:`_sample_bank` sets and their values,
-    without the row: where the support wraps past ``fft_size`` a slot keeps
-    the value the row's assignment leaves there."""
+    without the row: where the support wraps past ``fft_size`` each slot
+    holds the sum of the taps that land on it."""
     half = _half_support(scale, w.bandwidth)
     k = np.arange(-half, half + 1)
     vals = np.asarray(w.psi(k / scale)) / math.sqrt(scale)
@@ -150,7 +151,7 @@ def _row_taps(w: ContinuousWavelet, scale: float, fft_size: int):
     if len(idx) <= fft_size:
         return idx, vals
     row = np.zeros(fft_size, dtype=vals.dtype)
-    row[idx] += vals
+    np.add.at(row, idx, vals)
     slots = np.unique(idx)
     return slots, row[slots]
 
@@ -289,7 +290,7 @@ def cwt(
         out = torch.fft.ifft(spec_x[..., None, :] * bank_spec, dim=-1)[..., :n]
         return CWTResult(out, scales, boundary)
 
-    n_small = _kernel_direct_split(x.device, w, scales, boundary, real_dtype, n)
+    n_small = _kernel_direct_split(x.device, w, scales, boundary, real_dtype)
     if not n_small:
         return CWTResult(_real_fft_rows(xr, w, scales, fft_size, n, complex_dtype),
                          scales, boundary)
@@ -325,7 +326,7 @@ AUTO_KERNEL_DIRECT_MAX_HALF = 64
 
 
 def _kernel_direct_split(device: torch.device, w: ContinuousWavelet, scales,
-                         boundary: str, real_dtype: torch.dtype, n: int) -> int:
+                         boundary: str, real_dtype: torch.dtype) -> int:
     """How many LEADING scales the kernel-direct tier serves (0 = none).
 
     ``torch`` never takes it; ``kernel`` takes it up to
@@ -335,10 +336,9 @@ def _kernel_direct_split(device: torch.device, w: ContinuousWavelet, scales,
     :data:`AUTO_KERNEL_DIRECT_MAX_HALF` and they make one bank call, so that
     the result is that call's allocation and no rows are joined.  Either
     needs a periodic boundary, float32 compute and ascending scales (the
-    split takes a leading run), and stops at the first scale whose support
-    wraps past the ``n`` samples (2 half + 1 > n): there the tier would sum
-    the wrapped taps, while the FFT path's bank keeps one a slot, as the
-    JAX package samples it, so both routes compute one function.
+    split takes a leading run).  A support that wraps past the row's end
+    is no bar: the tier and the FFT path's bank both sum the wrapped taps,
+    so both routes compute the periodic correlation.
     """
     from ..kernels.modwt_fused import kernel_available
 
@@ -348,17 +348,17 @@ def _kernel_direct_split(device: torch.device, w: ContinuousWavelet, scales,
     whole = backend == "auto"
     n_small = _tier_scales(w, tuple(scales),
                            AUTO_KERNEL_DIRECT_MAX_HALF if whole else KERNEL_DIRECT_MAX_HALF,
-                           whole, n)
+                           whole)
     if whole and n_small and not (device.type == "cuda" and kernel_available()):
         return 0
     return n_small
 
 
 @functools.lru_cache(maxsize=64)
-def _tier_scales(w: ContinuousWavelet, scales: tuple[float, ...], cap: int, whole: bool,
-                 n: int) -> int:
-    """The leading ascending scales within ``cap`` whose support fits in
-    ``n`` samples; with ``whole``, all of them in one chunk or none.
+def _tier_scales(w: ContinuousWavelet, scales: tuple[float, ...], cap: int,
+                 whole: bool) -> int:
+    """The leading ascending scales within ``cap``; with ``whole``, all of
+    them in one chunk or none.
     Cached: it runs before the call's first launch, and computed afresh it
     left ``auto`` 3-7% behind the plain route at config #5 on an H100
     (PERF.md, section 6)."""
@@ -366,8 +366,7 @@ def _tier_scales(w: ContinuousWavelet, scales: tuple[float, ...], cap: int, whol
         return 0
     n_small = 0
     for s in scales:
-        half = _half_support(s, w.bandwidth)
-        if half > cap or 2 * half + 1 > n:
+        if _half_support(s, w.bandwidth) > cap:
             break
         n_small += 1
     if whole and (n_small < len(scales) or len(_kernel_direct_chunks(w, scales)) > 1):
