@@ -152,6 +152,26 @@ Phases, in order; any failure raises and the exit code is not 0:
    cascade analysis and one synthesis launch, held on its own
    thresholds), each launch held to its router's count; printed as phase
    2b's;
+2g. the mirrored test cases of the 2-D trees, the solvers and the
+   infrastructure (``tools/mirror_cases.solver_cases``): the
+   kernel-reaching cases of the JAX package's ``test_sparse.py``,
+   ``test_deconvolve.py``, ``test_infrastructure.py``,
+   ``test_examples_and_fixtures.py`` and ``test_packets2d.py`` at those
+   tests' shapes and seeds (float32), each through the public entry points
+   under ``auto`` and under ``backend='kernel'``: ``bpdn`` and
+   ``sparse_recover`` (a cascade analysis for the first coefficients, a
+   synthesis and an analysis a FISTA step, a synthesis at the end; held
+   within 1e-4 of the largest value, a solve's float32 drift), ``inpaint2``
+   (the 2-D pair for the probe, the first analysis and the end),
+   ``deconvolve`` and ``deconvolve2`` (the pair once each way, the 2-D
+   probe one more), ``cost_model.calibrate`` (eleven round trips),
+   ``modwt_based_icwt`` (the cascade analysis; under ``kernel`` the bank for
+   the CWT), the tick denoise (one fused denoise launch), a kernel-tier
+   stream checkpointed with ``np.savez`` (one external-edge launch a block,
+   the restored block equal bit for bit) and ``denoise2``; each launch held
+   to its router's count; printed as phase 2b's; then
+   ``circular_convolve_modwt`` of the ops facade on the card (db4 on 256
+   samples, the FFT route by the card's gate) against ``atrous_convolve``;
 3. the main path through the public entry points at 128x65536 float32:
    ``modwt_multilevel`` -> ``imodwt_multilevel`` at every precision tier,
    ``modwt_roundtrip_fused`` and ``denoise_multilevel``, with the launch
@@ -365,7 +385,7 @@ and the last synthesis, each step's gradient on the plain 2-D cascade);
 
 The last two lines are a JSON object with one entry per kernel (beside
 the contract's keys, ``mirror_launches``: its launches in phases 2b, 2c,
-2d, 2e and 2f) and the device line ``{"ok": true, "device": {...}}``.
+2d, 2e, 2f and 2g) and the device line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3682,6 +3702,25 @@ def mirror_cases_path(dev, phase: str, family: str, cases) -> dict:
     return launched
 
 
+def facade_on_the_card(dev, gen) -> None:
+    """The end of phase 2g: ``facade.circular_convolve_modwt`` on a CUDA
+    tensor (db4 on 2 x 256 float32, which the card's gate sends to the FFT
+    route) against ``atrous_convolve`` on the card, within 2e-5."""
+    import vectorwave_tpu_torch as vt
+    from vectorwave_tpu_torch.ops import convolve, facade
+
+    filt = vt.wavelet("db4").dec_lo / math.sqrt(2.0)
+    x = torch.randn(2, 256, device=dev, generator=gen)
+    fft = facade.should_use_fft(x.shape[-1], len(filt), device=x.device)
+    err = max_err(facade.circular_convolve_modwt(x, filt),
+                  convolve.atrous_convolve(x, filt, boundary="periodic"))
+    print(f"  facade circular_convolve_modwt db4 2x256: the "
+          f"{'FFT' if fft else 'rolled'} route, max |facade - atrous_convolve| {err:.3e}",
+          flush=True)
+    check(fft and err <= TOL_F32, f"facade circular_convolve_modwt on the FFT route within "
+                                  f"{TOL_F32:.0e} of atrous_convolve: {err:.3e}")
+
+
 def examples_path(total: dict) -> None:
     """Phase 5: every ``examples/torch/*.py`` on the card, each against the
     recording of its JAX counterpart, with its launches (added to
@@ -4167,7 +4206,10 @@ def main() -> int:
             ("2c", "the other kernel families'", mirror_cases.family_cases()),
             ("2d", "the streaming and parallel tiers'", mirror_cases.tier_cases()),
             ("2e", "the CWT family's", mirror_cases.analysis_cases()),
-            ("2f", "the 1-D analysis modules'", mirror_cases.decimated_cases()))}
+            ("2f", "the 1-D analysis modules'", mirror_cases.decimated_cases()),
+            ("2g", "the 2-D trees', the solvers' and the infrastructure's",
+             mirror_cases.solver_cases()))}
+    facade_on_the_card(dev, gen)
 
     print(f"phase 3: main path through the public entry points, "
           f"{BATCH}x{N} float32", flush=True)

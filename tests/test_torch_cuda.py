@@ -1656,6 +1656,35 @@ def test_fft_route_on_both_sides_of_the_thresholds(cuda, monkeypatch):
             assert float((g.cpu() - w).abs().max()) <= 1e-12
 
 
+@pytest.mark.parametrize("name,n,spacing", [("db4", 256, 1), ("db4", 255, 1), ("haar", 1024, 4),
+                                            ("dmey", 1024, 32)])
+def test_circular_convolve_modwt_routes_by_the_card_s_gate(cuda, monkeypatch, name, n,
+                                                          spacing):
+    """``facade.circular_convolve_modwt`` on a CUDA tensor takes the FFT
+    route exactly where ``should_use_fft`` says for the card (8 taps and 256
+    samples), and equals ``atrous_convolve`` on the card within 2e-5 in
+    float32 and its float64 CPU value within 1e-12."""
+    from vectorwave_tpu_torch.ops import convolve, facade
+
+    calls = []
+    real = facade.fft_circular_convolve
+    monkeypatch.setattr(facade, "fft_circular_convolve",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    filt = vt.wavelet(name).dec_lo / 2**0.5
+    x = torch.randn(2, n, dtype=torch.float64, generator=torch.Generator().manual_seed(n))
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.float64, 1e-12)):
+        xd = x.to(cuda, dtype)
+        calls.clear()
+        got = facade.circular_convolve_modwt(xd, filt, spacing=spacing)
+        want = facade.should_use_fft(n, len(filt), device=cuda)
+        assert bool(calls) == want == (len(filt) >= 8 and n >= 256), (name, n)
+        assert got.dtype == dtype and got.device.type == "cuda"
+        rolled = convolve.atrous_convolve(xd, filt, spacing=spacing, boundary="periodic")
+        assert float((got - rolled).abs().max()) <= tol
+        cpu = convolve.atrous_convolve(x, filt, spacing=spacing, boundary="periodic")
+        assert float((got.cpu().double() - cpu).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("taps,spacing,n", [(8, 16, 256), (40, 512, 1 << 20), (76, 512, 1000)])
 def test_filter_spectrum_on_the_card_matches_the_cpu(cuda, taps, spacing, n):
     """A spectrum made on the card (taps strided into zeros, or wrapped on
@@ -1695,11 +1724,13 @@ def test_median_gradient_on_ties_matches_the_cpu(cuda, dtype, n):
                          + [c.label for c in mirror_cases.family_cases()]
                          + [c.label for c in mirror_cases.tier_cases()]
                          + [c.label for c in mirror_cases.analysis_cases()]
-                         + [c.label for c in mirror_cases.decimated_cases()])
+                         + [c.label for c in mirror_cases.decimated_cases()]
+                         + [c.label for c in mirror_cases.solver_cases()])
 def test_mirror_case_on_the_card(cuda, label):
     """Each kernel-reaching case of the test mirrors (the MODWT core's, the
     other kernel families', the streaming and parallel tiers', the CWT
-    family's, then the 1-D analysis modules'), at the
+    family's, the 1-D analysis modules', then the 2-D trees', the solvers'
+    and the infrastructure's), at the
     JAX tests' shapes: under ``auto`` and under ``backend='kernel'``
     against the plain route on the card (2e-5
     in float32; 1e-13 on the exact tier's hi + lo, its round trip within
@@ -1709,6 +1740,7 @@ def test_mirror_case_on_the_card(cuda, label):
     where the kernels cannot serve."""
     case = next(c for c in mirror_cases.cases() + mirror_cases.family_cases()
                 + mirror_cases.tier_cases() + mirror_cases.analysis_cases()
-                + mirror_cases.decimated_cases() if c.label == label)
+                + mirror_cases.decimated_cases() + mirror_cases.solver_cases()
+                if c.label == label)
     out = mirror_cases.run_case(case, cuda)
     assert out.ok, out.faults

@@ -101,6 +101,7 @@ of the largest coefficient, and gradients 5e-6 of the largest entry.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import pathlib
@@ -691,7 +692,7 @@ def _family_input(case: "Case") -> np.ndarray:
         n = case.shape[-1]
         rng = np.random.default_rng(2)
         return 0.001 + 0.002 * np.sin(np.arange(n) / 64) + rng.normal(0, 0.02, n)
-    raise ValueError(f"unknown input {case.data!r}")
+    return _solver_input(case)
 
 
 def fgn(hurst: float, n: int, seed: int) -> np.ndarray:
@@ -1077,6 +1078,19 @@ def _planes2(res) -> tuple:
     return (*(p for trip in res.details for p in trip), res.approx)
 
 
+def _pair_launches_1d(x, w, levels: int) -> tuple[int, int]:
+    """(analysis, synthesis) launches of one periodic cascade each way under
+    the current backend: ``_kernel_eligible``'s answer for each direction."""
+    return (int(ml._kernel_eligible(x, w, levels, "periodic")),
+            int(ml._kernel_eligible(x, w, levels, "periodic", True)))
+
+
+def _pair_launches_2d(x, w, levels: int, boundary: str = "periodic") -> int:
+    """The 2-D pair's launches one way: one a level where
+    ``modwt2_kernel_eligible`` admits the call."""
+    return levels if k2.modwt2_kernel_eligible(x, w, levels, boundary) else 0
+
+
 def _twod(case, x, w, out, on_card) -> None:
     """The 2-D pair: ``levels`` launches each way where
     ``modwt2_kernel_eligible`` admits the call, ``kernel`` refused exactly
@@ -1085,7 +1099,7 @@ def _twod(case, x, w, out, on_card) -> None:
     levels, b = case.levels, case.boundary
 
     def launches():
-        return levels if k2.modwt2_kernel_eligible(x, w, levels, b) else 0
+        return _pair_launches_2d(x, w, levels, b)
 
     def serves():
         return x.device.type == "cpu" or k2.kernel_refusal(x, w, levels, b) is None
@@ -1126,7 +1140,7 @@ def _twod_denoise(case, x, w, out, on_card) -> None:
         return vt.denoise2(x, w, levels=levels, boundary=b)
 
     _through(out, "denoise", fn, ANALYSIS_2D + SYNTHESIS_2D,
-             lambda: 2 * levels if k2.modwt2_kernel_eligible(x, w, levels, b) else 0,
+             lambda: 2 * _pair_launches_2d(x, w, levels, b),
              lambda: x.device.type == "cpu" or k2.kernel_refusal(x, w, levels, b) is None,
              lambda: 2 * levels, lambda: _plain(fn), TOL_2D_ROUND_TRIP, on_card)
 
@@ -1300,7 +1314,8 @@ def _denoise_method(case, x, w, out, on_card) -> None:
                 _route_thresholds_held(x, w, levels, b, method, mode, expected["denoise"],
                                        got, backend, out)
         if smooth:
-            out.bound(f"{backend} denoise", _err(got, want), TOL_F32)
+            err = _relative if case.option("relative") else _err
+            out.bound(f"{backend} denoise", err(got, want), TOL_F32)
         elif clean is not None:
             mse = float(((got.double() - clean) ** 2).mean())
             out.bound(f"{backend} denoised error / noisy error", mse / noisy_mse, 1.0)
@@ -2384,8 +2399,7 @@ def _block_denoise(case, x, w, out, on_card) -> None:
         return vt.denoise_block(x, w, levels=levels)
 
     def launches():
-        return (int(ml._kernel_eligible(x, w, levels, "periodic"))
-                + int(ml._kernel_eligible(x, w, levels, "periodic", True)))
+        return sum(_pair_launches_1d(x, w, levels))
 
     def serves():
         return (kernel_serves(x, w, levels, "periodic", False)
@@ -2442,6 +2456,409 @@ def decimated_cases() -> list[Case]:
     return out
 
 
+#: a FISTA solve's bound against the plain route, of its largest value
+#: (PERF.md section 2): the solve is K float32 steps of a nonexpansive
+#: iteration, and each step carries the last one's round-off (the kernels'
+#: and the plain route's sums differ by a few ulps a step) into the next
+TOL_SOLVE = 1e-4
+
+
+def sines(n: int = 512, noise: float = 0.0, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """``tests/test_sparse.py::_sines``: (clean, noisy) two-tone sines."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 1, n, endpoint=False)
+    clean = np.sin(2 * np.pi * 5 * t) + 0.5 * np.sin(2 * np.pi * 13 * t + 0.7)
+    return clean, clean + noise * rng.standard_normal(n)
+
+
+def compressed_sensing() -> tuple[np.ndarray, np.ndarray]:
+    """``tests/test_sparse.py::test_sparse_recover_compressed_sensing``'s
+    problem: a db4 J=4 signal on 256 samples with three active coefficients
+    in each of the two finest detail planes (float32), and a 128 x 256
+    Gaussian projection (float64, as the JAX test's float32 draw over a
+    float64 square root is), drawn in the JAX test's order."""
+    rng = np.random.default_rng(1)
+    n, m = 256, 128
+    planes = []
+    for k in range(5):
+        v = np.zeros(n, np.float32)
+        if k < 2:
+            v[rng.choice(n, 3, replace=False)] = 2.0 * rng.standard_normal(3)
+        planes.append(torch.from_numpy(v))
+    x_true = vt.imodwt_multilevel(vt.MultiLevelMODWTResult(tuple(planes[:4]), planes[4]),
+                                  "db4", backend="torch")
+    a_mat = rng.standard_normal((m, n)).astype(np.float32) / np.sqrt(m)
+    return x_true.numpy(), a_mat
+
+
+def inpaint2_problem() -> tuple[np.ndarray, np.ndarray]:
+    """``tests/test_sparse.py::test_inpaint2_fills_missing_pixels``'s image
+    (32 x 32) and mask (seed 1)."""
+    rng = np.random.default_rng(1)
+    yy, xx = np.meshgrid(np.linspace(0, 1, 32), np.linspace(0, 1, 32), indexing="ij")
+    img = np.sin(2 * np.pi * 2 * xx) * np.cos(2 * np.pi * yy) + 0.5 * np.sin(2 * np.pi * (xx + yy))
+    return img, (rng.random((32, 32)) > 0.3).astype(np.float32)
+
+
+def gaussian_kernel(width: float, taps: int) -> np.ndarray:
+    """``tests/test_deconvolve.py::_gaussian_kernel``: peak near index 0."""
+    t = np.arange(taps) - taps // 2
+    k = np.exp(-0.5 * (t / width) ** 2)
+    return np.fft.ifftshift(k / k.sum())
+
+
+def blur(x: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``tests/test_deconvolve.py::_blur``: circular blur of the last axis."""
+    n = x.shape[-1]
+    return np.fft.ifft(np.fft.fft(x) * np.fft.fft(kernel, n=n)).real
+
+
+def gaussian_psf(width: float, taps: int, shape: tuple) -> np.ndarray:
+    """``tests/test_deconvolve.py::_gaussian_psf`` padded to ``shape`` with
+    its peak at (0, 0), as ``_blur2`` returns it."""
+    t = np.arange(taps) - taps // 2
+    g = np.exp(-0.5 * (t / width) ** 2)
+    pad = np.zeros(shape)
+    pad[:taps, :taps] = np.outer(g, g) / np.outer(g, g).sum()
+    return np.roll(pad, (-(taps // 2), -(taps // 2)), axis=(0, 1))
+
+
+def deconvolve_image(h: int = 64, w: int = 64) -> np.ndarray:
+    """``tests/test_deconvolve.py::_test_image``: two cosines and an edge."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.sin(2 * np.pi * yy / 16) + 0.7 * np.cos(2 * np.pi * xx / 10)
+    img[h // 2:, :] += 1.2
+    return img
+
+
+def synthetic_ticks(n: int = 5000, seed: int = 21) -> np.ndarray:
+    """``tests/test_examples_and_fixtures.py::_synthetic_ticks``' prices."""
+    rng = np.random.default_rng(seed)
+    rets = rng.normal(0, 2e-4, n)
+    jumps = rng.random(n) < 0.001
+    rets[jumps] += rng.normal(0, 5e-3, jumps.sum())
+    mid = 100 * np.exp(np.cumsum(rets))
+    return mid * (1 + rng.normal(0, 5e-4, n))
+
+
+def _solver_input(case: "Case") -> np.ndarray:
+    kind = case.data[0]
+    if kind == "sines":  # rows of (noise, seed) noisy sines
+        return np.stack([sines(case.shape[-1], noise, seed)[1] for noise, seed in case.data[1]])
+    if kind == "compressed_sensing":  # the signal to recover
+        return compressed_sensing()[0]
+    if kind == "inpaint2":  # the image at the observed pixels, zero elsewhere
+        img, mask = inpaint2_problem()
+        return img * mask
+    if kind == "blurred":  # composite_sin rows blurred by a Gaussian, plus rng(42) noise
+        _, (width, taps), sigma, seeds = case.data
+        n = case.shape[-1]
+        clean = np.stack([composite_sin(n, seed=s) for s in seeds]).reshape(case.shape)
+        kernel = gaussian_kernel(width, taps) if taps else np.array([1.0])
+        return blur(clean, kernel) + sigma * np.random.default_rng(42).standard_normal(case.shape)
+    if kind == "blurred2":  # the test image blurred by a Gaussian PSF, plus rng(42) noise
+        _, (width, taps), sigma = case.data
+        h, w = case.shape[-2:]
+        psf = gaussian_psf(width, taps, (h, w))
+        blurred = np.fft.ifft2(np.fft.fft2(deconvolve_image(h, w)) * np.fft.fft2(psf)).real
+        return np.broadcast_to(blurred, case.shape) + sigma * np.random.default_rng(
+            42).standard_normal(case.shape)
+    if kind == "ticks":
+        return synthetic_ticks(case.shape[-1], case.data[1])
+    if kind == "texture":  # tests/test_packets2d.py's weave plus rng(42) noise
+        h, w = case.shape
+        yy, xx = np.mgrid[0:h, 0:w]
+        clean = np.sin(2 * np.pi * (27 * xx + 23 * yy) / w)
+        return clean + 0.5 * np.random.default_rng(42).standard_normal((h, w))
+    raise ValueError(f"unknown input {case.data!r}")
+
+
+def _rms(a, b) -> float:
+    return float(((a.double() - b.double()) ** 2).mean().sqrt())
+
+
+def _solver(case, x, w, out, on_card) -> None:
+    """The FISTA solvers (``entry``): ``bpdn`` (the batch, and each row's
+    own solve), ``sparse_recover`` (the JAX test's projection, a matrix on
+    the device) and ``inpaint2``.  A 1-D solve launches one cascade analysis
+    for its first coefficients, a synthesis and (its backward, for the
+    gradient) an analysis each step, and a synthesis at its end, where
+    ``_kernel_eligible`` admits each direction; ``inpaint2`` launches the 2-D
+    pair for its one-level probe, its first coefficients and its end, its
+    steps' gradient running the plain 2-D cascade.  Held to the plain route
+    within :data:`TOL_SOLVE` of the largest value, and to the JAX test's own
+    check on the ``auto`` output."""
+    levels, steps, entry = case.levels, case.option("steps"), case.option("entry")
+    n = x.shape[-1]
+    if entry == "bpdn":
+        def fn():
+            return vt.bpdn(x, w, levels=levels, steps=steps).signal
+    elif entry == "sparse_recover":
+        a_mat = torch.from_numpy(compressed_sensing()[1]).to(x.device)
+
+        def forward(v):  # float64 measurements, as the JAX test's promotion gives
+            return a_mat @ v.to(a_mat.dtype)
+
+        def fn():
+            return vt.sparse_recover(forward(x), forward, w, signal_shape=(n,), lam=1e-4,
+                                     lam_init=1.0, steps=steps, levels=levels).signal
+    else:
+        mask = torch.from_numpy(inpaint2_problem()[1]).to(x.device)
+
+        def fn():
+            return vt.inpaint2(x, mask, w, levels=levels, steps=steps)
+
+    def launches():
+        if entry == "inpaint2":
+            return (_pair_launches_2d(x, w, 1) + 2 * _pair_launches_2d(x, w, levels))
+        a, s = _pair_launches_1d(x, w, levels)
+        return (a + s) * (steps + 1)
+
+    def serves():
+        if entry == "inpaint2":
+            return x.device.type == "cpu" or k2.kernel_refusal(x, w, levels, "periodic") is None
+        return (kernel_serves(x, w, levels, "periodic", False)
+                and kernel_serves(x, w, levels, "periodic", True))
+
+    names = ANALYSIS_2D + SYNTHESIS_2D if entry == "inpaint2" else ANALYSIS + SYNTHESIS
+    got = _through(out, entry, fn, names, launches, serves, launches, lambda: _plain(fn),
+                   TOL_SOLVE, on_card, err=_relative)
+    if entry == "bpdn" and x.dim() > 1:
+        with using_backend("auto"):
+            rows = torch.stack([vt.bpdn(x[k], w, levels=levels, steps=steps).signal
+                                for k in range(x.shape[0])])
+        out.bound("auto batch rows against their own solves", _err(got, rows), TOL_F32)
+    elif entry == "sparse_recover":  # the JAX test's recovery, measured 0.087
+        rel = float(torch.linalg.vector_norm(got - x) / torch.linalg.vector_norm(x))
+        out.bound("auto relative recovery error", rel, 0.15)
+    elif entry == "inpaint2":
+        img, mask_np = inpaint2_problem()
+        miss = torch.from_numpy(mask_np == 0).to(x.device)
+        clean = torch.from_numpy(img).to(x.device)
+        moved = float((got - x)[~miss].abs().max())
+        if moved:
+            out.faults.append(f"auto inpaint2: the observed pixels moved, by {moved:.3e}")
+        rel = _rms(got[miss], clean[miss]) / float(clean.std())
+        out.bound("auto missing pixels' relative error", rel, 0.1)
+
+
+def _deconvolve(case, x, w, out, on_card) -> None:
+    """ForWaRD deconvolution, ``deconvolve`` (1-D, the Gaussian ``kernel``
+    of the case or the identity) or ``deconvolve2`` (the Gaussian PSF): the
+    one-level noise probe (plain in 1-D, below the cascade's two levels; the
+    2-D pair where ``modwt2_kernel_eligible`` admits one level), then the
+    wavelet step's analysis and synthesis, each where its gate admits it.
+    Held to the plain route within 2e-5 of the largest value (the hard
+    threshold is a function of the probe's sigma, which both routes share,
+    so only a coefficient within round-off of its threshold could flip)."""
+    levels, two_d = case.levels, case.option("entry") == "deconvolve2"
+    width, taps = case.data[1]
+    sigma = case.option("sigma")
+    if two_d:
+        kernel = gaussian_psf(width, taps, tuple(x.shape[-2:]))
+
+        def fn():
+            return vt.deconvolve2(x, kernel, w, levels=levels).signal
+
+        def launches():
+            return _pair_launches_2d(x, w, 1) + 2 * _pair_launches_2d(x, w, levels)
+
+        def serves():
+            return x.device.type == "cpu" or k2.kernel_refusal(x, w, levels, "periodic") is None
+
+        names = ANALYSIS_2D + SYNTHESIS_2D
+    else:
+        kernel = gaussian_kernel(width, taps) if taps else np.array([1.0])
+
+        def fn():
+            return vt.deconvolve(x, kernel, w, levels=levels, sigma=sigma).signal
+
+        def launches():
+            return sum(_pair_launches_1d(x, w, levels))
+
+        def serves():
+            return (kernel_serves(x, w, levels, "periodic", False)
+                    and kernel_serves(x, w, levels, "periodic", True))
+
+        names = ANALYSIS + SYNTHESIS
+    _through(out, case.option("entry"), fn, names, launches, serves, launches,
+             lambda: _plain(fn), TOL_F32, on_card, err=_relative)
+
+
+def _calibrate(case, x, w, out, on_card) -> None:
+    """``cost_model.calibrate`` on the case's device at its sizes, batch and
+    depth, not persisted: one warm-up and ten timed round trips a size, each
+    a cascade analysis and a synthesis launch where ``_kernel_eligible``
+    admits each.  Its rate must be positive and finite on each route."""
+    from vectorwave_tpu_torch import cost_model
+
+    sizes, batch = case.shape[-1:], case.shape[0]
+
+    def fn():
+        rate = cost_model.calibrate(sizes=sizes, batch=batch, levels=case.levels,
+                                    wavelet=case.wavelet, persist=False, device=x.device)
+        return torch.tensor(rate, dtype=torch.float64)
+
+    def launches():
+        a, s = _pair_launches_1d(x, w, case.levels)
+        return 11 * (a + s) * len(sizes)
+
+    def positive(g, v):
+        return 0.0 if all(math.isfinite(float(r)) and float(r) > 0 for r in (g, v)) else math.inf
+
+    _through(out, "calibrate", fn, ANALYSIS + SYNTHESIS, launches,
+             lambda: kernel_serves(x, w, case.levels, "periodic", False), launches,
+             lambda: _plain(fn), TOL_F32, on_card, err=positive)
+
+
+def _modwt_icwt(case, x, w, out, on_card) -> None:
+    """``modwt_based_icwt``: ``cwt`` (morl, periodic, the case's scales: the
+    FFT path under ``auto`` above ``AUTO_KERNEL_DIRECT_MAX_HALF``, the bank
+    a chunk under ``kernel``), the approximation of a ``modwt_multilevel``
+    (one cascade analysis where ``_kernel_eligible`` admits it) and the
+    inverse's ``imodwt_multilevel`` at the depth the scales map to (its
+    synthesis where admitted).  The reconstruction held to the plain route
+    within 2e-5 of its largest value and, under ``auto``, to the JAX test's
+    NRMSE of 0.15."""
+    from vectorwave_tpu_torch.transforms.cwt_modwt_inverse import modwt_based_icwt
+
+    scales = case.option("scales")
+    icwt_levels = max(2, min(vt.max_levels(x.shape[-1], w), int(math.log2(max(scales)))))
+
+    def fn():
+        res = vt.cwt(x, scales, "morl", boundary="periodic")
+        ref = vt.modwt_multilevel(x, w, levels=case.levels)
+        return modwt_based_icwt(res, "morl", modwt_wavelet=case.wavelet, approx=ref.approx)
+
+    def launches():
+        return (cwt_launches(x, scales) + _pair_launches_1d(x, w, case.levels)[0]
+                + _pair_launches_1d(x, w, icwt_levels)[1])
+
+    got = _through(out, "modwt_based_icwt", fn, ANALYSIS + BANK_ANALYSIS + SYNTHESIS, launches,
+                   lambda: cwt_serves(x, scales), launches, lambda: _plain(fn), TOL_F32,
+                   on_card, err=_relative)
+    out.bound("auto NRMSE against x", _rms(got, x) / float(x.double().std()), 0.15)
+
+
+def _checkpoint(case, x, w, out, on_card) -> None:
+    """A kernel-tier block stream checkpointed after its first block: the
+    carry written with ``np.savez``, read back onto the device and stepped;
+    the restored stream's second block must equal the live one's bit for bit.
+    One external-edge analysis launch a block step (three) where
+    ``stream.use_stream_kernel`` routes it; the blocks held to the
+    whole-signal plain transform within 2e-5 of the largest value."""
+    from vectorwave_tpu_torch import streaming as st
+
+    levels, b = case.levels, case.boundary
+    blocks = _blocks(x, case.option("block"))
+
+    def step(state, block):
+        return st.modwt_stream_block_kernel(state, block, w, levels=levels, boundary=b)
+
+    def fn():
+        state = st.kernel_streaming_init(w, levels, batch_shape=tuple(x.shape[:-1]),
+                                         dtype=x.dtype, device=x.device)
+        state, first = step(state, blocks[0])
+        buf = io.BytesIO()
+        np.savez(buf, history=state.history.cpu().numpy(), blocks=state.blocks_processed)
+        buf.seek(0)
+        saved = np.load(buf)
+        restored = type(state)(torch.from_numpy(saved["history"]).to(x.device),
+                               int(saved["blocks"]))
+        live, resumed = step(state, blocks[1])[1], step(restored, blocks[1])[1]
+        if not all(torch.equal(p, q) for p, q in zip(_planes(live), _planes(resumed))):
+            out.faults.append(f"{vt.get_backend()}: the restored stream's block differs")
+        return _joined([first, live])
+
+    def launches():
+        return stream_launches([blocks[0], blocks[1], blocks[1]], w, levels, vt.get_backend())
+
+    def serves():
+        return x.device.type == "cpu" or mc.analysis_tile(w.filter_length, levels) is not None
+
+    _through(out, "analysis", fn, ANALYSIS, launches, serves, launches,
+             lambda: _planes(vt.modwt_multilevel(x, w, levels=levels, boundary=b,
+                                                 backend="torch")),
+             TOL_F32, on_card, err=_relative, mode="modwt_analysis_external")
+
+
+def solver_cases() -> list[Case]:
+    """Phase 2g's cases: every kernel-reaching case of the mirrors of the
+    2-D trees, the solvers and the infrastructure
+    (``tests/test_torch_trees2d_mirror.py``,
+    ``tests/test_torch_solvers_mirror.py``), at the JAX tests' shapes and
+    seeds (float64 inputs cast to float32): the FISTA solvers and the
+    deconvolutions of ``tests/test_sparse.py`` and
+    ``tests/test_deconvolve.py``, the cost model's calibration and the
+    MODWT-based inverse CWT of ``tests/test_infrastructure.py``, the tick
+    denoise and the checkpointed stream of
+    ``tests/test_examples_and_fixtures.py`` (the stream on its kernel tier:
+    the JAX test's plain block step reaches none), and ``denoise2`` of
+    ``tests/test_packets2d.py``.  The solves at the default depth on 256 or
+    512 samples (db8 J=5-6, db4 J=6: ``bpdn`` and ``inpaint`` of
+    ``test_sparse.py``) keep the plain cascade under either backend, their
+    halo past N; the dual tree and the quadtree (decimated rolls), the
+    facade's convolutions, ``fista`` alone, the level responses and the
+    incremental finance stream reach no kernel."""
+    out = []
+    sp = "test_sparse.py"
+    out.append(Case("bpdn db4 J=4 2x512, 40 steps", "solver",
+                    f"{sp}::test_bpdn_batched_equals_individual", "db4", 4, (2, 512),
+                    data=("sines", ((0.3, 1), (0.5, 2))),
+                    options=(("entry", "bpdn"), ("steps", 40))))
+    out.append(Case("sparse_recover db4 J=4 256, 400 steps", "solver",
+                    f"{sp}::test_sparse_recover_compressed_sensing", "db4", 4, (256,),
+                    data=("compressed_sensing",),
+                    options=(("entry", "sparse_recover"), ("steps", 400))))
+    out.append(Case("inpaint2 db4 J=2 32x32, 80 steps", "solver",
+                    f"{sp}::test_inpaint2_fills_missing_pixels", "db4", 2, (32, 32),
+                    data=("inpaint2",), options=(("entry", "inpaint2"), ("steps", 80))))
+
+    dc = "test_deconvolve.py"
+    for label, test, levels, n, kernel, sigma, given in (
+            ("sym8 J=4 2048", "test_deconvolve_beats_blurred_input", 4, 2048, (4.0, 33),
+             0.05, None),
+            ("sym8 J=4 1024, sigma given", "test_deconvolve_beats_naive_inverse", 4, 1024,
+             (6.0, 65), 0.05, 0.05),
+            ("sym8 J=4 1024, noiseless", "test_noiseless_recovery_is_tight", 4, 1024,
+             (2.0, 17), 0.0, 1e-8),
+            ("sym8 J=4 1024, identity kernel", "test_identity_kernel_reduces_to_denoising", 4,
+             1024, (None, 0), 0.3, None)):
+        out.append(Case(f"deconvolve {label}", "deconvolve", f"{dc}::{test}", "sym8", levels,
+                        (n,), data=("blurred", kernel, sigma, (7,)),
+                        options=(("entry", "deconvolve"), ("sigma", given))))
+    out.append(Case("deconvolve db4 J=3 2x512", "deconvolve", f"{dc}::test_batched_and_jitted",
+                    "db4", 3, (2, 512), data=("blurred", (3.0, 17), 0.05, (7, 9)),
+                    options=(("entry", "deconvolve"),)))
+    out.append(Case("deconvolve2 sym4 J=3 64x64", "deconvolve",
+                    f"{dc}::test_deconvolve2_beats_blurred_input", "sym4", 3, (64, 64),
+                    data=("blurred2", (1.8, 11), 0.05), options=(("entry", "deconvolve2"),)))
+    out.append(Case("deconvolve2 db4 J=2 2x32x32", "deconvolve",
+                    f"{dc}::test_deconvolve2_batched_jit", "db4", 2, (2, 32, 32),
+                    data=("blurred2", (1.2, 7), 0.03), options=(("entry", "deconvolve2"),)))
+
+    inf = "test_infrastructure.py"
+    out.append(Case("cost_model.calibrate db4 J=3 2x1024", "calibrate",
+                    f"{inf}::test_cost_model_estimate_and_calibration", "db4", 3, (2, 1024),
+                    data=("zeros",)))
+    out.append(Case("modwt_based_icwt morl 48 scales, sym4 J=5 1024", "modwt_icwt",
+                    f"{inf}::test_modwt_based_icwt", "sym4", 5, (1024,), data=("two_tone",),
+                    options=(("scales", cwt_mod.scales_log(2, 256, 48)),)))
+
+    ef = "test_examples_and_fixtures.py"
+    out.append(Case("denoise_multilevel sym8 J=5 universal 5000 ticks", "denoise_method",
+                    f"{ef}::test_tick_data_denoising_recovers_mid_price", "sym8", 5, (5000,),
+                    data=("ticks", 21), options=(("method", "universal"), ("relative", True))))
+    out.append(Case("checkpoint kernel stream db4 J=3 zero 1024 blocks 512", "checkpoint",
+                    f"{ef}::test_streaming_state_checkpoint_roundtrip", "db4", 3, (1024,),
+                    "zero", data=("ticks", 21), options=(("block", 512),)))
+
+    out.append(Case("denoise2 sym8 J=3 64x64, texture", "twod_denoise",
+                    "test_packets2d.py::test_denoise_packet2_beats_pyramid_on_texture", "sym8",
+                    3, (64, 64), data=("texture",)))
+    return out
+
+
 RUNNERS = {"pair": _pair, "exact": _exact, "denoise": _denoise, "roundtrip": _roundtrip,
            "nrmse": _nrmse, "packets": _packets, "packet_tools": _packet_tools,
            "dual_tree": _dual_tree,
@@ -2452,7 +2869,8 @@ RUNNERS = {"pair": _pair, "exact": _exact, "denoise": _denoise, "roundtrip": _ro
            "window": _window, "tiled": _tiled, "tiled_exact": _tiled_exact,
            "tiled2d": _tiled2d, "cwt_inverse": _cwt_inverse, "variance": _variance,
            "variance_stream": _variance_stream, "finance": _finance, "hurst": _hurst,
-           "block_denoise": _block_denoise}
+           "block_denoise": _block_denoise, "solver": _solver, "deconvolve": _deconvolve,
+           "calibrate": _calibrate, "modwt_icwt": _modwt_icwt, "checkpoint": _checkpoint}
 
 
 def run_case(case: Case, device) -> Outcome:
@@ -2510,13 +2928,24 @@ def decimated_labels(group: str) -> list[str]:
     return [c.label for c in decimated_cases() if c.kind in DECIMATED_KINDS[group]]
 
 
+#: phase 2g's cases by the mirror file that holds them (the trees' mirror
+#: reaches a kernel only through ``denoise2``, held with the solvers)
+SOLVER_KINDS = {"solvers": ("solver", "deconvolve", "calibrate", "modwt_icwt",
+                            "denoise_method", "checkpoint", "twod_denoise")}
+
+
+def solver_labels(group: str) -> list[str]:
+    """The labels of ``group``'s phase 2g cases (a key of :data:`SOLVER_KINDS`)."""
+    return [c.label for c in solver_cases() if c.kind in SOLVER_KINDS[group]]
+
+
 def cpu_problems(label: str) -> list[str]:
-    """Run the phase 2c, 2d, 2e or 2f case ``label`` on CPU tensors and
+    """Run the phase 2c, 2d, 2e, 2f or 2g case ``label`` on CPU tensors and
     return what is wrong: its faults, any route that is not the plain one (a
     CPU tensor launches nothing and ``backend='kernel'`` refuses nothing),
     and any launch counted."""
     case = next(c for c in family_cases() + tier_cases() + analysis_cases()
-                + decimated_cases() if c.label == label)
+                + decimated_cases() + solver_cases() if c.label == label)
     before = dict(mc.LAUNCHES)
     out = run_case(case, "cpu")
     problems = list(out.faults)

@@ -116,6 +116,26 @@ def _fft_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
+def _taps(filt) -> tuple:
+    return tuple(np.asarray(filt, dtype=np.float64).tolist())
+
+
+def fft_circular_convolve(
+    x: torch.Tensor, filt, *, spacing: int = 1, sign: int = -1
+) -> torch.Tensor:
+    """FFT periodic convolution with one filter upsampled by ``spacing``
+    (for long base filters; see ``ops.facade.should_use_fft``): ``sign=-1``
+    the analysis convolution, ``sign=+1`` the adjoint correlation (the
+    conjugate spectrum).  The filter's spectrum is the one
+    :func:`fft_analysis_pair` takes, cached per filter, size and device."""
+    n = x.shape[-1]
+    spec_x = torch.fft.rfft(x.to(_fft_dtype(x)), dim=-1)
+    spec_h = _filter_spectrum(_taps(filt), spacing, n, spec_x.dtype, x.device)
+    if sign > 0:
+        spec_h = spec_h.conj()
+    return torch.fft.irfft(spec_x * spec_h, n=n, dim=-1).to(x.dtype)
+
+
 def fft_analysis_pair(
     x: torch.Tensor, low, high, *, spacing: int = 1
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -125,8 +145,7 @@ def fft_analysis_pair(
     spec_x = torch.fft.rfft(x.to(_fft_dtype(x)), dim=-1)
 
     def spec_of(filt):
-        taps = tuple(np.asarray(filt, dtype=np.float64).tolist())
-        return _filter_spectrum(taps, spacing, n, spec_x.dtype, x.device)
+        return _filter_spectrum(_taps(filt), spacing, n, spec_x.dtype, x.device)
 
     approx = torch.fft.irfft(spec_x * spec_of(low), n=n, dim=-1)
     detail = torch.fft.irfft(spec_x * spec_of(high), n=n, dim=-1)

@@ -1,9 +1,11 @@
-"""FFT-versus-direct routing of the MODWT convolutions and the platform
-report.
+"""The MODWT convolution entry points, their FFT-versus-direct routing and
+the platform report.
 
-Counterpart of ``should_use_fft`` and ``get_performance_info`` in
-``vectorwave_tpu/ops/facade.py``.  The rolled form never touches the à
-trous zeros, so only the base tap count and the signal length matter.  CPU
+Counterpart of ``vectorwave_tpu/ops/facade.py``: ``circular_convolve_modwt``,
+``zero_padding_convolve_modwt`` and ``symmetric_convolve_modwt`` (the
+``WaveletOperations`` entry points of the Java reference), ``should_use_fft``
+and ``get_performance_info``.  The rolled form never touches the à trous
+zeros, so only the base tap count and the signal length matter.  CPU
 tensors keep the JAX package's thresholds, so that the CPU parity tests
 compare the same route; CUDA tensors take the crossover measured on the
 card (``tools/sweep_gates.py fft``).
@@ -14,7 +16,10 @@ from __future__ import annotations
 import dataclasses
 import platform
 
+import numpy as np
 import torch
+
+from .convolve import atrous_convolve, fft_circular_convolve
 
 #: the JAX package's thresholds, for CPU tensors
 FFT_MIN_SIGNAL = 1024
@@ -42,6 +47,26 @@ def should_use_fft(signal_length: int, base_filter_length: int, device=None) -> 
     if device is not None and torch.device(device).type == "cuda":
         return base_filter_length >= CUDA_FFT_MIN_TAPS and signal_length >= CUDA_FFT_MIN_SIGNAL
     return base_filter_length >= FFT_MIN_TAPS and signal_length >= FFT_MIN_SIGNAL
+
+
+def circular_convolve_modwt(x: torch.Tensor, filt, *, spacing: int = 1) -> torch.Tensor:
+    """Periodic MODWT convolution, on the FFT path where
+    :func:`should_use_fft` takes ``x``'s length and the filter's taps on
+    ``x``'s device, else rolled."""
+    filt = np.asarray(filt)
+    if should_use_fft(x.shape[-1], len(filt), device=x.device):
+        return fft_circular_convolve(x, filt, spacing=spacing, sign=-1)
+    return atrous_convolve(x, filt, spacing=spacing, boundary="periodic", sign=-1)
+
+
+def zero_padding_convolve_modwt(x: torch.Tensor, filt, *, spacing: int = 1) -> torch.Tensor:
+    """Zero-extension MODWT convolution."""
+    return atrous_convolve(x, filt, spacing=spacing, boundary="zero", sign=-1)
+
+
+def symmetric_convolve_modwt(x: torch.Tensor, filt, *, spacing: int = 1) -> torch.Tensor:
+    """Symmetric-extension MODWT convolution."""
+    return atrous_convolve(x, filt, spacing=spacing, boundary="symmetric", sign=-1)
 
 
 @dataclasses.dataclass(frozen=True)
